@@ -1,0 +1,87 @@
+"""The JAX package's flax variables -> the port's state dict.
+
+`variables` is the `{'params', 'batch_stats'}` tree of the JAX attention
+model as nested dicts of numpy arrays (any array type numpy can read). The
+result names its entries like the reference NeuralTailor state dict:
+
+    feature_extractor.conv_layers.{i}.nn.{j}.0/.2   <- conv{i}/MLP_0/Dense_j, BatchNorm_j
+    feature_extractor.lin                           <- feature_extractor/lin
+    point_segment_mlp.0.{j}.0/.2                    <- point_segment_mlp/Dense_j, BatchNorm_j
+    panel_dec_lin, placement_decoder                <- Dense
+    panel_decoder.lstm.{weight,bias}_{ih,hh}_l{k}   <- panel_decoder/lstm/l{k}_{w,b}_{ih,hh}
+    panel_decoder.lin                               <- panel_decoder/lin
+
+Dense kernels (in, out) are transposed to (out, in); BatchNorm scale, bias,
+mean and var become weight, bias, running_mean and running_var; LSTM
+weights keep their (torch) layout.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+
+def _tensor(value):
+    return torch.from_numpy(np.array(value, dtype=np.float32, copy=True))
+
+
+def _dense(sd, prefix, params):
+    sd[f'{prefix}.weight'] = _tensor(np.asarray(params['kernel']).T)
+    sd[f'{prefix}.bias'] = _tensor(params['bias'])
+
+
+def _mlp(sd, prefix, params, stats):
+    j = 0
+    while f'Dense_{j}' in params:
+        _dense(sd, f'{prefix}.{j}.0', params[f'Dense_{j}'])
+        bn, st = params[f'BatchNorm_{j}'], stats[f'BatchNorm_{j}']
+        sd[f'{prefix}.{j}.2.weight'] = _tensor(bn['scale'])
+        sd[f'{prefix}.{j}.2.bias'] = _tensor(bn['bias'])
+        sd[f'{prefix}.{j}.2.running_mean'] = _tensor(st['mean'])
+        sd[f'{prefix}.{j}.2.running_var'] = _tensor(st['var'])
+        sd[f'{prefix}.{j}.2.num_batches_tracked'] = torch.tensor(0, dtype=torch.long)
+        j += 1
+    if j == 0:
+        raise KeyError(f'state_dict_from_flax: no MLP layers under <{prefix}>')
+
+
+def _lstm(sd, prefix, params):
+    layer = 0
+    while f'l{layer}_w_ih' in params:
+        for ours, theirs in (('weight_ih', 'w_ih'), ('weight_hh', 'w_hh'),
+                             ('bias_ih', 'b_ih'), ('bias_hh', 'b_hh')):
+            sd[f'{prefix}.{ours}_l{layer}'] = _tensor(params[f'l{layer}_{theirs}'])
+        layer += 1
+    if layer == 0:
+        raise KeyError(f'state_dict_from_flax: no LSTM layers under <{prefix}>')
+
+
+def state_dict_from_flax(variables) -> OrderedDict:
+    """GarmentSegmentPattern3D flax variables -> the port's state dict."""
+    params, stats = variables['params'], variables['batch_stats']
+    sd = OrderedDict()
+
+    fe_params, fe_stats = params['feature_extractor'], stats['feature_extractor']
+    conv_id = 0
+    while f'conv{conv_id}' in fe_params:
+        _mlp(sd, f'feature_extractor.conv_layers.{conv_id}.nn',
+             fe_params[f'conv{conv_id}']['MLP_0'], fe_stats[f'conv{conv_id}']['MLP_0'])
+        conv_id += 1
+    if 'lin' in fe_params:
+        _dense(sd, 'feature_extractor.lin', fe_params['lin'])
+
+    _mlp(sd, 'point_segment_mlp.0', params['point_segment_mlp'],
+         stats['point_segment_mlp'])
+    _dense(sd, 'panel_dec_lin', params['panel_dec_lin'])
+
+    decoder = params['panel_decoder']
+    if 'lstm' not in decoder:
+        raise NotImplementedError(
+            'state_dict_from_flax: only the LSTM panel decoder is ported; got '
+            + ', '.join(sorted(decoder)))
+    _lstm(sd, 'panel_decoder.lstm', decoder['lstm'])
+    _dense(sd, 'panel_decoder.lin', decoder['lin'])
+    _dense(sd, 'placement_decoder', params['placement_decoder'])
+    return sd

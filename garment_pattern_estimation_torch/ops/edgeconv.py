@@ -1,0 +1,215 @@
+"""Fused dynamic EdgeConv: kNN + neighbour gather + edge MLP + max.
+
+`fused_edgeconv` is the eval layer. On a CUDA tensor it launches the
+hand-written kernel `csrc/fused_edgeconv.cu` (one launch, the (B, N, k, C)
+gathered tensor never reaches device memory) or raises; on a CPU tensor it
+runs `fused_edgeconv_reference`, the plain PyTorch version with the same
+numerics:
+
+  * selection on packed (21-bit distance | 11-bit column) values, self in
+    slot 0, the k-1 nearest others after it, ties to the lower column;
+  * small C (<= 16): exact f32 distances summed per dimension, exact rows;
+  * wide C: q_norm + k_norm - 2 * (hi.hi + hi.lo + lo.hi) on bf16
+    truncation splits, gathered rows hi + lo (f32 mode) or hi (bf16 mode);
+  * edge MLP on [x_i ; x_j - x_i] with eval BatchNorm folded in
+    (`fold_mlp_bn`): activations truncated to bf16, weights rounded to
+    bf16, f32 accumulation, ReLU, the final affine h * a + d, max over k.
+
+Counterpart of garment_pattern_estimation_tpu/ops/edgeconv.py (the
+single-tile `_fused_kernel`). Eval only: training needs batch statistics.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .knn import INT_MAX, IDX_MASK, MAX_N, split_bf16, truncate_bf16
+
+SMALL_C_MAX = 16            # C at or below: the exact per-dimension path
+_WIDE_C_MAX = 256
+_MAX_LAYERS = 4
+_MAX_WIDTH = 256            # widest edge-MLP layer the kernel takes
+_MAX_K = 8
+
+# Launches of the CUDA kernel, by variant. Only `fused_edgeconv` adds to
+# them, once per kernel launch; calls that take the plain version do not.
+launches = {'small_c': 0, 'wide_c': 0}
+
+
+def reset_launches():
+    for key in launches:
+        launches[key] = 0
+
+
+def fold_mlp_bn(layers, eps=1e-5):
+    """Fold eval BatchNorm of a Dense -> ReLU -> BN stack into the next
+    layer.
+
+    `layers`: per layer (linear weight (out, in), linear bias, bn weight,
+    bn bias, running mean, running var). With z_l = h @ W_l + b_l and
+    BN(relu(z_l)) = relu(z_l) * a_l + d_l (a = scale / sqrt(var + eps),
+    d = bias - mean * a): W'_{l+1} = a_l[:, None] * W_{l+1} and
+    b'_{l+1} = b_{l+1} + d_l @ W_{l+1}. Returns ([(W (in, out), b)] per
+    layer, (a, d) of the final layer)."""
+    folded = []
+    a_prev = d_prev = None
+    a = d = None
+    for weight, bias, bn_w, bn_b, mean, var in layers:
+        W = weight.float().t()
+        b = bias.float()
+        if a_prev is not None:
+            b = b + d_prev @ W
+            W = a_prev[:, None] * W
+        folded.append((W.contiguous(), b))
+        a = bn_w.float() * torch.rsqrt(var.float() + eps)
+        d = bn_b.float() - mean.float() * a
+        a_prev, d_prev = a, d
+    return folded, (a, d)
+
+
+def edgeconv_select(x, k, mlp_dtype=torch.float32):
+    """Neighbour ids (B, N, k) int64 and the rows to gather (B, N, C) f32.
+
+    Slot 0 is the query itself; slots 1..k-1 hold the k-1 smallest
+    (quantized distance, column) pairs over the other columns, compared
+    lexicographically: the kernel's packed selection for any N."""
+    B, N, C = x.shape
+    k = min(k, N)
+    xf = x.float()
+    if C <= SMALL_C_MAX:
+        # exact f32, dimension by dimension: the kernel's order
+        dists = None
+        for dim in range(C):
+            diff = xf[:, :, None, dim] - xf[:, None, :, dim]
+            sq = diff * diff
+            dists = sq if dists is None else dists + sq
+        x_lp = xf
+    else:
+        q_norm = torch.sum(xf * xf, dim=-1)
+        hi, lo = split_bf16(xf)
+        # each partial product is exact (bf16-exact operands); TF32 is off
+        cross = hi @ hi.transpose(1, 2)
+        cross = cross + hi @ lo.transpose(1, 2)
+        cross = cross + lo @ hi.transpose(1, 2)
+        dists = torch.clamp_min(
+            q_norm[:, :, None] + q_norm[:, None, :] - 2 * cross, 0.0)
+        x_lp = hi + lo if mlp_dtype == torch.float32 else hi
+    quantized = dists.view(torch.int32) & ~IDX_MASK
+    del dists
+    quantized.diagonal(dim1=1, dim2=2).fill_(INT_MAX)          # self
+    col = torch.arange(N, device=x.device, dtype=torch.int64)
+    key = (quantized.to(torch.int64) << 32) | col              # unique keys
+    del quantized
+    rest = torch.topk(key, k - 1, dim=-1, largest=False, sorted=True).values \
+        & 0xFFFFFFFF
+    idx = torch.cat([col[None, :, None].expand(B, N, 1), rest], dim=-1)
+    return idx, x_lp
+
+
+def edgeconv_mlp_max(x, idx, x_lp, folded):
+    """Edge MLP on [x_i ; x_j - x_i] for the chosen neighbours, then the max
+    over the k slots. Slot 0 uses the query's own f32 row."""
+    layers, (a, d) = folded
+    B, N, C = x.shape
+    xf = x.float()
+    flat = idx + (torch.arange(B, device=x.device) * N)[:, None, None]
+    nbr = x_lp.reshape(B * N, C)[flat.reshape(-1)].reshape(B, N, -1, C)
+    nbr[:, :, 0, :] = xf
+    center = xf[:, :, None, :].expand_as(nbr)
+    h = torch.cat([center, nbr - center], dim=-1)
+    del nbr
+    for w, b in layers:
+        w_bf = w.to(torch.bfloat16).float()
+        h = torch.relu(truncate_bf16(h) @ w_bf + b)
+    out = h * a + d
+    return torch.amax(out, dim=2)
+
+
+def fused_edgeconv_reference(x, folded, k, mlp_dtype=torch.float32,
+                             return_idx=False):
+    """Plain PyTorch version of the fused layer: (B, N, C) -> (B, N, H)."""
+    idx, x_lp = edgeconv_select(x, k, mlp_dtype)
+    out = edgeconv_mlp_max(x, idx, x_lp, folded)
+    return (out, idx) if return_idx else out
+
+
+def fused_edgeconv(x, folded, k, *, mlp_dtype=torch.float32, return_idx=False):
+    """x (B, N, C), `fold_mlp_bn` output -> EdgeConv features (B, N, H).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises. `return_idx` also returns the neighbour ids (B, N, k)."""
+    if x.device.type == 'cpu':
+        return fused_edgeconv_reference(x, folded, k, mlp_dtype, return_idx)
+    if x.device.type != 'cuda':
+        raise ValueError(f'fused_edgeconv: unsupported device {x.device}')
+    return _launch(x, folded, k, mlp_dtype, return_idx)
+
+
+def _pack_weight(w):
+    """(in, out) f32 -> bf16 (in, 256), column c at [c % 64][c / 64]."""
+    din, dout = w.shape
+    padded = torch.zeros(din, _MAX_WIDTH, device=w.device, dtype=torch.float32)
+    padded[:, :dout] = w
+    return padded.view(din, 4, 64).transpose(1, 2).contiguous() \
+        .to(torch.bfloat16).reshape(din, _MAX_WIDTH)
+
+
+def _pad_vector(v):
+    padded = torch.zeros(_MAX_WIDTH, device=v.device, dtype=torch.float32)
+    padded[:v.shape[0]] = v
+    return padded
+
+
+def _launch(x, folded, k, mlp_dtype, return_idx):
+    from . import _build
+
+    layers, (a, d) = folded
+    if x.dtype != torch.float32:
+        raise TypeError(f'fused_edgeconv: x must be float32, got {x.dtype}')
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError('fused_edgeconv: x must be a contiguous (B, N, C) tensor')
+    B, N, C = x.shape
+    k = min(k, N)
+    if N > MAX_N:
+        raise NotImplementedError(
+            f'fused_edgeconv: N={N} > {MAX_N} needs the column-tiled kernels '
+            '(_fused_kernel_direct_tiled, _fused_kernel_stream), not ported yet')
+    if C > _WIDE_C_MAX or k > _MAX_K or len(layers) > _MAX_LAYERS:
+        raise NotImplementedError(
+            f'fused_edgeconv: C={C}, k={k}, {len(layers)} layers is beyond the '
+            f'kernel (C <= {_WIDE_C_MAX}, k <= {_MAX_K}, <= {_MAX_LAYERS} layers)')
+    dims = [2 * C] + [w.shape[1] for w, _ in layers]
+    if layers[0][0].shape[0] != 2 * C or max(dims[1:]) > _MAX_WIDTH:
+        raise ValueError(f'fused_edgeconv: edge MLP widths {dims} do not fit '
+                         f'C={C} or exceed {_MAX_WIDTH}')
+    if mlp_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'fused_edgeconv: mlp_dtype {mlp_dtype} is not supported')
+    for t in [t for layer in layers for t in layer] + [a, d]:
+        if t.device != x.device:
+            raise ValueError('fused_edgeconv: weights and x are on different devices')
+
+    weights = [_pack_weight(w.float()) for w, _ in layers]
+    biases = [_pad_vector(b.float()) for _, b in layers]
+    a_pad, d_pad = _pad_vector(a.float()), _pad_vector(d.float())
+    out = torch.empty(B, N, dims[-1], device=x.device, dtype=torch.float32)
+    idx = torch.empty(B, N, k, device=x.device, dtype=torch.int32) \
+        if return_idx else None
+
+    lib = _build.load_library('fused_edgeconv')
+    fn = lib.fused_edgeconv_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p] * 6
+    dims_arr = (ctypes.c_int * len(dims))(*dims)
+    w_arr = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
+    b_arr = (ctypes.c_void_p * len(biases))(*[b.data_ptr() for b in biases])
+    err = fn(x.data_ptr(), out.data_ptr(), idx.data_ptr() if idx is not None else None,
+             B, N, C, k, 2 if mlp_dtype == torch.float32 else 1, len(layers),
+             ctypes.addressof(dims_arr), ctypes.addressof(w_arr),
+             ctypes.addressof(b_arr), a_pad.data_ptr(), d_pad.data_ptr(),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'fused_edgeconv: kernel launch failed with CUDA error {err}')
+    launches['small_c' if C <= SMALL_C_MAX else 'wide_c'] += 1
+    return (out, idx.long()) if return_idx else out

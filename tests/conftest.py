@@ -43,3 +43,9 @@ def synthetic_dataset_root(tmp_path_factory):
     synthetic.generate_dataset(root, samples_per_folder=6, seed=7)
     synthetic.panel_classes_for_templates(root / 'panel_classes.json')
     return root
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'cuda: needs a CUDA device (the port\'s kernels have no CPU '
+        'mode); skips without one')
