@@ -13,11 +13,35 @@ Phases, one JSON line each:
            the plain MLP tail on the kernel's own neighbours and against the
            whole plain layer where the ids agree, the kernel's and the plain
            version's times (CUDA events, median of 20 after warm-up)
+  knn_gather  the knn_gather forward at (30, 2000, 3) and (30, 2000, 150)
+           and its backward at (30, 2000, 150), k = 5, the training step's
+           shapes, against the plain PyTorch versions: ids as above, gathered
+           rows bitwise equal where the ids agree, dx within 1e-5 of its
+           largest magnitude of the plain index_add_ on the kernel's ids,
+           two backward runs bitwise equal; kernel, plain and library
+           (one index_add_, backward only) times
   serving  build_model at the published att.yaml widths (seeded init),
            build_serving_fn on a (64, 2000, 3) batch: output shapes and
            finiteness, 2 kernel launches per forward (conv0 + conv1), batch
            time and clouds/s, and a 2-cloud batch against the same model's
            plain path on the CPU
+  training build_model with the att.yaml loss on the card, Trainer with the
+           att.yaml optimizer and schedule (Adam, the one-cycle warm-up's
+           first steps), TRAIN_STEPS steps on one seeded (30, 2000, 3) batch
+           with ground truth in the dataset's shapes: finite losses, the
+           last below the first, exactly 1 + 1 + 1 knn_gather launches and
+           no fused launch per step, median step time and clouds/s, one
+           eval_step through the fused kernel (2 launches), and a 2-cloud
+           step against the CPU plain path from the same weights: loss
+           within 1e-3 relative, the whole gradient within 1e-2 of its norm
+           and each parameter's within 5e-2 of its norm. Near-tie wide-C
+           ids, ReLU and sparsemax boundaries make the gradient itself
+           jumpy, most of all element by element, so the bars are on norms;
+           the phase measures the floor, the CPU path against itself on the
+           cloud perturbed by 1e-7 relative, and prints it beside the card's
+           gap
+  profile  one serving forward and one training step under torch.profiler:
+           device time by kernel and the device's idle share
 Then the card's name and power limit, the kernels line, and as the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
 
@@ -28,6 +52,7 @@ magnitude, 1e-4 on average.
 """
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -37,7 +62,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # the published attention model (configs/att.yaml), its data layout and
-# standardization statistics
+# standardization statistics, copied at full precision (the YAML may not be
+# readable where this runs: no PyYAML is required)
 ATT_DATA_CONFIG = {
     'element_size': 4, 'rotation_size': 4, 'translation_size': 3,
     'max_panel_len': 14, 'max_pattern_len': 23, 'max_num_stitches': 24,
@@ -45,17 +71,18 @@ ATT_DATA_CONFIG = {
     'standardize': {
         'f_scale': [16.351303100585938, 30.945703506469727, 9.60141944885254],
         'f_shift': [0.037076108157634735, -28.06070327758789, 1.0775548219680786],
-        'gt_shift': {
-            'outlines': [0, 0, 0.1489, 0.0564],
-            'rotations': [-0.7071, -0.9239, -1, 0],
-            'translations': [-55.255, -20.001, -17.087],
-            'stitch_tags': [-59.991, -78.124, -52.956],
-        },
         'gt_scale': {
-            'outlines': [25.268, 31.299, 0.2677, 0.2352],
-            'rotations': [1.7071, 1.9239, 1.7071, 1],
-            'translations': [109.589, 98.279, 37.847],
-            'stitch_tags': [119.983, 156.038, 105.926],
+            'outlines': [25.267892837524418, 31.298505783081055, 0.2677369713783264,
+                         0.2352069765329361],
+            'rotations': [1.7071068286895752, 1.9238795042037964, 1.7071068286895752, 1],
+            'stitch_tags': [119.98278045654295, 156.0384521484375, 105.92605590820312],
+            'translations': [109.58930206298828, 98.27909088134766, 37.84679412841797],
+        },
+        'gt_shift': {
+            'outlines': [0, 0, 0.14890235662460327, 0.05642016604542732],
+            'rotations': [-0.7071067690849304, -0.9238795042037964, -1, 0],
+            'stitch_tags': [-59.99139022827149, -78.12358856201172, -52.95616912841797],
+            'translations': [-55.255470275878906, -20.001333236694336, -17.086795806884766],
         },
     },
 }
@@ -64,9 +91,25 @@ ATT_NN_CONFIG = {
     'pattern_encoding_size': 250, 'pattern_hidden_size': 250, 'pattern_n_layers': 2,
     'EConv_hidden': 200, 'EConv_feature': 150, 'EConv_hidden_depth': 2,
     'k_neighbors': 5, 'conv_depth': 2, 'skip_connections': True,
-    'global_pool': 'mean', 'local_attention': True,
+    'global_pool': 'mean', 'local_attention': True, 'lstm_init': 'kaiming_normal_',
+}
+ATT_LOSS_CONFIG = {
+    'loss_components': ['shape', 'loop', 'rotation', 'translation'],
+    'quality_components': ['shape', 'discrete', 'rotation', 'translation'],
+    'stitch_tags_margin': 0.3, 'stitch_hardnet_version': False,
+    'loop_loss_weight': 1.0, 'segm_loss_weight': 0.05, 'epoch_with_stitches': 40,
+    'panel_origin_invariant_loss': False, 'panel_order_inariant_loss': False,
+    'epoch_with_order_matching': 0, 'order_by': 'shape_translation',
+}
+ATT_TRAINER = {
+    'batch_size': 30, 'epochs': 350, 'random_seed': 916143406, 'learning_rate': 0.002,
+    'optimizer': 'Adam', 'weight_decay': 0, 'lr_scheduling': {'mode': '1cyclic'},
 }
 BATCH, POINTS, K = 64, 2000, 5
+TRAIN_BATCH = ATT_TRAINER['batch_size']
+TRAIN_STEPS = 6
+DX_MAX_REL = 1e-5
+TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_PARAM_GRAD_REL = 1e-3, 1e-2, 5e-2
 OUT_MAX_REL, OUT_MEAN_REL = 1e-2, 1e-4
 WIDE_ID_AGREEMENT = 0.99
 NEAR_TIE_REL = 2.0 ** -10          # 4 quantization buckets of the packed distance
@@ -80,6 +123,9 @@ PEAK_BYTES = 3.35e12
 
 KERNEL_SOURCE = 'garment_pattern_estimation_torch/ops/csrc/fused_edgeconv.cu'
 REPLACES = 'garment_pattern_estimation_tpu/ops/edgeconv.py:126'
+GATHER_SOURCE = 'garment_pattern_estimation_torch/ops/csrc/knn_gather.cu'
+GATHER_FWD_REPLACES = 'garment_pattern_estimation_tpu/ops/knn_gather.py:55'
+GATHER_BWD_REPLACES = 'garment_pattern_estimation_tpu/ops/knn_gather.py:127'
 
 
 def emit(obj):
@@ -150,6 +196,49 @@ def bound(B, N, C, k, widths):
     return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
 
 
+def near_tie_ratio(x, idx, ref_idx):
+    """Worst ratio, over the rows whose ids differ from the plain version's,
+    of the distance gap to the near-tie bound; 0 when all rows agree.
+
+    Disagreements must be near ties: the exactly recomputed distances of the
+    two neighbour sets differ by a few quantization buckets plus the
+    rounding of q_norm + k_norm - 2 * cross (a few ulps of the norms)."""
+    import torch
+
+    C = x.shape[-1]
+    rows = (~(idx == ref_idx).all(dim=-1)).nonzero()
+    if not rows.numel():
+        return 0.0, 0
+    xb = x.double()[rows[:, 0]]                               # (R, N, C)
+    q = xb[torch.arange(len(rows)), rows[:, 1]]               # (R, C)
+
+    def dists(ids):
+        nbr = torch.gather(xb, 1, ids[rows[:, 0], rows[:, 1]][:, :, None].long()
+                           .expand(-1, -1, C))
+        norms = (nbr ** 2).sum(-1).amax(-1) + (q ** 2).sum(-1)
+        return ((nbr - q[:, None]) ** 2).sum(-1).sort(dim=-1).values, norms
+
+    (d_kernel, n_kernel), (d_plain, n_plain) = dists(idx), dists(ref_idx)
+    allowed = NEAR_TIE_REL * d_plain + NORM_ULPS * torch.maximum(n_kernel, n_plain)[:, None]
+    return ((d_kernel - d_plain).abs() / allowed).max().item(), int(rows.shape[0])
+
+
+def check_ids(name, x, idx, ref_idx):
+    """Small C: every id equals the plain version's; wide C: at least 99%,
+    every disagreement a near tie. Returns (share of equal ids, rows that
+    differ, worst near-tie ratio)."""
+    id_share = (idx == ref_idx).float().mean().item()
+    worst_tie, n_rows = near_tie_ratio(x, idx, ref_idx)
+    if x.shape[-1] <= 16:
+        check(id_share == 1.0, f'{name}: neighbour ids agree on {id_share}, not all')
+    else:
+        check(id_share >= WIDE_ID_AGREEMENT,
+              f'{name}: neighbour ids agree on {id_share} < {WIDE_ID_AGREEMENT}')
+        check(worst_tie <= 1.0,
+              f'{name}: a disagreeing neighbour is {worst_tie} x the near-tie bound away')
+    return id_share, n_rows, worst_tie
+
+
 def check_kernel(name, x, folded, widths):
     """Kernel against the plain version on the same inputs; returns the
     kernel's output and its line of the kernels list (launches filled in
@@ -158,32 +247,11 @@ def check_kernel(name, x, folded, widths):
     from garment_pattern_estimation_torch.ops import edgeconv
 
     B, N, C = x.shape
-    small = C <= edgeconv.SMALL_C_MAX
     out, idx = edgeconv.fused_edgeconv(x, folded, K, return_idx=True)
     torch.cuda.synchronize()
     ref_idx, x_lp = edgeconv.edgeconv_select(x, K)
     agree_rows = (idx == ref_idx).all(dim=-1)
-    id_share = (idx == ref_idx).float().mean().item()
-
-    # disagreements must be near ties: the exactly recomputed distances of
-    # the two neighbour sets differ by a few quantization buckets plus the
-    # rounding of q_norm + k_norm - 2 * cross (a few ulps of the norms)
-    worst_tie = 0.0
-    rows = (~agree_rows).nonzero()
-    if rows.numel():
-        xb = x.double()[rows[:, 0]]                               # (R, N, C)
-        q = xb[torch.arange(len(rows)), rows[:, 1]]               # (R, C)
-
-        def dists(ids):
-            nbr = torch.gather(xb, 1, ids[rows[:, 0], rows[:, 1]][:, :, None]
-                               .expand(-1, -1, C))
-            norms = (nbr ** 2).sum(-1).amax(-1) + (q ** 2).sum(-1)
-            return ((nbr - q[:, None]) ** 2).sum(-1).sort(dim=-1).values, norms
-
-        (d_kernel, n_kernel), (d_plain, n_plain) = dists(idx), dists(ref_idx)
-        allowed = NEAR_TIE_REL * d_plain \
-            + NORM_ULPS * torch.maximum(n_kernel, n_plain)[:, None]
-        worst_tie = ((d_kernel - d_plain).abs() / allowed).max().item()
+    id_share, n_rows, worst_tie = check_ids(name, x, idx, ref_idx)
 
     tail = edgeconv.edgeconv_mlp_max(x, idx, x_lp, folded)
     full = edgeconv.edgeconv_mlp_max(x, ref_idx, x_lp, folded)
@@ -193,7 +261,7 @@ def check_kernel(name, x, folded, widths):
     line = {
         'phase': 'kernel', 'name': name, 'shape': [B, N, C], 'k': K,
         'mlp': [2 * C, *widths], 'id_agreement': id_share,
-        'id_disagreeing_rows': int(rows.shape[0]), 'near_tie_ratio': worst_tie,
+        'id_disagreeing_rows': n_rows, 'near_tie_ratio': worst_tie,
         'max_abs_err': diff.max().item(), 'max_rel_err': diff.max().item() / scale,
         'mean_rel_err': diff.mean().item() / scale,
         'max_rel_err_vs_full_plain': diff_agree.max().item() / scale,
@@ -203,13 +271,6 @@ def check_kernel(name, x, folded, widths):
     line['bound_ms'], line['bound_by'] = bound(B, N, C, K, widths)
     line['library_ms'] = None       # no single PyTorch call computes this layer
     emit(line)
-    if small:
-        check(id_share == 1.0, f'{name}: neighbour ids agree on {id_share}, not all')
-    else:
-        check(id_share >= WIDE_ID_AGREEMENT,
-              f'{name}: neighbour ids agree on {id_share} < {WIDE_ID_AGREEMENT}')
-        check(worst_tie <= 1.0,
-              f'{name}: a disagreeing neighbour is {worst_tie} x the near-tie bound away')
     check(line['max_rel_err'] <= OUT_MAX_REL and line['mean_rel_err'] <= OUT_MEAN_REL,
           f'{name}: output off the plain tail: {line}')
     check(line['max_rel_err_vs_full_plain'] <= OUT_MAX_REL,
@@ -222,11 +283,85 @@ def check_kernel(name, x, folded, widths):
         'bound_by': line['bound_by'], 'library_ms': None}
 
 
+def gather_bound(B, N, C, k, backward):
+    """Least time (ms) on the card for knn_gather and what bounds it.
+    Forward: x read once, the (B, k, N, C) rows and the (B, N, k) ids
+    written once; the distances (small C: sub, mul, add per dimension in
+    f32; wide C: three bf16 split products). Backward: the rows'
+    cotangents and the ids read once, dx written once; its (k-1) B N C f32
+    additions. Selection compares are not counted."""
+    if backward:
+        n_bytes = 4.0 * (B * k * N * C + B * N * k + B * N * C)
+        f32_flops, bf16_flops = 1.0 * B * (k - 1) * N * C, 0.0
+    else:
+        n_bytes = 4.0 * (B * N * C + B * k * N * C + B * N * k)
+        if C <= 16:
+            f32_flops, bf16_flops = 3.0 * B * N * N * C, 0.0
+        else:
+            f32_flops, bf16_flops = 0.0, 3 * 2.0 * B * N * N * C
+    ops_ms = (f32_flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
+
+
+def check_knn_gather(x, backward):
+    """The knn_gather forward (and, if asked, backward) kernels against the
+    plain versions on x; returns their lines of the kernels list."""
+    import torch
+    from garment_pattern_estimation_torch.ops import knn_gather as kg
+
+    B, N, C = x.shape
+    variant = 'small_c' if C <= 16 else 'wide_c'
+    nbr, idx = kg.knn_gather_fwd(x, K)
+    torch.cuda.synchronize()
+    ref_nbr, ref_idx = kg.knn_gather_reference(x, K)
+    id_share, n_rows, worst_tie = check_ids(f'knn_gather_fwd_{variant}', x, idx, ref_idx)
+    agree = (idx == ref_idx).transpose(1, 2)                  # (B, k, N)
+    fwd_err = (nbr[agree] - ref_nbr[agree]).abs().max().item()
+    fwd = {'name': f'knn_gather_fwd_{variant}', 'route': 'cuda', 'source': GATHER_SOURCE,
+           'replaces': GATHER_FWD_REPLACES, 'launches': None, 'max_abs_err': fwd_err,
+           'ms': cuda_ms(lambda: kg.knn_gather_fwd(x, K)),
+           'plain_ms': cuda_ms(lambda: kg.knn_gather_reference(x, K)),
+           'library_ms': None}      # no single PyTorch call selects and gathers
+    fwd['bound_ms'], fwd['bound_by'] = gather_bound(B, N, C, K, backward=False)
+    emit({'phase': 'knn_gather', 'shape': [B, N, C], 'k': K, 'id_agreement': id_share,
+          'id_disagreeing_rows': n_rows, 'near_tie_ratio': worst_tie, **fwd})
+    check(fwd_err == 0.0, f'{fwd["name"]}: gathered rows differ where the ids agree')
+    if not backward:
+        return [fwd]
+
+    gen = torch.Generator(device=x.device).manual_seed(3)
+    g = torch.randn(B, K, N, C, generator=gen, device=x.device)
+    dx = kg.knn_gather_bwd(idx, g)
+    dx_again = kg.knn_gather_bwd(idx, g)
+    ref_dx = kg.knn_gather_backward_reference(idx, g)
+    torch.cuda.synchronize()
+    bwd_err = (dx - ref_dx).abs().max().item()
+    scale = ref_dx.abs().max().item()
+    flat = (idx.transpose(1, 2).long()
+            + (torch.arange(B, device=x.device) * N)[:, None, None]).reshape(-1)
+    rows, buffer = g.reshape(-1, C), torch.zeros(B * N, C, device=x.device)
+    bwd = {'name': 'knn_gather_bwd', 'route': 'cuda', 'source': GATHER_SOURCE,
+           'replaces': GATHER_BWD_REPLACES, 'launches': None, 'max_abs_err': bwd_err,
+           'ms': cuda_ms(lambda: kg.knn_gather_bwd(idx, g)),
+           'plain_ms': cuda_ms(lambda: kg.knn_gather_backward_reference(idx, g)),
+           # one index_add_ of every slot's rows computes the same dx
+           'library_ms': cuda_ms(lambda: buffer.index_add_(0, flat, rows))}
+    bwd['bound_ms'], bwd['bound_by'] = gather_bound(B, N, C, K, backward=True)
+    deterministic = bool(torch.equal(dx, dx_again))
+    emit({'phase': 'knn_gather', 'shape': [B, N, C], 'k': K,
+          'max_rel_err': bwd_err / scale, 'bitwise_repeatable': deterministic, **bwd})
+    check(bwd_err <= DX_MAX_REL * scale, f'knn_gather_bwd: dx off the plain version by '
+          f'{bwd_err / scale} of its scale')
+    check(deterministic, 'knn_gather_bwd: two runs on the same inputs differ')
+    return [fwd, bwd]
+
+
 def serve_phase():
     import torch
     from garment_pattern_estimation_torch.experiment import build_serving_fn
     from garment_pattern_estimation_torch.models import build_model
-    from garment_pattern_estimation_torch.ops import edgeconv
+    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
 
     model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG, ATT_NN_CONFIG, seed=0)
     serve = build_serving_fn(model, ATT_DATA_CONFIG)
@@ -236,6 +371,7 @@ def serve_phase():
               + torch.tensor(std['f_shift'])).cuda()
 
     edgeconv.reset_launches()
+    knn_gather.reset_launches()
     times = []
     for _ in range(SERVE_CALLS):
         torch.cuda.synchronize()
@@ -247,6 +383,8 @@ def serve_phase():
     check(launches == {'small_c': SERVE_CALLS, 'wide_c': SERVE_CALLS},
           f'serving: launches {launches}, expected {SERVE_CALLS} of each variant '
           f'({2 * SERVE_CALLS} for {SERVE_CALLS} forwards)')
+    check(not any(knn_gather.launches.values()),
+          f'serving: knn_gather launched {knn_gather.launches} in eval')
 
     P, L = ATT_DATA_CONFIG['max_pattern_len'], ATT_DATA_CONFIG['max_panel_len']
     shapes = {'outlines': (BATCH, P, L, 4), 'rotations': (BATCH, P, 4),
@@ -290,27 +428,156 @@ def serve_phase():
     return launches, serve, points
 
 
-def profile_phase(serve, points):
-    """One serving forward under torch.profiler: device time by kernel and
-    the device's idle share of the forward's wall time."""
+def training_batch(gen, batch, device):
+    """A standardized (batch, 2000, 3) cloud and ground truth in the
+    dataset's shapes: 2-12 panels of 3-14 edges, the pad vector beyond
+    them."""
     import torch
+    from garment_pattern_estimation_torch.losses.components import eval_pad_vector
+
+    P, L = ATT_DATA_CONFIG['max_pattern_len'], ATT_DATA_CONFIG['max_panel_len']
+    std = ATT_DATA_CONFIG['standardize']
+    pad = eval_pad_vector({'shift': std['gt_shift']['outlines'],
+                           'scale': std['gt_scale']['outlines']})
+    num_panels = torch.randint(2, 13, (batch,), generator=gen)
+    num_edges = torch.where(torch.arange(P)[None] < num_panels[:, None],
+                            torch.randint(3, L + 1, (batch, P), generator=gen), 0)
+    outlines = torch.randn(batch, P, L, 4, generator=gen) * 0.5
+    outlines = torch.where((torch.arange(L)[None, None] < num_edges[..., None])[..., None],
+                           outlines, pad)
+    gt = {'outlines': outlines,
+          'rotations': torch.randn(batch, P, 4, generator=gen) * 0.5,
+          'translations': torch.randn(batch, P, 3, generator=gen) * 0.5,
+          'num_edges': num_edges.int(), 'num_panels': num_panels.int()}
+    return {'features': torch.randn(batch, POINTS, 3, generator=gen).to(device),
+            'ground_truth': {k: v.to(device) for k, v in gt.items()}}
+
+
+def step_gradients(model, batch):
+    """Loss and parameter gradients of one train-mode forward + backward
+    with zero LSTM states, on the module's device; no update."""
+    model.module.train()
+    model.module.zero_grad(set_to_none=True)
+    preds = model.module(batch['features'])
+    loss, _, _ = model.loss(preds, batch['ground_truth'], epoch=0)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().cpu() for n, p in model.module.named_parameters()}
+
+
+def gradient_gap(grads, ref):
+    """How far `grads` is from `ref`: the whole gradient's relative L2 gap,
+    the worst parameter's relative L2 gap and its name, and the worst
+    parameter's largest element gap relative to its largest element."""
+    diff = sum(((grads[n] - g) ** 2).sum() for n, g in ref.items()).sqrt()
+    norm = sum((g ** 2).sum() for g in ref.values()).sqrt()
+    worst = max((((grads[n] - g).norm() / g.norm()).item(), n) for n, g in ref.items())
+    max_rel = max(((grads[n] - g).abs().max() / g.abs().max()).item() for n, g in ref.items())
+    return {'grad_rel_l2': (diff / norm).item(), 'worst_param_rel_l2': worst[0],
+            'worst_param': worst[1], 'worst_element_rel': max_rel}
+
+
+def train_phase():
+    import torch
+    from garment_pattern_estimation_torch.models import build_model
+    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
+    from garment_pattern_estimation_torch.train import Trainer
+
+    model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG, ATT_NN_CONFIG,
+                        ATT_LOSS_CONFIG, seed=0)
+    trainer = Trainer(ATT_TRAINER)
+    trainer.make_optimizer(model, steps_per_epoch=TRAIN_STEPS)
+    batch = training_batch(torch.Generator().manual_seed(4), TRAIN_BATCH, 'cuda')
+    states = torch.Generator(device='cuda').manual_seed(ATT_TRAINER['random_seed'])
+
+    edgeconv.reset_launches()
+    knn_gather.reset_launches()
+    losses, times = [], []
+    for step in range(TRAIN_STEPS):
+        before = dict(knn_gather.launches)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        loss, terms = trainer.train_step(model, batch, epoch=0, generator=states)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        losses.append(loss.item())
+        per_step = {key: knn_gather.launches[key] - before[key] for key in before}
+        check(per_step == {'fwd_small_c': 1, 'fwd_wide_c': 1, 'bwd': 1},
+              f'training: step {step} launched {per_step}, expected 1 + 1 + 1')
+    launches = dict(knn_gather.launches)
+    check(not any(edgeconv.launches.values()),
+          f'training: the fused eval kernel launched {edgeconv.launches} in train mode')
+    check(all(math.isfinite(v) for v in losses), f'training: losses {losses}')
+    check(losses[-1] < losses[0], f'training: the loss did not fall: {losses}')
+
+    edgeconv.reset_launches()
+    knn_gather.reset_launches()
+    eval_loss, _ = trainer.eval_step(model, batch, epoch=0)
+    torch.cuda.synchronize()
+    check(edgeconv.launches == {'small_c': 1, 'wide_c': 1},
+          f'training: eval_step launched {edgeconv.launches}, expected 1 + 1 fused')
+    check(not any(knn_gather.launches.values()), 'training: eval_step launched knn_gather')
+    check(math.isfinite(eval_loss.item()), f'training: eval loss {eval_loss.item()}')
+
+    # a 2-cloud step against the plain path of the same weights on the CPU
+    small = {'features': batch['features'][:2],
+             'ground_truth': {k: v[:2] for k, v in batch['ground_truth'].items()}}
+    card_model = copy.copy(model)
+    card_model.module = copy.deepcopy(model.module)
+    cpu_model = copy.copy(model)
+    cpu_model.module = copy.deepcopy(model.module).cpu()
+    card_loss, card_grads = step_gradients(card_model, small)
+    cpu_small = {'features': small['features'].cpu(),
+                 'ground_truth': {k: v.cpu() for k, v in small['ground_truth'].items()}}
+    cpu_loss, cpu_grads = step_gradients(cpu_model, cpu_small)
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    gaps = {'loss_rel': loss_rel, **gradient_gap(card_grads, cpu_grads)}
+    # the floor: the CPU path against itself on the cloud perturbed by 1e-7
+    noisy = cpu_small['features'] * (1 + 1e-7 * torch.randn(
+        cpu_small['features'].shape, generator=torch.Generator().manual_seed(5)))
+    _, noisy_grads = step_gradients(cpu_model, dict(cpu_small, features=noisy))
+    gaps['cpu_1e-7_noise'] = gradient_gap(noisy_grads, cpu_grads)
+    check(loss_rel <= TRAIN_LOSS_REL, f'training: 2-cloud loss off the CPU path by {loss_rel}')
+    check(gaps['grad_rel_l2'] <= TRAIN_GRAD_REL
+          and gaps['worst_param_rel_l2'] <= TRAIN_PARAM_GRAD_REL,
+          f'training: gradients off the CPU path: {gaps}')
+
+    q1, step_ms, q3 = statistics.quantiles(times[1:], n=4)
+    emit({'phase': 'training', 'batch': [TRAIN_BATCH, POINTS, 3], 'steps': TRAIN_STEPS,
+          'launches': launches, 'losses': losses,
+          # a corr_* metric is NaN when no pattern's panel count is right
+          'terms_last_step': {k: v.item() if math.isfinite(v.item()) else None
+                              for k, v in terms.items()},
+          'step_times_ms': times, 'step_ms': step_ms, 'step_ms_quartiles': [q1, q3],
+          'clouds_per_s': TRAIN_BATCH / step_ms * 1e3,
+          'eval_loss': eval_loss.item(), 'eval_launches': dict(edgeconv.launches),
+          'vs_cpu_plain': gaps,
+          'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9})
+    return launches, lambda: trainer.train_step(model, batch, epoch=0, generator=states)
+
+
+def profile_phase(name, fn):
+    """One call of `fn` under torch.profiler: device time by kernel (the
+    events on the card; host-side ranges such as autograd nodes, which
+    carry their kernels' time, are left out) and the device's idle share of
+    the call's wall time."""
+    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    serve(points)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        serve(points)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if getattr(e, 'device_time_total', 0) > 0 and not e.key.startswith('aten::')
-            and not e.key.startswith('cuda')]
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    emit({'phase': 'profile', 'wall_ms': wall_ms, 'device_kernel_ms': device_ms,
+    emit({'phase': 'profile', 'of': name, 'wall_ms': wall_ms, 'device_kernel_ms': device_ms,
           'idle_share': max(0.0, 1.0 - device_ms / wall_ms),
-          'top': [{'kernel': k[:80], 'ms': ms, 'count': n} for k, ms, n in rows[:10]]})
+          'top': [{'kernel': k[:80], 'ms': ms, 'count': n} for k, ms, n in rows[:12]]})
 
 
 def main():
@@ -323,7 +590,7 @@ def main():
     report = _build.build_all()
     emit({'phase': 'build', 'seconds': {n: r['seconds'] for n, r in report.items()},
           'ptxas': {n: [ln for ln in r['log'].splitlines()
-                        if 'registers' in ln or 'spill' in ln][:6]
+                        if 'registers' in ln or 'spill' in ln][:8]
                     for n, r in report.items()}})
 
     gen = torch.Generator().manual_seed(0)
@@ -335,17 +602,24 @@ def main():
     # conv1's input is conv0's output, as in the model
     x1, small_line = check_kernel('fused_edgeconv_small_c', x0, conv0, widths)
     _, wide_line = check_kernel('fused_edgeconv_wide_c', x1.contiguous(), conv1, widths)
+    # the training step's shapes: its batch of 30, conv1 on conv0's features
+    gather_lines = check_knn_gather(x0[:TRAIN_BATCH].contiguous(), backward=False) \
+        + check_knn_gather(x1[:TRAIN_BATCH].contiguous(), backward=True)
 
     launches, serve, points = serve_phase()
-    profile_phase(serve, points)
     small_line['launches'] = launches['small_c']
     wide_line['launches'] = launches['wide_c']
+    train_launches, train_step = train_phase()
+    for line in gather_lines:
+        line['launches'] = train_launches[line['name'][len('knn_gather_'):]]
+    profile_phase('serving', lambda: serve(points))
+    profile_phase('training_step', train_step)
 
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    emit({'kernels': [small_line, wide_line]})
+    emit({'kernels': [small_line, wide_line, *gather_lines]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

@@ -1,32 +1,44 @@
-"""Building blocks of the attention model, eval forward.
+"""Building blocks of the attention model, eval and train forward.
 
 Counterparts of garment_pattern_estimation_tpu/models/blocks.py. Parameter
 names follow the reference NeuralTailor state dict (`MLP`: `{j}.0` Linear,
 `{j}.2` BatchNorm1d; LSTM: `weight_ih_l{k}` ...), so the port loads a
 reference checkpoint with a plain `load_state_dict`.
 
-Train mode is not ported yet: batch statistics of the folded MLP and the
-EdgeConv training kernels (`knn_gather`) come with training (ROADMAP
-queue A). A module in train mode raises.
+Eval folds each BatchNorm's running statistics into the next layer and runs
+EdgeConv through the fused kernel. Train computes each BatchNorm's batch
+statistics, folds them the same way, and runs EdgeConv through `knn_gather`
+(kernels for the kNN + gather and its backward) and the edge MLP in PyTorch.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 from torch import nn
 
 from ..ops.edgeconv import fold_mlp_bn, fused_edgeconv
+from ..ops.knn_gather import knn_gather
 from ..ops.pooling import GLOBAL_POOLS
 
-_TRAIN_NOT_PORTED = ('train mode is not ported yet (ROADMAP queue A: '
-                     'knn_gather, train-mode MLP/BatchNorm); call .eval()')
+BN_MOMENTUM = 0.1           # running = 0.9 * running + 0.1 * batch (flax momentum 0.9)
 
 
 class MLP(nn.ModuleList):
     """Linear -> ReLU -> BatchNorm1d stacks, BN after the activation as in
-    the reference. Eval folds each BN into the next layer (`fold_mlp_bn`),
-    as the JAX MLP does: the normalized tensor never materializes."""
+    the reference. Every BN is folded into the next layer (the last one
+    into a final affine), as the JAX MLP does: the normalized tensor never
+    materializes. Eval folds the running statistics (`fold_mlp_bn`).
+
+    Train folds the batch statistics: the mean and the biased variance in
+    f32 of each ReLU output over every leading axis (flax BatchNorm
+    semantics; torch's BatchNorm1d would keep the unbiased variance in its
+    running average), and updates the running averages in place. The
+    `edge_pair` form of the first layer takes the EdgeConv input
+    [x_i ; x_j - x_i] factored as (center (B, N, C), neighbours
+    (B, k, N, C)): center @ (W_top - W_bot) + b + neighbours @ W_bot, so the
+    (..., 2C) edge tensor never materializes."""
 
     def __init__(self, sizes: Sequence[int], eps: float = 1e-5):
         super().__init__(
@@ -41,19 +53,52 @@ class MLP(nn.ModuleList):
             [(s[0].weight, s[0].bias, s[2].weight, s[2].bias,
               s[2].running_mean, s[2].running_var) for s in self], self.eps)
 
-    def forward(self, x):
+    def forward(self, x=None, edge_pair=None):
         if self.training:
-            raise NotImplementedError(f'MLP: {_TRAIN_NOT_PORTED}')
+            return self._train_forward(x, edge_pair)
+        if edge_pair is not None:
+            raise NotImplementedError('MLP: edge_pair is a train-mode form; eval '
+                                      'runs the fused EdgeConv kernel')
         layers, (a, d) = self.folded()
         for w, b in layers:
             x = torch.relu(x @ w + b)
         return x * a + d
 
+    def _train_forward(self, x, edge_pair):
+        pending = None                          # the previous BN's (a, d)
+        for i, (linear, _, bn) in enumerate(self):
+            W, b = linear.weight.t(), linear.bias
+            if i == 0 and edge_pair is not None:
+                center, neighbours = edge_pair
+                C = center.shape[-1]
+                point_term = center @ (W[:C] - W[C:]) + b           # (B, N, H)
+                h = point_term[:, None] + neighbours @ W[C:]        # (B, k, N, H)
+            elif pending is not None:
+                a, d = pending
+                h = x @ (a[:, None] * W) + (d @ W + b)
+            else:
+                h = x @ W + b
+            x = torch.relu(h)
+            xf = x.float()
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=dims)
+            var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+            with torch.no_grad():
+                bn.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+                bn.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var)
+            a = bn.weight * torch.rsqrt(var + self.eps)
+            d = bn.bias - mean * a
+            pending = (a, d)
+        a, d = pending
+        return x.float() * a + d
+
 
 class EdgeConv(nn.Module):
     """One dynamic EdgeConv layer, max aggregation: kNN graph on the current
     features, edge MLP on [x_i ; x_j - x_i], max over the k neighbours.
-    Eval runs the fused layer (`ops.edgeconv.fused_edgeconv`)."""
+    Eval runs the fused layer (`ops.edgeconv.fused_edgeconv`); train gathers
+    the neighbours slot-major with `ops.knn_gather.knn_gather` and runs the
+    edge MLP in its `edge_pair` form."""
 
     def __init__(self, in_channels: int, mlp_features: Sequence[int], k: int = 5,
                  aggr: str = 'max'):
@@ -65,9 +110,11 @@ class EdgeConv(nn.Module):
         self.nn = MLP([2 * in_channels, *mlp_features])
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(f'EdgeConv: {_TRAIN_NOT_PORTED}')
-        return fused_edgeconv(x.float().contiguous(), self.nn.folded(), k=self.k)
+        x = x.float().contiguous()
+        if not self.training:
+            return fused_edgeconv(x, self.nn.folded(), k=self.k)
+        neighbours, _ = knn_gather(x, min(self.k, x.shape[1]))
+        return torch.amax(self.nn(edge_pair=(x, neighbours)), dim=1)
 
 
 class EdgeConvFeatures(nn.Module):
@@ -154,27 +201,47 @@ class TorchLSTM(nn.Module):
 
 class LSTMDecoderModule(nn.Module):
     """Encoding -> sequence: the encoding repeated `out_len` times feeds the
-    LSTM, a linear head maps hidden states to elements. Eval starts from
-    zero states (the JAX module's states without a 'recurrent_init' rng);
-    the reference's random initial states are a training-time noise."""
+    LSTM, a linear head maps hidden states to elements.
+
+    Initial states: in train mode, with 'kaiming_normal' in `state_init` and
+    a `generator` from the caller, fresh normal states of std
+    sqrt(2 / (batch * hidden)) on every forward (the reference's training
+    noise, drawn h then c per layer); zeros otherwise, and always in eval."""
 
     def __init__(self, encoding_size: int, hidden_size: int, out_elem_size: int,
-                 n_layers: int, out_len: int):
+                 n_layers: int, out_len: int, dropout: float = 0.0,
+                 state_init: str = 'kaiming_normal'):
         super().__init__()
         self.hidden_size = hidden_size
         self.n_layers = n_layers
         self.out_len = out_len
+        self.dropout = float(dropout or 0)
+        self.state_init = state_init or ''
         self.lstm = TorchLSTM(encoding_size, hidden_size, n_layers)
         self.lin = nn.Linear(hidden_size, out_elem_size)
 
-    def forward(self, encodings, out_len=None):
-        if self.training:
-            raise NotImplementedError(f'LSTMDecoderModule: {_TRAIN_NOT_PORTED}')
+    def initial_states(self, batch_size, device, generator=None):
+        """[(h0, c0)] per layer, (batch_size, hidden) each."""
+        if self.training and generator is not None \
+                and 'kaiming_normal' in self.state_init:
+            std = math.sqrt(2.0 / (batch_size * self.hidden_size))
+
+            def draw():
+                return (torch.randn(batch_size, self.hidden_size, generator=generator,
+                                    device=generator.device) * std).to(device)
+            return [(draw(), draw()) for _ in range(self.n_layers)]
+        zeros = torch.zeros(batch_size, self.hidden_size, device=device)
+        return [(zeros, zeros)] * self.n_layers
+
+    def forward(self, encodings, out_len=None, generator=None):
+        if self.training and self.dropout > 0 and self.n_layers > 1:
+            raise NotImplementedError(
+                'LSTMDecoderModule: dropout between LSTM layers in train mode is '
+                'not ported yet (ROADMAP queue A)')
         out_len = out_len or self.out_len
         B = encodings.shape[0]
         dec_input = encodings[:, None, :].expand(B, out_len, encodings.shape[-1])
-        zeros = encodings.new_zeros(B, self.hidden_size)
-        out, _ = self.lstm(dec_input, [(zeros, zeros)] * self.n_layers)
+        out, _ = self.lstm(dec_input, self.initial_states(B, encodings.device, generator))
         return self.lin(out)
 
 

@@ -1,4 +1,5 @@
-"""The NeuralTailor attention model, `GarmentSegmentPattern3D`, eval forward.
+"""The NeuralTailor attention model, `GarmentSegmentPattern3D`, eval and train
+forward (`module.eval()` / `module.train()`, both with the outputs below).
 
 Counterpart of garment_pattern_estimation_tpu/models/nets.py:169-235 (and
 `decode_panels` of its parent). Predictions are a dict:
@@ -27,7 +28,7 @@ class GarmentSegmentPattern3DModule(nn.Module):
     def __init__(self, *, element_size=4, max_panel_len=14, max_pattern_size=23,
                  rotation_size=4, translation_size=3, panel_encoding_size=250,
                  panel_hidden_size=250, panel_n_layers=3, pattern_encoding_size=250,
-                 stitch_tag_dim=3,
+                 stitch_tag_dim=3, dropout=0.0, lstm_init='kaiming_normal_',
                  feature_extractor='EdgeConvFeatures',
                  panel_decoder='LSTMDecoderModule', conv_depth=2, k_neighbors=5,
                  econv_hidden=200, econv_hidden_depth=2, econv_feature=112,
@@ -59,7 +60,8 @@ class GarmentSegmentPattern3DModule(nn.Module):
         self.panel_decoder = blocks.DECODER_REGISTRY[panel_decoder](
             encoding_size=panel_encoding_size, hidden_size=panel_hidden_size,
             out_elem_size=element_size + stitch_tag_dim + 1,
-            n_layers=panel_n_layers, out_len=max_panel_len)
+            n_layers=panel_n_layers, out_len=max_panel_len, dropout=dropout,
+            state_init=lstm_init)
         self.placement_decoder = nn.Linear(panel_encoding_size,
                                            rotation_size + translation_size)
 
@@ -73,8 +75,8 @@ class GarmentSegmentPattern3DModule(nn.Module):
         self.panel_dec_lin = nn.Linear(econv_feature + (3 if skip_connections else 0),
                                        panel_encoding_size)
 
-    def decode_panels(self, flat_panel_encodings, batch_size):
-        flat_panels = self.panel_decoder(flat_panel_encodings)
+    def decode_panels(self, flat_panel_encodings, batch_size, generator=None):
+        flat_panels = self.panel_decoder(flat_panel_encodings, generator=generator)
         flat_placement = self.placement_decoder(flat_panel_encodings)
 
         panels = flat_panels.reshape(
@@ -119,10 +121,12 @@ class GarmentSegmentPattern3DModule(nn.Module):
                 .reshape(B, self.max_pattern_size, -1)
         return self.panel_dec_lin(pooled), weights
 
-    def forward(self, positions):
+    def forward(self, positions, generator=None):
+        """`generator` (train mode): the source of the LSTM decoder's random
+        initial states; without it they are zeros."""
         B = positions.shape[0]
         panel_encodings, att_weights = self.panel_encodings_from_3d(positions)
         preds = self.decode_panels(
-            panel_encodings.reshape(-1, panel_encodings.shape[-1]), B)
+            panel_encodings.reshape(-1, panel_encodings.shape[-1]), B, generator)
         preds['att_weights'] = att_weights
         return preds

@@ -2,9 +2,10 @@
 
 Counterpart of garment_pattern_estimation_tpu/models/registry.py:99-171 for
 the attention model: class defaults <- YAML NN section <- backfilled
-compatibility keys, the merged dict kept for experiment tracking. Weights
-are drawn from a seeded `torch.Generator`; the model is built in eval mode
-on the resolved device.
+compatibility keys, the merged dict kept for experiment tracking, and the
+composed loss from the registry's loss defaults <- the loss section
+(`:49-58`, `:118-134` there). Weights are drawn from a seeded
+`torch.Generator`; the model is built in eval mode on the resolved device.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..losses import ComposedPatternLoss
 from . import blocks, nets
 
 # YAML / reference config key -> module argument
@@ -49,19 +51,29 @@ _SHAPE_MODEL_DEFAULTS = {
     'pool_ratio': 0.1,
 }
 
-# merged-config keys the attention model's eval module does not take: the
-# pattern decoder is the other family's, dropout and the LSTM state init act
-# in training only, pool_ratio belongs to graph pooling (not ported)
+_SHAPE_LOSS_DEFAULTS = {
+    'loss_components': ['shape', 'loop', 'rotation', 'translation'],
+    'quality_components': ['shape', 'discrete', 'rotation', 'translation'],
+    'loop_loss_weight': 1.0,
+    'stitch_tags_margin': 0.3,
+    'epoch_with_stitches': 40,
+    'stitch_supervised_weight': 0.1,
+    'stitch_hardnet_version': False,
+    'panel_origin_invariant_loss': True,
+}
+
+# merged-config keys the attention model's module does not take: the
+# pattern decoder is the other family's, pool_ratio belongs to graph
+# pooling (not ported)
 _UNUSED_BY_MODULE = ('pattern_hidden_size', 'pattern_n_layers', 'pattern_decoder',
-                     'pool_ratio', 'dropout', 'lstm_init')
+                     'pool_ratio')
 
 
 class GarmentModel:
-    """The module, its merged config and its loss, as the JAX package's
-    `GarmentModel` bundles them. `loss` is None: the losses are not ported
-    yet (ROADMAP queue A, item 'losses and trainer')."""
+    """The module, its merged config and its composed loss, as the JAX
+    package's `GarmentModel` bundles them."""
 
-    def __init__(self, name, module, config, loss=None):
+    def __init__(self, name, module, config, loss):
         self.name = name
         self.module = module
         self.config = config
@@ -98,9 +110,11 @@ def init_weights(module: nn.Module, seed: int = 0):
                         p.copy_(torch.rand(p.shape, generator=gen) * 2 * bound - bound)
 
 
-def build_model(model_name, data_config, nn_config=None, *, device=None, seed=0):
+def build_model(model_name, data_config, nn_config=None, loss_config=None, *,
+                device=None, seed=0):
     """Construct a model family by its reference name, on `device`
-    (None = CUDA; raises when CUDA is missing and the CPU was not asked for).
+    (None = CUDA; raises when CUDA is missing and the CPU was not asked for),
+    with its composed loss (`loss_config`: the NN section's `loss`).
 
     Only 'GarmentSegmentPattern3D' is ported."""
     device = resolve_device(device)
@@ -144,12 +158,14 @@ def build_model(model_name, data_config, nn_config=None, *, device=None, seed=0)
     module = nets.GarmentSegmentPattern3DModule(**module_kwargs)
     init_weights(module, seed)
     module = module.to(device).eval()
+    loss = ComposedPatternLoss(data_config, {**_SHAPE_LOSS_DEFAULTS, **(loss_config or {})})
 
     merged = dict(config)
     merged['model'] = model_name
+    merged['loss'] = loss.config
     merged['compute_dtype'] = compute_dtype
     merged['f32_conv_layers'] = list(f32_conv_layers)
     merged['f32_attention_mlp'] = f32_attention_mlp
     merged['edgeconv_train_chunk'] = edgeconv_train_chunk
     merged['edgeconv_train_mode'] = edgeconv_train_mode
-    return GarmentModel(model_name, module, merged, loss=None)
+    return GarmentModel(model_name, module, merged, loss)

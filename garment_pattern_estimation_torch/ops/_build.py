@@ -3,10 +3,11 @@
 Each source under `csrc/` compiles into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds). The library lands
 in `garment_pattern_estimation_torch/_build/` under a name that carries a
-hash of its source and flags, so an edited source is rebuilt and a current
-one is loaded as it is. Nothing is built when a module is imported: the
-first launch builds what it needs, and `build_all` builds every source at
-once (one nvcc process each, all started together)."""
+hash of its source, the shared headers and the flags, so an edited source
+or header is rebuilt and a current one is loaded as it is. Nothing is built
+when a module is imported: the first launch builds what it needs, and
+`build_all` builds every source at once (one nvcc process each, all started
+together)."""
 from __future__ import annotations
 
 import ctypes
@@ -20,7 +21,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[1] / '_build'
-SOURCES = {'fused_edgeconv': _CSRC / 'fused_edgeconv.cu'}
+SOURCES = {'fused_edgeconv': _CSRC / 'fused_edgeconv.cu',
+           'knn_gather': _CSRC / 'knn_gather.cu'}
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
@@ -40,9 +42,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f'lib{name}-{digest}.so'
+    """The library of `name`, named by a hash of its source, of every
+    header under `csrc/` (a source may include any of them) and of the
+    flags."""
+    digest = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(_CSRC.glob('*.cuh')):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 
 
 def _start(name: str):

@@ -1,0 +1,174 @@
+"""kNN + neighbour gather with its backward: the EdgeConv input of the
+training path.
+
+`knn_gather(x, k)` maps x (B, N, C) to the neighbour rows slot-major
+(B, k, N, C) and the ids (B, N, k). Slot 0 is the query's own f32 row; the
+k-1 nearest other points follow, chosen like the fused layer
+(`edgeconv.edgeconv_select`: packed quantized distances, ties to the lower
+column). Their rows are exact for C <= 16; for wider C they are the bf16
+truncation split hi + lo (`value_chunks=2`) or hi (`value_chunks=1`). The
+ids are not differentiable, and the gradient is the identity through the
+gathered values: dx[i] = g[slot 0 of query i] + the sum of g over every
+(query, slot >= 1) whose neighbour is i.
+
+A CPU tensor takes the plain versions (`knn_gather_reference`,
+`knn_gather_backward_reference`, an `index_add_`); a CUDA tensor launches
+the hand-written kernels of `csrc/knn_gather.cu` or raises. The backward
+scatters the full f32 cotangent in both.
+
+Counterpart of garment_pattern_estimation_tpu/ops/knn_gather.py:264-347
+(`knn_gather` with its custom VJP, `knn_gather_reference`).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .edgeconv import SMALL_C_MAX, edgeconv_select
+from .knn import MAX_N
+
+_WIDE_C_MAX = 256
+_MAX_K = 8
+
+# Launches of the CUDA kernels, by variant. Only the wrappers add to them,
+# once per kernel launch; calls that take the plain versions do not.
+launches = {'fwd_small_c': 0, 'fwd_wide_c': 0, 'bwd': 0}
+
+
+def reset_launches():
+    for key in launches:
+        launches[key] = 0
+
+
+def knn_gather_reference(x, k, value_chunks=2):
+    """Plain PyTorch forward: (neighbours (B, k, N, C) f32, ids (B, N, k)
+    int64). Not differentiable itself; `knn_gather` carries the gradient."""
+    B, N, C = x.shape
+    mlp_dtype = torch.float32 if value_chunks == 2 else torch.bfloat16
+    idx, x_lp = edgeconv_select(x, k, mlp_dtype)
+    flat = idx.transpose(1, 2) + (torch.arange(B, device=x.device) * N)[:, None, None]
+    nbr = x_lp.reshape(B * N, C)[flat.reshape(-1)].reshape(B, -1, N, C)
+    nbr[:, 0] = x.float()
+    return nbr, idx
+
+
+def knn_gather_backward_reference(idx, g):
+    """Plain PyTorch backward: ids (B, N, k) and the neighbour cotangent
+    g (B, k, N, C) -> dx (B, N, C) f32, slot 0 added to the query row and
+    slots 1..k-1 scatter-added into their neighbours' rows."""
+    B, k, N, C = g.shape
+    g = g.float()
+    dx = g[:, 0].clone()
+    if k > 1:
+        flat = idx[:, :, 1:].transpose(1, 2).long() \
+            + (torch.arange(B, device=g.device) * N)[:, None, None]
+        dx.view(B * N, C).index_add_(0, flat.reshape(-1), g[:, 1:].reshape(-1, C))
+    return dx
+
+
+def _check(x, k):
+    if x.dtype != torch.float32:
+        raise TypeError(f'knn_gather: x must be float32, got {x.dtype}')
+    if x.dim() != 3:
+        raise ValueError(f'knn_gather: x must be (B, N, C), got {tuple(x.shape)}')
+    B, N, C = x.shape
+    if N > MAX_N:
+        raise NotImplementedError(
+            f'knn_gather: N={N} > {MAX_N} exceeds the packed column ids; the '
+            'standalone kNN kernels for larger clouds are not ported yet')
+    if C > _WIDE_C_MAX or not 1 <= k <= min(_MAX_K, N):
+        raise NotImplementedError(
+            f'knn_gather: C={C}, k={k} is beyond the kernel '
+            f'(C <= {_WIDE_C_MAX}, 1 <= k <= min({_MAX_K}, N))')
+
+
+def _library():
+    from . import _build
+
+    lib = _build.load_library('knn_gather')
+    lib.knn_gather_forward.restype = ctypes.c_int
+    lib.knn_gather_forward.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    lib.knn_gather_backward.restype = ctypes.c_int
+    lib.knn_gather_backward.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    return lib
+
+
+def knn_gather_fwd(x, k, value_chunks=2):
+    """The forward alone: (neighbours (B, k, N, C) f32, ids (B, N, k)).
+    A CPU tensor takes `knn_gather_reference` (int64 ids); a CUDA tensor
+    launches the forward kernel (int32 ids) or raises."""
+    if x.device.type == 'cpu':
+        return knn_gather_reference(x, k, value_chunks)
+    if x.device.type != 'cuda':
+        raise ValueError(f'knn_gather: unsupported device {x.device}')
+    _check(x, k)
+    x = x.contiguous()
+    B, N, C = x.shape
+    nbr = torch.empty(B, k, N, C, device=x.device, dtype=torch.float32)
+    idx = torch.empty(B, N, k, device=x.device, dtype=torch.int32)
+    err = _library().knn_gather_forward(
+        x.data_ptr(), nbr.data_ptr(), idx.data_ptr(), B, N, C, k, value_chunks,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'knn_gather: forward launch failed with CUDA error {err}')
+    launches['fwd_small_c' if C <= SMALL_C_MAX else 'fwd_wide_c'] += 1
+    return nbr, idx
+
+
+def knn_gather_bwd(idx, g):
+    """The backward alone: ids (B, N, k) and g (B, k, N, C) -> dx (B, N, C)
+    f32. A CPU tensor takes `knn_gather_backward_reference`; a CUDA tensor
+    launches the backward kernel or raises."""
+    if g.device.type == 'cpu':
+        return knn_gather_backward_reference(idx, g)
+    if g.device.type != 'cuda' or idx.device != g.device:
+        raise ValueError(f'knn_gather: unsupported devices {idx.device}, {g.device}')
+    B, k, N, C = g.shape
+    if tuple(idx.shape) != (B, N, k):
+        raise ValueError(f'knn_gather: ids {tuple(idx.shape)} do not fit g {tuple(g.shape)}')
+    if N > MAX_N or C > _WIDE_C_MAX or not 1 <= k <= min(_MAX_K, N):
+        raise NotImplementedError(f'knn_gather: backward of N={N}, C={C}, k={k} is '
+                                  'beyond the kernel')
+    idx = idx.to(torch.int32).contiguous()
+    g = g.float().contiguous()
+    dx = torch.empty(B, N, C, device=g.device, dtype=torch.float32)
+    err = _library().knn_gather_backward(
+        idx.data_ptr(), g.data_ptr(), dx.data_ptr(), B, N, C, k,
+        torch.cuda.current_stream(g.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'knn_gather: backward launch failed with CUDA error {err}')
+    launches['bwd'] += 1
+    return dx
+
+
+class KnnGather(torch.autograd.Function):
+    """Forward: the kNN + gather (kernel 8 on the card); backward: the
+    scatter-add of the neighbour cotangents (kernel 9 on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, k, value_chunks):
+        nbr, idx = knn_gather_fwd(x, k, value_chunks)
+        ctx.save_for_backward(idx)
+        ctx.x_dtype = x.dtype
+        idx = idx.long()
+        ctx.mark_non_differentiable(idx)
+        return nbr, idx
+
+    @staticmethod
+    def backward(ctx, g, _):
+        (idx,) = ctx.saved_tensors
+        return knn_gather_bwd(idx, g).to(ctx.x_dtype), None, None
+
+
+def knn_gather(x, k, value_chunks=2):
+    """x (B, N, C) -> (neighbours (B, k, N, C) f32, ids (B, N, k) int64),
+    differentiable in the gathered values. Requires k <= N: the slot count
+    shapes what follows, so the caller clamps it."""
+    if value_chunks not in (1, 2):
+        raise ValueError(f'knn_gather: value_chunks must be 1 or 2, got {value_chunks}')
+    if k > x.shape[1]:
+        raise ValueError(f'knn_gather: k={k} exceeds the point count {x.shape[1]}')
+    return KnnGather.apply(x, k, value_chunks)

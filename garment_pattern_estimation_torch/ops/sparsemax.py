@@ -1,10 +1,11 @@
 """Sparsemax (Martins & Astudillo 2016): the projection onto the probability
-simplex along the last axis, with exact zeros outside the support.
+simplex along the last axis, with exact zeros outside the support, and its
+Fenchel-Young loss.
 
-Forward only, the sort-free form of garment_pattern_estimation_tpu's
-`ops/sparsemax.py` for up to 64 classes (the attention head scores 23 panel
-slots) and the sorted form above that. The custom backward and the
-Fenchel-Young loss come with training (ROADMAP queue A)."""
+The sort-free form of garment_pattern_estimation_tpu's `ops/sparsemax.py`
+for up to 64 classes (the attention head scores 23 panel slots) and the
+sorted form above that; the same custom backward (on the support S,
+dz = g - mean_S(g); zero elsewhere) and `sparsemax_loss`."""
 from __future__ import annotations
 
 import torch
@@ -35,5 +36,33 @@ def _threshold(z):
     return (cumsum_at_k - 1.0) / k_support.to(z.dtype)
 
 
+class _Sparsemax(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, z):
+        p = torch.clamp_min(z - _threshold(z), 0.0)
+        ctx.save_for_backward(p)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        support = (p > 0).to(g.dtype)
+        support_size = torch.clamp_min(support.sum(dim=-1, keepdim=True), 1.0)
+        g_mean = (g * support).sum(dim=-1, keepdim=True) / support_size
+        return support * (g - g_mean)
+
+
 def sparsemax(z):
-    return torch.clamp_min(z - _threshold(z), 0.0)
+    return _Sparsemax.apply(z)
+
+
+def sparsemax_loss(logits, labels):
+    """Fenchel-Young sparsemax loss, elementwise over the leading axes:
+    L(z, y) = 0.5 * sum_{j in S} (z_j^2 - tau^2) + 0.5 - z_y, whose gradient
+    is sparsemax(z) - onehot(y)."""
+    tau = _threshold(logits)
+    support = logits - tau > 0
+    reg = 0.5 * torch.where(support, logits ** 2 - tau ** 2, 0.0).sum(dim=-1)
+    z_y = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return reg + 0.5 - z_y

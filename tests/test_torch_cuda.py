@@ -1,4 +1,4 @@
-"""Card-only tests of the port's CUDA kernel: each skips without a CUDA
+"""Card-only tests of the port's CUDA kernels: each skips without a CUDA
 device, since a CUDA kernel has no CPU mode. This file imports no JAX, so it
 runs where only the port is installed:
 
@@ -13,12 +13,18 @@ where two quantized distances share a bucket, and at least 99% must agree.
 Outputs: against the plain MLP tail run on the kernel's own neighbours, to
 1e-2 of the output's largest magnitude (a flipped bf16 truncation moves an
 activation by up to 2^-8 of itself) and 1e-4 of it on average.
+
+knn_gather: ids as above; gathered rows bitwise equal to the plain
+version's where the ids agree (both copy or split the same f32 value);
+dx within 1e-5 of its largest magnitude of the plain `index_add_` on the
+kernel's own ids (the two sum the same f32 terms in another order), and
+bitwise equal across two runs (the backward uses no float atomics).
 """
 import numpy as np
 import pytest
 import torch
 
-from garment_pattern_estimation_torch.ops import edgeconv
+from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +90,57 @@ def test_wrong_dtype_raises(cuda, rng):
     with pytest.raises(TypeError):
         edgeconv.fused_edgeconv(torch.zeros(1, 64, 3, device=cuda,
                                             dtype=torch.float64), folded, k=5)
+
+
+@pytest.mark.parametrize('n_points,C,k,value_chunks', [
+    (200, 3, 5, 2),
+    (77, 3, 3, 2),                    # ragged last query tile, another k
+    (200, 24, 5, 2),
+    (300, 150, 5, 2),                 # more than two key tiles
+    (300, 150, 5, 1),
+    (90, 150, 1, 2),                  # self only: the backward copies slot 0
+])
+def test_knn_gather_matches_plain(cuda, rng, n_points, C, k, value_chunks):
+    x = torch.from_numpy(rng.normal(size=(2, n_points, C)).astype(np.float32)).to(cuda)
+    x.requires_grad_(True)
+    before = dict(knn_gather.launches)
+    nbr, idx = knn_gather.knn_gather(x, k, value_chunks)
+    g = torch.from_numpy(rng.normal(size=tuple(nbr.shape)).astype(np.float32)).to(cuda)
+    (dx,) = torch.autograd.grad(nbr, x, g)
+    torch.cuda.synchronize()
+    variant = 'fwd_small_c' if C <= edgeconv.SMALL_C_MAX else 'fwd_wide_c'
+    assert knn_gather.launches[variant] == before[variant] + 1
+    assert knn_gather.launches['bwd'] == before['bwd'] + 1
+
+    ref_nbr, ref_idx = knn_gather.knn_gather_reference(x.detach(), k, value_chunks)
+    if C <= edgeconv.SMALL_C_MAX:
+        assert torch.equal(idx, ref_idx)
+    else:
+        assert (idx == ref_idx).float().mean().item() >= 0.99
+    agree = (idx == ref_idx).transpose(1, 2)                       # (B, k, N)
+    assert torch.equal(nbr[agree], ref_nbr[agree])
+
+    ref_dx = knn_gather.knn_gather_backward_reference(idx, g)
+    scale = ref_dx.abs().max().item()
+    assert (dx - ref_dx).abs().max().item() <= 1e-5 * scale
+    (dx_again,) = torch.autograd.grad(knn_gather.knn_gather(x, k, value_chunks)[0], x, g)
+    assert torch.equal(dx, dx_again)
+
+
+def test_knn_gather_ids_equal_the_fused_kernels(cuda, rng):
+    """One selection code: the fused layer and knn_gather pick the same ids."""
+    folded = _folded(rng, 150, [16, 16], cuda)
+    x = torch.from_numpy(rng.normal(size=(2, 300, 150)).astype(np.float32)).to(cuda)
+    _, fused_idx = edgeconv.fused_edgeconv(x, folded, k=5, return_idx=True)
+    _, idx = knn_gather.knn_gather(x, 5)
+    assert torch.equal(idx, fused_idx)
+
+
+def test_knn_gather_large_n_raises(cuda):
+    with pytest.raises(NotImplementedError, match='N=4096'):
+        knn_gather.knn_gather(torch.zeros(1, 4096, 3, device=cuda), 5)
+
+
+def test_knn_gather_wrong_dtype_raises(cuda):
+    with pytest.raises(TypeError):
+        knn_gather.knn_gather(torch.zeros(1, 64, 3, device=cuda, dtype=torch.float64), 5)

@@ -37,6 +37,12 @@ def test_module_imports_no_jax(path):
     assert not bad, f'{path.name} imports {bad}'
 
 
+def test_import_scan_covers_the_training_modules():
+    scanned = {str(p.relative_to(_PACKAGE)) for p in _PACKAGE.rglob('*.py')}
+    assert {'ops/knn_gather.py', 'ops/sparsemax.py', 'losses/components.py',
+            'losses/composed.py', 'train/trainer.py', 'models/blocks.py'} <= scanned
+
+
 def test_chip_smoke_imports_no_jax():
     path = _PACKAGE.parent / 'chip_smoke.py'
     bad = sorted(set(_imported_roots(path)) & set(_FORBIDDEN))
@@ -53,8 +59,12 @@ def test_build_model_without_device_needs_cuda(monkeypatch):
 
 
 def test_build_model_on_cpu_is_eval_and_lossless():
+    """Built in eval mode; without a loss section the loss takes the
+    registry's defaults, as the JAX registry's does."""
     model = build_model('GarmentSegmentPattern3D', _DATA, _NN, device='cpu')
-    assert model.loss is None and not model.module.training
+    assert not model.module.training
+    assert model.loss.config['loss_components'] == ['shape', 'loop', 'rotation', 'translation']
+    assert model.config['loss'] is model.loss.config
     assert model.config['local_attention'] is True
     assert model.config['EConv_feature'] == 20
     x = torch.randn(2, 40, 3, generator=torch.Generator().manual_seed(0))
@@ -73,7 +83,8 @@ def test_unported_options_raise():
                     dict(_NN, compute_dtype='bfloat16'), device='cpu')
     with pytest.raises(ValueError):
         build_model('NoSuchModel', _DATA, _NN, device='cpu')
-    model = build_model('GarmentSegmentPattern3D', _DATA, _NN, device='cpu')
+    model = build_model('GarmentSegmentPattern3D', _DATA,
+                        dict(_NN, panel_n_layers=2, dropout=0.1), device='cpu')
     model.module.train()
     with pytest.raises(NotImplementedError, match='train mode'):
         model(torch.zeros(1, 16, 3))
