@@ -4,9 +4,9 @@
 
 Phases, one JSON line each:
   build    builds every CUDA source of the port (one nvcc each, in parallel)
-  kernel   each fused EdgeConv variant against its plain PyTorch version at
-           the attention model's shapes: (64, 2000, 3) -> 150 (conv0, small
-           C) and (64, 2000, 150) -> 150 (conv1, wide C), k = 5, folded
+  kernel   each single-tile fused EdgeConv variant against its plain PyTorch
+           version at the attention model's shapes: (64, 2000, 3) -> 150
+           (conv0, small C) and (64, 2000, 150) -> 150 (conv1, wide C), k = 5, folded
            weights from a seeded torch.Generator with non-trivial BatchNorm
            statistics. Neighbour-id agreement (1.0 for small C; for wide C
            at least 0.99, every disagreement a near tie), the output against
@@ -40,10 +40,30 @@ Phases, one JSON line each:
            the phase measures the floor, the CPU path against itself on the
            cloud perturbed by 1e-7 relative, and prints it beside the card's
            gap
-  profile  one serving forward and one training step under torch.profiler:
-           device time by kernel and the device's idle share
-Then the card's name and power limit, the kernels line, and as the last line
-{"ok": true, "device": {...}}. Any failed check exits non-zero.
+  knn      the standalone kNN entry `ops.knn.knn` on the stress batch
+           (128, 10000, 3), k = 5: one call as a user makes it (its launch
+           count), then its ids on the first 4 clouds against the plain
+           version (all equal), kernel, plain and library (torch.cdist +
+           torch.topk, two calls whose ties differ) times
+  kernel   the column-tiled fused EdgeConv variants at the stress shapes,
+           (128, 10000, 3) -> 150 and (128, 10000, 150) -> 150 (conv1 on
+           conv0's output), the kernel on the whole batch, checked as above
+           on its first 4 clouds
+  stress_serving  build_serving_fn at the att widths on a (128, 10000, 3)
+           batch: shapes and finiteness, exactly 1 + 1 tiled launches and no
+           single-tile launch per forward, batch time, clouds/s and peak
+           device memory, and a 1-cloud batch against the CPU plain path
+  profile  one serving forward, one training step and one stress forward
+           under torch.profiler: device time by kernel and the device's idle
+           share
+Then each phase's seconds, the card's name and power limit, the kernels
+line, and as the last line {"ok": true, "device": {...}}. Any failed check
+exits non-zero.
+
+The plain versions rank all N x N pairs of a cloud at once, so at the
+stress shape (a (128, 10^4, 10^4) ranking is about 100 GB) they run on
+CHUNK clouds at a time: their checks use the first CHUNK clouds, their
+times the whole batch chunk by chunk.
 
 Tolerances: the edge MLP truncates activations to bf16 and the kernel sums
 in another order than cuBLAS, so one flipped truncation moves an activation
@@ -115,6 +135,9 @@ WIDE_ID_AGREEMENT = 0.99
 NEAR_TIE_REL = 2.0 ** -10          # 4 quantization buckets of the packed distance
 NORM_ULPS = 2.0 ** -18             # 32 f32 ulps of the squared norms
 SERVE_CALLS = 11
+STRESS_BATCH, STRESS_POINTS = 128, 10000    # the JAX package's stress configuration
+STRESS_CALLS = 5
+CHUNK = 4
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -126,6 +149,10 @@ REPLACES = 'garment_pattern_estimation_tpu/ops/edgeconv.py:126'
 GATHER_SOURCE = 'garment_pattern_estimation_torch/ops/csrc/knn_gather.cu'
 GATHER_FWD_REPLACES = 'garment_pattern_estimation_tpu/ops/knn_gather.py:55'
 GATHER_BWD_REPLACES = 'garment_pattern_estimation_tpu/ops/knn_gather.py:127'
+TILED_REPLACES = {'small_c': 'garment_pattern_estimation_tpu/ops/edgeconv.py:246',
+                  'wide_c': 'garment_pattern_estimation_tpu/ops/edgeconv.py:313'}
+KNN_SOURCE = 'garment_pattern_estimation_torch/ops/csrc/knn.cu'
+KNN_REPLACES = 'garment_pattern_estimation_tpu/ops/knn.py:257'
 
 
 def emit(obj):
@@ -202,19 +229,18 @@ def near_tie_ratio(x, idx, ref_idx):
 
     Disagreements must be near ties: the exactly recomputed distances of the
     two neighbour sets differ by a few quantization buckets plus the
-    rounding of q_norm + k_norm - 2 * cross (a few ulps of the norms)."""
+    rounding of q_norm + k_norm - 2 * cross (a few ulps of the norms). Only
+    the differing rows' own points are gathered."""
     import torch
 
-    C = x.shape[-1]
     rows = (~(idx == ref_idx).all(dim=-1)).nonzero()
     if not rows.numel():
         return 0.0, 0
-    xb = x.double()[rows[:, 0]]                               # (R, N, C)
-    q = xb[torch.arange(len(rows)), rows[:, 1]]               # (R, C)
+    b, n = rows[:, 0], rows[:, 1]
+    q = x[b, n].double()                                      # (R, C)
 
     def dists(ids):
-        nbr = torch.gather(xb, 1, ids[rows[:, 0], rows[:, 1]][:, :, None].long()
-                           .expand(-1, -1, C))
+        nbr = x[b[:, None], ids[b, n].long()].double()        # (R, k, C)
         norms = (nbr ** 2).sum(-1).amax(-1) + (q ** 2).sum(-1)
         return ((nbr - q[:, None]) ** 2).sum(-1).sort(dim=-1).values, norms
 
@@ -239,35 +265,54 @@ def check_ids(name, x, idx, ref_idx):
     return id_share, n_rows, worst_tie
 
 
-def check_kernel(name, x, folded, widths):
+def chunked(fn, x, chunk):
+    """fn on x chunk clouds at a time, the results concatenated."""
+    import torch
+    if chunk >= x.shape[0]:
+        return fn(x)
+    return torch.cat([fn(x[i:i + chunk]) for i in range(0, x.shape[0], chunk)])
+
+
+def check_kernel(name, x, folded, widths, *, tile_variant=False):
     """Kernel against the plain version on the same inputs; returns the
     kernel's output and its line of the kernels list (launches filled in
-    later)."""
+    later). The single-tile variants are checked and timed on the whole
+    batch at once; the tiled ones (stress shapes) checked on the first
+    CHUNK clouds, their plain version timed on the whole batch CHUNK clouds
+    at a time, and fewer timed runs (each call takes most of a second)."""
     import torch
     from garment_pattern_estimation_torch.ops import edgeconv
 
     B, N, C = x.shape
     out, idx = edgeconv.fused_edgeconv(x, folded, K, return_idx=True)
     torch.cuda.synchronize()
-    ref_idx, x_lp = edgeconv.edgeconv_select(x, K)
-    agree_rows = (idx == ref_idx).all(dim=-1)
-    id_share, n_rows, worst_tie = check_ids(name, x, idx, ref_idx)
+    check_clouds = CHUNK if tile_variant else B
+    xc, out_c, idx_c = x[:check_clouds], out[:check_clouds], idx[:check_clouds]
+    ref_idx, x_lp = edgeconv.edgeconv_select(xc, K)
+    agree_rows = (idx_c == ref_idx).all(dim=-1)
+    id_share, n_rows, worst_tie = check_ids(name, xc, idx_c, ref_idx)
 
-    tail = edgeconv.edgeconv_mlp_max(x, idx, x_lp, folded)
-    full = edgeconv.edgeconv_mlp_max(x, ref_idx, x_lp, folded)
+    tail = edgeconv.edgeconv_mlp_max(xc, idx_c, x_lp, folded)
+    full = edgeconv.edgeconv_mlp_max(xc, ref_idx, x_lp, folded)
+    del ref_idx, x_lp
     scale = tail.abs().max().item()
-    diff = (out - tail).abs()
-    diff_agree = (out - full).abs()[agree_rows]
+    diff = (out_c - tail).abs()
+    diff_agree = (out_c - full).abs()[agree_rows]
     line = {
-        'phase': 'kernel', 'name': name, 'shape': [B, N, C], 'k': K,
-        'mlp': [2 * C, *widths], 'id_agreement': id_share,
+        'phase': 'kernel', 'name': name, 'shape': [B, N, C], 'checked_clouds': check_clouds,
+        'k': K, 'mlp': [2 * C, *widths], 'id_agreement': id_share,
         'id_disagreeing_rows': n_rows, 'near_tie_ratio': worst_tie,
         'max_abs_err': diff.max().item(), 'max_rel_err': diff.max().item() / scale,
         'mean_rel_err': diff.mean().item() / scale,
         'max_rel_err_vs_full_plain': diff_agree.max().item() / scale,
     }
-    line['ms'] = cuda_ms(lambda: edgeconv.fused_edgeconv(x, folded, K))
-    line['plain_ms'] = cuda_ms(lambda: edgeconv.fused_edgeconv_reference(x, folded, K))
+    del tail, full, diff, diff_agree
+    warmup, runs = (1, 5) if tile_variant else (3, 20)
+    line['ms'] = cuda_ms(lambda: edgeconv.fused_edgeconv(x, folded, K), warmup, runs)
+    line['plain_ms'] = cuda_ms(lambda: chunked(
+        lambda xs: edgeconv.fused_edgeconv_reference(xs, folded, K), x, check_clouds),
+        warmup, 3 if tile_variant else runs)
+    line['plain_chunk'] = check_clouds
     line['bound_ms'], line['bound_by'] = bound(B, N, C, K, widths)
     line['library_ms'] = None       # no single PyTorch call computes this layer
     emit(line)
@@ -276,11 +321,57 @@ def check_kernel(name, x, folded, widths):
     check(line['max_rel_err_vs_full_plain'] <= OUT_MAX_REL,
           f'{name}: output off the plain layer: {line}')
 
+    variant = 'small_c' if C <= 16 else 'wide_c'
     return out, {
-        'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE, 'replaces': REPLACES,
+        'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE,
+        'replaces': TILED_REPLACES[variant] if tile_variant else REPLACES,
         'launches': None, 'max_abs_err': line['max_abs_err'], 'ms': line['ms'],
         'plain_ms': line['plain_ms'], 'bound_ms': line['bound_ms'],
         'bound_by': line['bound_by'], 'library_ms': None}
+
+
+def knn_bound(B, N, D, k):
+    """Least time (ms) on the card for the kNN ids and what bounds it:
+    the points read once and the int32 ids written once; the distances'
+    sub, mul and add per dimension in f32 (selection compares not
+    counted)."""
+    ops_ms = 3.0 * D * B * N * N / PEAK_F32_FLOPS * 1e3
+    bytes_ms = 4.0 * B * N * (D + k) / PEAK_BYTES * 1e3
+    return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
+
+
+def knn_phase(points):
+    """The standalone kNN entry on the stress batch; returns its line of
+    the kernels list."""
+    import torch
+    from garment_pattern_estimation_torch.ops import knn
+
+    B, N, D = points.shape
+    knn.reset_launches()
+    ids = knn.knn(points, K)                      # the entry, as a user calls it
+    torch.cuda.synchronize()
+    launches = knn.launches['knn']
+    check(launches == 1, f'knn: the entry launched {launches} kernels, expected 1')
+    check(tuple(ids.shape) == (B, N, K), f'knn: ids of shape {tuple(ids.shape)}')
+    ref = knn.knn_reference(points[:CHUNK], K)
+    agreement = (ids[:CHUNK] == ref).float().mean().item()
+    id_err = (ids[:CHUNK] - ref).abs().max().item()
+    del ref
+    line = {'name': 'knn', 'route': 'cuda', 'source': KNN_SOURCE, 'replaces': KNN_REPLACES,
+            'launches': launches, 'max_abs_err': id_err,
+            'ms': cuda_ms(lambda: knn.knn(points, K), 2, 10),
+            'plain_ms': cuda_ms(lambda: chunked(lambda xs: knn.knn_reference(xs, K),
+                                                points, CHUNK), 1, 3),
+            # torch.cdist + torch.topk: two calls, and their ties and
+            # rounding differ from the ranking's
+            'library_ms': cuda_ms(lambda: chunked(
+                lambda xs: torch.topk(torch.cdist(xs, xs), K, largest=False).indices,
+                points, CHUNK), 1, 3)}
+    line['bound_ms'], line['bound_by'] = knn_bound(B, N, D, K)
+    emit({'phase': 'knn', 'shape': [B, N, D], 'k': K, 'checked_clouds': CHUNK,
+          'id_agreement': agreement, 'plain_chunk': CHUNK, **line})
+    check(agreement == 1.0, f'knn: ids agree with the plain version on {agreement}, not all')
+    return line
 
 
 def gather_bound(B, N, C, k, backward):
@@ -357,66 +448,92 @@ def check_knn_gather(x, backward):
     return [fwd, bwd]
 
 
-def serve_phase():
+def check_outputs(name, preds, batch, points):
+    """The serving outputs' keys, shapes and finiteness."""
     import torch
-    from garment_pattern_estimation_torch.experiment import build_serving_fn
-    from garment_pattern_estimation_torch.models import build_model
-    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
-
-    model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG, ATT_NN_CONFIG, seed=0)
-    serve = build_serving_fn(model, ATT_DATA_CONFIG)
-    std = ATT_DATA_CONFIG['standardize']
-    gen = torch.Generator().manual_seed(1)
-    points = (torch.randn(BATCH, POINTS, 3, generator=gen) * torch.tensor(std['f_scale'])
-              + torch.tensor(std['f_shift'])).cuda()
-
-    edgeconv.reset_launches()
-    knn_gather.reset_launches()
-    times = []
-    for _ in range(SERVE_CALLS):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        preds = serve(points)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - start) * 1e3)
-    launches = dict(edgeconv.launches)
-    check(launches == {'small_c': SERVE_CALLS, 'wide_c': SERVE_CALLS},
-          f'serving: launches {launches}, expected {SERVE_CALLS} of each variant '
-          f'({2 * SERVE_CALLS} for {SERVE_CALLS} forwards)')
-    check(not any(knn_gather.launches.values()),
-          f'serving: knn_gather launched {knn_gather.launches} in eval')
 
     P, L = ATT_DATA_CONFIG['max_pattern_len'], ATT_DATA_CONFIG['max_panel_len']
-    shapes = {'outlines': (BATCH, P, L, 4), 'rotations': (BATCH, P, 4),
-              'translations': (BATCH, P, 3), 'stitch_tags': (BATCH, P, L, 3),
-              'free_edges_mask': (BATCH, P, L), 'att_weights': (BATCH, POINTS, P)}
-    check(sorted(preds) == sorted(shapes), f'serving: output keys {sorted(preds)}')
+    shapes = {'outlines': (batch, P, L, 4), 'rotations': (batch, P, 4),
+              'translations': (batch, P, 3), 'stitch_tags': (batch, P, L, 3),
+              'free_edges_mask': (batch, P, L), 'att_weights': (batch, points, P)}
+    check(sorted(preds) == sorted(shapes), f'{name}: output keys {sorted(preds)}')
     for key, shape in shapes.items():
         check(tuple(preds[key].shape) == shape,
-              f'serving: {key} has shape {tuple(preds[key].shape)}, expected {shape}')
-        check(bool(torch.isfinite(preds[key]).all()), f'serving: {key} is not finite')
+              f'{name}: {key} has shape {tuple(preds[key].shape)}, expected {shape}')
+        check(bool(torch.isfinite(preds[key]).all()), f'{name}: {key} is not finite')
 
-    # a 2-cloud batch against the plain path of the same weights on the CPU
+
+def compare_cpu(name, model, serve, small):
+    """`serve` on the card against the same weights' plain path on the CPU,
+    on the clouds `small`; returns each key's gap."""
+    from garment_pattern_estimation_torch.experiment import build_serving_fn
+
     cpu_model = copy.copy(model)
     cpu_model.module = copy.deepcopy(model.module).cpu()
-    small = points[:2]
     on_card = serve(small)
     on_cpu = build_serving_fn(cpu_model, ATT_DATA_CONFIG)(small.cpu())
     ref_err = {}
-    for key in shapes:
-        ref, got = on_cpu[key], on_card[key].cpu()
-        diff = (got - ref).abs()
+    for key, ref in on_cpu.items():
+        diff = (on_card[key].cpu() - ref).abs()
         scale = ref.abs().max().item()
         if key == 'att_weights':
             # a point whose wide-C neighbours differ by a near tie routes
             # differently: hold 99% of the points to the bound
             off = (diff.amax(dim=-1) > OUT_MAX_REL * scale).float().mean().item()
             ref_err[key] = off
-            check(off <= 0.01, f'serving: {off} of the points off the CPU path')
+            check(off <= 0.01, f'{name}: {off} of the points off the CPU path')
         else:
             ref_err[key] = diff.max().item() / scale
             check(ref_err[key] <= OUT_MAX_REL,
-                  f'serving: {key} off the CPU path by {ref_err[key]} of its scale')
+                  f'{name}: {key} off the CPU path by {ref_err[key]} of its scale')
+    return ref_err
+
+
+def physical_points(seed, batch, points):
+    """A standard normal cloud scaled by the published standardization."""
+    import torch
+    std = ATT_DATA_CONFIG['standardize']
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(batch, points, 3, generator=gen) * torch.tensor(std['f_scale'])
+            + torch.tensor(std['f_shift'])).cuda()
+
+
+def timed_calls(fn, calls):
+    """Host-clock ms of each call, each ending in a synchronize."""
+    import torch
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return out, times
+
+
+def serve_phase():
+    from garment_pattern_estimation_torch.experiment import build_serving_fn
+    from garment_pattern_estimation_torch.models import build_model
+    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
+
+    model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG, ATT_NN_CONFIG, seed=0)
+    serve = build_serving_fn(model, ATT_DATA_CONFIG)
+    points = physical_points(1, BATCH, POINTS)
+
+    edgeconv.reset_launches()
+    knn_gather.reset_launches()
+    preds, times = timed_calls(lambda: serve(points), SERVE_CALLS)
+    launches = dict(edgeconv.launches)
+    expected = {'small_c': SERVE_CALLS, 'wide_c': SERVE_CALLS,
+                'small_c_tiled': 0, 'wide_c_tiled': 0}
+    check(launches == expected,
+          f'serving: launches {launches}, expected {SERVE_CALLS} of each single-tile '
+          f'variant ({2 * SERVE_CALLS} for {SERVE_CALLS} forwards)')
+    check(not any(knn_gather.launches.values()),
+          f'serving: knn_gather launched {knn_gather.launches} in eval')
+    check_outputs('serving', preds, BATCH, POINTS)
+    # a 2-cloud batch against the plain path of the same weights on the CPU
+    ref_err = compare_cpu('serving', model, serve, points[:2])
 
     # the first call pays one-time set-up (allocator, cuBLAS handles)
     q1, batch_ms, q3 = statistics.quantiles(times[1:], n=4)
@@ -425,7 +542,37 @@ def serve_phase():
           'batch_ms_quartiles': [q1, q3],
           'clouds_per_s': BATCH / batch_ms * 1e3,
           'vs_cpu_plain': ref_err})
-    return launches, serve, points
+    return launches, model, serve, points
+
+
+def stress_serving_phase(model, serve):
+    """The same served model on the stress batch: every EdgeConv layer
+    through the column-tiled kernels. Returns the launches and the batch."""
+    import torch
+    from garment_pattern_estimation_torch.ops import edgeconv
+
+    points = physical_points(6, STRESS_BATCH, STRESS_POINTS)
+    torch.cuda.reset_peak_memory_stats()
+    edgeconv.reset_launches()
+    preds, times = timed_calls(lambda: serve(points), STRESS_CALLS)
+    launches = dict(edgeconv.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = {'small_c': 0, 'wide_c': 0,
+                'small_c_tiled': STRESS_CALLS, 'wide_c_tiled': STRESS_CALLS}
+    check(launches == expected,
+          f'stress_serving: launches {launches}, expected {STRESS_CALLS} of each '
+          f'tiled variant and no single-tile launch')
+    check_outputs('stress_serving', preds, STRESS_BATCH, STRESS_POINTS)
+    del preds
+    ref_err = compare_cpu('stress_serving', model, serve, points[:1])
+
+    batch_ms = statistics.median(times[1:])
+    emit({'phase': 'stress_serving', 'batch': [STRESS_BATCH, STRESS_POINTS, 3],
+          'calls': STRESS_CALLS, 'launches': launches, 'call_ms': times,
+          'first_call_ms': times[0], 'batch_ms': batch_ms,
+          'clouds_per_s': STRESS_BATCH / batch_ms * 1e3,
+          'peak_memory_gb': peak_gb, 'vs_cpu_plain_1_cloud': ref_err})
+    return launches, points
 
 
 def training_batch(gen, batch, device):
@@ -489,6 +636,7 @@ def train_phase():
     batch = training_batch(torch.Generator().manual_seed(4), TRAIN_BATCH, 'cuda')
     states = torch.Generator(device='cuda').manual_seed(ATT_TRAINER['random_seed'])
 
+    torch.cuda.reset_peak_memory_stats()
     edgeconv.reset_launches()
     knn_gather.reset_launches()
     losses, times = [], []
@@ -513,7 +661,8 @@ def train_phase():
     knn_gather.reset_launches()
     eval_loss, _ = trainer.eval_step(model, batch, epoch=0)
     torch.cuda.synchronize()
-    check(edgeconv.launches == {'small_c': 1, 'wide_c': 1},
+    check(edgeconv.launches == {'small_c': 1, 'wide_c': 1, 'small_c_tiled': 0,
+                                'wide_c_tiled': 0},
           f'training: eval_step launched {edgeconv.launches}, expected 1 + 1 fused')
     check(not any(knn_gather.launches.values()), 'training: eval_step launched knn_gather')
     check(math.isfinite(eval_loss.item()), f'training: eval loss {eval_loss.item()}')
@@ -580,6 +729,32 @@ def profile_phase(name, fn):
           'top': [{'kernel': k[:80], 'ms': ms, 'count': n} for k, ms, n in rows[:12]]})
 
 
+def stress_kernels(widths):
+    """The standalone kNN and the two column-tiled fused variants on a
+    seeded stress batch (conv1 on conv0's output); returns their lines of
+    the kernels list."""
+    import torch
+
+    gen = torch.Generator().manual_seed(7)
+    x0 = torch.randn(STRESS_BATCH, STRESS_POINTS, 3, generator=gen).cuda()
+    conv0 = random_folded(gen, 3, widths, 'cuda')
+    conv1 = random_folded(gen, widths[-1], widths, 'cuda')
+    knn_line = knn_phase(x0)
+    x1, small_line = check_kernel('fused_edgeconv_small_c_tiled', x0, conv0, widths,
+                                  tile_variant=True)
+    _, wide_line = check_kernel('fused_edgeconv_wide_c_tiled', x1, conv1, widths,
+                                tile_variant=True)
+    return knn_line, small_line, wide_line
+
+
+def timed(seconds, name, fn, *args):
+    """fn(*args), its wall seconds recorded under `name`."""
+    start = time.perf_counter()
+    out = fn(*args)
+    seconds[name] = time.perf_counter() - start
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -587,39 +762,54 @@ def main():
     sys.path.insert(0, str(ROOT))
     from garment_pattern_estimation_torch.ops import _build
 
-    report = _build.build_all()
+    seconds = {}
+    report = timed(seconds, 'build', _build.build_all)
     emit({'phase': 'build', 'seconds': {n: r['seconds'] for n, r in report.items()},
           'ptxas': {n: [ln for ln in r['log'].splitlines()
-                        if 'registers' in ln or 'spill' in ln][:8]
+                        if 'registers' in ln or 'spill' in ln][:16]
                     for n, r in report.items()}})
 
-    gen = torch.Generator().manual_seed(0)
+    def att_kernels():
+        gen = torch.Generator().manual_seed(0)
+        x0 = torch.randn(BATCH, POINTS, 3, generator=gen).cuda()
+        conv0 = random_folded(gen, 3, widths, 'cuda')
+        conv1 = random_folded(gen, widths[-1], widths, 'cuda')
+        # conv1's input is conv0's output, as in the model
+        x1, small_line = check_kernel('fused_edgeconv_small_c', x0, conv0, widths)
+        _, wide_line = check_kernel('fused_edgeconv_wide_c', x1.contiguous(), conv1, widths)
+        # the training step's shapes: its batch of 30, conv1 on conv0's features
+        gather_lines = check_knn_gather(x0[:TRAIN_BATCH].contiguous(), backward=False) \
+            + check_knn_gather(x1[:TRAIN_BATCH].contiguous(), backward=True)
+        return small_line, wide_line, gather_lines
+
     widths = [ATT_NN_CONFIG['EConv_hidden']] * ATT_NN_CONFIG['EConv_hidden_depth'] \
         + [ATT_NN_CONFIG['EConv_feature']]
-    x0 = torch.randn(BATCH, POINTS, 3, generator=gen).cuda()
-    conv0 = random_folded(gen, 3, widths, 'cuda')
-    conv1 = random_folded(gen, widths[-1], widths, 'cuda')
-    # conv1's input is conv0's output, as in the model
-    x1, small_line = check_kernel('fused_edgeconv_small_c', x0, conv0, widths)
-    _, wide_line = check_kernel('fused_edgeconv_wide_c', x1.contiguous(), conv1, widths)
-    # the training step's shapes: its batch of 30, conv1 on conv0's features
-    gather_lines = check_knn_gather(x0[:TRAIN_BATCH].contiguous(), backward=False) \
-        + check_knn_gather(x1[:TRAIN_BATCH].contiguous(), backward=True)
+    small_line, wide_line, gather_lines = timed(seconds, 'kernel+knn_gather', att_kernels)
+    knn_line, small_tiled_line, wide_tiled_line = timed(
+        seconds, 'knn+kernel_tiled', stress_kernels, widths)
 
-    launches, serve, points = serve_phase()
+    launches, model, serve, points = timed(seconds, 'serving', serve_phase)
     small_line['launches'] = launches['small_c']
     wide_line['launches'] = launches['wide_c']
-    train_launches, train_step = train_phase()
+    stress_launches, stress_points = timed(seconds, 'stress_serving',
+                                           stress_serving_phase, model, serve)
+    small_tiled_line['launches'] = stress_launches['small_c_tiled']
+    wide_tiled_line['launches'] = stress_launches['wide_c_tiled']
+    train_launches, train_step = timed(seconds, 'training', train_phase)
     for line in gather_lines:
         line['launches'] = train_launches[line['name'][len('knn_gather_'):]]
-    profile_phase('serving', lambda: serve(points))
-    profile_phase('training_step', train_step)
+    timed(seconds, 'profile_serving', profile_phase, 'serving', lambda: serve(points))
+    timed(seconds, 'profile_training_step', profile_phase, 'training_step', train_step)
+    timed(seconds, 'profile_stress_serving', profile_phase, 'stress_serving',
+          lambda: serve(stress_points))
+    emit({'phase_seconds': seconds})
 
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    emit({'kernels': [small_line, wide_line, *gather_lines]})
+    emit({'kernels': [small_line, wide_line, small_tiled_line, wide_tiled_line, knn_line,
+                      *gather_lines]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

@@ -6,7 +6,9 @@ names follow the reference NeuralTailor state dict (`MLP`: `{j}.0` Linear,
 reference checkpoint with a plain `load_state_dict`.
 
 Eval folds each BatchNorm's running statistics into the next layer and runs
-EdgeConv through the fused kernel. Train computes each BatchNorm's batch
+EdgeConv through the fused kernel: the single-tile variants up to 2048
+points, the column-tiled ones up to 16384 (`ops.edgeconv.MAX_FUSED_N`).
+Train computes each BatchNorm's batch
 statistics, folds them the same way, and runs EdgeConv through `knn_gather`
 (kernels for the kNN + gather and its backward) and the edge MLP in PyTorch.
 """
@@ -96,9 +98,12 @@ class MLP(nn.ModuleList):
 class EdgeConv(nn.Module):
     """One dynamic EdgeConv layer, max aggregation: kNN graph on the current
     features, edge MLP on [x_i ; x_j - x_i], max over the k neighbours.
-    Eval runs the fused layer (`ops.edgeconv.fused_edgeconv`); train gathers
-    the neighbours slot-major with `ops.knn_gather.knn_gather` and runs the
-    edge MLP in its `edge_pair` form."""
+    Eval runs the fused layer (`ops.edgeconv.fused_edgeconv`) for
+    N <= 16384: single-tile kernels up to 2048 points, column-tiled ones
+    beyond; past 16384 it raises (the JAX package's unfused kNN path is not
+    ported). Train gathers the neighbours slot-major with
+    `ops.knn_gather.knn_gather` (N <= 2048 on the card) and runs the edge
+    MLP in its `edge_pair` form."""
 
     def __init__(self, in_channels: int, mlp_features: Sequence[int], k: int = 5,
                  aggr: str = 'max'):

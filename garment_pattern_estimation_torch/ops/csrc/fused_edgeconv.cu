@@ -1,21 +1,29 @@
 // Fused dynamic EdgeConv for Hopper (sm_90a): kNN selection + neighbour
 // gather + folded-BN edge MLP + max over the k neighbours, in one kernel.
 //
-// Replaces the TPU kernel garment_pattern_estimation_tpu/ops/edgeconv.py:
-// _fused_kernel (single tile, N <= 2048) in both of its variants:
-//   SMALL_C = true   C <= 16 (the raw-xyz layer): exact f32 distances summed
-//                    per dimension, exact gathered rows;
-//   SMALL_C = false  16 < C <= 256: distances q_norm + k_norm - 2 * cross,
-//                    cross from the three bf16 truncation-split products
-//                    hi.hi + hi.lo + lo.hi; gathered rows hi + lo (f32 mode)
-//                    or hi (bf16 mode).
+// Replaces the TPU kernels of garment_pattern_estimation_tpu/ops/edgeconv.py,
+// by template flags:
+//   SMALL_C, !TILED   _fused_kernel, small C (C <= 16, N <= 2048): exact
+//                     f32 distances summed per dimension, exact gathered rows;
+//   !SMALL_C, !TILED  _fused_kernel, wide C (16 < C <= 256, N <= 2048):
+//                     distances q_norm + k_norm - 2 * cross, cross from the
+//                     three bf16 truncation-split products hi.hi + hi.lo +
+//                     lo.hi; gathered rows hi + lo (f32 mode) or hi (bf16);
+//   SMALL_C, TILED    _fused_kernel_direct_tiled (2048 < N <= 16384): as
+//                     small C, keys staged in column windows;
+//   !SMALL_C, TILED   _fused_kernel_stream (2048 < N <= 16384): as wide C.
 // The plain PyTorch version with the same numerics is
 // ops/edgeconv.py: fused_edgeconv_reference.
 //
-// Selection: packed int32 values (distance bits with the low 11 bits
-// replaced by the column), self column excluded and put into slot 0, the
-// k-1 smallest packed values fill slots 1..k-1 (ties to the lower column);
-// the selection code is shared with knn_gather.cu (edgeconv_select.cuh).
+// Selection (edgeconv_select.cuh, shared with knn_gather.cu and knn.cu):
+// self column excluded and put into slot 0, the k-1 smallest (quantized
+// distance, column) pairs fill slots 1..k-1, ties to the lower column;
+// packed into one int32 up to 2048 columns, into one int64 (global column)
+// in the tiled variants. The TPU's tiled kernels merge per-tile candidates
+// on (quantized distance, global id) and the stream kernel carries each
+// candidate's gathered row through the merges because its VMEM cannot hold
+// the keys; here the keys stay in device memory (L2 at these sizes), so
+// phase 2 gathers the k-1 winners by id, as in the single-tile kernels.
 // MLP: activations truncated to bf16 (bit mask, not rounding), weights
 // bf16 (rounded by the caller), f32 accumulation, ReLU; the last layer's
 // folded BatchNorm affine h * a + d, then the max over the k slots.
@@ -28,14 +36,18 @@
 // written once, weights): 0.40 ms at the 989 TFLOP/s bf16 tensor-core rate
 // against 0.05 ms at 3.35 TB/s, so it is bound by operations. The
 // (B, N, k, C) gathered tensor (384 MB at that shape) and the (B, N, N)
-// distances never reach device memory.
+// distances never reach device memory. At the stress shape (B=128,
+// N=10000) the distances grow as B N^2 (conv1: 1.15e13 FLOP, 11.6 ms at
+// the bf16 rate; conv0: 1.15e11 f32 FLOP, 1.7 ms at 67 TFLOP/s) and the
+// MLP as B N: still bound by operations.
 //
 // The design is the simple one. One block of 256 threads per (batch
-// element, 16 query rows):
-//   phase 1  keys pass through shared memory (all of them for small C,
-//            128-key tiles for wide C); each query's 16 threads keep
-//            their best k-1 packed values in registers and merge them
-//            with half-warp shuffles;
+// element, 16 query rows), the query tiles of one cloud adjacent in the
+// grid, so the cloud's keys stay in L2 while its blocks run:
+//   phase 1  keys pass through shared memory (windows of up to 2048
+//            columns for small C, 128-key tiles for wide C); each query's
+//            16 threads keep their best k-1 ranked values in registers and
+//            merge them with half-warp shuffles;
 //   phase 2  the 16 k edge rows go through the layers with their bf16
 //            activations in shared memory (ping-pong buffers) and the
 //            weights read from global memory (L1/L2); each thread owns
@@ -56,6 +68,7 @@ namespace {
 using namespace knn_select;
 
 constexpr int MAX_LAYERS = 4;
+constexpr int MAX_FUSED_N = 1 << 14;  // the TPU package's fused bound
 constexpr int MAX_WIDTH = 256;    // 64 column groups x 4 columns
 constexpr int COL_GROUPS = 64;
 constexpr int ROW_GROUPS = THREADS / COL_GROUPS;   // 4 row groups of 4 queries
@@ -65,6 +78,7 @@ struct Params {
     float* out;                   // (B, N, dims[n_layers]) f32
     int* idx_out;                 // (B, N, k) i32 or null
     int B, N, C, n_chunks, n_layers;
+    int window;                   // small-C key window (columns)
     int dims[MAX_LAYERS + 1];     // dims[0] = 2C
     const uint16_t* w[MAX_LAYERS];  // bf16 (dims[l], 256), column c at [c % 64][c / 64]
     const float* bias[MAX_LAYERS];  // f32 (256,)
@@ -82,7 +96,7 @@ __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
     return __uint_as_float(bits16 << 16);
 }
 
-template <int K, bool SMALL_C>
+template <int K, bool SMALL_C, bool TILED>
 __global__ void __launch_bounds__(THREADS)
 fused_edgeconv_kernel(const Params p) {
     extern __shared__ __align__(16) unsigned char smem[];
@@ -95,9 +109,10 @@ fused_edgeconv_kernel(const Params p) {
     if constexpr (K == 1) {
         if (t < TM) sidx[t] = min(n0 + t, N - 1);
     } else if constexpr (SMALL_C) {
-        select_small_c<K>(N, C, xb, n0, reinterpret_cast<float*>(work), sidx);
+        select_small_c<K, TILED>(N, C, xb, n0, reinterpret_cast<float*>(work), sidx,
+                                 p.window);
     } else {
-        select_wide_c<K>(N, C, xb, n0, reinterpret_cast<float*>(work), sidx);
+        select_wide_c<K, TILED>(N, C, xb, n0, reinterpret_cast<float*>(work), sidx);
     }
     __syncthreads();
 
@@ -193,9 +208,9 @@ fused_edgeconv_kernel(const Params p) {
     }
 }
 
-template <int K, bool SMALL_C>
+template <int K, bool SMALL_C, bool TILED>
 cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
-    auto kernel = fused_edgeconv_kernel<K, SMALL_C>;
+    auto kernel = fused_edgeconv_kernel<K, SMALL_C, TILED>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
@@ -204,17 +219,17 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-template <bool SMALL_C>
+template <bool SMALL_C, bool TILED>
 cudaError_t launch_k(int k, const Params& p, size_t smem, cudaStream_t stream) {
     switch (k) {
-        case 1: return launch<1, SMALL_C>(p, smem, stream);
-        case 2: return launch<2, SMALL_C>(p, smem, stream);
-        case 3: return launch<3, SMALL_C>(p, smem, stream);
-        case 4: return launch<4, SMALL_C>(p, smem, stream);
-        case 5: return launch<5, SMALL_C>(p, smem, stream);
-        case 6: return launch<6, SMALL_C>(p, smem, stream);
-        case 7: return launch<7, SMALL_C>(p, smem, stream);
-        case 8: return launch<8, SMALL_C>(p, smem, stream);
+        case 1: return launch<1, SMALL_C, TILED>(p, smem, stream);
+        case 2: return launch<2, SMALL_C, TILED>(p, smem, stream);
+        case 3: return launch<3, SMALL_C, TILED>(p, smem, stream);
+        case 4: return launch<4, SMALL_C, TILED>(p, smem, stream);
+        case 5: return launch<5, SMALL_C, TILED>(p, smem, stream);
+        case 6: return launch<6, SMALL_C, TILED>(p, smem, stream);
+        case 7: return launch<7, SMALL_C, TILED>(p, smem, stream);
+        case 8: return launch<8, SMALL_C, TILED>(p, smem, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -223,16 +238,20 @@ cudaError_t launch_k(int k, const Params& p, size_t smem, cudaStream_t stream) {
 
 // Launches the fused EdgeConv on `stream`. Weights are bf16 (dims[l], 256)
 // with column c stored at [c % 64][c / 64], zero beyond dims[l+1]; biases
-// and the final affine are f32 (256,). Returns the CUDA error code (0 = ok);
-// an argument the kernel does not take returns cudaErrorInvalidValue.
+// and the final affine are f32 (256,). The tiled variants run when
+// N > 2048 or when tile_n > 0 (which also sets the small-C key window, at
+// most 2048 columns); tile_n = 0 chooses by N. Returns the CUDA error code
+// (0 = ok); an argument the kernel does not take returns
+// cudaErrorInvalidValue.
 extern "C" int fused_edgeconv_forward(
         const void* x, void* out, void* idx_out,
-        int B, int N, int C, int k, int n_chunks, int n_layers,
+        int B, int N, int C, int k, int n_chunks, int n_layers, int tile_n,
         const void* dims, const void* weights, const void* biases,
         const void* a, const void* d, void* stream) {
     const int* dim = static_cast<const int*>(dims);
-    if (B < 1 || N < 1 || N > MAX_N || C < 1 || C > WIDE_C_MAX || k < 1 || k > MAX_K
-            || k > N || n_layers < 1 || n_layers > MAX_LAYERS
+    if (B < 1 || N < 1 || N > MAX_FUSED_N || C < 1 || C > WIDE_C_MAX || k < 1
+            || k > MAX_K || k > N || n_layers < 1 || n_layers > MAX_LAYERS
+            || tile_n < 0 || tile_n > MAX_N
             || (n_chunks != 1 && n_chunks != 2) || dim[0] != 2 * C)
         return static_cast<int>(cudaErrorInvalidValue);
     Params p{};
@@ -257,11 +276,14 @@ extern "C" int fused_edgeconv_forward(
     p.act_rows = width;
 
     const bool small_c = C <= SMALL_C_MAX;
-    const size_t sel_bytes = select_bytes(N, C);
+    const bool tiled = N > MAX_N || tile_n > 0;
+    p.window = small_c_window(N, C, tiled, tile_n);
+    const size_t sel_bytes = select_bytes(N, C, tiled, p.window);
     const size_t mlp_bytes = 2 * static_cast<size_t>(width) * p.act_stride * 2;
     const size_t smem = HEADER_BYTES + (sel_bytes > mlp_bytes ? sel_bytes : mlp_bytes);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const cudaError_t err = small_c ? launch_k<true>(k, p, smem, s)
-                                    : launch_k<false>(k, p, smem, s);
+    const cudaError_t err =
+        small_c ? (tiled ? launch_k<true, true>(k, p, smem, s) : launch_k<true, false>(k, p, smem, s))
+                : (tiled ? launch_k<false, true>(k, p, smem, s) : launch_k<false, false>(k, p, smem, s));
     return static_cast<int>(err);
 }

@@ -83,9 +83,9 @@ knn_gather_fwd_kernel(const FwdParams p) {
     if constexpr (K == 1) {
         if (t < TM) sidx[t] = min(n0 + t, N - 1);
     } else if constexpr (SMALL_C) {
-        select_small_c<K>(N, C, xb, n0, work, sidx);
+        select_small_c<K, false>(N, C, xb, n0, work, sidx, N);
     } else {
-        select_wide_c<K>(N, C, xb, n0, work, sidx);
+        select_wide_c<K, false>(N, C, xb, n0, work, sidx);
     }
     __syncthreads();
 
@@ -233,7 +233,7 @@ extern "C" int knn_gather_forward(const void* x, void* nbr, void* idx,
     p.nbr = static_cast<float*>(nbr);
     p.idx = static_cast<int*>(idx);
     p.B = B; p.N = N; p.C = C; p.n_chunks = n_chunks;
-    const size_t smem = HEADER_BYTES + select_bytes(N, C);
+    const size_t smem = HEADER_BYTES + select_bytes(N, C, false, N);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const cudaError_t err = C <= SMALL_C_MAX ? launch_fwd_k<true>(k, p, smem, s)
                                              : launch_fwd_k<false>(k, p, smem, s);

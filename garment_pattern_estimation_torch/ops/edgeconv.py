@@ -1,13 +1,13 @@
 """Fused dynamic EdgeConv: kNN + neighbour gather + edge MLP + max.
 
-`fused_edgeconv` is the eval layer. On a CUDA tensor it launches the
-hand-written kernel `csrc/fused_edgeconv.cu` (one launch, the (B, N, k, C)
-gathered tensor never reaches device memory) or raises; on a CPU tensor it
-runs `fused_edgeconv_reference`, the plain PyTorch version with the same
-numerics:
+`fused_edgeconv` is the eval layer, for N <= MAX_FUSED_N (16384). On a CUDA
+tensor it launches the hand-written kernel `csrc/fused_edgeconv.cu` (one
+launch, the (B, N, k, C) gathered tensor never reaches device memory) or
+raises; on a CPU tensor it runs `fused_edgeconv_reference`, the plain
+PyTorch version with the same numerics at any N:
 
-  * selection on packed (21-bit distance | 11-bit column) values, self in
-    slot 0, the k-1 nearest others after it, ties to the lower column;
+  * selection by (quantized distance, column), self in slot 0, the k-1
+    nearest others after it, ties to the lower column (`knn.select_ranked`);
   * small C (<= 16): exact f32 distances summed per dimension, exact rows;
   * wide C: q_norm + k_norm - 2 * (hi.hi + hi.lo + lo.hi) on bf16
     truncation splits, gathered rows hi + lo (f32 mode) or hi (bf16 mode);
@@ -15,8 +15,11 @@ numerics:
     (`fold_mlp_bn`): activations truncated to bf16, weights rounded to
     bf16, f32 accumulation, ReLU, the final affine h * a + d, max over k.
 
-Counterpart of garment_pattern_estimation_tpu/ops/edgeconv.py (the
-single-tile `_fused_kernel`). Eval only: training needs batch statistics.
+Counterpart of garment_pattern_estimation_tpu/ops/edgeconv.py
+`fused_edgeconv`: the single-tile `_fused_kernel` up to 2048 points, the
+column-tiled `_fused_kernel_direct_tiled` (small C) and
+`_fused_kernel_stream` (wide C) beyond. Eval only: training needs batch
+statistics.
 """
 from __future__ import annotations
 
@@ -24,17 +27,20 @@ import ctypes
 
 import torch
 
-from .knn import INT_MAX, IDX_MASK, MAX_N, split_bf16, truncate_bf16
+from .knn import (DIRECT_D_MAX, MAX_N, exact_sq_dists, select_ranked, split_bf16,
+                  truncate_bf16)
 
-SMALL_C_MAX = 16            # C at or below: the exact per-dimension path
+SMALL_C_MAX = DIRECT_D_MAX  # C at or below: the exact per-dimension path
+MAX_FUSED_N = 1 << 14       # the JAX package's fused bound (_MAX_FUSED_N)
 _WIDE_C_MAX = 256
 _MAX_LAYERS = 4
 _MAX_WIDTH = 256            # widest edge-MLP layer the kernel takes
 _MAX_K = 8
 
-# Launches of the CUDA kernel, by variant. Only `fused_edgeconv` adds to
-# them, once per kernel launch; calls that take the plain version do not.
-launches = {'small_c': 0, 'wide_c': 0}
+# Launches of the CUDA kernel, by variant: single tile (N <= 2048) or
+# column-tiled. Only `fused_edgeconv` adds to them, once per kernel launch;
+# calls that take the plain version do not.
+launches = {'small_c': 0, 'wide_c': 0, 'small_c_tiled': 0, 'wide_c_tiled': 0}
 
 
 def reset_launches():
@@ -73,17 +79,13 @@ def edgeconv_select(x, k, mlp_dtype=torch.float32):
 
     Slot 0 is the query itself; slots 1..k-1 hold the k-1 smallest
     (quantized distance, column) pairs over the other columns, compared
-    lexicographically: the kernel's packed selection for any N."""
+    lexicographically: the kernels' selection for any N."""
     B, N, C = x.shape
     k = min(k, N)
     xf = x.float()
     if C <= SMALL_C_MAX:
         # exact f32, dimension by dimension: the kernel's order
-        dists = None
-        for dim in range(C):
-            diff = xf[:, :, None, dim] - xf[:, None, :, dim]
-            sq = diff * diff
-            dists = sq if dists is None else dists + sq
+        dists = exact_sq_dists(xf)
         x_lp = xf
     else:
         q_norm = torch.sum(xf * xf, dim=-1)
@@ -94,17 +96,9 @@ def edgeconv_select(x, k, mlp_dtype=torch.float32):
         cross = cross + lo @ hi.transpose(1, 2)
         dists = torch.clamp_min(
             q_norm[:, :, None] + q_norm[:, None, :] - 2 * cross, 0.0)
+        del cross
         x_lp = hi + lo if mlp_dtype == torch.float32 else hi
-    quantized = dists.view(torch.int32) & ~IDX_MASK
-    del dists
-    quantized.diagonal(dim1=1, dim2=2).fill_(INT_MAX)          # self
-    col = torch.arange(N, device=x.device, dtype=torch.int64)
-    key = (quantized.to(torch.int64) << 32) | col              # unique keys
-    del quantized
-    rest = torch.topk(key, k - 1, dim=-1, largest=False, sorted=True).values \
-        & 0xFFFFFFFF
-    idx = torch.cat([col[None, :, None].expand(B, N, 1), rest], dim=-1)
-    return idx, x_lp
+    return select_ranked(dists, k), x_lp
 
 
 def edgeconv_mlp_max(x, idx, x_lp, folded):
@@ -134,16 +128,27 @@ def fused_edgeconv_reference(x, folded, k, mlp_dtype=torch.float32,
     return (out, idx) if return_idx else out
 
 
-def fused_edgeconv(x, folded, k, *, mlp_dtype=torch.float32, return_idx=False):
-    """x (B, N, C), `fold_mlp_bn` output -> EdgeConv features (B, N, H).
+def fused_edgeconv(x, folded, k, *, mlp_dtype=torch.float32, return_idx=False,
+                   tile_n=None):
+    """x (B, N, C), N <= MAX_FUSED_N, `fold_mlp_bn` output -> EdgeConv
+    features (B, N, H).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises. `return_idx` also returns the neighbour ids (B, N, k)."""
+    or raises. `return_idx` also returns the neighbour ids (B, N, k).
+    `tile_n` (CUDA only) forces the column-tiled variants at any N, with
+    small-C key windows of that many columns, as the TPU kernel's `tile_n`
+    forces its column tiles; the wide-C variant streams 128-key tiles
+    whatever it is."""
+    if x.shape[1] > MAX_FUSED_N:
+        raise NotImplementedError(
+            f'fused_edgeconv: N={x.shape[1]} > {MAX_FUSED_N}; the JAX package '
+            'runs such clouds through the unfused kNN path (standalone kNN + '
+            'gather + edge MLP), not ported yet')
     if x.device.type == 'cpu':
         return fused_edgeconv_reference(x, folded, k, mlp_dtype, return_idx)
     if x.device.type != 'cuda':
         raise ValueError(f'fused_edgeconv: unsupported device {x.device}')
-    return _launch(x, folded, k, mlp_dtype, return_idx)
+    return _launch(x, folded, k, mlp_dtype, return_idx, tile_n)
 
 
 def _pack_weight(w):
@@ -161,7 +166,7 @@ def _pad_vector(v):
     return padded
 
 
-def _launch(x, folded, k, mlp_dtype, return_idx):
+def _launch(x, folded, k, mlp_dtype, return_idx, tile_n):
     from . import _build
 
     layers, (a, d) = folded
@@ -171,10 +176,8 @@ def _launch(x, folded, k, mlp_dtype, return_idx):
         raise ValueError('fused_edgeconv: x must be a contiguous (B, N, C) tensor')
     B, N, C = x.shape
     k = min(k, N)
-    if N > MAX_N:
-        raise NotImplementedError(
-            f'fused_edgeconv: N={N} > {MAX_N} needs the column-tiled kernels '
-            '(_fused_kernel_direct_tiled, _fused_kernel_stream), not ported yet')
+    if tile_n is not None and not 1 <= tile_n <= MAX_N:
+        raise ValueError(f'fused_edgeconv: tile_n={tile_n} is outside 1..{MAX_N}')
     if C > _WIDE_C_MAX or k > _MAX_K or len(layers) > _MAX_LAYERS:
         raise NotImplementedError(
             f'fused_edgeconv: C={C}, k={k}, {len(layers)} layers is beyond the '
@@ -199,17 +202,18 @@ def _launch(x, folded, k, mlp_dtype, return_idx):
     lib = _build.load_library('fused_edgeconv')
     fn = lib.fused_edgeconv_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p] * 6
     dims_arr = (ctypes.c_int * len(dims))(*dims)
     w_arr = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
     b_arr = (ctypes.c_void_p * len(biases))(*[b.data_ptr() for b in biases])
     err = fn(x.data_ptr(), out.data_ptr(), idx.data_ptr() if idx is not None else None,
              B, N, C, k, 2 if mlp_dtype == torch.float32 else 1, len(layers),
-             ctypes.addressof(dims_arr), ctypes.addressof(w_arr),
+             tile_n or 0, ctypes.addressof(dims_arr), ctypes.addressof(w_arr),
              ctypes.addressof(b_arr), a_pad.data_ptr(), d_pad.data_ptr(),
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'fused_edgeconv: kernel launch failed with CUDA error {err}')
-    launches['small_c' if C <= SMALL_C_MAX else 'wide_c'] += 1
+    variant = 'small_c' if C <= SMALL_C_MAX else 'wide_c'
+    launches[variant + ('_tiled' if N > MAX_N or tile_n is not None else '')] += 1
     return (out, idx.long()) if return_idx else out

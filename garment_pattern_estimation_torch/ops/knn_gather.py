@@ -75,8 +75,9 @@ def _check(x, k):
     B, N, C = x.shape
     if N > MAX_N:
         raise NotImplementedError(
-            f'knn_gather: N={N} > {MAX_N} exceeds the packed column ids; the '
-            'standalone kNN kernels for larger clouds are not ported yet')
+            f'knn_gather: N={N} > {MAX_N} exceeds the packed column ids; '
+            'training past 2048 points (the chunked EdgeConv training path) '
+            'is not ported yet')
     if C > _WIDE_C_MAX or not 1 <= k <= min(_MAX_K, N):
         raise NotImplementedError(
             f'knn_gather: C={C}, k={k} is beyond the kernel '
