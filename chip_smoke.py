@@ -53,9 +53,27 @@ Phases, one JSON line each:
            batch: shapes and finiteness, exactly 1 + 1 tiled launches and no
            single-tile launch per forward, batch time, clouds/s and peak
            device memory, and a 1-cloud batch against the CPU plain path
-  profile  one serving forward, one training step and one stress forward
-           under torch.profiler: device time by kernel and the device's idle
-           share
+  knn_wide the wide-D kNN entry `ops.knn.knn` on the stress conv0 output
+           (128, 10000, 150), k = 5, the chunked training's conv1 kNN: one
+           call as a user makes it (its launch count), its ids on the first
+           4 clouds against the plain version (at least WIDE_ID_AGREEMENT
+           equal, every disagreement a near tie of the exact distances),
+           kernel, plain and library (torch.cdist + torch.topk) times
+  stress_training  build_model + Trainer with the att loss and optimizer on
+           a seeded (128, 10000, 3) batch with ground truth in the dataset's
+           shapes, STRESS_TRAIN_STEPS steps through the chunked EdgeConv
+           sweeps: finite losses, the last below the first, exactly 1 knn +
+           1 knn_wide launch and no knn_gather or fused launch per step,
+           median step time, clouds/s and peak device memory; then a 1-cloud
+           step with chunking forced (chunks of 2048, the last one padded)
+           against the CPU plain path from the same weights, with the
+           training phase's loss and norm bars and the CPU's own 1e-7 noise
+           floor beside it
+  profile  one serving forward, one training step, one stress forward and
+           one stress training step under torch.profiler: device time by
+           kernel and by class of kernel (the port's kernels, matrix
+           products, reductions, index gathers and scatters, elementwise
+           passes, copies) and the device's idle share
 Then each phase's seconds, the card's name and power limit, the kernels
 line, and as the last line {"ok": true, "device": {...}}. Any failed check
 exits non-zero.
@@ -137,6 +155,8 @@ NORM_ULPS = 2.0 ** -18             # 32 f32 ulps of the squared norms
 SERVE_CALLS = 11
 STRESS_BATCH, STRESS_POINTS = 128, 10000    # the JAX package's stress configuration
 STRESS_CALLS = 5
+STRESS_TRAIN_STEPS = 4
+FORCED_CHUNK = 2048                         # 10000 points: 5 chunks, the last padded
 CHUNK = 4
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3
@@ -153,6 +173,9 @@ TILED_REPLACES = {'small_c': 'garment_pattern_estimation_tpu/ops/edgeconv.py:246
                   'wide_c': 'garment_pattern_estimation_tpu/ops/edgeconv.py:313'}
 KNN_SOURCE = 'garment_pattern_estimation_torch/ops/csrc/knn.cu'
 KNN_REPLACES = 'garment_pattern_estimation_tpu/ops/knn.py:257'
+KNN_WIDE_SOURCE = 'garment_pattern_estimation_torch/ops/csrc/knn_wide.cu'
+KNN_WIDE_REPLACES = ('garment_pattern_estimation_tpu/ops/knn.py:314, '
+                     'garment_pattern_estimation_tpu/ops/knn.py:360')
 
 
 def emit(obj):
@@ -223,14 +246,15 @@ def bound(B, N, C, k, widths):
     return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
 
 
-def near_tie_ratio(x, idx, ref_idx):
+def near_tie_ratio(x, idx, ref_idx, quantized=True):
     """Worst ratio, over the rows whose ids differ from the plain version's,
     of the distance gap to the near-tie bound; 0 when all rows agree.
 
     Disagreements must be near ties: the exactly recomputed distances of the
-    two neighbour sets differ by a few quantization buckets plus the
-    rounding of q_norm + k_norm - 2 * cross (a few ulps of the norms). Only
-    the differing rows' own points are gathered."""
+    two neighbour sets differ by a few quantization buckets (none for the
+    wide-D kNN, which ranks exact values) plus the rounding of
+    q_norm + k_norm - 2 * cross (a few ulps of the norms). Only the
+    differing rows' own points are gathered."""
     import torch
 
     rows = (~(idx == ref_idx).all(dim=-1)).nonzero()
@@ -245,16 +269,17 @@ def near_tie_ratio(x, idx, ref_idx):
         return ((nbr - q[:, None]) ** 2).sum(-1).sort(dim=-1).values, norms
 
     (d_kernel, n_kernel), (d_plain, n_plain) = dists(idx), dists(ref_idx)
-    allowed = NEAR_TIE_REL * d_plain + NORM_ULPS * torch.maximum(n_kernel, n_plain)[:, None]
+    allowed = NEAR_TIE_REL * quantized * d_plain \
+        + NORM_ULPS * torch.maximum(n_kernel, n_plain)[:, None]
     return ((d_kernel - d_plain).abs() / allowed).max().item(), int(rows.shape[0])
 
 
-def check_ids(name, x, idx, ref_idx):
+def check_ids(name, x, idx, ref_idx, quantized=True):
     """Small C: every id equals the plain version's; wide C: at least 99%,
     every disagreement a near tie. Returns (share of equal ids, rows that
     differ, worst near-tie ratio)."""
     id_share = (idx == ref_idx).float().mean().item()
-    worst_tie, n_rows = near_tie_ratio(x, idx, ref_idx)
+    worst_tie, n_rows = near_tie_ratio(x, idx, ref_idx, quantized)
     if x.shape[-1] <= 16:
         check(id_share == 1.0, f'{name}: neighbour ids agree on {id_share}, not all')
     else:
@@ -371,6 +396,53 @@ def knn_phase(points):
     emit({'phase': 'knn', 'shape': [B, N, D], 'k': K, 'checked_clouds': CHUNK,
           'id_agreement': agreement, 'plain_chunk': CHUNK, **line})
     check(agreement == 1.0, f'knn: ids agree with the plain version on {agreement}, not all')
+    return line
+
+
+def knn_wide_bound(B, N, D, k):
+    """Least time (ms) on the card for the wide-D kNN ids and what bounds
+    it: the points read once and the int32 ids written once; the six bf16
+    split products, 6 x 2 B N^2 D operations at the bf16 tensor-core peak
+    (selection compares not counted)."""
+    ops_ms = 6 * 2.0 * B * N * N * D / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = 4.0 * B * N * (D + k) / PEAK_BYTES * 1e3
+    return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
+
+
+def knn_wide_phase(points):
+    """The wide-D kNN entry on the stress conv1 input; returns its line of
+    the kernels list (launches filled in by the stress training phase)."""
+    import torch
+    from garment_pattern_estimation_torch.ops import knn
+
+    B, N, D = points.shape
+    knn.reset_launches()
+    ids = knn.knn(points, K)                      # the entry, as a user calls it
+    torch.cuda.synchronize()
+    per_call = dict(knn.launches)
+    check(per_call == {'knn': 0, 'knn_wide': 1},
+          f'knn_wide: the entry launched {per_call}, expected one wide-D kernel')
+    check(tuple(ids.shape) == (B, N, K), f'knn_wide: ids of shape {tuple(ids.shape)}')
+    xc, ids_c = points[:CHUNK], ids[:CHUNK]
+    ref = knn.knn_reference(xc, K)
+    id_share, n_rows, worst_tie = check_ids('knn_wide', xc, ids_c, ref, quantized=False)
+    check(torch.equal(ids_c[..., 0], ref[..., 0]), 'knn_wide: slot 0 is not the query')
+    id_err = (ids_c - ref).abs().max().item()
+    del ref, ids, ids_c
+    line = {'name': 'knn_wide', 'route': 'cuda', 'source': KNN_WIDE_SOURCE,
+            'replaces': KNN_WIDE_REPLACES, 'launches': None, 'max_abs_err': id_err,
+            'ms': cuda_ms(lambda: knn.knn(points, K), 1, 5),
+            'plain_ms': cuda_ms(lambda: chunked(lambda xs: knn.knn_reference(xs, K),
+                                                points, CHUNK), 1, 3),
+            # torch.cdist + torch.topk: two calls, other rounding and ties
+            'library_ms': cuda_ms(lambda: chunked(
+                lambda xs: torch.topk(torch.cdist(xs, xs), K, largest=False).indices,
+                points, CHUNK), 1, 3)}
+    line['bound_ms'], line['bound_by'] = knn_wide_bound(B, N, D, K)
+    emit({'phase': 'knn_wide', 'shape': [B, N, D], 'k': K, 'checked_clouds': CHUNK,
+          'launches_per_call': per_call['knn_wide'], 'id_agreement': id_share,
+          'id_disagreeing_rows': n_rows, 'near_tie_ratio': worst_tie,
+          'plain_chunk': CHUNK, **line})
     return line
 
 
@@ -575,10 +647,10 @@ def stress_serving_phase(model, serve):
     return launches, points
 
 
-def training_batch(gen, batch, device):
-    """A standardized (batch, 2000, 3) cloud and ground truth in the
-    dataset's shapes: 2-12 panels of 3-14 edges, the pad vector beyond
-    them."""
+def training_batch(gen, batch, device, points=None):
+    """A standardized (batch, points (default POINTS), 3) cloud and ground
+    truth in the dataset's shapes: 2-12 panels of 3-14 edges, the pad
+    vector beyond them."""
     import torch
     from garment_pattern_estimation_torch.losses.components import eval_pad_vector
 
@@ -596,7 +668,7 @@ def training_batch(gen, batch, device):
           'rotations': torch.randn(batch, P, 4, generator=gen) * 0.5,
           'translations': torch.randn(batch, P, 3, generator=gen) * 0.5,
           'num_edges': num_edges.int(), 'num_panels': num_panels.int()}
-    return {'features': torch.randn(batch, POINTS, 3, generator=gen).to(device),
+    return {'features': torch.randn(batch, points or POINTS, 3, generator=gen).to(device),
             'ground_truth': {k: v.to(device) for k, v in gt.items()}}
 
 
@@ -621,6 +693,41 @@ def gradient_gap(grads, ref):
     max_rel = max(((grads[n] - g).abs().max() / g.abs().max()).item() for n, g in ref.items())
     return {'grad_rel_l2': (diff / norm).item(), 'worst_param_rel_l2': worst[0],
             'worst_param': worst[1], 'worst_element_rel': max_rel}
+
+
+def compare_step_cpu(name, model, batch, clouds, configure=None):
+    """Loss and gradients of one train-mode step on the first `clouds`
+    clouds on the card against the plain path of the same weights on the
+    CPU, held to the loss and norm bars; beside them the floor, the CPU
+    path against itself on the cloud perturbed by 1e-7. `configure` (a
+    function of the module) sets both copies up first."""
+    import torch
+
+    small = {'features': batch['features'][:clouds],
+             'ground_truth': {k: v[:clouds] for k, v in batch['ground_truth'].items()}}
+    card_model = copy.copy(model)
+    card_model.module = copy.deepcopy(model.module)
+    cpu_model = copy.copy(model)
+    cpu_model.module = copy.deepcopy(model.module).cpu()
+    for m in (card_model, cpu_model):
+        if configure is not None:
+            configure(m.module)
+    card_loss, card_grads = step_gradients(card_model, small)
+    cpu_small = {'features': small['features'].cpu(),
+                 'ground_truth': {k: v.cpu() for k, v in small['ground_truth'].items()}}
+    cpu_loss, cpu_grads = step_gradients(cpu_model, cpu_small)
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    gaps = {'loss_rel': loss_rel, **gradient_gap(card_grads, cpu_grads)}
+    noisy = cpu_small['features'] * (1 + 1e-7 * torch.randn(
+        cpu_small['features'].shape, generator=torch.Generator().manual_seed(5)))
+    _, noisy_grads = step_gradients(cpu_model, dict(cpu_small, features=noisy))
+    gaps['cpu_1e-7_noise'] = gradient_gap(noisy_grads, cpu_grads)
+    check(loss_rel <= TRAIN_LOSS_REL,
+          f'{name}: {clouds}-cloud loss off the CPU path by {loss_rel}')
+    check(gaps['grad_rel_l2'] <= TRAIN_GRAD_REL
+          and gaps['worst_param_rel_l2'] <= TRAIN_PARAM_GRAD_REL,
+          f'{name}: gradients off the CPU path: {gaps}')
+    return gaps
 
 
 def train_phase():
@@ -668,27 +775,7 @@ def train_phase():
     check(math.isfinite(eval_loss.item()), f'training: eval loss {eval_loss.item()}')
 
     # a 2-cloud step against the plain path of the same weights on the CPU
-    small = {'features': batch['features'][:2],
-             'ground_truth': {k: v[:2] for k, v in batch['ground_truth'].items()}}
-    card_model = copy.copy(model)
-    card_model.module = copy.deepcopy(model.module)
-    cpu_model = copy.copy(model)
-    cpu_model.module = copy.deepcopy(model.module).cpu()
-    card_loss, card_grads = step_gradients(card_model, small)
-    cpu_small = {'features': small['features'].cpu(),
-                 'ground_truth': {k: v.cpu() for k, v in small['ground_truth'].items()}}
-    cpu_loss, cpu_grads = step_gradients(cpu_model, cpu_small)
-    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
-    gaps = {'loss_rel': loss_rel, **gradient_gap(card_grads, cpu_grads)}
-    # the floor: the CPU path against itself on the cloud perturbed by 1e-7
-    noisy = cpu_small['features'] * (1 + 1e-7 * torch.randn(
-        cpu_small['features'].shape, generator=torch.Generator().manual_seed(5)))
-    _, noisy_grads = step_gradients(cpu_model, dict(cpu_small, features=noisy))
-    gaps['cpu_1e-7_noise'] = gradient_gap(noisy_grads, cpu_grads)
-    check(loss_rel <= TRAIN_LOSS_REL, f'training: 2-cloud loss off the CPU path by {loss_rel}')
-    check(gaps['grad_rel_l2'] <= TRAIN_GRAD_REL
-          and gaps['worst_param_rel_l2'] <= TRAIN_PARAM_GRAD_REL,
-          f'training: gradients off the CPU path: {gaps}')
+    gaps = compare_step_cpu('training', model, batch, 2)
 
     q1, step_ms, q3 = statistics.quantiles(times[1:], n=4)
     emit({'phase': 'training', 'batch': [TRAIN_BATCH, POINTS, 3], 'steps': TRAIN_STEPS,
@@ -704,6 +791,73 @@ def train_phase():
     return launches, lambda: trainer.train_step(model, batch, epoch=0, generator=states)
 
 
+def stress_train_phase():
+    """Training at the stress configuration: every EdgeConv layer through
+    the chunked sweeps, conv0's kNN through the small-D kernel and conv1's
+    through the wide-D one. Returns the launches and a function that takes
+    one more step."""
+    import torch
+    from garment_pattern_estimation_torch.models import build_model
+    from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather
+    from garment_pattern_estimation_torch.ops.edgeconv_train import _default_chunk
+    from garment_pattern_estimation_torch.train import Trainer
+
+    model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG, ATT_NN_CONFIG,
+                        ATT_LOSS_CONFIG, seed=0)
+    trainer = Trainer(ATT_TRAINER)
+    trainer.make_optimizer(model, steps_per_epoch=STRESS_TRAIN_STEPS)
+    batch = training_batch(torch.Generator().manual_seed(8), STRESS_BATCH, 'cuda',
+                           STRESS_POINTS)
+    states = torch.Generator(device='cuda').manual_seed(ATT_TRAINER['random_seed'])
+    convs = model.module.feature_extractor.conv_layers
+    check(all(conv.chunked(STRESS_BATCH, STRESS_POINTS, w)
+              for conv, w in zip(convs, (3, ATT_NN_CONFIG['EConv_feature']))),
+          'stress_training: the auto rule does not chunk the stress batch')
+
+    torch.cuda.reset_peak_memory_stats()
+    for counter in (edgeconv, knn, knn_gather):
+        counter.reset_launches()
+    losses, times = [], []
+    for step in range(STRESS_TRAIN_STEPS):
+        before = dict(knn.launches)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        loss, terms = trainer.train_step(model, batch, epoch=0, generator=states)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        losses.append(loss.item())
+        per_step = {key: knn.launches[key] - before[key] for key in before}
+        check(per_step == {'knn': 1, 'knn_wide': 1},
+              f'stress_training: step {step} launched {per_step}, expected 1 + 1')
+    launches = dict(knn.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(not any(knn_gather.launches.values()),
+          f'stress_training: knn_gather launched {knn_gather.launches}')
+    check(not any(edgeconv.launches.values()),
+          f'stress_training: the fused eval kernel launched {edgeconv.launches}')
+    check(all(math.isfinite(v) for v in losses), f'stress_training: losses {losses}')
+    check(losses[-1] < losses[0], f'stress_training: the loss did not fall: {losses}')
+
+    def forced(module):
+        for conv in module.feature_extractor.conv_layers:
+            conv.train_chunked, conv.train_chunk_size = True, FORCED_CHUNK
+
+    gaps = compare_step_cpu('stress_training', model, batch, 1, forced)
+    step_ms = statistics.median(times[1:])
+    emit({'phase': 'stress_training', 'batch': [STRESS_BATCH, STRESS_POINTS, 3],
+          'steps': STRESS_TRAIN_STEPS, 'train_mode': convs[0].train_mode,
+          'chunk': _default_chunk(STRESS_BATCH, STRESS_POINTS, K, max(
+              ATT_NN_CONFIG['EConv_hidden'], ATT_NN_CONFIG['EConv_feature'])),
+          'launches': launches,
+          'losses': losses,
+          'terms_last_step': {k: v.item() if math.isfinite(v.item()) else None
+                              for k, v in terms.items()},
+          'step_times_ms': times, 'step_ms': step_ms,
+          'clouds_per_s': STRESS_BATCH / step_ms * 1e3, 'peak_memory_gb': peak_gb,
+          'vs_cpu_plain_1_cloud_forced_chunks': gaps})
+    return launches, lambda: trainer.train_step(model, batch, epoch=0, generator=states)
+
+
 def profile_phase(name, fn):
     """One call of `fn` under torch.profiler: device time by kernel (the
     events on the card; host-side ranges such as autograd nodes, which
@@ -716,6 +870,11 @@ def profile_phase(name, fn):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a second profiler session in one process can lose the first
+        # kernel it sees (the stress step's kNN kernel was missing without
+        # this): a marker kernel takes that place
+        torch.zeros(1, device='cuda').add_(1)
+        torch.cuda.synchronize()
         start = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -724,15 +883,37 @@ def profile_phase(name, fn):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    by_class = {}
+    for key, ms, _ in rows:
+        kind = kernel_class(key)
+        by_class[kind] = by_class.get(kind, 0.0) + ms
     emit({'phase': 'profile', 'of': name, 'wall_ms': wall_ms, 'device_kernel_ms': device_ms,
-          'idle_share': max(0.0, 1.0 - device_ms / wall_ms),
-          'top': [{'kernel': k[:80], 'ms': ms, 'count': n} for k, ms, n in rows[:12]]})
+          'idle_share': max(0.0, 1.0 - device_ms / wall_ms), 'by_class_ms': by_class,
+          'kernel_rows': len(rows),
+          'top': [{'kernel': k[:160], 'ms': ms, 'count': n} for k, ms, n in rows[:16]]})
+
+
+def kernel_class(key):
+    """The class of a device kernel by its name: each of the port's own
+    kernels by name, else matrix products, reductions, index gathers and
+    scatters, elementwise passes, copies and fills, other."""
+    for own in ('knn_wide_kernel', 'knn_kernel', 'fused_edgeconv_kernel', 'knn_gather'):
+        if own in key:
+            return own
+    lowered = key.lower()
+    for kind, marks in (('gemm', ('gemm', 'gemv')),
+                        ('index_gather_scatter', ('indexfunc', 'indexselect', 'scatter_gather')),
+                        ('reduce', ('reduce_kernel',)), ('elementwise', ('elementwise',)),
+                        ('copy_fill', ('memcpy', 'memset', 'copy', 'fill'))):
+        if any(mark in lowered for mark in marks):
+            return kind
+    return 'other'
 
 
 def stress_kernels(widths):
-    """The standalone kNN and the two column-tiled fused variants on a
-    seeded stress batch (conv1 on conv0's output); returns their lines of
-    the kernels list."""
+    """The standalone kNN, the two column-tiled fused variants and the
+    wide-D kNN on a seeded stress batch (conv1 and the wide-D kNN on
+    conv0's output); returns their lines of the kernels list."""
     import torch
 
     gen = torch.Generator().manual_seed(7)
@@ -744,7 +925,8 @@ def stress_kernels(widths):
                                   tile_variant=True)
     _, wide_line = check_kernel('fused_edgeconv_wide_c_tiled', x1, conv1, widths,
                                 tile_variant=True)
-    return knn_line, small_line, wide_line
+    knn_wide_line = knn_wide_phase(x1)
+    return knn_line, small_line, wide_line, knn_wide_line
 
 
 def timed(seconds, name, fn, *args):
@@ -785,8 +967,8 @@ def main():
     widths = [ATT_NN_CONFIG['EConv_hidden']] * ATT_NN_CONFIG['EConv_hidden_depth'] \
         + [ATT_NN_CONFIG['EConv_feature']]
     small_line, wide_line, gather_lines = timed(seconds, 'kernel+knn_gather', att_kernels)
-    knn_line, small_tiled_line, wide_tiled_line = timed(
-        seconds, 'knn+kernel_tiled', stress_kernels, widths)
+    knn_line, small_tiled_line, wide_tiled_line, knn_wide_line = timed(
+        seconds, 'knn+kernel_tiled+knn_wide', stress_kernels, widths)
 
     launches, model, serve, points = timed(seconds, 'serving', serve_phase)
     small_line['launches'] = launches['small_c']
@@ -802,6 +984,14 @@ def main():
     timed(seconds, 'profile_training_step', profile_phase, 'training_step', train_step)
     timed(seconds, 'profile_stress_serving', profile_phase, 'stress_serving',
           lambda: serve(stress_points))
+    del model, serve, stress_points
+    # the main path of the standalone kNN kernels: one launch each per step
+    stress_train_launches, stress_train_step = timed(seconds, 'stress_training',
+                                                     stress_train_phase)
+    knn_line['launches'] = stress_train_launches['knn']
+    knn_wide_line['launches'] = stress_train_launches['knn_wide']
+    timed(seconds, 'profile_stress_training_step', profile_phase, 'stress_training_step',
+          stress_train_step)
     emit({'phase_seconds': seconds})
 
     card = subprocess.run(
@@ -809,7 +999,7 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     emit({'kernels': [small_line, wide_line, small_tiled_line, wide_tiled_line, knn_line,
-                      *gather_lines]})
+                      knn_wide_line, *gather_lines]})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

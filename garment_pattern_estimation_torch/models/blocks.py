@@ -5,12 +5,14 @@ names follow the reference NeuralTailor state dict (`MLP`: `{j}.0` Linear,
 `{j}.2` BatchNorm1d; LSTM: `weight_ih_l{k}` ...), so the port loads a
 reference checkpoint with a plain `load_state_dict`.
 
-Eval folds each BatchNorm's running statistics into the next layer and runs
-EdgeConv through the fused kernel: the single-tile variants up to 2048
-points, the column-tiled ones up to 16384 (`ops.edgeconv.MAX_FUSED_N`).
-Train computes each BatchNorm's batch
-statistics, folds them the same way, and runs EdgeConv through `knn_gather`
-(kernels for the kNN + gather and its backward) and the edge MLP in PyTorch.
+EdgeConv routes as the JAX layer does. Eval folds each BatchNorm's running
+statistics into the next layer and runs the fused kernel up to 16384 points
+(single-tile up to 2048, column-tiled beyond); past that, the unfused path:
+the standalone kNN, the neighbour gather and the edge MLP. Train computes
+each BatchNorm's batch statistics: through `knn_gather` (kernels for the kNN
++ gather and its backward) and the edge MLP in PyTorch up to 2048 points,
+the unfused path beyond, and the chunked rematerialized sweeps
+(`ops.edgeconv_train`) when the widest per-edge tensor would pass 2 GB.
 """
 from __future__ import annotations
 
@@ -20,11 +22,30 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.edgeconv import fold_mlp_bn, fused_edgeconv
-from ..ops.knn_gather import knn_gather
-from ..ops.pooling import GLOBAL_POOLS
+from ..ops.edgeconv import fold_mlp_bn, fused_edgeconv, fused_edgeconv_supported
+from ..ops.edgeconv_train import MODES as TRAIN_MODES, chunked_edgeconv_train
+from ..ops.knn import knn as knn_search
+from ..ops.knn_gather import knn_gather, knn_gather_supported
+from ..ops.pooling import GLOBAL_POOLS, gather_neighbors
 
 BN_MOMENTUM = 0.1           # running = 0.9 * running + 0.1 * batch (flax momentum 0.9)
+
+
+@torch.no_grad()
+def _update_running(bn, mean, var):
+    bn.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
+    bn.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var)
+
+
+def _first_edge_layer(edge_pair, W, b):
+    """relu of the first layer on the EdgeConv input [x_i ; x_j - x_i]
+    factored as (center (B, N, C), neighbours, the neighbours' slot axis):
+    center @ (W_top - W_bot) + b + neighbours @ W_bot, so the (..., 2C)
+    edge tensor never materializes."""
+    center, neighbours, axis = edge_pair
+    C = center.shape[-1]
+    point_term = center @ (W[:C] - W[C:]) + b                    # (B, N, H)
+    return torch.relu(point_term.unsqueeze(axis) + neighbours @ W[C:])
 
 
 class MLP(nn.ModuleList):
@@ -36,11 +57,12 @@ class MLP(nn.ModuleList):
     Train folds the batch statistics: the mean and the biased variance in
     f32 of each ReLU output over every leading axis (flax BatchNorm
     semantics; torch's BatchNorm1d would keep the unbiased variance in its
-    running average), and updates the running averages in place. The
-    `edge_pair` form of the first layer takes the EdgeConv input
-    [x_i ; x_j - x_i] factored as (center (B, N, C), neighbours
-    (B, k, N, C)): center @ (W_top - W_bot) + b + neighbours @ W_bot, so the
-    (..., 2C) edge tensor never materializes."""
+    running average), and updates the running averages in place;
+    `update_running_stats` does the same update from statistics computed
+    elsewhere (the chunked EdgeConv sweeps). The `edge_pair` form of the
+    first layer, in both modes, takes the EdgeConv input factored as
+    (center (B, N, C), neighbours (B, k, N, C) or (B, N, k, C), the slot
+    axis 1 or 2) (`_first_edge_layer`)."""
 
     def __init__(self, sizes: Sequence[int], eps: float = 1e-5):
         super().__init__(
@@ -55,15 +77,19 @@ class MLP(nn.ModuleList):
             [(s[0].weight, s[0].bias, s[2].weight, s[2].bias,
               s[2].running_mean, s[2].running_var) for s in self], self.eps)
 
+    def update_running_stats(self, stats):
+        """Each BN's running averages from external (mean, biased var)
+        pairs, one per layer, at the train forward's momentum."""
+        for (_, _, bn), (mean, var) in zip(self, stats):
+            _update_running(bn, mean, var)
+
     def forward(self, x=None, edge_pair=None):
         if self.training:
             return self._train_forward(x, edge_pair)
-        if edge_pair is not None:
-            raise NotImplementedError('MLP: edge_pair is a train-mode form; eval '
-                                      'runs the fused EdgeConv kernel')
         layers, (a, d) = self.folded()
-        for w, b in layers:
-            x = torch.relu(x @ w + b)
+        for i, (w, b) in enumerate(layers):
+            x = _first_edge_layer(edge_pair, w, b) if i == 0 and edge_pair is not None \
+                else torch.relu(x @ w + b)
         return x * a + d
 
     def _train_forward(self, x, edge_pair):
@@ -71,23 +97,17 @@ class MLP(nn.ModuleList):
         for i, (linear, _, bn) in enumerate(self):
             W, b = linear.weight.t(), linear.bias
             if i == 0 and edge_pair is not None:
-                center, neighbours = edge_pair
-                C = center.shape[-1]
-                point_term = center @ (W[:C] - W[C:]) + b           # (B, N, H)
-                h = point_term[:, None] + neighbours @ W[C:]        # (B, k, N, H)
+                x = _first_edge_layer(edge_pair, W, b)
             elif pending is not None:
                 a, d = pending
-                h = x @ (a[:, None] * W) + (d @ W + b)
+                x = torch.relu(x @ (a[:, None] * W) + (d @ W + b))
             else:
-                h = x @ W + b
-            x = torch.relu(h)
+                x = torch.relu(x @ W + b)
             xf = x.float()
             dims = tuple(range(x.dim() - 1))
             mean = xf.mean(dim=dims)
             var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
-            with torch.no_grad():
-                bn.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean)
-                bn.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var)
+            _update_running(bn, mean, var)
             a = bn.weight * torch.rsqrt(var + self.eps)
             d = bn.bias - mean * a
             pending = (a, d)
@@ -98,40 +118,80 @@ class MLP(nn.ModuleList):
 class EdgeConv(nn.Module):
     """One dynamic EdgeConv layer, max aggregation: kNN graph on the current
     features, edge MLP on [x_i ; x_j - x_i], max over the k neighbours.
-    Eval runs the fused layer (`ops.edgeconv.fused_edgeconv`) for
-    N <= 16384: single-tile kernels up to 2048 points, column-tiled ones
-    beyond; past 16384 it raises (the JAX package's unfused kNN path is not
-    ported). Train gathers the neighbours slot-major with
-    `ops.knn_gather.knn_gather` (N <= 2048 on the card) and runs the edge
-    MLP in its `edge_pair` form."""
+
+    Routing, as garment_pattern_estimation_tpu/models/blocks.py:196-284:
+      * train, chunked (`train_chunked`, None = when B N k max(C, widths) 4
+        bytes pass `_CHUNK_TRAIN_BYTES`): `knn` on the detached input, then
+        `ops.edgeconv_train.chunked_edgeconv_train` (`train_chunk_size`
+        queries per sweep step, `train_mode` its schedule), then the
+        running statistics from its (mean, var) pairs;
+      * train, N <= 2048: `knn_gather` (kernels on the card) and the edge
+        MLP on the slot-major (B, k, N, C) rows;
+      * train past 2048 points and eval past 16384: `knn`,
+        `gather_neighbors` and the edge MLP on (B, N, k, C);
+      * eval up to 16384 points: the fused layer `fused_edgeconv`.
+    """
+
+    # the unfused path materializes (B, N, k, W) for the widest W among the
+    # gathered C and the hidden widths; past 2 GB (the 128 x 10k stress
+    # configuration) only the chunked sweeps fit
+    _CHUNK_TRAIN_BYTES = 1 << 31
 
     def __init__(self, in_channels: int, mlp_features: Sequence[int], k: int = 5,
-                 aggr: str = 'max'):
+                 aggr: str = 'max', train_chunked: bool | None = None,
+                 train_chunk_size: int | None = None, train_mode: str = 'fused_final'):
         super().__init__()
         if aggr != 'max':
             raise NotImplementedError(
                 f'EdgeConv: aggregation <{aggr}> is not ported (only max)')
+        if train_mode not in TRAIN_MODES:
+            raise ValueError(f'unknown EdgeConv train mode {train_mode!r}')
         self.k = k
+        self.mlp_features = list(mlp_features)
+        self.train_chunked = train_chunked
+        self.train_chunk_size = train_chunk_size
+        self.train_mode = train_mode
         self.nn = MLP([2 * in_channels, *mlp_features])
+
+    def chunked(self, B, N, C):
+        """Whether train mode takes the chunked sweeps for a (B, N, C) input."""
+        if self.train_chunked is not None:
+            return self.train_chunked
+        widest = max([C, *self.mlp_features])
+        return B * N * min(self.k, N) * widest * 4 > self._CHUNK_TRAIN_BYTES
 
     def forward(self, x):
         x = x.float().contiguous()
-        if not self.training:
+        B, N, C = x.shape
+        k = min(self.k, N)
+        if self.training:
+            if self.chunked(B, N, C):
+                idx = knn_search(x.detach(), k)
+                out, stats = chunked_edgeconv_train(
+                    x, idx, self.nn, chunk=self.train_chunk_size, mode=self.train_mode)
+                self.nn.update_running_stats(stats)
+                return out
+            if knn_gather_supported(N):
+                neighbours, _ = knn_gather(x, k)
+                return torch.amax(self.nn(edge_pair=(x, neighbours, 1)), dim=1)
+        elif fused_edgeconv_supported(N, C):
             return fused_edgeconv(x, self.nn.folded(), k=self.k)
-        neighbours, _ = knn_gather(x, min(self.k, x.shape[1]))
-        return torch.amax(self.nn(edge_pair=(x, neighbours)), dim=1)
+        neighbours = gather_neighbors(x, knn_search(x.detach(), k))    # (B, N, k, C)
+        return torch.amax(self.nn(edge_pair=(x, neighbours, 2)), dim=2)
 
 
 class EdgeConvFeatures(nn.Module):
     """Stacked dynamic EdgeConv layers + optional xyz skip + optional global
     pool and linear head. Returns (global encoding | None, per-point
-    features (B, N, F), mask=None)."""
+    features (B, N, F), mask=None). `train_chunk_size` and `train_mode`
+    reach every layer (`EdgeConv`)."""
 
     def __init__(self, out_size: int, conv_depth: int = 2, k_neighbors: int = 5,
                  econv_hidden: int = 200, econv_hidden_depth: int = 2,
                  econv_feature: int = 112, econv_aggr: str = 'max',
                  global_pool: str = 'mean', skip_connections: bool = False,
-                 graph_pooling: bool = False, global_head: bool = True):
+                 graph_pooling: bool = False, global_head: bool = True,
+                 train_chunk_size: int | None = None, train_mode: str = 'fused_final'):
         super().__init__()
         if graph_pooling:
             raise NotImplementedError(
@@ -142,7 +202,8 @@ class EdgeConvFeatures(nn.Module):
         mlp = [econv_hidden] * econv_hidden_depth + [econv_feature]
         widths = [3] + [econv_feature] * conv_depth       # xyz in
         self.conv_layers = nn.ModuleList(
-            EdgeConv(widths[i], mlp, k=k_neighbors, aggr=econv_aggr)
+            EdgeConv(widths[i], mlp, k=k_neighbors, aggr=econv_aggr,
+                     train_chunk_size=train_chunk_size, train_mode=train_mode)
             for i in range(conv_depth))
         out_features = econv_feature + (3 if skip_connections else 0)
         # the global head exists only where the model pools globally

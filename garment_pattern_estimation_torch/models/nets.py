@@ -23,7 +23,10 @@ from ..ops.sparsemax import sparsemax
 class GarmentSegmentPattern3DModule(nn.Module):
     """Per-point MLP + sparsemax route point features into
     `max_pattern_size` panel slots; the pooled per-panel features are
-    projected and decoded panel by panel by the LSTM panel decoder."""
+    projected and decoded panel by panel by the LSTM panel decoder.
+    `edgeconv_train_chunk` and `edgeconv_train_mode` set the chunked
+    EdgeConv training path of every conv layer (NN config keys of the same
+    names)."""
 
     def __init__(self, *, element_size=4, max_panel_len=14, max_pattern_size=23,
                  rotation_size=4, translation_size=3, panel_encoding_size=250,
@@ -33,7 +36,8 @@ class GarmentSegmentPattern3DModule(nn.Module):
                  panel_decoder='LSTMDecoderModule', conv_depth=2, k_neighbors=5,
                  econv_hidden=200, econv_hidden_depth=2, econv_feature=112,
                  econv_aggr='max', global_pool='mean', skip_connections=False,
-                 graph_pooling=False, local_attention=True):
+                 graph_pooling=False, local_attention=True, edgeconv_train_chunk=None,
+                 edgeconv_train_mode='fused_final'):
         super().__init__()
         if feature_extractor not in blocks.ENCODER_REGISTRY:
             raise NotImplementedError(
@@ -56,7 +60,8 @@ class GarmentSegmentPattern3DModule(nn.Module):
             econv_hidden_depth=econv_hidden_depth, econv_feature=econv_feature,
             econv_aggr=econv_aggr, global_pool=global_pool,
             skip_connections=skip_connections, graph_pooling=graph_pooling,
-            global_head=not local_attention)
+            global_head=not local_attention, train_chunk_size=edgeconv_train_chunk,
+            train_mode=edgeconv_train_mode)
         self.panel_decoder = blocks.DECODER_REGISTRY[panel_decoder](
             encoding_size=panel_encoding_size, hidden_size=panel_hidden_size,
             out_elem_size=element_size + stitch_tag_dim + 1,

@@ -151,6 +151,8 @@ def build_model(model_name, data_config, nn_config=None, loss_config=None, *,
         max_pattern_size=data_config['max_pattern_len'],
         rotation_size=data_config['rotation_size'],
         translation_size=data_config['translation_size'],
+        edgeconv_train_chunk=edgeconv_train_chunk,
+        edgeconv_train_mode=edgeconv_train_mode,
     )
     for key, value in config.items():
         if key not in _UNUSED_BY_MODULE:

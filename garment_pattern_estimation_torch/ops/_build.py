@@ -23,7 +23,8 @@ _CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[1] / '_build'
 SOURCES = {'fused_edgeconv': _CSRC / 'fused_edgeconv.cu',
            'knn_gather': _CSRC / 'knn_gather.cu',
-           'knn': _CSRC / 'knn.cu'}
+           'knn': _CSRC / 'knn.cu',
+           'knn_wide': _CSRC / 'knn_wide.cu'}
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 

@@ -1,6 +1,7 @@
 // Neighbour selection shared by the fused EdgeConv kernel
 // (fused_edgeconv.cu), the knn_gather forward kernel (knn_gather.cu) and the
-// standalone kNN kernel (knn.cu).
+// standalone kNN kernels (knn.cu; knn_wide.cu takes the constants, `insert`
+// and `merge_lists` with a ranking key of its own).
 //
 // One block of THREADS threads selects, for TM query rows of one batch
 // element, slot 0 = the query itself and slots 1..k-1 = the k-1 smallest
@@ -83,11 +84,11 @@ __device__ __forceinline__ void insert(T (&best)[M], T v) {
 }
 
 // The 16 lanes of one query (a half warp) merge their lists: k-1 rounds of
-// a min over the half warp; the lane holding the winner pops it.
-template <int K, bool TILED>
-__device__ __forceinline__ void merge_lists(typename Rank<TILED>::T (&best)[K - 1],
+// a min over the half warp; the lane holding the winner pops it. R is a
+// ranking key type: Rank<TILED> here, or knn_wide.cu's exact-value key.
+template <int K, typename R>
+__device__ __forceinline__ void merge_lists(typename R::T (&best)[K - 1],
                                             int* sidx, int q, int lane, int self) {
-    using R = Rank<TILED>;
 #pragma unroll
     for (int s = 0; s < K - 1; ++s) {
         typename R::T m = best[0];
@@ -149,7 +150,7 @@ __device__ void select_small_c(int N, int C, const float* xb, int n0,
         }
     }
     if (lane == 0) sidx[q * K] = nq;
-    merge_lists<K, TILED>(best, sidx, q, lane, nq);
+    merge_lists<K, Rank<TILED>>(best, sidx, q, lane, nq);
 }
 
 // As select_small_c for 16 < C <= 256; `work` holds select_bytes(N, C, TILED, 0).
@@ -238,7 +239,7 @@ __device__ void select_wide_c(int N, int C, const float* xb, int n0,
     }
     const int nq = min(n, N - 1);
     if (lane == 0) sidx[q * K] = nq;
-    merge_lists<K, TILED>(best, sidx, q, lane, nq);
+    merge_lists<K, Rank<TILED>>(best, sidx, q, lane, nq);
 }
 
 inline size_t align16(size_t v) { return (v + 15) & ~static_cast<size_t>(15); }

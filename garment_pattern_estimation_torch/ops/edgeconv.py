@@ -48,6 +48,12 @@ def reset_launches():
         launches[key] = 0
 
 
+def fused_edgeconv_supported(n_points, n_channels):
+    """Whether the fused layer takes (N, C): N <= MAX_FUSED_N, C <= 256,
+    as the JAX package's `fused_edgeconv_supported`."""
+    return n_points <= MAX_FUSED_N and n_channels <= _WIDE_C_MAX
+
+
 def fold_mlp_bn(layers, eps=1e-5):
     """Fold eval BatchNorm of a Dense -> ReLU -> BN stack into the next
     layer.
@@ -141,9 +147,9 @@ def fused_edgeconv(x, folded, k, *, mlp_dtype=torch.float32, return_idx=False,
     whatever it is."""
     if x.shape[1] > MAX_FUSED_N:
         raise NotImplementedError(
-            f'fused_edgeconv: N={x.shape[1]} > {MAX_FUSED_N}; the JAX package '
-            'runs such clouds through the unfused kNN path (standalone kNN + '
-            'gather + edge MLP), not ported yet')
+            f'fused_edgeconv: N={x.shape[1]} > {MAX_FUSED_N}; such clouds take '
+            'the unfused kNN path (models.blocks.EdgeConv: standalone kNN + '
+            'gather + edge MLP)')
     if x.device.type == 'cpu':
         return fused_edgeconv_reference(x, folded, k, mlp_dtype, return_idx)
     if x.device.type != 'cuda':

@@ -1,22 +1,30 @@
-"""kNN selection: the ranking contract, the bf16 truncation split, and the
-standalone small-D kNN.
+"""kNN selection: the ranking contracts, the bf16 truncation split, and the
+standalone kNN.
 
-Neighbour selection ranks (quantized squared distance, column) pairs
-lexicographically: the distance's f32 bit pattern with its low 11 bits
-cleared, which keeps its top 21 bits (sign, 8 exponent bits, 12 fraction
-bits), then the column. Non-negative f32 bit patterns order like their
-values, so ties go to the lower column. Slot 0 is the query itself; slots
-1..k-1 are the k-1 smallest pairs over the other columns. The kernels pack
-a pair into one int32 (the column in the cleared bits) up to 2048 columns
-and into one int64 (a global column) beyond; both rank alike.
+Two rankings of (squared distance, column) pairs, both lexicographic with
+ties to the lower column; slot 0 is the query itself and slots 1..k-1 are
+the k-1 smallest pairs over the other columns.
 
-`knn(points, k)` gives ids (B, N, k) for D <= 16. A CPU tensor takes
-`knn_reference`, the plain PyTorch version (exact f32 distances summed per
-dimension in dimension order); a CUDA tensor launches the hand-written
-kernel `csrc/knn.cu` or raises. Counterpart of
-garment_pattern_estimation_tpu/ops/knn.py `knn_pallas` with its direct
-kernel `_knn_kernel_direct` (D <= 16); the wide-D kernels `_knn_kernel` and
-`_knn_kernel_hbm` are not ported yet (ROADMAP queue B rows 2-3).
+  * quantized (the fused layer, knn_gather, and the kNN for D <= 16): the
+    distance's f32 bit pattern with its low 11 bits cleared, which keeps
+    its top 21 bits (sign, 8 exponent bits, 12 fraction bits); exact f32
+    distances summed per dimension for D <= 16 (`exact_sq_dists`), 2-term
+    split products for the fused layer's wider C. Non-negative f32 bit
+    patterns order like their values. The kernels pack a pair into one
+    int32 (the column in the cleared bits) up to 2048 columns and into one
+    int64 (a global column) beyond; both rank alike (`select_ranked`).
+  * exact (the kNN for D > 16): q_norm + k_norm - 2 * cross, cross from
+    3-term bf16 truncation splits (six partial products), neither clamped
+    at 0 nor quantized: ranked by the full f32 value, -0 tied with +0
+    (`wide_sq_dists`, `select_exact`).
+
+`knn(points, k)` gives ids (B, N, k) for D <= 256. A CPU tensor takes
+`knn_reference`, the plain PyTorch version, at any D; a CUDA tensor
+launches the hand-written kernel `csrc/knn.cu` (D <= 16) or
+`csrc/knn_wide.cu` (16 < D <= 256), or raises. Counterpart of
+garment_pattern_estimation_tpu/ops/knn.py `knn_pallas`: its direct kernel
+`_knn_kernel_direct` (D <= 16) and the wide-D kernels `_knn_kernel` and
+`_knn_kernel_hbm`.
 """
 from __future__ import annotations
 
@@ -29,14 +37,20 @@ IDX_MASK = (1 << IDX_BITS) - 1
 INT_MAX = torch.iinfo(torch.int32).max
 MAX_N = 1 << IDX_BITS              # columns the int32 packing can carry
 DIRECT_D_MAX = 16                  # D at or below: exact per-dimension distances
+WIDE_D_MAX = 256                   # the wide-D kernel's bound
 _MAX_K = 8
+_SPLIT_TERMS = 3                   # truncation chunks of the wide-D distances
+# partial products of the wide-D cross term, summed in this order: the
+# JAX package's _CROSS_PAIRS[3]
+_CROSS_PAIRS = ((0, 0), (0, 1), (1, 0), (1, 1), (0, 2), (2, 0))
 
 # sign + exponent + top 7 fraction bits: exactly the bits of a bf16
 _TRUNC_MASK = ~0xFFFF
 
-# Launches of the CUDA kernel. Only `knn` adds to it, once per kernel
-# launch; calls that take the plain version do not.
-launches = {'knn': 0}
+# Launches of the CUDA kernels: 'knn' (D <= 16), 'knn_wide' (D > 16). Only
+# `knn` adds to them, once per kernel launch; calls that take the plain
+# version do not.
+launches = {'knn': 0, 'knn_wide': 0}
 
 
 def reset_launches():
@@ -93,46 +107,89 @@ def select_ranked(dists: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([col[None, :, None].expand(B, N, 1), rest], dim=-1)
 
 
+def wide_sq_dists(x: torch.Tensor) -> torch.Tensor:
+    """(B, N, D) f32 -> (B, N, N) squared distances of the wide-D kNN:
+    q_norm + k_norm - 2 * cross, the norms summed from the unsplit f32
+    squares, cross the six partial products of the 3-term truncation
+    splits in `_CROSS_PAIRS` order. Each product is exact (bf16-exact
+    operands; TF32 is off); not clamped at 0."""
+    norm = torch.sum(x * x, dim=-1)
+    chunks = split_bf16(x, terms=_SPLIT_TERMS)
+    cross = None
+    for i, j in _CROSS_PAIRS:
+        p = chunks[i] @ chunks[j].transpose(1, 2)
+        cross = p if cross is None else cross + p
+    return norm[:, :, None] + norm[:, None, :] - 2.0 * cross
+
+
+def order_preserving_bits(values: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 whose signed order is the float order, -0 equal to +0:
+    a negative value's bits below the sign flipped."""
+    bits = (values + 0.0).contiguous().view(torch.int32)     # -0 + 0 = +0
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def select_exact(dists: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, N, N) f32 distances -> ids (B, N, k) int64: self in slot 0, then
+    the k-1 smallest (exact distance, column) pairs over the other columns."""
+    B, N, _ = dists.shape
+    key = order_preserving_bits(dists).to(torch.int64) << 32
+    del dists
+    col = torch.arange(N, device=key.device, dtype=torch.int64)
+    key |= col
+    key.diagonal(dim1=1, dim2=2).fill_(torch.iinfo(torch.int64).max)   # self
+    rest = torch.topk(key, k - 1, dim=-1, largest=False, sorted=True).values \
+        & 0xFFFFFFFF
+    return torch.cat([col[None, :, None].expand(B, N, 1), rest], dim=-1)
+
+
 def _check_d(points):
     if points.dim() != 3:
         raise ValueError(f'knn: points must be (B, N, D), got {tuple(points.shape)}')
-    if points.shape[-1] > DIRECT_D_MAX:
-        raise NotImplementedError(
-            f'knn: D={points.shape[-1]} > {DIRECT_D_MAX} needs the wide-D kernels '
-            '(_knn_kernel, _knn_kernel_hbm), not ported yet')
 
 
 def knn_reference(points, k):
-    """Plain PyTorch kNN, D <= 16: ids (B, N, min(k, N)) int64."""
+    """Plain PyTorch kNN at any D: ids (B, N, min(k, N)) int64."""
     _check_d(points)
     k = min(k, points.shape[1])
-    return select_ranked(exact_sq_dists(points.float()), k)
+    x = points.float()
+    if x.shape[-1] <= DIRECT_D_MAX:
+        return select_ranked(exact_sq_dists(x), k)
+    return select_exact(wide_sq_dists(x), k)
 
 
 def knn(points, k, *, tile_n=None):
-    """points (B, N, D), D <= 16 -> ids (B, N, min(k, N)) int64, self in
-    slot 0. A CPU tensor takes `knn_reference`; a CUDA tensor launches the
-    kernel or raises. `tile_n` (CUDA only) forces the int64-ranked kernel
-    with key windows of that many columns, as the TPU kernel's `tile_n`
-    forces its column tiles."""
+    """points (B, N, D) -> ids (B, N, min(k, N)) int64, self in slot 0. A
+    CPU tensor takes `knn_reference`; a CUDA tensor launches the kernel of
+    its D (D <= 256) or raises. `tile_n` (CUDA, D <= 16 only) forces the
+    int64-ranked small-D kernel with key windows of that many columns, as
+    the TPU kernel's `tile_n` forces its column tiles."""
     _check_d(points)
     if points.device.type == 'cpu':
         return knn_reference(points, k)
     if points.device.type != 'cuda':
         raise ValueError(f'knn: unsupported device {points.device}')
+    if points.shape[-1] > DIRECT_D_MAX:
+        if tile_n is not None:
+            raise ValueError('knn: tile_n applies to the small-D kernel only')
+        return _launch_wide(points, k)
     return _launch(points, k, tile_n)
+
+
+def _check_launch(points, k):
+    if points.dtype != torch.float32:
+        raise TypeError(f'knn: points must be float32, got {points.dtype}')
+    k = min(k, points.shape[1])
+    if not 1 <= k <= _MAX_K:
+        raise NotImplementedError(f'knn: k={k} is beyond the kernel (1 <= k <= {_MAX_K})')
+    return points.contiguous(), k
 
 
 def _launch(points, k, tile_n):
     from . import _build
 
-    if points.dtype != torch.float32:
-        raise TypeError(f'knn: points must be float32, got {points.dtype}')
-    points = points.contiguous()
+    points, k = _check_launch(points, k)
     B, N, D = points.shape
-    k = min(k, N)
-    if not 1 <= k <= _MAX_K:
-        raise NotImplementedError(f'knn: k={k} is beyond the kernel (1 <= k <= {_MAX_K})')
     if tile_n is not None and not 1 <= tile_n <= MAX_N:
         raise ValueError(f'knn: tile_n={tile_n} is outside 1..{MAX_N}')
     idx = torch.empty(B, N, k, device=points.device, dtype=torch.int32)
@@ -144,4 +201,24 @@ def _launch(points, k, tile_n):
     if err != 0:
         raise RuntimeError(f'knn: kernel launch failed with CUDA error {err}')
     launches['knn'] += 1
+    return idx.long()
+
+
+def _launch_wide(points, k):
+    from . import _build
+
+    if points.shape[-1] > WIDE_D_MAX:
+        raise NotImplementedError(
+            f'knn: D={points.shape[-1]} is beyond the wide-D kernel (D <= {WIDE_D_MAX})')
+    points, k = _check_launch(points, k)
+    B, N, D = points.shape
+    idx = torch.empty(B, N, k, device=points.device, dtype=torch.int32)
+    fn = _build.load_library('knn_wide').knn_wide_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    err = fn(points.data_ptr(), idx.data_ptr(), B, N, D, k,
+             torch.cuda.current_stream(points.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'knn: wide-D kernel launch failed with CUDA error {err}')
+    launches['knn_wide'] += 1
     return idx.long()

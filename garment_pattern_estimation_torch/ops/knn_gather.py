@@ -41,6 +41,12 @@ def reset_launches():
         launches[key] = 0
 
 
+def knn_gather_supported(n_points):
+    """Whether the kernels take N points: N <= 2048, the int32 packing's
+    columns, as the JAX package's `knn_gather_supported`."""
+    return n_points <= MAX_N
+
+
 def knn_gather_reference(x, k, value_chunks=2):
     """Plain PyTorch forward: (neighbours (B, k, N, C) f32, ids (B, N, k)
     int64). Not differentiable itself; `knn_gather` carries the gradient."""
@@ -73,11 +79,11 @@ def _check(x, k):
     if x.dim() != 3:
         raise ValueError(f'knn_gather: x must be (B, N, C), got {tuple(x.shape)}')
     B, N, C = x.shape
-    if N > MAX_N:
+    if not knn_gather_supported(N):
         raise NotImplementedError(
             f'knn_gather: N={N} > {MAX_N} exceeds the packed column ids; '
-            'training past 2048 points (the chunked EdgeConv training path) '
-            'is not ported yet')
+            'EdgeConv trains such clouds through the standalone kNN '
+            '(models.blocks.EdgeConv)')
     if C > _WIDE_C_MAX or not 1 <= k <= min(_MAX_K, N):
         raise NotImplementedError(
             f'knn_gather: C={C}, k={k} is beyond the kernel '

@@ -1,6 +1,6 @@
-"""Masked pooling over rectangular point batches (B, N, C): the counterpart
-of garment_pattern_estimation_tpu's `ops/pooling.py`. The mask covers
-ragged or graph-pooled point sets."""
+"""Masked pooling over rectangular point batches (B, N, C) and the flat
+neighbour-row gather: the counterpart of garment_pattern_estimation_tpu's
+`ops/pooling.py`. The mask covers ragged or graph-pooled point sets."""
 from __future__ import annotations
 
 import torch
@@ -34,3 +34,16 @@ GLOBAL_POOLS = {
     'mean': masked_mean_pool,
     'add': masked_add_pool,
 }
+
+
+def gather_neighbors(features, neighbor_idx):
+    """(B, N, C), ids (B, M, k) -> neighbour rows (B, M, k, C), exact f32.
+
+    A flat row gather, the batch offsets folded into the ids, as the JAX
+    package's; differentiable in `features` (the backward of
+    `index_select` is an `index_add_`)."""
+    B, N, C = features.shape
+    offsets = (torch.arange(B, device=neighbor_idx.device) * N)[:, None, None]
+    rows = (neighbor_idx + offsets).reshape(-1)
+    return torch.index_select(features.reshape(B * N, C), 0, rows) \
+        .reshape(*neighbor_idx.shape, C)

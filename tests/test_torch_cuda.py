@@ -24,11 +24,22 @@ version's where the ids agree (both copy or split the same f32 value);
 dx within 1e-5 of its largest magnitude of the plain `index_add_` on the
 kernel's own ids (the two sum the same f32 terms in another order), and
 bitwise equal across two runs (the backward uses no float atomics).
+
+The wide-D kNN ranks exact distances: ids at least 99% equal to the plain
+version's, every disagreement two neighbours whose f64 distances agree
+within 2^-18 of the squared norms. The chunked EdgeConv training layer on
+the card against its CPU plain path from the same weights: output, running
+statistics and the whole gradient within 1e-2 of their L2 norms, each
+parameter's gradient within 5e-2 (the training phase's bars of
+chip_smoke.py: near-tie ids and ReLU boundaries make gradients jumpy).
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
+from garment_pattern_estimation_torch.models.blocks import EdgeConv
 from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather
 
 pytestmark = pytest.mark.cuda
@@ -139,6 +150,56 @@ def test_knn_wrong_dtype_raises(cuda):
         knn.knn(torch.zeros(1, 64, 3, device=cuda, dtype=torch.float64), 5)
 
 
+def _sorted_dists64(x, ids):
+    """f64 squared distances of each query to its ids, ascending."""
+    x = x.double()
+    B, N, k = ids.shape
+    nbr = x[torch.arange(B, device=x.device)[:, None, None], ids]      # (B, N, k, D)
+    return ((nbr - x[:, :, None]) ** 2).sum(-1).sort(dim=-1).values
+
+
+@pytest.mark.parametrize('D', [17, 150, 256])
+@pytest.mark.parametrize('n_points', [100, 2000, 10000])
+@pytest.mark.parametrize('k', [1, 5, 8])
+def test_knn_wide_matches_plain(cuda, rng, D, n_points, k):
+    """Ids at least 99% equal to the plain version's; where they differ,
+    the two neighbour lists' exact distances agree slot by slot within
+    2^-18 of the squared norms (the kernel and cuBLAS sum in other
+    orders)."""
+    x = torch.from_numpy(rng.normal(size=(2, n_points, D)).astype(np.float32)).to(cuda)
+    before = dict(knn.launches)
+    ids = knn.knn(x, k)
+    torch.cuda.synchronize()
+    assert knn.launches['knn_wide'] == before['knn_wide'] + 1
+    assert knn.launches['knn'] == before['knn']
+    ref = knn.knn_reference(x, k)
+    assert ids.dtype == torch.int64 and ids.shape == ref.shape
+    assert torch.equal(ids[..., 0], ref[..., 0])
+    assert (ids == ref).float().mean().item() >= 0.99
+    rows = ~(ids == ref).all(dim=-1)
+    if rows.any():
+        norms = (x.double() ** 2).sum(-1)
+        bound = 2.0 ** -18 * (norms + norms.amax(dim=-1, keepdim=True))[..., None]
+        gap = (_sorted_dists64(x, ids) - _sorted_dists64(x, ref)).abs()
+        assert (gap[rows] <= bound.expand_as(gap)[rows]).all()
+
+
+def test_knn_wide_ties_and_duplicates(cuda, rng):
+    """Integer coordinates make every product and sum exact: the ids equal
+    the plain version's, ties to the lower index included."""
+    x = torch.from_numpy(rng.integers(-2, 3, size=(2, 300, 24)).astype(np.float32))
+    x[:, 150:] = x[:, :150]                                   # exact duplicates
+    ids = knn.knn(x.to(cuda), 5)
+    assert torch.equal(ids.cpu(), knn.knn_reference(x, 5))
+
+
+def test_knn_wide_raises_past_256_and_on_wrong_dtype(cuda):
+    with pytest.raises(NotImplementedError, match='D=257'):
+        knn.knn(torch.zeros(1, 64, 257, device=cuda), 5)
+    with pytest.raises(TypeError):
+        knn.knn(torch.zeros(1, 64, 150, device=cuda, dtype=torch.float64), 5)
+
+
 def test_wrong_dtype_raises(cuda, rng):
     folded = _folded(rng, 3, [8, 8], cuda)
     with pytest.raises(TypeError):
@@ -198,3 +259,83 @@ def test_knn_gather_large_n_raises(cuda):
 def test_knn_gather_wrong_dtype_raises(cuda):
     with pytest.raises(TypeError):
         knn_gather.knn_gather(torch.zeros(1, 64, 3, device=cuda, dtype=torch.float64), 5)
+
+
+def _rel_l2(ours, ref):
+    return ((ours.cpu() - ref).norm() / ref.norm()).item()
+
+
+@pytest.mark.parametrize('C', [3, 150])
+def test_chunked_edgeconv_layer_matches_cpu(cuda, rng, C):
+    """The att widths at 2000 points in chunks of 700 (the last one padded):
+    conv0 on the small-D kNN kernel, conv1 on the wide-D one."""
+    layer = EdgeConv(C, [200, 200, 150], k=5, train_chunked=True, train_chunk_size=700)
+    with torch.no_grad():
+        for _, _, bn in layer.nn:
+            signs = torch.from_numpy(np.where(np.arange(bn.weight.numel()) % 2, -1.0, 1.0))
+            bn.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, bn.weight.numel())) * signs)
+            bn.bias.copy_(torch.from_numpy(rng.normal(size=bn.bias.numel())))
+    x = torch.from_numpy(rng.normal(size=(2, 2000, C)).astype(np.float32))
+
+    def run(device):
+        conv = copy.deepcopy(layer).to(device).train()
+        xd = x.to(device, copy=True).requires_grad_(True)
+        out = conv(xd)
+        (out ** 2).mean().backward()
+        grads = {n: p.grad.cpu() for n, p in conv.named_parameters()}
+        grads['x'] = xd.grad.cpu()
+        stats = {n: b.cpu() for n, b in conv.named_buffers() if 'running' in n}
+        return out.detach().cpu(), stats, grads
+
+    before = dict(knn.launches)
+    out, stats, grads = run(cuda)
+    torch.cuda.synchronize()
+    variant = 'knn' if C <= 16 else 'knn_wide'
+    assert knn.launches[variant] == before[variant] + 1
+    assert sum(knn.launches.values()) == sum(before.values()) + 1
+    ref_out, ref_stats, ref_grads = run('cpu')
+    assert _rel_l2(out, ref_out) <= 1e-2
+    for name, value in ref_stats.items():
+        assert _rel_l2(stats[name], value) <= 1e-2, name
+    whole = sum(((grads[n] - g) ** 2).sum() for n, g in ref_grads.items()).sqrt() \
+        / sum((g ** 2).sum() for g in ref_grads.values()).sqrt()
+    assert whole.item() <= 1e-2
+    for name, g in ref_grads.items():
+        assert _rel_l2(grads[name], g) <= 5e-2, name
+
+
+@pytest.mark.parametrize('C', [3, 24])
+@pytest.mark.parametrize('train,n_points', [(False, 16400), (True, 3000)])
+def test_unfused_edgeconv_matches_cpu(cuda, rng, C, train, n_points):
+    """Past the fused bound in eval and past 2048 points unchunked in train:
+    the standalone kNN kernel of C, the gather and the edge MLP, against the
+    CPU plain path (output within 1e-2 of its L2 norm; in train, the whole
+    gradient likewise)."""
+    layer = EdgeConv(C, [16, 12], k=5)
+    with torch.no_grad():
+        for _, _, bn in layer.nn:
+            bn.running_mean.copy_(torch.from_numpy(rng.normal(size=bn.running_mean.numel())))
+            bn.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 2.0, bn.running_var.numel())))
+    x = torch.from_numpy(rng.normal(size=(1, n_points, C)).astype(np.float32))
+
+    def run(device):
+        conv = copy.deepcopy(layer).to(device).train(train)
+        xd = x.to(device, copy=True).requires_grad_(train)
+        out = conv(xd)
+        if not train:
+            return out.detach().cpu(), None
+        (out ** 2).mean().backward()
+        return out.detach().cpu(), torch.cat([xd.grad.flatten()] + [
+            p.grad.flatten() for p in conv.parameters()]).cpu()
+
+    assert train or not edgeconv.fused_edgeconv_supported(n_points, C)
+    assert not layer.chunked(1, n_points, C)
+    before = dict(knn.launches)
+    out, grads = run(cuda)
+    torch.cuda.synchronize()
+    variant = 'knn' if C <= 16 else 'knn_wide'
+    assert knn.launches[variant] == before[variant] + 1
+    ref_out, ref_grads = run('cpu')
+    assert _rel_l2(out, ref_out) <= 1e-2
+    if train:
+        assert _rel_l2(grads, ref_grads) <= 1e-2

@@ -67,12 +67,6 @@ def test_knn_k_is_cut_to_n(rng):
     assert torch.equal(ids.sort(dim=-1).values, torch.arange(4).expand(1, 4, 4))
 
 
-@pytest.mark.parametrize('device', ['cpu', 'meta'])
-def test_knn_wide_d_raises(device):
-    with pytest.raises(NotImplementedError, match='_knn_kernel_hbm'):
-        knn.knn(torch.zeros(1, 8, 17, device=device), 3)
-
-
 def test_knn_refuses_other_devices():
     with pytest.raises(ValueError, match='unsupported device'):
         knn.knn(torch.zeros(1, 8, 3, device='meta'), 3)

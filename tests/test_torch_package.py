@@ -40,7 +40,8 @@ def test_module_imports_no_jax(path):
 def test_import_scan_covers_the_training_modules():
     scanned = {str(p.relative_to(_PACKAGE)) for p in _PACKAGE.rglob('*.py')}
     assert {'ops/knn_gather.py', 'ops/sparsemax.py', 'losses/components.py',
-            'losses/composed.py', 'train/trainer.py', 'models/blocks.py'} <= scanned
+            'losses/composed.py', 'train/trainer.py', 'models/blocks.py',
+            'ops/edgeconv_train.py', 'ops/knn.py'} <= scanned
 
 
 def test_chip_smoke_imports_no_jax():
