@@ -76,7 +76,10 @@ Phases, one JSON line each:
            passes, copies) and the device's idle share
 Then each phase's seconds, the card's name and power limit, the kernels
 line, and as the last line {"ok": true, "device": {...}}. Any failed check
-exits non-zero.
+exits non-zero. In the kernels line a kNN kernel's max_abs_err is the
+largest gap between the exact distances of its neighbours and of the plain
+version's (0 where every id agrees); bound_ms counts each distance once per
+unordered pair (`pairs`).
 
 The plain versions rank all N x N pairs of a cloud at once, so at the
 stress shape (a (128, 10^4, 10^4) ranking is about 100 GB) they run on
@@ -226,19 +229,29 @@ def random_folded(gen, c, widths, device):
     return [(w.to(device), b.to(device)) for w, b in folded], (a.to(device), d.to(device))
 
 
+def pairs(B, N):
+    """Unordered pairs of distinct points in B clouds of N. Every distance
+    the kernels compute is symmetric: (x_i - x_j)^2 summed per dimension,
+    and the split products of (j, i) are those of (i, j) with the two
+    mixed terms of each pair swapped (hi_j lo_i is lo_i hi_j). A schedule
+    that computes each unordered pair's products once and sums them in each
+    direction's order does the work of B N (N - 1) / 2 pairs, not B N^2."""
+    return B * N * (N - 1) / 2.0
+
+
 def bound(B, N, C, k, widths):
     """Least time (ms) on the card for one layer, and what bounds it. Bytes:
     x read once, the output written once, the bf16 weights, biases and
-    affine. Operations: the distances (small C: sub, mul, add per dimension
-    in f32; wide C: three bf16 split products) and the edge MLP (bf16
-    products, f32 accumulation); the selection's integer compares are not
-    counted."""
+    affine. Operations: the distances over `pairs` (small C: sub, mul, add
+    per dimension in f32; wide C: three bf16 split products) and the edge
+    MLP (bf16 products, f32 accumulation); the selection's integer compares
+    are not counted."""
     dims = [2 * C, *widths]
     mlp_flops = 2.0 * B * N * k * sum(i * o for i, o in zip(dims[:-1], dims[1:]))
     if C <= 16:
-        f32_flops, bf16_flops = 3.0 * B * N * N * C, mlp_flops
+        f32_flops, bf16_flops = 3.0 * pairs(B, N) * C, mlp_flops
     else:
-        f32_flops, bf16_flops = 0.0, 3 * 2.0 * B * N * N * C + mlp_flops
+        f32_flops, bf16_flops = 0.0, 3 * 2.0 * pairs(B, N) * C + mlp_flops
     n_bytes = 4.0 * B * N * (C + widths[-1]) \
         + sum(2 * i * o + 4 * o for i, o in zip(dims[:-1], dims[1:])) + 8 * widths[-1]
     ops_ms = (f32_flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
@@ -248,7 +261,9 @@ def bound(B, N, C, k, widths):
 
 def near_tie_ratio(x, idx, ref_idx, quantized=True):
     """Worst ratio, over the rows whose ids differ from the plain version's,
-    of the distance gap to the near-tie bound; 0 when all rows agree.
+    of the distance gap to the near-tie bound, the number of such rows, and
+    the largest distance gap itself (the ids' error in the units they are
+    ranked by); 0, 0, 0 when all rows agree.
 
     Disagreements must be near ties: the exactly recomputed distances of the
     two neighbour sets differ by a few quantization buckets (none for the
@@ -259,7 +274,7 @@ def near_tie_ratio(x, idx, ref_idx, quantized=True):
 
     rows = (~(idx == ref_idx).all(dim=-1)).nonzero()
     if not rows.numel():
-        return 0.0, 0
+        return 0.0, 0, 0.0
     b, n = rows[:, 0], rows[:, 1]
     q = x[b, n].double()                                      # (R, C)
 
@@ -271,15 +286,16 @@ def near_tie_ratio(x, idx, ref_idx, quantized=True):
     (d_kernel, n_kernel), (d_plain, n_plain) = dists(idx), dists(ref_idx)
     allowed = NEAR_TIE_REL * quantized * d_plain \
         + NORM_ULPS * torch.maximum(n_kernel, n_plain)[:, None]
-    return ((d_kernel - d_plain).abs() / allowed).max().item(), int(rows.shape[0])
+    gap = (d_kernel - d_plain).abs()
+    return (gap / allowed).max().item(), int(rows.shape[0]), gap.max().item()
 
 
 def check_ids(name, x, idx, ref_idx, quantized=True):
     """Small C: every id equals the plain version's; wide C: at least 99%,
     every disagreement a near tie. Returns (share of equal ids, rows that
-    differ, worst near-tie ratio)."""
+    differ, worst near-tie ratio, largest distance gap)."""
     id_share = (idx == ref_idx).float().mean().item()
-    worst_tie, n_rows = near_tie_ratio(x, idx, ref_idx, quantized)
+    worst_tie, n_rows, gap = near_tie_ratio(x, idx, ref_idx, quantized)
     if x.shape[-1] <= 16:
         check(id_share == 1.0, f'{name}: neighbour ids agree on {id_share}, not all')
     else:
@@ -287,7 +303,7 @@ def check_ids(name, x, idx, ref_idx, quantized=True):
               f'{name}: neighbour ids agree on {id_share} < {WIDE_ID_AGREEMENT}')
         check(worst_tie <= 1.0,
               f'{name}: a disagreeing neighbour is {worst_tie} x the near-tie bound away')
-    return id_share, n_rows, worst_tie
+    return id_share, n_rows, worst_tie, gap
 
 
 def chunked(fn, x, chunk):
@@ -315,7 +331,7 @@ def check_kernel(name, x, folded, widths, *, tile_variant=False):
     xc, out_c, idx_c = x[:check_clouds], out[:check_clouds], idx[:check_clouds]
     ref_idx, x_lp = edgeconv.edgeconv_select(xc, K)
     agree_rows = (idx_c == ref_idx).all(dim=-1)
-    id_share, n_rows, worst_tie = check_ids(name, xc, idx_c, ref_idx)
+    id_share, n_rows, worst_tie, _ = check_ids(name, xc, idx_c, ref_idx)
 
     tail = edgeconv.edgeconv_mlp_max(xc, idx_c, x_lp, folded)
     full = edgeconv.edgeconv_mlp_max(xc, ref_idx, x_lp, folded)
@@ -358,9 +374,9 @@ def check_kernel(name, x, folded, widths, *, tile_variant=False):
 def knn_bound(B, N, D, k):
     """Least time (ms) on the card for the kNN ids and what bounds it:
     the points read once and the int32 ids written once; the distances'
-    sub, mul and add per dimension in f32 (selection compares not
-    counted)."""
-    ops_ms = 3.0 * D * B * N * N / PEAK_F32_FLOPS * 1e3
+    sub, mul and add per dimension in f32 over `pairs` (selection compares
+    not counted)."""
+    ops_ms = 3.0 * D * pairs(B, N) / PEAK_F32_FLOPS * 1e3
     bytes_ms = 4.0 * B * N * (D + k) / PEAK_BYTES * 1e3
     return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
 
@@ -380,7 +396,7 @@ def knn_phase(points):
     check(tuple(ids.shape) == (B, N, K), f'knn: ids of shape {tuple(ids.shape)}')
     ref = knn.knn_reference(points[:CHUNK], K)
     agreement = (ids[:CHUNK] == ref).float().mean().item()
-    id_err = (ids[:CHUNK] - ref).abs().max().item()
+    _, _, id_err = near_tie_ratio(points[:CHUNK], ids[:CHUNK], ref)
     del ref
     line = {'name': 'knn', 'route': 'cuda', 'source': KNN_SOURCE, 'replaces': KNN_REPLACES,
             'launches': launches, 'max_abs_err': id_err,
@@ -402,9 +418,9 @@ def knn_phase(points):
 def knn_wide_bound(B, N, D, k):
     """Least time (ms) on the card for the wide-D kNN ids and what bounds
     it: the points read once and the int32 ids written once; the six bf16
-    split products, 6 x 2 B N^2 D operations at the bf16 tensor-core peak
-    (selection compares not counted)."""
-    ops_ms = 6 * 2.0 * B * N * N * D / PEAK_BF16_FLOPS * 1e3
+    split products over `pairs`, 6 x 2 D operations each at the bf16
+    tensor-core peak (selection compares not counted)."""
+    ops_ms = 6 * 2.0 * pairs(B, N) * D / PEAK_BF16_FLOPS * 1e3
     bytes_ms = 4.0 * B * N * (D + k) / PEAK_BYTES * 1e3
     return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
 
@@ -425,9 +441,9 @@ def knn_wide_phase(points):
     check(tuple(ids.shape) == (B, N, K), f'knn_wide: ids of shape {tuple(ids.shape)}')
     xc, ids_c = points[:CHUNK], ids[:CHUNK]
     ref = knn.knn_reference(xc, K)
-    id_share, n_rows, worst_tie = check_ids('knn_wide', xc, ids_c, ref, quantized=False)
+    id_share, n_rows, worst_tie, id_err = check_ids('knn_wide', xc, ids_c, ref,
+                                                    quantized=False)
     check(torch.equal(ids_c[..., 0], ref[..., 0]), 'knn_wide: slot 0 is not the query')
-    id_err = (ids_c - ref).abs().max().item()
     del ref, ids, ids_c
     line = {'name': 'knn_wide', 'route': 'cuda', 'source': KNN_WIDE_SOURCE,
             'replaces': KNN_WIDE_REPLACES, 'launches': None, 'max_abs_err': id_err,
@@ -449,8 +465,8 @@ def knn_wide_phase(points):
 def gather_bound(B, N, C, k, backward):
     """Least time (ms) on the card for knn_gather and what bounds it.
     Forward: x read once, the (B, k, N, C) rows and the (B, N, k) ids
-    written once; the distances (small C: sub, mul, add per dimension in
-    f32; wide C: three bf16 split products). Backward: the rows'
+    written once; the distances over `pairs` (small C: sub, mul, add per
+    dimension in f32; wide C: three bf16 split products). Backward: the rows'
     cotangents and the ids read once, dx written once; its (k-1) B N C f32
     additions. Selection compares are not counted."""
     if backward:
@@ -459,9 +475,9 @@ def gather_bound(B, N, C, k, backward):
     else:
         n_bytes = 4.0 * (B * N * C + B * k * N * C + B * N * k)
         if C <= 16:
-            f32_flops, bf16_flops = 3.0 * B * N * N * C, 0.0
+            f32_flops, bf16_flops = 3.0 * pairs(B, N) * C, 0.0
         else:
-            f32_flops, bf16_flops = 0.0, 3 * 2.0 * B * N * N * C
+            f32_flops, bf16_flops = 0.0, 3 * 2.0 * pairs(B, N) * C
     ops_ms = (f32_flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
     bytes_ms = n_bytes / PEAK_BYTES * 1e3
     return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
@@ -478,7 +494,7 @@ def check_knn_gather(x, backward):
     nbr, idx = kg.knn_gather_fwd(x, K)
     torch.cuda.synchronize()
     ref_nbr, ref_idx = kg.knn_gather_reference(x, K)
-    id_share, n_rows, worst_tie = check_ids(f'knn_gather_fwd_{variant}', x, idx, ref_idx)
+    id_share, n_rows, worst_tie, _ = check_ids(f'knn_gather_fwd_{variant}', x, idx, ref_idx)
     agree = (idx == ref_idx).transpose(1, 2)                  # (B, k, N)
     fwd_err = (nbr[agree] - ref_nbr[agree]).abs().max().item()
     fwd = {'name': f'knn_gather_fwd_{variant}', 'route': 'cuda', 'source': GATHER_SOURCE,
@@ -865,22 +881,29 @@ def profile_phase(name, fn):
     the call's wall time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # a second profiler session in one process can lose the first
-        # kernel it sees (the stress step's kNN kernel was missing without
-        # this): a marker kernel takes that place
-        torch.zeros(1, device='cuda').add_(1)
+    # a later profiler session in one process can lose the first kernel it
+    # sees (the stress step's small-D kNN went missing, a marker kernel in
+    # front of it did not always help): a warm-up cycle traces one call and
+    # drops it, the active cycle traces the call that is reported
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
         torch.cuda.synchronize()
+        prof.step()
         start = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
+        prof.step()
+    # the schedule's ProfilerStep* range is an annotation on the card, not
+    # a kernel: its time spans the kernels it holds
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith('ProfilerStep')]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     by_class = {}
