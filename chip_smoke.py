@@ -76,10 +76,14 @@ Phases, one JSON line each:
            passes, copies) and the device's idle share
 Then each phase's seconds, the card's name and power limit, the kernels
 line, and as the last line {"ok": true, "device": {...}}. Any failed check
-exits non-zero. In the kernels line a kNN kernel's max_abs_err is the
-largest gap between the exact distances of its neighbours and of the plain
-version's (0 where every id agrees); bound_ms counts each distance once per
-unordered pair (`pairs`).
+exits non-zero. The build line gives each kernel instantiation's registers
+and spill bytes from `nvcc -Xptxas -v` and, where the toolkit has
+cuobjdump, its count of tensor-core HMMA instructions in the SASS (the
+wide selections must have some). In the kernels line a kNN kernel's
+max_abs_err is the largest gap between the exact distances of its
+neighbours and of the plain version's (0 where every id agrees); bound_ms
+counts each distance once per unordered pair (`pairs`); bound_share is
+bound_ms / ms.
 
 The plain versions rank all N x N pairs of a cloud at once, so at the
 stress shape (a (128, 10^4, 10^4) ranking is about 100 GB) they run on
@@ -94,6 +98,7 @@ magnitude, 1e-4 on average.
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -920,7 +925,8 @@ def kernel_class(key):
     """The class of a device kernel by its name: each of the port's own
     kernels by name, else matrix products, reductions, index gathers and
     scatters, elementwise passes, copies and fills, other."""
-    for own in ('knn_wide_kernel', 'knn_kernel', 'fused_edgeconv_kernel', 'knn_gather'):
+    for own in ('split_rows_kernel', 'knn_wide_kernel', 'knn_kernel', 'fused_edgeconv_kernel',
+                'knn_gather'):
         if own in key:
             return own
     lowered = key.lower()
@@ -952,6 +958,57 @@ def stress_kernels(widths):
     return knn_line, small_line, wide_line, knn_wide_line
 
 
+def kernel_name(mangled):
+    """`name<template arguments>` of a mangled kernel whose name ends in
+    'kernel' (the shortest such name whose length precedes it), else the
+    mangled name."""
+    for end in (m.end() for m in re.finditer('kernel', mangled)):
+        for length in range(len('kernel'), end):
+            start = end - length
+            if mangled[:start].endswith(str(length)):
+                args = re.match(r'I((?:L[ib]\d+E)+)E', mangled[end:])
+                return mangled[start:end] + (
+                    '<' + ','.join(re.findall(r'L[ib](\d+)E', args.group(1))) + '>'
+                    if args else '')
+    return mangled
+
+
+def ptxas_usage(log):
+    """{kernel<template arguments>: [registers, spill store bytes, spill
+    load bytes]} for every entry function in an `nvcc -Xptxas -v` log."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = kernel_name(entry.group(1))
+            usage[name] = [None, 0, 0]
+        elif name is not None and 'spill stores' in line:
+            stores, loads = re.findall(r'(\d+) bytes spill', line)
+            usage[name][1:] = [int(stores), int(loads)]
+        elif name is not None and 'registers' in line:
+            usage[name][0] = int(re.search(r'Used (\d+) registers', line).group(1))
+    return usage
+
+
+def sass_hmma(path):
+    """{kernel: HMMA instructions} in the SASS of the library at `path`
+    (kernels with none left out), or None where the toolkit has no
+    cuobjdump."""
+    tool = Path('/usr/local/cuda/bin/cuobjdump')
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), '-sass', path], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        function = re.search(r'Function : (\S+)', line)
+        if function:
+            name = kernel_name(function.group(1))
+        elif name is not None and 'HMMA' in line:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
 def timed(seconds, name, fn, *args):
     """fn(*args), its wall seconds recorded under `name`."""
     start = time.perf_counter()
@@ -969,10 +1026,15 @@ def main():
 
     seconds = {}
     report = timed(seconds, 'build', _build.build_all)
+    hmma = {n: sass_hmma(r['path']) for n, r in report.items()}
     emit({'phase': 'build', 'seconds': {n: r['seconds'] for n, r in report.items()},
-          'ptxas': {n: [ln for ln in r['log'].splitlines()
-                        if 'registers' in ln or 'spill' in ln][:16]
-                    for n, r in report.items()}})
+          'ptxas': {n: ptxas_usage(r['log']) for n, r in report.items()},
+          'sass_hmma': hmma})
+    for lib, kernel in (('knn_wide', 'knn_wide_kernel<5>'),
+                        ('fused_edgeconv', 'fused_edgeconv_kernel<5,0,1>'),
+                        ('knn_gather', 'knn_gather_fwd_kernel<5,0>')):
+        check(hmma[lib] is None or hmma[lib].get(kernel, 0) > 0,
+              f'build: no HMMA instruction in {kernel}')
 
     def att_kernels():
         gen = torch.Generator().manual_seed(0)
@@ -1021,8 +1083,11 @@ def main():
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    emit({'kernels': [small_line, wide_line, small_tiled_line, wide_tiled_line, knn_line,
-                      knn_wide_line, *gather_lines]})
+    kernels = [small_line, wide_line, small_tiled_line, wide_tiled_line, knn_line,
+               knn_wide_line, *gather_lines]
+    for line in kernels:
+        line['bound_share'] = line['bound_ms'] / line['ms']
+    emit({'kernels': kernels})
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),
                                  'count': torch.cuda.device_count()}})

@@ -41,22 +41,31 @@
 // the bf16 rate; conv0: 1.15e11 f32 FLOP, 1.7 ms at 67 TFLOP/s) and the
 // MLP as B N: still bound by operations.
 //
-// The design is the simple one. One block of 256 threads per (batch
-// element, 16 query rows), the query tiles of one cloud adjacent in the
-// grid, so the cloud's keys stay in L2 while its blocks run:
-//   phase 1  keys pass through shared memory (windows of up to 2048
-//            columns for small C, 128-key tiles for wide C); each query's
-//            16 threads keep their best k-1 ranked values in registers and
-//            merge them with half-warp shuffles;
-//   phase 2  the 16 k edge rows go through the layers with their bf16
-//            activations in shared memory (ping-pong buffers) and the
+// Design. One block of 256 threads per (batch element, query rows), the
+// query blocks of one cloud adjacent in the grid, so the cloud's keys stay
+// in L2 while its blocks run:
+//   phase 1  small C: keys pass through shared memory in windows of up to
+//            2048 columns, each query's 16 threads keep their best k-1 in
+//            registers and merge them with half-warp shuffles (16 query
+//            rows per block). Wide C: select_wide_c, the split products on
+//            bf16 tensor cores (mma.sync) from rows split once per point by
+//            split_rows_kernel (launched first, into the caller's scratch),
+//            key units double-buffered with cp.async and an early reject
+//            before each insert; 16 query rows per block up to 2048 points,
+//            64 in the tiled variant, which streams a whole cloud per block;
+//   phase 2  16 query rows at a time (four slices of the tiled wide-C
+//            block): the 16 k edge rows go through the layers with their
+//            bf16 activations in shared memory (ping-pong buffers) and the
 //            weights read from global memory (L1/L2); each thread owns
 //            4 queries x k slots x 4 columns, so the max over the slots
 //            stays in registers.
-// Left on the table: every product runs on the CUDA cores in f32 instead
-// of bf16 wgmma / mma.sync (the split products are exact bf16 products by
-// construction), the weights are not staged in shared memory, layers
-// narrower than 256 leave threads idle, and key tiles are not prefetched.
+// What bounds it now: with the selection on tensor cores (stress conv1:
+// about 40 ms of the tiled wide-C kernel), phase 2's edge MLP on the CUDA
+// cores in f32 is most of every variant's time. Left on the table: the
+// edge MLP on bf16 tensor cores (rows 4-7 share phase 2), the weights
+// staged in shared memory, layers narrower than 256 leaving threads idle,
+// the small-C key windows not prefetched, and each unordered pair's
+// distance computed in both directions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,6 +95,8 @@ struct Params {
     const float* d;               // f32 (256,): final affine shift
     int act_stride;               // bf16 elements per activation row (16 k + 4)
     int act_rows;                 // rows of each activation buffer: max layer width
+    const void* split;            // wide C: split_rows_kernel's output for the B N points
+    size_t P;                     // B N
 };
 
 __device__ __forceinline__ uint16_t trunc_bf16_bits(float v) {
@@ -99,112 +110,124 @@ __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
 template <int K, bool SMALL_C, bool TILED>
 __global__ void __launch_bounds__(THREADS)
 fused_edgeconv_kernel(const Params p) {
+    // query rows per block: WIDE_QB for the tiled wide-C variant, which
+    // streams a whole cloud's keys per block, else TM
+    constexpr int QB = (!SMALL_C && TILED) ? WIDE_QB : TM;
     extern __shared__ __align__(16) unsigned char smem[];
-    int* sidx = reinterpret_cast<int*>(smem);                       // [TM][K]
-    unsigned char* work = smem + HEADER_BYTES;
-    const int b = blockIdx.y, n0 = blockIdx.x * TM, t = threadIdx.x;
+    int* sidx_block = reinterpret_cast<int*>(smem);                 // [QB][K]
+    unsigned char* work = smem + QB * MAX_K * 4;
+    const int b = blockIdx.y, n0_block = blockIdx.x * QB, t = threadIdx.x;
     const int N = p.N, C = p.C;
     const float* xb = p.x + static_cast<size_t>(b) * N * C;
 
     if constexpr (K == 1) {
-        if (t < TM) sidx[t] = min(n0 + t, N - 1);
+        if (t < QB) sidx_block[t] = min(n0_block + t, N - 1);
     } else if constexpr (SMALL_C) {
-        select_small_c<K, TILED>(N, C, xb, n0, reinterpret_cast<float*>(work), sidx,
-                                 p.window);
+        select_small_c<K, TILED>(N, C, xb, n0_block, reinterpret_cast<float*>(work),
+                                 sidx_block, p.window);
     } else {
-        select_wide_c<K, TILED>(N, C, xb, n0, reinterpret_cast<float*>(work), sidx);
+        select_wide_c<K, TILED, QB>(N, cloud_rows(p.split, p.P, C, 2, b, N), n0_block,
+                                    work, sidx_block);
     }
     __syncthreads();
 
-    if (p.idx_out != nullptr && t < TM * K) {
-        const int n = n0 + t / K;
-        if (n < N) p.idx_out[(static_cast<size_t>(b) * N + n) * K + t % K] = sidx[t];
+    if (p.idx_out != nullptr) {
+        for (int e = t; e < QB * K; e += THREADS) {
+            const int n = n0_block + e / K;
+            if (n < N) p.idx_out[(static_cast<size_t>(b) * N + n) * K + e % K] = sidx_block[e];
+        }
     }
 
-    // ---- phase 2: edge MLP on [x_i ; x_j - x_i] + max over the k slots ----
+    // ---- phase 2: edge MLP on [x_i ; x_j - x_i] + max over the k slots, TM
+    // query rows (one slice of the block) at a time ----
     constexpr int R = TM * K;                 // edge rows: row = query * K + slot
     constexpr int RT = R / ROW_GROUPS;        // rows per thread: 4 queries x K
     const int S = p.act_stride;
-    uint16_t* act_in = reinterpret_cast<uint16_t*>(work);          // [width][S]
-    uint16_t* act_out = act_in + p.act_rows * S;
+    for (int slice = 0; slice < QB / TM; ++slice) {
+        const int n0 = n0_block + slice * TM;
+        if (n0 >= N) break;
+        const int* sidx = sidx_block + slice * TM * K;
+        uint16_t* act_in = reinterpret_cast<uint16_t*>(work);          // [width][S]
+        uint16_t* act_out = act_in + p.act_rows * S;
 
-    for (int e = t; e < R * C; e += THREADS) {
-        const int r = e / C, c = e - r * C;
-        const int qq = r / K, s = r - qq * K;
-        const float qv = xb[sidx[qq * K] * C + c];
-        float nv = qv;                        // slot 0: the query's own f32 row
-        if (s > 0) {
-            const float v = xb[sidx[qq * K + s] * C + c];
-            if (SMALL_C) {
-                nv = v;
-            } else {
-                const float hi = trunc_bf16(v);
-                nv = p.n_chunks == 2 ? hi + trunc_bf16(v - hi) : hi;
-            }
-        }
-        act_in[c * S + r] = trunc_bf16_bits(qv);
-        act_in[(C + c) * S + r] = trunc_bf16_bits(nv - qv);
-    }
-    __syncthreads();
-
-    const int cg = t % COL_GROUPS, rg = t / COL_GROUPS;
-    for (int l = 0; l < p.n_layers; ++l) {
-        const int din = p.dims[l], dout = p.dims[l + 1];
-        const uint16_t* W = p.w[l];
-        float acc[RT][4];
-#pragma unroll
-        for (int r = 0; r < RT; ++r)
-#pragma unroll
-            for (int u = 0; u < 4; ++u) acc[r][u] = 0.f;
-
-        for (int i = 0; i < din; ++i) {
-            const uint2 wv = *reinterpret_cast<const uint2*>(W + i * MAX_WIDTH + cg * 4);
-            const float w[4] = {bf16_bits_to_float(wv.x & 0xFFFFu), bf16_bits_to_float(wv.x >> 16),
-                                bf16_bits_to_float(wv.y & 0xFFFFu), bf16_bits_to_float(wv.y >> 16)};
-            const uint2* arow = reinterpret_cast<const uint2*>(act_in + i * S + rg * RT);
-#pragma unroll
-            for (int rr = 0; rr < RT / 4; ++rr) {
-                const uint2 av = arow[rr];
-                const float a4[4] = {bf16_bits_to_float(av.x & 0xFFFFu), bf16_bits_to_float(av.x >> 16),
-                                     bf16_bits_to_float(av.y & 0xFFFFu), bf16_bits_to_float(av.y >> 16)};
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-#pragma unroll
-                    for (int u = 0; u < 4; ++u)
-                        acc[rr * 4 + e][u] = fmaf(a4[e], w[u], acc[rr * 4 + e][u]);
-            }
-        }
-
-        const bool last = l + 1 == p.n_layers;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-            const int col = cg + COL_GROUPS * u;
-            if (col >= dout) continue;
-            const float bias = p.bias[l][col];
-            if (!last) {
-#pragma unroll
-                for (int r = 0; r < RT; ++r)
-                    act_out[col * S + rg * RT + r] = trunc_bf16_bits(fmaxf(acc[r][u] + bias, 0.f));
-                continue;
-            }
-            const float av = p.a[col], dv = p.d[col];
-#pragma unroll
-            for (int qq = 0; qq < 4; ++qq) {
-                float m = 0.f;
-#pragma unroll
-                for (int s = 0; s < K; ++s) {
-                    const float h = fmaxf(acc[qq * K + s][u] + bias, 0.f);
-                    const float o = __fadd_rn(__fmul_rn(h, av), dv);
-                    m = s == 0 ? o : fmaxf(m, o);
+        for (int e = t; e < R * C; e += THREADS) {
+            const int r = e / C, c = e - r * C;
+            const int qq = r / K, s = r - qq * K;
+            const float qv = xb[sidx[qq * K] * C + c];
+            float nv = qv;                        // slot 0: the query's own f32 row
+            if (s > 0) {
+                const float v = xb[sidx[qq * K + s] * C + c];
+                if (SMALL_C) {
+                    nv = v;
+                } else {
+                    const float hi = trunc_bf16(v);
+                    nv = p.n_chunks == 2 ? hi + trunc_bf16(v - hi) : hi;
                 }
-                const int n = n0 + rg * 4 + qq;
-                if (n < N) p.out[(static_cast<size_t>(b) * N + n) * dout + col] = m;
             }
+            act_in[c * S + r] = trunc_bf16_bits(qv);
+            act_in[(C + c) * S + r] = trunc_bf16_bits(nv - qv);
         }
         __syncthreads();
-        uint16_t* tmp = act_in;
-        act_in = act_out;
-        act_out = tmp;
+
+        const int cg = t % COL_GROUPS, rg = t / COL_GROUPS;
+        for (int l = 0; l < p.n_layers; ++l) {
+            const int din = p.dims[l], dout = p.dims[l + 1];
+            const uint16_t* W = p.w[l];
+            float acc[RT][4];
+#pragma unroll
+            for (int r = 0; r < RT; ++r)
+#pragma unroll
+                for (int u = 0; u < 4; ++u) acc[r][u] = 0.f;
+
+            for (int i = 0; i < din; ++i) {
+                const uint2 wv = *reinterpret_cast<const uint2*>(W + i * MAX_WIDTH + cg * 4);
+                const float w[4] = {bf16_bits_to_float(wv.x & 0xFFFFu), bf16_bits_to_float(wv.x >> 16),
+                                    bf16_bits_to_float(wv.y & 0xFFFFu), bf16_bits_to_float(wv.y >> 16)};
+                const uint2* arow = reinterpret_cast<const uint2*>(act_in + i * S + rg * RT);
+#pragma unroll
+                for (int rr = 0; rr < RT / 4; ++rr) {
+                    const uint2 av = arow[rr];
+                    const float a4[4] = {bf16_bits_to_float(av.x & 0xFFFFu), bf16_bits_to_float(av.x >> 16),
+                                         bf16_bits_to_float(av.y & 0xFFFFu), bf16_bits_to_float(av.y >> 16)};
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+#pragma unroll
+                        for (int u = 0; u < 4; ++u)
+                            acc[rr * 4 + e][u] = fmaf(a4[e], w[u], acc[rr * 4 + e][u]);
+                }
+            }
+
+            const bool last = l + 1 == p.n_layers;
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const int col = cg + COL_GROUPS * u;
+                if (col >= dout) continue;
+                const float bias = p.bias[l][col];
+                if (!last) {
+#pragma unroll
+                    for (int r = 0; r < RT; ++r)
+                        act_out[col * S + rg * RT + r] = trunc_bf16_bits(fmaxf(acc[r][u] + bias, 0.f));
+                    continue;
+                }
+                const float av = p.a[col], dv = p.d[col];
+#pragma unroll
+                for (int qq = 0; qq < 4; ++qq) {
+                    float m = 0.f;
+#pragma unroll
+                    for (int s = 0; s < K; ++s) {
+                        const float h = fmaxf(acc[qq * K + s][u] + bias, 0.f);
+                        const float o = __fadd_rn(__fmul_rn(h, av), dv);
+                        m = s == 0 ? o : fmaxf(m, o);
+                    }
+                    const int n = n0 + rg * 4 + qq;
+                    if (n < N) p.out[(static_cast<size_t>(b) * N + n) * dout + col] = m;
+                }
+            }
+            __syncthreads();
+            uint16_t* tmp = act_in;
+            act_in = act_out;
+            act_out = tmp;
+        }
     }
 }
 
@@ -214,7 +237,8 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.N + TM - 1) / TM, p.B);
+    constexpr int QB = (!SMALL_C && TILED) ? WIDE_QB : TM;
+    const dim3 grid((p.N + QB - 1) / QB, p.B);
     kernel<<<grid, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
@@ -236,7 +260,14 @@ cudaError_t launch_k(int k, const Params& p, size_t smem, cudaStream_t stream) {
 
 }  // namespace
 
-// Launches the fused EdgeConv on `stream`. Weights are bf16 (dims[l], 256)
+// Bytes of the scratch fused_edgeconv_forward needs for (B, N, C): the
+// split rows of the wide-C selection, none for small C.
+extern "C" size_t fused_edgeconv_scratch_bytes(int B, int N, int C) {
+    return C <= SMALL_C_MAX ? 0 : split_bytes(static_cast<size_t>(B) * N, C, 2);
+}
+
+// Launches the fused EdgeConv on `stream`; `scratch` holds
+// fused_edgeconv_scratch_bytes(B, N, C) bytes. Weights are bf16 (dims[l], 256)
 // with column c stored at [c % 64][c / 64], zero beyond dims[l+1]; biases
 // and the final affine are f32 (256,). The tiled variants run when
 // N > 2048 or when tile_n > 0 (which also sets the small-C key window, at
@@ -244,7 +275,7 @@ cudaError_t launch_k(int k, const Params& p, size_t smem, cudaStream_t stream) {
 // (0 = ok); an argument the kernel does not take returns
 // cudaErrorInvalidValue.
 extern "C" int fused_edgeconv_forward(
-        const void* x, void* out, void* idx_out,
+        const void* x, void* out, void* idx_out, void* scratch, size_t scratch_bytes,
         int B, int N, int C, int k, int n_chunks, int n_layers, int tile_n,
         const void* dims, const void* weights, const void* biases,
         const void* a, const void* d, void* stream) {
@@ -252,7 +283,8 @@ extern "C" int fused_edgeconv_forward(
     if (B < 1 || N < 1 || N > MAX_FUSED_N || C < 1 || C > WIDE_C_MAX || k < 1
             || k > MAX_K || k > N || n_layers < 1 || n_layers > MAX_LAYERS
             || tile_n < 0 || tile_n > MAX_N
-            || (n_chunks != 1 && n_chunks != 2) || dim[0] != 2 * C)
+            || (n_chunks != 1 && n_chunks != 2) || dim[0] != 2 * C
+            || scratch_bytes < fused_edgeconv_scratch_bytes(B, N, C))
         return static_cast<int>(cudaErrorInvalidValue);
     Params p{};
     p.x = static_cast<const float*>(x);
@@ -274,14 +306,21 @@ extern "C" int fused_edgeconv_forward(
     p.d = static_cast<const float*>(d);
     p.act_stride = TM * k + 4;
     p.act_rows = width;
+    p.split = scratch;
+    p.P = static_cast<size_t>(B) * N;
 
     const bool small_c = C <= SMALL_C_MAX;
     const bool tiled = N > MAX_N || tile_n > 0;
     p.window = small_c_window(N, C, tiled, tile_n);
     const size_t sel_bytes = select_bytes(N, C, tiled, p.window);
     const size_t mlp_bytes = 2 * static_cast<size_t>(width) * p.act_stride * 2;
-    const size_t smem = HEADER_BYTES + (sel_bytes > mlp_bytes ? sel_bytes : mlp_bytes);
+    const size_t header = (!small_c && tiled ? WIDE_QB : TM) * MAX_K * 4;
+    const size_t smem = header + (sel_bytes > mlp_bytes ? sel_bytes : mlp_bytes);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (!small_c && k > 1) {
+        const cudaError_t err = launch_split<2>(p.x, p.P, C, scratch, s);
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
     const cudaError_t err =
         small_c ? (tiled ? launch_k<true, true>(k, p, smem, s) : launch_k<true, false>(k, p, smem, s))
                 : (tiled ? launch_k<false, true>(k, p, smem, s) : launch_k<false, false>(k, p, smem, s));

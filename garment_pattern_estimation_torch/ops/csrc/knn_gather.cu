@@ -37,9 +37,12 @@
 // bound by operations. Forward, small C (C=3): 1.1e9 f32 FLOP of distances,
 // 0.016 ms at 67 TFLOP/s, bound by operations. Backward, C=150: 180 MB of
 // cotangents read and 36 MB of dx written, 0.065 ms, bound by bytes.
-// Left on the table: the distances run on the CUDA cores in f32 instead of
-// bf16 tensor-core MMAs, and the backward re-reads the ids once per block
-// (from L2) instead of building the transposed graph once.
+// The wide-C selection is select_wide_c (split products on bf16 tensor
+// cores after split_rows_kernel, launched first into the caller's scratch),
+// with 16 query rows per block. Left on the table: each unordered pair's
+// distance is computed in both directions, and the backward re-reads the
+// ids once per block (from L2) instead of building the transposed graph
+// once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,6 +64,8 @@ struct FwdParams {
     float* nbr;                   // (B, K, N, C) f32
     int* idx;                     // (B, N, K) i32
     int B, N, C, n_chunks;
+    const void* split;            // wide C: split_rows_kernel's output for the B N points
+    size_t P;                     // B N
 };
 
 struct BwdParams {
@@ -85,7 +90,8 @@ knn_gather_fwd_kernel(const FwdParams p) {
     } else if constexpr (SMALL_C) {
         select_small_c<K, false>(N, C, xb, n0, work, sidx, N);
     } else {
-        select_wide_c<K, false>(N, C, xb, n0, work, sidx);
+        select_wide_c<K, false, TM>(N, cloud_rows(p.split, p.P, C, 2, b, N), n0,
+                                    reinterpret_cast<unsigned char*>(work), sidx);
     }
     __syncthreads();
 
@@ -219,22 +225,37 @@ bool valid_shape(int B, int N, int C, int k) {
 
 }  // namespace
 
+// Bytes of the scratch knn_gather_forward needs for (B, N, C): the split
+// rows of the wide-C selection, none for small C.
+extern "C" size_t knn_gather_scratch_bytes(int B, int N, int C) {
+    return C <= SMALL_C_MAX ? 0 : split_bytes(static_cast<size_t>(B) * N, C, 2);
+}
+
 // Launches the knn_gather forward on `stream`: x (B, N, C) f32 ->
-// nbr (B, k, N, C) f32 and idx (B, N, k) i32. Returns the CUDA error code
+// nbr (B, k, N, C) f32 and idx (B, N, k) i32; `scratch` holds
+// knn_gather_scratch_bytes(B, N, C) bytes. Returns the CUDA error code
 // (0 = ok); an argument the kernel does not take returns
 // cudaErrorInvalidValue.
 extern "C" int knn_gather_forward(const void* x, void* nbr, void* idx,
+                                  void* scratch, size_t scratch_bytes,
                                   int B, int N, int C, int k, int n_chunks,
                                   void* stream) {
-    if (!valid_shape(B, N, C, k) || (n_chunks != 1 && n_chunks != 2))
+    if (!valid_shape(B, N, C, k) || (n_chunks != 1 && n_chunks != 2)
+            || scratch_bytes < knn_gather_scratch_bytes(B, N, C))
         return static_cast<int>(cudaErrorInvalidValue);
     FwdParams p{};
     p.x = static_cast<const float*>(x);
     p.nbr = static_cast<float*>(nbr);
     p.idx = static_cast<int*>(idx);
     p.B = B; p.N = N; p.C = C; p.n_chunks = n_chunks;
+    p.split = scratch;
+    p.P = static_cast<size_t>(B) * N;
     const size_t smem = HEADER_BYTES + select_bytes(N, C, false, N);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (C > SMALL_C_MAX && k > 1) {
+        const cudaError_t err = launch_split<2>(p.x, p.P, C, scratch, s);
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
     const cudaError_t err = C <= SMALL_C_MAX ? launch_fwd_k<true>(k, p, smem, s)
                                              : launch_fwd_k<false>(k, p, smem, s);
     return static_cast<int>(err);

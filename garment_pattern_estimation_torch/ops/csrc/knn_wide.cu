@@ -8,36 +8,36 @@
 // _knn_kernel (keys resident in VMEM) and _knn_kernel_hbm (key tiles
 // double-buffered from HBM), knn_pallas's D > 16 path. The split between
 // the two is a TPU memory-space choice; here the keys always stream from
-// global memory (the cloud, 6 MB at (10^4, 150), stays in L2 while the
-// cloud's query blocks, adjacent in the grid, run). Distances are the
-// TPU kernels' arithmetic: q_norm + k_norm - 2 * cross, cross from 3-term
-// bf16 truncation splits (hi, mid, lo) summing six partial products in
-// _CROSS_PAIRS[3] order, ((((p00 + p01) + p10) + p11) + p02) + p20. Every
-// product is of two bf16-exact values, exact in f32, and each of the six
-// accumulates with one fmaf per dimension. The distance is not clamped at
-// 0: near duplicates may give a negative one, which must rank below every
-// positive one, so the key maps the f32 bits to an order-preserving
-// unsigned integer (-0 sent to +0 first, so the two tie as the float
-// compare ties them) above the 32-bit column. The plain PyTorch version is
-// ops/knn.py: knn_reference (wide_sq_dists + select_exact); its sums run in
-// cuBLAS's order, so ids may differ from it at near ties only.
+// device memory through shared memory (one cloud's split rows, 9.6 MB at
+// (10^4, 150), stay in L2 while the cloud's query blocks, adjacent in the
+// grid, run). Distances are the TPU kernels' arithmetic:
+// q_norm + k_norm - 2 * cross, cross the six partial products of the 3-term
+// bf16 truncation splits (hi, mid, lo) of _CROSS_PAIRS[3]. Every product is
+// of two bf16-exact values, so it is exact on bf16 tensor cores (as on the
+// TPU's MXU); the tensor core sums them in its own order, small products
+// first (edgeconv_select.cuh: select_wide). The distance is not clamped at
+// 0: near duplicates may give a negative one, which ranks below every
+// positive one (RankExact). The plain PyTorch version is ops/knn.py:
+// knn_reference (wide_sq_dists + select_exact); its sums run in cuBLAS's
+// order, so ids may differ from it at near ties only.
 //
 // What bounds it on an H100 SXM. At the chunked training's conv1 shape
 // (B=128, N=10000, D=150, k=5) the six split products are
-// 6 * 2 B N^2 D = 2.3e13 operations, 23 ms on bf16 tensor cores at
-// 989 TFLOP/s, against 0.8 GB of compulsory traffic (points read once, ids
-// written once), 0.23 ms at 3.35 TB/s: bound by operations. This kernel
-// runs them as f32 FMAs on the CUDA cores (67 TFLOP/s: 340 ms at best),
-// plus one sorted insert per (query, key) pair.
+// 6 x 2 D = 1800 operations per distance, 2.3e13 over every ordered pair
+// (1.15e13 over unordered pairs, 11.6 ms at 989 TFLOP/s), against 0.8 GB
+// of compulsory traffic (0.23 ms at 3.35 TB/s): bound by operations.
 //
-// Design: edgeconv_select.cuh's select_wide_c with the three-term split:
-// one block of 256 threads per (batch element, 16 query rows), the query
-// tiles of one cloud adjacent in the grid; the queries' three chunks staged
-// in shared memory (3 x D x 16 floats); keys staged in 128-key tiles; each
-// thread computes 8 queries x 1 key with six accumulators each; each
-// query's 16 lanes keep their best k-1 keys in registers and merge them
-// with half-warp shuffles. Left on the table: tensor-core products, a
-// double-buffered key tile, an early reject before the insert.
+// Design: split_rows_kernel writes each point once as three bf16 chunks
+// (zero-padded to Dp = 160) and its norm; then one block of 256 threads per
+// (batch element, 64 query rows) runs select_wide: the queries' chunks in
+// shared memory, keys streamed in 64-key units of one chunk, double-
+// buffered with cp.async, cross terms by mma.sync m16n8k16 bf16 from
+// ldmatrix fragments, each (query, key) pair packed and rejected against
+// the thread's current (k-1)-th key before any insert. Shared memory at
+// D = 150 is 110 KB, so two blocks share an SM. Left on the table: each
+// unordered pair is computed in both directions (a symmetric schedule
+// would merge candidates across blocks), mma.sync instead of wgmma with
+// TMA, and the split chunks cost 1.6 times the f32 cloud's L2 traffic.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -52,150 +52,32 @@ using namespace knn_select;
 constexpr int MAX_KNN_N = 1 << 24;
 constexpr int SPLITS = 3;
 
-// (distance, column) ranked by the exact f32 value, then the column.
-struct RankExact {
-    using T = unsigned long long;
-    static constexpr T MAX = ~0ULL;
-    __device__ static __forceinline__ T pack(float dist, int col) {
-        unsigned bits = __float_as_uint(dist);
-        if (bits == 0x80000000u) bits = 0u;                       // -0 ranks as +0
-        // negative: flip every bit; non-negative: set the sign bit
-        bits ^= (bits & 0x80000000u) ? 0xffffffffu : 0x80000000u;
-        return (static_cast<T>(bits) << 32) | static_cast<unsigned>(col);
-    }
-    __device__ static __forceinline__ int column(T v) {
-        return static_cast<int>(v & 0xffffffffULL);
-    }
-};
-
 struct Params {
-    const float* x;               // (B, N, D) f32
+    const void* split;            // split_rows_kernel's output for the B N points
     int* idx;                     // (B, N, K) i32
     int N, D;
+    size_t P;                     // B N
 };
-
-template <int K>
-__device__ void select_wide_exact(int N, int D, const float* xb, int n0,
-                                  float* work, int* sidx) {
-    using R = RankExact;
-    using T = R::T;
-    const int t = threadIdx.x;
-    float* keys = work;                                     // [D][KT_STRIDE]
-    float* q_split = keys + ((D * KT_STRIDE + 3) & ~3);     // [3][D][TM]
-    float* q_norm = q_split + SPLITS * D * TM;              // [TM]
-    T* dist = reinterpret_cast<T*>(q_norm + TM);            // [TM][KT], 16-byte aligned
-
-    for (int e = t; e < TM * D; e += THREADS) {
-        const int qq = e / D, c = e - qq * D;
-        float r = xb[static_cast<size_t>(min(n0 + qq, N - 1)) * D + c];
-#pragma unroll
-        for (int s = 0; s < SPLITS; ++s) {
-            const float chunk = trunc_bf16(r);
-            q_split[(s * D + c) * TM + qq] = chunk;
-            r = r - chunk;              // exact: chunk is r truncated (Sterbenz)
-        }
-    }
-    if (t < TM) {
-        const float* row = xb + static_cast<size_t>(min(n0 + t, N - 1)) * D;
-        float s = 0.f;
-        for (int c = 0; c < D; ++c) s = fmaf(row[c], row[c], s);
-        q_norm[t] = s;
-    }
-
-    const int q = t / LANES_PER_QUERY, lane = t % LANES_PER_QUERY;
-    T best[K - 1];
-#pragma unroll
-    for (int i = 0; i < K - 1; ++i) best[i] = R::MAX;
-
-    // distance phase: thread owns key j of the tile and 8 queries
-    const int j = t % KT, qh = t / KT;
-    for (int jt = 0; jt < N; jt += KT) {
-        __syncthreads();                  // the previous tile is consumed
-        for (int e = t; e < KT * D; e += THREADS) {
-            const int jj = e / D, c = e - jj * D;
-            const int gj = jt + jj;
-            keys[c * KT_STRIDE + jj] = gj < N ? xb[static_cast<size_t>(gj) * D + c] : 0.f;
-        }
-        __syncthreads();
-
-        // p00, p01, p10, p11, p02, p20 for each of the 8 queries
-        float acc[6][8];
-#pragma unroll
-        for (int m = 0; m < 6; ++m)
-#pragma unroll
-            for (int i = 0; i < 8; ++i) acc[m][i] = 0.f;
-        float k_norm = 0.f;
-        for (int c = 0; c < D; ++c) {
-            const float kv = keys[c * KT_STRIDE + j];
-            const float k0 = trunc_bf16(kv);
-            const float r1 = kv - k0;
-            const float k1 = trunc_bf16(r1);
-            const float k2 = trunc_bf16(r1 - k1);
-            k_norm = fmaf(kv, kv, k_norm);
-            float qv[SPLITS][8];
-#pragma unroll
-            for (int s = 0; s < SPLITS; ++s) {
-                const float4* q4 = reinterpret_cast<const float4*>(
-                    q_split + (s * D + c) * TM + qh * 8);
-                const float4 a = q4[0], b = q4[1];
-                qv[s][0] = a.x; qv[s][1] = a.y; qv[s][2] = a.z; qv[s][3] = a.w;
-                qv[s][4] = b.x; qv[s][5] = b.y; qv[s][6] = b.z; qv[s][7] = b.w;
-            }
-            // every product is of two bf16-exact values: exact in f32
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                acc[0][i] = fmaf(qv[0][i], k0, acc[0][i]);
-                acc[1][i] = fmaf(qv[0][i], k1, acc[1][i]);
-                acc[2][i] = fmaf(qv[1][i], k0, acc[2][i]);
-                acc[3][i] = fmaf(qv[1][i], k1, acc[3][i]);
-                acc[4][i] = fmaf(qv[0][i], k2, acc[4][i]);
-                acc[5][i] = fmaf(qv[2][i], k0, acc[5][i]);
-            }
-        }
-        const int gj = jt + j;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            const int qi = qh * 8 + i;
-            const float cross = ((((acc[0][i] + acc[1][i]) + acc[2][i]) + acc[3][i])
-                                 + acc[4][i]) + acc[5][i];
-            // 2 * cross is exact, so a contraction into one FMA rounds alike
-            const float dd = (q_norm[qi] + k_norm) - 2.f * cross;
-            dist[qi * KT + j] = (gj >= N || gj == n0 + qi) ? R::MAX : R::pack(dd, gj);
-        }
-        __syncthreads();
-
-        // selection phase: the two queries of a warp read opposite halves
-        // of the bank space
-#pragma unroll
-        for (int m = 0; m < KT / LANES_PER_QUERY; ++m) {
-            const int col = lane + LANES_PER_QUERY * ((m + (q & 1)) % (KT / LANES_PER_QUERY));
-            insert(best, dist[q * KT + col]);
-        }
-    }
-    const int nq = min(n0 + q, N - 1);
-    if (lane == 0) sidx[q * K] = nq;
-    merge_lists<K, R>(best, sidx, q, lane, nq);
-}
 
 template <int K>
 __global__ void __launch_bounds__(THREADS)
 knn_wide_kernel(const Params p) {
     extern __shared__ __align__(16) unsigned char smem[];
-    int* sidx = reinterpret_cast<int*>(smem);                       // [TM][K]
-    float* work = reinterpret_cast<float*>(smem + HEADER_BYTES);
-    const int b = blockIdx.y, n0 = blockIdx.x * TM, t = threadIdx.x;
+    int* sidx = reinterpret_cast<int*>(smem);                       // [WIDE_QB][K]
+    unsigned char* work = smem + WIDE_HEADER_BYTES;
+    const int b = blockIdx.y, n0 = blockIdx.x * WIDE_QB, t = threadIdx.x;
     const int N = p.N;
-    const float* xb = p.x + static_cast<size_t>(b) * N * p.D;
 
     if constexpr (K == 1) {
-        if (t < TM) sidx[t] = min(n0 + t, N - 1);
+        if (t < WIDE_QB) sidx[t] = min(n0 + t, N - 1);
     } else {
-        select_wide_exact<K>(N, p.D, xb, n0, work, sidx);
+        select_wide<K, RankExact, SPLITS, WIDE_QB, false>(
+            N, cloud_rows(p.split, p.P, p.D, SPLITS, b, N), n0, work, sidx);
     }
     __syncthreads();
-    if (t < TM * K) {
-        const int n = n0 + t / K;
-        if (n < N) p.idx[(static_cast<size_t>(b) * N + n) * K + t % K] = sidx[t];
+    for (int e = t; e < WIDE_QB * K; e += THREADS) {
+        const int n = n0 + e / K;
+        if (n < N) p.idx[(static_cast<size_t>(b) * N + n) * K + e % K] = sidx[e];
     }
 }
 
@@ -205,29 +87,38 @@ cudaError_t launch(const Params& p, int B, size_t smem, cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.N + TM - 1) / TM, B);
+    const dim3 grid((p.N + WIDE_QB - 1) / WIDE_QB, B);
     kernel<<<grid, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
 
 }  // namespace
 
+// Bytes of the scratch knn_wide_forward needs for (B, N, D).
+extern "C" size_t knn_wide_scratch_bytes(int B, int N, int D) {
+    return split_bytes(static_cast<size_t>(B) * N, D, SPLITS);
+}
+
 // Launches the wide-D kNN on `stream`: x (B, N, D) f32, 16 < D <= 256 ->
-// idx (B, N, k) i32. Returns the CUDA error code (0 = ok); an argument the
+// idx (B, N, k) i32; `scratch` holds knn_wide_scratch_bytes(B, N, D) bytes
+// (the split rows). Returns the CUDA error code (0 = ok); an argument the
 // kernel does not take returns cudaErrorInvalidValue.
-extern "C" int knn_wide_forward(const void* x, void* idx, int B, int N, int D, int k,
-                                void* stream) {
+extern "C" int knn_wide_forward(const void* x, void* idx, void* scratch, size_t scratch_bytes,
+                                int B, int N, int D, int k, void* stream) {
     if (B < 1 || B > 65535 || N < 1 || N > MAX_KNN_N || D <= SMALL_C_MAX
-            || D > WIDE_C_MAX || k < 1 || k > MAX_K || k > N)
+            || D > WIDE_C_MAX || k < 1 || k > MAX_K || k > N
+            || scratch_bytes < knn_wide_scratch_bytes(B, N, D))
         return static_cast<int>(cudaErrorInvalidValue);
     Params p{};
-    p.x = static_cast<const float*>(x);
+    p.split = scratch;
     p.idx = static_cast<int*>(idx);
     p.N = N; p.D = D;
-    const size_t smem = HEADER_BYTES + align16(static_cast<size_t>(D) * KT_STRIDE * 4)
-                        + static_cast<size_t>(SPLITS) * D * TM * 4 + TM * 4
-                        + TM * KT * sizeof(RankExact::T);
+    p.P = static_cast<size_t>(B) * N;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = launch_split<SPLITS>(static_cast<const float*>(x), p.P, D, scratch, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t smem = WIDE_HEADER_BYTES
+                        + wide_select_bytes<WIDE_QB>(D, SPLITS, sizeof(RankExact::T));
     switch (k) {
         case 1: return static_cast<int>(launch<1>(p, B, smem, s));
         case 2: return static_cast<int>(launch<2>(p, B, smem, s));

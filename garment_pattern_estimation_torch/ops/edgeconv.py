@@ -27,8 +27,8 @@ import ctypes
 
 import torch
 
-from .knn import (DIRECT_D_MAX, MAX_N, exact_sq_dists, select_ranked, split_bf16,
-                  truncate_bf16)
+from .knn import (DIRECT_D_MAX, MAX_N, exact_sq_dists, scratch_bytes, select_ranked,
+                  split_bf16, truncate_bf16)
 
 SMALL_C_MAX = DIRECT_D_MAX  # C at or below: the exact per-dimension path
 MAX_FUSED_N = 1 << 14       # the JAX package's fused bound (_MAX_FUSED_N)
@@ -206,15 +206,17 @@ def _launch(x, folded, k, mlp_dtype, return_idx, tile_n):
         if return_idx else None
 
     lib = _build.load_library('fused_edgeconv')
+    scratch = torch.empty(scratch_bytes(lib, 'fused_edgeconv', B, N, C), device=x.device,
+                          dtype=torch.uint8)
     fn = lib.fused_edgeconv_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_size_t] + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p] * 6
     dims_arr = (ctypes.c_int * len(dims))(*dims)
     w_arr = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
     b_arr = (ctypes.c_void_p * len(biases))(*[b.data_ptr() for b in biases])
     err = fn(x.data_ptr(), out.data_ptr(), idx.data_ptr() if idx is not None else None,
-             B, N, C, k, 2 if mlp_dtype == torch.float32 else 1, len(layers),
+             scratch.data_ptr(), scratch.numel(), B, N, C, k, 2 if mlp_dtype == torch.float32 else 1, len(layers),
              tile_n or 0, ctypes.addressof(dims_arr), ctypes.addressof(w_arr),
              ctypes.addressof(b_arr), a_pad.data_ptr(), d_pad.data_ptr(),
              torch.cuda.current_stream(x.device).cuda_stream)

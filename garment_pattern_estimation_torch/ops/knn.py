@@ -176,6 +176,16 @@ def knn(points, k, *, tile_n=None):
     return _launch(points, k, tile_n)
 
 
+def scratch_bytes(lib, name, B, N, C):
+    """Bytes of device scratch that kernel library `lib`'s `name`_forward
+    needs for a (B, N, C) input: `name`_scratch_bytes of the library (the
+    wide selections' split rows; 0 where none is needed)."""
+    fn = getattr(lib, f'{name}_scratch_bytes')
+    fn.restype = ctypes.c_size_t
+    fn.argtypes = [ctypes.c_int] * 3
+    return fn(B, N, C)
+
+
 def _check_launch(points, k):
     if points.dtype != torch.float32:
         raise TypeError(f'knn: points must be float32, got {points.dtype}')
@@ -213,11 +223,16 @@ def _launch_wide(points, k):
     points, k = _check_launch(points, k)
     B, N, D = points.shape
     idx = torch.empty(B, N, k, device=points.device, dtype=torch.int32)
-    fn = _build.load_library('knn_wide').knn_wide_forward
+    lib = _build.load_library('knn_wide')
+    # the kernel's scratch: each point split once into bf16 chunks + its norm
+    scratch = torch.empty(scratch_bytes(lib, 'knn_wide', B, N, D), device=points.device,
+                          dtype=torch.uint8)
+    fn = lib.knn_wide_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    err = fn(points.data_ptr(), idx.data_ptr(), B, N, D, k,
-             torch.cuda.current_stream(points.device).cuda_stream)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_size_t] + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    err = fn(points.data_ptr(), idx.data_ptr(), scratch.data_ptr(), scratch.numel(),
+             B, N, D, k, torch.cuda.current_stream(points.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'knn: wide-D kernel launch failed with CUDA error {err}')
     launches['knn_wide'] += 1

@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from .edgeconv import SMALL_C_MAX, edgeconv_select
-from .knn import MAX_N
+from .knn import MAX_N, scratch_bytes
 
 _WIDE_C_MAX = 256
 _MAX_K = 8
@@ -95,8 +95,8 @@ def _library():
 
     lib = _build.load_library('knn_gather')
     lib.knn_gather_forward.restype = ctypes.c_int
-    lib.knn_gather_forward.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
+    lib.knn_gather_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_size_t] \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.knn_gather_backward.restype = ctypes.c_int
     lib.knn_gather_backward.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
@@ -116,9 +116,12 @@ def knn_gather_fwd(x, k, value_chunks=2):
     B, N, C = x.shape
     nbr = torch.empty(B, k, N, C, device=x.device, dtype=torch.float32)
     idx = torch.empty(B, N, k, device=x.device, dtype=torch.int32)
-    err = _library().knn_gather_forward(
-        x.data_ptr(), nbr.data_ptr(), idx.data_ptr(), B, N, C, k, value_chunks,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _library()
+    scratch = torch.empty(scratch_bytes(lib, 'knn_gather', B, N, C), device=x.device,
+                          dtype=torch.uint8)
+    err = lib.knn_gather_forward(
+        x.data_ptr(), nbr.data_ptr(), idx.data_ptr(), scratch.data_ptr(), scratch.numel(),
+        B, N, C, k, value_chunks, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'knn_gather: forward launch failed with CUDA error {err}')
     launches['fwd_small_c' if C <= SMALL_C_MAX else 'fwd_wide_c'] += 1

@@ -79,6 +79,10 @@ def _folded(rng, c, widths, device):
     (2049, 150, 5, torch.bfloat16),   # one column past the int32 packing
     (16384, 3, 3, torch.float32),     # the fused bound
     (2500, 3, 1, torch.float32),      # self only
+    (100, 150, 8, torch.float32),     # one ragged key tile, the widest k
+    (10001, 150, 5, torch.float32),   # tiled wide C: ragged query block and key tile
+    (2049, 256, 3, torch.float32),    # the widest C, depth 256
+    (3000, 17, 7, torch.float32),     # the narrowest wide C, depth padded to 32
 ])
 def test_kernel_matches_plain(cuda, rng, n_points, C, k, mlp_dtype):
     folded = _folded(rng, C, [200, 200, 150], cuda)
@@ -193,6 +197,56 @@ def test_knn_wide_ties_and_duplicates(cuda, rng):
     assert torch.equal(ids.cpu(), knn.knn_reference(x, 5))
 
 
+@pytest.mark.parametrize('D', [17, 150, 256])
+@pytest.mark.parametrize('n_points', [100, 2049, 10001])
+def test_knn_wide_ragged_tiles(cuda, rng, D, n_points):
+    """N off every multiple of the 64-query block and the 64-key tile, D
+    padded to the 16-deep MMA steps: the bars of test_knn_wide_matches_plain."""
+    test_knn_wide_matches_plain(cuda, rng, D, n_points, 6)
+
+
+@pytest.mark.parametrize('k', range(1, 9))
+def test_knn_wide_every_k(cuda, rng, k):
+    test_knn_wide_matches_plain(cuda, rng, 150, 2049, k)
+
+
+def test_knn_wide_near_duplicates(cuda, rng):
+    """Each point's twin, 2^-20 of its scale away: q_norm + k_norm - 2 cross
+    is rounding noise around 0, negative for some twins (the plain version
+    shows that some exist), and the exact ranking still puts every twin in
+    slot 1."""
+    base = rng.normal(size=(2, 1000, 150)).astype(np.float32)
+    twin = base * (1 + 2.0 ** -20 * rng.standard_normal(base.shape)).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([base, twin], axis=1)).to(cuda)
+    partner = (torch.arange(2000, device=cuda) + 1000) % 2000
+    plain = knn.wide_sq_dists(x)
+    assert (plain[:, torch.arange(2000, device=cuda), partner] < 0).any()
+    ids = knn.knn(x, 5)
+    ref = knn.knn_reference(x, 5)
+    assert torch.equal(ids[..., :2], ref[..., :2])
+    assert torch.equal(ids[..., 1], partner.expand(2, -1))
+    # the farther neighbours come in twin pairs, whose order is a near tie
+    assert (ids[..., 2:] % 1000 == ref[..., 2:] % 1000).float().mean().item() >= 0.99
+
+
+def test_tiled_wide_c_at_stress_shape(cuda, rng):
+    """Three clouds of the stress configuration's conv1, (3, 10000, 150) ->
+    150 at the att widths, through the tiled wide-C variant: the bars of
+    test_kernel_matches_plain."""
+    folded = _folded(rng, 150, [200, 200, 150], cuda)
+    x = torch.from_numpy(rng.normal(size=(3, 10000, 150)).astype(np.float32)).to(cuda)
+    before = dict(edgeconv.launches)
+    out, idx = edgeconv.fused_edgeconv(x, folded, k=5, return_idx=True)
+    torch.cuda.synchronize()
+    assert edgeconv.launches['wide_c_tiled'] == before['wide_c_tiled'] + 1
+    ref_idx, x_lp = edgeconv.edgeconv_select(x, 5)
+    assert (idx == ref_idx).float().mean().item() >= 0.99
+    tail = edgeconv.edgeconv_mlp_max(x, idx, x_lp, folded)
+    scale = tail.abs().max().item()
+    diff = (out - tail).abs()
+    assert diff.max().item() <= 1e-2 * scale and diff.mean().item() <= 1e-4 * scale
+
+
 def test_knn_wide_raises_past_256_and_on_wrong_dtype(cuda):
     with pytest.raises(NotImplementedError, match='D=257'):
         knn.knn(torch.zeros(1, 64, 257, device=cuda), 5)
@@ -214,6 +268,8 @@ def test_wrong_dtype_raises(cuda, rng):
     (300, 150, 5, 2),                 # more than two key tiles
     (300, 150, 5, 1),
     (90, 150, 1, 2),                  # self only: the backward copies slot 0
+    (100, 150, 8, 2),                 # one ragged key tile, the widest k
+    (2048, 17, 2, 2),                 # the bound of N, depth padded to 32
 ])
 def test_knn_gather_matches_plain(cuda, rng, n_points, C, k, value_chunks):
     x = torch.from_numpy(rng.normal(size=(2, n_points, C)).astype(np.float32)).to(cuda)
