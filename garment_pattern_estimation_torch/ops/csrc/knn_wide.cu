@@ -14,8 +14,9 @@
 // q_norm + k_norm - 2 * cross, cross the six partial products of the 3-term
 // bf16 truncation splits (hi, mid, lo) of _CROSS_PAIRS[3]. Every product is
 // of two bf16-exact values, so it is exact on bf16 tensor cores (as on the
-// TPU's MXU); the tensor core sums them in its own order, small products
-// first (edgeconv_select.cuh: select_wide). The distance is not clamped at
+// TPU's MXU); the tensor core sums each 16-deep step, the steps are added
+// in f32, small products first (edgeconv_select.cuh: select_wide), so the
+// sum's order is not the JAX package's. The distance is not clamped at
 // 0: near duplicates may give a negative one, which ranks below every
 // positive one (RankExact). The plain PyTorch version is ops/knn.py:
 // knn_reference (wide_sq_dists + select_exact); its sums run in cuBLAS's
@@ -34,7 +35,7 @@
 // buffered with cp.async, cross terms by mma.sync m16n8k16 bf16 from
 // ldmatrix fragments, each (query, key) pair packed and rejected against
 // the thread's current (k-1)-th key before any insert. Shared memory at
-// D = 150 is 110 KB, so two blocks share an SM. Left on the table: each
+// D = 150 is 108 KB, so two blocks share an SM. Left on the table: each
 // unordered pair is computed in both directions (a symmetric schedule
 // would merge candidates across blocks), mma.sync instead of wgmma with
 // TMA, and the split chunks cost 1.6 times the f32 cloud's L2 traffic.
