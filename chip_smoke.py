@@ -49,6 +49,11 @@ Phases, one JSON line each:
            (128, 10000, 3) -> 150 and (128, 10000, 150) -> 150 (conv1 on
            conv0's output), the kernel on the whole batch, checked as above
            on its first 4 clouds
+  split    each tiled layer's ms split into selection and edge MLP: row
+           6's selection is the knn phase's kernel (the same select_small_c
+           instantiation), row 7's the tiled wide-C selection alone
+           (`fused_edgeconv_select`, the fused template with the MLP compiled
+           out), whose ids must equal the fused kernel's
   stress_serving  build_serving_fn at the att widths on a (128, 10000, 3)
            batch: shapes and finiteness, exactly 1 + 1 tiled launches and no
            single-tile launch per forward, batch time, clouds/s and peak
@@ -78,8 +83,9 @@ Then each phase's seconds, the card's name and power limit, the kernels
 line, and as the last line {"ok": true, "device": {...}}. Any failed check
 exits non-zero. The build line gives each kernel instantiation's registers
 and spill bytes from `nvcc -Xptxas -v` and, where the toolkit has
-cuobjdump, its count of tensor-core HMMA instructions in the SASS (the
-wide selections must have some). In the kernels line a kNN kernel's
+cuobjdump, its count of tensor-core HMMA instructions in the SASS: the
+wide selections and every fused_edgeconv_kernel instantiation with k > 1
+(the edge MLP) must have some, and no k = 5 instantiation may spill. In the kernels line a kNN kernel's
 max_abs_err is the largest gap between the exact distances of its
 neighbours and of the plain version's (0 where every id agrees); bound_ms
 counts each distance once per unordered pair (`pairs`); bound_share is
@@ -264,17 +270,43 @@ def bound(B, N, C, k, widths):
     return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
 
 
+def ranked_sq_dists(q, nbr):
+    """f64 squared distances of the queries q (R, C) to their neighbours
+    nbr (R, k, C), as the selection of C ranks them: exact for C <= 16; for
+    wider C the 2-term split formula q_norm + k_norm - 2 (hi.hi + hi.lo +
+    lo.hi) of the bf16 truncation chunks, which omits lo.lo and so sits up
+    to about 2^-15 of the norms above the exact distance (the self distance
+    of a 10-norm row reads about 3e-4, not 0)."""
+    import torch
+
+    if q.shape[-1] <= 16:
+        return ((nbr - q[:, None]) ** 2).sum(-1)
+
+    def split(v):
+        v32 = v.float()
+        hi = (v32.view(torch.int32) & ~0xFFFF).view(torch.float32)
+        lo = ((v32 - hi).view(torch.int32) & ~0xFFFF).view(torch.float32)
+        return hi.double(), lo.double()
+
+    (qh, ql), (kh, kl) = split(q), split(nbr)
+    cross = (kh * qh[:, None]).sum(-1) + (kl * qh[:, None]).sum(-1) \
+        + (kh * ql[:, None]).sum(-1)
+    return (q ** 2).sum(-1)[:, None] + (nbr ** 2).sum(-1) - 2.0 * cross
+
+
 def near_tie_ratio(x, idx, ref_idx, quantized=True):
     """Worst ratio, over the rows whose ids differ from the plain version's,
     of the distance gap to the near-tie bound, the number of such rows, and
     the largest distance gap itself (the ids' error in the units they are
     ranked by); 0, 0, 0 when all rows agree.
 
-    Disagreements must be near ties: the exactly recomputed distances of the
-    two neighbour sets differ by a few quantization buckets (none for the
-    wide-D kNN, which ranks exact values) plus the rounding of
-    q_norm + k_norm - 2 * cross (a few ulps of the norms). Only the
-    differing rows' own points are gathered."""
+    Disagreements must be near ties: the two neighbour sets' distances,
+    recomputed in f64 as the selection ranks them (`ranked_sq_dists`: the
+    exact distance, or the 2-term split formula for the quantized wide-C
+    ranking), differ by a few quantization buckets (none for the wide-D
+    kNN, which ranks exact values) plus the rounding of q_norm + k_norm -
+    2 * cross (a few ulps of the norms). Only the differing rows' own
+    points are gathered."""
     import torch
 
     rows = (~(idx == ref_idx).all(dim=-1)).nonzero()
@@ -286,7 +318,8 @@ def near_tie_ratio(x, idx, ref_idx, quantized=True):
     def dists(ids):
         nbr = x[b[:, None], ids[b, n].long()].double()        # (R, k, C)
         norms = (nbr ** 2).sum(-1).amax(-1) + (q ** 2).sum(-1)
-        return ((nbr - q[:, None]) ** 2).sum(-1).sort(dim=-1).values, norms
+        d = ranked_sq_dists(q, nbr) if quantized else ((nbr - q[:, None]) ** 2).sum(-1)
+        return d.sort(dim=-1).values, norms
 
     (d_kernel, n_kernel), (d_plain, n_plain) = dists(idx), dists(ref_idx)
     allowed = NEAR_TIE_REL * quantized * d_plain \
@@ -955,7 +988,55 @@ def stress_kernels(widths):
     _, wide_line = check_kernel('fused_edgeconv_wide_c_tiled', x1, conv1, widths,
                                 tile_variant=True)
     knn_wide_line = knn_wide_phase(x1)
+    split_phase(x1, conv1, knn_line, small_line, wide_line)
     return knn_line, small_line, wide_line, knn_wide_line
+
+
+def split_phase(x1, folded, knn_line, small_line, wide_line):
+    """Each tiled layer's time split into its selection and its edge MLP.
+    Row 6's selection is the standalone kNN's kernel at the same shape (the
+    same select_small_c instantiation); row 7's is the tiled wide-C
+    selection alone (`fused_edgeconv_select`, the same template with the
+    MLP compiled out, split pass included), whose ids must equal the fused
+    kernel's. The edge MLP is the rest of the layer's time."""
+    import ctypes
+    import torch
+    from garment_pattern_estimation_torch.ops import _build, edgeconv, knn
+
+    B, N, C = x1.shape
+    lib = _build.load_library('fused_edgeconv')
+    fn = lib.fused_edgeconv_select
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_size_t] + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    scratch = torch.empty(knn.scratch_bytes(lib, 'fused_edgeconv', B, N, C), device=x1.device,
+                          dtype=torch.uint8)
+    idx = torch.empty(B, N, K, device=x1.device, dtype=torch.int32)
+
+    def select():
+        err = fn(x1.data_ptr(), idx.data_ptr(), scratch.data_ptr(), scratch.numel(), B, N, C,
+                 K, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f'split: fused_edgeconv_select failed with CUDA error {err}')
+
+    select()
+    clouds = slice(0, CHUNK)
+    _, fused_idx = edgeconv.fused_edgeconv(x1[clouds], folded, K,
+                                           return_idx=True)
+    torch.cuda.synchronize()
+    check(torch.equal(idx[clouds].long(), fused_idx),
+          'split: the selection-only ids differ from the fused kernel\'s')
+    wide_select_ms = cuda_ms(select, 1, 5)
+    line = {'phase': 'split',
+            'fused_edgeconv_small_c_tiled': {
+                'ms': small_line['ms'], 'selection_ms': knn_line['ms'],
+                'mlp_ms': small_line['ms'] - knn_line['ms'],
+                'selection_from': 'knn (the same select_small_c instantiation)'},
+            'fused_edgeconv_wide_c_tiled': {
+                'ms': wide_line['ms'], 'selection_ms': wide_select_ms,
+                'mlp_ms': wide_line['ms'] - wide_select_ms,
+                'selection_from': 'fused_edgeconv_select (split pass included)'}}
+    emit(line)
+    return line
 
 
 def kernel_name(mangled):
@@ -971,6 +1052,12 @@ def kernel_name(mangled):
                     '<' + ','.join(re.findall(r'L[ib](\d+)E', args.group(1))) + '>'
                     if args else '')
     return mangled
+
+
+def template_args(name):
+    """The integer template arguments of `kernel<a,b,...>`, [] if none."""
+    args = re.search(r'<([\d,]*)>$', name)
+    return [int(a) for a in args.group(1).split(',')] if args and args.group(1) else []
 
 
 def ptxas_usage(log):
@@ -1027,14 +1114,25 @@ def main():
     seconds = {}
     report = timed(seconds, 'build', _build.build_all)
     hmma = {n: sass_hmma(r['path']) for n, r in report.items()}
+    ptxas = {n: ptxas_usage(r['log']) for n, r in report.items()}
     emit({'phase': 'build', 'seconds': {n: r['seconds'] for n, r in report.items()},
-          'ptxas': {n: ptxas_usage(r['log']) for n, r in report.items()},
-          'sass_hmma': hmma})
+          'ptxas': ptxas, 'sass_hmma': hmma})
     for lib, kernel in (('knn_wide', 'knn_wide_kernel<5>'),
-                        ('fused_edgeconv', 'fused_edgeconv_kernel<5,0,1>'),
-                        ('knn_gather', 'knn_gather_fwd_kernel<5,0>')):
+                        ('knn_gather', 'knn_gather_fwd_kernel<5,0,0>')):
         check(hmma[lib] is None or hmma[lib].get(kernel, 0) > 0,
               f'build: no HMMA instruction in {kernel}')
+    fused = [n for n in ptxas['fused_edgeconv'] if n.startswith('fused_edgeconv_kernel<')]
+    # 30 small-C (k x key dims x tiling), 16 wide-C and 8 selection-only
+    check(len(fused) == 54, f'build: {len(fused)} fused_edgeconv_kernel instantiations, not 54')
+    if hmma['fused_edgeconv'] is not None:
+        # the edge MLP (and the wide selections) on tensor cores in every
+        # instantiation that selects neighbours
+        without = [n for n in fused if template_args(n)[0] > 1
+                   and not hmma['fused_edgeconv'].get(n, 0)]
+        check(not without, f'build: no HMMA instruction in {without}')
+    spilled = [f'{lib}:{n}' for lib, usage in ptxas.items() for n, (_, stores, loads)
+               in usage.items() if template_args(n)[:1] == [5] and (stores or loads)]
+    check(not spilled, f'build: k = 5 instantiations spill registers: {spilled}')
 
     def att_kernels():
         gen = torch.Generator().manual_seed(0)

@@ -269,10 +269,12 @@ class LSTMDecoderModule(nn.Module):
     """Encoding -> sequence: the encoding repeated `out_len` times feeds the
     LSTM, a linear head maps hidden states to elements.
 
-    Initial states: in train mode, with 'kaiming_normal' in `state_init` and
-    a `generator` from the caller, fresh normal states of std
-    sqrt(2 / (batch * hidden)) on every forward (the reference's training
-    noise, drawn h then c per layer); zeros otherwise, and always in eval."""
+    Initial states: with 'kaiming_normal' in `state_init` and a `generator`
+    from the caller, fresh normal states of std sqrt(2 / (batch * hidden))
+    on every forward, in train and eval mode alike (the reference's noise,
+    drawn h then c per layer, as the JAX package's `_init_states` draws
+    whenever it has the 'recurrent_init' rng); zeros without a generator
+    (serving)."""
 
     def __init__(self, encoding_size: int, hidden_size: int, out_elem_size: int,
                  n_layers: int, out_len: int, dropout: float = 0.0,
@@ -288,8 +290,7 @@ class LSTMDecoderModule(nn.Module):
 
     def initial_states(self, batch_size, device, generator=None):
         """[(h0, c0)] per layer, (batch_size, hidden) each."""
-        if self.training and generator is not None \
-                and 'kaiming_normal' in self.state_init:
+        if generator is not None and 'kaiming_normal' in self.state_init:
             std = math.sqrt(2.0 / (batch_size * self.hidden_size))
 
             def draw():

@@ -127,8 +127,8 @@ class GarmentSegmentPattern3DModule(nn.Module):
         return self.panel_dec_lin(pooled), weights
 
     def forward(self, positions, generator=None):
-        """`generator` (train mode): the source of the LSTM decoder's random
-        initial states; without it they are zeros."""
+        """`generator` (train or eval mode): the source of the LSTM
+        decoder's random initial states; without it they are zeros."""
         B = positions.shape[0]
         panel_encodings, att_weights = self.panel_encodings_from_3d(positions)
         preds = self.decode_panels(

@@ -67,8 +67,9 @@ def _start(name: str):
 
 def build_all(names=None) -> dict:
     """Build every named source that has no current library, all nvcc
-    processes running at once. Returns {name: {'seconds', 'log', 'path'}};
-    raises if any build fails."""
+    processes running at once. Returns {name: {'seconds', 'log', 'path'}}
+    (a current library's log is its build's, kept beside it); raises if any
+    build fails."""
     names = list(names or SOURCES)
     started = {}
     t0 = time.perf_counter()
@@ -78,8 +79,9 @@ def build_all(names=None) -> dict:
     report, failures = {}, []
     for name in names:
         if name not in started:
-            report[name] = {'seconds': 0.0, 'log': 'cached',
-                            'path': str(library_path(name))}
+            log_path = library_path(name).with_suffix('.log')
+            report[name] = {'seconds': 0.0, 'path': str(library_path(name)),
+                            'log': log_path.read_text() if log_path.exists() else 'cached'}
             continue
         proc, tmp = started[name]
         log, _ = proc.communicate()
@@ -88,6 +90,7 @@ def build_all(names=None) -> dict:
             Path(tmp).unlink(missing_ok=True)
             failures.append(f'{name} (nvcc exit {proc.returncode}):\n{log}')
             continue
+        library_path(name).with_suffix('.log').write_text(log)   # nvcc's -Xptxas -v report
         os.replace(tmp, library_path(name))
         report[name] = {'seconds': seconds, 'log': log,
                         'path': str(library_path(name))}

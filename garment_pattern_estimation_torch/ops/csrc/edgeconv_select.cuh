@@ -14,9 +14,10 @@
 //                  quantized bits above a 32-bit column, so the column is
 //                  global whatever N is.
 // Both order the same pairs the same way.
-//   select_small_c  C <= 16, 16 query rows: exact f32 distances summed per
-//                   dimension in dimension order without FMA; keys staged
-//                   through shared memory in windows of `window` columns;
+//   select_small_c  C <= 16, SMALL_QB = 128 query rows: exact f32
+//                   distances summed per dimension in dimension order
+//                   without FMA; keys staged through shared memory in
+//                   windows of `window` columns (see below);
 //   select_wide     16 < C <= 256, QB query rows (16, or WIDE_QB = 64 for
 //                   the kernels that stream a whole 10^4-point cloud):
 //                   q_norm + k_norm - 2 * cross on bf16 tensor cores.
@@ -49,6 +50,33 @@
 // one compare). At the end the lists go through shared memory, 16 lanes
 // per query, and merge with half-warp shuffles (merge_lists).
 //
+// select_small_c. Each warp is one key lane: warp w visits the columns
+// w, w + 8, w + 16, ... of every window in ascending order, and its 32
+// threads each hold SMALL_QT = 4 query rows (lane, lane + 32, ...) in
+// registers, so one staged key (one 16-byte shared load at C <= 3, all
+// lanes on the same address) serves four pairs. Windows of keys are
+// double-buffered with cp.async. Each thread keeps, per query row, a
+// sorted list of its k-1 best packed keys and `lim`, the quantized
+// distance of the list's last entry. Invariant: a thread sees its columns
+// in ascending order, so every held entry has a lower column than the
+// pair in hand; a pair whose distance bits are not below `lim` has a
+// quantized distance at or above the last entry's and, on a tie, a
+// higher column, so it ranks after the last entry and is rejected by that
+// one 32-bit compare, exactly. Only the rare pair that passes is checked
+// against the query's own column and inserted. Every SMALL_SYNC_COLS
+// columns the 8 lanes of a query row share their lists' last distances:
+// the least of them bounds the row's (k-1)-th best, so each lane also
+// rejects what lies above it (a lane's own list fills slowly, and a warp
+// whose 128 lists each insert now and then would take the insert path on
+// almost every step). Ties between threads are
+// settled by the merge, which ranks (quantized distance, global column).
+// The per-pair arithmetic is __fsub_rn / __fmul_rn / __fadd_rn in
+// dimension order; dimensions past C are zero in the queries and the keys,
+// and adding +0 to a non-negative sum keeps its bits, so the ids equal
+// the plain version's bit for bit. A warp takes two columns per step and
+// branches once for its 8 pairs: only when one of them passes does it
+// check them again one by one, in column order.
+//
 // What bounds select_wide on an H100 SXM: at the stress shapes (10^4
 // points, D = 150) the products are 2 x 3 (or 6) x 160 operations per
 // ordered pair on the tensor cores, which mma.sync issues at roughly two
@@ -70,7 +98,9 @@
 
 namespace knn_select {
 
-constexpr int TM = 16;            // query rows per block (small C; wide C up to 2048)
+constexpr int TM = 16;            // query rows per block of the wide selection up to 2048
+constexpr int SMALL_QT = 4;           // query rows per thread of the small-C selection
+constexpr int SMALL_QB = 32 * SMALL_QT;  // query rows per block of the small-C selection
 constexpr int WIDE_QB = 64;       // query rows per block of the streaming wide kernels
 constexpr int THREADS = 256;
 constexpr int LANES_PER_QUERY = THREADS / TM;
@@ -79,11 +109,12 @@ constexpr int MAX_N = 1 << 11;    // the int32 encoding's column bound
 constexpr int SMALL_C_MAX = 16;
 constexpr int WIDE_C_MAX = 256;
 constexpr int MAX_K = 8;
-constexpr int HEADER_BYTES = TM * MAX_K * 4;       // the selected neighbour ids
+constexpr int SMALL_LISTS = THREADS / 32;          // key lanes (warps) of the small-C selection
+constexpr int SMALL_HEADER_BYTES = SMALL_QB * MAX_K * 4;   // the selected neighbour ids
 constexpr int WIDE_HEADER_BYTES = WIDE_QB * MAX_K * 4;
-// floats of one staged key window of the tiled small-C path (24 KB): 2048
-// columns at C = 3, the TPU kernel's column tile
-constexpr int SMALL_WINDOW_FLOATS = 6144;
+// bytes of one staged key window of the small-C selection (32 KB): 2048
+// columns at C <= 3 (16 bytes a key), the TPU kernel's column tile
+constexpr int SMALL_STAGE_BYTES = 32768;
 constexpr int DEPTH_STEP = 16;    // the MMA depth; chunks are zero-padded to it
 constexpr int ROW_PAD = 8;        // bf16 per staged row beyond the depth (16 bytes)
 
@@ -100,6 +131,10 @@ template <> struct Rank<false> {
         return (__float_as_int(dist) & ~IDX_MASK) | col;
     }
     __device__ static __forceinline__ int column(T v) { return v & IDX_MASK; }
+    // the quantized distance bits of v (all ones for MAX, an empty slot)
+    __device__ static __forceinline__ unsigned limit(T v) {
+        return v == MAX ? 0xffffffffu : static_cast<unsigned>(v & ~IDX_MASK);
+    }
 };
 
 template <> struct Rank<true> {
@@ -110,6 +145,9 @@ template <> struct Rank<true> {
     }
     __device__ static __forceinline__ int column(T v) {
         return static_cast<int>(v & 0xffffffffLL);
+    }
+    __device__ static __forceinline__ unsigned limit(T v) {
+        return v == MAX ? 0xffffffffu : static_cast<unsigned>(v >> 32);
     }
 };
 
@@ -130,6 +168,32 @@ struct RankExact {
         return static_cast<int>(v & 0xffffffffULL);
     }
 };
+
+// The small-C selection's per-lane list key. LANE32 (N <= 16384): one
+// int32, the quantized distance above the lane-local column m = column >> 3
+// (a lane sees the columns w, w + 8, ... of windows whose starts are
+// multiples of 16, so m is unique and ascends with the column, and fits the
+// 11 cleared bits); integer min/max make its sorted insert cheap. Else the
+// global key Rank<TILED>. global() turns a list entry into the merge's
+// Rank<TILED> key.
+template <bool LANE32, bool TILED> struct ListRank;
+
+template <bool TILED> struct ListRank<true, TILED> : Rank<false> {
+    __device__ static __forceinline__ typename Rank<TILED>::T global(T v, int lane_column) {
+        if (v == MAX) return Rank<TILED>::MAX;
+        return Rank<TILED>::pack(__int_as_float(v & ~IDX_MASK),
+                                 ((v & IDX_MASK) << 3) | lane_column);
+    }
+};
+
+template <bool TILED> struct ListRank<false, TILED> : Rank<TILED> {
+    __device__ static __forceinline__ typename Rank<TILED>::T global(
+            typename Rank<TILED>::T v, int) {
+        return v;
+    }
+};
+
+constexpr int MAX_LANE32_N = 8 * (IDX_MASK + 1);   // 16384 columns
 
 // sorted insert of v into the ascending list `best`
 template <typename T, int M>
@@ -165,51 +229,214 @@ __device__ __forceinline__ void merge_lists(typename R::T (&best)[K - 1],
     }
 }
 
-// Fills sidx[TM][K] for queries n0 .. n0 + TM - 1 of the batch element at
-// xb (N, C); a query row past N repeats row N - 1. `keys` holds
-// C * window floats; not TILED, window is N.
-template <int K, bool TILED>
-__device__ void select_small_c(int N, int C, const float* xb, int n0,
-                               float* keys, int* sidx, int window) {
-    using R = Rank<TILED>;
+// The k-1 best of the candidate lists cand[QB][lists][K - 1] (each
+// ascending) per query row, into sidx[q * K + 1 ..]; slot 0 is the query
+// row n0 + q, clamped to N - 1 (a row past N repeats row N - 1). 16 lanes
+// per query row: each inserts its share of the lists, then merge_lists.
+template <int K, typename R>
+__device__ void merge_candidates(const typename R::T* cand, int lists, int QB, int N,
+                                 int n0, int* sidx) {
+    using T = typename R::T;
     const int t = threadIdx.x;
-    const int q = t / LANES_PER_QUERY, lane = t % LANES_PER_QUERY;
-    const int n = n0 + q;
-    const int nq = min(n, N - 1);
-    float qx[SMALL_C_MAX];
+    const int hq = t / LANES_PER_QUERY, hl = t % LANES_PER_QUERY;
+#pragma unroll 1
+    for (int q0 = 0; q0 < QB; q0 += THREADS / LANES_PER_QUERY) {
+        const int q = q0 + hq;
+        T mine[K - 1];
 #pragma unroll
-    for (int c = 0; c < SMALL_C_MAX; ++c) qx[c] = c < C ? xb[nq * C + c] : 0.f;
+        for (int i = 0; i < K - 1; ++i) mine[i] = R::MAX;
+        for (int l = hl; l < lists; l += LANES_PER_QUERY) {
+#pragma unroll
+            for (int i = 0; i < K - 1; ++i) {
+                const T v = cand[(q * lists + l) * (K - 1) + i];
+                if (v < mine[K - 2]) insert(mine, v);
+            }
+        }
+        const int nq = min(n0 + q, N - 1);
+        if (hl == 0) sidx[q * K] = nq;
+        merge_lists<K, R>(mine, sidx, q, hl, nq);
+    }
+}
 
-    typename R::T best[K - 1];
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+}
+
+// The dimensions select_small_c computes for C: 3 (C <= 3, the xyz
+// clouds) or 16; the floats a staged key takes: 4 or 16.
+__host__ __device__ constexpr int small_c_dims(int C) { return C <= 3 ? 3 : SMALL_C_MAX; }
+__host__ __device__ constexpr int small_key_floats(int CD) { return CD == 3 ? 4 : SMALL_C_MAX; }
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+// keys staged per window: the window padded to whole two-key steps of the
+// 8 key lanes
+__host__ __device__ constexpr int small_window_stride(int window) {
+    return round_up(window, 2 * SMALL_LISTS);
+}
+constexpr float FAR_KEY = 3.0e38f;    // a padded key: (q - FAR_KEY)^2 is +inf
+constexpr int SMALL_SYNC_COLS = 512;  // columns between shares of the lanes' limits
+
+// Fills sidx[SMALL_QB][K] for queries n0 .. n0 + SMALL_QB - 1 of the
+// batch element at xb (N, C), C <= CD = small_c_dims(C); a query row past
+// N repeats row N - 1. `work` holds small_select_bytes(window, C, TILED)
+// bytes; keys are staged `window` columns at a time.
+template <int K, bool TILED, int CD, bool LANE32 = true>
+__device__ void select_small_c(int N, int C, const float* xb, int n0,
+                               unsigned char* work, int* sidx, int window) {
+    using R = Rank<TILED>;                    // the merge's key: global columns
+    using LR = ListRank<LANE32, TILED>;       // the lanes' lists' key
+    using T = typename LR::T;
+    constexpr int KF = small_key_floats(CD);
+    const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+    float* stages = reinterpret_cast<float*>(work);               // [2][stride][KF]
+    if (C < CD) {                     // dimensions past C stay zero
+        for (int e = t; e < 2 * small_window_stride(window) * KF; e += THREADS) stages[e] = 0.f;
+        __syncthreads();
+    }
+    // per query row and key lane: the quantized distance of the lane's
+    // list's last entry, shared every SMALL_SYNC_COLS columns
+    unsigned* shared_last = reinterpret_cast<unsigned*>(
+        stages + 2 * small_window_stride(window) * KF);             // [SMALL_QB][SMALL_LISTS]
+    float qx[SMALL_QT][CD];
+    int self[SMALL_QT];
+    T best[SMALL_QT][K - 1];
+    unsigned lim[SMALL_QT], bound[SMALL_QT];
 #pragma unroll
-    for (int i = 0; i < K - 1; ++i) best[i] = R::MAX;
-    for (int w0 = 0; w0 < N; w0 += window) {
-        const int wn = min(window, N - w0);
-        __syncthreads();                  // the previous window is consumed
+    for (int i = 0; i < SMALL_QT; ++i) {
+        self[i] = n0 + lane + 32 * i;
+        const int nq = min(self[i], N - 1);
+#pragma unroll
+        for (int c = 0; c < CD; ++c) qx[i][c] = c < C ? xb[nq * C + c] : 0.f;
+#pragma unroll
+        for (int j = 0; j < K - 1; ++j) best[i][j] = LR::MAX;
+        lim[i] = bound[i] = 0xffffffffu;
+    }
+
+    // a window's keys padded to a multiple of 2 * SMALL_LISTS with far keys
+    // (their distances overflow to +inf), so each warp takes two keys per
+    // step; a padded key is never inserted (j < wn below)
+    const int stride = small_window_stride(window);
+    const int windows = (N + window - 1) / window;
+    auto issue = [&](int w) {
+        float* st = stages + (w & 1) * stride * KF;
+        const int w0 = w * window, wn = min(window, N - w0);
         const float* src = xb + static_cast<size_t>(w0) * C;
         for (int e = t; e < wn * C; e += THREADS) {
-            const int j = e / C, c = e - j * C;
-            keys[c * wn + j] = src[e];
+            const int j = e / C;
+            cp_async4(st + j * KF + (e - j * C), src + e);
+        }
+        for (int e = wn * KF + t; e < round_up(wn, 2 * SMALL_LISTS) * KF; e += THREADS)
+            st[e] = FAR_KEY;
+        cp_async_commit();
+    };
+    issue(0);
+    for (int w = 0; w < windows; ++w) {
+        if (w + 1 < windows) {
+            issue(w + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
         }
         __syncthreads();
-        for (int j = lane; j < wn; j += LANES_PER_QUERY) {
-            // exact f32 in dimension order, d*d then add: no FMA
-            // contraction, so the bits equal the plain version's
-            float dist = 0.f;
+        const float* keys = stages + (w & 1) * stride * KF;
+        const int w0 = w * window, wn = min(window, N - w0);
+        const int wn_pad = round_up(wn, 2 * SMALL_LISTS);
+        for (int j0 = 0; j0 < wn_pad; j0 += SMALL_SYNC_COLS) {
+            const int j1 = min(j0 + SMALL_SYNC_COLS, wn_pad);
+#pragma unroll 2
+            for (int j = j0 + warp; j < j1; j += 2 * SMALL_LISTS) {
+                // columns j and j + SMALL_LISTS against the thread's query rows
+                float dist[2][SMALL_QT];
+                bool pass = false;
 #pragma unroll
-            for (int c = 0; c < SMALL_C_MAX; ++c) {
-                if (c < C) {
-                    const float df = __fsub_rn(qx[c], keys[c * wn + j]);
-                    const float sq = __fmul_rn(df, df);
-                    dist = c == 0 ? sq : __fadd_rn(dist, sq);
+                for (int u = 0; u < 2; ++u) {
+                    float kx[KF];
+#pragma unroll
+                    for (int v = 0; v < KF / 4; ++v) {
+                        const float4 f = reinterpret_cast<const float4*>(
+                            keys + (j + u * SMALL_LISTS) * KF)[v];
+                        kx[4 * v] = f.x; kx[4 * v + 1] = f.y; kx[4 * v + 2] = f.z; kx[4 * v + 3] = f.w;
+                    }
+#pragma unroll
+                    for (int i = 0; i < SMALL_QT; ++i) {
+                        // exact f32 in dimension order, d*d then add: no FMA
+                        // contraction, so the bits equal the plain version's
+                        float d = 0.f;
+#pragma unroll
+                        for (int c = 0; c < CD; ++c) {
+                            const float df = __fsub_rn(qx[i][c], kx[c]);
+                            const float sq = __fmul_rn(df, df);
+                            d = c == 0 ? sq : __fadd_rn(d, sq);
+                        }
+                        dist[u][i] = d;
+                        pass |= __float_as_uint(d) < lim[i];
+                    }
+                }
+                if (pass) {                   // rare: in column order, each pair checked again
+#pragma unroll
+                    for (int u = 0; u < 2; ++u) {
+                        const int jj = j + u * SMALL_LISTS, gj = w0 + jj;
+#pragma unroll
+                        for (int i = 0; i < SMALL_QT; ++i) {
+                            if (__float_as_uint(dist[u][i]) < lim[i] && jj < wn && gj != self[i]) {
+                                insert(best[i], LR::pack(dist[u][i], LANE32 ? gj >> 3 : gj));
+                                lim[i] = min(LR::limit(best[i][K - 2]), bound[i]);
+                            }
+                        }
+                    }
                 }
             }
-            const int gj = w0 + j;
-            insert(best, gj == n ? R::MAX : R::pack(dist, gj));
+            // The union of the lanes' lists holds, per query row, k-1 entries at
+            // or below tau = the least of the lanes' last quantized distances,
+            // so no pair above tau can be among the row's k-1 best: every lane
+            // rejects quantized distances above tau (d bits >= tau + 2048) from
+            // here on, besides its own list's limit.
+#pragma unroll
+            for (int i = 0; i < SMALL_QT; ++i)
+                shared_last[(lane + 32 * i) * SMALL_LISTS + warp] = LR::limit(best[i][K - 2]);
+            __syncthreads();
+#pragma unroll
+            for (int i = 0; i < SMALL_QT; ++i) {
+                unsigned tau = 0xffffffffu;
+#pragma unroll
+                for (int l = 0; l < SMALL_LISTS; ++l)
+                    tau = min(tau, shared_last[(lane + 32 * i) * SMALL_LISTS + l]);
+                if (tau != 0xffffffffu) bound[i] = min(bound[i], tau + (IDX_MASK + 1));
+                lim[i] = min(lim[i], bound[i]);
+            }
+            __syncthreads();              // shared_last is read before it is rewritten
         }
+        __syncthreads();              // the window's stage is consumed
     }
-    if (lane == 0) sidx[q * K] = nq;
-    merge_lists<K, Rank<TILED>>(best, sidx, q, lane, nq);
+
+    using RT = typename R::T;
+    RT* cand = reinterpret_cast<RT*>(work);       // [SMALL_QB][SMALL_LISTS][K - 1]
+#pragma unroll
+    for (int i = 0; i < SMALL_QT; ++i)
+#pragma unroll
+        for (int j = 0; j < K - 1; ++j)
+            cand[((lane + 32 * i) * SMALL_LISTS + warp) * (K - 1) + j] =
+                LR::global(best[i][j], warp);
+    __syncthreads();
+    merge_candidates<K, R>(cand, SMALL_LISTS, SMALL_QB, N, n0, sidx);
 }
 
 // ---- the wide selection on bf16 tensor cores ----
@@ -296,29 +523,6 @@ __device__ __forceinline__ SplitRows cloud_rows(const void* scratch, size_t P, i
 template <int QB> struct WideTile;
 template <> struct WideTile<TM> { static constexpr int WQ = 1, WK = 8, NT = 2; };
 template <> struct WideTile<WIDE_QB> { static constexpr int WQ = 4, WK = 2, NT = 4; };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-    return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
-}
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -490,24 +694,7 @@ __device__ void select_wide(int N, const SplitRows rows, int n0, unsigned char* 
         for (int i = 0; i < K - 1; ++i)
             cand[((row0 + 8 * h) * LISTS + wk * 4 + lane % 4) * (K - 1) + i] = best[h][i];
     __syncthreads();
-    const int hq = t / LANES_PER_QUERY, hl = t % LANES_PER_QUERY;
-#pragma unroll 1
-    for (int q0 = 0; q0 < QB; q0 += THREADS / LANES_PER_QUERY) {
-        const int q = q0 + hq;
-        T mine[K - 1];
-#pragma unroll
-        for (int i = 0; i < K - 1; ++i) mine[i] = R::MAX;
-        for (int l = hl; l < LISTS; l += LANES_PER_QUERY) {
-#pragma unroll
-            for (int i = 0; i < K - 1; ++i) {
-                const T v = cand[(q * LISTS + l) * (K - 1) + i];
-                if (v < mine[K - 2]) insert(mine, v);
-            }
-        }
-        const int nq = min(n0 + q, N - 1);
-        if (hl == 0) sidx[q * K] = nq;
-        merge_lists<K, R>(mine, sidx, q, hl, nq);
-    }
+    merge_candidates<K, R>(cand, LISTS, QB, N, n0, sidx);
 }
 
 // The fused layer's and knn_gather's wide selection: 2 chunks, the
@@ -518,21 +705,31 @@ __device__ void select_wide_c(int N, const SplitRows rows, int n0, unsigned char
     select_wide<K, Rank<TILED>, 2, QB, true>(N, rows, n0, work, sidx);
 }
 
-inline size_t align16(size_t v) { return (v + 15) & ~static_cast<size_t>(15); }
-
-// The key window of the small-C selection: all N columns when not tiled,
-// else `tile_n` columns when given, else SMALL_WINDOW_FLOATS / C.
-inline int small_c_window(int N, int C, bool tiled, int tile_n) {
-    if (!tiled) return N;
-    const int w = tile_n > 0 ? tile_n : SMALL_WINDOW_FLOATS / C;
+// The key window of the small-C selection: SMALL_STAGE_BYTES of keys,
+// fewer when `tile_n` > 0 asks for them (rounded up to a multiple of 16,
+// which keeps every window's start a multiple of 16), at most N.
+inline int small_c_window(int N, int C, int tile_n) {
+    int w = SMALL_STAGE_BYTES / (small_key_floats(small_c_dims(C)) * 4);
+    if (tile_n > 0 && tile_n < w) w = round_up(tile_n, 2 * SMALL_LISTS);
     return w < N ? w : N;
 }
 
+// Shared-memory bytes of select_small_c: two key windows, or the candidate
+// lists of the final merge (which reuse the same bytes), whichever is larger.
+inline size_t small_select_bytes(int window, int C, bool tiled) {
+    const size_t staged = 2 * static_cast<size_t>(small_window_stride(window))
+                          * small_key_floats(small_c_dims(C)) * 4
+                          + SMALL_QB * SMALL_LISTS * 4;              // shared_last
+    const size_t cand = static_cast<size_t>(SMALL_QB) * SMALL_LISTS * (MAX_K - 1)
+                        * (tiled ? sizeof(long long) : sizeof(int));
+    return staged > cand ? staged : cand;
+}
+
 // Shared-memory bytes the selection of (N, C) needs beyond its header:
-// small C the key window; wide C select_wide_c's, with WIDE_QB query rows
-// when tiled and TM otherwise.
-inline size_t select_bytes(int N, int C, bool tiled, int window) {
-    if (C <= SMALL_C_MAX) return static_cast<size_t>(C) * window * 4;
+// small C select_small_c's; wide C select_wide_c's, with WIDE_QB query
+// rows when tiled and TM otherwise.
+inline size_t select_bytes(int C, bool tiled, int window) {
+    if (C <= SMALL_C_MAX) return small_select_bytes(window, C, tiled);
     return tiled ? wide_select_bytes<WIDE_QB>(C, 2, sizeof(long long))
                  : wide_select_bytes<TM>(C, 2, sizeof(int));
 }

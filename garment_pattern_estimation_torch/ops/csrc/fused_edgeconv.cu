@@ -26,7 +26,8 @@
 // phase 2 gathers the k-1 winners by id, as in the single-tile kernels.
 // MLP: activations truncated to bf16 (bit mask, not rounding), weights
 // bf16 (rounded by the caller), f32 accumulation, ReLU; the last layer's
-// folded BatchNorm affine h * a + d, then the max over the k slots.
+// folded BatchNorm affine __fadd_rn(__fmul_rn(h, a), d), then the max over
+// the k slots. Slot 0's edge row is built from the query's own f32 row.
 //
 // What bounds it on an H100 SXM. At the attention model's conv1 (B=64,
 // N=2000, C=150, edge MLP 300-200-200-150, k=5) the work is about 2.3e11
@@ -44,28 +45,48 @@
 // Design. One block of 256 threads per (batch element, query rows), the
 // query blocks of one cloud adjacent in the grid, so the cloud's keys stay
 // in L2 while its blocks run:
-//   phase 1  small C: keys pass through shared memory in windows of up to
-//            2048 columns, each query's 16 threads keep their best k-1 in
-//            registers and merge them with half-warp shuffles (16 query
-//            rows per block). Wide C: select_wide_c, the split products on
-//            bf16 tensor cores (mma.sync) from rows split once per point by
-//            split_rows_kernel (launched first, into the caller's scratch),
-//            key units double-buffered with cp.async and an early reject
-//            before each insert; 16 query rows per block up to 2048 points,
+//   phase 1  small C: select_small_c, 128 query rows per block, 4 per
+//            thread against one key lane per warp, 2048-column key windows
+//            double-buffered with cp.async, one 32-bit compare rejecting
+//            almost every pair before an insert into 32-bit lists. Wide C:
+//            select_wide_c, the
+//            split products on bf16 tensor cores (mma.sync) from rows split
+//            once per point by split_rows_kernel (launched first, into the
+//            caller's scratch); 16 query rows per block up to 2048 points,
 //            64 in the tiled variant, which streams a whole cloud per block;
-//   phase 2  16 query rows at a time (four slices of the tiled wide-C
-//            block): the 16 k edge rows go through the layers with their
-//            bf16 activations in shared memory (ping-pong buffers) and the
-//            weights read from global memory (L1/L2); each thread owns
-//            4 queries x k slots x 4 columns, so the max over the slots
-//            stays in registers.
-// What bounds it now: with the selection on tensor cores (stress conv1:
-// about 40 ms of the tiled wide-C kernel), phase 2's edge MLP on the CUDA
-// cores in f32 is most of every variant's time. Left on the table: the
-// edge MLP on bf16 tensor cores (rows 4-7 share phase 2), the weights
-// staged in shared memory, layers narrower than 256 leaving threads idle,
-// the small-C key windows not prefetched, and each unordered pair's
-// distance computed in both directions.
+//   phase 2  the edge MLP on bf16 tensor cores, SLICE = 16 query rows at a
+//            time. The slice's 16 k edge rows sit slot-major in shared
+//            memory (row = slot * 16 + query, bf16, rows padded by 16 bytes
+//            so ldmatrix reads them without bank conflicts), so slot s is
+//            one 16-row MMA tile. Layer widths are padded to the MMA tile
+//            (depth to 16, 6 -> 16, 300 -> 304, 200 -> 208, 150 -> 160)
+//            with zero weights. Each warp takes items of up to 2 output
+//            n-tiles (8 columns each) of all k row tiles, dealt to the 8
+//            warps in turn: per 16-deep step it reads its B fragments once
+//            (8 bytes a lane a tile, from the weights the wrapper packs in
+//            fragment order, streamed through a 4-deep per-warp cp.async
+//            ring so the L2 latency hides behind the MMAs) and one
+//            ldmatrix.x4 A fragment per slot, and issues up to 2 k mma.sync
+//            m16n8k16 bf16 x bf16 -> f32. A hidden layer's epilogue adds
+//            the bias, takes the ReLU, truncates to bf16 (bit mask) and
+//            writes the next layer's input; the last layer's
+//            applies the affine and takes the max over the slots as an
+//            elementwise max of the k row tiles' accumulators, in
+//            registers. Each output element is its own row's dot product,
+//            so a row's result does not depend on the other rows of its
+//            tile: the tiled and single-tile variants stay bitwise equal.
+//            The tensor core's sum order differs from cuBLAS's, so outputs
+//            differ from the plain version's by f32 rounding (and the rare
+//            bf16 truncation it flips).
+// Registers are held to 128 a thread (two blocks per SM), so one block's
+// selection (CUDA cores) overlaps another's edge MLP (tensor cores); the
+// 2-tile items keep the MLP's accumulators within that. Building with
+// -DPHASE_CLOCKS adds per-phase cycle counters (phase_clocks.py).
+// Left on the table: each block reads the weights once per 16-query slice
+// (from L2 where L1 misses), wgmma and TMA are not used (mma.sync issues
+// at a fraction of the wgmma rate), warps idle in a layer's last round of
+// items (26 n-tiles: 13 items over 8 warps), and the selection computes
+// each unordered pair in both directions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,9 +99,13 @@ using namespace knn_select;
 
 constexpr int MAX_LAYERS = 4;
 constexpr int MAX_FUSED_N = 1 << 14;  // the TPU package's fused bound
-constexpr int MAX_WIDTH = 256;    // 64 column groups x 4 columns
-constexpr int COL_GROUPS = 64;
-constexpr int ROW_GROUPS = THREADS / COL_GROUPS;   // 4 row groups of 4 queries
+constexpr int MAX_WIDTH = 256;    // widest edge-MLP layer
+constexpr int WARPS = THREADS / 32;
+constexpr int SLICE = 16;         // query rows per edge-MLP pass: one MMA row tile per slot
+constexpr int WARP_TILES = 2;     // most 8-column n-tiles a warp takes at once
+constexpr int B_STAGES = 4;       // depth of each warp's ring of B fragments
+constexpr int RING_BYTES = WARPS * B_STAGES * WARP_TILES * 32 * 8;
+constexpr int BUILD_LOADS = 8;    // x elements each thread loads at once for the edge rows
 
 struct Params {
     const float* x;               // (B, N, C) f32
@@ -89,42 +114,247 @@ struct Params {
     int B, N, C, n_chunks, n_layers;
     int window;                   // small-C key window (columns)
     int dims[MAX_LAYERS + 1];     // dims[0] = 2C
-    const uint16_t* w[MAX_LAYERS];  // bf16 (dims[l], 256), column c at [c % 64][c / 64]
+    const uint2* w[MAX_LAYERS];   // bf16 B fragments, see fused_edgeconv_forward
     const float* bias[MAX_LAYERS];  // f32 (256,)
     const float* a;               // f32 (256,): final affine scale
     const float* d;               // f32 (256,): final affine shift
-    int act_stride;               // bf16 elements per activation row (16 k + 4)
-    int act_rows;                 // rows of each activation buffer: max layer width
+    int in_stride;                // bf16 per row of the edge-input buffer
+    int hid_stride;               // bf16 per row of the hidden-activation buffer
     const void* split;            // wide C: split_rows_kernel's output for the B N points
     size_t P;                     // B N
 };
 
-__device__ __forceinline__ uint16_t trunc_bf16_bits(float v) {
-    return static_cast<uint16_t>(__float_as_uint(v) >> 16);
+#ifdef PHASE_CLOCKS
+__device__ unsigned long long g_phase[8];
+#define PHASE_MARK(slot, since) do { __syncthreads(); if (threadIdx.x == 0) { \
+    const long long now = clock64(); atomicAdd(&g_phase[slot], static_cast<unsigned long long>(now - since)); since = now; } } while (0)
+#else
+#define PHASE_MARK(slot, since) do { } while (0)
+#endif
+
+// Blocks per SM the registers are held to: two (128 registers a thread),
+// so one block's selection overlaps another's edge MLP, except for the
+// 16-dimension small-C selection, which would spill at 128.
+template <bool SMALL_C, int CD> __host__ __device__ constexpr int min_blocks() {
+    return SMALL_C && CD == SMALL_C_MAX ? 1 : 2;
 }
 
-__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
-    return __uint_as_float(bits16 << 16);
+// query rows per block
+template <bool SMALL_C, bool TILED> __host__ __device__ constexpr int block_rows() {
+    return SMALL_C ? SMALL_QB : (TILED ? WIDE_QB : TM);
 }
 
-template <int K, bool SMALL_C, bool TILED>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ uint32_t trunc_bf16_bits(float v) {
+    return __float_as_uint(v) >> 16;
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                 "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// Layer l of the edge MLP on one slice: `in` holds SLICE * K rows of
+// in_s bf16 (slot-major); a hidden layer writes relu(h + bias) truncated to
+// bf16 into `out_buf` (rows of p.hid_stride, zero in the padded columns),
+// the last layer the max over the slots of the affine into p.out for the
+// queries n0 .. n0 + 15 of batch element b. Warp w takes the n-tiles
+// w * tw .. w * tw + tw - 1, tw = ceil(NT / WARPS) <= WARP_TILES; its B
+// fragments stream through its own B_STAGES-deep ring in shared memory
+// (`ring`), each lane copying (cp.async) and reading back only its own
+// 8 bytes a tile, so no barrier is needed.
+template <int K>
+__device__ __forceinline__ void mlp_layer(const Params& p, int l, const uint16_t* in, int in_s,
+                                          uint16_t* out_buf, uint2* ring, int n0, int b) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int dout = p.dims[l + 1];
+    const int KS = padded_depth(p.dims[l]) / DEPTH_STEP;
+    const int NT = padded_depth(dout) / 8;
+    // items of tw n-tiles, dealt to the warps in turn
+    const int tw = min(WARP_TILES, (NT + WARPS - 1) / WARPS);
+    const bool last = l + 1 == p.n_layers;
+    ring += warp * B_STAGES * WARP_TILES * 32 + lane;
+    const float* bias = p.bias[l];
+    for (int nt0 = warp * tw; nt0 < NT; nt0 += WARPS * tw) {
+        const int mine = min(tw, NT - nt0);       // this item's n-tiles
+        const uint2* W = p.w[l] + static_cast<size_t>(nt0) * 32 + lane;
+        auto issue = [&](int ks) {
+            if (ks < KS) {
+#pragma unroll
+                for (int j = 0; j < WARP_TILES; ++j)
+                    if (j < mine)
+                        cp_async8(ring + ((ks % B_STAGES) * WARP_TILES + j) * 32,
+                                  W + (static_cast<size_t>(ks) * NT + j) * 32);
+            }
+            cp_async_commit();
+        };
+#pragma unroll
+        for (int s = 0; s < B_STAGES - 1; ++s) issue(s);
+
+        float acc[K][WARP_TILES][4];
+#pragma unroll
+        for (int s = 0; s < K; ++s)
+#pragma unroll
+            for (int j = 0; j < WARP_TILES; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[s][j][e] = 0.f;
+
+        // ldmatrix rows of slot 0's tile: rows lane % 16, depth (lane / 16) * 8
+        const uint16_t* a_base = in + (lane % 16) * in_s + (lane / 16) * 8;
+        for (int ks = 0; ks < KS; ++ks) {
+            cp_async_wait<B_STAGES - 2>();        // step ks's fragments have landed
+            uint2 bf[WARP_TILES];
+#pragma unroll
+            for (int j = 0; j < WARP_TILES; ++j)
+                bf[j] = j < mine ? ring[((ks % B_STAGES) * WARP_TILES + j) * 32] : make_uint2(0u, 0u);
+            issue(ks + B_STAGES - 1);             // into the stage read one step ago
+#pragma unroll
+            for (int s = 0; s < K; ++s) {
+                unsigned a[4];
+                ldmatrix_x4(a, a_base + s * SLICE * in_s + ks * DEPTH_STEP);
+#pragma unroll
+                for (int j = 0; j < WARP_TILES; ++j)
+                    if (j < mine) mma_bf16(acc[s][j], a, bf[j].x, bf[j].y);
+            }
+        }
+
+#pragma unroll
+        for (int j = 0; j < WARP_TILES; ++j) {
+            if (j >= mine) continue;
+            const int col = (nt0 + j) * 8 + 2 * (lane % 4);  // and col + 1
+            const float b0 = bias[col], b1 = bias[col + 1];
+            if (!last) {
+#pragma unroll
+                for (int s = 0; s < K; ++s) {
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const int row = s * SLICE + lane / 4 + 8 * h;
+                        const uint32_t lo = trunc_bf16_bits(fmaxf(acc[s][j][2 * h] + b0, 0.f));
+                        const uint32_t hi = trunc_bf16_bits(fmaxf(acc[s][j][2 * h + 1] + b1, 0.f));
+                        *reinterpret_cast<uint32_t*>(out_buf + row * p.hid_stride + col) =
+                            lo | (hi << 16);
+                    }
+                }
+                continue;
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int c = col + e % 2;
+                const float bv = e % 2 ? b1 : b0, av = p.a[c], dv = p.d[c];
+                float m = 0.f;
+#pragma unroll
+                for (int s = 0; s < K; ++s) {
+                    const float h = fmaxf(acc[s][j][e] + bv, 0.f);
+                    const float o = __fadd_rn(__fmul_rn(h, av), dv);
+                    m = s == 0 ? o : fmaxf(m, o);
+                }
+                const int n = n0 + lane / 4 + 8 * (e / 2);
+                if (n < p.N && c < dout)
+                    p.out[(static_cast<size_t>(b) * p.N + n) * dout + c] = m;
+            }
+        }
+    }
+}
+
+// Phase 2 for the block's QB query rows, SLICE at a time: builds each
+// slice's edge rows [x_i ; x_j - x_i] (bf16, zero to the padded depth) in
+// `work`, then runs the layers.
+template <int K, int QB, bool SMALL_C>
+__device__ void edge_mlp(const Params& p, const float* xb, const int* sidx_block,
+                         int n0_block, unsigned char* work) {
+    constexpr int R = SLICE * K;              // edge rows: row = slot * SLICE + query
+    const int t = threadIdx.x, b = blockIdx.y;
+    const int N = p.N, C = p.C, D0 = padded_depth(2 * C);
+    uint16_t* buf_in = reinterpret_cast<uint16_t*>(work);
+    uint16_t* buf_h = buf_in + R * max(p.in_stride, p.hid_stride);
+    uint2* ring = reinterpret_cast<uint2*>(buf_h + R * p.hid_stride);
+#ifdef PHASE_CLOCKS
+    long long since = clock64();
+#endif
+    for (int slice = 0; slice < QB / SLICE; ++slice) {
+        const int n0 = n0_block + slice * SLICE;
+        if (n0 >= N) break;
+        const int* sidx = sidx_block + slice * SLICE * K;
+        // every (row, c < C) element: BUILD_LOADS per thread at a time, all
+        // loads issued before any store, so their L2 latencies overlap
+        const int total = R * C;
+        for (int e0 = 0; e0 < total; e0 += THREADS * BUILD_LOADS) {
+            float qv[BUILD_LOADS], xv[BUILD_LOADS];
+#pragma unroll
+            for (int i = 0; i < BUILD_LOADS; ++i) {
+                const int e = e0 + i * THREADS + t;
+                if (e < total) {
+                    const int r = e / C, c = e - r * C;
+                    const int s = r / SLICE, qq = r % SLICE;
+                    qv[i] = __ldg(xb + static_cast<size_t>(sidx[qq * K]) * C + c);
+                    xv[i] = __ldg(xb + static_cast<size_t>(sidx[qq * K + s]) * C + c);
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < BUILD_LOADS; ++i) {
+                const int e = e0 + i * THREADS + t;
+                if (e < total) {
+                    const int r = e / C, c = e - r * C;
+                    float nv = qv[i];             // slot 0: the query's own f32 row
+                    if (r >= SLICE) {
+                        if (SMALL_C) {
+                            nv = xv[i];
+                        } else {
+                            const float hi = trunc_bf16(xv[i]);
+                            nv = p.n_chunks == 2 ? hi + trunc_bf16(xv[i] - hi) : hi;
+                        }
+                    }
+                    buf_in[r * p.in_stride + c] = static_cast<uint16_t>(trunc_bf16_bits(qv[i]));
+                    buf_in[r * p.in_stride + C + c] =
+                        static_cast<uint16_t>(trunc_bf16_bits(nv - qv[i]));
+                }
+            }
+        }
+        const int pad = D0 - 2 * C;               // zero depth past 2C
+        for (int e = t; e < R * pad; e += THREADS) {
+            const int r = e / pad;
+            buf_in[r * p.in_stride + 2 * C + (e - r * pad)] = 0;
+        }
+        __syncthreads();
+        PHASE_MARK(1, since);
+        for (int l = 0; l < p.n_layers; ++l) {
+            const uint16_t* in = l == 0 ? buf_in : (l % 2 ? buf_h : buf_in);
+            mlp_layer<K>(p, l, in, l == 0 ? p.in_stride : p.hid_stride,
+                         l % 2 ? buf_in : buf_h, ring, n0, b);
+            __syncthreads();
+            PHASE_MARK(2 + l, since);
+        }
+    }
+}
+
+// MLP = false: the selection alone (ids into p.idx_out), for measuring the
+// two phases apart.
+template <int K, bool SMALL_C, bool TILED, int CD, bool MLP>
+__global__ void __launch_bounds__(THREADS, min_blocks<SMALL_C, CD>())
 fused_edgeconv_kernel(const Params p) {
-    // query rows per block: WIDE_QB for the tiled wide-C variant, which
-    // streams a whole cloud's keys per block, else TM
-    constexpr int QB = (!SMALL_C && TILED) ? WIDE_QB : TM;
+    constexpr int QB = block_rows<SMALL_C, TILED>();
     extern __shared__ __align__(16) unsigned char smem[];
     int* sidx_block = reinterpret_cast<int*>(smem);                 // [QB][K]
     unsigned char* work = smem + QB * MAX_K * 4;
     const int b = blockIdx.y, n0_block = blockIdx.x * QB, t = threadIdx.x;
     const int N = p.N, C = p.C;
     const float* xb = p.x + static_cast<size_t>(b) * N * C;
+#ifdef PHASE_CLOCKS
+    long long since = clock64();
+#endif
 
     if constexpr (K == 1) {
-        if (t < QB) sidx_block[t] = min(n0_block + t, N - 1);
+        for (int e = t; e < QB; e += THREADS) sidx_block[e] = min(n0_block + e, N - 1);
     } else if constexpr (SMALL_C) {
-        select_small_c<K, TILED>(N, C, xb, n0_block, reinterpret_cast<float*>(work),
-                                 sidx_block, p.window);
+        select_small_c<K, TILED, CD>(N, C, xb, n0_block, work, sidx_block, p.window);
     } else {
         select_wide_c<K, TILED, QB>(N, cloud_rows(p.split, p.P, C, 2, b, N), n0_block,
                                     work, sidx_block);
@@ -137,125 +367,44 @@ fused_edgeconv_kernel(const Params p) {
             if (n < N) p.idx_out[(static_cast<size_t>(b) * N + n) * K + e % K] = sidx_block[e];
         }
     }
-
-    // ---- phase 2: edge MLP on [x_i ; x_j - x_i] + max over the k slots, TM
-    // query rows (one slice of the block) at a time ----
-    constexpr int R = TM * K;                 // edge rows: row = query * K + slot
-    constexpr int RT = R / ROW_GROUPS;        // rows per thread: 4 queries x K
-    const int S = p.act_stride;
-    for (int slice = 0; slice < QB / TM; ++slice) {
-        const int n0 = n0_block + slice * TM;
-        if (n0 >= N) break;
-        const int* sidx = sidx_block + slice * TM * K;
-        uint16_t* act_in = reinterpret_cast<uint16_t*>(work);          // [width][S]
-        uint16_t* act_out = act_in + p.act_rows * S;
-
-        for (int e = t; e < R * C; e += THREADS) {
-            const int r = e / C, c = e - r * C;
-            const int qq = r / K, s = r - qq * K;
-            const float qv = xb[sidx[qq * K] * C + c];
-            float nv = qv;                        // slot 0: the query's own f32 row
-            if (s > 0) {
-                const float v = xb[sidx[qq * K + s] * C + c];
-                if (SMALL_C) {
-                    nv = v;
-                } else {
-                    const float hi = trunc_bf16(v);
-                    nv = p.n_chunks == 2 ? hi + trunc_bf16(v - hi) : hi;
-                }
-            }
-            act_in[c * S + r] = trunc_bf16_bits(qv);
-            act_in[(C + c) * S + r] = trunc_bf16_bits(nv - qv);
-        }
-        __syncthreads();
-
-        const int cg = t % COL_GROUPS, rg = t / COL_GROUPS;
-        for (int l = 0; l < p.n_layers; ++l) {
-            const int din = p.dims[l], dout = p.dims[l + 1];
-            const uint16_t* W = p.w[l];
-            float acc[RT][4];
-#pragma unroll
-            for (int r = 0; r < RT; ++r)
-#pragma unroll
-                for (int u = 0; u < 4; ++u) acc[r][u] = 0.f;
-
-            for (int i = 0; i < din; ++i) {
-                const uint2 wv = *reinterpret_cast<const uint2*>(W + i * MAX_WIDTH + cg * 4);
-                const float w[4] = {bf16_bits_to_float(wv.x & 0xFFFFu), bf16_bits_to_float(wv.x >> 16),
-                                    bf16_bits_to_float(wv.y & 0xFFFFu), bf16_bits_to_float(wv.y >> 16)};
-                const uint2* arow = reinterpret_cast<const uint2*>(act_in + i * S + rg * RT);
-#pragma unroll
-                for (int rr = 0; rr < RT / 4; ++rr) {
-                    const uint2 av = arow[rr];
-                    const float a4[4] = {bf16_bits_to_float(av.x & 0xFFFFu), bf16_bits_to_float(av.x >> 16),
-                                         bf16_bits_to_float(av.y & 0xFFFFu), bf16_bits_to_float(av.y >> 16)};
-#pragma unroll
-                    for (int e = 0; e < 4; ++e)
-#pragma unroll
-                        for (int u = 0; u < 4; ++u)
-                            acc[rr * 4 + e][u] = fmaf(a4[e], w[u], acc[rr * 4 + e][u]);
-                }
-            }
-
-            const bool last = l + 1 == p.n_layers;
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-                const int col = cg + COL_GROUPS * u;
-                if (col >= dout) continue;
-                const float bias = p.bias[l][col];
-                if (!last) {
-#pragma unroll
-                    for (int r = 0; r < RT; ++r)
-                        act_out[col * S + rg * RT + r] = trunc_bf16_bits(fmaxf(acc[r][u] + bias, 0.f));
-                    continue;
-                }
-                const float av = p.a[col], dv = p.d[col];
-#pragma unroll
-                for (int qq = 0; qq < 4; ++qq) {
-                    float m = 0.f;
-#pragma unroll
-                    for (int s = 0; s < K; ++s) {
-                        const float h = fmaxf(acc[qq * K + s][u] + bias, 0.f);
-                        const float o = __fadd_rn(__fmul_rn(h, av), dv);
-                        m = s == 0 ? o : fmaxf(m, o);
-                    }
-                    const int n = n0 + rg * 4 + qq;
-                    if (n < N) p.out[(static_cast<size_t>(b) * N + n) * dout + col] = m;
-                }
-            }
-            __syncthreads();
-            uint16_t* tmp = act_in;
-            act_in = act_out;
-            act_out = tmp;
-        }
-    }
+#ifdef PHASE_CLOCKS
+    PHASE_MARK(0, since);
+#endif
+    if constexpr (MLP) edge_mlp<K, QB, SMALL_C>(p, xb, sidx_block, n0_block, work);
 }
 
-template <int K, bool SMALL_C, bool TILED>
+template <int K, bool SMALL_C, bool TILED, int CD, bool MLP>
 cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
-    auto kernel = fused_edgeconv_kernel<K, SMALL_C, TILED>;
+    auto kernel = fused_edgeconv_kernel<K, SMALL_C, TILED, CD, MLP>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    constexpr int QB = (!SMALL_C && TILED) ? WIDE_QB : TM;
+    constexpr int QB = block_rows<SMALL_C, TILED>();
     const dim3 grid((p.N + QB - 1) / QB, p.B);
     kernel<<<grid, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
 
-template <bool SMALL_C, bool TILED>
+// CD: select_small_c's dimensions (small C), 0 for wide C.
+template <bool SMALL_C, bool TILED, int CD, bool MLP = true>
 cudaError_t launch_k(int k, const Params& p, size_t smem, cudaStream_t stream) {
     switch (k) {
-        case 1: return launch<1, SMALL_C, TILED>(p, smem, stream);
-        case 2: return launch<2, SMALL_C, TILED>(p, smem, stream);
-        case 3: return launch<3, SMALL_C, TILED>(p, smem, stream);
-        case 4: return launch<4, SMALL_C, TILED>(p, smem, stream);
-        case 5: return launch<5, SMALL_C, TILED>(p, smem, stream);
-        case 6: return launch<6, SMALL_C, TILED>(p, smem, stream);
-        case 7: return launch<7, SMALL_C, TILED>(p, smem, stream);
-        case 8: return launch<8, SMALL_C, TILED>(p, smem, stream);
+        case 1: return launch<1, SMALL_C, TILED, SMALL_C ? 3 : 0, MLP>(p, smem, stream);
+        case 2: return launch<2, SMALL_C, TILED, CD, MLP>(p, smem, stream);
+        case 3: return launch<3, SMALL_C, TILED, CD, MLP>(p, smem, stream);
+        case 4: return launch<4, SMALL_C, TILED, CD, MLP>(p, smem, stream);
+        case 5: return launch<5, SMALL_C, TILED, CD, MLP>(p, smem, stream);
+        case 6: return launch<6, SMALL_C, TILED, CD, MLP>(p, smem, stream);
+        case 7: return launch<7, SMALL_C, TILED, CD, MLP>(p, smem, stream);
+        case 8: return launch<8, SMALL_C, TILED, CD, MLP>(p, smem, stream);
         default: return cudaErrorInvalidValue;
     }
+}
+
+bool valid_input(int B, int N, int C, int k, size_t scratch_bytes) {
+    return B >= 1 && N >= 1 && N <= MAX_FUSED_N && C >= 1 && C <= WIDE_C_MAX && k >= 1
+           && k <= MAX_K && k <= N
+           && scratch_bytes >= (C <= SMALL_C_MAX ? 0 : split_bytes(static_cast<size_t>(B) * N, C, 2));
 }
 
 }  // namespace
@@ -267,12 +416,17 @@ extern "C" size_t fused_edgeconv_scratch_bytes(int B, int N, int C) {
 }
 
 // Launches the fused EdgeConv on `stream`; `scratch` holds
-// fused_edgeconv_scratch_bytes(B, N, C) bytes. Weights are bf16 (dims[l], 256)
-// with column c stored at [c % 64][c / 64], zero beyond dims[l+1]; biases
-// and the final affine are f32 (256,). The tiled variants run when
-// N > 2048 or when tile_n > 0 (which also sets the small-C key window, at
-// most 2048 columns); tile_n = 0 chooses by N. Returns the CUDA error code
-// (0 = ok); an argument the kernel does not take returns
+// fused_edgeconv_scratch_bytes(B, N, C) bytes. weights[l] holds layer l's
+// (dims[l], dims[l+1]) matrix rounded to bf16 and zero-padded to
+// (Din, Dout) = (dims[l], dims[l+1]) rounded up to multiples of 16, in
+// mma.sync B-fragment order: for 16-deep step ks < Din / 16, n-tile
+// nt < Dout / 8 (columns 8 nt .. 8 nt + 7) and lane L, 4 bf16 [r][e]
+// (r, e in {0, 1}) = W[16 ks + 8 r + 2 (L % 4) + e][8 nt + L / 4], at
+// ((ks * Dout / 8 + nt) * 32 + L) * 4. Biases and the final affine are
+// f32 (256,), zero beyond the layer's width. The tiled variants run when
+// N > 2048 or when tile_n > 0 (which also caps the small-C key window at
+// tile_n columns, at most 2048); tile_n = 0 chooses by N. Returns the CUDA
+// error code (0 = ok); an argument the kernel does not take returns
 // cudaErrorInvalidValue.
 extern "C" int fused_edgeconv_forward(
         const void* x, void* out, void* idx_out, void* scratch, size_t scratch_bytes,
@@ -280,49 +434,91 @@ extern "C" int fused_edgeconv_forward(
         const void* dims, const void* weights, const void* biases,
         const void* a, const void* d, void* stream) {
     const int* dim = static_cast<const int*>(dims);
-    if (B < 1 || N < 1 || N > MAX_FUSED_N || C < 1 || C > WIDE_C_MAX || k < 1
-            || k > MAX_K || k > N || n_layers < 1 || n_layers > MAX_LAYERS
-            || tile_n < 0 || tile_n > MAX_N
-            || (n_chunks != 1 && n_chunks != 2) || dim[0] != 2 * C
-            || scratch_bytes < fused_edgeconv_scratch_bytes(B, N, C))
+    if (!valid_input(B, N, C, k, scratch_bytes) || n_layers < 1 || n_layers > MAX_LAYERS
+            || tile_n < 0 || tile_n > MAX_N || (n_chunks != 1 && n_chunks != 2)
+            || dim[0] != 2 * C)
         return static_cast<int>(cudaErrorInvalidValue);
     Params p{};
     p.x = static_cast<const float*>(x);
     p.out = static_cast<float*>(out);
     p.idx_out = static_cast<int*>(idx_out);
     p.B = B; p.N = N; p.C = C; p.n_chunks = n_chunks; p.n_layers = n_layers;
-    int width = 0;
+    int hidden = DEPTH_STEP;
     for (int l = 0; l <= n_layers; ++l) {
         p.dims[l] = dim[l];
         if (dim[l] < 1 || (l > 0 && dim[l] > MAX_WIDTH))
             return static_cast<int>(cudaErrorInvalidValue);
-        width = dim[l] > width ? dim[l] : width;
+        if (l > 0 && l < n_layers && dim[l] > hidden) hidden = dim[l];
     }
     for (int l = 0; l < n_layers; ++l) {
-        p.w[l] = static_cast<const uint16_t* const*>(weights)[l];
+        p.w[l] = static_cast<const uint2* const*>(weights)[l];
         p.bias[l] = static_cast<const float* const*>(biases)[l];
     }
     p.a = static_cast<const float*>(a);
     p.d = static_cast<const float*>(d);
-    p.act_stride = TM * k + 4;
-    p.act_rows = width;
+    p.in_stride = padded_depth(2 * C) + ROW_PAD;
+    p.hid_stride = padded_depth(hidden) + ROW_PAD;
     p.split = scratch;
     p.P = static_cast<size_t>(B) * N;
 
     const bool small_c = C <= SMALL_C_MAX;
     const bool tiled = N > MAX_N || tile_n > 0;
-    p.window = small_c_window(N, C, tiled, tile_n);
-    const size_t sel_bytes = select_bytes(N, C, tiled, p.window);
-    const size_t mlp_bytes = 2 * static_cast<size_t>(width) * p.act_stride * 2;
-    const size_t header = (!small_c && tiled ? WIDE_QB : TM) * MAX_K * 4;
+    p.window = small_c ? small_c_window(N, C, tile_n) : 0;
+    const size_t sel_bytes = select_bytes(C, tiled, p.window);
+    const int in_rows = p.in_stride > p.hid_stride ? p.in_stride : p.hid_stride;
+    const size_t mlp_bytes = static_cast<size_t>(SLICE) * k * (in_rows + p.hid_stride) * 2
+                             + RING_BYTES;
+    const size_t header = (small_c ? SMALL_QB : (tiled ? WIDE_QB : TM)) * MAX_K * 4;
     const size_t smem = header + (sel_bytes > mlp_bytes ? sel_bytes : mlp_bytes);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (!small_c && k > 1) {
         const cudaError_t err = launch_split<2>(p.x, p.P, C, scratch, s);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    const cudaError_t err =
-        small_c ? (tiled ? launch_k<true, true>(k, p, smem, s) : launch_k<true, false>(k, p, smem, s))
-                : (tiled ? launch_k<false, true>(k, p, smem, s) : launch_k<false, false>(k, p, smem, s));
+    cudaError_t err;
+    if (!small_c) {
+        err = tiled ? launch_k<false, true, 0>(k, p, smem, s)
+                    : launch_k<false, false, 0>(k, p, smem, s);
+    } else if (small_c_dims(C) == 3) {
+        err = tiled ? launch_k<true, true, 3>(k, p, smem, s)
+                    : launch_k<true, false, 3>(k, p, smem, s);
+    } else {
+        err = tiled ? launch_k<true, true, SMALL_C_MAX>(k, p, smem, s)
+                    : launch_k<true, false, SMALL_C_MAX>(k, p, smem, s);
+    }
     return static_cast<int>(err);
 }
+
+// The tiled wide-C variant's selection alone (phase 1 of the column-tiled
+// fused layer, C > 16): ids (B, N, k) i32 into idx_out; for measuring the
+// selection and the edge MLP apart. Returns the CUDA error code.
+extern "C" int fused_edgeconv_select(const void* x, void* idx_out, void* scratch,
+                                     size_t scratch_bytes, int B, int N, int C, int k,
+                                     void* stream) {
+    if (!valid_input(B, N, C, k, scratch_bytes) || C <= SMALL_C_MAX || idx_out == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    Params p{};
+    p.x = static_cast<const float*>(x);
+    p.idx_out = static_cast<int*>(idx_out);
+    p.B = B; p.N = N; p.C = C;
+    p.split = scratch;
+    p.P = static_cast<size_t>(B) * N;
+    const size_t smem = WIDE_QB * MAX_K * 4 + select_bytes(C, true, 0);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (k > 1) {
+        const cudaError_t err = launch_split<2>(p.x, p.P, C, scratch, s);
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return static_cast<int>(launch_k<false, true, 0, false>(k, p, smem, s));
+}
+
+#ifdef PHASE_CLOCKS
+// Sums of each phase's cycles over blocks (thread 0's clock): selection,
+// edge rows, layers 0..; read and cleared.
+extern "C" int fused_edgeconv_phase_clocks(unsigned long long* out) {
+    cudaError_t err = cudaMemcpyFromSymbol(out, g_phase, sizeof(g_phase));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    unsigned long long zero[8] = {};
+    return static_cast<int>(cudaMemcpyToSymbol(g_phase, zero, sizeof(g_phase)));
+}
+#endif

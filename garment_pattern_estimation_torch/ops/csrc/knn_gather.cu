@@ -11,10 +11,11 @@
 // The plain PyTorch versions with the same numerics are ops/knn_gather.py:
 // knn_gather_reference and knn_gather_backward_reference.
 //
-// Forward. One block of 256 threads per (batch element, 16 query rows).
+// Forward. One block of 256 threads per (batch element, query rows: 128
+// for small C, 16 for wide C).
 // The selection is edgeconv_select.cuh, the same code as the fused EdgeConv
 // kernel, so its ids are the fused kernel's. Then the k slot rows are
-// written with threads along C: for one slot the tile's 16 output rows are
+// written with threads along C: for one slot the block's output rows are
 // contiguous, so the stores are coalesced. Slot 0 is the query's own f32
 // row; slots 1..k-1 are exact rows (small C) or hi + lo (hi when n_chunks
 // is 1) of the truncation split (wide C).
@@ -64,6 +65,7 @@ struct FwdParams {
     float* nbr;                   // (B, K, N, C) f32
     int* idx;                     // (B, N, K) i32
     int B, N, C, n_chunks;
+    int window;                   // small C: the key window (columns)
     const void* split;            // wide C: split_rows_kernel's output for the B N points
     size_t P;                     // B N
 };
@@ -75,32 +77,35 @@ struct BwdParams {
     int B, N, C, K;
 };
 
-template <int K, bool SMALL_C>
+// Query rows per forward block: select_small_c's for small C, TM for wide C.
+template <bool SMALL_C> __host__ __device__ constexpr int fwd_rows() { return SMALL_C ? SMALL_QB : TM; }
+
+template <int K, bool SMALL_C, int CD>
 __global__ void __launch_bounds__(THREADS)
 knn_gather_fwd_kernel(const FwdParams p) {
+    constexpr int QB = fwd_rows<SMALL_C>();
     extern __shared__ __align__(16) unsigned char smem[];
-    int* sidx = reinterpret_cast<int*>(smem);                       // [TM][K]
-    float* work = reinterpret_cast<float*>(smem + HEADER_BYTES);
-    const int b = blockIdx.y, n0 = blockIdx.x * TM, t = threadIdx.x;
+    int* sidx = reinterpret_cast<int*>(smem);                       // [QB][K]
+    unsigned char* work = smem + QB * MAX_K * 4;
+    const int b = blockIdx.y, n0 = blockIdx.x * QB, t = threadIdx.x;
     const int N = p.N, C = p.C;
     const float* xb = p.x + static_cast<size_t>(b) * N * C;
 
     if constexpr (K == 1) {
-        if (t < TM) sidx[t] = min(n0 + t, N - 1);
+        if (t < QB) sidx[t] = min(n0 + t, N - 1);
     } else if constexpr (SMALL_C) {
-        select_small_c<K, false>(N, C, xb, n0, work, sidx, N);
+        select_small_c<K, false, CD>(N, C, xb, n0, work, sidx, p.window);
     } else {
-        select_wide_c<K, false, TM>(N, cloud_rows(p.split, p.P, C, 2, b, N), n0,
-                                    reinterpret_cast<unsigned char*>(work), sidx);
+        select_wide_c<K, false, TM>(N, cloud_rows(p.split, p.P, C, 2, b, N), n0, work, sidx);
     }
     __syncthreads();
 
-    if (t < TM * K) {
-        const int n = n0 + t / K;
-        if (n < N) p.idx[(static_cast<size_t>(b) * N + n) * K + t % K] = sidx[t];
+    for (int e = t; e < QB * K; e += THREADS) {
+        const int n = n0 + e / K;
+        if (n < N) p.idx[(static_cast<size_t>(b) * N + n) * K + e % K] = sidx[e];
     }
 
-    const int rows = min(TM, N - n0);
+    const int rows = min(QB, N - n0);
 #pragma unroll
     for (int s = 0; s < K; ++s) {
         float* out = p.nbr + ((static_cast<size_t>(b) * K + s) * N + n0) * C;
@@ -192,28 +197,29 @@ knn_gather_bwd_kernel(const BwdParams p) {
     }
 }
 
-template <int K, bool SMALL_C>
+template <int K, bool SMALL_C, int CD>
 cudaError_t launch_fwd(const FwdParams& p, size_t smem, cudaStream_t stream) {
-    auto kernel = knn_gather_fwd_kernel<K, SMALL_C>;
+    auto kernel = knn_gather_fwd_kernel<K, SMALL_C, CD>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.N + TM - 1) / TM, p.B);
+    constexpr int QB = fwd_rows<SMALL_C>();
+    const dim3 grid((p.N + QB - 1) / QB, p.B);
     kernel<<<grid, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
 
-template <bool SMALL_C>
+template <bool SMALL_C, int CD>
 cudaError_t launch_fwd_k(int k, const FwdParams& p, size_t smem, cudaStream_t stream) {
     switch (k) {
-        case 1: return launch_fwd<1, SMALL_C>(p, smem, stream);
-        case 2: return launch_fwd<2, SMALL_C>(p, smem, stream);
-        case 3: return launch_fwd<3, SMALL_C>(p, smem, stream);
-        case 4: return launch_fwd<4, SMALL_C>(p, smem, stream);
-        case 5: return launch_fwd<5, SMALL_C>(p, smem, stream);
-        case 6: return launch_fwd<6, SMALL_C>(p, smem, stream);
-        case 7: return launch_fwd<7, SMALL_C>(p, smem, stream);
-        case 8: return launch_fwd<8, SMALL_C>(p, smem, stream);
+        case 1: return launch_fwd<1, SMALL_C, CD>(p, smem, stream);
+        case 2: return launch_fwd<2, SMALL_C, CD>(p, smem, stream);
+        case 3: return launch_fwd<3, SMALL_C, CD>(p, smem, stream);
+        case 4: return launch_fwd<4, SMALL_C, CD>(p, smem, stream);
+        case 5: return launch_fwd<5, SMALL_C, CD>(p, smem, stream);
+        case 6: return launch_fwd<6, SMALL_C, CD>(p, smem, stream);
+        case 7: return launch_fwd<7, SMALL_C, CD>(p, smem, stream);
+        case 8: return launch_fwd<8, SMALL_C, CD>(p, smem, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -250,14 +256,18 @@ extern "C" int knn_gather_forward(const void* x, void* nbr, void* idx,
     p.B = B; p.N = N; p.C = C; p.n_chunks = n_chunks;
     p.split = scratch;
     p.P = static_cast<size_t>(B) * N;
-    const size_t smem = HEADER_BYTES + select_bytes(N, C, false, N);
+    const bool small_c = C <= SMALL_C_MAX;
+    p.window = small_c ? small_c_window(N, C, 0) : 0;
+    const size_t smem = (small_c ? SMALL_QB : TM) * MAX_K * 4 + select_bytes(C, false, p.window);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (C > SMALL_C_MAX && k > 1) {
+    if (!small_c && k > 1) {
         const cudaError_t err = launch_split<2>(p.x, p.P, C, scratch, s);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    const cudaError_t err = C <= SMALL_C_MAX ? launch_fwd_k<true>(k, p, smem, s)
-                                             : launch_fwd_k<false>(k, p, smem, s);
+    const cudaError_t err =
+        !small_c ? launch_fwd_k<false, 0>(k, p, smem, s)
+                 : (small_c_dims(C) == 3 ? launch_fwd_k<true, 3>(k, p, smem, s)
+                                         : launch_fwd_k<true, SMALL_C_MAX>(k, p, smem, s));
     return static_cast<int>(err);
 }
 

@@ -158,12 +158,17 @@ def fused_edgeconv(x, folded, k, *, mlp_dtype=torch.float32, return_idx=False,
 
 
 def _pack_weight(w):
-    """(in, out) f32 -> bf16 (in, 256), column c at [c % 64][c / 64]."""
+    """(in, out) f32 -> bf16 (round to nearest) in the kernel's mma.sync
+    B-fragment order, zero-padded to (Din, Dout) = (in, out) rounded up to
+    multiples of 16: element ((ks * Dout / 8 + nt) * 32 + L) * 4 + 2 r + e
+    is W[16 ks + 8 r + 2 (L % 4) + e, 8 nt + L // 4]."""
     din, dout = w.shape
-    padded = torch.zeros(din, _MAX_WIDTH, device=w.device, dtype=torch.float32)
-    padded[:, :dout] = w
-    return padded.view(din, 4, 64).transpose(1, 2).contiguous() \
-        .to(torch.bfloat16).reshape(din, _MAX_WIDTH)
+    ks, n_tiles = -(-din // 16), 2 * -(-dout // 16)
+    padded = torch.zeros(16 * ks, 8 * n_tiles, device=w.device, dtype=torch.float32)
+    padded[:din, :dout] = w
+    # rows 16 ks + 8 r + 2 lq + e, columns 8 nt + lg; lane L = 4 lg + lq
+    return padded.view(ks, 2, 4, 2, n_tiles, 8).permute(0, 4, 5, 2, 1, 3) \
+        .contiguous().to(torch.bfloat16).reshape(-1)
 
 
 def _pad_vector(v):

@@ -127,13 +127,15 @@ class Trainer:
         return loss.detach(), {k: v.detach() for k, v in loss_dict.items()}
 
     @torch.no_grad()
-    def eval_step(self, model, batch, epoch):
+    def eval_step(self, model, batch, epoch, generator=None):
         """Eval-mode forward (running statistics, the fused EdgeConv kernel
-        on the card, zero LSTM states) and the composed loss with its
-        quality metrics. Returns (loss, dict)."""
+        on the card) and the composed loss with its quality metrics.
+        `generator` draws the LSTM decoder's random initial states, as the
+        JAX trainer's eval step draws them from its 'recurrent_init' rng;
+        without one they are zeros. Returns (loss, dict)."""
         features, gt = self._place(batch)
         epoch_c = canonical_epoch(model.loss.config, *phase_of(model.loss.config, epoch))
         model.module.eval()
-        preds = model.module(features)
+        preds = model.module(features, generator=generator)
         loss, loss_dict, _ = model.loss(preds, gt, epoch=epoch_c)
         return loss, loss_dict

@@ -7,7 +7,8 @@ Runs each tree's chip_smoke.py in the order A, B, B, A, a process per run
 chiprun_out/smoke_ab/, and prints one JSON line per run: its exit code,
 each kernel's ms, bound_ms and launches from the kernels line, and the
 end-to-end numbers (att serving batch ms, att training step ms, stress
-serving batch ms and peak GB, stress training step ms and peak GB). Then
+serving batch ms and peak GB, stress training step ms and peak GB), and
+the tiled layers' selection / edge-MLP split where the run prints one. Then
 the card's name and power limit. Exits non-zero if any run failed.
 """
 import json
@@ -33,6 +34,9 @@ def summary(stdout):
                                           'launches': k['launches']}
                               for k in record['kernels']}
         phase = record.get('phase')
+        if phase == 'split':
+            out['split'] = {name: {'selection_ms': v['selection_ms'], 'mlp_ms': v['mlp_ms']}
+                            for name, v in record.items() if isinstance(v, dict)}
         if phase in END_TO_END:
             out.update({f'{phase}.{key}': record[key] for key in END_TO_END[phase]})
     return out

@@ -25,6 +25,14 @@ dx within 1e-5 of its largest magnitude of the plain `index_add_` on the
 kernel's own ids (the two sum the same f32 terms in another order), and
 bitwise equal across two runs (the backward uses no float atomics).
 
+The small-C selection (the fused layer, knn_gather and the kNN) runs 128
+query rows per block against 8 key lanes: its ids equal the plain
+version's at every N around those blocks and the 2048-column windows, for
+every k, on clouds with duplicate points and exact distance ties (the
+lower column wins). The edge MLP runs on bf16 tensor cores with widths
+padded to the MMA tile: widths off every multiple of 8 and 16, a 4-layer
+MLP and the bf16 mode meet the output bars above.
+
 The wide-D kNN ranks exact distances: ids at least 99% equal to the plain
 version's, every disagreement two neighbours whose f64 distances agree
 within 2^-18 of the squared norms. The chunked EdgeConv training layer on
@@ -296,6 +304,91 @@ def test_knn_gather_matches_plain(cuda, rng, n_points, C, k, value_chunks):
     assert (dx - ref_dx).abs().max().item() <= 1e-5 * scale
     (dx_again,) = torch.autograd.grad(knn_gather.knn_gather(x, k, value_chunks)[0], x, g)
     assert torch.equal(dx, dx_again)
+
+
+def _check_small_c_entries(cuda, x, k, folded):
+    """The small-C fused layer, kNN and (N <= 2048) knn_gather on x: ids
+    exactly the plain version's, fused output within the bars of
+    test_kernel_matches_plain."""
+    B, N, C = x.shape
+    ref = knn.knn_reference(x, k)
+    assert torch.equal(knn.knn(x, k), ref)
+    out, idx = edgeconv.fused_edgeconv(x, folded, k=k, return_idx=True)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ref)
+    ref_idx, x_lp = edgeconv.edgeconv_select(x, k)
+    assert torch.equal(ref_idx, ref)
+    tail = edgeconv.edgeconv_mlp_max(x, idx, x_lp, folded)
+    scale = tail.abs().max().item()
+    diff = (out - tail).abs()
+    assert diff.max().item() <= 1e-2 * scale and diff.mean().item() <= 1e-4 * scale
+    if N <= knn.MAX_N:
+        nbr, gather_idx = knn_gather.knn_gather(x, min(k, N))
+        assert torch.equal(gather_idx, ref)
+        ref_nbr, _ = knn_gather.knn_gather_reference(x, min(k, N))
+        assert torch.equal(nbr, ref_nbr)
+
+
+@pytest.mark.parametrize('n_points', [1, 15, 17, 2047, 2049, 10001])
+@pytest.mark.parametrize('k', range(1, 9))
+def test_small_c_ids_every_n_and_k(cuda, rng, n_points, k):
+    """N around the 128-row query blocks, the 8 key lanes and the 2048-column
+    key windows, every k: ids exactly the plain version's."""
+    folded = _folded(rng, 3, [32, 24], cuda)
+    clouds = 1 if n_points > 2048 else 2
+    x = torch.from_numpy(rng.normal(size=(clouds, n_points, 3)).astype(np.float32)).to(cuda)
+    _check_small_c_entries(cuda, x, k, folded)
+
+
+@pytest.mark.parametrize('C', [1, 2, 4, 8, 16])
+@pytest.mark.parametrize('n_points', [300, 3000])
+def test_small_c_ids_every_width(cuda, rng, C, n_points):
+    """The 3-dimension and the 16-dimension instantiations, C padded with
+    zero dimensions: ids exactly the plain version's."""
+    folded = _folded(rng, C, [32, 24], cuda)
+    x = torch.from_numpy(rng.normal(size=(2, n_points, C)).astype(np.float32)).to(cuda)
+    _check_small_c_entries(cuda, x, 5, folded)
+
+
+@pytest.mark.parametrize('n_points,C,tile_n', [(600, 3, None), (3000, 3, None),
+                                                (3000, 3, 300), (2000, 8, None)])
+def test_small_c_duplicates_and_ties(cuda, rng, n_points, C, tile_n):
+    """Integer lattice clouds, every point twice: many exact distance ties
+    (0 between twins); the lower column wins, as in the plain version."""
+    half = rng.integers(-3, 4, size=(2, n_points // 2, C)).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([half, half], axis=1)).to(cuda)
+    folded = _folded(rng, C, [32, 24], cuda)
+    for k in (2, 5, 8):
+        ref = knn.knn_reference(x, k)
+        assert torch.equal(knn.knn(x, k, tile_n=tile_n), ref)
+        _, idx = edgeconv.fused_edgeconv(x, folded, k=k, return_idx=True, tile_n=tile_n)
+        assert torch.equal(idx, ref)
+        if n_points <= knn.MAX_N:
+            assert torch.equal(knn_gather.knn_gather(x, k)[1], ref)
+
+
+@pytest.mark.parametrize('C,widths,mlp_dtype,n_points', [
+    (3, [24, 40, 17], torch.float32, 500),      # widths off the 8- and 16-column tiles
+    (24, [24, 40, 17], torch.float32, 500),
+    (3, [64, 48, 40, 8], torch.float32, 3000),  # four layers, tiled
+    (150, [200, 200, 150], torch.bfloat16, 700),
+    (24, [256, 256, 200, 256], torch.float32, 300),   # the widest layers
+    (3, [16], torch.float32, 2049),             # one layer
+])
+def test_edge_mlp_widths(cuda, rng, C, widths, mlp_dtype, n_points):
+    """The tensor-core edge MLP at other widths and depths: the bars of
+    test_kernel_matches_plain on the kernel's own ids."""
+    folded = _folded(rng, C, widths, cuda)
+    x = torch.from_numpy(rng.normal(size=(2, n_points, C)).astype(np.float32)).to(cuda)
+    for k in (1, 5, 8):
+        out, idx = edgeconv.fused_edgeconv(x, folded, k=k, mlp_dtype=mlp_dtype,
+                                           return_idx=True)
+        assert out.shape == (2, n_points, widths[-1])
+        _, x_lp = edgeconv.edgeconv_select(x, k, mlp_dtype)
+        tail = edgeconv.edgeconv_mlp_max(x, idx, x_lp, folded)
+        scale = tail.abs().max().item()
+        diff = (out - tail).abs()
+        assert diff.max().item() <= 1e-2 * scale and diff.mean().item() <= 1e-4 * scale
 
 
 def test_knn_gather_ids_equal_the_fused_kernels(cuda, rng):

@@ -176,3 +176,39 @@ def test_wrapper_refuses_other_devices(rng):
     with pytest.raises(ValueError, match='unsupported device'):
         edgeconv.fused_edgeconv(x, _torch_fold(layers), k=3)
 
+
+
+def _fragment_product(a, packed, din, dout):
+    """a (R, din) @ W as the kernel forms it from the packed weights: for
+    each 16-deep step and 8-column n-tile, lane L's B fragment registers b0
+    (rows 2 (L % 4) + {0, 1}) and b1 (rows 8 + 2 (L % 4) + {0, 1}) of
+    column L // 4, read at ((ks * Dout / 8 + nt) * 32 + L) * 4 + 2 r + e."""
+    ks_n, n_tiles = -(-din // 16), 2 * -(-dout // 16)
+    frags = packed.float().numpy().reshape(ks_n, n_tiles, 32, 2, 2)   # [ks][nt][L][r][e]
+    w = np.zeros((16 * ks_n, 8 * n_tiles))
+    for lane in range(32):
+        for r in range(2):
+            for e in range(2):
+                rows = 16 * np.arange(ks_n)[:, None] + 8 * r + 2 * (lane % 4) + e
+                cols = 8 * np.arange(n_tiles)[None, :] + lane // 4
+                w[rows, cols] = frags[:, :, lane, r, e]
+    a_pad = np.zeros((a.shape[0], 16 * ks_n))
+    a_pad[:, :din] = a
+    return (a_pad @ w)[:, :dout], w
+
+
+@pytest.mark.parametrize('din,dout', [(6, 200), (300, 200), (200, 150), (40, 17), (17, 24)])
+def test_packed_weights_are_the_kernels_b_fragments(rng, din, dout):
+    """The wrapper's weight packing, read back in the kernel's mma.sync
+    B-fragment order, is the bf16-rounded matrix, zero in its padding; so
+    the kernel's product is a @ bf16(W) up to f32 summation order."""
+    w = torch.from_numpy(rng.normal(size=(din, dout)).astype(np.float32))
+    packed = edgeconv._pack_weight(w)
+    assert packed.dtype == torch.bfloat16
+    assert packed.numel() == -(-din // 16) * 16 * -(-dout // 16) * 16
+    a = rng.normal(size=(48, din))
+    out, w_full = _fragment_product(a, packed, din, dout)
+    w_bf = w.to(torch.bfloat16).double().numpy()
+    np.testing.assert_array_equal(w_full[:din, :dout], w_bf)
+    assert not w_full[din:].any() and not w_full[:, dout:].any()
+    np.testing.assert_allclose(out, a @ w_bf, rtol=1e-12, atol=1e-12)

@@ -24,6 +24,8 @@ Tolerances and their reasons:
   * the 4-step loss trajectory: 5e-3 relative, test_train_parity.py's bar
     (the differences above compound through Adam).
 """
+import copy
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -35,6 +37,7 @@ from __graft_entry__ import DATA_CONFIG
 from garment_pattern_estimation_tpu.losses import components as jax_components
 from garment_pattern_estimation_tpu.losses.composed import (
     ComposedPatternLoss as JaxComposedPatternLoss)
+from garment_pattern_estimation_tpu.models import blocks as jax_blocks
 from garment_pattern_estimation_tpu.models import build_model as jax_build_model
 from garment_pattern_estimation_tpu.train.trainer import Trainer as JaxTrainer
 from garment_pattern_estimation_torch.losses import ComposedPatternLoss, components
@@ -62,7 +65,7 @@ SETUP = {'batch_size': B, 'epochs': 2, 'learning_rate': 0.002, 'optimizer': 'Ada
 STEPS_PER_EPOCH = 2
 
 
-def _ground_truth(rng, batch=B):
+def _ground_truth(rng, batch=B, P=P, L=L, N=N):
     """Ground truth in the dataset's shapes, standardized: panels beyond
     each pattern's count and edges beyond each panel's count hold the pad
     vector."""
@@ -218,8 +221,12 @@ def test_lstm_random_states_from_a_generator():
     assert not torch.equal(states[0][0], states[0][1])       # h and c are separate draws
     zeros = decoder.initial_states(690, 'cpu')                # no generator: zeros
     assert all(not s.any() for pair in zeros for s in pair)
-    decoder.eval()                                            # eval: zeros
-    assert not decoder.initial_states(4, 'cpu', torch.Generator())[0][0].any()
+    decoder.eval()                    # eval draws too, as the JAX eval step does
+    in_eval = decoder.initial_states(690, 'cpu', torch.Generator().manual_seed(0))
+    assert all(torch.equal(s, t) for pair, again_pair in zip(in_eval, states)
+               for s, t in zip(pair, again_pair))
+    zeros = decoder.initial_states(4, 'cpu')                  # eval, no generator: zeros
+    assert all(not s.any() for pair in zeros for s in pair)
 
 
 def _batches(rng, count):
@@ -315,3 +322,100 @@ def test_training_trajectory_matches_jax(training_runs):
     jax_losses, torch_losses, _ = training_runs
     assert len(torch_losses) == 4
     np.testing.assert_allclose(torch_losses, jax_losses, rtol=5e-3)
+
+
+# configs/att.yaml's model widths; a small cloud keeps the JAX fused Pallas
+# kernel's interpret mode quick
+ATT_NN = {'panel_encoding_size': 250, 'panel_hidden_size': 250, 'panel_n_layers': 3,
+          'EConv_hidden': 200, 'EConv_feature': 150, 'EConv_hidden_depth': 2,
+          'k_neighbors': 5, 'conv_depth': 2, 'skip_connections': True,
+          'global_pool': 'mean', 'local_attention': True, 'lstm_init': 'kaiming_normal_'}
+ATT_DATA = dict(DATA_CONFIG)
+EVAL_POINTS = 64
+
+
+class _RecordingLoss:
+    """A loss that also returns the predictions it was given, under
+    'pred.<key>' in its dict, so a jitted step hands them back."""
+
+    def __init__(self, loss):
+        self.loss, self.config = loss, loss.config
+
+    def __call__(self, preds, gt, **kwargs):
+        loss, terms, extra = self.loss(preds, gt, **kwargs)
+        return loss, dict(terms, **{f'pred.{k}': v for k, v in preds.items()}), extra
+
+
+def test_eval_step_with_drawn_states_matches_jax(monkeypatch):
+    """The eval step draws the LSTM decoder's initial states when it is
+    given a source of randomness, on both sides: the port's
+    `Trainer.eval_step(..., generator)` and the JAX trainer's
+    `_eval_step_fn` (its 'recurrent_init' rng). The port's drawn states are
+    injected into the JAX model's `_init_states`, so both decode from the
+    same states; outlines, rotations, translations and the loss agree to
+    the bars of test_torch_model.py (1e-2 of each output's largest
+    magnitude at most, 1e-4 on average: bf16 truncation flips in the edge
+    MLP) and 1e-4 relative. Without a generator the port decodes from zeros,
+    and its outlines differ."""
+    P_att, L_att = ATT_DATA['max_pattern_len'], ATT_DATA['max_panel_len']
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(B, EVAL_POINTS, 3)).astype(np.float32)
+    gt = _ground_truth(rng, B, P_att, L_att, EVAL_POINTS)
+    jax_model = jax_build_model('GarmentSegmentPattern3D', ATT_DATA, ATT_NN, LOSS,
+                                use_pallas=True)
+    variables = jax.tree_util.tree_map(np.asarray, jax_model.init_variables(
+        jax.random.PRNGKey(0), jnp.asarray(x)))
+    model = build_model('GarmentSegmentPattern3D', ATT_DATA, ATT_NN, LOSS, device='cpu')
+    model.module.load_state_dict(state_dict_from_flax(variables))
+
+    drawn = []
+    draw = LSTMDecoderModule.initial_states
+
+    def recording(self, *args, **kwargs):
+        drawn.append(draw(self, *args, **kwargs))
+        return drawn[-1]
+
+    monkeypatch.setattr(LSTMDecoderModule, 'initial_states', recording)
+    recorded = copy.copy(model)
+    recorded.loss = _RecordingLoss(model.loss)
+    trainer = Trainer(SETUP, device='cpu')
+    batch = {'features': torch.from_numpy(x), 'ground_truth': _torch(gt)}
+    loss, terms = trainer.eval_step(recorded, batch, epoch=0,
+                                    generator=torch.Generator().manual_seed(5))
+    assert len(drawn) == 1 and len(drawn[0]) == ATT_NN['panel_n_layers']
+    std = (2.0 / (B * P_att * ATT_NN['panel_hidden_size'])) ** 0.5
+    states = torch.stack([s for pair in drawn[0] for s in pair])
+    assert states.abs().min() > 0
+    np.testing.assert_allclose(states.std().item(), std, rtol=0.1)
+
+    injected = []
+
+    def inject(self, module, batch_size, n_layers, hidden, with_cell=True):
+        assert module.has_rng('recurrent_init')
+        assert (batch_size, n_layers, hidden) == tuple(drawn[0][0][0].shape[:1]) + (
+            ATT_NN['panel_n_layers'], ATT_NN['panel_hidden_size'])
+        injected.append(module.name)
+        return [(jnp.asarray(h.numpy()), jnp.asarray(c.numpy())) for h, c in drawn[0]]
+
+    monkeypatch.setattr(jax_blocks._StateInitMixin, '_init_states', inject)
+    jt = JaxTrainer.__new__(JaxTrainer)
+    jt._step_cache = {}
+    jax_recorded = copy.copy(jax_model)
+    jax_recorded.loss = _RecordingLoss(jax_model.loss)
+    step = jt._eval_step_fn(jax_recorded, phase_of(LOSS, 0), B)
+    jax_loss, jax_terms = step(variables['params'], variables['batch_stats'],
+                               {'features': jnp.asarray(x), 'ground_truth': _jax(gt)},
+                               jax.random.PRNGKey(7))
+    assert len(injected) == 1
+    for key in ('outlines', 'rotations', 'translations'):
+        ours, ref = terms[f'pred.{key}'].numpy(), np.asarray(jax_terms[f'pred.{key}'])
+        assert ours.shape == ref.shape
+        scale = float(np.abs(ref).max())
+        diff = np.abs(ours - ref)
+        assert diff.max() <= 1e-2 * scale, (key, diff.max(), scale)
+        assert diff.mean() <= 1e-4 * scale, (key, diff.mean(), scale)
+    np.testing.assert_allclose(float(loss), float(jax_loss), rtol=1e-4)
+
+    _, zero_terms = trainer.eval_step(recorded, batch, epoch=0)
+    assert not any(s.any() for pair in drawn[-1] for s in pair)
+    assert not torch.allclose(zero_terms['pred.outlines'], terms['pred.outlines'])
