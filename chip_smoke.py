@@ -79,9 +79,33 @@ Phases, one JSON line each:
            kernel and by class of kernel (the port's kernels, matrix
            products, reductions, index gathers and scatters, elementwise
            passes, copies) and the device's idle share
+The bf16 mixed-precision mode (configs/att_bf16.yaml, `compute_dtype:
+bfloat16`) has phases of its own, at the same widths and shapes:
+  kernel_bf16      rows 4-7 with mlp_dtype=bfloat16 (wide rows gathered as
+           their top truncation chunk), checked as `kernel` above (the tiled
+           ones on the stress shapes, on their first CHUNK clouds)
+  knn_gather_bf16  the knn_gather forward at value_chunks=1 on (30, 2000, 3)
+           and (30, 2000, 150), and its single-chunk backward ('bwd_hi',
+           slots >= 1 truncated to bf16) on (30, 2000, 150) with cotangents
+           that are not bf16-valued: the knn_gather bars above, and the
+           truncation must move dx
+  serving_bf16 / stress_serving_bf16  the served bf16 model, checked as the
+           f32 phases, with the same bars
+  training_bf16  as `training`, with 1 + 1 forward and 1 'bwd_hi' knn_gather
+           launch per step; the 2-cloud step's loss bar as in f32, its
+           gradient bars the larger of the f32 bars and twice the CPU's own
+           order floor: the CPU path against itself with the two clouds in
+           the other batch order (the same math, each sum in another
+           order), which in bf16 alone moves the gradient by about as much
+           as the card does (compare_step_cpu)
+  stress_training_bf16  as `stress_training` in 'fused_final', then one
+           'streamed' step (its ms and peak memory); the forced-chunk step
+           against the CPU on 2 clouds, with training_bf16's bars
+  profile  the four profiles above, of the bf16 model
 Then each phase's seconds, the card's name and power limit, the kernels
-line, and as the last line {"ok": true, "device": {...}}. Any failed check
-exits non-zero. The build line gives each kernel instantiation's registers
+line (each bf16-mode kernel an entry of its own, its launches from the bf16
+phases), and as the last line {"ok": true, "device": {...}}. Any failed
+check exits non-zero. The build line gives each kernel instantiation's registers
 and spill bytes from `nvcc -Xptxas -v` and, where the toolkit has
 cuobjdump, its count of tensor-core HMMA instructions in the SASS: the
 wide selections and every fused_edgeconv_kernel instantiation with k > 1
@@ -153,6 +177,8 @@ ATT_LOSS_CONFIG = {
     'panel_origin_invariant_loss': False, 'panel_order_inariant_loss': False,
     'epoch_with_order_matching': 0, 'order_by': 'shape_translation',
 }
+# configs/att_bf16.yaml: att.yaml's model in the bf16 mixed-precision mode
+ATT_BF16_NN_CONFIG = dict(ATT_NN_CONFIG, compute_dtype='bfloat16')
 ATT_TRAINER = {
     'batch_size': 30, 'epochs': 350, 'random_seed': 916143406, 'learning_rate': 0.002,
     'optimizer': 'Adam', 'weight_decay': 0, 'lr_scheduling': {'mode': '1cyclic'},
@@ -163,6 +189,7 @@ TRAIN_STEPS = 6
 DX_MAX_REL = 1e-5
 TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_PARAM_GRAD_REL = 1e-3, 1e-2, 5e-2
 OUT_MAX_REL, OUT_MEAN_REL = 1e-2, 1e-4
+ORDER_FLOOR_FACTOR = 2.0           # bf16 gradient bars: this many times the CPU's order floor
 WIDE_ID_AGREEMENT = 0.99
 NEAR_TIE_REL = 2.0 ** -10          # 4 quantization buckets of the packed distance
 NORM_ULPS = 2.0 ** -18             # 32 f32 ulps of the squared norms
@@ -352,22 +379,25 @@ def chunked(fn, x, chunk):
     return torch.cat([fn(x[i:i + chunk]) for i in range(0, x.shape[0], chunk)])
 
 
-def check_kernel(name, x, folded, widths, *, tile_variant=False):
+def check_kernel(name, x, folded, widths, *, tile_variant=False, bf16=False):
     """Kernel against the plain version on the same inputs; returns the
     kernel's output and its line of the kernels list (launches filled in
     later). The single-tile variants are checked and timed on the whole
     batch at once; the tiled ones (stress shapes) checked on the first
     CHUNK clouds, their plain version timed on the whole batch CHUNK clouds
-    at a time, and fewer timed runs (each call takes most of a second)."""
+    at a time, and fewer timed runs (each call takes most of a second).
+    `bf16`: the bf16 compute mode (`mlp_dtype=torch.bfloat16`, wide rows
+    gathered as their top truncation chunk), on both sides."""
     import torch
     from garment_pattern_estimation_torch.ops import edgeconv
 
     B, N, C = x.shape
-    out, idx = edgeconv.fused_edgeconv(x, folded, K, return_idx=True)
+    mlp_dtype = torch.bfloat16 if bf16 else torch.float32
+    out, idx = edgeconv.fused_edgeconv(x, folded, K, mlp_dtype=mlp_dtype, return_idx=True)
     torch.cuda.synchronize()
     check_clouds = CHUNK if tile_variant else B
     xc, out_c, idx_c = x[:check_clouds], out[:check_clouds], idx[:check_clouds]
-    ref_idx, x_lp = edgeconv.edgeconv_select(xc, K)
+    ref_idx, x_lp = edgeconv.edgeconv_select(xc, K, mlp_dtype)
     agree_rows = (idx_c == ref_idx).all(dim=-1)
     id_share, n_rows, worst_tie, _ = check_ids(name, xc, idx_c, ref_idx)
 
@@ -378,8 +408,9 @@ def check_kernel(name, x, folded, widths, *, tile_variant=False):
     diff = (out_c - tail).abs()
     diff_agree = (out_c - full).abs()[agree_rows]
     line = {
-        'phase': 'kernel', 'name': name, 'shape': [B, N, C], 'checked_clouds': check_clouds,
-        'k': K, 'mlp': [2 * C, *widths], 'id_agreement': id_share,
+        'phase': 'kernel_bf16' if bf16 else 'kernel', 'name': name, 'shape': [B, N, C],
+        'checked_clouds': check_clouds, 'k': K, 'mlp': [2 * C, *widths],
+        'mlp_dtype': str(mlp_dtype), 'id_agreement': id_share,
         'id_disagreeing_rows': n_rows, 'near_tie_ratio': worst_tie,
         'max_abs_err': diff.max().item(), 'max_rel_err': diff.max().item() / scale,
         'mean_rel_err': diff.mean().item() / scale,
@@ -387,10 +418,11 @@ def check_kernel(name, x, folded, widths, *, tile_variant=False):
     }
     del tail, full, diff, diff_agree
     warmup, runs = (1, 5) if tile_variant else (3, 20)
-    line['ms'] = cuda_ms(lambda: edgeconv.fused_edgeconv(x, folded, K), warmup, runs)
+    line['ms'] = cuda_ms(lambda: edgeconv.fused_edgeconv(x, folded, K, mlp_dtype=mlp_dtype),
+                         warmup, runs)
     line['plain_ms'] = cuda_ms(lambda: chunked(
-        lambda xs: edgeconv.fused_edgeconv_reference(xs, folded, K), x, check_clouds),
-        warmup, 3 if tile_variant else runs)
+        lambda xs: edgeconv.fused_edgeconv_reference(xs, folded, K, mlp_dtype), x,
+        check_clouds), warmup, 3 if tile_variant else runs)
     line['plain_chunk'] = check_clouds
     line['bound_ms'], line['bound_by'] = bound(B, N, C, K, widths)
     line['library_ms'] = None       # no single PyTorch call computes this layer
@@ -521,56 +553,72 @@ def gather_bound(B, N, C, k, backward):
     return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
 
 
-def check_knn_gather(x, backward):
+def check_knn_gather(x, backward, value_chunks=2):
     """The knn_gather forward (and, if asked, backward) kernels against the
-    plain versions on x; returns their lines of the kernels list."""
+    plain versions on x, at `value_chunks` (1: the bf16 compute mode, wide
+    rows gathered and slots >= 1 scattered as their top bf16 truncation
+    chunk); returns their lines of the kernels list."""
     import torch
     from garment_pattern_estimation_torch.ops import knn_gather as kg
+    from garment_pattern_estimation_torch.ops.knn import truncate_bf16
 
     B, N, C = x.shape
     variant = 'small_c' if C <= 16 else 'wide_c'
-    nbr, idx = kg.knn_gather_fwd(x, K)
+    suffix, phase = ('', 'knn_gather') if value_chunks == 2 else ('_bf16', 'knn_gather_bf16')
+    name = f'knn_gather_fwd_{variant}{suffix}'
+    nbr, idx = kg.knn_gather_fwd(x, K, value_chunks)
     torch.cuda.synchronize()
-    ref_nbr, ref_idx = kg.knn_gather_reference(x, K)
-    id_share, n_rows, worst_tie, _ = check_ids(f'knn_gather_fwd_{variant}', x, idx, ref_idx)
+    ref_nbr, ref_idx = kg.knn_gather_reference(x, K, value_chunks)
+    id_share, n_rows, worst_tie, _ = check_ids(name, x, idx, ref_idx)
     agree = (idx == ref_idx).transpose(1, 2)                  # (B, k, N)
     fwd_err = (nbr[agree] - ref_nbr[agree]).abs().max().item()
-    fwd = {'name': f'knn_gather_fwd_{variant}', 'route': 'cuda', 'source': GATHER_SOURCE,
+    fwd = {'name': name, 'route': 'cuda', 'source': GATHER_SOURCE,
            'replaces': GATHER_FWD_REPLACES, 'launches': None, 'max_abs_err': fwd_err,
-           'ms': cuda_ms(lambda: kg.knn_gather_fwd(x, K)),
-           'plain_ms': cuda_ms(lambda: kg.knn_gather_reference(x, K)),
+           'ms': cuda_ms(lambda: kg.knn_gather_fwd(x, K, value_chunks)),
+           'plain_ms': cuda_ms(lambda: kg.knn_gather_reference(x, K, value_chunks)),
            'library_ms': None}      # no single PyTorch call selects and gathers
     fwd['bound_ms'], fwd['bound_by'] = gather_bound(B, N, C, K, backward=False)
-    emit({'phase': 'knn_gather', 'shape': [B, N, C], 'k': K, 'id_agreement': id_share,
-          'id_disagreeing_rows': n_rows, 'near_tie_ratio': worst_tie, **fwd})
-    check(fwd_err == 0.0, f'{fwd["name"]}: gathered rows differ where the ids agree')
+    emit({'phase': phase, 'shape': [B, N, C], 'k': K, 'value_chunks': value_chunks,
+          'id_agreement': id_share, 'id_disagreeing_rows': n_rows,
+          'near_tie_ratio': worst_tie, **fwd})
+    check(fwd_err == 0.0, f'{name}: gathered rows differ where the ids agree')
     if not backward:
         return [fwd]
 
+    name = 'knn_gather_bwd' if value_chunks == 2 else 'knn_gather_bwd_hi'
     gen = torch.Generator(device=x.device).manual_seed(3)
+    # standard normal cotangents: not bf16-valued, so value_chunks=1 truncates
     g = torch.randn(B, K, N, C, generator=gen, device=x.device)
-    dx = kg.knn_gather_bwd(idx, g)
-    dx_again = kg.knn_gather_bwd(idx, g)
-    ref_dx = kg.knn_gather_backward_reference(idx, g)
+    dx = kg.knn_gather_bwd(idx, g, value_chunks)
+    dx_again = kg.knn_gather_bwd(idx, g, value_chunks)
+    ref_dx = kg.knn_gather_backward_reference(idx, g, value_chunks)
     torch.cuda.synchronize()
     bwd_err = (dx - ref_dx).abs().max().item()
     scale = ref_dx.abs().max().item()
     flat = (idx.transpose(1, 2).long()
             + (torch.arange(B, device=x.device) * N)[:, None, None]).reshape(-1)
-    rows, buffer = g.reshape(-1, C), torch.zeros(B * N, C, device=x.device)
-    bwd = {'name': 'knn_gather_bwd', 'route': 'cuda', 'source': GATHER_SOURCE,
+    rows = g.clone()
+    if value_chunks == 1:
+        rows[:, 1:] = truncate_bf16(rows[:, 1:])
+    rows, buffer = rows.reshape(-1, C), torch.zeros(B * N, C, device=x.device)
+    bwd = {'name': name, 'route': 'cuda', 'source': GATHER_SOURCE,
            'replaces': GATHER_BWD_REPLACES, 'launches': None, 'max_abs_err': bwd_err,
-           'ms': cuda_ms(lambda: kg.knn_gather_bwd(idx, g)),
-           'plain_ms': cuda_ms(lambda: kg.knn_gather_backward_reference(idx, g)),
-           # one index_add_ of every slot's rows computes the same dx
+           'ms': cuda_ms(lambda: kg.knn_gather_bwd(idx, g, value_chunks)),
+           'plain_ms': cuda_ms(lambda: kg.knn_gather_backward_reference(idx, g, value_chunks)),
+           # one index_add_ of every slot's rows (slots >= 1 truncated first
+           # at value_chunks=1) computes the same dx
            'library_ms': cuda_ms(lambda: buffer.index_add_(0, flat, rows))}
     bwd['bound_ms'], bwd['bound_by'] = gather_bound(B, N, C, K, backward=True)
     deterministic = bool(torch.equal(dx, dx_again))
-    emit({'phase': 'knn_gather', 'shape': [B, N, C], 'k': K,
+    emit({'phase': phase, 'shape': [B, N, C], 'k': K, 'value_chunks': value_chunks,
           'max_rel_err': bwd_err / scale, 'bitwise_repeatable': deterministic, **bwd})
-    check(bwd_err <= DX_MAX_REL * scale, f'knn_gather_bwd: dx off the plain version by '
+    check(bwd_err <= DX_MAX_REL * scale, f'{name}: dx off the plain version by '
           f'{bwd_err / scale} of its scale')
-    check(deterministic, 'knn_gather_bwd: two runs on the same inputs differ')
+    check(deterministic, f'{name}: two runs on the same inputs differ')
+    if value_chunks == 1:
+        full = kg.knn_gather_backward_reference(idx, g, 2)
+        check((full - ref_dx).abs().max().item() > DX_MAX_REL * scale,
+              f'{name}: the cotangents did not exercise the truncation')
     return [fwd, bwd]
 
 
@@ -637,46 +685,61 @@ def timed_calls(fn, calls):
     return out, times
 
 
-def serve_phase():
+def nn_config(bf16):
+    return ATT_BF16_NN_CONFIG if bf16 else ATT_NN_CONFIG
+
+
+def serve_phase(bf16=False):
+    """att serving, f32 or the bf16 mode (att_bf16.yaml): SERVE_CALLS
+    forwards of a (64, 2000, 3) batch. Returns the launches, the model, the
+    serving function and the batch."""
+    import torch
     from garment_pattern_estimation_torch.experiment import build_serving_fn
     from garment_pattern_estimation_torch.models import build_model
     from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
 
-    model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG, ATT_NN_CONFIG, seed=0)
+    phase = 'serving_bf16' if bf16 else 'serving'
+    model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG, nn_config(bf16), seed=0)
     serve = build_serving_fn(model, ATT_DATA_CONFIG)
     points = physical_points(1, BATCH, POINTS)
 
+    torch.cuda.reset_peak_memory_stats()
     edgeconv.reset_launches()
     knn_gather.reset_launches()
     preds, times = timed_calls(lambda: serve(points), SERVE_CALLS)
     launches = dict(edgeconv.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = {'small_c': SERVE_CALLS, 'wide_c': SERVE_CALLS,
                 'small_c_tiled': 0, 'wide_c_tiled': 0}
     check(launches == expected,
-          f'serving: launches {launches}, expected {SERVE_CALLS} of each single-tile '
+          f'{phase}: launches {launches}, expected {SERVE_CALLS} of each single-tile '
           f'variant ({2 * SERVE_CALLS} for {SERVE_CALLS} forwards)')
     check(not any(knn_gather.launches.values()),
-          f'serving: knn_gather launched {knn_gather.launches} in eval')
-    check_outputs('serving', preds, BATCH, POINTS)
+          f'{phase}: knn_gather launched {knn_gather.launches} in eval')
+    check_outputs(phase, preds, BATCH, POINTS)
     # a 2-cloud batch against the plain path of the same weights on the CPU
-    ref_err = compare_cpu('serving', model, serve, points[:2])
+    ref_err = compare_cpu(phase, model, serve, points[:2])
 
     # the first call pays one-time set-up (allocator, cuBLAS handles)
     q1, batch_ms, q3 = statistics.quantiles(times[1:], n=4)
-    emit({'phase': 'serving', 'batch': [BATCH, POINTS, 3], 'calls': SERVE_CALLS,
-          'launches': launches, 'first_call_ms': times[0], 'batch_ms': batch_ms,
+    emit({'phase': phase, 'batch': [BATCH, POINTS, 3], 'calls': SERVE_CALLS,
+          'compute_dtype': model.config['compute_dtype'],
+          'launches': launches, 'launches_per_forward': {
+              k: v / SERVE_CALLS for k, v in launches.items()},
+          'first_call_ms': times[0], 'batch_ms': batch_ms,
           'batch_ms_quartiles': [q1, q3],
-          'clouds_per_s': BATCH / batch_ms * 1e3,
+          'clouds_per_s': BATCH / batch_ms * 1e3, 'peak_memory_gb': peak_gb,
           'vs_cpu_plain': ref_err})
     return launches, model, serve, points
 
 
-def stress_serving_phase(model, serve):
+def stress_serving_phase(model, serve, bf16=False):
     """The same served model on the stress batch: every EdgeConv layer
     through the column-tiled kernels. Returns the launches and the batch."""
     import torch
     from garment_pattern_estimation_torch.ops import edgeconv
 
+    phase = 'stress_serving_bf16' if bf16 else 'stress_serving'
     points = physical_points(6, STRESS_BATCH, STRESS_POINTS)
     torch.cuda.reset_peak_memory_stats()
     edgeconv.reset_launches()
@@ -686,16 +749,18 @@ def stress_serving_phase(model, serve):
     expected = {'small_c': 0, 'wide_c': 0,
                 'small_c_tiled': STRESS_CALLS, 'wide_c_tiled': STRESS_CALLS}
     check(launches == expected,
-          f'stress_serving: launches {launches}, expected {STRESS_CALLS} of each '
+          f'{phase}: launches {launches}, expected {STRESS_CALLS} of each '
           f'tiled variant and no single-tile launch')
-    check_outputs('stress_serving', preds, STRESS_BATCH, STRESS_POINTS)
+    check_outputs(phase, preds, STRESS_BATCH, STRESS_POINTS)
     del preds
-    ref_err = compare_cpu('stress_serving', model, serve, points[:1])
+    ref_err = compare_cpu(phase, model, serve, points[:1])
 
     batch_ms = statistics.median(times[1:])
-    emit({'phase': 'stress_serving', 'batch': [STRESS_BATCH, STRESS_POINTS, 3],
-          'calls': STRESS_CALLS, 'launches': launches, 'call_ms': times,
-          'first_call_ms': times[0], 'batch_ms': batch_ms,
+    emit({'phase': phase, 'batch': [STRESS_BATCH, STRESS_POINTS, 3],
+          'compute_dtype': model.config['compute_dtype'],
+          'calls': STRESS_CALLS, 'launches': launches, 'launches_per_forward': {
+              k: v / STRESS_CALLS for k, v in launches.items()},
+          'call_ms': times, 'first_call_ms': times[0], 'batch_ms': batch_ms,
           'clouds_per_s': STRESS_BATCH / batch_ms * 1e3,
           'peak_memory_gb': peak_gb, 'vs_cpu_plain_1_cloud': ref_err})
     return launches, points
@@ -749,12 +814,20 @@ def gradient_gap(grads, ref):
             'worst_param': worst[1], 'worst_element_rel': max_rel}
 
 
-def compare_step_cpu(name, model, batch, clouds, configure=None):
+def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=False):
     """Loss and gradients of one train-mode step on the first `clouds`
     clouds on the card against the plain path of the same weights on the
     CPU, held to the loss and norm bars; beside them the floor, the CPU
     path against itself on the cloud perturbed by 1e-7. `configure` (a
-    function of the module) sets both copies up first."""
+    function of the module) sets both copies up first.
+
+    `order_floor` (the bf16 mode, clouds >= 2): the CPU path also runs on
+    the same clouds in reverse batch order, the same math summed in another
+    order, and the gradient bars become the larger of the f32 bars and
+    ORDER_FLOOR_FACTOR times that gap. The bf16 mode rounds every product
+    and its cotangents to 8 bits, and gradients that are small differences
+    of large bf16 terms (conv0's first layer, the biases before a BN) move
+    by tens of percent with the order of a sum alone."""
     import torch
 
     small = {'features': batch['features'][:clouds],
@@ -776,21 +849,36 @@ def compare_step_cpu(name, model, batch, clouds, configure=None):
         cpu_small['features'].shape, generator=torch.Generator().manual_seed(5)))
     _, noisy_grads = step_gradients(cpu_model, dict(cpu_small, features=noisy))
     gaps['cpu_1e-7_noise'] = gradient_gap(noisy_grads, cpu_grads)
+    grad_bar, param_bar = TRAIN_GRAD_REL, TRAIN_PARAM_GRAD_REL
+    if order_floor:
+        flipped = {'features': cpu_small['features'].flip(0),
+                   'ground_truth': {k: v.flip(0) for k, v in cpu_small['ground_truth'].items()}}
+        _, flipped_grads = step_gradients(cpu_model, flipped)
+        floor = gaps['cpu_cloud_order'] = gradient_gap(flipped_grads, cpu_grads)
+        grad_bar = max(grad_bar, ORDER_FLOOR_FACTOR * floor['grad_rel_l2'])
+        param_bar = max(param_bar, ORDER_FLOOR_FACTOR * floor['worst_param_rel_l2'])
+    gaps['bars'] = {'grad_rel_l2': grad_bar, 'worst_param_rel_l2': param_bar}
     check(loss_rel <= TRAIN_LOSS_REL,
           f'{name}: {clouds}-cloud loss off the CPU path by {loss_rel}')
-    check(gaps['grad_rel_l2'] <= TRAIN_GRAD_REL
-          and gaps['worst_param_rel_l2'] <= TRAIN_PARAM_GRAD_REL,
+    check(gaps['grad_rel_l2'] <= grad_bar and gaps['worst_param_rel_l2'] <= param_bar,
           f'{name}: gradients off the CPU path: {gaps}')
     return gaps
 
 
-def train_phase():
+def train_phase(bf16=False):
+    """att training, f32 or the bf16 mode: TRAIN_STEPS steps on one
+    (30, 2000, 3) batch. The bf16 mode gathers and scatters one value chunk
+    (knn_gather's 'bwd_hi' backward). Returns the launches and a function
+    that takes one more step."""
     import torch
     from garment_pattern_estimation_torch.models import build_model
     from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
     from garment_pattern_estimation_torch.train import Trainer
 
-    model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG, ATT_NN_CONFIG,
+    phase = 'training_bf16' if bf16 else 'training'
+    per_step_expected = {'fwd_small_c': 1, 'fwd_wide_c': 1, 'bwd': 0 if bf16 else 1,
+                         'bwd_hi': 1 if bf16 else 0}
+    model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG, nn_config(bf16),
                         ATT_LOSS_CONFIG, seed=0)
     trainer = Trainer(ATT_TRAINER)
     trainer.make_optimizer(model, steps_per_epoch=TRAIN_STEPS)
@@ -810,13 +898,16 @@ def train_phase():
         times.append((time.perf_counter() - start) * 1e3)
         losses.append(loss.item())
         per_step = {key: knn_gather.launches[key] - before[key] for key in before}
-        check(per_step == {'fwd_small_c': 1, 'fwd_wide_c': 1, 'bwd': 1},
-              f'training: step {step} launched {per_step}, expected 1 + 1 + 1')
+        check(per_step == per_step_expected,
+              f'{phase}: step {step} launched {per_step}, expected {per_step_expected}')
     launches = dict(knn_gather.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(not any(edgeconv.launches.values()),
-          f'training: the fused eval kernel launched {edgeconv.launches} in train mode')
-    check(all(math.isfinite(v) for v in losses), f'training: losses {losses}')
-    check(losses[-1] < losses[0], f'training: the loss did not fall: {losses}')
+          f'{phase}: the fused eval kernel launched {edgeconv.launches} in train mode')
+    check(all(math.isfinite(v) for v in losses), f'{phase}: losses {losses}')
+    check(losses[-1] < losses[0], f'{phase}: the loss did not fall: {losses}')
+    check(all(p.dtype == torch.float32 for p in model.module.parameters()),
+          f'{phase}: a parameter is not f32')
 
     edgeconv.reset_launches()
     knn_gather.reset_launches()
@@ -824,15 +915,16 @@ def train_phase():
     torch.cuda.synchronize()
     check(edgeconv.launches == {'small_c': 1, 'wide_c': 1, 'small_c_tiled': 0,
                                 'wide_c_tiled': 0},
-          f'training: eval_step launched {edgeconv.launches}, expected 1 + 1 fused')
-    check(not any(knn_gather.launches.values()), 'training: eval_step launched knn_gather')
-    check(math.isfinite(eval_loss.item()), f'training: eval loss {eval_loss.item()}')
+          f'{phase}: eval_step launched {edgeconv.launches}, expected 1 + 1 fused')
+    check(not any(knn_gather.launches.values()), f'{phase}: eval_step launched knn_gather')
+    check(math.isfinite(eval_loss.item()), f'{phase}: eval loss {eval_loss.item()}')
 
     # a 2-cloud step against the plain path of the same weights on the CPU
-    gaps = compare_step_cpu('training', model, batch, 2)
+    gaps = compare_step_cpu(phase, model, batch, 2, order_floor=bf16)
 
     q1, step_ms, q3 = statistics.quantiles(times[1:], n=4)
-    emit({'phase': 'training', 'batch': [TRAIN_BATCH, POINTS, 3], 'steps': TRAIN_STEPS,
+    emit({'phase': phase, 'batch': [TRAIN_BATCH, POINTS, 3], 'steps': TRAIN_STEPS,
+          'compute_dtype': model.config['compute_dtype'],
           'launches': launches, 'losses': losses,
           # a corr_* metric is NaN when no pattern's panel count is right
           'terms_last_step': {k: v.item() if math.isfinite(v.item()) else None
@@ -840,23 +932,25 @@ def train_phase():
           'step_times_ms': times, 'step_ms': step_ms, 'step_ms_quartiles': [q1, q3],
           'clouds_per_s': TRAIN_BATCH / step_ms * 1e3,
           'eval_loss': eval_loss.item(), 'eval_launches': dict(edgeconv.launches),
-          'vs_cpu_plain': gaps,
-          'peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9})
+          'vs_cpu_plain': gaps, 'peak_memory_gb': peak_gb})
     return launches, lambda: trainer.train_step(model, batch, epoch=0, generator=states)
 
 
-def stress_train_phase():
-    """Training at the stress configuration: every EdgeConv layer through
-    the chunked sweeps, conv0's kNN through the small-D kernel and conv1's
-    through the wide-D one. Returns the launches and a function that takes
-    one more step."""
+def stress_train_phase(bf16=False):
+    """Training at the stress configuration, f32 or the bf16 mode: every
+    EdgeConv layer through the chunked sweeps ('fused_final'), conv0's kNN
+    through the small-D kernel and conv1's through the wide-D one. The bf16
+    mode then takes one 'streamed' step, as the JAX bench tries both
+    schedules. Returns the launches and a function that takes one more
+    ('fused_final') step."""
     import torch
     from garment_pattern_estimation_torch.models import build_model
     from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather
     from garment_pattern_estimation_torch.ops.edgeconv_train import _default_chunk
     from garment_pattern_estimation_torch.train import Trainer
 
-    model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG, ATT_NN_CONFIG,
+    phase = 'stress_training_bf16' if bf16 else 'stress_training'
+    model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG, nn_config(bf16),
                         ATT_LOSS_CONFIG, seed=0)
     trainer = Trainer(ATT_TRAINER)
     trainer.make_optimizer(model, steps_per_epoch=STRESS_TRAIN_STEPS)
@@ -866,39 +960,59 @@ def stress_train_phase():
     convs = model.module.feature_extractor.conv_layers
     check(all(conv.chunked(STRESS_BATCH, STRESS_POINTS, w)
               for conv, w in zip(convs, (3, ATT_NN_CONFIG['EConv_feature']))),
-          'stress_training: the auto rule does not chunk the stress batch')
+          f'{phase}: the auto rule does not chunk the stress batch')
 
-    torch.cuda.reset_peak_memory_stats()
-    for counter in (edgeconv, knn, knn_gather):
-        counter.reset_launches()
-    losses, times = [], []
-    for step in range(STRESS_TRAIN_STEPS):
+    def step_once():
         before = dict(knn.launches)
         torch.cuda.synchronize()
         start = time.perf_counter()
         loss, terms = trainer.train_step(model, batch, epoch=0, generator=states)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - start) * 1e3)
-        losses.append(loss.item())
+        ms = (time.perf_counter() - start) * 1e3
         per_step = {key: knn.launches[key] - before[key] for key in before}
         check(per_step == {'knn': 1, 'knn_wide': 1},
-              f'stress_training: step {step} launched {per_step}, expected 1 + 1')
+              f'{phase}: a step launched {per_step}, expected 1 + 1')
+        return loss.item(), terms, ms
+
+    torch.cuda.reset_peak_memory_stats()
+    for counter in (edgeconv, knn, knn_gather):
+        counter.reset_launches()
+    losses, times = [], []
+    for _ in range(STRESS_TRAIN_STEPS):
+        loss, terms, ms = step_once()
+        losses.append(loss)
+        times.append(ms)
     launches = dict(knn.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    streamed = {}
+    if bf16:
+        # one step in the 'streamed' schedule (its layer-(L-2) buffer kept)
+        for conv in convs:
+            conv.train_mode = 'streamed'
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, ms = step_once()
+        streamed = {'streamed_step_ms': ms, 'streamed_loss': loss,
+                    'streamed_peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9}
+        losses.append(loss)
+        for conv in convs:
+            conv.train_mode = 'fused_final'
     check(not any(knn_gather.launches.values()),
-          f'stress_training: knn_gather launched {knn_gather.launches}')
+          f'{phase}: knn_gather launched {knn_gather.launches}')
     check(not any(edgeconv.launches.values()),
-          f'stress_training: the fused eval kernel launched {edgeconv.launches}')
-    check(all(math.isfinite(v) for v in losses), f'stress_training: losses {losses}')
-    check(losses[-1] < losses[0], f'stress_training: the loss did not fall: {losses}')
+          f'{phase}: the fused eval kernel launched {edgeconv.launches}')
+    check(all(math.isfinite(v) for v in losses), f'{phase}: losses {losses}')
+    check(losses[-1] < losses[0], f'{phase}: the loss did not fall: {losses}')
 
     def forced(module):
         for conv in module.feature_extractor.conv_layers:
             conv.train_chunked, conv.train_chunk_size = True, FORCED_CHUNK
 
-    gaps = compare_step_cpu('stress_training', model, batch, 1, forced)
+    # bf16: 2 clouds, so the CPU's order floor can swap them
+    clouds = 2 if bf16 else 1
+    gaps = compare_step_cpu(phase, model, batch, clouds, forced, order_floor=bf16)
     step_ms = statistics.median(times[1:])
-    emit({'phase': 'stress_training', 'batch': [STRESS_BATCH, STRESS_POINTS, 3],
+    emit({'phase': phase, 'batch': [STRESS_BATCH, STRESS_POINTS, 3],
+          'compute_dtype': model.config['compute_dtype'],
           'steps': STRESS_TRAIN_STEPS, 'train_mode': convs[0].train_mode,
           'chunk': _default_chunk(STRESS_BATCH, STRESS_POINTS, K, max(
               ATT_NN_CONFIG['EConv_hidden'], ATT_NN_CONFIG['EConv_feature'])),
@@ -908,7 +1022,7 @@ def stress_train_phase():
                               for k, v in terms.items()},
           'step_times_ms': times, 'step_ms': step_ms,
           'clouds_per_s': STRESS_BATCH / step_ms * 1e3, 'peak_memory_gb': peak_gb,
-          'vs_cpu_plain_1_cloud_forced_chunks': gaps})
+          **streamed, f'vs_cpu_plain_{clouds}_cloud_forced_chunks': gaps})
     return launches, lambda: trainer.train_step(model, batch, epoch=0, generator=states)
 
 
@@ -973,9 +1087,10 @@ def kernel_class(key):
 
 
 def stress_kernels(widths):
-    """The standalone kNN, the two column-tiled fused variants and the
-    wide-D kNN on a seeded stress batch (conv1 and the wide-D kNN on
-    conv0's output); returns their lines of the kernels list."""
+    """The standalone kNN, the two column-tiled fused variants (f32, then
+    the bf16 mode) and the wide-D kNN on a seeded stress batch (conv1 and
+    the wide-D kNN on conv0's output); returns their lines of the kernels
+    list."""
     import torch
 
     gen = torch.Generator().manual_seed(7)
@@ -987,9 +1102,14 @@ def stress_kernels(widths):
                                   tile_variant=True)
     _, wide_line = check_kernel('fused_edgeconv_wide_c_tiled', x1, conv1, widths,
                                 tile_variant=True)
+    x1_bf16, small_bf16 = check_kernel('fused_edgeconv_small_c_tiled_bf16', x0, conv0,
+                                       widths, tile_variant=True, bf16=True)
+    _, wide_bf16 = check_kernel('fused_edgeconv_wide_c_tiled_bf16', x1_bf16, conv1, widths,
+                                tile_variant=True, bf16=True)
+    del x1_bf16
     knn_wide_line = knn_wide_phase(x1)
     split_phase(x1, conv1, knn_line, small_line, wide_line)
-    return knn_line, small_line, wide_line, knn_wide_line
+    return knn_line, small_line, wide_line, knn_wide_line, small_bf16, wide_bf16
 
 
 def split_phase(x1, folded, knn_line, small_line, wide_line):
@@ -1134,47 +1254,70 @@ def main():
                in usage.items() if template_args(n)[:1] == [5] and (stores or loads)]
     check(not spilled, f'build: k = 5 instantiations spill registers: {spilled}')
 
-    def att_kernels():
+    def att_kernels(bf16):
         gen = torch.Generator().manual_seed(0)
         x0 = torch.randn(BATCH, POINTS, 3, generator=gen).cuda()
         conv0 = random_folded(gen, 3, widths, 'cuda')
         conv1 = random_folded(gen, widths[-1], widths, 'cuda')
+        suffix = '_bf16' if bf16 else ''
         # conv1's input is conv0's output, as in the model
-        x1, small_line = check_kernel('fused_edgeconv_small_c', x0, conv0, widths)
-        _, wide_line = check_kernel('fused_edgeconv_wide_c', x1.contiguous(), conv1, widths)
+        x1, small_line = check_kernel('fused_edgeconv_small_c' + suffix, x0, conv0, widths,
+                                      bf16=bf16)
+        _, wide_line = check_kernel('fused_edgeconv_wide_c' + suffix, x1.contiguous(), conv1,
+                                    widths, bf16=bf16)
         # the training step's shapes: its batch of 30, conv1 on conv0's features
-        gather_lines = check_knn_gather(x0[:TRAIN_BATCH].contiguous(), backward=False) \
-            + check_knn_gather(x1[:TRAIN_BATCH].contiguous(), backward=True)
+        value_chunks = 1 if bf16 else 2
+        gather_lines = check_knn_gather(x0[:TRAIN_BATCH].contiguous(), False, value_chunks) \
+            + check_knn_gather(x1[:TRAIN_BATCH].contiguous(), True, value_chunks)
         return small_line, wide_line, gather_lines
+
+    def launch_key(name):
+        """The launch counter of a knn_gather line."""
+        return name[len('knn_gather_'):].removesuffix('_bf16')
 
     widths = [ATT_NN_CONFIG['EConv_hidden']] * ATT_NN_CONFIG['EConv_hidden_depth'] \
         + [ATT_NN_CONFIG['EConv_feature']]
-    small_line, wide_line, gather_lines = timed(seconds, 'kernel+knn_gather', att_kernels)
-    knn_line, small_tiled_line, wide_tiled_line, knn_wide_line = timed(
-        seconds, 'knn+kernel_tiled+knn_wide', stress_kernels, widths)
+    small_line, wide_line, gather_lines = timed(seconds, 'kernel+knn_gather', att_kernels,
+                                                False)
+    small_bf16, wide_bf16, gather_bf16 = timed(seconds, 'kernel_bf16+knn_gather_bf16',
+                                               att_kernels, True)
+    knn_line, small_tiled_line, wide_tiled_line, knn_wide_line, small_tiled_bf16, \
+        wide_tiled_bf16 = timed(seconds, 'knn+kernel_tiled(+bf16)+knn_wide', stress_kernels,
+                                widths)
 
-    launches, model, serve, points = timed(seconds, 'serving', serve_phase)
-    small_line['launches'] = launches['small_c']
-    wide_line['launches'] = launches['wide_c']
-    stress_launches, stress_points = timed(seconds, 'stress_serving',
-                                           stress_serving_phase, model, serve)
-    small_tiled_line['launches'] = stress_launches['small_c_tiled']
-    wide_tiled_line['launches'] = stress_launches['wide_c_tiled']
-    train_launches, train_step = timed(seconds, 'training', train_phase)
-    for line in gather_lines:
-        line['launches'] = train_launches[line['name'][len('knn_gather_'):]]
-    timed(seconds, 'profile_serving', profile_phase, 'serving', lambda: serve(points))
-    timed(seconds, 'profile_training_step', profile_phase, 'training_step', train_step)
-    timed(seconds, 'profile_stress_serving', profile_phase, 'stress_serving',
-          lambda: serve(stress_points))
-    del model, serve, stress_points
-    # the main path of the standalone kNN kernels: one launch each per step
-    stress_train_launches, stress_train_step = timed(seconds, 'stress_training',
-                                                     stress_train_phase)
-    knn_line['launches'] = stress_train_launches['knn']
-    knn_wide_line['launches'] = stress_train_launches['knn_wide']
-    timed(seconds, 'profile_stress_training_step', profile_phase, 'stress_training_step',
-          stress_train_step)
+    # each end-to-end phase sets the counts to 0 just before its runs and
+    # reads them just after: the launches of each kernels-line entry come
+    # from the phase of its mode
+    for bf16, (small, wide, small_tiled, wide_tiled, gathers) in (
+            (False, (small_line, wide_line, small_tiled_line, wide_tiled_line, gather_lines)),
+            (True, (small_bf16, wide_bf16, small_tiled_bf16, wide_tiled_bf16, gather_bf16))):
+        suffix = '_bf16' if bf16 else ''
+        launches, model, serve, points = timed(seconds, 'serving' + suffix, serve_phase, bf16)
+        small['launches'] = launches['small_c']
+        wide['launches'] = launches['wide_c']
+        stress_launches, stress_points = timed(seconds, 'stress_serving' + suffix,
+                                               stress_serving_phase, model, serve, bf16)
+        small_tiled['launches'] = stress_launches['small_c_tiled']
+        wide_tiled['launches'] = stress_launches['wide_c_tiled']
+        train_launches, train_step = timed(seconds, 'training' + suffix, train_phase, bf16)
+        for line in gathers:
+            line['launches'] = train_launches[launch_key(line['name'])]
+        timed(seconds, 'profile_serving' + suffix, profile_phase, 'serving' + suffix,
+              lambda: serve(points))
+        timed(seconds, 'profile_training_step' + suffix, profile_phase,
+              'training_step' + suffix, train_step)
+        timed(seconds, 'profile_stress_serving' + suffix, profile_phase,
+              'stress_serving' + suffix, lambda: serve(stress_points))
+        del model, serve, stress_points, train_step
+        # the main path of the standalone kNN kernels: one launch each per step
+        stress_train_launches, stress_train_step = timed(
+            seconds, 'stress_training' + suffix, stress_train_phase, bf16)
+        if not bf16:
+            knn_line['launches'] = stress_train_launches['knn']
+            knn_wide_line['launches'] = stress_train_launches['knn_wide']
+        timed(seconds, 'profile_stress_training_step' + suffix, profile_phase,
+              'stress_training_step' + suffix, stress_train_step)
+        del stress_train_step
     emit({'phase_seconds': seconds})
 
     card = subprocess.run(
@@ -1182,7 +1325,8 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     kernels = [small_line, wide_line, small_tiled_line, wide_tiled_line, knn_line,
-               knn_wide_line, *gather_lines]
+               knn_wide_line, *gather_lines, small_bf16, wide_bf16, small_tiled_bf16,
+               wide_tiled_bf16, *gather_bf16]
     for line in kernels:
         line['bound_share'] = line['bound_ms'] / line['ms']
     emit({'kernels': kernels})

@@ -21,6 +21,9 @@ from .device import resolve_device
 # (cuDNN) on the card, so both are turned off for the whole package.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# The bf16 compute mode's products accumulate in f32, as on the TPU's MXU:
+# no split-K partial sums rounded to bf16 in cuBLAS.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __version__ = '0.1.0'
 

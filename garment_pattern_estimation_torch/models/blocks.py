@@ -13,6 +13,12 @@ each BatchNorm's batch statistics: through `knn_gather` (kernels for the kNN
 + gather and its backward) and the edge MLP in PyTorch up to 2048 points,
 the unfused path beyond, and the chunked rematerialized sweeps
 (`ops.edgeconv_train`) when the widest per-edge tensor would pass 2 GB.
+
+`compute_dtype=bfloat16` is the mixed-precision mode of
+garment_pattern_estimation_tpu/models/blocks.py:84-166 and :196-356: the
+MLP products and ReLUs in bf16 (parameters, statistics, BN affines and
+running averages f32), the fused layer with bf16 gathered rows, knn_gather
+with one value chunk, the chunked sweeps in bf16; the kNN stays f32.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..device import resolve_compute_dtype
 from ..ops.edgeconv import fold_mlp_bn, fused_edgeconv, fused_edgeconv_supported
 from ..ops.edgeconv_train import MODES as TRAIN_MODES, chunked_edgeconv_train
 from ..ops.knn import knn as knn_search
@@ -37,12 +44,15 @@ def _update_running(bn, mean, var):
     bn.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var)
 
 
-def _first_edge_layer(edge_pair, W, b):
+def _first_edge_layer(edge_pair, W, b, dtype=None):
     """relu of the first layer on the EdgeConv input [x_i ; x_j - x_i]
     factored as (center (B, N, C), neighbours, the neighbours' slot axis):
     center @ (W_top - W_bot) + b + neighbours @ W_bot, so the (..., 2C)
-    edge tensor never materializes."""
+    edge tensor never materializes. `dtype` (bf16) casts center,
+    neighbours, W and b to it first."""
     center, neighbours, axis = edge_pair
+    if dtype is not None:
+        center, neighbours, W, b = (t.to(dtype) for t in (center, neighbours, W, b))
     C = center.shape[-1]
     point_term = center @ (W[:C] - W[C:]) + b                    # (B, N, H)
     return torch.relu(point_term.unsqueeze(axis) + neighbours @ W[C:])
@@ -62,14 +72,21 @@ class MLP(nn.ModuleList):
     elsewhere (the chunked EdgeConv sweeps). The `edge_pair` form of the
     first layer, in both modes, takes the EdgeConv input factored as
     (center (B, N, C), neighbours (B, k, N, C) or (B, N, k, C), the slot
-    axis 1 or 2) (`_first_edge_layer`)."""
+    axis 1 or 2) (`_first_edge_layer`).
 
-    def __init__(self, sizes: Sequence[int], eps: float = 1e-5):
+    `compute_dtype` (bf16) casts where the JAX MLP casts, in both modes:
+    each product's input, folded W and folded b go to bf16 (the fold
+    itself, a W and d @ W + b, in f32), the ReLU runs in bf16, statistics
+    come from the f32 upcast, and the final affine x * a + d runs in f32
+    and is cast to bf16."""
+
+    def __init__(self, sizes: Sequence[int], eps: float = 1e-5, compute_dtype=None):
         super().__init__(
             nn.Sequential(nn.Linear(fan_in, fan_out), nn.ReLU(),
                           nn.BatchNorm1d(fan_out, eps=eps))
             for fan_in, fan_out in zip(sizes[:-1], sizes[1:]))
         self.eps = eps
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
 
     def folded(self):
         """([(W (in, out), b)], (a, d)) with every BN folded."""
@@ -83,26 +100,37 @@ class MLP(nn.ModuleList):
         for (_, _, bn), (mean, var) in zip(self, stats):
             _update_running(bn, mean, var)
 
+    def _affine(self, x, a, d):
+        """The last BN as the f32 affine, cast back to the compute dtype."""
+        out = x.float() * a + d
+        return out if self.compute_dtype is None else out.to(self.compute_dtype)
+
+    def _layer(self, x, W, b):
+        """relu(x @ W + b), at the compute dtype."""
+        if self.compute_dtype is not None:
+            x, W, b = (t.to(self.compute_dtype) for t in (x, W, b))
+        return torch.relu(x @ W + b)
+
     def forward(self, x=None, edge_pair=None):
         if self.training:
             return self._train_forward(x, edge_pair)
         layers, (a, d) = self.folded()
         for i, (w, b) in enumerate(layers):
-            x = _first_edge_layer(edge_pair, w, b) if i == 0 and edge_pair is not None \
-                else torch.relu(x @ w + b)
-        return x * a + d
+            x = _first_edge_layer(edge_pair, w, b, self.compute_dtype) \
+                if i == 0 and edge_pair is not None else self._layer(x, w, b)
+        return self._affine(x, a, d)
 
     def _train_forward(self, x, edge_pair):
         pending = None                          # the previous BN's (a, d)
         for i, (linear, _, bn) in enumerate(self):
             W, b = linear.weight.t(), linear.bias
             if i == 0 and edge_pair is not None:
-                x = _first_edge_layer(edge_pair, W, b)
+                x = _first_edge_layer(edge_pair, W, b, self.compute_dtype)
             elif pending is not None:
                 a, d = pending
-                x = torch.relu(x @ (a[:, None] * W) + (d @ W + b))
+                x = self._layer(x, a[:, None] * W, d @ W + b)
             else:
-                x = torch.relu(x @ W + b)
+                x = self._layer(x, W, b)
             xf = x.float()
             dims = tuple(range(x.dim() - 1))
             mean = xf.mean(dim=dims)
@@ -111,8 +139,7 @@ class MLP(nn.ModuleList):
             a = bn.weight * torch.rsqrt(var + self.eps)
             d = bn.bias - mean * a
             pending = (a, d)
-        a, d = pending
-        return x.float() * a + d
+        return self._affine(x, *pending)
 
 
 class EdgeConv(nn.Module):
@@ -130,6 +157,10 @@ class EdgeConv(nn.Module):
       * train past 2048 points and eval past 16384: `knn`,
         `gather_neighbors` and the edge MLP on (B, N, k, C);
       * eval up to 16384 points: the fused layer `fused_edgeconv`.
+    `compute_dtype` (bf16) reaches the MLP, the chunked sweeps, the fused
+    layer's `mlp_dtype` (its output stays f32) and knn_gather's one value
+    chunk; the kNN runs on the f32 upcast of the input on every path (a
+    bf16 input, the previous layer's output, upcasts exactly).
     """
 
     # the unfused path materializes (B, N, k, W) for the widest W among the
@@ -139,7 +170,8 @@ class EdgeConv(nn.Module):
 
     def __init__(self, in_channels: int, mlp_features: Sequence[int], k: int = 5,
                  aggr: str = 'max', train_chunked: bool | None = None,
-                 train_chunk_size: int | None = None, train_mode: str = 'fused_final'):
+                 train_chunk_size: int | None = None, train_mode: str = 'fused_final',
+                 compute_dtype=None):
         super().__init__()
         if aggr != 'max':
             raise NotImplementedError(
@@ -151,7 +183,8 @@ class EdgeConv(nn.Module):
         self.train_chunked = train_chunked
         self.train_chunk_size = train_chunk_size
         self.train_mode = train_mode
-        self.nn = MLP([2 * in_channels, *mlp_features])
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
+        self.nn = MLP([2 * in_channels, *mlp_features], compute_dtype=self.compute_dtype)
 
     def chunked(self, B, N, C):
         """Whether train mode takes the chunked sweeps for a (B, N, C) input."""
@@ -164,18 +197,22 @@ class EdgeConv(nn.Module):
         x = x.float().contiguous()
         B, N, C = x.shape
         k = min(self.k, N)
+        bf16 = self.compute_dtype == torch.bfloat16
         if self.training:
             if self.chunked(B, N, C):
                 idx = knn_search(x.detach(), k)
                 out, stats = chunked_edgeconv_train(
-                    x, idx, self.nn, chunk=self.train_chunk_size, mode=self.train_mode)
+                    x, idx, self.nn, chunk=self.train_chunk_size, mode=self.train_mode,
+                    compute_dtype=self.compute_dtype)
                 self.nn.update_running_stats(stats)
                 return out
             if knn_gather_supported(N):
-                neighbours, _ = knn_gather(x, k)
+                # bf16: the gathered rows and their cotangents in one chunk
+                neighbours, _ = knn_gather(x, k, value_chunks=1 if bf16 else 2)
                 return torch.amax(self.nn(edge_pair=(x, neighbours, 1)), dim=1)
         elif fused_edgeconv_supported(N, C):
-            return fused_edgeconv(x, self.nn.folded(), k=self.k)
+            return fused_edgeconv(x, self.nn.folded(), k=self.k,
+                                  mlp_dtype=torch.bfloat16 if bf16 else torch.float32)
         neighbours = gather_neighbors(x, knn_search(x.detach(), k))    # (B, N, k, C)
         return torch.amax(self.nn(edge_pair=(x, neighbours, 2)), dim=2)
 
@@ -183,15 +220,17 @@ class EdgeConv(nn.Module):
 class EdgeConvFeatures(nn.Module):
     """Stacked dynamic EdgeConv layers + optional xyz skip + optional global
     pool and linear head. Returns (global encoding | None, per-point
-    features (B, N, F), mask=None). `train_chunk_size` and `train_mode`
-    reach every layer (`EdgeConv`)."""
+    features (B, N, F) f32, mask=None). `train_chunk_size` and `train_mode`
+    reach every layer (`EdgeConv`), and `compute_dtype` every layer whose
+    id is not in `f32_conv_layers` (those stay f32)."""
 
     def __init__(self, out_size: int, conv_depth: int = 2, k_neighbors: int = 5,
                  econv_hidden: int = 200, econv_hidden_depth: int = 2,
                  econv_feature: int = 112, econv_aggr: str = 'max',
                  global_pool: str = 'mean', skip_connections: bool = False,
                  graph_pooling: bool = False, global_head: bool = True,
-                 train_chunk_size: int | None = None, train_mode: str = 'fused_final'):
+                 train_chunk_size: int | None = None, train_mode: str = 'fused_final',
+                 compute_dtype=None, f32_conv_layers: Sequence[int] = ()):
         super().__init__()
         if graph_pooling:
             raise NotImplementedError(
@@ -203,7 +242,8 @@ class EdgeConvFeatures(nn.Module):
         widths = [3] + [econv_feature] * conv_depth       # xyz in
         self.conv_layers = nn.ModuleList(
             EdgeConv(widths[i], mlp, k=k_neighbors, aggr=econv_aggr,
-                     train_chunk_size=train_chunk_size, train_mode=train_mode)
+                     train_chunk_size=train_chunk_size, train_mode=train_mode,
+                     compute_dtype=None if i in tuple(f32_conv_layers) else compute_dtype)
             for i in range(conv_depth))
         out_features = econv_feature + (3 if skip_connections else 0)
         # the global head exists only where the model pools globally
@@ -214,8 +254,8 @@ class EdgeConvFeatures(nn.Module):
         for conv in self.conv_layers:      # k is cut to N inside the layer
             out = conv(out)
         if self.skip_connections:
-            out = torch.cat([out, positions.float()], dim=-1)
-        out = out.float()
+            out = torch.cat([out.to(positions.dtype), positions], dim=-1)
+        out = out.float()                  # the heads and the loss stay f32
         if pool_global:
             return self.lin(GLOBAL_POOLS[self.global_pool](out)), out, None
         return None, out, None

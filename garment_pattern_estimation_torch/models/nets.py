@@ -26,7 +26,12 @@ class GarmentSegmentPattern3DModule(nn.Module):
     projected and decoded panel by panel by the LSTM panel decoder.
     `edgeconv_train_chunk` and `edgeconv_train_mode` set the chunked
     EdgeConv training path of every conv layer (NN config keys of the same
-    names)."""
+    names). `compute_dtype` (bf16) is the mixed-precision mode of the
+    encoder's MLPs and of the attention MLP, less the precision islands:
+    the conv ids in `f32_conv_layers`, and the attention MLP with
+    `f32_attention_mlp` (garment_pattern_estimation_tpu/models/nets.py:66-75,
+    :186-190). Sparsemax, the decoders, the placement head and the loss
+    stay f32."""
 
     def __init__(self, *, element_size=4, max_panel_len=14, max_pattern_size=23,
                  rotation_size=4, translation_size=3, panel_encoding_size=250,
@@ -37,7 +42,8 @@ class GarmentSegmentPattern3DModule(nn.Module):
                  econv_hidden=200, econv_hidden_depth=2, econv_feature=112,
                  econv_aggr='max', global_pool='mean', skip_connections=False,
                  graph_pooling=False, local_attention=True, edgeconv_train_chunk=None,
-                 edgeconv_train_mode='fused_final'):
+                 edgeconv_train_mode='fused_final', compute_dtype=None,
+                 f32_conv_layers=(), f32_attention_mlp=False):
         super().__init__()
         if feature_extractor not in blocks.ENCODER_REGISTRY:
             raise NotImplementedError(
@@ -61,7 +67,8 @@ class GarmentSegmentPattern3DModule(nn.Module):
             econv_aggr=econv_aggr, global_pool=global_pool,
             skip_connections=skip_connections, graph_pooling=graph_pooling,
             global_head=not local_attention, train_chunk_size=edgeconv_train_chunk,
-            train_mode=edgeconv_train_mode)
+            train_mode=edgeconv_train_mode, compute_dtype=compute_dtype,
+            f32_conv_layers=f32_conv_layers)
         self.panel_decoder = blocks.DECODER_REGISTRY[panel_decoder](
             encoding_size=panel_encoding_size, hidden_size=panel_hidden_size,
             out_elem_size=element_size + stitch_tag_dim + 1,
@@ -75,8 +82,9 @@ class GarmentSegmentPattern3DModule(nn.Module):
             att_in += pattern_encoding_size
         if skip_connections:
             att_in += 3                     # raw xyz concatenated by the encoder
-        self.point_segment_mlp = nn.Sequential(
-            blocks.MLP([att_in, att_in, att_in, max_pattern_size]))
+        self.point_segment_mlp = nn.Sequential(blocks.MLP(
+            [att_in, att_in, att_in, max_pattern_size],
+            compute_dtype=None if f32_attention_mlp else compute_dtype))
         self.panel_dec_lin = nn.Linear(econv_feature + (3 if skip_connections else 0),
                                        panel_encoding_size)
 

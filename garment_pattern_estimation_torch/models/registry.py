@@ -14,7 +14,7 @@ import math
 import torch
 from torch import nn
 
-from ..device import resolve_device
+from ..device import resolve_compute_dtype, resolve_device
 from ..losses import ComposedPatternLoss
 from . import blocks, nets
 
@@ -116,7 +116,10 @@ def build_model(model_name, data_config, nn_config=None, loss_config=None, *,
     (None = CUDA; raises when CUDA is missing and the CPU was not asked for),
     with its composed loss (`loss_config`: the NN section's `loss`).
 
-    Only 'GarmentSegmentPattern3D' is ported."""
+    The NN section's `compute_dtype` (None, 'float32' or 'bfloat16'; any
+    other raises ValueError), `f32_conv_layers` and `f32_attention_mlp` set
+    the mixed-precision mode (parameters stay f32), as the JAX registry's
+    do. Only 'GarmentSegmentPattern3D' is ported."""
     device = resolve_device(device)
     nn_config = dict(nn_config or {})
     nn_config.pop('loss', None)
@@ -125,10 +128,7 @@ def build_model(model_name, data_config, nn_config=None, loss_config=None, *,
     f32_attention_mlp = bool(nn_config.pop('f32_attention_mlp', False))
     edgeconv_train_chunk = nn_config.pop('edgeconv_train_chunk', None)
     edgeconv_train_mode = nn_config.pop('edgeconv_train_mode', 'fused_final')
-    if compute_dtype not in (None, 'float32'):
-        raise NotImplementedError(
-            f'build_model: compute_dtype={compute_dtype} (the bf16 serving mode) '
-            'is not ported yet (ROADMAP queue A)')
+    resolve_compute_dtype(compute_dtype)           # raises on any other dtype
 
     if model_name != 'GarmentSegmentPattern3D':
         if model_name in ('GarmentFullPattern3D', 'StitchOnEdge3DPairs'):
@@ -153,6 +153,9 @@ def build_model(model_name, data_config, nn_config=None, loss_config=None, *,
         translation_size=data_config['translation_size'],
         edgeconv_train_chunk=edgeconv_train_chunk,
         edgeconv_train_mode=edgeconv_train_mode,
+        compute_dtype=compute_dtype,
+        f32_conv_layers=f32_conv_layers,
+        f32_attention_mlp=f32_attention_mlp,
     )
     for key, value in config.items():
         if key not in _UNUSED_BY_MODULE:

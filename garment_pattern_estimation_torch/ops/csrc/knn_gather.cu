@@ -26,9 +26,12 @@
 // block's targets into shared memory, in scan order (warp ballots and a
 // prefix over the 8 warps). Phase 2 gives each target to one warp, lanes
 // along C: the target's own slot-0 cotangent first, then its contributions
-// in scan order. The same inputs give bitwise-equal dx on every run. The
-// cotangent is scattered at full f32: the TPU kernel's two bf16 chunks exist
-// because TPU f32 dots round their inputs.
+// in scan order. The same inputs give bitwise-equal dx on every run. Slot 0
+// is added at full f32. With n_chunks = 2 the slots >= 1 are too: the TPU
+// kernel's two bf16 chunks exist because TPU f32 dots round their inputs,
+// and hi + lo is the f32 value. With n_chunks = 1 (the bf16 compute mode)
+// each slot >= 1 cotangent is truncated to its top bf16 chunk as it is
+// read, as the TPU kernel scatters only that chunk; the sum stays f32.
 //
 // What bounds them on an H100 SXM, at the attention model's training step
 // (B=30, N=2000, k=5). Forward, wide C (C=150): 1.08e11 FLOP of
@@ -122,6 +125,7 @@ knn_gather_fwd_kernel(const FwdParams p) {
     }
 }
 
+template <int CHUNKS>
 __global__ void __launch_bounds__(BWD_THREADS)
 knn_gather_bwd_kernel(const BwdParams p) {
     extern __shared__ int entries[];              // [N (K-1)]: compacted, scan order
@@ -184,7 +188,7 @@ knn_gather_bwd_kernel(const BwdParams p) {
 #pragma unroll
                 for (int i = 0; i < BWD_C_PER_LANE; ++i) {
                     const int c = lane + 32 * i;
-                    if (c < C) acc[i] += gr[c];
+                    if (c < C) acc[i] += CHUNKS == 1 ? trunc_bf16(gr[c]) : gr[c];
                 }
             }
         }
@@ -272,11 +276,13 @@ extern "C" int knn_gather_forward(const void* x, void* nbr, void* idx,
 }
 
 // Launches the knn_gather backward on `stream`: idx (B, N, k) i32 and
-// g (B, k, N, C) f32 -> dx (B, N, C) f32, every element written. Returns
-// the CUDA error code (0 = ok).
+// g (B, k, N, C) f32 -> dx (B, N, C) f32, every element written; slots
+// >= 1 at full f32 (n_chunks = 2) or truncated to bf16 (n_chunks = 1).
+// Returns the CUDA error code (0 = ok).
 extern "C" int knn_gather_backward(const void* idx, const void* g, void* dx,
-                                   int B, int N, int C, int k, void* stream) {
-    if (!valid_shape(B, N, C, k))
+                                   int B, int N, int C, int k, int n_chunks,
+                                   void* stream) {
+    if (!valid_shape(B, N, C, k) || (n_chunks != 1 && n_chunks != 2))
         return static_cast<int>(cudaErrorInvalidValue);
     BwdParams p{};
     p.idx = static_cast<const int*>(idx);
@@ -284,11 +290,11 @@ extern "C" int knn_gather_backward(const void* idx, const void* g, void* dx,
     p.dx = static_cast<float*>(dx);
     p.B = B; p.N = N; p.C = C; p.K = k;
     const size_t smem = static_cast<size_t>(N) * (k - 1) * 4;
+    auto kernel = n_chunks == 1 ? knn_gather_bwd_kernel<1> : knn_gather_bwd_kernel<2>;
     cudaError_t err = cudaFuncSetAttribute(
-        knn_gather_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((N + BWD_TARGETS - 1) / BWD_TARGETS, B);
-    knn_gather_bwd_kernel<<<grid, BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+    kernel<<<grid, BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
     return static_cast<int>(cudaGetLastError());
 }

@@ -21,15 +21,22 @@ carries the whole training-mode BatchNorm coupling with no hand-written
 gradient. Nothing here is a kernel: the gather, the matmuls and the sums are
 plain PyTorch, as in the JAX package.
 
+`compute_dtype=bfloat16` runs the products and ReLUs in bf16 (tensor
+cores on the card): the edge input and each layer's W and b are cast to
+bf16, and so is each BatchNorm's f32 output before the next product; the
+statistics and the BatchNorm normalization stay f32.
+
 Counterpart of garment_pattern_estimation_tpu/ops/edgeconv_train.py
 (`chunked_edgeconv_train`, where `jax.checkpoint` inside `lax.scan` plays
-the part of the checkpointed loop here).
+the part of the checkpointed loop here; the bf16 mode is its `dtype` in
+`_apply_layers`, :66-105, and `cdtype`, :146).
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..device import resolve_compute_dtype
 from .pooling import gather_neighbors
 
 MODES = ('chunked', 'fused_final', 'streamed')
@@ -49,28 +56,37 @@ def _layer_params(mlp):
             for linear, _, bn in mlp]
 
 
-def _apply_layers(edge_pair, layers, stats, upto, eps, final_relu_only=False):
+def _apply_layers(edge_pair, layers, stats, upto, eps, final_relu_only=False,
+                  dtype=None):
     """Layers [0, upto) on the factored edge input: Linear -> ReLU -> BN
     with the given global statistics; with `final_relu_only`, layer upto-1
     stops after its ReLU.
 
     `edge_pair` is (center (B, c, C), neighbours (B, c, k, C)): layer 0
     computes concat(c, n - c) @ W = c @ (W_top - W_bot) + b + n @ W_bot,
-    so the (B, c, k, 2C) edge tensor never materializes."""
+    so the (B, c, k, 2C) edge tensor never materializes. `dtype` (bf16)
+    casts the edge input, each W and b, and each later layer's input to it:
+    products and ReLUs in bf16, the BN normalization in f32."""
     center, nbr = edge_pair
+    if dtype is not None:
+        center, nbr = center.to(dtype), nbr.to(dtype)
     h = None
     for l in range(upto):
         W, b, gamma, beta = layers[l]
+        if dtype is not None:
+            W, b = W.to(dtype), b.to(dtype)
         if l == 0:
             C = center.shape[-1]
             point_term = center @ (W[:C] - W[C:]) + b              # (B, c, H)
             h = torch.relu(point_term[:, :, None, :] + nbr @ W[C:])
         else:
+            if dtype is not None:
+                h = h.to(dtype)
             h = torch.relu(h @ W + b)
         if final_relu_only and l == upto - 1:
             return h
         mean, var = stats[l]
-        h = (h - mean) * torch.rsqrt(var + eps) * gamma + beta
+        h = (h.float() - mean) * torch.rsqrt(var + eps) * gamma + beta
     return h
 
 
@@ -102,15 +118,15 @@ def chunked_edgeconv_train(x, idx, mlp, *, eps=1e-5, chunk=None, aggr='max',
         post-ReLU chunks, so the last sweep reads them instead of
         recomputing layers 0..L-2 (one (B, N, k, H) buffer more).
     Padded query rows of the last chunk gather real rows, are left out of
-    the statistics and are sliced off.
+    the statistics and are sliced off. `compute_dtype` (None, 'float32',
+    'bfloat16' or a torch dtype): bf16 runs the products and ReLUs in bf16,
+    the statistics and normalizations in f32; 'fused_final' aggregates the
+    bf16 activations and 'streamed' keeps them in bf16, as the JAX sweeps do.
 
     Returns (out (B, N, F), [(mean_l, var_l)] per layer), both
     differentiable; the variances are biased, E[a^2] - E[a]^2 clamped at 0.
     """
-    if compute_dtype not in (None, 'float32', torch.float32):
-        raise NotImplementedError(
-            f'chunked_edgeconv_train: compute_dtype={compute_dtype} (the bf16 '
-            'sweeps) is not ported yet (ROADMAP queue A3)')
+    cdtype = resolve_compute_dtype(compute_dtype)
     if mode not in MODES:
         raise ValueError(f'unknown EdgeConv train mode {mode!r}')
     if aggr not in AGGREGATIONS:
@@ -147,12 +163,15 @@ def chunked_edgeconv_train(x, idx, mlp, *, eps=1e-5, chunk=None, aggr='max',
                 # streamed last sweep: BN_{L-2} of the stored chunk -> layer L-1
                 gp, bp = layers[buf_layer][2], layers[buf_layer][3]
                 m, v = stats[buf_layer]
-                h = (h_prev - m) * torch.rsqrt(v + eps) * gp + bp
-                a = torch.relu(h @ layers[_l][0] + layers[_l][1])
+                h = (h_prev.float() - m) * torch.rsqrt(v + eps) * gp + bp
+                W, b = layers[_l][0], layers[_l][1]
+                if cdtype is not None:
+                    h, W, b = h.to(cdtype), W.to(cdtype), b.to(cdtype)
+                a = torch.relu(h @ W + b)
             else:
                 a = _apply_layers(edges_at(start), layers, stats, _l + 1, eps,
-                                  final_relu_only=True)
-            valid = a[:, :N - start]                  # the chunk's rows below N
+                                  final_relu_only=True, dtype=cdtype)
+            valid = a[:, :N - start].float()          # the chunk's rows below N
             s1 = torch.sum(valid, dim=(0, 1, 2))
             s2 = torch.sum(valid * valid, dim=(0, 1, 2))
             if _final:
@@ -183,17 +202,18 @@ def chunked_edgeconv_train(x, idx, mlp, *, eps=1e-5, chunk=None, aggr='max',
         a_aff = gamma * torch.rsqrt(v + eps)
         c_aff = beta - m * a_aff
         if aggr == 'max':
-            mx = torch.cat([y[0] for y in final_agg], dim=1)
-            mn = torch.cat([y[1] for y in final_agg], dim=1)
+            mx = torch.cat([y[0] for y in final_agg], dim=1).float()
+            mn = torch.cat([y[1] for y in final_agg], dim=1).float()
             out = torch.where(a_aff > 0, mx * a_aff + c_aff, mn * a_aff + c_aff)
         elif aggr == 'mean':
-            out = torch.cat(final_agg, dim=1) * a_aff + c_aff
+            out = torch.cat(final_agg, dim=1).float() * a_aff + c_aff
         else:   # sum: the affine constant adds once per neighbour slot
-            out = torch.cat(final_agg, dim=1) * a_aff + k * c_aff
+            out = torch.cat(final_agg, dim=1).float() * a_aff + k * c_aff
         return out[:, :N], stats
 
     def out_body(start):
-        return _aggregate(_apply_layers(edges_at(start), layers, stats, L, eps), aggr)
+        return _aggregate(_apply_layers(edges_at(start), layers, stats, L, eps,
+                                        dtype=cdtype), aggr)
 
     outs = [checkpoint(out_body, start, use_reentrant=False, preserve_rng_state=False)
             for start in starts]

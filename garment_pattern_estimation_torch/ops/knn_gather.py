@@ -9,12 +9,15 @@ column). Their rows are exact for C <= 16; for wider C they are the bf16
 truncation split hi + lo (`value_chunks=2`) or hi (`value_chunks=1`). The
 ids are not differentiable, and the gradient is the identity through the
 gathered values: dx[i] = g[slot 0 of query i] + the sum of g over every
-(query, slot >= 1) whose neighbour is i.
+(query, slot >= 1) whose neighbour is i. Slot 0 is added at full f32; the
+slots >= 1 add the full f32 cotangent (`value_chunks=2`, the two bf16
+truncation chunks of the JAX kernel, exact in f32) or its top truncation
+chunk only (`value_chunks=1`, the bf16 compute mode), as the JAX kernel's
+`_bwd_kernel` scatters them.
 
 A CPU tensor takes the plain versions (`knn_gather_reference`,
 `knn_gather_backward_reference`, an `index_add_`); a CUDA tensor launches
-the hand-written kernels of `csrc/knn_gather.cu` or raises. The backward
-scatters the full f32 cotangent in both.
+the hand-written kernels of `csrc/knn_gather.cu` or raises.
 
 Counterpart of garment_pattern_estimation_tpu/ops/knn_gather.py:264-347
 (`knn_gather` with its custom VJP, `knn_gather_reference`).
@@ -26,14 +29,15 @@ import ctypes
 import torch
 
 from .edgeconv import SMALL_C_MAX, edgeconv_select
-from .knn import MAX_N, scratch_bytes
+from .knn import MAX_N, scratch_bytes, truncate_bf16
 
 _WIDE_C_MAX = 256
 _MAX_K = 8
 
-# Launches of the CUDA kernels, by variant. Only the wrappers add to them,
-# once per kernel launch; calls that take the plain versions do not.
-launches = {'fwd_small_c': 0, 'fwd_wide_c': 0, 'bwd': 0}
+# Launches of the CUDA kernels, by variant ('bwd_hi': the backward at
+# value_chunks=1). Only the wrappers add to them, once per kernel launch;
+# calls that take the plain versions do not.
+launches = {'fwd_small_c': 0, 'fwd_wide_c': 0, 'bwd': 0, 'bwd_hi': 0}
 
 
 def reset_launches():
@@ -59,17 +63,22 @@ def knn_gather_reference(x, k, value_chunks=2):
     return nbr, idx
 
 
-def knn_gather_backward_reference(idx, g):
+def knn_gather_backward_reference(idx, g, value_chunks=2):
     """Plain PyTorch backward: ids (B, N, k) and the neighbour cotangent
-    g (B, k, N, C) -> dx (B, N, C) f32, slot 0 added to the query row and
-    slots 1..k-1 scatter-added into their neighbours' rows."""
+    g (B, k, N, C) -> dx (B, N, C) f32, slot 0 added to the query row at
+    full f32 and slots 1..k-1 scatter-added into their neighbours' rows:
+    at full f32 (`value_chunks=2`) or truncated to bf16 (`value_chunks=1`,
+    the low 16 bits cleared, not rounded)."""
     B, k, N, C = g.shape
     g = g.float()
     dx = g[:, 0].clone()
     if k > 1:
         flat = idx[:, :, 1:].transpose(1, 2).long() \
             + (torch.arange(B, device=g.device) * N)[:, None, None]
-        dx.view(B * N, C).index_add_(0, flat.reshape(-1), g[:, 1:].reshape(-1, C))
+        rows = g[:, 1:].reshape(-1, C)
+        if value_chunks == 1:
+            rows = truncate_bf16(rows)
+        dx.view(B * N, C).index_add_(0, flat.reshape(-1), rows)
     return dx
 
 
@@ -98,7 +107,7 @@ def _library():
     lib.knn_gather_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_size_t] \
         + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.knn_gather_backward.restype = ctypes.c_int
-    lib.knn_gather_backward.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+    lib.knn_gather_backward.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     return lib
 
@@ -128,12 +137,15 @@ def knn_gather_fwd(x, k, value_chunks=2):
     return nbr, idx
 
 
-def knn_gather_bwd(idx, g):
+def knn_gather_bwd(idx, g, value_chunks=2):
     """The backward alone: ids (B, N, k) and g (B, k, N, C) -> dx (B, N, C)
-    f32. A CPU tensor takes `knn_gather_backward_reference`; a CUDA tensor
+    f32, slots >= 1 at full f32 (`value_chunks=2`) or truncated to bf16
+    (1). A CPU tensor takes `knn_gather_backward_reference`; a CUDA tensor
     launches the backward kernel or raises."""
+    if value_chunks not in (1, 2):
+        raise ValueError(f'knn_gather: value_chunks must be 1 or 2, got {value_chunks}')
     if g.device.type == 'cpu':
-        return knn_gather_backward_reference(idx, g)
+        return knn_gather_backward_reference(idx, g, value_chunks)
     if g.device.type != 'cuda' or idx.device != g.device:
         raise ValueError(f'knn_gather: unsupported devices {idx.device}, {g.device}')
     B, k, N, C = g.shape
@@ -146,11 +158,11 @@ def knn_gather_bwd(idx, g):
     g = g.float().contiguous()
     dx = torch.empty(B, N, C, device=g.device, dtype=torch.float32)
     err = _library().knn_gather_backward(
-        idx.data_ptr(), g.data_ptr(), dx.data_ptr(), B, N, C, k,
+        idx.data_ptr(), g.data_ptr(), dx.data_ptr(), B, N, C, k, value_chunks,
         torch.cuda.current_stream(g.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'knn_gather: backward launch failed with CUDA error {err}')
-    launches['bwd'] += 1
+    launches['bwd' if value_chunks == 2 else 'bwd_hi'] += 1
     return dx
 
 
@@ -163,6 +175,7 @@ class KnnGather(torch.autograd.Function):
         nbr, idx = knn_gather_fwd(x, k, value_chunks)
         ctx.save_for_backward(idx)
         ctx.x_dtype = x.dtype
+        ctx.value_chunks = value_chunks
         idx = idx.long()
         ctx.mark_non_differentiable(idx)
         return nbr, idx
@@ -170,7 +183,7 @@ class KnnGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _):
         (idx,) = ctx.saved_tensors
-        return knn_gather_bwd(idx, g).to(ctx.x_dtype), None, None
+        return knn_gather_bwd(idx, g, ctx.value_chunks).to(ctx.x_dtype), None, None
 
 
 def knn_gather(x, k, value_chunks=2):

@@ -23,7 +23,10 @@ knn_gather: ids as above; gathered rows bitwise equal to the plain
 version's where the ids agree (both copy or split the same f32 value);
 dx within 1e-5 of its largest magnitude of the plain `index_add_` on the
 kernel's own ids (the two sum the same f32 terms in another order), and
-bitwise equal across two runs (the backward uses no float atomics).
+bitwise equal across two runs (the backward uses no float atomics). The
+single-chunk backward (value_chunks=1) truncates the slots >= 1 to bf16 as
+the plain version does, with the same bars, at every N around its
+32-target blocks, every k and ids that repeat.
 
 The small-C selection (the fused layer, knn_gather and the kNN) runs 128
 query rows per block against 8 key lanes: its ids equal the plain
@@ -288,8 +291,9 @@ def test_knn_gather_matches_plain(cuda, rng, n_points, C, k, value_chunks):
     (dx,) = torch.autograd.grad(nbr, x, g)
     torch.cuda.synchronize()
     variant = 'fwd_small_c' if C <= edgeconv.SMALL_C_MAX else 'fwd_wide_c'
+    bwd = 'bwd' if value_chunks == 2 else 'bwd_hi'
     assert knn_gather.launches[variant] == before[variant] + 1
-    assert knn_gather.launches['bwd'] == before['bwd'] + 1
+    assert knn_gather.launches[bwd] == before[bwd] + 1
 
     ref_nbr, ref_idx = knn_gather.knn_gather_reference(x.detach(), k, value_chunks)
     if C <= edgeconv.SMALL_C_MAX:
@@ -299,11 +303,38 @@ def test_knn_gather_matches_plain(cuda, rng, n_points, C, k, value_chunks):
     agree = (idx == ref_idx).transpose(1, 2)                       # (B, k, N)
     assert torch.equal(nbr[agree], ref_nbr[agree])
 
-    ref_dx = knn_gather.knn_gather_backward_reference(idx, g)
+    ref_dx = knn_gather.knn_gather_backward_reference(idx, g, value_chunks)
     scale = ref_dx.abs().max().item()
     assert (dx - ref_dx).abs().max().item() <= 1e-5 * scale
     (dx_again,) = torch.autograd.grad(knn_gather.knn_gather(x, k, value_chunks)[0], x, g)
     assert torch.equal(dx, dx_again)
+
+
+@pytest.mark.parametrize('n_points,k', [(n, k) for n in (1, 31, 33, 100, 2047, 2048)
+                                        for k in range(1, 9) if k <= n])
+def test_knn_gather_single_chunk_backward(cuda, rng, n_points, k):
+    """value_chunks=1 on ids drawn from a quarter of the points (each
+    target picked many times), C = 150, cotangents that are not bf16-valued:
+    within 1e-5 of the plain version's largest magnitude, two runs bitwise
+    equal, one 'bwd_hi' launch each."""
+    B, C = 2, 150
+    idx = torch.from_numpy(rng.integers(0, max(1, n_points // 4), size=(B, n_points, k)))
+    idx[:, :, 0] = torch.arange(n_points)
+    idx = idx.to(cuda)
+    g = torch.from_numpy(rng.normal(size=(B, k, n_points, C)).astype(np.float32)).to(cuda)
+    before = dict(knn_gather.launches)
+    dx = knn_gather.knn_gather_bwd(idx, g, value_chunks=1)
+    dx_again = knn_gather.knn_gather_bwd(idx, g, value_chunks=1)
+    torch.cuda.synchronize()
+    assert knn_gather.launches['bwd_hi'] == before['bwd_hi'] + 2
+    assert knn_gather.launches['bwd'] == before['bwd']
+    ref_dx = knn_gather.knn_gather_backward_reference(idx, g, value_chunks=1)
+    scale = ref_dx.abs().max().item()
+    assert (dx - ref_dx).abs().max().item() <= 1e-5 * scale
+    assert torch.equal(dx, dx_again)
+    if k > 1:                             # the truncation is not a no-op here
+        full = knn_gather.knn_gather_backward_reference(idx, g, value_chunks=2)
+        assert (full - ref_dx).abs().max().item() > 1e-5 * scale
 
 
 def _check_small_c_entries(cuda, x, k, folded):

@@ -137,8 +137,8 @@ def test_default_chunk_and_unported_options_match_jax():
     x, idx = torch.zeros(1, 8, 3), torch.zeros(1, 8, 2, dtype=torch.int64)
     with pytest.raises(ValueError, match='unknown EdgeConv train mode'):
         edgeconv_train.chunked_edgeconv_train(x, idx, mlp, mode='bogus')
-    with pytest.raises(NotImplementedError, match='queue A3'):
-        edgeconv_train.chunked_edgeconv_train(x, idx, mlp, compute_dtype='bfloat16')
+    with pytest.raises(ValueError, match='compute_dtype'):
+        edgeconv_train.chunked_edgeconv_train(x, idx, mlp, compute_dtype='float16')
 
 
 def _jax_layer_run(layer, params, stats, x):

@@ -9,6 +9,16 @@ backward scatters the cotangent as two bf16 truncation chunks (residual
 about 2^-16 of |g|), the port scatters it at full f32, and the two sum in
 another order.
 
+value_chunks=1 (the bf16 compute mode): both backwards scatter the slots
+>= 1 truncated to their top bf16 chunk, slot 0 at full f32, at the same
+bars. Fed the same cotangent, the two agree within 2e-6 (measured at
+C = 24 and 40; the port's earlier full-f32 scatter was 0.066 off at
+C = 40). Through the tanh readout each side computes its own cotangent,
+and a 1-ulp difference of XLA's and torch's tanh can flip one truncation,
+moving that element by 2^-8 of itself: at C = 24 the readout's gap is
+9.1e-5, at C = 40 one flip makes it 0.0107, so C = 40 is held on the
+shared cotangent.
+
 EdgeConv in train mode (knn_gather, the edge MLP's edge_pair first layer,
 batch statistics folded, max over the slots) against the JAX module with
 use_pallas=True: output and updated running statistics within 1e-5 of
@@ -72,6 +82,36 @@ def test_single_chunk_forward_matches_jax_kernel(rng):
     np.testing.assert_array_equal(nbr.numpy(), np.asarray(ref_nbr))
 
 
+@pytest.mark.parametrize('n_points,c', [
+    (100, 3), (200, 12),             # small C: the backward truncates there too
+    (120, 24), (120, 40),            # wide C
+])
+def test_single_chunk_gradient_matches_jax_kernel(rng, n_points, c):
+    """Fault C2: with value_chunks=1 the JAX backward adds slots >= 1 as
+    their top bf16 truncation chunk; the port does the same. Both get the
+    same cotangent, which is not bf16-valued."""
+    x = rng.normal(size=(2, n_points, c)).astype(np.float32)
+    g = rng.normal(size=(2, 5, n_points, c)).astype(np.float32)
+    _, vjp = jax.vjp(lambda v: jax_knn_gather(v, 5, True, 1)[0], jnp.asarray(x))
+    (ref_dx,) = vjp(jnp.asarray(g))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    nbr, _ = knn_gather.knn_gather(xt, 5, value_chunks=1)
+    nbr.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_dx), rtol=1e-4, atol=3e-4)
+
+
+def test_single_chunk_readout_gradient_matches_jax_kernel(rng):
+    """The tanh readout of test_forward_and_gradient_match_jax_kernel at
+    value_chunks=1, wide C, each side computing its own cotangent."""
+    x = rng.normal(size=(2, 120, 24)).astype(np.float32)
+    w = rng.normal(size=(24,)).astype(np.float32)
+    ref_dx = jax.grad(_readout_loss_jax)(jnp.asarray(x), jnp.asarray(w), 5, 1)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    nbr, _ = knn_gather.knn_gather(xt, 5, value_chunks=1)
+    torch.sum(torch.tanh(nbr @ torch.from_numpy(w)) ** 2).backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_dx), rtol=1e-4, atol=3e-4)
+
+
 def test_slot_zero_is_the_query_row(rng):
     x = torch.from_numpy(rng.normal(size=(1, 64, 24)).astype(np.float32))
     nbr, idx = knn_gather.knn_gather(x, 3)
@@ -92,6 +132,25 @@ def test_backward_reference_is_the_transposed_gather(rng):
             for s in range(k):
                 expect[b, idx[b, n, s]] += g[b, s, n].numpy()
     dx = knn_gather.knn_gather_backward_reference(idx, g)
+    np.testing.assert_allclose(dx.numpy(), expect, rtol=1e-5, atol=1e-6)
+
+
+def test_single_chunk_backward_reference_truncates_slots_above_zero(rng):
+    """value_chunks=1: slot 0 adds its f32 cotangent, every other slot the
+    cotangent with its low 16 bits cleared (truncated, not rounded)."""
+    B, k, N, C = 2, 4, 30, 5
+    idx = torch.from_numpy(rng.integers(0, N, size=(B, N, k)))
+    idx[:, :, 0] = torch.arange(N)
+    g = torch.from_numpy(rng.normal(size=(B, k, N, C)).astype(np.float32))
+    g_np = g.numpy()
+    truncated = (g_np.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+    assert not np.array_equal(truncated, g_np)
+    expect = np.zeros((B, N, C), np.float64)
+    for b in range(B):
+        for n in range(N):
+            for s in range(k):
+                expect[b, idx[b, n, s]] += (g_np if s == 0 else truncated)[b, s, n]
+    dx = knn_gather.knn_gather_backward_reference(idx, g, value_chunks=1)
     np.testing.assert_allclose(dx.numpy(), expect, rtol=1e-5, atol=1e-6)
 
 

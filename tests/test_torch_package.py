@@ -81,7 +81,7 @@ def test_unported_options_raise():
         build_model('GarmentFullPattern3D', _DATA, _NN, device='cpu')
     with pytest.raises(NotImplementedError):
         build_model('GarmentSegmentPattern3D', _DATA,
-                    dict(_NN, compute_dtype='bfloat16'), device='cpu')
+                    dict(_NN, graph_pooling=True), device='cpu')
     with pytest.raises(ValueError):
         build_model('NoSuchModel', _DATA, _NN, device='cpu')
     model = build_model('GarmentSegmentPattern3D', _DATA,
@@ -89,3 +89,34 @@ def test_unported_options_raise():
     model.module.train()
     with pytest.raises(NotImplementedError, match='train mode'):
         model(torch.zeros(1, 16, 3))
+
+
+def test_att_bf16_config_builds_on_the_cpu():
+    """configs/att_bf16.yaml's NN section builds unchanged: the bf16 mode
+    reaches both conv layers and the attention MLP, parameters stay f32,
+    the merged config records it, and the eval forward's outputs are f32.
+    A compute dtype other than float32 and bfloat16 raises ValueError."""
+    import yaml
+
+    config = yaml.safe_load((_PACKAGE.parent / 'configs' / 'att_bf16.yaml').read_text())
+    data = {k: config['dataset'][k] for k in ('element_size', 'rotation_size',
+                                              'translation_size', 'max_panel_len',
+                                              'max_pattern_len')}
+    nn_section = config['NN']
+    model = build_model(nn_section['model'], data, nn_section, nn_section['loss'],
+                        device='cpu')
+    assert model.config['compute_dtype'] == 'bfloat16'
+    assert model.config['f32_conv_layers'] == [] and model.config['f32_attention_mlp'] is False
+    module = model.module
+    assert [c.compute_dtype for c in module.feature_extractor.conv_layers] == [torch.bfloat16] * 2
+    assert module.point_segment_mlp[0].compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in module.parameters())
+    x = torch.randn(1, 24, 3, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        preds = model(x)
+    assert all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+               for v in preds.values())
+    assert preds['outlines'].shape == (1, 23, 14, 4)
+    with pytest.raises(ValueError, match='compute_dtype'):
+        build_model('GarmentSegmentPattern3D', _DATA, dict(_NN, compute_dtype='float16'),
+                    device='cpu')
