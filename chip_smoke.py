@@ -18,8 +18,14 @@ Phases, one JSON line each:
            shapes, against the plain PyTorch versions: ids as above, gathered
            rows bitwise equal where the ids agree, dx within 1e-5 of its
            largest magnitude of the plain index_add_ on the kernel's ids,
-           two backward runs bitwise equal; kernel, plain and library
-           (one index_add_, backward only) times
+           two backward runs bitwise equal and equal to the ordered sum
+           (`knn_gather_backward_ordered`); kernel, plain and library
+           (one index_add_, backward only) times, the backward's two
+           kernels' device ms apart (torch.profiler)
+  knn_gather_bwd_sweep  the backward at N in {1, 31, 32, 33, 2048}, k =
+           1..8, C in {3, 24, 150, 256}, both chunk counts, and on hub ids
+           (one point in every query's slots >= 1): repeatable, ordered,
+           within 1e-5 of the plain version
   serving  build_model at the published att.yaml widths (seeded init),
            build_serving_fn on a (64, 2000, 3) batch: output shapes and
            finiteness, 2 kernel launches per forward (conv0 + conv1), batch
@@ -102,6 +108,26 @@ bfloat16`) has phases of its own, at the same widths and shapes:
            'streamed' step (its ms and peak memory); the forced-chunk step
            against the CPU on 2 clouds, with training_bf16's bars
   profile  the four profiles above, of the bf16 model
+Then Trainer.fit over a dataset (ROADMAP queue A item 1):
+  fit      parity_run/data_big (3 folders x 100 garments, 2000 points,
+           padded to 23 x 14), batch 30, split 10 / 10 per type, att.yaml's
+           model, loss, Adam and one-cycle, standardization from the
+           training split: FIT_EPOCHS epochs, then a second Trainer resumes
+           for one more. Per epoch: wall s, the batch loop's ms per step,
+           the median host ms of a step, the share spent waiting on the
+           loader, train and validation loss; ms per step of train_step on
+           a batch on the card, on a host batch, and over the loader
+           without and with its prefetch thread. Checks: finite losses, the
+           mean train loss falls, exact launches of rows 4-5 (one each per
+           validation batch) and 8-9 (one each per step), fit's first step
+           against Trainer.train_step on the same batch from the same
+           weights (1e-6 relative), 'best' and 'latest' load back, the
+           resumed run continues the step count and the schedule
+  fit_bf16 the same model in the bf16 mode with f32_tail_epochs 1 over
+           FIT_EPOCHS epochs: the tail on at the last epoch ('bwd' launches
+           there, 'bwd_hi' before), finite losses
+Each of rows 4, 5, 8 and 9 in the kernels line carries `launches_fit`, its
+launches in the f32 or bf16 fit.
 Then each phase's seconds, the card's name and power limit, the kernels
 line (each bf16-mode kernel an entry of its own, its launches from the bf16
 phases), and as the last line {"ok": true, "device": {...}}. Any failed
@@ -132,6 +158,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -610,16 +637,270 @@ def check_knn_gather(x, backward, value_chunks=2):
            'library_ms': cuda_ms(lambda: buffer.index_add_(0, flat, rows))}
     bwd['bound_ms'], bwd['bound_by'] = gather_bound(B, N, C, K, backward=True)
     deterministic = bool(torch.equal(dx, dx_again))
+    ordered = bool(torch.equal(dx, kg.knn_gather_backward_ordered(idx, g, value_chunks)))
+    bwd['split_ms'] = kernel_split(lambda: kg.knn_gather_bwd(idx, g, value_chunks),
+                                   ('csr_kernel', 'sum_kernel'))
     emit({'phase': phase, 'shape': [B, N, C], 'k': K, 'value_chunks': value_chunks,
-          'max_rel_err': bwd_err / scale, 'bitwise_repeatable': deterministic, **bwd})
+          'max_rel_err': bwd_err / scale, 'bitwise_repeatable': deterministic,
+          'bitwise_ordered': ordered, **bwd})
     check(bwd_err <= DX_MAX_REL * scale, f'{name}: dx off the plain version by '
           f'{bwd_err / scale} of its scale')
     check(deterministic, f'{name}: two runs on the same inputs differ')
+    check(ordered, f'{name}: dx differs from the ordered sum (slot 0, then ascending entry)')
     if value_chunks == 1:
         full = kg.knn_gather_backward_reference(idx, g, 2)
         check((full - ref_dx).abs().max().item() > DX_MAX_REL * scale,
               f'{name}: the cotangents did not exercise the truncation')
     return [fwd, bwd]
+
+
+def kernel_split(fn, names, calls=20):
+    """Device ms per call of each kernel whose name holds one of `names`,
+    from torch.profiler over `calls` calls of fn after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {name: 0.0 for name in names}
+    for event in prof.key_averages():
+        for name in names:
+            if name in event.key:
+                split[name] += event.device_time_total / 1e3 / calls
+    return split
+
+
+def gather_backward_sweep():
+    """Row 9 (the knn_gather backward: CSR of the transposed graph, then
+    one gathered sum per target) at N in {1, 31, 32, 33, 2048}, k = 1..8,
+    C in {3, 24, 150, 256} and both chunk counts on ids drawn from all N
+    points, and on hub ids (one point named by every query in every slot
+    >= 1, so its list holds all N (k-1) entries): two runs bitwise equal,
+    bitwise equal to the ordered sum, within DX_MAX_REL of the plain
+    version's largest magnitude."""
+    import torch
+    from garment_pattern_estimation_torch.ops import knn_gather as kg
+
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    cases = [(2, n, k, c, v, False) for n in (1, 31, 32, 33, 2048) for k in range(1, 9)
+             if k <= n for c in (3, 24, 150, 256) for v in (1, 2)]
+    cases += [(TRAIN_BATCH, POINTS, K, 150, v, True) for v in (1, 2)]
+    cases += [(2, 2048, 8, 256, 2, True), (2, 33, 8, 3, 1, True)]
+    worst = 0.0
+    for B, N, k, C, value_chunks, hub in cases:
+        if hub:
+            idx = torch.full((B, N, k), N // 3, device='cuda', dtype=torch.int64)
+        else:
+            idx = torch.randint(0, N, (B, N, k), generator=gen, device='cuda')
+        idx[:, :, 0] = torch.arange(N, device='cuda')
+        g = torch.randn(B, k, N, C, generator=gen, device='cuda')
+        dx = kg.knn_gather_bwd(idx, g, value_chunks)
+        dx_again = kg.knn_gather_bwd(idx, g, value_chunks)
+        ref = kg.knn_gather_backward_reference(idx, g, value_chunks)
+        name = f'knn_gather_bwd_sweep: B={B} N={N} k={k} C={C} chunks={value_chunks} hub={hub}'
+        check(torch.equal(dx, dx_again), f'{name}: two runs differ')
+        check(torch.equal(dx, kg.knn_gather_backward_ordered(idx, g, value_chunks)),
+              f'{name}: dx differs from the ordered sum')
+        err = (dx - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        check(err <= DX_MAX_REL, f'{name}: dx off the plain version by {err} of its scale')
+        worst = max(worst, err)
+    emit({'phase': 'knn_gather_bwd_sweep', 'cases': len(cases),
+          'hub_cases': sum(c[-1] for c in cases), 'max_rel_err': worst,
+          'bitwise_repeatable': True, 'bitwise_ordered': True})
+
+
+FIT_FOLDERS = ['tee_synth_300', 'skirt_synth_300', 'jumpsuit_synth_300']
+FIT_SPLIT = {'valid_per_type': 10, 'test_per_type': 10, 'random_seed': 10, 'type': 'count'}
+FIT_EPOCHS = 2
+
+
+def fit_dataset():
+    """Garment3DPatternFullDataset on parity_run/data_big/ (3 folders x 100
+    garments) at 2000 points, padded to att.yaml's 23 panels x 14 edges and
+    24 stitches (its data_big panel classes would set 11 panel slots and cut
+    the decoder below the published width)."""
+    from garment_pattern_estimation_torch.data import Garment3DPatternFullDataset
+
+    root = ROOT / 'parity_run' / 'data_big'
+    config = {'data_folders': FIT_FOLDERS, 'mesh_samples': POINTS,
+              'max_pattern_len': ATT_DATA_CONFIG['max_pattern_len'],
+              'max_panel_len': ATT_DATA_CONFIG['max_panel_len'],
+              'max_num_stitches': ATT_DATA_CONFIG['max_num_stitches']}
+    return Garment3DPatternFullDataset(root, config, gt_caching=True, feature_caching=True)
+
+
+def read_records(experiment):
+    """(step records, epoch records) of a run's metrics.jsonl."""
+    lines = (experiment.run_dir() / 'metrics.jsonl').read_text().splitlines()
+    records = [json.loads(line) for line in lines]
+    return ([r for r in records if 'batch' in r], [r for r in records if 'valid_loss' in r])
+
+
+def fit_phase(out_dir, bf16=False):
+    """Trainer.fit over parity_run/data_big at att.yaml's widths, batch 30,
+    split 10 / 10 per type (seed 10), Adam, one-cycle, standardization from
+    the training split. f32: FIT_EPOCHS epochs, then a second Trainer resumes
+    the run from 'latest' for one more; fit's first step against
+    Trainer.train_step on the same batch from the same weights; 'best' and
+    'latest' load back. bf16 (att_bf16.yaml's mode): FIT_EPOCHS epochs with
+    f32_tail_epochs 1, the tail on at the last epoch. Returns the launches
+    of the first fit (rows 4-5: one per validation batch each; rows 8-9:
+    one per training step each)."""
+    import torch
+    from garment_pattern_estimation_torch.experiment import ExperimentWrappper
+    from garment_pattern_estimation_torch.models import build_model
+    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
+    from garment_pattern_estimation_torch.train import Trainer, cosine_onecycle_schedule
+
+    phase = 'fit_bf16' if bf16 else 'fit'
+    setup = dict(ATT_TRAINER, epochs=FIT_EPOCHS)
+    if bf16:
+        setup['f32_tail_epochs'] = 1
+    start = time.perf_counter()
+    dataset = fit_dataset()
+    experiment = ExperimentWrappper({'experiment': {'project_name': 'chip_smoke',
+                                                    'run_name': phase}},
+                                    output_root=out_dir)
+    trainer = Trainer(setup, experiment, dataset, dict(FIT_SPLIT))
+    setup_s = time.perf_counter() - start
+    model = build_model('GarmentSegmentPattern3D', dataset.config, nn_config(bf16),
+                        ATT_LOSS_CONFIG, seed=0)
+    initial = {k: v.clone() for k, v in model.module.state_dict().items()}
+
+    edgeconv.reset_launches()
+    knn_gather.reset_launches()
+    start = time.perf_counter()
+    trainer.fit(model)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - start
+    launches = {**{f'fused_{k}': v for k, v in edgeconv.launches.items()},
+                **{f'knn_gather_{k}': v for k, v in knn_gather.launches.items()}}
+    steps, epochs = read_records(experiment)
+    spe = len(trainer.datawrapper.loaders.train)
+    n_valid = len(trainer.datawrapper.loaders.validation)
+    check([r['epoch'] for r in epochs] == list(range(FIT_EPOCHS)),
+          f'{phase}: epochs {[r["epoch"] for r in epochs]}')
+    check(len(steps) == FIT_EPOCHS * spe, f'{phase}: {len(steps)} steps, not {FIT_EPOCHS} x {spe}')
+    check(all(math.isfinite(r['loss']) for r in steps)
+          and all(math.isfinite(r['valid_loss']) for r in epochs), f'{phase}: a loss is not finite')
+    means = [statistics.mean(r['loss'] for r in steps if r['epoch'] == e)
+             for e in range(FIT_EPOCHS)]
+    check(means[1] < means[0], f'{phase}: mean train loss did not fall: {means}')
+    if bf16:
+        modes = [r['compute_dtype'] for r in epochs]
+        check(modes == ['bfloat16'] * (FIT_EPOCHS - 1) + ['float32'],
+              f'{phase}: the f32 tail did not switch on at epoch {FIT_EPOCHS - 1}: {modes}')
+        gathers = {'knn_gather_fwd_small_c': FIT_EPOCHS * spe,
+                   'knn_gather_fwd_wide_c': FIT_EPOCHS * spe,
+                   'knn_gather_bwd': spe, 'knn_gather_bwd_hi': (FIT_EPOCHS - 1) * spe}
+    else:
+        gathers = {'knn_gather_fwd_small_c': FIT_EPOCHS * spe,
+                   'knn_gather_fwd_wide_c': FIT_EPOCHS * spe,
+                   'knn_gather_bwd': FIT_EPOCHS * spe, 'knn_gather_bwd_hi': 0}
+    expected = {'fused_small_c': FIT_EPOCHS * n_valid, 'fused_wide_c': FIT_EPOCHS * n_valid,
+                'fused_small_c_tiled': 0, 'fused_wide_c_tiled': 0, **gathers}
+    check(launches == expected, f'{phase}: launches {launches}, expected {expected}')
+
+    line = {'phase': phase, 'garments': len(dataset), 'batch': setup['batch_size'],
+            'points': POINTS, 'pattern': [dataset.config['max_pattern_len'],
+                                          dataset.config['max_panel_len']],
+            'steps_per_epoch': spe, 'valid_batches': n_valid, 'setup_s': setup_s,
+            'fit_s': fit_s, 'launches': launches, 'per_epoch': [{
+                'epoch': r['epoch'], 'compute_dtype': r['compute_dtype'],
+                'epoch_s': r['epoch_time'], 'train_loop_ms_per_step': r['train_time'] / spe * 1e3,
+                'loader_wait_share': r['data_time'] / r['epoch_time'],
+                'median_host_step_ms': statistics.median(
+                    s['step_time'] for s in steps if s['epoch'] == r['epoch']) * 1e3,
+                'train_loss': means[r['epoch']], 'valid_loss': r['valid_loss']}
+                for r in epochs]}
+    if bf16:
+        emit(line)
+        return launches
+
+    # fit's first step against train_step on the same batch, same weights
+    # a new wrapper of the same dataset: a fresh sampler, the stored statistics
+    probe = Trainer(setup, dataset=dataset, data_split=dict(FIT_SPLIT))
+    probe.init_randomizer()
+    twin = build_model('GarmentSegmentPattern3D', dataset.config, ATT_NN_CONFIG,
+                       ATT_LOSS_CONFIG, seed=0)
+    twin.module.load_state_dict(initial)
+    probe.make_optimizer(twin, spe)
+    batch = next(iter(probe.datawrapper.loaders.train))
+    first, _ = probe.train_step(twin, batch, 0, probe._generator(1))
+    first_gap = abs(first.item() - steps[0]['loss']) / abs(steps[0]['loss'])
+    check(first_gap <= 1e-6, f'{phase}: fit step 0 loss {steps[0]["loss"]} against '
+          f'train_step {first.item()} ({first_gap} relative)')
+
+    # where a step's host time goes: train_step on a batch already on the
+    # card, on the same batch from the host, and over the training loader
+    # without and with its prefetch thread (ms per step, synchronized once
+    # per epoch of steps)
+    def per_step(batches):
+        torch.cuda.synchronize()
+        begin, n = time.perf_counter(), 0
+        for item in batches:
+            probe.train_step(twin, item, 0, probe._generator(1))
+            n += 1
+        torch.cuda.synchronize()
+        return (time.perf_counter() - begin) / n * 1e3
+
+    on_card = {'features': batch['features'].cuda(),
+               'ground_truth': {k: v.cuda() for k, v in batch['ground_truth'].items()}}
+    loader = probe.datawrapper.loaders.train
+    loader.pin_memory = True
+    per_step([on_card] * 2)
+    breakdown = {'train_step_on_card_batch': per_step([on_card] * spe),
+                 'train_step_host_batch': per_step([batch] * spe)}
+    for prefetch in (0, 1):
+        loader.prefetch = prefetch
+        breakdown[f'loader_loop_prefetch_{prefetch}'] = per_step(loader)
+
+    # the checkpoints load back
+    for alias in ('best', 'latest'):
+        state = experiment.get_checkpoint_file(alias, map_location='cuda')
+        twin.module.load_state_dict(state['model'])
+        probe.optimizer.load_state_dict(state['optimizer'])
+    latest = experiment.get_checkpoint_file('latest')
+    check(latest['epoch'] == FIT_EPOCHS - 1 and latest['step'] == FIT_EPOCHS * spe,
+          f'{phase}: latest holds epoch {latest["epoch"]}, step {latest["step"]}')
+
+    # a second Trainer resumes the run for one more epoch
+    resumed_exp = ExperimentWrappper({'experiment': {'project_name': 'chip_smoke',
+                                                     'run_name': phase,
+                                                     'run_id': experiment.run_id}},
+                                     output_root=out_dir)
+    resumed = Trainer(dict(setup, epochs=FIT_EPOCHS + 1), resumed_exp, dataset,
+                      dict(FIT_SPLIT))
+    again = build_model('GarmentSegmentPattern3D', dataset.config, ATT_NN_CONFIG,
+                        ATT_LOSS_CONFIG, seed=1)
+    start = time.perf_counter()
+    resumed.fit(again)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - start
+    steps2, epochs2 = read_records(resumed_exp)
+    new_steps = [r for r in steps2 if r['epoch'] == FIT_EPOCHS]
+    schedule = cosine_onecycle_schedule(max((FIT_EPOCHS + 1) * spe, 4),
+                                        float(setup['learning_rate']))
+    check(resumed_exp.resumed and [r['epoch'] for r in epochs2][-1] == FIT_EPOCHS,
+          f'{phase}: the resumed run did not train epoch {FIT_EPOCHS}')
+    check([r['step'] for r in new_steps] == list(range(FIT_EPOCHS * spe, (FIT_EPOCHS + 1) * spe)),
+          f'{phase}: resumed steps {[r["step"] for r in new_steps]}')
+    check(all(abs(r['learning_rate'] - schedule(r['step'])) <= 1e-6 * schedule(r['step'])
+              for r in new_steps), f'{phase}: the resumed run did not continue the schedule')
+    check(all(math.isfinite(r['loss']) for r in new_steps), f'{phase}: resumed loss not finite')
+    line.update(first_step_vs_train_step=first_gap, resume_s=resume_s,
+                step_ms_breakdown=breakdown,
+                resumed_epoch={'train_loss': statistics.mean(r['loss'] for r in new_steps),
+                               'valid_loss': epochs2[-1]['valid_loss'],
+                               'first_step': new_steps[0]['step'],
+                               'learning_rates': [new_steps[0]['learning_rate'],
+                                                  new_steps[-1]['learning_rate']]})
+    emit(line)
+    return launches
 
 
 def check_outputs(name, preds, batch, points):
@@ -1281,6 +1562,7 @@ def main():
                                                 False)
     small_bf16, wide_bf16, gather_bf16 = timed(seconds, 'kernel_bf16+knn_gather_bf16',
                                                att_kernels, True)
+    timed(seconds, 'knn_gather_bwd_sweep', gather_backward_sweep)
     knn_line, small_tiled_line, wide_tiled_line, knn_wide_line, small_tiled_bf16, \
         wide_tiled_bf16 = timed(seconds, 'knn+kernel_tiled(+bf16)+knn_wide', stress_kernels,
                                 widths)
@@ -1318,6 +1600,19 @@ def main():
         timed(seconds, 'profile_stress_training_step' + suffix, profile_phase,
               'stress_training_step' + suffix, stress_train_step)
         del stress_train_step
+
+    # Trainer.fit over the dataset: its own launch counts, set to 0 just
+    # before each fit and read just after
+    with tempfile.TemporaryDirectory(dir=ROOT / 'garment_pattern_estimation_torch' / '_build') \
+            as out_dir:
+        for bf16, (small, wide, gathers) in ((False, (small_line, wide_line, gather_lines)),
+                                             (True, (small_bf16, wide_bf16, gather_bf16))):
+            fit_launches = timed(seconds, 'fit_bf16' if bf16 else 'fit', fit_phase,
+                                 Path(out_dir), bf16)
+            small['launches_fit'] = fit_launches['fused_small_c']
+            wide['launches_fit'] = fit_launches['fused_wide_c']
+            for line in gathers:
+                line['launches_fit'] = fit_launches['knn_gather_' + launch_key(line['name'])]
     emit({'phase_seconds': seconds})
 
     card = subprocess.run(

@@ -1,16 +1,24 @@
 """garment_pattern_estimation_torch — the PyTorch + CUDA port for NVIDIA Hopper.
 
 A second package beside `garment_pattern_estimation_tpu` (the JAX reference,
-which this package never imports). It runs the NeuralTailor attention
-model's serving path: point cloud -> panel outlines, placements, stitch tags.
+which this package never imports). It serves the NeuralTailor attention
+model (point cloud -> panel outlines, placements, stitch tags) and trains
+it, step by step or over a dataset.
 
 Layering (bottom-up):
     device.py    device resolution: CUDA unless the caller asks for the CPU
-    ops/         the fused EdgeConv CUDA kernel (csrc/) with its plain PyTorch
-                 version, sparsemax, pools, the packing helpers of the kNN
+    core/        the sewing-pattern spec and its tensor codec (numpy)
+    preprocess/  mesh IO, surface sampling and snapping (a C++ library)
+    data/        datasets, splits, balanced batches, the prefetching loader
+    utils/       the synthetic dataset generator
+    ops/         the CUDA kernels (csrc/) with their plain PyTorch versions,
+                 sparsemax, pools, chunked EdgeConv training
     models/      nn.Modules of the attention model, the registry, the loader
                  from the JAX package's flax variables
-    experiment/  the serving pipeline (standardize -> forward -> un-standardize)
+    losses/      the composed pattern loss and its quality metrics
+    train/       Trainer: train_step, eval_step and fit
+    experiment/  serving (standardize -> forward -> un-standardize), the
+                 local experiment tracker and checkpoints
 """
 import torch
 

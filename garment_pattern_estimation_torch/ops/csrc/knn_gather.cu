@@ -7,7 +7,7 @@
 //   knn_gather_fwd_kernel  <- _fwd_kernel, both variants (SMALL_C: C <= 16,
 //                             exact f32 distances and rows; wide: 16 < C <= 256,
 //                             split-product distances, rows hi + lo or hi);
-//   knn_gather_bwd_kernel  <- _bwd_kernel.
+//   knn_gather_csr_kernel + knn_gather_sum_kernel  <- _bwd_kernel.
 // The plain PyTorch versions with the same numerics are ops/knn_gather.py:
 // knn_gather_reference and knn_gather_backward_reference.
 //
@@ -20,18 +20,34 @@
 // row; slots 1..k-1 are exact rows (small C) or hi + lo (hi when n_chunks
 // is 1) of the truncation split (wide C).
 //
-// Backward. Deterministic, no float atomics: one block of 256 threads per
-// (batch element, 32 target rows). Phase 1 scans the batch element's
-// N (k-1) ids in a fixed order and compacts those that point into the
-// block's targets into shared memory, in scan order (warp ballots and a
-// prefix over the 8 warps). Phase 2 gives each target to one warp, lanes
-// along C: the target's own slot-0 cotangent first, then its contributions
-// in scan order. The same inputs give bitwise-equal dx on every run. Slot 0
-// is added at full f32. With n_chunks = 2 the slots >= 1 are too: the TPU
-// kernel's two bf16 chunks exist because TPU f32 dots round their inputs,
-// and hi + lo is the f32 value. With n_chunks = 1 (the bf16 compute mode)
-// each slot >= 1 cotangent is truncated to its top bf16 chunk as it is
-// read, as the TPU kernel scatters only that chunk; the sum stays f32.
+// Backward. Deterministic, no float atomics, in two kernels. The TPU
+// kernel carries a scatter-add through its sequential grid; on Hopper each
+// target row instead gathers its own contributions, from the transposed
+// neighbour graph built once per batch element:
+//   knn_gather_csr_kernel  one block of 1024 threads per batch element, all
+//     in shared memory: the targets of the N (k-1) entries (entry e = query
+//     n, slot s >= 1 with e = n (k-1) + s - 1), each warp's counts per target
+//     over its contiguous slice of entries, an exclusive prefix over the
+//     warps and then over the targets (the CSR offsets), and a stable fill of
+//     each target's list in ascending e (ranks within a warp step from
+//     twelve ballots). Counts and order are fixed, so no atomics are
+//     needed; a hub that every query names keeps all N (k-1) entries.
+//   knn_gather_sum_kernel  one warp per SUM_TARGETS consecutive targets,
+//     lanes along C with vector loads where C and the pointers allow
+//     (float4, float2, else float). The warp walks its targets' rows as one
+//     stream (each target's slot-0 row, then its list), one load of the
+//     offsets for all of them and one load of the list per 32 rows, and
+//     loads SUM_ROWS rows before it adds them, so several rows are in
+//     flight per warp and few loads wait on others. The adds run slot 0
+//     first, then ascending e, the order of the kernel this one replaced,
+//     so the same inputs give bitwise-equal dx on every run.
+// Slot 0 is added at full f32. With n_chunks = 2 the slots >= 1 are too:
+// the TPU kernel's two bf16 chunks exist because TPU f32 dots round their
+// inputs, and hi + lo is the f32 value. With n_chunks = 1 (the bf16 compute
+// mode) each slot >= 1 cotangent is truncated to its top bf16 chunk as it is
+// read, as the TPU kernel scatters only that chunk; the sum stays f32. The
+// CSR (offsets (B, N + 1) and entries (B, N (k-1)), int32) lives in the
+// caller's scratch, knn_gather_bwd_scratch_bytes(B, N, k).
 //
 // What bounds them on an H100 SXM, at the attention model's training step
 // (B=30, N=2000, k=5). Forward, wide C (C=150): 1.08e11 FLOP of
@@ -44,9 +60,8 @@
 // The wide-C selection is select_wide_c (split products on bf16 tensor
 // cores after split_rows_kernel, launched first into the caller's scratch),
 // with 16 query rows per block. Left on the table: each unordered pair's
-// distance is computed in both directions, and the backward re-reads the
-// ids once per block (from L2) instead of building the transposed graph
-// once.
+// distance is computed in both directions; the backward's CSR kernel runs
+// B blocks only, and the sum waits for it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,11 +72,16 @@ namespace {
 
 using namespace knn_select;
 
-constexpr int BWD_TARGETS = 32;                 // target rows per backward block
-constexpr int BWD_THREADS = 256;
-constexpr int BWD_WARPS = BWD_THREADS / 32;
-constexpr int BWD_C_PER_LANE = WIDE_C_MAX / 32;
-constexpr int ENTRY_BITS = 16;                  // compacted entry: target << 16 | entry id
+constexpr int CSR_THREADS = 1024;               // CSR build: one block per batch element
+constexpr int CSR_WARPS = CSR_THREADS / 32;
+constexpr int CSR_LOADS = 8;                    // ids each thread loads before it stores them
+constexpr int SUM_THREADS = 256;                // sum: one warp per SUM_TARGETS target rows
+constexpr int SUM_WARPS = SUM_THREADS / 32;
+constexpr int SUM_TARGETS = 8;                  // consecutive targets per warp
+constexpr int SUM_ROWS = 8;                     // rows a warp loads before adding them
+constexpr int SUM_MIN_BLOCKS = 2;               // resident blocks per SM the registers allow
+constexpr int LANE_FLOATS = WIDE_C_MAX / 32;    // floats of one row per lane (C <= 256)
+constexpr unsigned short NO_TARGET = 0xffff;    // an id outside [0, N): contributes nothing
 
 struct FwdParams {
     const float* x;               // (B, N, C) f32
@@ -77,6 +97,8 @@ struct BwdParams {
     const int* idx;               // (B, N, K) i32
     const float* g;               // (B, K, N, C) f32
     float* dx;                    // (B, N, C) f32
+    int* offsets;                 // (B, N + 1) i32: each target's list in `entries`
+    int* entries;                 // (B, N (K-1)) i32: entry ids, ascending within a target
     int B, N, C, K;
 };
 
@@ -125,79 +147,268 @@ knn_gather_fwd_kernel(const FwdParams p) {
     }
 }
 
-template <int CHUNKS>
-__global__ void __launch_bounds__(BWD_THREADS)
-knn_gather_bwd_kernel(const BwdParams p) {
-    extern __shared__ int entries[];              // [N (K-1)]: compacted, scan order
-    __shared__ int warp_hits[BWD_WARPS];
-    __shared__ int n_found;
-    const int b = blockIdx.y, t0 = blockIdx.x * BWD_TARGETS, t = threadIdx.x;
-    const int lane = t % 32, warp = t / 32;
-    const int N = p.N, C = p.C, K = p.K;
-    const int* idxb = p.idx + static_cast<size_t>(b) * N * K;
-    const int n_entries = N * (K - 1);            // entry e: query e / (K-1), slot 1 + e % (K-1)
+// Shared bytes of the CSR build: the offsets (N + 1 ints, padded to 16
+// bytes), each warp's 16-bit count per target, each entry's 16-bit target
+// (padded to 4 bytes) and the filled lists (N (k-1) ints): 225,296 bytes
+// at N = 2048, k = 8, within the 232,448 a block may take.
+__host__ __device__ inline size_t csr_smem_bytes(int N, int K) {
+    const size_t E = static_cast<size_t>(N) * (K - 1);
+    return static_cast<size_t>((N + 4) / 4 * 4) * 4 + static_cast<size_t>(CSR_WARPS) * N * 2
+           + (E + 1) / 2 * 4 + E * 4;
+}
 
-    // ---- phase 1: the entries whose id falls in [t0, t0 + 32), in scan order ----
-    if (t == 0) n_found = 0;
-    __syncthreads();
-    for (int e0 = 0; e0 < n_entries; e0 += BWD_THREADS) {
-        const int e = e0 + t;
-        int local = -1;
-        if (e < n_entries) {
-            const int n = e / (K - 1), s = 1 + e % (K - 1);
-            local = idxb[n * K + s] - t0;
-        }
-        const bool hit = local >= 0 && local < BWD_TARGETS;
-        const unsigned mask = __ballot_sync(0xffffffffu, hit);
-        if (lane == 0) warp_hits[warp] = __popc(mask);
-        __syncthreads();
-        int base = n_found;
-        for (int w = 0; w < warp; ++w) base += warp_hits[w];
-        if (hit) entries[base + __popc(mask & ((1u << lane) - 1u))] = (local << ENTRY_BITS) | e;
-        __syncthreads();
-        if (t == 0) {
-            int total = n_found;
-            for (int w = 0; w < BWD_WARPS; ++w) total += warp_hits[w];
-            n_found = total;
-        }
-        __syncthreads();
+// The lanes of this warp whose target equals this lane's (NO_TARGET counts
+// as 2048): twelve ballots, one per bit of the target.
+__device__ __forceinline__ unsigned same_target(int target) {
+    const int key = min(target, MAX_N);
+    unsigned mask = 0xffffffffu;
+#pragma unroll
+    for (int bit = 0; bit < 12; ++bit) {
+        const unsigned ones = __ballot_sync(0xffffffffu, (key >> bit) & 1);
+        mask &= (key >> bit) & 1 ? ones : ~ones;
     }
-    const int found = n_found;
+    return mask;
+}
 
-    // ---- phase 2: one warp per target, lanes along C ----
-    for (int local = warp; local < BWD_TARGETS; local += BWD_WARPS) {
-        const int target = t0 + local;
-        if (target >= N) break;
-        float acc[BWD_C_PER_LANE];
-        const float* g0 = p.g + (static_cast<size_t>(b) * K * N + target) * C;   // slot 0
+__global__ void __launch_bounds__(CSR_THREADS)
+knn_gather_csr_kernel(const BwdParams p) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int N = p.N, K = p.K, E = N * (K - 1);
+    int* off = reinterpret_cast<int*>(smem);                                  // [N + 1]
+    unsigned short* cnt = reinterpret_cast<unsigned short*>(smem + (N + 4) / 4 * 16);  // [warps][N]
+    unsigned short* tgt = cnt + CSR_WARPS * N;                                // [E]
+    int* lists = reinterpret_cast<int*>(tgt + (E + 1) / 2 * 2);               // [E]
+    __shared__ int warp_sum[CSR_WARPS];
+    const int b = blockIdx.x, t = threadIdx.x, lane = t % 32, warp = t / 32;
+    const int* idxb = p.idx + static_cast<size_t>(b) * N * K;
+
+    // ---- the target of every entry; counts to zero ----
+    for (int i0 = 0; i0 < N * K; i0 += CSR_LOADS * CSR_THREADS) {
+        int id[CSR_LOADS];
 #pragma unroll
-        for (int i = 0; i < BWD_C_PER_LANE; ++i) {
-            const int c = lane + 32 * i;
-            acc[i] = c < C ? g0[c] : 0.f;
+        for (int j = 0; j < CSR_LOADS; ++j) {
+            const int i = i0 + j * CSR_THREADS + t;
+            id[j] = i < N * K ? idxb[i] : 0;
         }
-        for (int m0 = 0; m0 < found; m0 += 32) {
-            const int m = m0 + lane;
-            const int v = m < found ? entries[m] : -1;
-            unsigned hits = __ballot_sync(0xffffffffu, m < found && (v >> ENTRY_BITS) == local);
-            while (hits) {
-                const int src = __ffs(hits) - 1;
-                hits &= hits - 1u;
-                const int e = __shfl_sync(0xffffffffu, v, src) & ((1 << ENTRY_BITS) - 1);
-                const int n = e / (K - 1), s = 1 + e % (K - 1);
-                const float* gr = p.g + ((static_cast<size_t>(b) * K + s) * N + n) * C;
 #pragma unroll
-                for (int i = 0; i < BWD_C_PER_LANE; ++i) {
-                    const int c = lane + 32 * i;
-                    if (c < C) acc[i] += CHUNKS == 1 ? trunc_bf16(gr[c]) : gr[c];
+        for (int j = 0; j < CSR_LOADS; ++j) {
+            const int i = i0 + j * CSR_THREADS + t;
+            const int n = i / K, s = i - n * K;
+            if (i < N * K && s > 0)
+                tgt[n * (K - 1) + s - 1] = id[j] >= 0 && id[j] < N
+                    ? static_cast<unsigned short>(id[j]) : NO_TARGET;
+        }
+    }
+    for (int i = t; i < CSR_WARPS * N / 2; i += CSR_THREADS)
+        reinterpret_cast<unsigned*>(cnt)[i] = 0u;
+    __syncthreads();
+
+    // ---- each warp counts its contiguous slice of entries, per target ----
+    const int seg = (E + CSR_WARPS - 1) / CSR_WARPS;
+    const int lo = min(E, warp * seg), hi = min(E, lo + seg);
+    unsigned short* wcnt = cnt + warp * N;
+    for (int e0 = lo; e0 < hi; e0 += 32) {
+        const int e = e0 + lane;
+        const int target = e < hi ? tgt[e] : NO_TARGET;
+        const unsigned same = same_target(target);
+        if (target != NO_TARGET && lane == __ffs(same) - 1)
+            wcnt[target] += static_cast<unsigned short>(__popc(same));
+        __syncwarp();
+    }
+    __syncthreads();
+
+    // ---- per target: exclusive prefix over the warps, total into off ----
+    for (int v = t; v < N; v += CSR_THREADS) {
+        int run = 0;
+        for (int w = 0; w < CSR_WARPS; ++w) {
+            const int c = cnt[w * N + v];
+            cnt[w * N + v] = static_cast<unsigned short>(run);
+            run += c;
+        }
+        off[v] = run;
+    }
+    __syncthreads();
+
+    // ---- exclusive scan of the totals: each thread owns `per` (<= 2) ----
+    const int per = (N + CSR_THREADS - 1) / CSR_THREADS;
+    int own[2] = {0, 0}, sum = 0;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+        const int i = t * per + j;
+        own[j] = j < per && i < N ? off[i] : 0;
+        sum += own[j];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += y;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        int w = warp_sum[lane];
+#pragma unroll
+        for (int d = 1; d < 32; d *= 2) {
+            const int y = __shfl_up_sync(0xffffffffu, w, d);
+            if (lane >= d) w += y;
+        }
+        warp_sum[lane] = w;
+    }
+    __syncthreads();
+    int base = incl - sum + (warp > 0 ? warp_sum[warp - 1] : 0);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+        const int i = t * per + j;
+        if (j < per && i < N) off[i] = base;
+        base += own[j];
+    }
+    if (t == 0) off[N] = warp_sum[CSR_WARPS - 1];
+    __syncthreads();
+    int* offsets = p.offsets + static_cast<size_t>(b) * (N + 1);
+    for (int i = t; i <= N; i += CSR_THREADS) offsets[i] = off[i];
+
+    // ---- stable fill in shared memory: the warps' slices in order, each
+    // slice in order; then one coalesced copy out ----
+    for (int e0 = lo; e0 < hi; e0 += 32) {
+        const int e = e0 + lane;
+        const int target = e < hi ? tgt[e] : NO_TARGET;
+        const unsigned same = same_target(target);
+        if (target != NO_TARGET)
+            lists[off[target] + wcnt[target] + __popc(same & ((1u << lane) - 1u))] = e;
+        __syncwarp();
+        if (target != NO_TARGET && lane == __ffs(same) - 1)
+            wcnt[target] += static_cast<unsigned short>(__popc(same));
+        __syncwarp();
+    }
+    __syncthreads();
+    int* entries = p.entries + static_cast<size_t>(b) * E;
+    for (int i = t; i < off[N]; i += CSR_THREADS) entries[i] = lists[i];
+}
+
+template <int VEC> struct VecOf;
+template <> struct VecOf<1> { using T = float; };
+template <> struct VecOf<2> { using T = float2; };
+template <> struct VecOf<4> { using T = float4; };
+
+// Loads this lane's vectors of one row (vector j = lane + 32 i) into out.
+template <int VEC>
+__device__ __forceinline__ void load_row(const float* row, int cv, int lane,
+                                         float (&out)[LANE_FLOATS]) {
+    using V = typename VecOf<VEC>::T;
+    const V* src = reinterpret_cast<const V*>(row);
+#pragma unroll
+    for (int i = 0; i < LANE_FLOATS / VEC; ++i) {
+        const int j = lane + 32 * i;
+        if (j < cv) {
+            const V v = __ldg(src + j);
+            const float* f = reinterpret_cast<const float*>(&v);
+#pragma unroll
+            for (int c = 0; c < VEC; ++c) out[i * VEC + c] = f[c];
+        }
+    }
+}
+
+// Stores this lane's vectors of a row (vector j = lane + 32 i) from acc.
+template <int VEC>
+__device__ __forceinline__ void store_row(float* row, int cv, int lane,
+                                          const float (&acc)[LANE_FLOATS]) {
+    using V = typename VecOf<VEC>::T;
+    V* dst = reinterpret_cast<V*>(row);
+#pragma unroll
+    for (int i = 0; i < LANE_FLOATS / VEC; ++i) {
+        const int j = lane + 32 * i;
+        if (j < cv) {
+            V v;
+            float* f = reinterpret_cast<float*>(&v);
+#pragma unroll
+            for (int c = 0; c < VEC; ++c) f[c] = acc[i * VEC + c];
+            dst[j] = v;
+        }
+    }
+}
+
+// One warp sums SUM_TARGETS consecutive targets as one stream of rows: for
+// each target its slot-0 row, then its list's rows in ascending e. Lane i
+// holds the stream position S_i where target i starts; each group of 32
+// stream items gets its source rows from one load of the list, and the rows
+// are loaded SUM_ROWS at a time before they are added.
+template <int CHUNKS, int VEC>
+__global__ void __launch_bounds__(SUM_THREADS, SUM_MIN_BLOCKS)
+knn_gather_sum_kernel(const BwdParams p) {
+    const int b = blockIdx.y, lane = threadIdx.x % 32;
+    const int t0 = (blockIdx.x * SUM_WARPS + threadIdx.x / 32) * SUM_TARGETS;
+    if (t0 >= p.N) return;
+    const int N = p.N, C = p.C, K = p.K, cv = C / VEC;
+    const int nt = min(SUM_TARGETS, N - t0);
+    const int* list = p.entries + static_cast<size_t>(b) * N * (K - 1);
+    const float* gb = p.g + static_cast<size_t>(b) * K * N * C;
+    float* dxb = p.dx + (static_cast<size_t>(b) * N + t0) * C;
+
+    const int my_off = lane <= nt ? p.offsets[static_cast<size_t>(b) * (N + 1) + t0 + lane] : 0;
+    const int base = __shfl_sync(0xffffffffu, my_off, 0);
+    const int start = my_off - base + lane;                 // S_lane, lane <= nt
+    const int total = __shfl_sync(0xffffffffu, start, nt);  // items in the stream
+
+    float acc[LANE_FLOATS] = {};
+    int cur = 0;                                            // target acc belongs to
+    for (int m0 = 0; m0 < total; m0 += 32) {
+        // this lane's item m: its target ti, position within it, source row
+        const int m = m0 + lane;
+        int ti = -1;
+        for (int j = 0; j < nt; ++j) ti += __shfl_sync(0xffffffffu, start, j) <= m;
+        const int first = __shfl_sync(0xffffffffu, start, ti);    // S_ti
+        const int pos = m - first;
+        int src = (t0 + ti) * C;                             // slot 0
+        if (m < total && pos > 0) {
+            const int e = list[base + first - ti + pos - 1];
+            const int n = e / (K - 1), s = 1 + e - n * (K - 1);
+            src = (s * N + n) * C;
+        }
+        const int count = min(32, total - m0);
+        for (int j0 = 0; j0 < count; j0 += SUM_ROWS) {
+            float rows[SUM_ROWS][LANE_FLOATS];
+            int row_target[SUM_ROWS], row_pos[SUM_ROWS];
+#pragma unroll
+            for (int r = 0; r < SUM_ROWS; ++r) {
+                const int from = __shfl_sync(0xffffffffu, src, j0 + r);
+                row_target[r] = __shfl_sync(0xffffffffu, ti, j0 + r);
+                row_pos[r] = __shfl_sync(0xffffffffu, pos, j0 + r);
+                if (j0 + r < count) load_row<VEC>(gb + from, cv, lane, rows[r]);
+            }
+#pragma unroll
+            for (int r = 0; r < SUM_ROWS; ++r) {
+                if (j0 + r >= count) break;
+                if (row_pos[r] == 0) {                      // a new target: slot 0
+                    if (m0 + j0 + r > 0) store_row<VEC>(dxb + cur * C, cv, lane, acc);
+                    cur = row_target[r];
+#pragma unroll
+                    for (int i = 0; i < LANE_FLOATS; ++i) acc[i] = rows[r][i];
+                } else {
+#pragma unroll
+                    for (int i = 0; i < LANE_FLOATS; ++i)
+                        acc[i] += CHUNKS == 1 ? trunc_bf16(rows[r][i]) : rows[r][i];
                 }
             }
         }
-        float* out = p.dx + (static_cast<size_t>(b) * N + target) * C;
-#pragma unroll
-        for (int i = 0; i < BWD_C_PER_LANE; ++i) {
-            const int c = lane + 32 * i;
-            if (c < C) out[c] = acc[i];
-        }
+    }
+    store_row<VEC>(dxb + cur * C, cv, lane, acc);
+}
+
+template <int CHUNKS, int VEC>
+cudaError_t launch_sum(const BwdParams& p, cudaStream_t stream) {
+    constexpr int per_block = SUM_WARPS * SUM_TARGETS;
+    const dim3 grid((p.N + per_block - 1) / per_block, p.B);
+    knn_gather_sum_kernel<CHUNKS, VEC><<<grid, SUM_THREADS, 0, stream>>>(p);
+    return cudaGetLastError();
+}
+
+template <int CHUNKS>
+cudaError_t launch_sum_vec(int vec, const BwdParams& p, cudaStream_t stream) {
+    switch (vec) {
+        case 4: return launch_sum<CHUNKS, 4>(p, stream);
+        case 2: return launch_sum<CHUNKS, 2>(p, stream);
+        default: return launch_sum<CHUNKS, 1>(p, stream);
     }
 }
 
@@ -275,26 +486,47 @@ extern "C" int knn_gather_forward(const void* x, void* nbr, void* idx,
     return static_cast<int>(err);
 }
 
+// Bytes of the scratch knn_gather_backward needs for (B, N, k): the CSR of
+// the transposed neighbour graph, offsets (B, N + 1) and entries
+// (B, N (k-1)), int32.
+extern "C" size_t knn_gather_bwd_scratch_bytes(int B, int N, int k) {
+    return static_cast<size_t>(B) * (N + 1) * 4 + static_cast<size_t>(B) * N * (k - 1) * 4;
+}
+
 // Launches the knn_gather backward on `stream`: idx (B, N, k) i32 and
 // g (B, k, N, C) f32 -> dx (B, N, C) f32, every element written; slots
-// >= 1 at full f32 (n_chunks = 2) or truncated to bf16 (n_chunks = 1).
-// Returns the CUDA error code (0 = ok).
+// >= 1 at full f32 (n_chunks = 2) or truncated to bf16 (n_chunks = 1); an
+// id outside [0, N) adds nothing. `scratch` holds
+// knn_gather_bwd_scratch_bytes(B, N, k) bytes. Returns the CUDA error code
+// (0 = ok); an argument the kernels do not take returns
+// cudaErrorInvalidValue.
 extern "C" int knn_gather_backward(const void* idx, const void* g, void* dx,
+                                   void* scratch, size_t scratch_bytes,
                                    int B, int N, int C, int k, int n_chunks,
                                    void* stream) {
-    if (!valid_shape(B, N, C, k) || (n_chunks != 1 && n_chunks != 2))
+    if (!valid_shape(B, N, C, k) || (n_chunks != 1 && n_chunks != 2)
+            || scratch_bytes < knn_gather_bwd_scratch_bytes(B, N, k))
         return static_cast<int>(cudaErrorInvalidValue);
     BwdParams p{};
     p.idx = static_cast<const int*>(idx);
     p.g = static_cast<const float*>(g);
     p.dx = static_cast<float*>(dx);
+    p.offsets = static_cast<int*>(scratch);
+    p.entries = p.offsets + static_cast<size_t>(B) * (N + 1);
     p.B = B; p.N = N; p.C = C; p.K = k;
-    const size_t smem = static_cast<size_t>(N) * (k - 1) * 4;
-    auto kernel = n_chunks == 1 ? knn_gather_bwd_kernel<1> : knn_gather_bwd_kernel<2>;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const size_t smem = csr_smem_bytes(N, k);
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        knn_gather_csr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((N + BWD_TARGETS - 1) / BWD_TARGETS, B);
-    kernel<<<grid, BWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
-    return static_cast<int>(cudaGetLastError());
+    knn_gather_csr_kernel<<<B, CSR_THREADS, smem, s>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // vector width: rows start on C-float boundaries, so C and the base
+    // pointers decide the alignment
+    const uintptr_t base = reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dx);
+    const int vec = C % 4 == 0 && base % 16 == 0 ? 4 : C % 2 == 0 && base % 8 == 0 ? 2 : 1;
+    err = n_chunks == 1 ? launch_sum_vec<1>(vec, p, s) : launch_sum_vec<2>(vec, p, s);
+    return static_cast<int>(err);
 }

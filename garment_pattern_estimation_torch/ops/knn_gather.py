@@ -82,6 +82,43 @@ def knn_gather_backward_reference(idx, g, value_chunks=2):
     return dx
 
 
+def knn_gather_backward_ordered(idx, g, value_chunks=2):
+    """The backward kernel's arithmetic in plain PyTorch: dx (B, N, C) f32,
+    each target row summed as the kernel sums it, slot 0 first and then its
+    contributions in ascending entry id e = n (k-1) + s - 1, one f32 add
+    at a time. Bitwise equal to the kernel, and so its oracle of order on
+    the card; `knn_gather_backward_reference` is the oracle of value. Ids
+    outside [0, N) add nothing, as in the kernel. Slow for a hub: one round
+    of adds per list position."""
+    B, k, N, C = g.shape
+    g = g.float()
+    dx = g[:, 0].clone()
+    if k == 1:
+        return dx
+    E = N * (k - 1)
+    tgt = idx[:, :, 1:].reshape(B, E).long()
+    rows = g[:, 1:].permute(0, 2, 1, 3).reshape(B * E, C)     # entry order
+    if value_chunks == 1:
+        rows = truncate_bf16(rows)
+    valid = (tgt >= 0) & (tgt < N)
+    flat = (tgt + (torch.arange(B, device=g.device) * N)[:, None]).reshape(-1)
+    entry = torch.arange(B * E, device=g.device)
+    order = torch.argsort(torch.where(valid.reshape(-1), flat, B * N) * (B * E) + entry)
+    flat, entry = flat[order], entry[order]
+    n_valid = int(valid.sum())
+    flat, entry = flat[:n_valid], entry[:n_valid]
+    # each entry's position within its target's list
+    first = torch.ones_like(flat, dtype=torch.bool)
+    first[1:] = flat[1:] != flat[:-1]
+    starts = torch.cummax(torch.where(first, torch.arange(n_valid, device=g.device), 0), 0).values
+    rank = torch.arange(n_valid, device=g.device) - starts
+    out = dx.view(B * N, C)
+    for r in range(int(rank.max()) + 1 if n_valid else 0):
+        sel = rank == r                      # at most one entry per target
+        out[flat[sel]] += rows[entry[sel]]
+    return dx
+
+
 def _check(x, k):
     if x.dtype != torch.float32:
         raise TypeError(f'knn_gather: x must be float32, got {x.dtype}')
@@ -107,8 +144,10 @@ def _library():
     lib.knn_gather_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_size_t] \
         + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.knn_gather_backward.restype = ctypes.c_int
-    lib.knn_gather_backward.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
+    lib.knn_gather_backward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_size_t] \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.knn_gather_bwd_scratch_bytes.restype = ctypes.c_size_t
+    lib.knn_gather_bwd_scratch_bytes.argtypes = [ctypes.c_int] * 3
     return lib
 
 
@@ -141,7 +180,9 @@ def knn_gather_bwd(idx, g, value_chunks=2):
     """The backward alone: ids (B, N, k) and g (B, k, N, C) -> dx (B, N, C)
     f32, slots >= 1 at full f32 (`value_chunks=2`) or truncated to bf16
     (1). A CPU tensor takes `knn_gather_backward_reference`; a CUDA tensor
-    launches the backward kernel or raises."""
+    launches the backward kernels (CSR build into a scratch of the
+    library's `knn_gather_bwd_scratch_bytes(B, N, k)`, then the sum) or
+    raises."""
     if value_chunks not in (1, 2):
         raise ValueError(f'knn_gather: value_chunks must be 1 or 2, got {value_chunks}')
     if g.device.type == 'cpu':
@@ -157,9 +198,12 @@ def knn_gather_bwd(idx, g, value_chunks=2):
     idx = idx.to(torch.int32).contiguous()
     g = g.float().contiguous()
     dx = torch.empty(B, N, C, device=g.device, dtype=torch.float32)
-    err = _library().knn_gather_backward(
-        idx.data_ptr(), g.data_ptr(), dx.data_ptr(), B, N, C, k, value_chunks,
-        torch.cuda.current_stream(g.device).cuda_stream)
+    lib = _library()
+    scratch = torch.empty(lib.knn_gather_bwd_scratch_bytes(B, N, k), device=g.device,
+                          dtype=torch.uint8)
+    err = lib.knn_gather_backward(
+        idx.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(), scratch.numel(),
+        B, N, C, k, value_chunks, torch.cuda.current_stream(g.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'knn_gather: backward launch failed with CUDA error {err}')
     launches['bwd' if value_chunks == 2 else 'bwd_hi'] += 1
@@ -168,7 +212,8 @@ def knn_gather_bwd(idx, g, value_chunks=2):
 
 class KnnGather(torch.autograd.Function):
     """Forward: the kNN + gather (kernel 8 on the card); backward: the
-    scatter-add of the neighbour cotangents (kernel 9 on the card)."""
+    scatter-add of the neighbour cotangents (kernel 9 on the card: the
+    transposed graph's CSR, then one gathered sum per target)."""
 
     @staticmethod
     def forward(ctx, x, k, value_chunks):

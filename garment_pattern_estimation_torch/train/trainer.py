@@ -1,23 +1,34 @@
-"""The training step of the port: optimizer, one-cycle schedule, loss-phase
-bookkeeping, and one train or eval step on a batch.
+"""Training of the port: optimizer, one-cycle schedule, loss-phase
+bookkeeping, one train or eval step on a batch, and `Trainer.fit` over a
+dataset with its tracker, checkpoints, early stopping and f32 tail.
 
-Counterpart of garment_pattern_estimation_tpu/train/trainer.py:123-266.
-`Trainer.fit` over a dataset waits for the port's own copies of the data
-pipeline (ROADMAP queue A6); a caller drives the steps itself:
+Counterpart of garment_pattern_estimation_tpu/train/trainer.py:46-652.
+Over a dataset (ROADMAP queue A item 1):
+
+    trainer = Trainer(config['trainer'], experiment, dataset, config['data_split'])
+    model = build_model(..., dataset.config, ...)         # on CUDA
+    trainer.fit(model)
+
+or a caller drives the steps itself:
 
     trainer = Trainer(config['trainer'])                  # on CUDA
     trainer.make_optimizer(model, steps_per_epoch)
     loss, terms = trainer.train_step(model, batch, epoch, generator)
 
 A batch is {'features': (B, N, 3) standardized points, 'ground_truth':
-{name: tensor}} as the dataset yields it.
+{name: tensor}} as `data.DataLoader` collates it. Not ported: image logging
+(`with_visualization`, matplotlib), on-device sampling, the device mesh and
+data-parallel placement, and the profiler window; the first two raise.
 """
 from __future__ import annotations
 
 import math
+import time
 
+import numpy as np
 import torch
 
+from ..data import DatasetWrapper
 from ..device import resolve_device
 
 
@@ -69,14 +80,81 @@ def canonical_epoch(loss_config, stitch_phase, order_random):
 
 class Trainer:
     """`setup` is the config's `trainer:` section (learning_rate, optimizer,
-    weight_decay, lr_scheduling, epochs, ...)."""
+    weight_decay, lr_scheduling, epochs, batch_size, random_seed, best_by,
+    early_stopping, f32_tail_epochs, ...). `experiment_tracker`, `dataset`
+    and `data_split` are needed by `fit` only; `device` None is CUDA."""
 
-    def __init__(self, setup, device=None):
+    def __init__(self, setup, experiment_tracker=None, dataset=None, data_split=None,
+                 with_norm=True, with_visualization=False, device=None):
+        if with_visualization:
+            raise NotImplementedError(
+                'Trainer: with_visualization (image logging, core/render.py) is not '
+                'ported yet (ROADMAP queue A item 6)')
         self.setup = dict(setup)
         self.device = resolve_device(device)
+        self.experiment = experiment_tracker
+        self.datawrapper = None
+        self.standardize_data = with_norm
         self.optimizer = None
         self.schedule = None
         self.step_count = 0
+        self._root_seed = None
+
+        # trainer.best_by: the 'best' checkpoint tracks a validation metric
+        # instead of the loss (garment_pattern_estimation_tpu/train/trainer.py:57-90)
+        self._monitor_key = self.setup.get('best_by') or None
+        mode = self.setup.get('best_by_mode')
+        if mode is not None and mode not in ('max', 'min'):
+            raise ValueError(f"Trainer: best_by_mode must be 'max' or 'min', got {mode!r}")
+        if mode is not None:
+            self._monitor_max = mode == 'max'
+        else:
+            self._monitor_max = bool(self._monitor_key) and any(
+                t in self._monitor_key for t in ('acc', 'precision', 'recall'))
+        if self._monitor_key:
+            print(f"Trainer::best checkpoint tracks '{self._monitor_key}' "
+                  f"({'maximize' if self._monitor_max else 'minimize'}"
+                  f"{', inferred' if mode is None else ''}), "
+                  'ties broken by validation loss')
+        self._monitor_warned_absent = False
+
+        if dataset is not None:
+            self.use_dataset(dataset, data_split or {})
+
+    # ------------- setup -------------
+    def init_randomizer(self, random_seed=None):
+        """Fix the training seed and record it in the config
+        (garment_pattern_estimation_tpu/train/trainer.py:96)."""
+        if random_seed:
+            self.setup['random_seed'] = random_seed
+        elif not self.setup.get('random_seed'):
+            self.setup['random_seed'] = int(time.time())
+        self._root_seed = int(self.setup['random_seed'])
+
+    def use_dataset(self, dataset, split_info):
+        """Split, loaders and (with_norm) standardization
+        (garment_pattern_estimation_tpu/train/trainer.py:104)."""
+        self.datawrapper = DatasetWrapper(dataset)
+        self.datawrapper.load_split(split_info)
+        self.datawrapper.new_loaders(self.setup['batch_size'], shuffle_train=True)
+        workers = dataset.config.get('cache_fill_workers')
+        if workers and workers > 1:
+            start = time.time()
+            n = dataset.warm_cache(workers=workers)
+            if n:
+                print(f'Trainer::warmed {n} samples with {workers} workers '
+                      f'in {time.time() - start:.1f} s')
+        if self.standardize_data:
+            self.datawrapper.standardize_data()
+        return self.datawrapper
+
+    def _generator(self, stream):
+        """A generator on the device seeded from the run's seed and `stream`
+        (the step + 1 for training, 2**20 + epoch for validation): the
+        counterpart of JAX's fold_in(root, stream). Its draws differ from
+        JAX's; their law is the same."""
+        seed = (self._root_seed * 1_000_003 + stream) % (2 ** 63)
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     def make_optimizer(self, model, steps_per_epoch):
         """Adam or SGD over the model's parameters with the one-cycle (or a
@@ -139,3 +217,267 @@ class Trainer:
         preds = model.module(features, generator=generator)
         loss, loss_dict, _ = model.loss(preds, gt, epoch=epoch_c)
         return loss, loss_dict
+
+    # ------------- fit -------------
+    def fit(self, model, state=None):
+        """Train `model` (`models.GarmentModel`) over the dataset for
+        `setup['epochs']` epochs, resuming from the run's 'latest'
+        checkpoint when the tracker's run exists
+        (garment_pattern_estimation_tpu/train/trainer.py:286-551). `state`
+        is a state dict of the module to start from (e.g.
+        `models.flax_import.state_dict_from_flax` of JAX variables); None
+        keeps the module's weights. Returns the module's final state dict.
+
+        Losses stay on the device through an epoch's batches and are
+        fetched once per epoch. Under `compute_dtype: bfloat16` the last
+        `f32_tail_epochs` epochs (or every epoch after an early-stop signal
+        in the bf16 phase) run the module in f32, parameters and optimizer
+        state shared; the module's compute dtypes are restored on return."""
+        if not self.datawrapper:
+            raise RuntimeError('Trainer: fit called before use_dataset()')
+        if self.datawrapper.dataset.config.get('on_device_sampling'):
+            raise NotImplementedError(
+                'Trainer: on_device_sampling '
+                '(garment_pattern_estimation_tpu/preprocess/device_sampling.py) is not ported')
+        if self.experiment is None:
+            raise RuntimeError('Trainer: fit needs an experiment tracker')
+        if self._root_seed is None:
+            self.init_randomizer()
+
+        start_epoch = self._start_experiment(model)
+        # loaders and the schedule only after _start_experiment: a resumed
+        # run reloads its stored split there
+        train_loader = self.datawrapper.loaders.train
+        valid_loader = self.datawrapper.loaders.validation
+        # batches assembled in this thread: the step's host time (Python
+        # dispatch) is the bottleneck, and a prefetch thread holding the
+        # interpreter lock slows it by more than it overlaps (PERF.md §5,
+        # fit); page-locked batches, so their copies to the card do not
+        # wait for the previous step's kernels
+        for loader in (train_loader, valid_loader):
+            loader.prefetch = 0
+            loader.pin_memory = self.device.type == 'cuda'
+        if len(train_loader) == 0:
+            raise ValueError(
+                f'Trainer: training subset ({len(self.datawrapper.training)} '
+                f'samples) produces no batches at batch_size='
+                f'{self.datawrapper.batch_size} (partial batches are '
+                'dropped): lower trainer.batch_size or provide more data')
+        if state is not None:
+            model.module.load_state_dict(state)
+        self.make_optimizer(model, len(train_loader))
+
+        if start_epoch > 0:
+            checkpoint = self.experiment.get_checkpoint_file('latest', map_location=self.device)
+            model.module.load_state_dict(checkpoint['model'])
+            self.optimizer.load_state_dict(checkpoint['optimizer'])
+            self.step_count = checkpoint['step']
+            self.experiment.checkpoint_counter = max(
+                self.experiment.checkpoint_counter, start_epoch)
+            print(f'Trainer::Resumed run from epoch {start_epoch}')
+
+        best_valid_loss = self.experiment.last_best_validation_loss()
+        best_monitor = self.experiment.summary.get('best_monitor') \
+            if self._monitor_key else None
+        es_tracking = []
+        loss_config = model.loss.config
+        log_step = self.step_count - 1
+
+        bf16 = model.config.get('compute_dtype') not in (None, 'float32')
+        f32_tail = int(self.setup.get('f32_tail_epochs', 0) or 0)
+        tail_start = self.setup['epochs'] - f32_tail if f32_tail else None
+        stored_tail = self.experiment.summary.get('f32_tail_entered')
+        if tail_start is not None and stored_tail is not None:
+            tail_start = min(tail_start, int(stored_tail))
+        dtypes = {m: m.compute_dtype for m in model.module.modules()
+                  if hasattr(m, 'compute_dtype')}
+        in_tail = False
+        try:
+            for epoch in range(start_epoch, self.setup['epochs']):
+                if tail_start is not None and epoch >= tail_start and bf16 and not in_tail:
+                    in_tail = True
+                    for m in dtypes:
+                        m.compute_dtype = None
+                    print(f'Trainer::precision tail: compute_dtype bfloat16 -> float32 '
+                          f'for the final {self.setup["epochs"] - epoch} epochs')
+                epoch_start = time.perf_counter()
+
+                pending, waits = [], []
+                batches = iter(train_loader)
+                for batch_i in range(len(train_loader)):
+                    wait_start = time.perf_counter()
+                    try:
+                        batch = next(batches)
+                    except StopIteration:
+                        break
+                    step_start = time.perf_counter()
+                    loss, loss_dict = self.train_step(
+                        model, batch, epoch, self._generator(self.step_count + 1))
+                    log_step += 1
+                    pending.append((log_step, batch_i, self.step_count - 1, loss, loss_dict,
+                                    time.perf_counter() - step_start,
+                                    step_start - wait_start))
+
+                # one transfer for the whole epoch's losses and metrics
+                names = sorted(pending[0][4]) if pending else []
+                fetched = torch.stack([
+                    torch.stack([p[3].float()] + [p[4][k].float() for k in names])
+                    for p in pending]).cpu().numpy() if pending else np.zeros((0, 1))
+                train_time = time.perf_counter() - epoch_start
+                epoch_losses = fetched[:, 0]
+                last_loss = np.nan if np.any(np.isnan(epoch_losses)) \
+                    else (float(epoch_losses[-1]) if len(epoch_losses) else np.nan)
+                for (lstep, bi, sc, _, _, step_time, data_time), row in zip(pending, fetched):
+                    record = {k: float(v) for k, v in zip(names, row[1:])}
+                    record.update(epoch=epoch, batch=bi, loss=float(row[0]),
+                                  learning_rate=float(self.schedule(sc)),
+                                  step_time=step_time, data_time=data_time)
+                    self.experiment.log(record, step=lstep)
+
+                # validation: one transfer at the end
+                valid_losses, valid_monitors = [], []
+                for batch in valid_loader:
+                    vloss, vdict = self.eval_step(model, batch, epoch,
+                                                  self._generator(2 ** 20 + epoch))
+                    valid_losses.append(vloss)
+                    if self._monitor_key:
+                        if self._monitor_key not in vdict:
+                            if not self._monitor_warned_absent:
+                                self._monitor_warned_absent = True
+                                print(f'Trainer::Warning::best_by metric '
+                                      f'{self._monitor_key!r} not in the validation loss '
+                                      f'dict this phase (available: {sorted(vdict)}); '
+                                      'using the validation-loss rule until it appears')
+                        else:
+                            valid_monitors.append(vdict[self._monitor_key])
+                valid_loss = float(torch.stack(valid_losses).float().mean()) \
+                    if valid_losses else float('nan')
+                valid_monitor = float(torch.stack(valid_monitors).float().mean()) \
+                    if valid_monitors else None
+
+                structure_update = (
+                    epoch == loss_config.get('epoch_with_stitches', 40)
+                    and any(c in loss_config['loss_components']
+                            for c in ('stitch', 'stitch_supervised', 'free_class'))
+                ) or (epoch == loss_config.get('epoch_with_order_matching', 0)
+                      and loss_config.get('panel_order_inariant_loss', False))
+                improved = self._best_update(valid_loss, valid_monitor, best_valid_loss,
+                                             best_monitor, self._monitor_max)
+                if structure_update or improved:
+                    best_valid_loss = valid_loss if np.isfinite(valid_loss) else None
+                    if valid_monitor is not None:
+                        best_monitor = valid_monitor if np.isfinite(valid_monitor) else None
+                    self._save_checkpoint(model, epoch, best=True)
+                else:
+                    self._save_checkpoint(model, epoch)
+
+                print(f'Epoch: {epoch}, Validation Loss: {valid_loss}')
+                epoch_record = {'epoch': epoch, 'valid_loss': valid_loss,
+                                'best_valid_loss': best_valid_loss,
+                                'compute_dtype': 'float32' if in_tail or not bf16
+                                else 'bfloat16',
+                                # wall seconds: the epoch, its batch loop up to the
+                                # losses' fetch, and the loop's waits on the loader
+                                'epoch_time': time.perf_counter() - epoch_start,
+                                'train_time': train_time,
+                                'data_time': float(sum(p[6] for p in pending))}
+                if valid_monitor is not None:
+                    epoch_record[f'valid_{self._monitor_key}'] = valid_monitor
+                    epoch_record['best_monitor'] = best_monitor
+                    self.experiment.add_statistic('best_monitor', best_monitor)
+                self.experiment.log(epoch_record, step=log_step)
+                self.experiment.add_statistic('best_valid_loss', best_valid_loss)
+
+                if self._early_stopping(es_tracking, last_loss, best_valid_loss,
+                                        float(self.schedule(self.step_count))):
+                    if (tail_start is not None and not in_tail and bf16
+                            and not np.isnan(last_loss)):
+                        # the bf16 phase converged before the scheduled tail:
+                        # enter the f32 tail now instead of stopping
+                        tail_start = epoch + 1
+                        es_tracking.clear()
+                        self.experiment.add_statistic('f32_tail_entered', tail_start)
+                        print('Trainer::early-stop signal in the bf16 phase -> '
+                              'entering the f32 precision tail early')
+                        continue
+                    print('Trainer::Stopped training early')
+                    break
+        finally:
+            for m, dtype in dtypes.items():
+                m.compute_dtype = dtype
+
+        print('Trainer::Finished training')
+        return model.module.state_dict()
+
+    # ------------- internals -------------
+    def _start_experiment(self, model):
+        """Start or resume the tracker's run; a resumed run reloads its
+        stored split and data config
+        (garment_pattern_estimation_tpu/train/trainer.py:584)."""
+        self.experiment.init_run({'trainer': self.setup})
+        if self.experiment.resumed:
+            start_epoch = self.experiment.last_epoch() + 1
+            split, batch_size, data_config = self.experiment.data_info()
+            self.datawrapper.dataset.update_config(data_config)
+            self.datawrapper.load_split(split, batch_size)
+        else:
+            start_epoch = 0
+            self.datawrapper.save_to_wandb(self.experiment)
+            self.experiment.add_config('NN', model.config)
+        return start_epoch
+
+    def _save_checkpoint(self, model, epoch, best=False):
+        """(garment_pattern_estimation_tpu/train/trainer.py:597)"""
+        state = {'epoch': epoch, 'step': self.step_count,
+                 'model': model.module.state_dict(),
+                 'optimizer': self.optimizer.state_dict()}
+        self.experiment.save_checkpoint(state, aliases=['best'] if best else [])
+
+    @staticmethod
+    def _best_update(valid_loss, valid_monitor, best_valid_loss, best_monitor,
+                     monitor_max):
+        """Should this epoch become the 'best' checkpoint? Without a monitor
+        the lowest finite validation loss; with one (`best_by`) a strictly
+        better monitor, equal monitors broken by the loss. NaNs never latch
+        (garment_pattern_estimation_tpu/train/trainer.py:604)."""
+        if valid_monitor is None:
+            return bool(np.isfinite(valid_loss) and (
+                best_valid_loss is None or not np.isfinite(best_valid_loss)
+                or valid_loss < best_valid_loss))
+        if not np.isfinite(valid_monitor):
+            return False
+        if best_monitor is None or not np.isfinite(best_monitor):
+            return True
+        sign = 1.0 if monitor_max else -1.0
+        if sign * valid_monitor > sign * best_monitor:
+            return True
+        return bool(valid_monitor == best_monitor
+                    and np.isfinite(valid_loss)
+                    and (best_valid_loss is None
+                         or not np.isfinite(best_valid_loss)
+                         or valid_loss < best_valid_loss))
+
+    def _early_stopping(self, es_tracking, last_loss, best_valid, last_lr):
+        """A NaN loss, a flat best validation loss over `patience` epochs
+        (within `window`) or a vanished learning rate stop the run
+        (garment_pattern_estimation_tpu/train/trainer.py:630)."""
+        if np.isnan(last_loss):
+            self.experiment.add_statistic('stopped early', 'Nan in losses',
+                                          log='Trainer::EarlyStopping')
+            return True
+        if best_valid is not None:
+            es_tracking.append(float(best_valid))
+        patience = int(self.setup.get('early_stopping', {}).get('patience', 50))
+        window = float(self.setup.get('early_stopping', {}).get('window', 1e-4))
+        if len(es_tracking) > patience + 1:
+            es_tracking.pop(0)
+            if abs(max(es_tracking) - min(es_tracking)) < window:
+                self.experiment.add_statistic(
+                    'stopped early', f'Metric have not changed for {patience} epochs',
+                    log='Trainer::EarlyStopping')
+                return True
+        if last_lr < 1e-6:
+            self.experiment.add_statistic('stopped early', 'Learning Rate vanished',
+                                          log='Trainer::EarlyStopping')
+            return True
+        return False

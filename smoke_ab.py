@@ -7,8 +7,8 @@ Runs each tree's chip_smoke.py in the order A, B, B, A, a process per run
 chiprun_out/smoke_ab/, and prints one JSON line per run: its exit code,
 each kernel's ms, bound_ms and launches from the kernels line, and the
 end-to-end numbers (att serving batch ms, att training step ms, stress
-serving batch ms and peak GB, stress training step ms and peak GB), and
-the tiled layers' selection / edge-MLP split where the run prints one. Then
+serving batch ms and peak GB, stress training step ms and peak GB, the
+fit phases' seconds where the tree has them), and the tiled layers' selection / edge-MLP split where the run prints one. Then
 the card's name and power limit. Exits non-zero if any run failed.
 """
 import json
@@ -19,7 +19,8 @@ from pathlib import Path
 ORDER = (0, 1, 1, 0)
 END_TO_END = {'serving': ('batch_ms',), 'training': ('step_ms',),
               'stress_serving': ('batch_ms', 'peak_memory_gb'),
-              'stress_training': ('step_ms', 'peak_memory_gb')}
+              'stress_training': ('step_ms', 'peak_memory_gb'),
+              'fit': ('fit_s',), 'fit_bf16': ('fit_s',)}
 
 
 def summary(stdout):

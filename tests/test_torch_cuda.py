@@ -22,11 +22,13 @@ variants'. The standalone kNN's ids equal the plain version's exactly.
 knn_gather: ids as above; gathered rows bitwise equal to the plain
 version's where the ids agree (both copy or split the same f32 value);
 dx within 1e-5 of its largest magnitude of the plain `index_add_` on the
-kernel's own ids (the two sum the same f32 terms in another order), and
-bitwise equal across two runs (the backward uses no float atomics). The
+kernel's own ids (the two sum the same f32 terms in another order),
+bitwise equal across two runs (the backward uses no float atomics) and
+bitwise equal to `knn_gather_backward_ordered` (slot 0, then ascending
+entry id), also where one hub point holds every entry. The
 single-chunk backward (value_chunks=1) truncates the slots >= 1 to bf16 as
-the plain version does, with the same bars, at every N around its
-32-target blocks, every k and ids that repeat.
+the plain version does, with the same bars, at N from 1 to 2048, every k
+and ids that repeat.
 
 The small-C selection (the fused layer, knn_gather and the kNN) runs 128
 query rows per block against 8 key lanes: its ids equal the plain
@@ -335,6 +337,72 @@ def test_knn_gather_single_chunk_backward(cuda, rng, n_points, k):
     if k > 1:                             # the truncation is not a no-op here
         full = knn_gather.knn_gather_backward_reference(idx, g, value_chunks=2)
         assert (full - ref_dx).abs().max().item() > 1e-5 * scale
+
+
+@pytest.mark.parametrize('n_points,k,C,value_chunks', [
+    (n, k, c, v) for n in (1, 31, 32, 33, 2048) for k in range(1, 9) if k <= n
+    for c in (3, 24, 150, 256) for v in (1, 2)])
+def test_knn_gather_backward_order(cuda, rng, n_points, k, C, value_chunks):
+    """The backward kernels (CSR of the transposed graph, then one gathered
+    sum per target) on ids drawn from all N points: bitwise equal to
+    `knn_gather_backward_ordered` (slot 0, then ascending entry id: the
+    summation order of the kernel they replaced), bitwise equal across two
+    runs, and within 1e-5 of the plain version's largest magnitude."""
+    B = 2
+    idx = torch.from_numpy(rng.integers(0, n_points, size=(B, n_points, k)))
+    idx[:, :, 0] = torch.arange(n_points)
+    idx = idx.to(cuda)
+    g = torch.from_numpy(rng.normal(size=(B, k, n_points, C)).astype(np.float32)).to(cuda)
+    dx = knn_gather.knn_gather_bwd(idx, g, value_chunks)
+    dx_again = knn_gather.knn_gather_bwd(idx, g, value_chunks)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx_again)
+    assert torch.equal(dx, knn_gather.knn_gather_backward_ordered(idx, g, value_chunks))
+    ref_dx = knn_gather.knn_gather_backward_reference(idx, g, value_chunks)
+    assert (dx - ref_dx).abs().max().item() <= 1e-5 * ref_dx.abs().max().item()
+
+
+@pytest.mark.parametrize('n_points,k,C,value_chunks', [
+    (33, 5, 150, 2), (33, 8, 3, 1), (2000, 5, 150, 2), (2000, 5, 150, 1),
+    (2048, 8, 256, 2), (2048, 2, 24, 1)])
+def test_knn_gather_backward_hub(cuda, rng, n_points, k, C, value_chunks):
+    """Every query names one hub point in every slot >= 1, so the hub's list
+    holds all N (k-1) entries and every other list is empty: the kernels
+    equal the ordered sum bitwise and the plain version within 1e-5."""
+    B, hub = 2, n_points // 3
+    idx = torch.full((B, n_points, k), hub, dtype=torch.int64)
+    idx[:, :, 0] = torch.arange(n_points)
+    idx = idx.to(cuda)
+    g = torch.from_numpy(rng.normal(size=(B, k, n_points, C)).astype(np.float32)).to(cuda)
+    dx = knn_gather.knn_gather_bwd(idx, g, value_chunks)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, knn_gather.knn_gather_backward_ordered(idx, g, value_chunks))
+    ref_dx = knn_gather.knn_gather_backward_reference(idx, g, value_chunks)
+    assert (dx - ref_dx).abs().max().item() <= 1e-5 * ref_dx.abs().max().item()
+
+
+def test_knn_gather_backward_scratch(cuda):
+    """The library's backward takes a scratch of the size it asks for and
+    refuses one byte less (cudaErrorInvalidValue, no launch)."""
+    B, N, k, C = 2, 100, 5, 24
+    idx = torch.randint(0, N, (B, N, k), device=cuda, dtype=torch.int32)
+    g = torch.randn(B, k, N, C, device=cuda)
+    dx = torch.zeros(B, N, C, device=cuda)
+    lib = knn_gather._library()
+    need = lib.knn_gather_bwd_scratch_bytes(B, N, k)
+    assert need == B * (N + 1) * 4 + B * N * (k - 1) * 4
+    scratch = torch.empty(need, device=cuda, dtype=torch.uint8)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def run(size):
+        return lib.knn_gather_backward(idx.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                                       scratch.data_ptr(), size, B, N, C, k, 2, stream)
+    assert run(need - 1) == 1
+    torch.cuda.synchronize()
+    assert not dx.any()
+    assert run(need) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(dx, knn_gather.knn_gather_bwd(idx, g, 2))
 
 
 def _check_small_c_entries(cuda, x, k, folded):

@@ -229,3 +229,33 @@ def test_sparsemax_loss_and_gradient_match_jax(rng):
     onehot = np.eye(23, dtype=np.float32)[labels]
     np.testing.assert_allclose(zt.grad.numpy(), sparsemax(zt.detach()).numpy() - onehot,
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize('n_points,k,C,value_chunks,hub', [
+    (31, 5, 3, 2, False), (33, 8, 24, 1, False), (64, 1, 7, 2, False),
+    (40, 5, 6, 2, True), (40, 4, 6, 1, True)])
+def test_backward_ordered_sums_in_kernel_order(rng, n_points, k, C, value_chunks, hub):
+    """`knn_gather_backward_ordered`, the card's oracle of order: bitwise
+    equal to a loop that adds, per target, slot 0 and then every entry
+    e = n (k-1) + s - 1 naming it in ascending e (one f32 add at a time,
+    slots >= 1 truncated at value_chunks=1), and within 1e-5 of the plain
+    index_add_ version; a hub named in every slot >= 1 included."""
+    B = 2
+    idx = rng.integers(0, n_points, size=(B, n_points, k))
+    if hub:
+        idx[:] = n_points // 3
+    idx[:, :, 0] = np.arange(n_points)
+    g = rng.normal(size=(B, k, n_points, C)).astype(np.float32)
+    rows = g if value_chunks == 2 else (g.view(np.uint32) & 0xFFFF0000).view(np.float32)
+    expected = g[:, 0].copy()
+    for b in range(B):
+        for e in range(n_points * (k - 1)):
+            n, s = divmod(e, k - 1)
+            target = idx[b, n, s + 1]
+            expected[b, target] = expected[b, target] + rows[b, s + 1, n]
+    got = knn_gather.knn_gather_backward_ordered(torch.from_numpy(idx), torch.from_numpy(g),
+                                                 value_chunks).numpy()
+    np.testing.assert_array_equal(got, expected)
+    ref = knn_gather.knn_gather_backward_reference(torch.from_numpy(idx), torch.from_numpy(g),
+                                                   value_chunks).numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()

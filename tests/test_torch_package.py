@@ -44,6 +44,19 @@ def test_import_scan_covers_the_training_modules():
             'ops/edgeconv_train.py', 'ops/knn.py'} <= scanned
 
 
+def test_import_scan_covers_the_data_pipeline():
+    """The port's own copies of the JAX package's host-side modules are
+    scanned too."""
+    scanned = {str(p.relative_to(_PACKAGE)) for p in _PACKAGE.rglob('*.py')}
+    assert {'core/rotations.py', 'core/pattern_spec.py', 'core/pattern_codec.py',
+            'core/panel_classes.py', 'core/properties.py', 'preprocess/native.py',
+            'preprocess/mesh.py', 'losses/stitches.py', 'data/transforms.py',
+            'data/sampler.py', 'data/loader.py', 'data/utils.py', 'data/datasets.py',
+            'data/wrapper.py', 'utils/synthetic.py', 'experiment/checkpoint.py',
+            'experiment/tracker.py'} <= scanned
+    assert (_PACKAGE / 'preprocess' / '_native' / 'mesh_ops.cpp').exists()
+
+
 def test_chip_smoke_imports_no_jax():
     path = _PACKAGE.parent / 'chip_smoke.py'
     bad = sorted(set(_imported_roots(path)) & set(_FORBIDDEN))
