@@ -126,8 +126,36 @@ Then Trainer.fit over a dataset (ROADMAP queue A item 1):
   fit_bf16 the same model in the bf16 mode with f32_tail_epochs 1 over
            FIT_EPOCHS epochs: the tail on at the last epoch ('bwd' launches
            there, 'bwd_hi' before), finite losses
+The baseline model GarmentFullPattern3D (configs/lstm_stitch_tags.yaml,
+f32: global encoder, a 2-layer pattern LSTM unrolling 23 panel encodings,
+the 3-layer panel LSTM; its loss with panel-order and loop-origin matching,
+the stitch-tag loss, free-edge classification and stitch precision/recall)
+at its published widths, seeded weights, between the bf16 phases and fit:
+  serving_lstm  build_serving_fn on the (64, 2000, 3) batch of seed 1, as
+           `serving`: 2 fused launches per forward, batch ms (median after
+           the first call), clouds/s, peak memory, a 2-cloud batch against
+           the CPU plain path at the serving bars
+  training_lstm  one (30, 2000, 3) batch of seed 4 whose GT adds the
+           dataset's stitches, stitch counts, free-edge and empty-panel
+           masks (empty panels with zero placements: their order-matching
+           distances tie exactly): LSTM_TRAIN_STEPS steps at epoch 0, then
+           LSTM_TRAIN_STEPS at epoch 40 (the stitch phase): 1 + 1 + 1
+           knn_gather launches per step, median ms of each phase and their
+           difference (the stitch terms and the 161-step stitch decode of
+           the quality metrics), the loss alone in each phase, one eval_step
+           through the fused kernel, the stitch terms present only at epoch
+           40, and a 2-cloud step against the CPU plain path in each phase
+           at the training phase's bars
+  profile  the epoch-40 training step of the baseline
+  fit_lstm `fit` of the baseline on the same data and split, its loss
+           section with `epoch_with_stitches` cut from 40 to 1 so that the
+           stitch phase and its 'best' reset are reached within the
+           FIT_EPOCHS epochs, then 1 resumed epoch: epoch s, ms per step,
+           the mean train loss per epoch (the shape terms must fall) and the
+           training steps' stitch recall
 Each of rows 4, 5, 8 and 9 in the kernels line carries `launches_fit`, its
-launches in the f32 or bf16 fit.
+launches in the f32 or bf16 fit, and the f32 entries `launches_lstm` and
+`launches_fit_lstm`, the baseline's serving or training and its fit.
 Then each phase's seconds, the card's name and power limit, the kernels
 line (each bf16-mode kernel an entry of its own, its launches from the bf16
 phases), and as the last line {"ok": true, "device": {...}}. Any failed
@@ -206,6 +234,29 @@ ATT_LOSS_CONFIG = {
 }
 # configs/att_bf16.yaml: att.yaml's model in the bf16 mixed-precision mode
 ATT_BF16_NN_CONFIG = dict(ATT_NN_CONFIG, compute_dtype='bfloat16')
+# configs/lstm_stitch_tags.yaml: the baseline GarmentFullPattern3D, its NN
+# and loss sections (same data layout and standardization as att.yaml)
+LSTM_MODEL = 'GarmentFullPattern3D'
+LSTM_NN_CONFIG = {
+    'feature_extractor': 'EdgeConvFeatures', 'conv_depth': 2, 'k_neighbors': 5,
+    'EConv_hidden': 200, 'EConv_hidden_depth': 2, 'EConv_feature': 150, 'EConv_aggr': 'max',
+    'global_pool': 'mean', 'skip_connections': True, 'panel_decoder': 'LSTMDecoderModule',
+    'panel_encoding_size': 250, 'panel_hidden_size': 250, 'panel_n_layers': 3,
+    'lstm_init': 'kaiming_normal_', 'pattern_decoder': 'LSTMDecoderModule',
+    'pattern_encoding_size': 250, 'pattern_hidden_size': 250, 'pattern_n_layers': 2,
+    'stitch_tag_dim': 3,
+}
+LSTM_LOSS_CONFIG = {
+    'loss_components': ['shape', 'loop', 'rotation', 'translation', 'stitch', 'free_class'],
+    'quality_components': ['shape', 'discrete', 'rotation', 'translation', 'stitch',
+                           'free_class'],
+    'stitch_tags_margin': 0.3, 'stitch_hardnet_version': False, 'loop_loss_weight': 1.0,
+    'epoch_with_stitches': 40, 'panel_origin_invariant_loss': True,
+    'panel_order_inariant_loss': True, 'epoch_with_order_matching': 0,
+    'order_by': 'shape_translation',
+}
+LSTM_TRAIN_STEPS = 3                # per loss phase: epoch 0, then epoch 40
+LSTM_STITCH_EPOCH = LSTM_LOSS_CONFIG['epoch_with_stitches']
 ATT_TRAINER = {
     'batch_size': 30, 'epochs': 350, 'random_seed': 916143406, 'learning_rate': 0.002,
     'optimizer': 'Adam', 'weight_decay': 0, 'lr_scheduling': {'mode': '1cyclic'},
@@ -716,6 +767,8 @@ def gather_backward_sweep():
 FIT_FOLDERS = ['tee_synth_300', 'skirt_synth_300', 'jumpsuit_synth_300']
 FIT_SPLIT = {'valid_per_type': 10, 'test_per_type': 10, 'random_seed': 10, 'type': 'count'}
 FIT_EPOCHS = 2
+FIT_LSTM_STITCH_EPOCH = 1      # lstm_stitch_tags.yaml's 40, cut so the stitch phase is reached
+SHAPE_TERMS = ('pattern_loss', 'loop_loss', 'rotation_loss', 'translation_loss')
 
 
 def fit_dataset():
@@ -740,23 +793,31 @@ def read_records(experiment):
     return ([r for r in records if 'batch' in r], [r for r in records if 'valid_loss' in r])
 
 
-def fit_phase(out_dir, bf16=False):
-    """Trainer.fit over parity_run/data_big at att.yaml's widths, batch 30,
-    split 10 / 10 per type (seed 10), Adam, one-cycle, standardization from
-    the training split. f32: FIT_EPOCHS epochs, then a second Trainer resumes
-    the run from 'latest' for one more; fit's first step against
-    Trainer.train_step on the same batch from the same weights; 'best' and
-    'latest' load back. bf16 (att_bf16.yaml's mode): FIT_EPOCHS epochs with
-    f32_tail_epochs 1, the tail on at the last epoch. Returns the launches
-    of the first fit (rows 4-5: one per validation batch each; rows 8-9:
-    one per training step each)."""
+def fit_phase(out_dir, variant=''):
+    """Trainer.fit over parity_run/data_big at the published widths, batch
+    30, split 10 / 10 per type (seed 10), Adam, one-cycle, standardization
+    from the training split, of the model of `variant` (VARIANTS). att f32
+    (''): FIT_EPOCHS epochs, then a second Trainer resumes the run from
+    'latest' for one more; fit's first step against Trainer.train_step on
+    the same batch from the same weights; 'best' and 'latest' load back;
+    where a step's host time goes. '_bf16' (att_bf16.yaml's mode):
+    FIT_EPOCHS epochs with f32_tail_epochs 1, the tail on at the last epoch.
+    '_lstm' (lstm_stitch_tags.yaml, `epoch_with_stitches` cut to
+    FIT_LSTM_STITCH_EPOCH): as att f32 less the host-time breakdown; the
+    stitch phase's structure change makes its first epoch 'best'. Returns
+    the launches of the first fit (rows 4-5: one per validation batch each;
+    rows 8-9: one per training step each)."""
     import torch
     from garment_pattern_estimation_torch.experiment import ExperimentWrappper
     from garment_pattern_estimation_torch.models import build_model
     from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
     from garment_pattern_estimation_torch.train import Trainer, cosine_onecycle_schedule
 
-    phase = 'fit_bf16' if bf16 else 'fit'
+    phase = 'fit' + variant
+    bf16, lstm = variant == '_bf16', variant == '_lstm'
+    model_name, nn_section, loss_section = VARIANTS[variant]
+    if lstm:
+        loss_section = dict(loss_section, epoch_with_stitches=FIT_LSTM_STITCH_EPOCH)
     setup = dict(ATT_TRAINER, epochs=FIT_EPOCHS)
     if bf16:
         setup['f32_tail_epochs'] = 1
@@ -767,8 +828,7 @@ def fit_phase(out_dir, bf16=False):
                                     output_root=out_dir)
     trainer = Trainer(setup, experiment, dataset, dict(FIT_SPLIT))
     setup_s = time.perf_counter() - start
-    model = build_model('GarmentSegmentPattern3D', dataset.config, nn_config(bf16),
-                        ATT_LOSS_CONFIG, seed=0)
+    model = build_model(model_name, dataset.config, nn_section, loss_section, seed=0)
     initial = {k: v.clone() for k, v in model.module.state_dict().items()}
 
     edgeconv.reset_launches()
@@ -789,7 +849,18 @@ def fit_phase(out_dir, bf16=False):
           and all(math.isfinite(r['valid_loss']) for r in epochs), f'{phase}: a loss is not finite')
     means = [statistics.mean(r['loss'] for r in steps if r['epoch'] == e)
              for e in range(FIT_EPOCHS)]
-    check(means[1] < means[0], f'{phase}: mean train loss did not fall: {means}')
+    if lstm:
+        # the stitch terms join at epoch 1: the terms of both phases must fall
+        shape_means = [statistics.mean(sum(r[k] for k in SHAPE_TERMS) for r in steps
+                                       if r['epoch'] == e) for e in range(FIT_EPOCHS)]
+        check(shape_means[1] < shape_means[0],
+              f'{phase}: mean shape loss did not fall: {shape_means}')
+        check(all('stitch_recall' in r for r in steps if r['epoch'] >= FIT_LSTM_STITCH_EPOCH)
+              and not any('stitch_recall' in r for r in steps
+                          if r['epoch'] < FIT_LSTM_STITCH_EPOCH),
+              f'{phase}: the stitch terms are not where the phase puts them')
+    else:
+        check(means[1] < means[0], f'{phase}: mean train loss did not fall: {means}')
     if bf16:
         modes = [r['compute_dtype'] for r in epochs]
         check(modes == ['bfloat16'] * (FIT_EPOCHS - 1) + ['float32'],
@@ -805,9 +876,13 @@ def fit_phase(out_dir, bf16=False):
                 'fused_small_c_tiled': 0, 'fused_wide_c_tiled': 0, **gathers}
     check(launches == expected, f'{phase}: launches {launches}, expected {expected}')
 
-    line = {'phase': phase, 'garments': len(dataset), 'batch': setup['batch_size'],
-            'points': POINTS, 'pattern': [dataset.config['max_pattern_len'],
-                                          dataset.config['max_panel_len']],
+    def epoch_mean(records, epoch, key):
+        values = [r[key] for r in records if r['epoch'] == epoch and key in r]
+        return statistics.mean(values) if values else None
+
+    line = {'phase': phase, 'model': model_name, 'garments': len(dataset),
+            'batch': setup['batch_size'], 'points': POINTS,
+            'pattern': [dataset.config['max_pattern_len'], dataset.config['max_panel_len']],
             'steps_per_epoch': spe, 'valid_batches': n_valid, 'setup_s': setup_s,
             'fit_s': fit_s, 'launches': launches, 'per_epoch': [{
                 'epoch': r['epoch'], 'compute_dtype': r['compute_dtype'],
@@ -815,8 +890,14 @@ def fit_phase(out_dir, bf16=False):
                 'loader_wait_share': r['data_time'] / r['epoch_time'],
                 'median_host_step_ms': statistics.median(
                     s['step_time'] for s in steps if s['epoch'] == r['epoch']) * 1e3,
-                'train_loss': means[r['epoch']], 'valid_loss': r['valid_loss']}
+                'train_loss': means[r['epoch']], 'valid_loss': r['valid_loss'],
+                'train_stitch_recall': epoch_mean(steps, r['epoch'], 'stitch_recall')}
                 for r in epochs]}
+    if lstm:
+        line['epoch_with_stitches'] = f'{FIT_LSTM_STITCH_EPOCH} (lstm_stitch_tags.yaml: 40)'
+        best = experiment.get_checkpoint_file('best')
+        check(best['epoch'] == FIT_LSTM_STITCH_EPOCH,
+              f'{phase}: best holds epoch {best["epoch"]}, not the stitch phase\'s first')
     if bf16:
         emit(line)
         return launches
@@ -825,8 +906,7 @@ def fit_phase(out_dir, bf16=False):
     # a new wrapper of the same dataset: a fresh sampler, the stored statistics
     probe = Trainer(setup, dataset=dataset, data_split=dict(FIT_SPLIT))
     probe.init_randomizer()
-    twin = build_model('GarmentSegmentPattern3D', dataset.config, ATT_NN_CONFIG,
-                       ATT_LOSS_CONFIG, seed=0)
+    twin = build_model(model_name, dataset.config, nn_section, loss_section, seed=0)
     twin.module.load_state_dict(initial)
     probe.make_optimizer(twin, spe)
     batch = next(iter(probe.datawrapper.loaders.train))
@@ -835,10 +915,10 @@ def fit_phase(out_dir, bf16=False):
     check(first_gap <= 1e-6, f'{phase}: fit step 0 loss {steps[0]["loss"]} against '
           f'train_step {first.item()} ({first_gap} relative)')
 
-    # where a step's host time goes: train_step on a batch already on the
-    # card, on the same batch from the host, and over the training loader
-    # without and with its prefetch thread (ms per step, synchronized once
-    # per epoch of steps)
+    # where the att step's host time goes: train_step on a batch already on
+    # the card, on the same batch from the host, and over the training
+    # loader without and with its prefetch thread (ms per step,
+    # synchronized once per epoch of steps)
     def per_step(batches):
         torch.cuda.synchronize()
         begin, n = time.perf_counter(), 0
@@ -848,16 +928,18 @@ def fit_phase(out_dir, bf16=False):
         torch.cuda.synchronize()
         return (time.perf_counter() - begin) / n * 1e3
 
-    on_card = {'features': batch['features'].cuda(),
-               'ground_truth': {k: v.cuda() for k, v in batch['ground_truth'].items()}}
-    loader = probe.datawrapper.loaders.train
-    loader.pin_memory = True
-    per_step([on_card] * 2)
-    breakdown = {'train_step_on_card_batch': per_step([on_card] * spe),
-                 'train_step_host_batch': per_step([batch] * spe)}
-    for prefetch in (0, 1):
-        loader.prefetch = prefetch
-        breakdown[f'loader_loop_prefetch_{prefetch}'] = per_step(loader)
+    breakdown = None
+    if not lstm:
+        on_card = {'features': batch['features'].cuda(),
+                   'ground_truth': {k: v.cuda() for k, v in batch['ground_truth'].items()}}
+        loader = probe.datawrapper.loaders.train
+        loader.pin_memory = True
+        per_step([on_card] * 2)
+        breakdown = {'train_step_on_card_batch': per_step([on_card] * spe),
+                     'train_step_host_batch': per_step([batch] * spe)}
+        for prefetch in (0, 1):
+            loader.prefetch = prefetch
+            breakdown[f'loader_loop_prefetch_{prefetch}'] = per_step(loader)
 
     # the checkpoints load back
     for alias in ('best', 'latest'):
@@ -875,8 +957,7 @@ def fit_phase(out_dir, bf16=False):
                                      output_root=out_dir)
     resumed = Trainer(dict(setup, epochs=FIT_EPOCHS + 1), resumed_exp, dataset,
                       dict(FIT_SPLIT))
-    again = build_model('GarmentSegmentPattern3D', dataset.config, ATT_NN_CONFIG,
-                        ATT_LOSS_CONFIG, seed=1)
+    again = build_model(model_name, dataset.config, nn_section, loss_section, seed=1)
     start = time.perf_counter()
     resumed.fit(again)
     torch.cuda.synchronize()
@@ -893,24 +974,31 @@ def fit_phase(out_dir, bf16=False):
               for r in new_steps), f'{phase}: the resumed run did not continue the schedule')
     check(all(math.isfinite(r['loss']) for r in new_steps), f'{phase}: resumed loss not finite')
     line.update(first_step_vs_train_step=first_gap, resume_s=resume_s,
-                step_ms_breakdown=breakdown,
                 resumed_epoch={'train_loss': statistics.mean(r['loss'] for r in new_steps),
                                'valid_loss': epochs2[-1]['valid_loss'],
+                               'epoch_s': epochs2[-1]['epoch_time'],
+                               'train_stitch_recall': epoch_mean(new_steps, FIT_EPOCHS,
+                                                                 'stitch_recall'),
                                'first_step': new_steps[0]['step'],
                                'learning_rates': [new_steps[0]['learning_rate'],
                                                   new_steps[-1]['learning_rate']]})
+    if breakdown is not None:
+        line['step_ms_breakdown'] = breakdown
     emit(line)
     return launches
 
 
-def check_outputs(name, preds, batch, points):
-    """The serving outputs' keys, shapes and finiteness."""
+def check_outputs(name, preds, batch, points, attention=True):
+    """The serving outputs' keys, shapes and finiteness; `attention`: the
+    attention model's, with its attention weights."""
     import torch
 
     P, L = ATT_DATA_CONFIG['max_pattern_len'], ATT_DATA_CONFIG['max_panel_len']
     shapes = {'outlines': (batch, P, L, 4), 'rotations': (batch, P, 4),
               'translations': (batch, P, 3), 'stitch_tags': (batch, P, L, 3),
-              'free_edges_mask': (batch, P, L), 'att_weights': (batch, points, P)}
+              'free_edges_mask': (batch, P, L)}
+    if attention:
+        shapes['att_weights'] = (batch, points, P)
     check(sorted(preds) == sorted(shapes), f'{name}: output keys {sorted(preds)}')
     for key, shape in shapes.items():
         check(tuple(preds[key].shape) == shape,
@@ -966,12 +1054,15 @@ def timed_calls(fn, calls):
     return out, times
 
 
-def nn_config(bf16):
-    return ATT_BF16_NN_CONFIG if bf16 else ATT_NN_CONFIG
+# the served and fitted models by phase suffix: (model, NN section, loss section)
+VARIANTS = {'': ('GarmentSegmentPattern3D', ATT_NN_CONFIG, ATT_LOSS_CONFIG),
+            '_bf16': ('GarmentSegmentPattern3D', ATT_BF16_NN_CONFIG, ATT_LOSS_CONFIG),
+            '_lstm': (LSTM_MODEL, LSTM_NN_CONFIG, LSTM_LOSS_CONFIG)}
 
 
-def serve_phase(bf16=False):
-    """att serving, f32 or the bf16 mode (att_bf16.yaml): SERVE_CALLS
+def serve_phase(variant=''):
+    """Serving of att (`variant` ''), of att in the bf16 mode (att_bf16.yaml,
+    '_bf16') or of the baseline (lstm_stitch_tags.yaml, '_lstm'): SERVE_CALLS
     forwards of a (64, 2000, 3) batch. Returns the launches, the model, the
     serving function and the batch."""
     import torch
@@ -979,8 +1070,9 @@ def serve_phase(bf16=False):
     from garment_pattern_estimation_torch.models import build_model
     from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
 
-    phase = 'serving_bf16' if bf16 else 'serving'
-    model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG, nn_config(bf16), seed=0)
+    phase = 'serving' + variant
+    model_name, nn_section, _ = VARIANTS[variant]
+    model = build_model(model_name, ATT_DATA_CONFIG, nn_section, seed=0)
     serve = build_serving_fn(model, ATT_DATA_CONFIG)
     points = physical_points(1, BATCH, POINTS)
 
@@ -997,14 +1089,14 @@ def serve_phase(bf16=False):
           f'variant ({2 * SERVE_CALLS} for {SERVE_CALLS} forwards)')
     check(not any(knn_gather.launches.values()),
           f'{phase}: knn_gather launched {knn_gather.launches} in eval')
-    check_outputs(phase, preds, BATCH, POINTS)
+    check_outputs(phase, preds, BATCH, POINTS, attention=variant != '_lstm')
     # a 2-cloud batch against the plain path of the same weights on the CPU
     ref_err = compare_cpu(phase, model, serve, points[:2])
 
     # the first call pays one-time set-up (allocator, cuBLAS handles)
     q1, batch_ms, q3 = statistics.quantiles(times[1:], n=4)
-    emit({'phase': phase, 'batch': [BATCH, POINTS, 3], 'calls': SERVE_CALLS,
-          'compute_dtype': model.config['compute_dtype'],
+    emit({'phase': phase, 'model': model_name, 'batch': [BATCH, POINTS, 3],
+          'calls': SERVE_CALLS, 'compute_dtype': model.config['compute_dtype'],
           'launches': launches, 'launches_per_forward': {
               k: v / SERVE_CALLS for k, v in launches.items()},
           'first_call_ms': times[0], 'batch_ms': batch_ms,
@@ -1047,10 +1139,14 @@ def stress_serving_phase(model, serve, bf16=False):
     return launches, points
 
 
-def training_batch(gen, batch, device, points=None):
+def training_batch(gen, batch, device, points=None, stitched=False):
     """A standardized (batch, points (default POINTS), 3) cloud and ground
     truth in the dataset's shapes: 2-12 panels of 3-14 edges, the pad
-    vector beyond them."""
+    vector beyond them. `stitched` (the baseline's loss): empty panels get
+    zero placements, so padded panels tie exactly in the order matching,
+    and the GT gains the dataset's stitch keys: 4-24 stitches between edges
+    inside the loops (ids zero past each count), the free-edge mask they
+    leave and the empty-panel mask."""
     import torch
     from garment_pattern_estimation_torch.losses.components import eval_pad_vector
 
@@ -1068,17 +1164,36 @@ def training_batch(gen, batch, device, points=None):
           'rotations': torch.randn(batch, P, 4, generator=gen) * 0.5,
           'translations': torch.randn(batch, P, 3, generator=gen) * 0.5,
           'num_edges': num_edges.int(), 'num_panels': num_panels.int()}
+    if stitched:
+        exists = (torch.arange(P)[None] < num_panels[:, None])[..., None]
+        gt['rotations'] = torch.where(exists, gt['rotations'], 0.0)
+        gt['translations'] = torch.where(exists, gt['translations'], 0.0)
+        S = ATT_DATA_CONFIG['max_num_stitches']
+        stitches = torch.zeros(batch, 2, S, dtype=torch.long)
+        num_stitches = torch.randint(4, S + 1, (batch,), generator=gen)
+        free = torch.ones(batch, P * L, dtype=torch.bool)
+        edge_ids = torch.arange(P * L).reshape(P, L)
+        for b in range(batch):
+            edges = edge_ids[torch.arange(L)[None] < num_edges[b][:, None]]
+            n = min(int(num_stitches[b]), len(edges) // 2)
+            chosen = edges[torch.randperm(len(edges), generator=gen)[:2 * n]]
+            stitches[b, :, :n] = chosen.reshape(2, n)
+            free[b, chosen] = False
+            num_stitches[b] = n
+        gt.update(stitches=stitches, num_stitches=num_stitches,
+                  free_edges_mask=free.reshape(batch, P, L), empty_panels_mask=num_edges == 0)
     return {'features': torch.randn(batch, points or POINTS, 3, generator=gen).to(device),
             'ground_truth': {k: v.to(device) for k, v in gt.items()}}
 
 
-def step_gradients(model, batch):
+def step_gradients(model, batch, epoch=0):
     """Loss and parameter gradients of one train-mode forward + backward
-    with zero LSTM states, on the module's device; no update."""
+    with zero LSTM states at the loss phase of `epoch`, on the module's
+    device; no update."""
     model.module.train()
     model.module.zero_grad(set_to_none=True)
     preds = model.module(batch['features'])
-    loss, _, _ = model.loss(preds, batch['ground_truth'], epoch=0)
+    loss, _, _ = model.loss(preds, batch['ground_truth'], epoch=epoch)
     loss.backward()
     return loss.item(), {n: p.grad.detach().cpu() for n, p in model.module.named_parameters()}
 
@@ -1095,12 +1210,14 @@ def gradient_gap(grads, ref):
             'worst_param': worst[1], 'worst_element_rel': max_rel}
 
 
-def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=False):
+def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=False,
+                     epoch=0):
     """Loss and gradients of one train-mode step on the first `clouds`
     clouds on the card against the plain path of the same weights on the
-    CPU, held to the loss and norm bars; beside them the floor, the CPU
-    path against itself on the cloud perturbed by 1e-7. `configure` (a
-    function of the module) sets both copies up first.
+    CPU, at the loss phase of `epoch`, held to the loss and norm bars;
+    beside them the floor, the CPU path against itself on the cloud
+    perturbed by 1e-7. `configure` (a function of the module) sets both
+    copies up first.
 
     `order_floor` (the bf16 mode, clouds >= 2): the CPU path also runs on
     the same clouds in reverse batch order, the same math summed in another
@@ -1120,21 +1237,21 @@ def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=Fal
     for m in (card_model, cpu_model):
         if configure is not None:
             configure(m.module)
-    card_loss, card_grads = step_gradients(card_model, small)
+    card_loss, card_grads = step_gradients(card_model, small, epoch)
     cpu_small = {'features': small['features'].cpu(),
                  'ground_truth': {k: v.cpu() for k, v in small['ground_truth'].items()}}
-    cpu_loss, cpu_grads = step_gradients(cpu_model, cpu_small)
+    cpu_loss, cpu_grads = step_gradients(cpu_model, cpu_small, epoch)
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
     gaps = {'loss_rel': loss_rel, **gradient_gap(card_grads, cpu_grads)}
     noisy = cpu_small['features'] * (1 + 1e-7 * torch.randn(
         cpu_small['features'].shape, generator=torch.Generator().manual_seed(5)))
-    _, noisy_grads = step_gradients(cpu_model, dict(cpu_small, features=noisy))
+    _, noisy_grads = step_gradients(cpu_model, dict(cpu_small, features=noisy), epoch)
     gaps['cpu_1e-7_noise'] = gradient_gap(noisy_grads, cpu_grads)
     grad_bar, param_bar = TRAIN_GRAD_REL, TRAIN_PARAM_GRAD_REL
     if order_floor:
         flipped = {'features': cpu_small['features'].flip(0),
                    'ground_truth': {k: v.flip(0) for k, v in cpu_small['ground_truth'].items()}}
-        _, flipped_grads = step_gradients(cpu_model, flipped)
+        _, flipped_grads = step_gradients(cpu_model, flipped, epoch)
         floor = gaps['cpu_cloud_order'] = gradient_gap(flipped_grads, cpu_grads)
         grad_bar = max(grad_bar, ORDER_FLOOR_FACTOR * floor['grad_rel_l2'])
         param_bar = max(param_bar, ORDER_FLOOR_FACTOR * floor['worst_param_rel_l2'])
@@ -1159,8 +1276,8 @@ def train_phase(bf16=False):
     phase = 'training_bf16' if bf16 else 'training'
     per_step_expected = {'fwd_small_c': 1, 'fwd_wide_c': 1, 'bwd': 0 if bf16 else 1,
                          'bwd_hi': 1 if bf16 else 0}
-    model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG, nn_config(bf16),
-                        ATT_LOSS_CONFIG, seed=0)
+    model_name, nn_section, loss_section = VARIANTS['_bf16' if bf16 else '']
+    model = build_model(model_name, ATT_DATA_CONFIG, nn_section, loss_section, seed=0)
     trainer = Trainer(ATT_TRAINER)
     trainer.make_optimizer(model, steps_per_epoch=TRAIN_STEPS)
     batch = training_batch(torch.Generator().manual_seed(4), TRAIN_BATCH, 'cuda')
@@ -1217,6 +1334,103 @@ def train_phase(bf16=False):
     return launches, lambda: trainer.train_step(model, batch, epoch=0, generator=states)
 
 
+def train_lstm_phase():
+    """The baseline's training (lstm_stitch_tags.yaml, f32): on one (30,
+    2000, 3) batch with the dataset's stitch GT, LSTM_TRAIN_STEPS Adam
+    steps at epoch 0 (panel-order and loop-origin matching, no stitch
+    terms), then LSTM_TRAIN_STEPS at LSTM_STITCH_EPOCH (the stitch-tag loss,
+    free-edge classification, stitch precision/recall over E // 2 = 161
+    decode steps). Each phase: 1 + 1 + 1 knn_gather launches per step, no
+    fused launch, finite losses, a 2-cloud step against the CPU plain path;
+    beside the steps, the loss alone at each phase (host clock, synchronized).
+    Returns the launches and a function that takes one more epoch-40 step."""
+    import torch
+    from garment_pattern_estimation_torch.models import build_model
+    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
+    from garment_pattern_estimation_torch.train import Trainer
+
+    phase = 'training_lstm'
+    per_step_expected = {'fwd_small_c': 1, 'fwd_wide_c': 1, 'bwd': 1, 'bwd_hi': 0}
+    model = build_model(LSTM_MODEL, ATT_DATA_CONFIG, LSTM_NN_CONFIG, LSTM_LOSS_CONFIG, seed=0)
+    trainer = Trainer(ATT_TRAINER)
+    trainer.make_optimizer(model, steps_per_epoch=2 * LSTM_TRAIN_STEPS)
+    batch = training_batch(torch.Generator().manual_seed(4), TRAIN_BATCH, 'cuda', stitched=True)
+    states = torch.Generator(device='cuda').manual_seed(ATT_TRAINER['random_seed'])
+
+    torch.cuda.reset_peak_memory_stats()
+    edgeconv.reset_launches()
+    knn_gather.reset_launches()
+    runs = {}
+    for epoch in (0, LSTM_STITCH_EPOCH):
+        losses, times = [], []
+        for step in range(LSTM_TRAIN_STEPS):
+            before = dict(knn_gather.launches)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            loss, terms = trainer.train_step(model, batch, epoch=epoch, generator=states)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+            losses.append(loss.item())
+            per_step = {key: knn_gather.launches[key] - before[key] for key in before}
+            check(per_step == per_step_expected,
+                  f'{phase}: epoch {epoch} step {step} launched {per_step}, '
+                  f'expected {per_step_expected}')
+        runs[epoch] = {'losses': losses, 'step_times_ms': times,
+                       'step_ms': statistics.median(times[1:]),
+                       'terms_last_step': {k: v.item() if math.isfinite(v.item()) else None
+                                           for k, v in terms.items()}}
+    launches = dict(knn_gather.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(not any(edgeconv.launches.values()),
+          f'{phase}: the fused eval kernel launched {edgeconv.launches} in train mode')
+    check(all(math.isfinite(v) for r in runs.values() for v in r['losses']),
+          f'{phase}: losses {[r["losses"] for r in runs.values()]}')
+    check(runs[0]['losses'][-1] < runs[0]['losses'][0],
+          f'{phase}: the epoch-0 loss did not fall: {runs[0]["losses"]}')
+    stitch_terms = {'stitch_similarity_loss', 'stitch_neg_loss', 'free_edges_loss',
+                    'stitch_recall'}
+    check(stitch_terms <= set(runs[LSTM_STITCH_EPOCH]['terms_last_step'])
+          and not stitch_terms & set(runs[0]['terms_last_step']),
+          f'{phase}: stitch terms at epoch 0 / {LSTM_STITCH_EPOCH}: '
+          f'{sorted(runs[0]["terms_last_step"])} / '
+          f'{sorted(runs[LSTM_STITCH_EPOCH]["terms_last_step"])}')
+
+    # the loss alone (matchings, terms, quality metrics) on this batch's
+    # predictions, each phase
+    with torch.no_grad():
+        model.module.eval()
+        preds = model.module(batch['features'])
+    loss_ms = {}
+    for epoch in (0, LSTM_STITCH_EPOCH):
+        _, times = timed_calls(lambda: model.loss(preds, batch['ground_truth'], epoch=epoch), 4)
+        loss_ms[epoch] = statistics.median(times[1:])
+
+    edgeconv.reset_launches()
+    knn_gather.reset_launches()
+    eval_loss, _ = trainer.eval_step(model, batch, epoch=LSTM_STITCH_EPOCH)
+    torch.cuda.synchronize()
+    check(edgeconv.launches == {'small_c': 1, 'wide_c': 1, 'small_c_tiled': 0,
+                                'wide_c_tiled': 0},
+          f'{phase}: eval_step launched {edgeconv.launches}, expected 1 + 1 fused')
+    check(math.isfinite(eval_loss.item()), f'{phase}: eval loss {eval_loss.item()}')
+
+    # a 2-cloud step against the plain path of the same weights on the CPU,
+    # in each loss phase
+    gaps = {epoch: compare_step_cpu(f'{phase} epoch {epoch}', model, batch, 2, epoch=epoch)
+            for epoch in (0, LSTM_STITCH_EPOCH)}
+    emit({'phase': phase, 'model': LSTM_MODEL, 'batch': [TRAIN_BATCH, POINTS, 3],
+          'steps_per_phase': LSTM_TRAIN_STEPS, 'launches': launches,
+          'epoch_0': runs[0], f'epoch_{LSTM_STITCH_EPOCH}': runs[LSTM_STITCH_EPOCH],
+          'stitch_phase_adds_ms': runs[LSTM_STITCH_EPOCH]['step_ms'] - runs[0]['step_ms'],
+          'loss_alone_ms': {f'epoch_{e}': ms for e, ms in loss_ms.items()},
+          'clouds_per_s': {f'epoch_{e}': TRAIN_BATCH / r['step_ms'] * 1e3
+                           for e, r in runs.items()},
+          'eval_loss': eval_loss.item(), 'peak_memory_gb': peak_gb,
+          'vs_cpu_plain': {f'epoch_{e}': g for e, g in gaps.items()}})
+    return launches, lambda: trainer.train_step(model, batch, epoch=LSTM_STITCH_EPOCH,
+                                                generator=states)
+
+
 def stress_train_phase(bf16=False):
     """Training at the stress configuration, f32 or the bf16 mode: every
     EdgeConv layer through the chunked sweeps ('fused_final'), conv0's kNN
@@ -1231,8 +1445,8 @@ def stress_train_phase(bf16=False):
     from garment_pattern_estimation_torch.train import Trainer
 
     phase = 'stress_training_bf16' if bf16 else 'stress_training'
-    model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG, nn_config(bf16),
-                        ATT_LOSS_CONFIG, seed=0)
+    model_name, nn_section, loss_section = VARIANTS['_bf16' if bf16 else '']
+    model = build_model(model_name, ATT_DATA_CONFIG, nn_section, loss_section, seed=0)
     trainer = Trainer(ATT_TRAINER)
     trainer.make_optimizer(model, steps_per_epoch=STRESS_TRAIN_STEPS)
     batch = training_batch(torch.Generator().manual_seed(8), STRESS_BATCH, 'cuda',
@@ -1574,7 +1788,7 @@ def main():
             (False, (small_line, wide_line, small_tiled_line, wide_tiled_line, gather_lines)),
             (True, (small_bf16, wide_bf16, small_tiled_bf16, wide_tiled_bf16, gather_bf16))):
         suffix = '_bf16' if bf16 else ''
-        launches, model, serve, points = timed(seconds, 'serving' + suffix, serve_phase, bf16)
+        launches, model, serve, points = timed(seconds, 'serving' + suffix, serve_phase, suffix)
         small['launches'] = launches['small_c']
         wide['launches'] = launches['wide_c']
         stress_launches, stress_points = timed(seconds, 'stress_serving' + suffix,
@@ -1601,18 +1815,32 @@ def main():
               'stress_training_step' + suffix, stress_train_step)
         del stress_train_step
 
+    # the baseline GarmentFullPattern3D (lstm_stitch_tags.yaml, f32): the
+    # launches of rows 4-5 and 8-9 on its own serving and training paths
+    launches, model, serve, points = timed(seconds, 'serving_lstm', serve_phase, '_lstm')
+    small_line['launches_lstm'] = launches['small_c']
+    wide_line['launches_lstm'] = launches['wide_c']
+    del model, serve, points
+    lstm_launches, lstm_step = timed(seconds, 'training_lstm', train_lstm_phase)
+    for line in gather_lines:
+        line['launches_lstm'] = lstm_launches[launch_key(line['name'])]
+    timed(seconds, 'profile_training_step_lstm', profile_phase, 'training_step_lstm',
+          lstm_step)
+    del lstm_step
+
     # Trainer.fit over the dataset: its own launch counts, set to 0 just
     # before each fit and read just after
     with tempfile.TemporaryDirectory(dir=ROOT / 'garment_pattern_estimation_torch' / '_build') \
             as out_dir:
-        for bf16, (small, wide, gathers) in ((False, (small_line, wide_line, gather_lines)),
-                                             (True, (small_bf16, wide_bf16, gather_bf16))):
-            fit_launches = timed(seconds, 'fit_bf16' if bf16 else 'fit', fit_phase,
-                                 Path(out_dir), bf16)
-            small['launches_fit'] = fit_launches['fused_small_c']
-            wide['launches_fit'] = fit_launches['fused_wide_c']
+        for variant, key, (small, wide, gathers) in (
+                ('', 'launches_fit', (small_line, wide_line, gather_lines)),
+                ('_bf16', 'launches_fit', (small_bf16, wide_bf16, gather_bf16)),
+                ('_lstm', 'launches_fit_lstm', (small_line, wide_line, gather_lines))):
+            fit_launches = timed(seconds, 'fit' + variant, fit_phase, Path(out_dir), variant)
+            small[key] = fit_launches['fused_small_c']
+            wide[key] = fit_launches['fused_wide_c']
             for line in gathers:
-                line['launches_fit'] = fit_launches['knn_gather_' + launch_key(line['name'])]
+                line[key] = fit_launches['knn_gather_' + launch_key(line['name'])]
     emit({'phase_seconds': seconds})
 
     card = subprocess.run(

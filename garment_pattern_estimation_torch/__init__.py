@@ -1,9 +1,9 @@
 """garment_pattern_estimation_torch — the PyTorch + CUDA port for NVIDIA Hopper.
 
 A second package beside `garment_pattern_estimation_tpu` (the JAX reference,
-which this package never imports). It serves the NeuralTailor attention
-model (point cloud -> panel outlines, placements, stitch tags) and trains
-it, step by step or over a dataset.
+which this package never imports). It serves the NeuralTailor pattern-shape
+models, the attention model and the baseline (point cloud -> panel outlines,
+placements, stitch tags), and trains them, step by step or over a dataset.
 
 Layering (bottom-up):
     device.py    device resolution: CUDA unless the caller asks for the CPU
@@ -13,7 +13,7 @@ Layering (bottom-up):
     utils/       the synthetic dataset generator
     ops/         the CUDA kernels (csrc/) with their plain PyTorch versions,
                  sparsemax, pools, chunked EdgeConv training
-    models/      nn.Modules of the attention model, the registry, the loader
+    models/      nn.Modules of the shape models, the registry, the loader
                  from the JAX package's flax variables
     losses/      the composed pattern loss and its quality metrics
     train/       Trainer: train_step, eval_step and fit

@@ -2,11 +2,12 @@
 tensor ops on fixed shapes.
 
 Counterparts of garment_pattern_estimation_tpu/losses/components.py (the
-reference's nn/metrics/losses.py and metrics.py). `pattern_stitch_loss`
-comes with the stitch phase (ROADMAP queue A1).
+reference's nn/metrics/losses.py and metrics.py).
 
 Shape conventions (padded maxima):
   outlines (B, P, L, 4); rotations (B, P, 4); translations (B, P, 3)
+  stitch_tags (B, P, L, 3); free_edges (B, P, L)
+  stitches (B, 2, S) int pattern-level edge ids; num_stitches (B,)
   num_edges (B*P,) or (B, P) int; num_panels (B,)
 """
 from __future__ import annotations
@@ -33,6 +34,60 @@ def panel_loop_loss(predicted_outlines, gt_num_edges, pad_vector):
     loop_sum = torch.where(in_loop[..., None], coords, 0.0).sum(dim=1)      # (BP, 2)
     loop_sum = torch.where((num_edges >= 3)[:, None], loop_sum, 0.0)
     return (loop_sum ** 2).sum() / (BP * 2)
+
+
+def pattern_stitch_loss(stitch_tags, gt_stitches, gt_stitches_nums, margin=0.3,
+                        use_hardnet=False):
+    """Pull the tags of the two sides of every GT stitch together; push the
+    tags of different stitches at least `margin` apart (extended-triplet or
+    HardNet closest-negative form). Returns (total, {'stitch_similarity_loss',
+    'stitch_neg_loss'}). Stitch ids past each pattern's count are masked;
+    they are clamped into range before the gather (the dataset pads them
+    with zeros)."""
+    B = stitch_tags.shape[0]
+    S = gt_stitches.shape[-1]
+    flat_tags = stitch_tags.reshape(B, -1, stitch_tags.shape[-1])            # (B, E, T)
+    ids = gt_stitches.long().clamp(0, flat_tags.shape[1] - 1)
+    T = flat_tags.shape[-1]
+    left = torch.gather(flat_tags, 1, ids[:, 0, :, None].expand(B, S, T))    # (B, S, T)
+    right = torch.gather(flat_tags, 1, ids[:, 1, :, None].expand(B, S, T))
+
+    device = stitch_tags.device
+    stitch_valid = torch.arange(S, device=device)[None, :] < gt_stitches_nums[:, None]
+
+    # similarity: per-pattern mean over its stitches, then the batch mean
+    sim = ((left - right) ** 2).sum(dim=-1)                                   # (B, S)
+    per_pattern = torch.where(stitch_valid, sim, 0.0).sum(dim=1) \
+        / torch.clamp_min(gt_stitches_nums, 1)
+    similarity_loss = per_pattern.mean()
+
+    # the push term over the 2S tag slots
+    total_tags = torch.cat([left, right], dim=1)                              # (B, 2S, T)
+    tag_valid = torch.cat([stitch_valid, stitch_valid], dim=1)                # (B, 2S)
+    dists = ((total_tags[:, :, None, :] - total_tags[:, None, :, :]) ** 2).sum(dim=-1)
+
+    idx = torch.arange(2 * S, device=device)
+    brother = torch.where(idx < S, idx + S, idx - S)
+    pair_excluded = (idx[:, None] == idx[None, :]) | (brother[:, None] == idx[None, :])
+    pair_valid = tag_valid[:, :, None] & tag_valid[:, None, :]
+
+    num_valid_tags = tag_valid.sum(dim=1)                                     # (B,) = 2 ns
+    total_tag_count = torch.clamp_min(num_valid_tags.sum(), 1)
+    counted = pair_valid & ~pair_excluded[None]
+    if use_hardnet:
+        min_dist = torch.where(counted, dists, float('inf')).amin(dim=-1)     # (B, 2S)
+        per_tag = torch.clamp_min(margin - min_dist, 0.0)
+        per_tag = torch.where(tag_valid & torch.isfinite(min_dist), per_tag, 0.0)
+    else:
+        # extended triplet: hinge against every other tag, averaged over the
+        # 2 ns slots per tag (self and brother add zeros to the mean)
+        hinge = torch.where(counted, torch.clamp_min(margin - dists, 0.0), 0.0)
+        per_tag = hinge.sum(dim=-1) / torch.clamp_min(num_valid_tags, 1)[:, None]
+        per_tag = torch.where(tag_valid, per_tag, 0.0)
+    neg_loss = per_tag.sum() / total_tag_count
+
+    return similarity_loss + neg_loss, {'stitch_similarity_loss': similarity_loss,
+                                        'stitch_neg_loss': neg_loss}
 
 
 def bce_with_logits(logits, targets, mask=None):

@@ -1,4 +1,4 @@
-"""Building blocks of the attention model, eval and train forward.
+"""Building blocks of the pattern-shape models, eval and train forward.
 
 Counterparts of garment_pattern_estimation_tpu/models/blocks.py. Parameter
 names follow the reference NeuralTailor state dict (`MLP`: `{j}.0` Linear,
@@ -261,6 +261,15 @@ class EdgeConvFeatures(nn.Module):
         return None, out, None
 
 
+def inverted_dropout(x, rate, generator=None):
+    """flax's `nn.Dropout(rate)` in train mode: each element kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), else zero. The mask
+    is drawn from `generator` (torch's default generator without one)."""
+    device = x.device if generator is None else generator.device
+    keep = torch.rand(x.shape, generator=generator, device=device).to(x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 class TorchLSTM(nn.Module):
     """Multi-layer LSTM over (B, T, C) with nn.LSTM's parameter names,
     layout and gate order (i, f, g, o), unrolled as an explicit cell loop
@@ -281,9 +290,11 @@ class TorchLSTM(nn.Module):
             self.register_parameter(
                 f'bias_hh_l{layer}', nn.Parameter(torch.empty(4 * hidden_size)))
 
-    def forward(self, inputs, init_states):
+    def forward(self, inputs, init_states, dropout=0.0, generator=None):
         """inputs (B, T, C); init_states: [(h0, c0)] per layer. Returns
-        (outputs (B, T, H), [(h, c)] final states per layer)."""
+        (outputs (B, T, H), [(h, c)] final states per layer). `dropout` > 0
+        drops that share of each layer's output but the last's
+        (`inverted_dropout`, masks from `generator`)."""
         x = inputs
         final_states = []
         for layer in range(self.n_layers):
@@ -302,12 +313,16 @@ class TorchLSTM(nn.Module):
                 outs.append(h)
             x = torch.stack(outs, dim=1)
             final_states.append((h, c))
+            if dropout > 0 and layer < self.n_layers - 1:
+                x = inverted_dropout(x, dropout, generator)
         return x, final_states
 
 
 class LSTMDecoderModule(nn.Module):
     """Encoding -> sequence: the encoding repeated `out_len` times feeds the
-    LSTM, a linear head maps hidden states to elements.
+    LSTM, a linear head maps hidden states to elements. In train mode
+    `dropout` acts between the LSTM layers, as in the JAX package's
+    `TorchLSTM`.
 
     Initial states: with 'kaiming_normal' in `state_init` and a `generator`
     from the caller, fresh normal states of std sqrt(2 / (batch * hidden))
@@ -341,14 +356,14 @@ class LSTMDecoderModule(nn.Module):
         return [(zeros, zeros)] * self.n_layers
 
     def forward(self, encodings, out_len=None, generator=None):
-        if self.training and self.dropout > 0 and self.n_layers > 1:
-            raise NotImplementedError(
-                'LSTMDecoderModule: dropout between LSTM layers in train mode is '
-                'not ported yet (ROADMAP queue A)')
+        """`generator` also draws the train-mode dropout masks between the
+        LSTM layers, after the initial states."""
         out_len = out_len or self.out_len
         B = encodings.shape[0]
         dec_input = encodings[:, None, :].expand(B, out_len, encodings.shape[-1])
-        out, _ = self.lstm(dec_input, self.initial_states(B, encodings.device, generator))
+        out, _ = self.lstm(dec_input, self.initial_states(B, encodings.device, generator),
+                           dropout=self.dropout if self.training else 0.0,
+                           generator=generator)
         return self.lin(out)
 
 

@@ -1,15 +1,21 @@
 """The JAX package's flax variables -> the port's state dict.
 
-`variables` is the `{'params', 'batch_stats'}` tree of the JAX attention
-model as nested dicts of numpy arrays (any array type numpy can read). The
-result names its entries like the reference NeuralTailor state dict:
+`variables` is the `{'params', 'batch_stats'}` tree of a JAX pattern-shape
+model (the attention model or the baseline `GarmentFullPattern3D`) as
+nested dicts of numpy arrays (any array type numpy can read). The result
+names its entries like the reference NeuralTailor state dict:
 
     feature_extractor.conv_layers.{i}.nn.{j}.0/.2   <- conv{i}/MLP_0/Dense_j, BatchNorm_j
     feature_extractor.lin                           <- feature_extractor/lin
     point_segment_mlp.0.{j}.0/.2                    <- point_segment_mlp/Dense_j, BatchNorm_j
     panel_dec_lin, placement_decoder                <- Dense
-    panel_decoder.lstm.{weight,bias}_{ih,hh}_l{k}   <- panel_decoder/lstm/l{k}_{w,b}_{ih,hh}
-    panel_decoder.lin                               <- panel_decoder/lin
+    {D}.lstm.{weight,bias}_{ih,hh}_l{k}             <- {D}/lstm/l{k}_{w,b}_{ih,hh}
+    {D}.lin                                         <- {D}/lin
+
+for each decoder D, panel_decoder and pattern_decoder
+(the attention head `point_segment_mlp` and `panel_dec_lin` in the
+attention model, `pattern_decoder` in the baseline), the names that
+garment_pattern_estimation_tpu/experiment/torch_import.py:89 reads back.
 
 Dense kernels (in, out) are transposed to (out, in); BatchNorm scale, bias,
 mean and var become weight, bias, running_mean and running_var; LSTM
@@ -58,8 +64,19 @@ def _lstm(sd, prefix, params):
         raise KeyError(f'state_dict_from_flax: no LSTM layers under <{prefix}>')
 
 
+def _lstm_decoder(sd, name, params):
+    decoder = params[name]
+    if 'lstm' not in decoder:
+        raise NotImplementedError(
+            f'state_dict_from_flax: only the LSTM {name} is ported; got '
+            + ', '.join(sorted(decoder)))
+    _lstm(sd, f'{name}.lstm', decoder['lstm'])
+    _dense(sd, f'{name}.lin', decoder['lin'])
+
+
 def state_dict_from_flax(variables) -> OrderedDict:
-    """GarmentSegmentPattern3D flax variables -> the port's state dict."""
+    """GarmentSegmentPattern3D or GarmentFullPattern3D flax variables -> the
+    port's state dict."""
     params, stats = variables['params'], variables['batch_stats']
     sd = OrderedDict()
 
@@ -72,16 +89,12 @@ def state_dict_from_flax(variables) -> OrderedDict:
     if 'lin' in fe_params:
         _dense(sd, 'feature_extractor.lin', fe_params['lin'])
 
-    _mlp(sd, 'point_segment_mlp.0', params['point_segment_mlp'],
-         stats['point_segment_mlp'])
-    _dense(sd, 'panel_dec_lin', params['panel_dec_lin'])
-
-    decoder = params['panel_decoder']
-    if 'lstm' not in decoder:
-        raise NotImplementedError(
-            'state_dict_from_flax: only the LSTM panel decoder is ported; got '
-            + ', '.join(sorted(decoder)))
-    _lstm(sd, 'panel_decoder.lstm', decoder['lstm'])
-    _dense(sd, 'panel_decoder.lin', decoder['lin'])
+    if 'point_segment_mlp' in params:                  # the attention model
+        _mlp(sd, 'point_segment_mlp.0', params['point_segment_mlp'],
+             stats['point_segment_mlp'])
+        _dense(sd, 'panel_dec_lin', params['panel_dec_lin'])
+    if 'pattern_decoder' in params:                    # the baseline
+        _lstm_decoder(sd, 'pattern_decoder', params)
+    _lstm_decoder(sd, 'panel_decoder', params)
     _dense(sd, 'placement_decoder', params['placement_decoder'])
     return sd

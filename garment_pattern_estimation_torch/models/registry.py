@@ -1,10 +1,11 @@
 """Model factory: name + configs -> the experiment-facing model object.
 
 Counterpart of garment_pattern_estimation_tpu/models/registry.py:99-171 for
-the attention model: class defaults <- YAML NN section <- backfilled
-compatibility keys, the merged dict kept for experiment tracking, and the
-composed loss from the registry's loss defaults <- the loss section
-(`:49-58`, `:118-134` there). Weights are drawn from a seeded
+the pattern-shape models (`GarmentFullPattern3D`, the baseline, and
+`GarmentSegmentPattern3D`, the attention model): class defaults <- YAML NN
+section <- backfilled compatibility keys, the merged dict kept for
+experiment tracking, and the composed loss from the registry's loss
+defaults <- the loss section (`:49-58`, `:118-134` there). Weights are drawn from a seeded
 `torch.Generator`; the model is built in eval mode on the resolved device.
 """
 from __future__ import annotations
@@ -62,11 +63,16 @@ _SHAPE_LOSS_DEFAULTS = {
     'panel_origin_invariant_loss': True,
 }
 
-# merged-config keys the attention model's module does not take: the
-# pattern decoder is the other family's, pool_ratio belongs to graph
-# pooling (not ported)
-_UNUSED_BY_MODULE = ('pattern_hidden_size', 'pattern_n_layers', 'pattern_decoder',
-                     'pool_ratio')
+# merged-config keys a model's module does not take: pool_ratio belongs to
+# graph pooling (not ported); the attention model has no pattern decoder,
+# the baseline no attention head
+_UNUSED_BY_MODULE = {
+    'GarmentFullPattern3D': ('pool_ratio', 'local_attention', 'f32_attention_mlp'),
+    'GarmentSegmentPattern3D': ('pool_ratio', 'pattern_hidden_size', 'pattern_n_layers',
+                                'pattern_decoder'),
+}
+_MODULES = {'GarmentFullPattern3D': nets.GarmentFullPattern3DModule,
+            'GarmentSegmentPattern3D': nets.GarmentSegmentPattern3DModule}
 
 
 class GarmentModel:
@@ -119,7 +125,8 @@ def build_model(model_name, data_config, nn_config=None, loss_config=None, *,
     The NN section's `compute_dtype` (None, 'float32' or 'bfloat16'; any
     other raises ValueError), `f32_conv_layers` and `f32_attention_mlp` set
     the mixed-precision mode (parameters stay f32), as the JAX registry's
-    do. Only 'GarmentSegmentPattern3D' is ported."""
+    do. 'GarmentFullPattern3D' and 'GarmentSegmentPattern3D' are ported;
+    'StitchOnEdge3DPairs' raises NotImplementedError."""
     device = resolve_device(device)
     nn_config = dict(nn_config or {})
     nn_config.pop('loss', None)
@@ -130,14 +137,15 @@ def build_model(model_name, data_config, nn_config=None, loss_config=None, *,
     edgeconv_train_mode = nn_config.pop('edgeconv_train_mode', 'fused_final')
     resolve_compute_dtype(compute_dtype)           # raises on any other dtype
 
-    if model_name != 'GarmentSegmentPattern3D':
-        if model_name in ('GarmentFullPattern3D', 'StitchOnEdge3DPairs'):
+    if model_name not in _MODULES:
+        if model_name == 'StitchOnEdge3DPairs':
             raise NotImplementedError(
-                f'build_model: <{model_name}> is not ported yet (ROADMAP queue A)')
+                f'build_model: <{model_name}> is not ported yet (ROADMAP queue A item 5)')
         raise ValueError(f'models.registry::unknown model <{model_name}>')
 
     config = dict(_SHAPE_MODEL_DEFAULTS)
-    config['local_attention'] = False          # old-run default (reference nets.py)
+    if model_name == 'GarmentSegmentPattern3D':
+        config['local_attention'] = False      # old-run default (reference nets.py)
     if 'panel_hidden_size' not in nn_config and 'panel_encoding_size' in nn_config:
         nn_config['panel_hidden_size'] = nn_config['panel_encoding_size']
     if 'pattern_hidden_size' not in nn_config and 'pattern_encoding_size' in nn_config:
@@ -158,9 +166,10 @@ def build_model(model_name, data_config, nn_config=None, loss_config=None, *,
         f32_attention_mlp=f32_attention_mlp,
     )
     for key, value in config.items():
-        if key not in _UNUSED_BY_MODULE:
-            module_kwargs[_FIELD_MAP.get(key, key)] = value
-    module = nets.GarmentSegmentPattern3DModule(**module_kwargs)
+        module_kwargs[_FIELD_MAP.get(key, key)] = value
+    for key in _UNUSED_BY_MODULE[model_name]:
+        module_kwargs.pop(key, None)
+    module = _MODULES[model_name](**module_kwargs)
     init_weights(module, seed)
     module = module.to(device).eval()
     loss = ComposedPatternLoss(data_config, {**_SHAPE_LOSS_DEFAULTS, **(loss_config or {})})

@@ -187,8 +187,10 @@ class Trainer:
         statistics, BN running averages updated), the composed loss at the
         epoch's phase, backward, update. The lr is the schedule at the
         number of steps taken before this one. `generator` draws the LSTM
-        decoder's random initial states. Returns (loss, dict of the loss
-        terms and quality metrics), detached, on the device."""
+        decoders' random initial states, their dropout masks and the loss's
+        random GT panel order (the JAX step's three rng streams). Returns
+        (loss, dict of the loss terms and quality metrics), detached, on the
+        device."""
         if self.optimizer is None:
             raise RuntimeError('Trainer: call make_optimizer before train_step')
         features, gt = self._place(batch)
@@ -198,7 +200,7 @@ class Trainer:
         model.module.train()
         self.optimizer.zero_grad(set_to_none=True)
         preds = model.module(features, generator=generator)
-        loss, loss_dict, _ = model.loss(preds, gt, epoch=epoch_c)
+        loss, loss_dict, _ = model.loss(preds, gt, epoch=epoch_c, generator=generator)
         loss.backward()
         self.optimizer.step()
         self.step_count += 1
@@ -210,12 +212,13 @@ class Trainer:
         on the card) and the composed loss with its quality metrics.
         `generator` draws the LSTM decoder's random initial states, as the
         JAX trainer's eval step draws them from its 'recurrent_init' rng;
-        without one they are zeros. Returns (loss, dict)."""
+        without one they are zeros. The loss draws its random GT panel order
+        from it too. Returns (loss, dict)."""
         features, gt = self._place(batch)
         epoch_c = canonical_epoch(model.loss.config, *phase_of(model.loss.config, epoch))
         model.module.eval()
         preds = model.module(features, generator=generator)
-        loss, loss_dict, _ = model.loss(preds, gt, epoch=epoch_c)
+        loss, loss_dict, _ = model.loss(preds, gt, epoch=epoch_c, generator=generator)
         return loss, loss_dict
 
     # ------------- fit -------------

@@ -587,3 +587,104 @@ def test_unfused_edgeconv_matches_cpu(cuda, rng, C, train, n_points):
     assert _rel_l2(out, ref_out) <= 1e-2
     if train:
         assert _rel_l2(grads, ref_grads) <= 1e-2
+
+
+def _tied_pattern_inputs(rng, B=4, P=23, L=14):
+    """The baseline loss's matching inputs at lstm_stitch_tags.yaml's shapes,
+    with exact ties: padded GT panels (equal features, zero edges), a
+    panel whose edges are all equal, panels of 1 and 2 edges; predictions
+    are the GT in another panel order, loops rotated, plus noise."""
+    num_panels = np.array([P, 9, 3, 14])[:B]
+    num_edges = np.where(np.arange(P)[None] < num_panels[:, None],
+                         rng.integers(3, L + 1, size=(B, P)), 0)
+    num_edges[1, 2], num_edges[1, 5] = 1, 2
+    outlines = rng.normal(size=(B, P, L, 4)).astype(np.float32)
+    outlines[0, 4] = outlines[0, 4, 0]
+    outlines = np.where((np.arange(L)[None, None] < num_edges[..., None])[..., None],
+                        outlines, -0.5).astype(np.float32)
+    features = np.concatenate([np.where((num_edges > 0)[..., None],
+                                        rng.normal(size=(B, P, 3)), 0.0),
+                               outlines.reshape(B, P, -1)], -1).astype(np.float32)
+    perm = np.stack([rng.permutation(P) for _ in range(B)])
+    pred_outlines = np.roll(np.take_along_axis(outlines, perm[..., None, None], 1), 3, axis=2)
+    pred_features = np.take_along_axis(features, perm[..., None], 1)
+    noise = lambda a: (a + 0.05 * rng.normal(size=a.shape)).astype(np.float32)
+    return (torch.from_numpy(noise(pred_features)), torch.from_numpy(features),
+            torch.from_numpy(noise(pred_outlines)), torch.from_numpy(outlines),
+            torch.from_numpy(num_edges))
+
+
+def test_greedy_order_match_matches_cpu(cuda, rng):
+    """The same permutation on the card: the first of equal minima, up to
+    two slots as close as f32 rounding to identical padded panels, which
+    then take them in either order (the permuted GT is the same)."""
+    from garment_pattern_estimation_torch.losses import composed
+
+    pred_f, gt_f, _, _, num_edges = _tied_pattern_inputs(rng)
+    on_card = composed.greedy_order_match(pred_f.to(cuda), gt_f.to(cuda)).cpu()
+    on_cpu = composed.greedy_order_match(pred_f, gt_f)
+    differ = on_card != on_cpu
+    padded = num_edges == 0
+    assert padded.gather(1, on_card)[differ].all() and padded.gather(1, on_cpu)[differ].all()
+    assert torch.equal(composed.permute_panels(gt_f, on_card),
+                       composed.permute_panels(gt_f, on_cpu))
+    flat = torch.zeros(2, 23, 5, device=cuda)              # every distance ties
+    assert torch.equal(composed.greedy_order_match(flat, flat).cpu(),
+                       torch.arange(23).repeat(2, 1))
+
+
+def test_match_panel_origins_matches_cpu(cuda, rng):
+    from garment_pattern_estimation_torch.losses import composed
+
+    _, _, pred_outlines, outlines, num_edges = _tied_pattern_inputs(rng)
+    card_out, card_lead = composed.match_panel_origins(
+        pred_outlines.to(cuda), outlines.to(cuda), num_edges.to(cuda))
+    cpu_out, cpu_lead = composed.match_panel_origins(pred_outlines, outlines, num_edges)
+    assert torch.equal(card_lead.cpu(), cpu_lead)
+    assert torch.equal(card_out.cpu(), cpu_out)
+    assert card_lead.reshape(4, 23)[0, 4] == 0 and not card_lead.reshape(4, 23)[1, 9:].any()
+
+
+def test_tags_to_stitches_matches_cpu(cuda, rng):
+    """Identical tags (zero distances) and an odd count of non-free edges:
+    the same pairs, in the same order, on the card."""
+    from garment_pattern_estimation_torch.losses import stitches
+
+    B, E = 4, 23 * 14
+    tags = torch.from_numpy(rng.normal(size=(B, 23, 14, 3)).astype(np.float32))
+    tags.view(B, E, 3)[:, :9] = tags.view(B, E, 3)[:, :1]
+    scores = torch.from_numpy(rng.normal(size=(B, 23, 14)).astype(np.float32))
+    scores.view(B, E)[:, :9] = -1.0
+    card = stitches.tags_to_stitches_jit(tags.to(cuda), scores.to(cuda), E // 2)
+    cpu = stitches.tags_to_stitches_jit(tags, scores, E // 2)
+    assert torch.equal(card[0].cpu(), cpu[0]) and torch.equal(card[1].cpu(), cpu[1])
+    assert cpu[1].any()
+
+
+def test_full_model_eval_matches_cpu(cuda):
+    """configs/lstm_stitch_tags.yaml's model (seeded weights) served on the
+    card against its CPU plain path: each output within 1e-2 of its largest
+    magnitude (chip_smoke.py's serving bar)."""
+    from garment_pattern_estimation_torch.experiment import build_serving_fn
+    from garment_pattern_estimation_torch.models import build_model
+
+    data = {'element_size': 4, 'rotation_size': 4, 'translation_size': 3,
+            'max_panel_len': 14, 'max_pattern_len': 23}
+    nn_config = {'model': 'GarmentFullPattern3D', 'EConv_hidden': 200, 'EConv_feature': 150,
+                 'EConv_hidden_depth': 2, 'k_neighbors': 5, 'conv_depth': 2,
+                 'skip_connections': True, 'global_pool': 'mean', 'panel_encoding_size': 250,
+                 'panel_hidden_size': 250, 'panel_n_layers': 3, 'pattern_encoding_size': 250,
+                 'pattern_hidden_size': 250, 'pattern_n_layers': 2,
+                 'lstm_init': 'kaiming_normal_'}
+    model = build_model('GarmentFullPattern3D', data, nn_config, device=cuda)
+    cpu_model = copy.copy(model)
+    cpu_model.module = copy.deepcopy(model.module).cpu()
+    x = torch.randn(2, 2000, 3, generator=torch.Generator().manual_seed(9))
+    before = dict(edgeconv.launches)
+    on_card = build_serving_fn(model, data)(x.to(cuda))
+    on_cpu = build_serving_fn(cpu_model, data)(x)
+    assert edgeconv.launches['small_c'] == before['small_c'] + 1
+    assert edgeconv.launches['wide_c'] == before['wide_c'] + 1
+    for key, ref in on_cpu.items():
+        scale = ref.abs().max().item()
+        assert (on_card[key].cpu() - ref).abs().max().item() <= 1e-2 * scale, key

@@ -43,6 +43,7 @@ from garment_pattern_estimation_tpu.train.trainer import Trainer as JaxTrainer
 from garment_pattern_estimation_torch.losses import ComposedPatternLoss, components
 from garment_pattern_estimation_torch.models import build_model, state_dict_from_flax
 from garment_pattern_estimation_torch.models.blocks import LSTMDecoderModule
+from garment_pattern_estimation_torch.models.registry import init_weights
 from garment_pattern_estimation_torch.train import (
     Trainer, canonical_epoch, cosine_onecycle_schedule, phase_of)
 
@@ -175,17 +176,52 @@ def test_composed_loss_matches_jax(loss_inputs, extra_losses, extra_quality, epo
         _close(t_terms[key], j_terms[key], msg=key)
 
 
-def test_unported_loss_terms_raise(loss_inputs):
-    preds, gt = map(_torch, loss_inputs)
-    for config, epoch in ((dict(LOSS, panel_order_inariant_loss=True), 0),
-                          (dict(LOSS, panel_origin_invariant_loss=True), 0),
-                          (dict(LOSS, loss_components=['shape', 'stitch']), 40),
-                          (dict(LOSS, quality_components=['stitch']), 40)):
-        with pytest.raises(NotImplementedError, match='ROADMAP queue A1'):
-            ComposedPatternLoss(DATA, config)(preds, gt, epoch=epoch)
-    # the stitch-tag loss acts only from epoch_with_stitches
-    ComposedPatternLoss(DATA, dict(LOSS, loss_components=['shape', 'stitch']))(
-        preds, gt, epoch=39)
+def _with_stitches(rng, gt):
+    """The GT's stitches (B, 2, S) between edges inside the loops (zeros
+    past each count), the free-edge mask they leave and the empty-panel
+    mask, as the dataset gives them."""
+    S = DATA['max_num_stitches']
+    stitches = np.zeros((B, 2, S), np.int64)
+    num_stitches = rng.integers(1, S + 1, size=B)
+    free = np.ones((B, P, L), bool)
+    for b in range(B):
+        edges = [p * L + e for p in range(P) for e in range(gt['num_edges'][b, p])]
+        n = min(num_stitches[b], len(edges) // 2)
+        num_stitches[b] = n
+        chosen = rng.choice(edges, size=2 * n, replace=False)
+        stitches[b, :, :n] = chosen.reshape(2, -1)
+        free.reshape(B, -1)[b, chosen] = False
+    return dict(gt, stitches=stitches, num_stitches=num_stitches.astype(np.int32),
+                free_edges_mask=free, empty_panels_mask=gt['num_edges'] == 0)
+
+
+@pytest.mark.parametrize('config,epoch', [
+    (dict(LOSS, panel_order_inariant_loss=True), 0),
+    (dict(LOSS, panel_origin_invariant_loss=True), 0),
+    (dict(LOSS, loss_components=['shape', 'stitch']), 40),
+    (dict(LOSS, quality_components=['stitch']), 40),
+], ids=['order_matching', 'origin_matching', 'stitch_loss', 'stitch_quality'])
+def test_unported_loss_terms_raise(rng, loss_inputs, config, epoch):
+    """The terms this test once found unported, each on its own over
+    att.yaml's loss section, against the JAX loss on identical inputs:
+    panel-order matching, loop-origin matching, the stitch-tag loss (from
+    epoch_with_stitches only) and stitch precision/recall."""
+    preds, gt = loss_inputs
+    gt = _with_stitches(rng, gt)
+    j_loss, j_terms, j_flag = JaxComposedPatternLoss(DATA, config)(
+        _jax(preds), _jax(gt), epoch=epoch)
+    t_loss, t_terms, t_flag = ComposedPatternLoss(DATA, config)(
+        _torch(preds), _torch(gt), epoch=epoch)
+    assert sorted(t_terms) == sorted(j_terms)
+    assert t_flag == j_flag
+    _close(t_loss, j_loss)
+    for key in j_terms:
+        _close(t_terms[key], j_terms[key], msg=key)
+    if 'stitch' in config['loss_components']:
+        assert 'stitch_neg_loss' in t_terms
+        before, terms, _ = ComposedPatternLoss(DATA, config)(_torch(preds), _torch(gt),
+                                                              epoch=39)
+        assert 'stitch_neg_loss' not in terms and float(before) < float(t_loss)
 
 
 def test_onecycle_schedule_matches_optax():
@@ -227,6 +263,40 @@ def test_lstm_random_states_from_a_generator():
                for s, t in zip(pair, again_pair))
     zeros = decoder.initial_states(4, 'cpu')                  # eval, no generator: zeros
     assert all(not s.any() for pair in zeros for s in pair)
+
+
+def test_lstm_dropout_off_is_unchanged():
+    """Eval mode, or a rate of 0, runs the LSTM as it runs without dropout;
+    in train mode the masks come from the generator, after the states."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(6, 8, generator=gen)
+    plain = LSTMDecoderModule(8, 16, 5, n_layers=3, out_len=4, state_init='')
+    init_weights(plain, 0)
+    dropped = LSTMDecoderModule(8, 16, 5, n_layers=3, out_len=4, state_init='', dropout=0.4)
+    dropped.load_state_dict(plain.state_dict())
+    with torch.no_grad():
+        reference = plain.eval()(x)
+        assert torch.equal(dropped.eval()(x), reference)
+        assert torch.equal(plain.train()(x, generator=torch.Generator().manual_seed(2)),
+                           reference)
+        drawn = dropped.train()(x, generator=torch.Generator().manual_seed(2))
+        again = dropped(x, generator=torch.Generator().manual_seed(2))
+    assert torch.equal(drawn, again) and not torch.equal(drawn, reference)
+
+
+@pytest.mark.parametrize('rate', [0.1, 0.5])
+def test_inverted_dropout_keeps_and_scales(rate):
+    """flax's train-mode Dropout: the kept share is within 3 sigma of
+    1 - rate, a kept element is scaled by exactly 1 / (1 - rate)."""
+    from garment_pattern_estimation_torch.models.blocks import inverted_dropout
+
+    x = torch.randn(400, 250, generator=torch.Generator().manual_seed(0))
+    out = inverted_dropout(x, rate, torch.Generator().manual_seed(3))
+    kept = out != 0
+    n = x.numel()
+    share = kept.float().mean().item()
+    assert abs(share - (1 - rate)) <= 3 * ((rate * (1 - rate) / n) ** 0.5)
+    assert torch.equal(out[kept], x[kept] / (1.0 - rate))
 
 
 def _batches(rng, count):
