@@ -153,9 +153,37 @@ at its published widths, seeded weights, between the bf16 phases and fit:
            FIT_EPOCHS epochs, then 1 resumed epoch: epoch s, ms per step,
            the mean train loss per epoch (the shape terms must fall) and the
            training steps' stitch recall
+Then the two-stage pipeline of configs/stitch_model.yaml on the att f32
+fit run:
+  stitch_pipeline  (0) the run resumed to STITCH_SHAPE_EPOCHS epochs (on
+           the 3-epoch run no predicted pattern keeps its stitches): 1 + 1
+           fused launches per validation batch, 1 + 1 + 1 knn_gather
+           launches per step; (1) the run's dataset and best model rebuilt, every
+           split section predicted (1 + 1 fused launches per batch of 30)
+           and saved as predicted specs, the sections merged: s, garments/s,
+           patterns written and skipped; (2) GarmentStitchPairsDataset on the
+           merged root (stitch_model.yaml's dataset section with
+           FIT_FOLDERS, FIT_SPLIT and no parameter filter): garments kept,
+           pairs per batch (30 x 400), set-up s; (3) the stitch model at its
+           published widths (16 -> 200 x 3 -> 1): the eval forward of a
+           (30, 400, 16) batch and Trainer.train_step (ms, pairs/s, peak
+           memory), and the first step on STITCH_CPU_GARMENTS garments
+           against the CPU plain path (loss within 1e-5 relative, gradient
+           within 1e-4 of its norm); (4) Trainer.fit for FIT_EPOCHS epochs
+           at batch 30 and one resumed: epoch s, ms per step, loader-wait
+           share, the mean training loss must fall, the validation
+           section's pair accuracy and stitch recall; (5) eval_metrics on
+           the test section in the exhaustive mode (every cross-panel pair
+           at batch 1, padded to power-of-two buckets and masked): ms per
+           pattern and the buckets met; the stitches written back through
+           save_prediction_batch with the bucketed predict function, whose
+           logits must equal the unpadded forward's to 1e-6 of their scale
 Each of rows 4, 5, 8 and 9 in the kernels line carries `launches_fit`, its
 launches in the f32 or bf16 fit, and the f32 entries `launches_lstm` and
-`launches_fit_lstm`, the baseline's serving or training and its fit.
+`launches_fit_lstm`, the baseline's serving or training and its fit; the
+f32 entries of rows 4, 5, 8 and 9 carry `launches_stitch_pipeline`, their
+launches in the pipeline (the shape stage's resumed training and its
+predictions).
 Then each phase's seconds, the card's name and power limit, the kernels
 line (each bf16-mode kernel an entry of its own, its launches from the bf16
 phases), and as the last line {"ok": true, "device": {...}}. Any failed
@@ -806,7 +834,7 @@ def fit_phase(out_dir, variant=''):
     FIT_LSTM_STITCH_EPOCH): as att f32 less the host-time breakdown; the
     stitch phase's structure change makes its first epoch 'best'. Returns
     the launches of the first fit (rows 4-5: one per validation batch each;
-    rows 8-9: one per training step each)."""
+    rows 8-9: one per training step each) and the run's id."""
     import torch
     from garment_pattern_estimation_torch.experiment import ExperimentWrappper
     from garment_pattern_estimation_torch.models import build_model
@@ -900,7 +928,7 @@ def fit_phase(out_dir, variant=''):
               f'{phase}: best holds epoch {best["epoch"]}, not the stitch phase\'s first')
     if bf16:
         emit(line)
-        return launches
+        return launches, experiment.run_id
 
     # fit's first step against train_step on the same batch, same weights
     # a new wrapper of the same dataset: a fresh sampler, the stored statistics
@@ -984,6 +1012,299 @@ def fit_phase(out_dir, variant=''):
                                                   new_steps[-1]['learning_rate']]})
     if breakdown is not None:
         line['step_ms_breakdown'] = breakdown
+    emit(line)
+    return launches, experiment.run_id
+
+
+# configs/stitch_model.yaml, its dataset, NN and trainer sections (copied:
+# the YAML may not be readable where this runs; the NN section less its
+# `pre-trained` path, a file outside the repository);
+# tests/test_torch_stitch_pipeline.py holds them equal to the file
+STITCH_DATASET = {
+    'class': 'GarmentStitchPairsDataset',
+    'data_folders': ['dress_sleeveless_2550', 'jumpsuit_sleeveless_2000', 'skirt_8_panels_1000',
+                     'wb_pants_straight_1500', 'skirt_2_panels_1200', 'jacket_2200',
+                     'tee_sleeveless_1800', 'wb_dress_sleeveless_2600', 'jacket_hood_2700',
+                     'pants_straight_sides_1000', 'tee_2300', 'skirt_4_panels_1600'],
+    'unseen_data_folders': ['jacket_hood_sleeveless_150', 'skirt_waistband_150', 'tee_hood_150',
+                            'jacket_sleeveless_150', 'dress_150', 'jumpsuit_150',
+                            'wb_jumpsuit_sleeveless_150'],
+    'old_experiment': {'project_name': 'Garments-Reconstruction',
+                       'run_name': 'NeuralTailor-Train', 'run_id': None, 'stats': False,
+                       'predictions': True},
+    'random_pairs_mode': True, 'stitched_edge_pairs_num': 200,
+    'non_stitched_edge_pairs_num': 200, 'shuffle_pairs': True, 'shuffle_pairs_order': True,
+    'max_datapoints_per_type': 5000,
+    'filter_by_params': './garment_pattern_estimation_tpu/data_configs/param_filter.json',
+}
+STITCH_NN = {'model': 'StitchOnEdge3DPairs', 'stitch_hidden_size': 200, 'stitch_mlp_n_layers': 3,
+             'loss': {'loss_components': ['edge_pair_class'],
+                      'quality_components': ['edge_pair_class', 'edge_pair_stitch_recall']}}
+STITCH_TRAINER = {'batch_size': 30, 'epochs': 400, 'random_seed': 300, 'learning_rate': 0.002,
+                  'optimizer': 'Adam', 'weight_decay': 0, 'lr_scheduling': {'mode': '1cyclic'},
+                  'early_stopping': {'window': 0.0001, 'patience': 50},
+                  'with_visualization': False}
+# the att f32 fit run is resumed to this many epochs before its predictions:
+# after 3 epochs no predicted pattern keeps its stitches (a GT stitch needs
+# both panels' slots predicted, and a slot whose edges all stay within 1.5 cm
+# is dropped); PERF.md counts the patterns that keep them after each number
+# of epochs, and step (1) fails if one of them keeps none
+STITCH_SHAPE_EPOCHS = 24
+STITCH_STEP_CALLS = 8
+STITCH_CPU_GARMENTS = 4
+STITCH_LOSS_REL = 1e-5
+STITCH_GRAD_REL = 1e-4
+STITCH_BUCKET_ABS = 1e-6
+
+
+def stitch_pipeline_phase(out_dir, shape_run_id):
+    """The two-stage pipeline of configs/stitch_model.yaml on the att f32
+    run that `fit` finished (`shape_run_id` under `out_dir`): (0) the run
+    resumed from 'latest' to STITCH_SHAPE_EPOCHS epochs (Trainer.fit), then
+    five steps: (1) the run's dataset and best model rebuilt (`load_dataset`,
+    `load_model`), every split section predicted (`make_predict_fn`) and
+    saved (`prediction`), the sections merged (`merge_repos`), exactly one
+    launch of rows 4 and 5 per predicted batch; (2) GarmentStitchPairsDataset
+    on the merged root with stitch_model.yaml's dataset section, only the
+    data folders, the split (FIT_SPLIT) and the parameter filter (none)
+    changed; (3) the eval forward of a (30, 400, 16) batch and
+    Trainer.train_step (ms, pairs/s, peak memory), and the first step on
+    STITCH_CPU_GARMENTS garments against the CPU plain path from the same
+    weights (loss within STITCH_LOSS_REL relative, gradient within
+    STITCH_GRAD_REL of its norm); (4) Trainer.fit for FIT_EPOCHS epochs at
+    the published widths and batch 30, then one resumed epoch: the mean
+    training loss must fall, the validation section's pair accuracy and
+    stitch recall from `eval_metrics`; (5) `eval_metrics` on the test
+    section in the exhaustive mode (every cross-panel pair, batch 1, padded
+    to power-of-two buckets and masked) and the stitches written back
+    through `save_prediction_batch` with the bucketed predict function,
+    whose logits must equal the unpadded forward's to STITCH_BUCKET_ABS of
+    their scale. Returns the phase's launches: rows 4-5 once per validation
+    batch of step (0) and once per predicted batch of step (1), rows 8-9
+    once per training step of step (0); steps (2)-(5) launch none."""
+    import torch
+    from garment_pattern_estimation_torch.cli.common import merge_repos
+    from garment_pattern_estimation_torch.data import DatasetWrapper, GarmentStitchPairsDataset
+    from garment_pattern_estimation_torch.experiment import ExperimentWrappper
+    from garment_pattern_estimation_torch.models import build_model
+    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
+    from garment_pattern_estimation_torch.train import Trainer, eval_metrics, make_predict_fn
+    from garment_pattern_estimation_torch.train.eval_utils import _bucket_size
+
+    line = {'phase': 'stitch_pipeline', 'shape_run': f'fit_{shape_run_id}'}
+    sections = ['train', 'validation', 'test']
+
+    # (0) the shape stage trained on: the att f32 run resumed
+    start = time.perf_counter()
+    resumed_shape = ExperimentWrappper({'experiment': {'project_name': 'chip_smoke',
+                                                       'run_name': 'fit',
+                                                       'run_id': shape_run_id}},
+                                       output_root=out_dir)
+    shape_trainer = Trainer(dict(ATT_TRAINER, epochs=STITCH_SHAPE_EPOCHS), resumed_shape,
+                            fit_dataset(), dict(FIT_SPLIT))
+    edgeconv.reset_launches()
+    knn_gather.reset_launches()
+    model_name, nn_section, loss_section = VARIANTS['']
+    shape_trainer.fit(build_model(model_name, shape_trainer.datawrapper.dataset.config,
+                                  nn_section, loss_section, seed=0))
+    torch.cuda.synchronize()
+    _, shape_epochs = read_records(resumed_shape)
+    check([r['epoch'] for r in shape_epochs] == list(range(STITCH_SHAPE_EPOCHS))
+          and all(math.isfinite(r['valid_loss']) for r in shape_epochs),
+          f'stitch_pipeline: the shape run\'s epochs {[r["epoch"] for r in shape_epochs]}')
+
+    def phase_launches():
+        return {**{f'fused_{k}': v for k, v in edgeconv.launches.items()},
+                **{f'knn_gather_{k}': v for k, v in knn_gather.launches.items()}}
+
+    # rows 4-5 once per validation batch, rows 8-9 once per step
+    resumed = STITCH_SHAPE_EPOCHS - FIT_EPOCHS - 1
+    steps = resumed * len(shape_trainer.datawrapper.loaders.train)
+    valid = resumed * len(shape_trainer.datawrapper.loaders.validation)
+    shape_launches = phase_launches()
+    expected = {'fused_small_c': valid, 'fused_wide_c': valid, 'fused_small_c_tiled': 0,
+                'fused_wide_c_tiled': 0, 'knn_gather_fwd_small_c': steps,
+                'knn_gather_fwd_wide_c': steps, 'knn_gather_bwd': steps, 'knn_gather_bwd_hi': 0}
+    check(shape_launches == expected,
+          f'stitch_pipeline: shape-stage launches {shape_launches}, expected {expected}')
+    line['shape_stage'] = {
+        'resumed_epochs': [FIT_EPOCHS + 1, STITCH_SHAPE_EPOCHS - 1],
+        'resume_s': time.perf_counter() - start,
+        'valid_loss': [shape_epochs[FIT_EPOCHS]['valid_loss'], shape_epochs[-1]['valid_loss']],
+        'launches': shape_launches}
+
+    # (1) shape predictions
+    start = time.perf_counter()
+    shape_exp = ExperimentWrappper({'experiment': {'project_name': 'chip_smoke',
+                                                   'run_name': 'fit', 'run_id': shape_run_id}},
+                                   output_root=out_dir)
+    shape_dataset, shape_wrapper = shape_exp.load_dataset(ROOT / 'parity_run' / 'data_big')
+    shape_model, shape_state = shape_exp.load_model(shape_dataset.config)
+    load_s = time.perf_counter() - start
+    predict = make_predict_fn(shape_model, shape_state)
+    batches = sum(len(shape_wrapper.get_loader(s)) for s in sections)
+    garments = len(shape_wrapper.get_loader('train')) * shape_wrapper.batch_size \
+        + len(shape_wrapper.validation) + len(shape_wrapper.test)
+    start = time.perf_counter()
+    pred_path = shape_exp.prediction(out_dir, predict, shape_wrapper, nick='',
+                                     sections=sections)
+    predict_s = time.perf_counter() - start
+    launches = {k: v - shape_launches[k] for k, v in phase_launches().items()}
+    expected = {k: batches if k in ('fused_small_c', 'fused_wide_c') else 0 for k in launches}
+    check(launches == expected, f'stitch_pipeline: prediction launches {launches}, '
+          f'expected {expected} ({batches} batches)')
+    merged = merge_repos(pred_path, sections)
+    written = sorted(merged.glob('*/*/*_predicted__specification.json'))
+    check(len(written) > 0, 'stitch_pipeline: no predicted pattern was written')
+    with_stitches = sum(bool(json.loads(f.read_text())['pattern']['stitches'])
+                        for f in written)
+    check(with_stitches == len(written),
+          f'stitch_pipeline: {len(written) - with_stitches} of {len(written)} predicted '
+          f'patterns keep no stitch (the shape stage is under-trained)')
+    line['predictions'] = {
+        'garments': garments, 'batches': batches, 'load_s': load_s, 'predict_save_s': predict_s,
+        'garments_per_s': garments / predict_s, 'written': len(written),
+        'skipped': garments - len(written), 'with_stitches': with_stitches,
+        'launches': launches, 'merge_s': time.perf_counter() - start - predict_s}
+
+    # (2) the stitch dataset on the merged root
+    start = time.perf_counter()
+    data_config = dict(STITCH_DATASET, data_folders=FIT_FOLDERS, filter_by_params=None)
+    dataset = GarmentStitchPairsDataset(merged, data_config, gt_caching=True,
+                                        feature_caching=True)
+    setup = dict(STITCH_TRAINER, epochs=FIT_EPOCHS)
+    experiment = ExperimentWrappper({'experiment': {'project_name': 'chip_smoke',
+                                                    'run_name': 'stitch'}}, output_root=out_dir)
+    trainer = Trainer(setup, experiment, dataset, dict(FIT_SPLIT))
+    trainer.datawrapper.loaders.train.prefetch = 0
+    batch = next(iter(trainer.datawrapper.loaders.train))
+    pairs_per_batch = batch['features'].shape[0] * batch['features'].shape[1]
+    check(tuple(batch['features'].shape) == (setup['batch_size'], 400, 16)
+          and tuple(batch['ground_truth'].shape) == (setup['batch_size'], 400)
+          and batch['ground_truth'].dtype == torch.bool,
+          f'stitch_pipeline: batch {tuple(batch["features"].shape)}')
+    line['dataset'] = {'garments_kept': len(dataset),
+                       'split': [len(trainer.datawrapper.training),
+                                 len(trainer.datawrapper.validation),
+                                 len(trainer.datawrapper.test or [])],
+                       'pairs_per_batch': pairs_per_batch,
+                       'setup_s': time.perf_counter() - start}
+
+    # (3) the eval forward and the training step at the published widths
+    model = build_model('StitchOnEdge3DPairs', dataset.config, STITCH_NN, STITCH_NN['loss'],
+                        seed=0)
+    initial = {k: v.clone() for k, v in model.module.state_dict().items()}
+    on_card = {'features': batch['features'].cuda(), 'ground_truth': batch['ground_truth'].cuda()}
+    model.module.eval()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        forward_ms = cuda_ms(lambda: model.module(on_card['features']))
+    forward_peak = torch.cuda.max_memory_allocated() / 1e9
+    probe = Trainer(setup)
+    probe.make_optimizer(model, len(trainer.datawrapper.loaders.train))
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(STITCH_STEP_CALLS):
+        out, ms = timed_calls(lambda: probe.train_step(model, on_card, 0), 1)
+        losses.append(out[0].item())
+        times.append(ms[0])
+    step_ms = statistics.median(times[1:])
+    check(all(math.isfinite(v) for v in losses), f'stitch_pipeline: step losses {losses}')
+    line['forward_and_step'] = {
+        'forward_ms': forward_ms, 'forward_pairs_per_s': pairs_per_batch / forward_ms * 1e3,
+        'forward_peak_memory_gb': forward_peak, 'step_ms': step_ms,
+        'step_ms_first': times[0], 'step_pairs_per_s': pairs_per_batch / step_ms * 1e3,
+        'step_peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9,
+        'step_losses': [losses[0], losses[-1]]}
+
+    # the first step on a few garments against the CPU plain path
+    small = {'features': batch['features'][:STITCH_CPU_GARMENTS],
+             'ground_truth': batch['ground_truth'][:STITCH_CPU_GARMENTS]}
+    results = {}
+    for device in ('cuda', 'cpu'):
+        twin = build_model('StitchOnEdge3DPairs', dataset.config, STITCH_NN, STITCH_NN['loss'],
+                           device=device, seed=0)
+        twin.module.load_state_dict(initial)
+        stepper = Trainer(setup, device=device)
+        stepper.make_optimizer(twin, len(trainer.datawrapper.loaders.train))
+        loss, _ = stepper.train_step(twin, small, 0)
+        results[device] = (loss.item(), {n: p.grad.detach().cpu()
+                                         for n, p in twin.module.named_parameters()})
+    loss_rel = abs(results['cuda'][0] - results['cpu'][0]) / abs(results['cpu'][0])
+    gaps = {'loss_rel': loss_rel, **gradient_gap(results['cuda'][1], results['cpu'][1])}
+    check(loss_rel <= STITCH_LOSS_REL and gaps['grad_rel_l2'] <= STITCH_GRAD_REL,
+          f'stitch_pipeline: the {STITCH_CPU_GARMENTS}-garment step is off the CPU path: {gaps}')
+    line['forward_and_step']['vs_cpu_plain'] = gaps
+
+    # (4) fit, then one resumed epoch
+    model = build_model('StitchOnEdge3DPairs', dataset.config, STITCH_NN, STITCH_NN['loss'],
+                        seed=0)
+    start = time.perf_counter()
+    trainer.fit(model)
+    resumed_exp = ExperimentWrappper({'experiment': {'project_name': 'chip_smoke',
+                                                     'run_name': 'stitch',
+                                                     'run_id': experiment.run_id}},
+                                     output_root=out_dir)
+    resumed = Trainer(dict(setup, epochs=FIT_EPOCHS + 1), resumed_exp, dataset, dict(FIT_SPLIT))
+    resumed.fit(model)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - start
+    steps, epochs = read_records(resumed_exp)
+    spe = len(trainer.datawrapper.loaders.train)
+    check([r['epoch'] for r in epochs] == list(range(FIT_EPOCHS + 1))
+          and len(steps) == (FIT_EPOCHS + 1) * spe,
+          f'stitch_pipeline: epochs {[r["epoch"] for r in epochs]}, {len(steps)} steps')
+    means = [statistics.mean(r['loss'] for r in steps if r['epoch'] == e)
+             for e in range(FIT_EPOCHS + 1)]
+    check(all(math.isfinite(m) for m in means) and means[-1] < means[0],
+          f'stitch_pipeline: mean train loss did not fall: {means}')
+    best = resumed_exp.get_best_model(map_location='cuda')['model']
+    valid = eval_metrics(model, best, resumed.datawrapper, 'validation')
+    line['fit'] = {'fit_s': fit_s, 'steps_per_epoch': spe, 'per_epoch': [{
+        'epoch': r['epoch'], 'epoch_s': r['epoch_time'],
+        'train_loop_ms_per_step': r['train_time'] / spe * 1e3,
+        'loader_wait_share': r['data_time'] / r['epoch_time'], 'train_loss': means[r['epoch']],
+        'valid_loss': r['valid_loss']} for r in epochs],
+        'valid_edge_pair_class_acc': valid['edge_pair_class_acc'],
+        'valid_stitch_recall': valid['stitch_recall']}
+
+    # (5) exhaustive eval and stitch write-back on the test section
+    dataset.config['random_pairs_mode'] = False
+    dataset._drop_cache()
+    exhaustive = DatasetWrapper(dataset, known_split=dict(FIT_SPLIT), batch_size=1)
+    test_ids = exhaustive.test.indices
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    test_metrics = eval_metrics(model, best, exhaustive, 'test')
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - start) / len(test_ids) * 1e3
+    counts = [dataset[i]['features'].shape[0] for i in test_ids]
+    predict_logits = make_predict_fn(model, best, bucket_pairs=True)
+    pairs = dataset[test_ids[0]]['features']
+    bucketed = predict_logits(pairs)
+    with torch.no_grad():
+        plain = model.module.eval()(torch.from_numpy(pairs).cuda()).cpu().numpy()
+    bucket_gap = float(abs(bucketed - plain).max())
+    check(bucket_gap <= STITCH_BUCKET_ABS * max(1.0, float(abs(plain).max())),
+          f'stitch_pipeline: bucketed logits off the unpadded forward by {bucket_gap}')
+    start = time.perf_counter()
+    stitch_path = resumed_exp.prediction(out_dir, predict_logits, exhaustive, nick='stitch_pred',
+                                         sections=['test'], model=predict_logits)
+    write_s = time.perf_counter() - start
+    specs = sorted(stitch_path.glob('test/*/*/*_predicted__specification.json'))
+    stitches = [len(json.loads(f.read_text())['pattern']['stitches']) for f in specs]
+    check(len(specs) > 0, 'stitch_pipeline: no pattern was written back')
+    line['exhaustive'] = {
+        'test_patterns': len(test_ids), 'pairs_per_pattern': [min(counts), max(counts)],
+        'buckets': sorted({_bucket_size(n) for n in counts}), 'eval_ms_per_pattern': eval_ms,
+        'test_metrics': test_metrics, 'bucketed_vs_unpadded_max_abs': bucket_gap,
+        'written': len(specs), 'write_ms_per_pattern': write_s / len(test_ids) * 1e3,
+        'stitches_per_pattern': [min(stitches), statistics.mean(stitches), max(stitches)]}
+    launches = phase_launches()
+    check(launches == {k: shape_launches[k] + line['predictions']['launches'][k]
+                       for k in launches},
+          f'stitch_pipeline: the stitch stages launched {launches}')
+    line['launches'] = launches
     emit(line)
     return launches
 
@@ -1828,19 +2149,29 @@ def main():
           lstm_step)
     del lstm_step
 
-    # Trainer.fit over the dataset: its own launch counts, set to 0 just
-    # before each fit and read just after
+    # Trainer.fit over the dataset, then the stitch pipeline on the att f32
+    # run: their own launch counts, set to 0 just before each and read just
+    # after
     with tempfile.TemporaryDirectory(dir=ROOT / 'garment_pattern_estimation_torch' / '_build') \
             as out_dir:
+        run_ids = {}
         for variant, key, (small, wide, gathers) in (
                 ('', 'launches_fit', (small_line, wide_line, gather_lines)),
                 ('_bf16', 'launches_fit', (small_bf16, wide_bf16, gather_bf16)),
                 ('_lstm', 'launches_fit_lstm', (small_line, wide_line, gather_lines))):
-            fit_launches = timed(seconds, 'fit' + variant, fit_phase, Path(out_dir), variant)
+            fit_launches, run_ids[variant] = timed(seconds, 'fit' + variant, fit_phase,
+                                                   Path(out_dir), variant)
             small[key] = fit_launches['fused_small_c']
             wide[key] = fit_launches['fused_wide_c']
             for line in gathers:
                 line[key] = fit_launches['knn_gather_' + launch_key(line['name'])]
+        stitch_launches = timed(seconds, 'stitch_pipeline', stitch_pipeline_phase,
+                                Path(out_dir), run_ids[''])
+        small_line['launches_stitch_pipeline'] = stitch_launches['fused_small_c']
+        wide_line['launches_stitch_pipeline'] = stitch_launches['fused_wide_c']
+        for line in gather_lines:
+            line['launches_stitch_pipeline'] = \
+                stitch_launches['knn_gather_' + launch_key(line['name'])]
     emit({'phase_seconds': seconds})
 
     card = subprocess.run(

@@ -3,7 +3,9 @@
 A second package beside `garment_pattern_estimation_tpu` (the JAX reference,
 which this package never imports). It serves the NeuralTailor pattern-shape
 models, the attention model and the baseline (point cloud -> panel outlines,
-placements, stitch tags), and trains them, step by step or over a dataset.
+placements, stitch tags), and trains them, step by step or over a dataset;
+and it trains the stitch model on a shape run's predictions, the two-stage
+pipeline of the train CLI.
 
 Layering (bottom-up):
     device.py    device resolution: CUDA unless the caller asks for the CPU
@@ -13,12 +15,16 @@ Layering (bottom-up):
     utils/       the synthetic dataset generator
     ops/         the CUDA kernels (csrc/) with their plain PyTorch versions,
                  sparsemax, pools, chunked EdgeConv training
-    models/      nn.Modules of the shape models, the registry, the loader
-                 from the JAX package's flax variables
-    losses/      the composed pattern loss and its quality metrics
-    train/       Trainer: train_step, eval_step and fit
+    models/      nn.Modules of the shape models and the stitch model, the
+                 registry, the loader from the JAX package's flax variables
+    losses/      the composed pattern loss, the stitch model's loss, their
+                 quality metrics
+    train/       Trainer: train_step, eval_step and fit; predict and eval
+                 shortcuts (eval_utils)
     experiment/  serving (standardize -> forward -> un-standardize), the
-                 local experiment tracker and checkpoints
+                 local experiment tracker, checkpoints, a stored run's
+                 dataset and model
+    cli/         the train entry point
 """
 import torch
 

@@ -1,10 +1,10 @@
 """Dataset layer: datasets, loaders, splits, balanced batching, transforms.
 
-The port's copy of garment_pattern_estimation_tpu/data/, without the stitch
-model's `GarmentStitchPairsDataset`."""
+The port's copy of garment_pattern_estimation_tpu/data/."""
 
 from .datasets import (
-    BaseDataset, GarmentBaseDataset, Garment3DPatternFullDataset, DATASET_REGISTRY,
+    BaseDataset, GarmentBaseDataset, Garment3DPatternFullDataset, GarmentStitchPairsDataset,
+    DATASET_REGISTRY,
 )
 from .wrapper import DatasetWrapper
 from .loader import DataLoader, Subset, default_collate
@@ -15,6 +15,7 @@ from . import transforms
 
 __all__ = [
     'BaseDataset', 'GarmentBaseDataset', 'Garment3DPatternFullDataset',
+    'GarmentStitchPairsDataset',
     'DATASET_REGISTRY', 'DatasetWrapper',
     'DataLoader', 'Subset', 'default_collate', 'BalancedBatchSampler',
     'sample_points_from_meshes', 'save_garments_prediction',

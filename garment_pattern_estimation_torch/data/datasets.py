@@ -1,7 +1,7 @@
 """Garment datasets: folder scanning, caching, splits, standardization,
 feature/GT assembly, prediction saving.
 
-The port's copy of garment_pattern_estimation_tpu/data/datasets.py:32-785
+The port's copy of garment_pattern_estimation_tpu/data/datasets.py:32-916
 (numpy inside, so every sample is bitwise the JAX package's; tensors appear
 only where `loader.default_collate` stacks a batch). Behavioral counterpart
 of nn/data/datasets.py on a numpy pipeline:
@@ -12,9 +12,10 @@ of nn/data/datasets.py on a numpy pipeline:
   * Garment3DPatternFullDataset — point-cloud features (sampled via the
     native preprocessing library, deterministic per datapoint), padded
     pattern GT dict, standardization stats, prediction -> spec saving
+  * GarmentStitchPairsDataset — edge-pair features for the stitch model,
+    preferring `*predicted*specification.json` files
 
-`GarmentStitchPairsDataset` (the stitch model's) and on-device sampling
-(`on_device_sampling`) are not ported: the latter raises.
+On-device sampling (`on_device_sampling`) is not ported: it raises.
 """
 from __future__ import annotations
 
@@ -709,6 +710,146 @@ class Garment3DPatternFullDataset(GarmentBaseDataset):
         return mask.reshape(n_panels, row_len)
 
 
+class GarmentStitchPairsDataset(GarmentBaseDataset):
+    """Edge-pair features + stitched/not labels for the stitch classifier;
+    prefers `*predicted*specification.json` files, drops stitch-less patterns
+    (reference: nn/data/datasets.py:985-1159).
+
+    With `random_pairs_mode` a sample is `stitched_edge_pairs_num` +
+    `non_stitched_edge_pairs_num` pairs (P, 16) with a (P,) bool ground
+    truth, drawn from a per-datapoint rng seeded from the datapoint's name
+    and `pairs_seed` (None: fresh entropy); without it, every cross-panel
+    edge pair of the pattern, a different P per pattern."""
+
+    def __init__(self, root_dir, start_config=None, gt_caching=False,
+                 feature_caching=False, in_transforms=None,
+                 filter_correct_n_panels=False):
+        if gt_caching or feature_caching:
+            gt_caching = feature_caching = True
+        self.filter_correct_n_panels = filter_correct_n_panels
+        init_config = {
+            'data_folders': [],
+            'random_pairs_mode': True,
+            'stitched_edge_pairs_num': 200,
+            'non_stitched_edge_pairs_num': 200,
+            'shuffle_pairs': True,
+            'shuffle_pairs_order': True,
+            'pairs_seed': None,
+        }
+        init_config.update(start_config or {})
+        super().__init__(root_dir, init_config, gt_caching=gt_caching,
+                         feature_caching=feature_caching, in_transforms=in_transforms)
+        self.config.update(element_size=self[0]['features'].shape[-1])
+
+    def standardize(self, training=None):
+        print(f'{self.__class__.__name__}::standardizing features')
+        if 'standardize' in self.config:
+            stats = self.config['standardize']
+        elif training is not None:
+            features = np.concatenate(
+                [np.asarray(training[i]['features']).reshape(-1, 16)
+                 for i in range(len(training))])
+            shift, scale = self._get_norm_stats(features)
+            self.config['standardize'] = {'f_shift': shift.tolist(),
+                                          'f_scale': scale.tolist()}
+            stats = self.config['standardize']
+        else:
+            raise ValueError(
+                f'{self.__class__.__name__}::Error::standardization requires either '
+                'stats in config or a training subset')
+        self.transforms = [t for t in self.transforms
+                           if not isinstance(t, (transforms.GTtandartization,
+                                                 transforms.FeatureStandartization))]
+        self.transforms.append(
+            transforms.FeatureStandartization(stats['f_shift'], stats['f_scale']))
+
+    def _spec_path(self, datapoint_name, missing_ok=False):
+        """The datapoint's spec file, preferring a previously PREDICTED spec
+        over the GT one (the stage-1 -> stage-2 filesystem handoff)."""
+        specs = sorted(f.name for f in (self.root_path / datapoint_name).glob('*')
+                       if 'specification.json' in f.name)
+        if not specs:
+            if missing_ok:
+                return None
+            raise RuntimeError(
+                f'{self.__class__.__name__}::Error::*specification.json not found '
+                f'for {datapoint_name}')
+        best = [f for f in specs if 'predicte' in f]
+        return self.root_path / datapoint_name / (best[0] if best else specs[0])
+
+    def save_prediction_batch(self, predictions, datanames, data_folders, save_to,
+                              model=None, orig_folder_names=False, **kwargs):
+        """Re-classify stitches of the stored (predicted) patterns with the
+        given pair-classifier callable and save them
+        (reference: datasets.py:1051-1094). `model`: standardized pairs
+        (M, 16) numpy -> logits (M,) numpy (`train.make_predict_fn` of the
+        stitch model with `bucket_pairs=True`)."""
+        save_to = Path(save_to)
+        rendered = []
+        for name, folder in zip(datanames, data_folders):
+            spec_path = self._spec_path(f'{folder}/{name}', missing_ok=True)
+            if spec_path is None:
+                print(f'{self.__class__.__name__}::Error::{name} serializing skipped: '
+                      '*specification.json not found')
+                continue
+            pattern = NNSewingPattern(spec_path)
+            pattern.stitches_from_pair_classifier(model, self.config['standardize'])
+
+            into = folder if orig_folder_names \
+                else self.data_folders_nicknames[folder]
+            try:
+                out_dir = Path(pattern.serialize(save_to / into, to_subfolder=True,
+                                                 tag='_predicted_'))
+            except (RuntimeError, InvalidPatternDefError, TypeError) as e:
+                print(f'{self.__class__.__name__}::Error::{name} serializing skipped: {e}')
+                continue
+            rendered.append(out_dir / f'{pattern.name}_predicted__pattern.png')
+            for source in (self.root_path / folder / name).glob('*'):
+                if source.suffix in ('.png', '.json'):
+                    shutil.copy2(str(source), str(out_dir))
+        return rendered
+
+    def _get_sample_info(self, datapoint_name):
+        if datapoint_name in self.gt_cached:
+            return self.feature_cached[datapoint_name], self.gt_cached[datapoint_name]
+
+        pattern = NNSewingPattern(self._spec_path(datapoint_name))
+
+        if self.config['random_pairs_mode']:
+            seed = self.config.get('pairs_seed')
+            rng = np.random.default_rng(
+                None if seed is None
+                else (zlib.crc32(datapoint_name.encode()) ^ seed) & (2 ** 63 - 1))
+            features, ground_truth = pattern.stitches_as_3D_pairs(
+                self.config['stitched_edge_pairs_num'],
+                self.config['non_stitched_edge_pairs_num'],
+                self.config['shuffle_pairs'], self.config['shuffle_pairs_order'],
+                rng=rng)
+        else:
+            features, _, ground_truth = pattern.all_edge_pairs()
+            ground_truth = np.asarray(ground_truth, dtype=bool)
+
+        if self.gt_caching and self.feature_caching:
+            self.gt_cached[datapoint_name] = ground_truth
+            self.feature_cached[datapoint_name] = features
+        return features, ground_truth
+
+    def _clean_datapoint_list(self, datapoints_names, dataset_folder):
+        survivors = []
+        for name in super()._clean_datapoint_list(datapoints_names, dataset_folder):
+            pattern = NNSewingPattern(self._spec_path(name))
+            if not pattern.pattern['stitches']:
+                print(f'{self.__class__.__name__}::ERROR::{name}::has no stitches')
+                continue
+            if self.filter_correct_n_panels and \
+                    pattern.spec['properties'].get('correct_num_panels') \
+                    != len(pattern.pattern['panels']):
+                continue
+            survivors.append(name)
+        return survivors
+
+
 DATASET_REGISTRY = {
     'Garment3DPatternFullDataset': Garment3DPatternFullDataset,
+    'GarmentStitchPairsDataset': GarmentStitchPairsDataset,
 }

@@ -1,10 +1,9 @@
 """Local-first experiment tracking with the reference's W&B capabilities.
 
-The port's copy of garment_pattern_estimation_tpu/experiment/tracker.py:57-303
+The port's copy of garment_pattern_estimation_tpu/experiment/tracker.py:57-366
 in local mode: checkpoints are `torch.save` files (`checkpoint.py`), and the
-optional wandb mirror keeps only its absent-package path. Rebuilding a
-dataset or a model from a stored run (`load_dataset`, `load_model`) and
-batch prediction (`prediction`) are not ported yet.
+optional wandb mirror keeps only its absent-package path. A pre-trained
+`.pth` in place of a missing 'best' checkpoint is not loaded.
 
 Counterpart of nn/experiment.py's ExperimentWrappper: run init/resume by id,
 config persistence, metric logging, summary statistics, versioned + aliased
@@ -282,6 +281,58 @@ class ExperimentWrappper:
         """The 'best' checkpoint (reference: experiment.py:311-335; loading a
         pre-trained `.pth` in its place is not ported)."""
         return self.get_checkpoint_file('best', map_location=map_location)
+
+    # ------------- factories -------------
+    def load_dataset(self, data_root):
+        """Rebuild the dataset + wrapper from this run's stored config and
+        split (reference: experiment.py:203-225)."""
+        from ..data import DATASET_REGISTRY, DatasetWrapper
+
+        split, batch_size, data_config = self.data_info()
+        batch_size = batch_size or 1
+        dataset_class = DATASET_REGISTRY[data_config.get(
+            'class', 'Garment3DPatternFullDataset')]
+        dataset = dataset_class(data_root, data_config,
+                                gt_caching=True, feature_caching=True)
+        wrapper = DatasetWrapper(dataset, known_split=split, batch_size=batch_size)
+        if wrapper.batch_size is None:
+            wrapper.batch_size = batch_size
+            wrapper.new_loaders()
+        dataset.standardize()  # stats must already be in the stored config
+        return dataset, wrapper
+
+    def load_model(self, data_config, alias='best', nn_overrides=None, device=None):
+        """Rebuild the model from the stored NN config on `device` (None =
+        CUDA) and load the weights of checkpoint `alias` into it. Returns
+        (GarmentModel, state dict).
+
+        `nn_overrides` patches the stored NN config before the rebuild, for
+        knobs that change compute but not parameters (`compute_dtype`,
+        `f32_conv_layers`, `f32_attention_mlp`)."""
+        from ..models import build_model
+
+        nn_config = dict(self.NN_config())
+        nn_config.update(nn_overrides or {})
+        model = build_model(nn_config.get('model', 'GarmentSegmentPattern3D'),
+                            data_config, nn_config, nn_config.get('loss', {}),
+                            device=device)
+        checkpoint = (self.get_best_model(map_location=model.device) if alias == 'best'
+                      else self.get_checkpoint_file(alias, map_location=model.device))
+        state = checkpoint['model']
+        model.module.load_state_dict(state)
+        return model, state
+
+    def prediction(self, save_to, predict_fn, datawrapper, nick='test',
+                   sections=('test',), model=None):
+        """Batch prediction + artifact registration. Predictions keep the
+        original data-folder names (not nicknames) so they can serve as a
+        dataset root downstream (reference: experiment.py:243-255)."""
+        prediction_path = datawrapper.predict(
+            predict_fn, save_to=Path(save_to), dir_tag=nick, sections=sections,
+            model=model, orig_folder_names=True)
+        if self.run_id and self.run_dir().exists():
+            self.add_statistic('prediction_path', str(prediction_path))
+        return prediction_path
 
 
 ExperimentWrapper = ExperimentWrappper  # corrected-spelling alias

@@ -1,5 +1,6 @@
-"""Losses and quality metrics of the pattern-shape models."""
+"""Losses and quality metrics of the pattern-shape models and the stitch
+model."""
 
-from .composed import ComposedPatternLoss
+from .composed import ComposedLoss, ComposedPatternLoss
 
-__all__ = ['ComposedPatternLoss']
+__all__ = ['ComposedLoss', 'ComposedPatternLoss']

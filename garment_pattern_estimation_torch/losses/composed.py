@@ -1,5 +1,5 @@
 """The config-driven composed loss of the pattern-shape models, with the
-ground-truth canonicalization it runs first.
+ground-truth canonicalization it runs first, and the stitch model's loss.
 
 Counterpart of garment_pattern_estimation_tpu/losses/composed.py:31-451
 (`ComposedPatternLoss` and its primitives): losses shape, loop, rotation,
@@ -14,6 +14,9 @@ both) runs as masked tensor ops on the predictions' device, and its loops
 (P steps of the assignment) make no host synchronization. Every argmin
 takes the first minimum, as the JAX one does: padded GT panels are equal,
 so their distances tie exactly.
+
+`ComposedLoss` is the stitch pair classifier's
+(garment_pattern_estimation_tpu/losses/composed.py:454-517).
 """
 from __future__ import annotations
 
@@ -409,3 +412,67 @@ class ComposedPatternLoss:
             gt_mask = gt['free_edges_mask'].to(free_class.dtype)
             loss_dict['free_edge_acc'] = (free_class == gt_mask).float().mean()
         return loss_dict
+
+
+# ======================================================================
+# Stitch-model composed loss
+# ======================================================================
+
+class ComposedLoss:
+    """The stitch pair classifier's loss: BCE on the pair logits
+    (`edge_pair_class`), and as quality metrics the accuracy
+    (`edge_pair_class`), stitch precision and recall
+    (`edge_pair_stitch_recall`) of round(sigmoid(logit)). The metrics stay
+    on the logits' device."""
+
+    def __init__(self, data_config, in_config=None):
+        self.config = {'loss_components': [], 'quality_components': []}
+        self.config.update(in_config or {})
+        self.with_quality_eval = True
+        self.training = False
+        self.l_components = tuple(self.config['loss_components'])
+        self.q_components = tuple(self.config['quality_components'])
+
+    def __call__(self, preds, ground_truth, epoch=1000, generator=None, mask=None):
+        """`mask` (the shape of `preds`, optional) marks the real pairs of a
+        batch padded to a shape bucket: a padded pair counts in no mean and
+        no count. `epoch` and `generator` are not used. Returns (loss, dict,
+        False)."""
+        loss_dict = {}
+        full_loss = torch.zeros((), device=preds.device)
+        valid = None if mask is None else mask.reshape(-1)
+        if 'edge_pair_class' in self.l_components:
+            pair_loss = C.bce_with_logits(preds.reshape(-1), ground_truth.reshape(-1),
+                                          mask=valid)
+            loss_dict['edge_pair_class_loss'] = pair_loss
+            full_loss = full_loss + pair_loss
+
+        if self.with_quality_eval:
+            with torch.no_grad():
+                pred_class = torch.round(torch.sigmoid(preds.detach())).reshape(-1)
+                gt_mask = ground_truth.reshape(-1).to(pred_class.dtype)
+                if valid is not None:
+                    # padded slots: predicted 0 against gt 0 (no tp, fp or
+                    # fn), and out of the accuracy's mean
+                    pred_class = torch.where(valid, pred_class, 0.0)
+                    gt_mask = torch.where(valid, gt_mask, 0.0)
+                if 'edge_pair_class' in self.q_components:
+                    correct = (pred_class == gt_mask).float()
+                    loss_dict['edge_pair_class_acc'] = correct.mean() if valid is None \
+                        else (torch.where(valid, correct, 0.0).sum()
+                              / torch.clamp_min(valid.sum(), 1))
+                if 'edge_pair_stitch_recall' in self.q_components:
+                    true_pos = ((pred_class == 1) & (gt_mask == 1)).sum().float()
+                    pred_pos = (pred_class == 1).sum().float()
+                    actual_pos = (gt_mask == 1).sum().float()
+                    loss_dict['stitch_precision'] = torch.where(
+                        pred_pos > 0, true_pos / torch.clamp_min(pred_pos, 1), 0.0)
+                    loss_dict['stitch_recall'] = torch.where(
+                        actual_pos > 0, true_pos / torch.clamp_min(actual_pos, 1), 0.0)
+        return full_loss, loss_dict, False
+
+    def eval(self):
+        self.training = False
+
+    def train(self, mode=True):
+        self.training = mode

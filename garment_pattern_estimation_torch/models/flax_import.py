@@ -1,9 +1,10 @@
 """The JAX package's flax variables -> the port's state dict.
 
 `variables` is the `{'params', 'batch_stats'}` tree of a JAX pattern-shape
-model (the attention model or the baseline `GarmentFullPattern3D`) as
-nested dicts of numpy arrays (any array type numpy can read). The result
-names its entries like the reference NeuralTailor state dict:
+model (the attention model or the baseline `GarmentFullPattern3D`) or of
+the stitch model `StitchOnEdge3DPairs` as nested dicts of numpy arrays (any
+array type numpy can read). The result names its entries like the
+reference NeuralTailor state dict:
 
     feature_extractor.conv_layers.{i}.nn.{j}.0/.2   <- conv{i}/MLP_0/Dense_j, BatchNorm_j
     feature_extractor.lin                           <- feature_extractor/lin
@@ -15,7 +16,12 @@ names its entries like the reference NeuralTailor state dict:
 for each decoder D, panel_decoder and pattern_decoder
 (the attention head `point_segment_mlp` and `panel_dec_lin` in the
 attention model, `pattern_decoder` in the baseline), the names that
-garment_pattern_estimation_tpu/experiment/torch_import.py:89 reads back.
+garment_pattern_estimation_tpu/experiment/torch_import.py:89 reads back;
+for the stitch model
+
+    mlp.{j}.0/.2                                    <- mlp/Dense_j, BatchNorm_j
+
+(`torch_import.py:81` there).
 
 Dense kernels (in, out) are transposed to (out, in); BatchNorm scale, bias,
 mean and var become weight, bias, running_mean and running_var; LSTM
@@ -75,10 +81,13 @@ def _lstm_decoder(sd, name, params):
 
 
 def state_dict_from_flax(variables) -> OrderedDict:
-    """GarmentSegmentPattern3D or GarmentFullPattern3D flax variables -> the
-    port's state dict."""
+    """GarmentSegmentPattern3D, GarmentFullPattern3D or StitchOnEdge3DPairs
+    flax variables -> the port's state dict."""
     params, stats = variables['params'], variables['batch_stats']
     sd = OrderedDict()
+    if set(params) == {'mlp'}:                         # the stitch model
+        _mlp(sd, 'mlp', params['mlp'], stats['mlp'])
+        return sd
 
     fe_params, fe_stats = params['feature_extractor'], stats['feature_extractor']
     conv_id = 0

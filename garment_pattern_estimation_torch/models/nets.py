@@ -11,6 +11,9 @@ Predictions are a dict:
     stitch_tags     (B, P, L, stitch_tag_dim)
     free_edges_mask (B, P, L) logits
     att_weights     (B, N, P) sparsemax scores (attention model only)
+
+and the stitch model `StitchOnEdge3DPairs`, a pair classifier whose output
+is one logit per 16-float edge pair (`:238-252` there).
 """
 from __future__ import annotations
 
@@ -191,3 +194,22 @@ class GarmentSegmentPattern3DModule(GarmentFullPattern3DModule):
             panel_encodings.reshape(-1, panel_encodings.shape[-1]), B, generator)
         preds['att_weights'] = att_weights
         return preds
+
+
+class StitchOnEdge3DPairsModule(nn.Module):
+    """Binary stitch classifier on edge pairs: (..., pair_feature_len) ->
+    (...) logits through `blocks.MLP`, with ReLU + BatchNorm after every
+    layer, the logit's included (the reference MLP's layout, kept so its
+    checkpoints behave the same). In train mode the BN statistics come from
+    all the rows of the flattened batch, as flax's BatchNorm reduces every
+    leading axis."""
+
+    def __init__(self, pair_feature_len=16, stitch_hidden_size=200, stitch_mlp_n_layers=3):
+        super().__init__()
+        self.mlp = blocks.MLP([pair_feature_len]
+                              + [stitch_hidden_size] * stitch_mlp_n_layers + [1])
+
+    def forward(self, pairs, generator=None):
+        """`generator` is not used: it is taken so that the trainer calls
+        every model the same way."""
+        return self.mlp(pairs.reshape(-1, pairs.shape[-1])).reshape(pairs.shape[:-1])

@@ -1,11 +1,12 @@
 """Model factory: name + configs -> the experiment-facing model object.
 
-Counterpart of garment_pattern_estimation_tpu/models/registry.py:99-171 for
+Counterpart of garment_pattern_estimation_tpu/models/registry.py:99-186 for
 the pattern-shape models (`GarmentFullPattern3D`, the baseline, and
-`GarmentSegmentPattern3D`, the attention model): class defaults <- YAML NN
-section <- backfilled compatibility keys, the merged dict kept for
-experiment tracking, and the composed loss from the registry's loss
-defaults <- the loss section (`:49-58`, `:118-134` there). Weights are drawn from a seeded
+`GarmentSegmentPattern3D`, the attention model) and the stitch model
+(`StitchOnEdge3DPairs`): class defaults <- YAML NN section <- backfilled
+compatibility keys, the merged dict kept for experiment tracking, and the
+composed loss from the registry's loss defaults <- the loss section
+(`:49-67`, `:118-134`, `:173-186` there). Weights are drawn from a seeded
 `torch.Generator`; the model is built in eval mode on the resolved device.
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_compute_dtype, resolve_device
-from ..losses import ComposedPatternLoss
+from ..losses import ComposedLoss, ComposedPatternLoss
 from . import blocks, nets
 
 # YAML / reference config key -> module argument
@@ -61,6 +62,18 @@ _SHAPE_LOSS_DEFAULTS = {
     'stitch_supervised_weight': 0.1,
     'stitch_hardnet_version': False,
     'panel_origin_invariant_loss': True,
+}
+
+_STITCH_MODEL_DEFAULTS = {
+    'stitch_hidden_size': 200,
+    'stitch_mlp_n_layers': 3,
+}
+
+_STITCH_LOSS_DEFAULTS = {
+    'loss_components': ['edge_pair_class'],
+    'quality_components': ['edge_pair_class', 'edge_pair_stitch_recall'],
+    'panel_origin_invariant_loss': False,
+    'panel_order_inariant_loss': False,
 }
 
 # merged-config keys a model's module does not take: pool_ratio belongs to
@@ -125,8 +138,8 @@ def build_model(model_name, data_config, nn_config=None, loss_config=None, *,
     The NN section's `compute_dtype` (None, 'float32' or 'bfloat16'; any
     other raises ValueError), `f32_conv_layers` and `f32_attention_mlp` set
     the mixed-precision mode (parameters stay f32), as the JAX registry's
-    do. 'GarmentFullPattern3D' and 'GarmentSegmentPattern3D' are ported;
-    'StitchOnEdge3DPairs' raises NotImplementedError."""
+    do. 'StitchOnEdge3DPairs' takes its pair length from
+    `data_config['element_size']` and only the NN keys of its defaults."""
     device = resolve_device(device)
     nn_config = dict(nn_config or {})
     nn_config.pop('loss', None)
@@ -137,10 +150,9 @@ def build_model(model_name, data_config, nn_config=None, loss_config=None, *,
     edgeconv_train_mode = nn_config.pop('edgeconv_train_mode', 'fused_final')
     resolve_compute_dtype(compute_dtype)           # raises on any other dtype
 
+    if model_name == 'StitchOnEdge3DPairs':
+        return _build_stitch_model(data_config, nn_config, loss_config, device, seed)
     if model_name not in _MODULES:
-        if model_name == 'StitchOnEdge3DPairs':
-            raise NotImplementedError(
-                f'build_model: <{model_name}> is not ported yet (ROADMAP queue A item 5)')
         raise ValueError(f'models.registry::unknown model <{model_name}>')
 
     config = dict(_SHAPE_MODEL_DEFAULTS)
@@ -183,3 +195,20 @@ def build_model(model_name, data_config, nn_config=None, loss_config=None, *,
     merged['edgeconv_train_chunk'] = edgeconv_train_chunk
     merged['edgeconv_train_mode'] = edgeconv_train_mode
     return GarmentModel(model_name, module, merged, loss)
+
+
+def _build_stitch_model(data_config, nn_config, loss_config, device, seed):
+    """The stitch model, merged config and loss as the JAX registry builds
+    them (garment_pattern_estimation_tpu/models/registry.py:173-186)."""
+    config = dict(_STITCH_MODEL_DEFAULTS)
+    config.update({k: v for k, v in nn_config.items() if k in config})
+    loss = ComposedLoss(data_config, {**_STITCH_LOSS_DEFAULTS, **(loss_config or {})})
+    module = nets.StitchOnEdge3DPairsModule(
+        pair_feature_len=data_config['element_size'],
+        stitch_hidden_size=config['stitch_hidden_size'],
+        stitch_mlp_n_layers=config['stitch_mlp_n_layers'])
+    init_weights(module, seed)
+    merged = dict(config)
+    merged['model'] = 'StitchOnEdge3DPairs'
+    merged['loss'] = loss.config
+    return GarmentModel('StitchOnEdge3DPairs', module.to(device).eval(), merged, loss)

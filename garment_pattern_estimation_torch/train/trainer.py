@@ -16,9 +16,11 @@ or a caller drives the steps itself:
     loss, terms = trainer.train_step(model, batch, epoch, generator)
 
 A batch is {'features': (B, N, 3) standardized points, 'ground_truth':
-{name: tensor}} as `data.DataLoader` collates it. Not ported: image logging
-(`with_visualization`, matplotlib), on-device sampling, the device mesh and
-data-parallel placement, and the profiler window; the first two raise.
+{name: tensor}} as `data.DataLoader` collates it, or for the stitch model
+{'features': (B, P, 16) edge pairs, 'ground_truth': (B, P) bool}. Not
+ported: image logging (`with_visualization`, matplotlib), on-device
+sampling, the device mesh and data-parallel placement, and the profiler
+window; the first two raise.
 """
 from __future__ import annotations
 
@@ -178,8 +180,12 @@ class Trainer:
         return self.optimizer
 
     def _place(self, batch):
-        gt = {k: v.to(self.device, non_blocking=True)
-              for k, v in batch['ground_truth'].items()}
+        """(features, ground truth) on the device; the ground truth is a
+        dict of tensors (the shape models) or one tensor (the stitch
+        model's (B, P) labels)."""
+        gt = batch['ground_truth']
+        gt = {k: v.to(self.device, non_blocking=True) for k, v in gt.items()} \
+            if isinstance(gt, dict) else gt.to(self.device, non_blocking=True)
         return batch['features'].to(self.device, non_blocking=True).float(), gt
 
     def train_step(self, model, batch, epoch, generator=None):

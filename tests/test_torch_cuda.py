@@ -688,3 +688,79 @@ def test_full_model_eval_matches_cpu(cuda):
     for key, ref in on_cpu.items():
         scale = ref.abs().max().item()
         assert (on_card[key].cpu() - ref).abs().max().item() <= 1e-2 * scale, key
+
+
+def _stitch_models(cuda):
+    """configs/stitch_model.yaml's model (16 -> 200 x 3 -> 1, seeded weights)
+    on the card and the same weights on the CPU."""
+    from garment_pattern_estimation_torch.models import build_model
+
+    nn_config = {'stitch_hidden_size': 200, 'stitch_mlp_n_layers': 3}
+    model = build_model('StitchOnEdge3DPairs', {'element_size': 16}, nn_config, device=cuda)
+    cpu_model = copy.copy(model)
+    cpu_model.module = copy.deepcopy(model.module).cpu()
+    return model, cpu_model
+
+
+def test_stitch_model_forward_matches_cpu(cuda, rng):
+    """The stitch model's eval and train forwards on a (30, 400, 16) batch,
+    the published batch of pairs: logits within 1e-5 of their largest
+    magnitude of the CPU plain path's (f32 products, TF32 off), and the
+    running statistics within 1e-5 of theirs."""
+    model, cpu_model = _stitch_models(cuda)
+    x = torch.from_numpy(rng.normal(size=(30, 400, 16)).astype(np.float32))
+    for train in (False, True):
+        model.module.train(train)
+        cpu_model.module.train(train)
+        with torch.no_grad():
+            on_card = model.module(x.to(cuda)).cpu()
+            on_cpu = cpu_model.module(x)
+        assert on_card.shape == (30, 400)
+        assert (on_card - on_cpu).abs().max().item() <= 1e-5 * on_cpu.abs().max().item()
+    cpu_state = cpu_model.module.state_dict()
+    for name, value in model.module.state_dict().items():
+        if 'running' in name:
+            ref = cpu_state[name]
+            assert (value.cpu() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_stitch_train_step_matches_cpu(cuda, rng):
+    """One Trainer.train_step (stitch_model.yaml's Adam and one-cycle) on 4
+    garments x 400 pairs on the card against the CPU plain path: the loss
+    within 1e-5 relative, the gradient within 1e-4 of its norm
+    (chip_smoke.py's stitch_pipeline bars), the loss's metrics equal."""
+    from garment_pattern_estimation_torch.train import Trainer
+
+    setup = {'batch_size': 4, 'epochs': 2, 'learning_rate': 0.002, 'optimizer': 'Adam',
+             'weight_decay': 0, 'lr_scheduling': {'mode': '1cyclic'}}
+    batch = {'features': torch.from_numpy(rng.normal(size=(4, 400, 16)).astype(np.float32)),
+             'ground_truth': torch.from_numpy(rng.integers(0, 2, size=(4, 400)).astype(bool))}
+    results = []
+    for m, device in zip(_stitch_models(cuda), (cuda, 'cpu')):
+        trainer = Trainer(setup, device=device)
+        trainer.make_optimizer(m, 3)
+        loss, terms = trainer.train_step(m, batch, 0)
+        grads = torch.cat([p.grad.detach().cpu().reshape(-1) for p in m.module.parameters()])
+        results.append((loss.item(), {k: v.item() for k, v in terms.items()}, grads))
+    (card_loss, card_terms, card_grads), (cpu_loss, cpu_terms, cpu_grads) = results
+    assert abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    assert (card_grads - cpu_grads).norm().item() <= 1e-4 * cpu_grads.norm().item()
+    for key in ('edge_pair_class_acc', 'stitch_precision', 'stitch_recall'):
+        assert abs(card_terms[key] - cpu_terms[key]) <= 1e-6, key
+
+
+def test_stitch_bucketed_prediction_equals_unpadded(cuda, rng):
+    """make_predict_fn(bucket_pairs=True) on the card: pair counts padded to
+    their power-of-two bucket give the unpadded forward's logits within
+    1e-6 of their scale."""
+    from garment_pattern_estimation_torch.train import make_predict_fn
+
+    model, _ = _stitch_models(cuda)
+    predict = make_predict_fn(model, bucket_pairs=True)
+    for n in (7, 148, 392, 513):
+        pairs = rng.normal(size=(n, 16)).astype(np.float32)
+        bucketed = predict(pairs)
+        with torch.no_grad():
+            plain = model.module.eval()(torch.from_numpy(pairs).to(cuda)).cpu().numpy()
+        assert bucketed.shape == (n,)
+        assert np.abs(bucketed - plain).max() <= 1e-6 * max(1.0, np.abs(plain).max())

@@ -91,15 +91,21 @@ def test_build_model_on_cpu_is_eval_and_lossless():
 
 def test_unported_options_raise():
     """The baseline builds (its pattern decoder, no attention head); the
-    stitch model and graph pooling are not ported and raise; LSTM dropout
+    stitch model builds on the CPU with the registry's defaults and gives
+    (B, P) logits; graph pooling is not ported and raises; LSTM dropout
     runs in train mode."""
     full = build_model('GarmentFullPattern3D', _DATA, _NN, device='cpu')
     assert {'pattern_decoder.lstm.weight_ih_l0', 'feature_extractor.lin.weight'} \
         <= set(full.module.state_dict())
     with torch.no_grad():
         assert full(torch.zeros(1, 16, 3))['outlines'].shape == (1, 3, 4, 4)
-    with pytest.raises(NotImplementedError, match='queue A item 5'):
-        build_model('StitchOnEdge3DPairs', _DATA, _NN, device='cpu')
+    stitch = build_model('StitchOnEdge3DPairs', {'element_size': 16}, {}, device='cpu')
+    assert stitch.config['stitch_hidden_size'] == 200
+    assert stitch.config['stitch_mlp_n_layers'] == 3
+    assert stitch.loss.config['loss_components'] == ['edge_pair_class']
+    assert not stitch.module.training
+    with torch.no_grad():
+        assert stitch(torch.randn(2, 7, 16)).shape == (2, 7)
     with pytest.raises(NotImplementedError):
         build_model('GarmentSegmentPattern3D', _DATA,
                     dict(_NN, graph_pooling=True), device='cpu')
