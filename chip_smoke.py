@@ -178,12 +178,41 @@ fit run:
            pattern and the buckets met; the stitches written back through
            save_prediction_batch with the bucketed predict function, whose
            logits must equal the unpadded forward's to 1e-6 of their scale
+Then the evaluation, prediction and export entry points, each through the
+port's CLI as a user calls it (a system file and one config per run,
+naming the att f32 fit run resumed by stitch_pipeline and its stitch run):
+  visualization  fit's att f32 fit again with trainer.with_visualization on
+           (as att.yaml ships it): one predicted garment per data folder saved
+           into intermediate_preds/ after each epoch and logged as
+           'pred_img::<file>', rendered where matplotlib imports (a missing
+           matplotlib only warns): whether it imports, the keys logged and the
+           PNGs that exist, epoch s beside the flag-off fit's, the image
+           logging's s, the launches (rows 4-5 once more per epoch)
+  on_test_set  `cli.on_test_set -sh -st --predict --correct_panels`: each
+           stage's s (shape eval on the test section, whole and by folder;
+           its predictions; the stitch eval on them, every cross-panel pair
+           at batch 1; the write-back; the eval on patterns with the right
+           panel count), the shape and stitch metrics, garments/s predicted,
+           ms per pattern of the stitch eval, the launches; fails if a stage
+           yields no pattern
+  predict_per_example  `cli.predict_per_example -sh -st -dir` on CLI_CLOUDS
+           .obj meshes and CLI_CLOUDS .txt clouds of the dataset: garments/s,
+           patterns saved with stitches, one launch of rows 4-5 each
+  export_serving  `cli.export_serving` of the trained att model at (64,
+           2000) in f32 and bf16 and at (128, 10000) in f32 (rows 6-7): export
+           and load s, MB, first and median warm call against
+           build_serving_fn's, exactly one launch of each fused layer per call
+           through the registered operator, outputs against build_serving_fn
+           (bitwise equal expected, the gap printed), a CPU input refused
 Each of rows 4, 5, 8 and 9 in the kernels line carries `launches_fit`, its
 launches in the f32 or bf16 fit, and the f32 entries `launches_lstm` and
 `launches_fit_lstm`, the baseline's serving or training and its fit; the
 f32 entries of rows 4, 5, 8 and 9 carry `launches_stitch_pipeline`, their
 launches in the pipeline (the shape stage's resumed training and its
-predictions).
+predictions). The f32 entries of rows 4-7 carry `launches_visualization`,
+`launches_on_test_set`, `launches_predict_per_example` and `launches_export`
+(the f32 artifacts' calls), the bf16 entries of rows 4-7 `launches_export`
+(the bf16 artifact's).
 Then each phase's seconds, the card's name and power limit, the kernels
 line (each bf16-mode kernel an entry of its own, its launches from the bf16
 phases), and as the last line {"ok": true, "device": {...}}. Any failed
@@ -821,6 +850,19 @@ def read_records(experiment):
     return ([r for r in records if 'batch' in r], [r for r in records if 'valid_loss' in r])
 
 
+def phase_launches():
+    """The fused layer's and knn_gather's launch counts, one dict."""
+    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
+    return {**{f'fused_{k}': v for k, v in edgeconv.launches.items()},
+            **{f'knn_gather_{k}': v for k, v in knn_gather.launches.items()}}
+
+
+def reset_launches():
+    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
+    edgeconv.reset_launches()
+    knn_gather.reset_launches()
+
+
 def fit_phase(out_dir, variant=''):
     """Trainer.fit over parity_run/data_big at the published widths, batch
     30, split 10 / 10 per type (seed 10), Adam, one-cycle, standardization
@@ -838,7 +880,6 @@ def fit_phase(out_dir, variant=''):
     import torch
     from garment_pattern_estimation_torch.experiment import ExperimentWrappper
     from garment_pattern_estimation_torch.models import build_model
-    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
     from garment_pattern_estimation_torch.train import Trainer, cosine_onecycle_schedule
 
     phase = 'fit' + variant
@@ -859,14 +900,12 @@ def fit_phase(out_dir, variant=''):
     model = build_model(model_name, dataset.config, nn_section, loss_section, seed=0)
     initial = {k: v.clone() for k, v in model.module.state_dict().items()}
 
-    edgeconv.reset_launches()
-    knn_gather.reset_launches()
+    reset_launches()
     start = time.perf_counter()
     trainer.fit(model)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - start
-    launches = {**{f'fused_{k}': v for k, v in edgeconv.launches.items()},
-                **{f'knn_gather_{k}': v for k, v in knn_gather.launches.items()}}
+    launches = phase_launches()
     steps, epochs = read_records(experiment)
     spe = len(trainer.datawrapper.loaders.train)
     n_valid = len(trainer.datawrapper.loaders.validation)
@@ -1087,7 +1126,6 @@ def stitch_pipeline_phase(out_dir, shape_run_id):
     from garment_pattern_estimation_torch.data import DatasetWrapper, GarmentStitchPairsDataset
     from garment_pattern_estimation_torch.experiment import ExperimentWrappper
     from garment_pattern_estimation_torch.models import build_model
-    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
     from garment_pattern_estimation_torch.train import Trainer, eval_metrics, make_predict_fn
     from garment_pattern_estimation_torch.train.eval_utils import _bucket_size
 
@@ -1102,8 +1140,7 @@ def stitch_pipeline_phase(out_dir, shape_run_id):
                                        output_root=out_dir)
     shape_trainer = Trainer(dict(ATT_TRAINER, epochs=STITCH_SHAPE_EPOCHS), resumed_shape,
                             fit_dataset(), dict(FIT_SPLIT))
-    edgeconv.reset_launches()
-    knn_gather.reset_launches()
+    reset_launches()
     model_name, nn_section, loss_section = VARIANTS['']
     shape_trainer.fit(build_model(model_name, shape_trainer.datawrapper.dataset.config,
                                   nn_section, loss_section, seed=0))
@@ -1112,10 +1149,6 @@ def stitch_pipeline_phase(out_dir, shape_run_id):
     check([r['epoch'] for r in shape_epochs] == list(range(STITCH_SHAPE_EPOCHS))
           and all(math.isfinite(r['valid_loss']) for r in shape_epochs),
           f'stitch_pipeline: the shape run\'s epochs {[r["epoch"] for r in shape_epochs]}')
-
-    def phase_launches():
-        return {**{f'fused_{k}': v for k, v in edgeconv.launches.items()},
-                **{f'knn_gather_{k}': v for k, v in knn_gather.launches.items()}}
 
     # rows 4-5 once per validation batch, rows 8-9 once per step
     resumed = STITCH_SHAPE_EPOCHS - FIT_EPOCHS - 1
@@ -1306,7 +1339,330 @@ def stitch_pipeline_phase(out_dir, shape_run_id):
           f'stitch_pipeline: the stitch stages launched {launches}')
     line['launches'] = launches
     emit(line)
+    return launches, resumed_exp.run_id
+
+
+# The evaluation, prediction and export entry points on the att f32 fit run
+# (resumed to STITCH_SHAPE_EPOCHS epochs by stitch_pipeline) and the stitch
+# run, through the port's CLIs as a user calls them
+CLI_CLOUDS = 16                  # .obj and as many .txt clouds for predict_per_example
+EXPORT_CALLS = 11
+EXPORTS = (('f32', BATCH, POINTS, False), ('bf16', BATCH, POINTS, True),
+           ('f32_stress', STRESS_BATCH, STRESS_POINTS, False))
+
+
+def cli_files(out_dir, shape_run_id, stitch_run_id):
+    """The system file and the two run configs the CLIs read: the data root
+    of `fit`, the output root `out_dir` (whose `experiments/` holds the
+    runs), each config naming its run."""
+    system = out_dir / 'system.json'
+    system.write_text(json.dumps({'datasets_path': str(ROOT / 'parity_run' / 'data_big'),
+                                  'output': str(out_dir)}))
+    configs = {}
+    for name, run_name, run_id in (('shape', 'fit', shape_run_id),
+                                   ('stitch', 'stitch', stitch_run_id)):
+        configs[name] = out_dir / f'{name}.yaml'     # JSON is YAML
+        configs[name].write_text(json.dumps({'experiment': {
+            'project_name': 'chip_smoke', 'run_name': run_name, 'run_id': run_id}}))
+    return system, configs
+
+
+def visualization_phase(runs_dir, fit_run_id):
+    """`fit`'s att f32 fit (FIT_EPOCHS epochs, same data, split, widths and
+    seed) with `with_visualization` on, as att.yaml ships it: after each
+    epoch `_log_an_image` predicts the first validation garment of each
+    data folder (one batch) and saves it into `intermediate_preds/`,
+    rendered where matplotlib imports (a failed render only warns). Checks
+    the launches (rows 4-5 once per validation batch and once per epoch
+    for the images, rows 8-9 once per step), len(FIT_FOLDERS) logged
+    'pred_img::' keys per epoch, the predicted specs on disk, and a PNG for
+    every key where matplotlib imports, none where it does not. Prints the
+    epoch seconds beside the flag-off fit's and the image logging's own
+    seconds. Returns the launches."""
+    import importlib.util
+    import torch
+    from garment_pattern_estimation_torch.experiment import ExperimentWrappper
+    from garment_pattern_estimation_torch.models import build_model
+    from garment_pattern_estimation_torch.train import Trainer
+
+    has_matplotlib = importlib.util.find_spec('matplotlib') is not None
+    dataset = fit_dataset()
+    experiment = ExperimentWrappper({'experiment': {'project_name': 'chip_smoke',
+                                                    'run_name': 'visualization'}},
+                                    output_root=runs_dir)
+    trainer = Trainer(dict(ATT_TRAINER, epochs=FIT_EPOCHS), experiment, dataset,
+                      dict(FIT_SPLIT), with_visualization=True)
+    log_image, image_s = trainer._log_an_image, []
+
+    def timed_log_image(*args):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        log_image(*args)
+        torch.cuda.synchronize()
+        image_s.append(time.perf_counter() - start)
+
+    trainer._log_an_image = timed_log_image
+    model_name, nn_section, loss_section = VARIANTS['']
+    model = build_model(model_name, dataset.config, nn_section, loss_section, seed=0)
+    reset_launches()
+    start = time.perf_counter()
+    trainer.fit(model)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - start
+    launches = phase_launches()
+
+    spe = len(trainer.datawrapper.loaders.train)
+    n_valid = len(trainer.datawrapper.loaders.validation)
+    n_image = len(trainer.datawrapper.loaders.valid_single_per_data)
+    steps = FIT_EPOCHS * spe
+    expected = {'fused_small_c': FIT_EPOCHS * (n_valid + n_image),
+                'fused_wide_c': FIT_EPOCHS * (n_valid + n_image), 'fused_small_c_tiled': 0,
+                'fused_wide_c_tiled': 0, 'knn_gather_fwd_small_c': steps,
+                'knn_gather_fwd_wide_c': steps, 'knn_gather_bwd': steps, 'knn_gather_bwd_hi': 0}
+    check(launches == expected, f'visualization: launches {launches}, expected {expected}')
+    records = [json.loads(line) for line in
+               (experiment.run_dir() / 'metrics.jsonl').read_text().splitlines()]
+    images = [(r['epoch'], Path(r[k])) for r in records for k in r if k.startswith('pred_img::')]
+    per_epoch = [sum(1 for e, _ in images if e == epoch) for epoch in range(FIT_EPOCHS)]
+    check(per_epoch == [len(FIT_FOLDERS)] * FIT_EPOCHS,
+          f'visualization: pred_img keys per epoch {per_epoch}')
+    preds = experiment.run_dir() / 'intermediate_preds'
+    specs = sorted(preds.glob('*/*/*_predicted__specification.json'))
+    check(len(specs) == len(FIT_FOLDERS), f'visualization: {len(specs)} predicted specs')
+    pngs = sum(path.is_file() for _, path in images)
+    check(pngs == (len(images) if has_matplotlib else 0),
+          f'visualization: {pngs} of {len(images)} logged images exist, matplotlib '
+          f'{"imports" if has_matplotlib else "is missing"}')
+    _, epochs = read_records(experiment)
+    flag_off = ExperimentWrappper({'experiment': {'project_name': 'chip_smoke',
+                                                  'run_name': 'fit', 'run_id': fit_run_id}},
+                                  output_root=runs_dir)
+    _, off_epochs = read_records(flag_off)
+    emit({'phase': 'visualization', 'matplotlib_imports': has_matplotlib,
+          'pred_img_keys': len(images), 'pngs_existing': pngs,
+          'svgs_existing': len(list(preds.glob('*/*/*_predicted__pattern.svg'))),
+          'fit_s': fit_s, 'epoch_s': [r['epoch_time'] for r in epochs],
+          'image_logging_s': image_s,
+          'epoch_s_flag_off': [r['epoch_time'] for r in off_epochs if r['epoch'] < FIT_EPOCHS],
+          'image_batches_per_epoch': n_image, 'launches': launches})
     return launches
+
+
+def timed_stages(stages, fn, describe):
+    """`fn` with each call's wall seconds (synchronized) and
+    `describe(args, kwargs)` appended to `stages`."""
+    import torch
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        stages.append(dict(describe(args, kwargs), s=time.perf_counter() - start))
+        return out
+    return wrapper
+
+
+def section_batches(wrapper, section):
+    loader = wrapper.get_loader(section)
+    return sum(len(v) for v in loader.values()) if isinstance(loader, dict) else len(loader)
+
+
+def on_test_set_phase(out_dir, system, configs):
+    """`cli.on_test_set -sh <shape run> -st <stitch run> --predict
+    --correct_panels`: the shape run's test section evaluated (whole and by
+    data folder) and predicted, the stitch run evaluated on those
+    predictions (every cross-panel pair, batch 1, whole and by folder), its
+    stitches written back, and the patterns with the right number of panels
+    evaluated again. Prints each stage's seconds, the shape and stitch
+    metrics, garments/s predicted, ms per pattern of the stitch eval and the
+    launches (rows 4-5 once per shape batch evaluated or predicted; the
+    stitch model is plain GEMMs). Fails if a stage yields no pattern.
+    Returns the launches."""
+    import garment_pattern_estimation_torch.cli.on_test_set as cli
+    from garment_pattern_estimation_torch.experiment import ExperimentWrappper
+
+    stages = []
+    eval_metrics, prediction = cli.eval_metrics, ExperimentWrappper.prediction
+    cli.eval_metrics = timed_stages(stages, eval_metrics, lambda a, kw: {
+        'stage': 'eval', 'model': a[0].name, 'section': a[3],
+        'batches': section_batches(a[2], a[3])})
+    ExperimentWrappper.prediction = timed_stages(stages, prediction, lambda a, kw: {
+        'stage': 'predict', 'run': a[0].run_name, 'sections': kw['sections'],
+        'batches': sum(section_batches(a[3], s) for s in kw['sections'])})
+    reset_launches()
+    start = time.perf_counter()
+    try:
+        cli.main(['-sh', str(configs['shape']), '-st', str(configs['stitch']), '--predict',
+                  '--correct_panels', '--system', str(system)])
+    finally:
+        cli.eval_metrics, ExperimentWrappper.prediction = eval_metrics, prediction
+    total_s = time.perf_counter() - start
+    launches = phase_launches()
+
+    order = [(s['stage'], s.get('section') or s.get('sections')) for s in stages]
+    check(order == [('eval', 'test'), ('eval', 'test_per_data_folder'), ('predict', ['test']),
+                    ('eval', 'full'), ('eval', 'full_per_data_folder'),
+                    ('predict', ['full']), ('eval', 'full'),
+                    ('eval', 'full_per_data_folder')],
+          f'on_test_set: stages {order}')
+    shape_batches = sum(s['batches'] for s in stages[:3])
+    expected = {k: shape_batches if k in ('fused_small_c', 'fused_wide_c') else 0
+                for k in launches}
+    check(launches == expected, f'on_test_set: launches {launches}, expected {expected}')
+    predicted = sorted(out_dir.glob('nn_test_pred_*/test/*/*/*_predicted__specification.json'))
+    written = sorted(out_dir.glob('nn_test_pred_*/full/*/*/*_predicted__specification.json'))
+    stitch_patterns, corr_patterns = stages[3]['batches'], stages[6]['batches']
+    check(predicted and stitch_patterns and written and corr_patterns,
+          f'on_test_set: a stage yielded no pattern: {len(predicted)} predicted, '
+          f'{stitch_patterns} stitch-evaluated, {len(written)} written back, '
+          f'{corr_patterns} with the right panel count')
+    summaries = {}
+    for name in ('shape', 'stitch'):
+        run = ExperimentWrappper(json.loads(configs[name].read_text()),
+                                 output_root=out_dir / 'experiments')
+        summaries[name] = run.summary
+    shape_metrics = summaries['shape']['test_on_best']
+    stitch_metrics = summaries['stitch']['test_preds_full']
+    check(all(v is None or math.isfinite(v) for v in
+              [*shape_metrics.values(), *stitch_metrics.values()]),
+          f'on_test_set: metrics not finite: {shape_metrics} {stitch_metrics}')
+    emit({'phase': 'on_test_set', 'total_s': total_s, 'stages': stages,
+          'shape_test_metrics': shape_metrics, 'stitch_test_metrics': stitch_metrics,
+          'stitch_correct_panels_metrics': summaries['stitch']['test_corr_full'],
+          'garments_predicted': len(predicted),
+          'garments_per_s_predicted': len(predicted) / stages[2]['s'],
+          'stitch_eval_patterns': stitch_patterns,
+          'stitch_eval_ms_per_pattern': stages[3]['s'] / stitch_patterns * 1e3,
+          'written_back': len(written), 'correct_panel_patterns': corr_patterns,
+          'launches': launches})
+    return launches
+
+
+def predict_per_example_phase(out_dir, system, configs):
+    """`cli.predict_per_example -sh <shape run> -st <stitch run> -dir <dir>`
+    on CLI_CLOUDS `.obj` meshes of parity_run/data_big (sampled by the CLI)
+    and CLI_CLOUDS `.txt` clouds of POINTS + 100 points sampled from other
+    meshes (the CLI resamples them to POINTS): one batch through the shape
+    model (rows 4-5 once each), every saved pattern's edge pairs through the
+    stitch model. Prints garments/s and the launches. Returns the
+    launches."""
+    import numpy as np
+    import torch
+    import garment_pattern_estimation_torch.cli.predict_per_example as cli
+    from garment_pattern_estimation_torch.preprocess import mesh as mesh_ops
+
+    inputs = out_dir / 'clouds'
+    inputs.mkdir()
+    meshes = sorted((ROOT / 'parity_run' / 'data_big').glob('*/*/*_sim.obj'))
+    meshes = meshes[::len(meshes) // (2 * CLI_CLOUDS)][:2 * CLI_CLOUDS]
+    for i, mesh in enumerate(meshes):
+        if i % 2:
+            verts, faces = mesh_ops.read_triangle_mesh(str(mesh))
+            np.savetxt(inputs / f'{mesh.stem}_cloud.txt',
+                       mesh_ops.sample_mesh_points(POINTS + 100, verts, faces, seed=i))
+        else:
+            (inputs / mesh.name).write_bytes(mesh.read_bytes())
+    reset_launches()
+    start = time.perf_counter()
+    saved = cli.main(['-sh', str(configs['shape']), '-st', str(configs['stitch']),
+                      '-dir', str(inputs), '--system', str(system)])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - start
+    launches = phase_launches()
+    expected = {k: 1 if k in ('fused_small_c', 'fused_wide_c') else 0 for k in launches}
+    check(launches == expected, f'predict_per_example: launches {launches}, expected {expected}')
+    shapes = sorted(Path(saved).glob('shape/*/*_specification.json'))
+    stitched = sorted(Path(saved).glob('with_stitches/*/*_specification.json'))
+    check(len(shapes) > 0 and len(stitched) == len(shapes),
+          f'predict_per_example: {len(shapes)} shapes, {len(stitched)} with stitches saved '
+          f'of {2 * CLI_CLOUDS} clouds')
+    emit({'phase': 'predict_per_example', 'clouds': {'obj': CLI_CLOUDS, 'txt': CLI_CLOUDS},
+          'total_s': total_s, 'garments_per_s': 2 * CLI_CLOUDS / total_s,
+          'shapes_saved': len(shapes), 'with_stitches_saved': len(stitched),
+          'stitches': sum(len(json.loads(f.read_text())['pattern']['stitches'])
+                          for f in stitched),
+          'launches': launches})
+    return launches
+
+
+def export_serving_phase(out_dir, system, configs):
+    """`cli.export_serving -c <shape run>` of the trained att model at
+    (64, 2000) in f32 and bf16 and at (128, 10000) in f32 (rows 6-7): each
+    artifact (torch.export program + manifest) exported, loaded by
+    `load_serving_artifact`, called once and EXPORT_CALLS times more
+    (exactly one launch of each fused variant per call, the operator
+    `gpe_torch::fused_edgeconv` launching the kernel), its outputs against
+    `build_serving_fn` of the same checkpoint on the same batch (bitwise
+    equal expected: the program runs the eager path's operators; held to
+    OUT_MAX_REL of each output's scale, the gap printed), the median warm
+    call against the eager pipeline's, and a CPU input refused. Returns
+    {artifact: launches of its calls}."""
+    import statistics as stats
+    import torch
+    import garment_pattern_estimation_torch.cli.export_serving as cli
+    from garment_pattern_estimation_torch.experiment import (ExperimentWrappper,
+                                                             build_serving_fn,
+                                                             load_serving_artifact)
+
+    run = ExperimentWrappper(json.loads(configs['shape'].read_text()),
+                             output_root=out_dir / 'experiments')
+    _, _, data_config = run.data_info()
+    results = {}
+    for name, batch, points, bf16 in EXPORTS:
+        target = out_dir / f'artifact_{name}'
+        start = time.perf_counter()
+        manifest = cli.main(['-c', str(configs['shape']), '-o', str(target), '-b', str(batch),
+                             '-n', str(points), '--system', str(system)]
+                            + (['--bf16'] if bf16 else []))
+        export_s = time.perf_counter() - start
+        start = time.perf_counter()
+        served = load_serving_artifact(target)
+        load_s = time.perf_counter() - start
+        x = physical_points(11, batch, points)
+
+        reset_launches()
+        out, first = timed_calls(lambda: served(x), 1)
+        _, warm = timed_calls(lambda: served(x), EXPORT_CALLS)
+        launches = phase_launches()
+        calls = EXPORT_CALLS + 1
+        tiled = '_tiled' if points > 2048 else ''
+        expected = {k: calls if k in (f'fused_small_c{tiled}', f'fused_wide_c{tiled}') else 0
+                    for k in launches}
+        check(launches == expected,
+              f'export_serving {name}: launches {launches}, expected {expected}')
+        check_outputs(f'export_serving {name}', out, batch, points)
+
+        model, _ = run.load_model(data_config,
+                                  nn_overrides={'compute_dtype': 'bfloat16'} if bf16 else None)
+        serve = build_serving_fn(model, data_config)
+        ref, eager = timed_calls(lambda: serve(x), EXPORT_CALLS)
+        gaps = {}
+        for key, value in ref.items():
+            gaps[key] = (out[key] - value).abs().max().item()
+            scale = value.abs().max().item()
+            check(gaps[key] <= OUT_MAX_REL * scale,
+                  f'export_serving {name}: {key} off build_serving_fn by {gaps[key]}')
+        refused = None
+        try:
+            served(x.cpu())
+        except ValueError as err:
+            refused = str(err)
+        check(refused is not None, f'export_serving {name}: a CPU input was not refused')
+        results[name] = launches
+        emit({'phase': 'export_serving', 'artifact': name, 'batch': [batch, points, 3],
+              'compute_dtype': manifest['compute_dtype'], 'platforms': manifest['platforms'],
+              'export_s': export_s, 'load_s': load_s, 'mb': manifest['blob_bytes'] / 1e6,
+              'first_call_ms': first[0], 'warm_ms': stats.median(warm),
+              'warm_ms_quartiles': [stats.quantiles(warm, n=4)[0],
+                                    stats.quantiles(warm, n=4)[2]],
+              'eager_ms': stats.median(eager), 'bitwise_equal': all(g == 0 for g in gaps.values()),
+              'max_abs_gap': gaps, 'launches_per_call': {k: v / calls for k, v in launches.items()},
+              'cpu_input_refused': refused})
+        del served, model, serve, out, ref
+        torch.cuda.empty_cache()
+    return results
+
 
 
 def check_outputs(name, preds, batch, points, attention=True):
@@ -2150,28 +2506,52 @@ def main():
     del lstm_step
 
     # Trainer.fit over the dataset, then the stitch pipeline on the att f32
-    # run: their own launch counts, set to 0 just before each and read just
-    # after
+    # run, then the evaluation, prediction and export CLIs on its runs: their
+    # own launch counts, set to 0 just before each and read just after
     with tempfile.TemporaryDirectory(dir=ROOT / 'garment_pattern_estimation_torch' / '_build') \
             as out_dir:
+        out_dir = Path(out_dir)
+        runs_dir = out_dir / 'experiments'          # the CLIs' tracker root under out_dir
         run_ids = {}
         for variant, key, (small, wide, gathers) in (
                 ('', 'launches_fit', (small_line, wide_line, gather_lines)),
                 ('_bf16', 'launches_fit', (small_bf16, wide_bf16, gather_bf16)),
                 ('_lstm', 'launches_fit_lstm', (small_line, wide_line, gather_lines))):
             fit_launches, run_ids[variant] = timed(seconds, 'fit' + variant, fit_phase,
-                                                   Path(out_dir), variant)
+                                                   runs_dir, variant)
             small[key] = fit_launches['fused_small_c']
             wide[key] = fit_launches['fused_wide_c']
             for line in gathers:
                 line[key] = fit_launches['knn_gather_' + launch_key(line['name'])]
-        stitch_launches = timed(seconds, 'stitch_pipeline', stitch_pipeline_phase,
-                                Path(out_dir), run_ids[''])
+        stitch_launches, stitch_run_id = timed(seconds, 'stitch_pipeline',
+                                               stitch_pipeline_phase, runs_dir, run_ids[''])
         small_line['launches_stitch_pipeline'] = stitch_launches['fused_small_c']
         wide_line['launches_stitch_pipeline'] = stitch_launches['fused_wide_c']
         for line in gather_lines:
             line['launches_stitch_pipeline'] = \
                 stitch_launches['knn_gather_' + launch_key(line['name'])]
+
+        rows = {'fused_small_c': small_line, 'fused_wide_c': wide_line,
+                'fused_small_c_tiled': small_tiled_line, 'fused_wide_c_tiled': wide_tiled_line}
+        bf16_rows = {'fused_small_c': small_bf16, 'fused_wide_c': wide_bf16,
+                     'fused_small_c_tiled': small_tiled_bf16,
+                     'fused_wide_c_tiled': wide_tiled_bf16}
+        viz_launches = timed(seconds, 'visualization', visualization_phase, runs_dir,
+                             run_ids[''])
+        system, configs = cli_files(out_dir, run_ids[''], stitch_run_id)
+        test_launches = timed(seconds, 'on_test_set', on_test_set_phase, out_dir, system,
+                              configs)
+        example_launches = timed(seconds, 'predict_per_example', predict_per_example_phase,
+                                 out_dir, system, configs)
+        export_launches = timed(seconds, 'export_serving', export_serving_phase, out_dir,
+                                system, configs)
+        for key, line in rows.items():
+            line['launches_visualization'] = viz_launches[key]
+            line['launches_on_test_set'] = test_launches[key]
+            line['launches_predict_per_example'] = example_launches[key]
+            line['launches_export'] = export_launches['f32'][key] \
+                + export_launches['f32_stress'][key]
+            bf16_rows[key]['launches_export'] = export_launches['bf16'][key]
     emit({'phase_seconds': seconds})
 
     card = subprocess.run(

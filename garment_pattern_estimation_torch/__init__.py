@@ -5,7 +5,8 @@ which this package never imports). It serves the NeuralTailor pattern-shape
 models, the attention model and the baseline (point cloud -> panel outlines,
 placements, stitch tags), and trains them, step by step or over a dataset;
 and it trains the stitch model on a shape run's predictions, the two-stage
-pipeline of the train CLI.
+pipeline of the train CLI; it evaluates and predicts with both stages and
+exports a serving artifact.
 
 Layering (bottom-up):
     device.py    device resolution: CUDA unless the caller asks for the CPU
@@ -21,10 +22,12 @@ Layering (bottom-up):
                  quality metrics
     train/       Trainer: train_step, eval_step and fit; predict and eval
                  shortcuts (eval_utils)
-    experiment/  serving (standardize -> forward -> un-standardize), the
-                 local experiment tracker, checkpoints, a stored run's
+    experiment/  serving (standardize -> forward -> un-standardize), its
+                 `torch.export` artifact, the local experiment tracker,
+                 checkpoints and reference `.pth` files, a stored run's
                  dataset and model
-    cli/         the train entry point
+    cli/         the entry points: train, on_test_set, predict_per_example,
+                 noise_levels, export_serving
 """
 import torch
 

@@ -1,8 +1,7 @@
 """Core sewing-pattern library: spec format, tensor codec, panel classes.
 
 The port's copy of garment_pattern_estimation_tpu/core/ (numpy and scipy
-inside). `render.py` (matplotlib) is not copied: `PatternSpec.serialize`
-writes the spec alone."""
+inside; `render.py` imports matplotlib only when it draws)."""
 
 from .pattern_spec import PatternSpec, panel_spec_template, pattern_spec_template
 from .pattern_codec import NNSewingPattern, EmptyPanelError, InvalidPatternDefError

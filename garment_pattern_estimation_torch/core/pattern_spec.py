@@ -1,8 +1,8 @@
 """Sewing-pattern specification library (host-side, pure numpy).
 
 The port's copy of garment_pattern_estimation_tpu/core/pattern_spec.py:1-227;
-`serialize` writes the spec without the rendered images (the JAX package's
-`core/render.py` needs matplotlib).
+`serialize` renders through `core/render.py`, which imports matplotlib only
+when it draws, and warns once per process when a render fails.
 
 Owns the ``specification.json`` format and the geometric helpers that the
 reference imports from the external Garment-Pattern-Generator package
@@ -177,7 +177,7 @@ class PatternSpec:
 
     # ------------- serialization -------------
     def serialize(self, path, to_subfolder=True, tag='', with_3d_info=False):
-        """Write the spec to `path` (the rendered images are not ported).
+        """Write the spec (and visualizations) to `path`.
 
         Returns the directory the files were written into.
         File naming matches what the reference pipeline greps for:
@@ -195,6 +195,18 @@ class PatternSpec:
         with open(spec_file, 'w') as f:
             json.dump(self.spec, f, indent=2, default=_json_default)
 
+        # visualization: non-fatal (no matplotlib, a misbehaving backend)
+        try:
+            from .render import render_pattern
+            render_pattern(self, final_dir / f'{self.name}{tag}_pattern.png', view_ids=self.view_ids)
+            render_pattern(self, final_dir / f'{self.name}{tag}_pattern.svg', view_ids=self.view_ids)
+        except Exception as e:
+            global _render_warned
+            if not _render_warned:
+                _render_warned = True
+                print(f'PatternSpec::Warning::{self.name}::failed to render pattern image '
+                      f'(warned once per process): {e}')
+
         return str(final_dir)
 
     # ------------- misc -------------
@@ -208,6 +220,9 @@ class PatternSpec:
 
     def __len__(self):
         return len(self.pattern['panels'])
+
+
+_render_warned = False
 
 
 def _json_default(obj):

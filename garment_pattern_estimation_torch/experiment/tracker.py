@@ -2,8 +2,9 @@
 
 The port's copy of garment_pattern_estimation_tpu/experiment/tracker.py:57-366
 in local mode: checkpoints are `torch.save` files (`checkpoint.py`), and the
-optional wandb mirror keeps only its absent-package path. A pre-trained
-`.pth` in place of a missing 'best' checkpoint is not loaded.
+optional wandb mirror keeps only its absent-package path. A run without a
+'best' checkpoint falls back to its config's `NN.pre-trained` file, a port
+checkpoint or a reference `.pth` (`torch_import.load_checkpoint_any`).
 
 Counterpart of nn/experiment.py's ExperimentWrappper: run init/resume by id,
 config persistence, metric logging, summary statistics, versioned + aliased
@@ -278,18 +279,37 @@ class ExperimentWrappper:
         return load_checkpoint_file(path, map_location=map_location)
 
     def get_best_model(self, map_location='cpu'):
-        """The 'best' checkpoint (reference: experiment.py:311-335; loading a
-        pre-trained `.pth` in its place is not ported)."""
-        return self.get_checkpoint_file('best', map_location=map_location)
+        """The 'best' checkpoint; falls back to the config's `NN.pre-trained`
+        file when the run has none (reference: experiment.py:311-335)."""
+        try:
+            return self.get_checkpoint_file('best', map_location=map_location)
+        except FileNotFoundError:
+            pretrained = self.config.get('NN', {}).get('pre-trained')
+            if pretrained and Path(pretrained).exists():
+                from .torch_import import load_checkpoint_any
+                return load_checkpoint_any(pretrained, map_location=map_location)
+            raise
 
     # ------------- factories -------------
-    def load_dataset(self, data_root):
+    def load_dataset(self, data_root, eval_config=None, unseen=False,
+                     batch_size=None, load_all=False):
         """Rebuild the dataset + wrapper from this run's stored config and
-        split (reference: experiment.py:203-225)."""
+        split (reference: experiment.py:203-225). `eval_config` patches the
+        data config (e.g. `obj_filetag`, `point_noise_w`); `unseen` swaps in
+        its `unseen_data_folders` and, like `load_all`, drops the split (the
+        whole dataset is the 'full' section); `batch_size` overrides the
+        stored one."""
         from ..data import DATASET_REGISTRY, DatasetWrapper
 
-        split, batch_size, data_config = self.data_info()
-        batch_size = batch_size or 1
+        split, stored_batch, data_config = self.data_info()
+        data_config.update(eval_config or {})
+        if unseen:
+            data_config['data_folders'] = data_config.get(
+                'unseen_data_folders', data_config.get('data_folders'))
+            split = None
+        if load_all:
+            split = None
+        batch_size = batch_size or stored_batch or 1
         dataset_class = DATASET_REGISTRY[data_config.get(
             'class', 'Garment3DPatternFullDataset')]
         dataset = dataset_class(data_root, data_config,
@@ -303,7 +323,8 @@ class ExperimentWrappper:
 
     def load_model(self, data_config, alias='best', nn_overrides=None, device=None):
         """Rebuild the model from the stored NN config on `device` (None =
-        CUDA) and load the weights of checkpoint `alias` into it. Returns
+        CUDA) and load the weights of checkpoint `alias` (for 'best', the
+        `NN.pre-trained` fallback of `get_best_model`) into it. Returns
         (GarmentModel, state dict).
 
         `nn_overrides` patches the stored NN config before the rebuild, for

@@ -139,22 +139,60 @@ def fused_edgeconv(x, folded, k, *, mlp_dtype=torch.float32, return_idx=False,
     """x (B, N, C), N <= MAX_FUSED_N, `fold_mlp_bn` output -> EdgeConv
     features (B, N, H).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises. `return_idx` also returns the neighbour ids (B, N, k).
-    `tile_n` (CUDA only) forces the column-tiled variants at any N, with
-    small-C key windows of that many columns, as the TPU kernel's `tile_n`
-    forces its column tiles; the wide-C variant streams 128-key tiles
-    whatever it is."""
+    Runs the registered operator `gpe_torch::fused_edgeconv`, which the
+    dispatcher sends by the tensor's device: a CPU tensor takes the plain
+    version, a CUDA tensor launches the kernel or raises. `return_idx` also
+    returns the neighbour ids (B, N, k). `tile_n` (CUDA only) forces the
+    column-tiled variants at any N, with small-C key windows of that many
+    columns, as the TPU kernel's `tile_n` forces its column tiles; the
+    wide-C variant streams 128-key tiles whatever it is."""
     if x.shape[1] > MAX_FUSED_N:
         raise NotImplementedError(
             f'fused_edgeconv: N={x.shape[1]} > {MAX_FUSED_N}; such clouds take '
             'the unfused kNN path (models.blocks.EdgeConv: standalone kNN + '
             'gather + edge MLP)')
-    if x.device.type == 'cpu':
-        return fused_edgeconv_reference(x, folded, k, mlp_dtype, return_idx)
-    if x.device.type != 'cuda':
+    if x.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'fused_edgeconv: unsupported device {x.device}')
-    return _launch(x, folded, k, mlp_dtype, return_idx, tile_n)
+    if mlp_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'fused_edgeconv: mlp_dtype {mlp_dtype} is not supported')
+    layers, (a, d) = folded
+    out, idx = fused_edgeconv_op(x, [w for w, _ in layers], [b for _, b in layers], a, d, k,
+                                 mlp_dtype == torch.bfloat16, tile_n or 0, return_idx)
+    return (out, idx) if return_idx else out
+
+
+# The fused layer as one operator, so that `torch.export` records it as a
+# call (its kernel takes raw pointers, which a traced FakeTensor has not)
+# and an exported program launches the kernel at run time. Plain types
+# only: `bf16` selects mlp_dtype=bfloat16, `tile_n` 0 is None. The ids are
+# an empty tensor unless `return_idx`.
+@torch.library.custom_op('gpe_torch::fused_edgeconv', mutates_args=(), device_types='cpu')
+def fused_edgeconv_op(x: torch.Tensor, weights: list[torch.Tensor],
+                      biases: list[torch.Tensor], a: torch.Tensor, d: torch.Tensor, k: int,
+                      bf16: bool, tile_n: int, return_idx: bool
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    out, idx = fused_edgeconv_reference(
+        x, (list(zip(weights, biases)), (a, d)), k,
+        torch.bfloat16 if bf16 else torch.float32, return_idx=True)
+    return out, idx.contiguous() if return_idx else _no_ids(x)
+
+
+@fused_edgeconv_op.register_kernel('cuda')
+def _fused_edgeconv_cuda(x, weights, biases, a, d, k, bf16, tile_n, return_idx):
+    return _launch(x, (list(zip(weights, biases)), (a, d)), k,
+                   torch.bfloat16 if bf16 else torch.float32, return_idx, tile_n or None)
+
+
+@fused_edgeconv_op.register_fake
+def _fused_edgeconv_fake(x, weights, biases, a, d, k, bf16, tile_n, return_idx):
+    B, N, _ = x.shape
+    out = x.new_empty((B, N, weights[-1].shape[1]), dtype=torch.float32)
+    return out, x.new_empty((B, N, min(k, N)), dtype=torch.int64) if return_idx \
+        else _no_ids(x)
+
+
+def _no_ids(x):
+    return x.new_empty((0,), dtype=torch.int64)
 
 
 def _pack_weight(w):
@@ -197,8 +235,6 @@ def _launch(x, folded, k, mlp_dtype, return_idx, tile_n):
     if layers[0][0].shape[0] != 2 * C or max(dims[1:]) > _MAX_WIDTH:
         raise ValueError(f'fused_edgeconv: edge MLP widths {dims} do not fit '
                          f'C={C} or exceed {_MAX_WIDTH}')
-    if mlp_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f'fused_edgeconv: mlp_dtype {mlp_dtype} is not supported')
     for t in [t for layer in layers for t in layer] + [a, d]:
         if t.device != x.device:
             raise ValueError('fused_edgeconv: weights and x are on different devices')
@@ -230,4 +266,4 @@ def _launch(x, folded, k, mlp_dtype, return_idx, tile_n):
         raise RuntimeError(f'fused_edgeconv: kernel launch failed with CUDA error {err}')
     variant = 'small_c' if C <= SMALL_C_MAX else 'wide_c'
     launches[variant + ('_tiled' if N > MAX_N or tile_n is not None else '')] += 1
-    return (out, idx.long()) if return_idx else out
+    return out, idx.long() if return_idx else _no_ids(x)

@@ -17,15 +17,17 @@ or a caller drives the steps itself:
 
 A batch is {'features': (B, N, 3) standardized points, 'ground_truth':
 {name: tensor}} as `data.DataLoader` collates it, or for the stitch model
-{'features': (B, P, 16) edge pairs, 'ground_truth': (B, P) bool}. Not
-ported: image logging (`with_visualization`, matplotlib), on-device
-sampling, the device mesh and data-parallel placement, and the profiler
-window; the first two raise.
+{'features': (B, P, 16) edge pairs, 'ground_truth': (B, P) bool}. With
+`with_visualization`, `fit` renders one prediction per data folder after
+each epoch into the run's `intermediate_preds/` (`_log_an_image`). Not
+ported: on-device sampling (raises), the device mesh and data-parallel
+placement, and the profiler window.
 """
 from __future__ import annotations
 
 import math
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -88,15 +90,12 @@ class Trainer:
 
     def __init__(self, setup, experiment_tracker=None, dataset=None, data_split=None,
                  with_norm=True, with_visualization=False, device=None):
-        if with_visualization:
-            raise NotImplementedError(
-                'Trainer: with_visualization (image logging, core/render.py) is not '
-                'ported yet (ROADMAP queue A item 6)')
         self.setup = dict(setup)
         self.device = resolve_device(device)
         self.experiment = experiment_tracker
         self.datawrapper = None
         self.standardize_data = with_norm
+        self.log_with_visualization = with_visualization
         self.optimizer = None
         self.schedule = None
         self.step_count = 0
@@ -285,6 +284,10 @@ class Trainer:
                 self.experiment.checkpoint_counter, start_epoch)
             print(f'Trainer::Resumed run from epoch {start_epoch}')
 
+        if self.log_with_visualization:
+            self.folder_for_preds = Path(self.experiment.run_dir()) / 'intermediate_preds'
+            self.folder_for_preds.mkdir(exist_ok=True)
+
         best_valid_loss = self.experiment.last_best_validation_loss()
         best_monitor = self.experiment.summary.get('best_monitor') \
             if self._monitor_key else None
@@ -397,6 +400,9 @@ class Trainer:
                 self.experiment.log(epoch_record, step=log_step)
                 self.experiment.add_statistic('best_valid_loss', best_valid_loss)
 
+                if self.log_with_visualization:
+                    self._log_an_image(model, epoch, log_step)
+
                 if self._early_stopping(es_tracking, last_loss, best_valid_loss,
                                         float(self.schedule(self.step_count))):
                     if (tail_start is not None and not in_tail and bf16
@@ -441,6 +447,30 @@ class Trainer:
                  'model': model.module.state_dict(),
                  'optimizer': self.optimizer.state_dict()}
         self.experiment.save_checkpoint(state, aliases=['best'] if best else [])
+
+    @torch.no_grad()
+    def _log_an_image(self, model, epoch, log_step):
+        """Save one predicted pattern per data folder, rendered, into
+        `intermediate_preds/` and log each image's path as
+        'pred_img::<file name>' (garment_pattern_estimation_tpu/train/trainer.py:654).
+        Unlike the JAX trainer, nothing here is caught: the eval forward
+        (the fused EdgeConv kernel on the card) raises as everywhere else,
+        and `PatternSpec.serialize` already makes a failed render a
+        warning."""
+        loader = self.datawrapper.loaders.valid_single_per_data
+        if loader is None:
+            print('Trainer::Error::suitable loader is not available. Nothing logged')
+            return
+        model.module.eval()
+        img_files = []
+        for batch in loader:
+            preds = model.module(batch['features'].to(self.device).float())
+            preds = {k: v.float().cpu().numpy() for k, v in preds.items()}
+            img_files += self.datawrapper.dataset.save_prediction_batch(
+                preds, batch['name'], batch['data_folder'], save_to=self.folder_for_preds)
+        for img in img_files:
+            self.experiment.log({f'pred_img::{img.name}': str(img), 'epoch': epoch},
+                                step=log_step)
 
     @staticmethod
     def _best_update(valid_loss, valid_monitor, best_valid_loss, best_monitor,

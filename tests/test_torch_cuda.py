@@ -45,6 +45,12 @@ the card against its CPU plain path from the same weights: output, running
 statistics and the whole gradient within 1e-2 of their L2 norms, each
 parameter's gradient within 5e-2 (the training phase's bars of
 chip_smoke.py: near-tie ids and ReLU boundaries make gradients jumpy).
+
+The fused layer is the registered operator `gpe_torch::fused_edgeconv`:
+through it the kernel's outputs and ids are bitwise those of a direct
+launch, and a serving artifact exported with `torch.export` on the card
+launches the kernel once per layer and call, equals `build_serving_fn`
+bitwise and refuses a CPU input.
 """
 import copy
 
@@ -764,3 +770,65 @@ def test_stitch_bucketed_prediction_equals_unpadded(cuda, rng):
             plain = model.module.eval()(torch.from_numpy(pairs).to(cuda)).cpu().numpy()
         assert bucketed.shape == (n,)
         assert np.abs(bucketed - plain).max() <= 1e-6 * max(1.0, np.abs(plain).max())
+
+
+@pytest.mark.parametrize('C', [3, 150])
+@pytest.mark.parametrize('mlp_dtype', [torch.float32, torch.bfloat16])
+def test_operator_equals_direct_launch(cuda, rng, C, mlp_dtype):
+    """`fused_edgeconv` through the registered operator against a direct
+    launch of the kernel (`_launch`) at the attention model's shapes
+    (64, 2000, C) -> 150: bitwise equal outputs and ids, one launch each."""
+    folded = _folded(rng, C, [200, 200, 150], cuda)
+    x = torch.from_numpy(rng.normal(size=(64, 2000, C)).astype(np.float32)).to(cuda)
+    variant = 'small_c' if C <= edgeconv.SMALL_C_MAX else 'wide_c'
+    before = edgeconv.launches[variant]
+    out, idx = edgeconv.fused_edgeconv(x, folded, k=5, mlp_dtype=mlp_dtype, return_idx=True)
+    direct, direct_idx = edgeconv._launch(x, folded, 5, mlp_dtype, True, None)
+    plain_out = edgeconv.fused_edgeconv(x, folded, k=5, mlp_dtype=mlp_dtype)
+    torch.cuda.synchronize()
+    assert edgeconv.launches[variant] == before + 3
+    assert torch.equal(out, direct) and torch.equal(idx, direct_idx)
+    assert torch.equal(plain_out, direct)
+    assert idx.dtype == torch.int64 and out.dtype == torch.float32
+
+
+def _served_att(cuda, data, compute_dtype=None):
+    from garment_pattern_estimation_torch.models import build_model
+
+    nn_config = {'EConv_hidden': 200, 'EConv_feature': 150, 'EConv_hidden_depth': 2,
+                 'k_neighbors': 5, 'conv_depth': 2, 'skip_connections': True,
+                 'global_pool': 'mean', 'local_attention': True, 'panel_encoding_size': 250,
+                 'panel_hidden_size': 250, 'panel_n_layers': 3, 'compute_dtype': compute_dtype}
+    return build_model('GarmentSegmentPattern3D', data, nn_config, device=cuda, seed=3)
+
+
+@pytest.mark.parametrize('compute_dtype', [None, 'bfloat16'])
+def test_exported_artifact_on_the_card(cuda, tmp_path, compute_dtype):
+    """An artifact exported on the card reloads, launches the kernel through
+    the operator (one launch per layer and call), equals `build_serving_fn`
+    bitwise, and refuses a CPU input."""
+    from garment_pattern_estimation_torch.experiment import (
+        build_serving_fn, export_serving_artifact, load_serving_artifact)
+
+    data = {'element_size': 4, 'rotation_size': 4, 'translation_size': 3,
+            'max_panel_len': 14, 'max_pattern_len': 23,
+            'standardize': {'f_shift': [0.1, -2.0, 0.5], 'f_scale': [3.0, 5.0, 2.0],
+                            'gt_shift': {'translations': [-55.0, -20.0, -17.0]},
+                            'gt_scale': {'translations': [109.0, 98.0, 37.0]}}}
+    model = _served_att(cuda, data, compute_dtype)
+    manifest = export_serving_artifact(model, data, tmp_path, batch_size=4, num_points=2000)
+    assert manifest['platforms'] == ['cuda']
+    served = load_serving_artifact(tmp_path)
+    x = torch.randn(4, 2000, 3, generator=torch.Generator().manual_seed(5)) * 10.0
+    before = dict(edgeconv.launches)
+    out = served(x.to(cuda))
+    torch.cuda.synchronize()
+    assert edgeconv.launches['small_c'] == before['small_c'] + 1
+    assert edgeconv.launches['wide_c'] == before['wide_c'] + 1
+    ref = build_serving_fn(model, data)(x.to(cuda))
+    assert sorted(out) == sorted(ref)
+    for key in ref:
+        assert out[key].device.type == 'cuda'
+        assert torch.equal(out[key], ref[key]), key
+    with pytest.raises(ValueError, match='exported for'):
+        served(x)

@@ -94,7 +94,13 @@ def test_cuda_tensor_never_takes_the_plain_version(rng, monkeypatch, n_points):
     launched = []
     monkeypatch.setattr(edgeconv, 'fused_edgeconv_reference', plain)
     monkeypatch.setattr(edgeconv, 'edgeconv_select', plain)
-    monkeypatch.setattr(edgeconv, '_launch', lambda *args: launched.append(args))
+    monkeypatch.setattr(edgeconv, '_launch',
+                        lambda *args: launched.append(args) or (None, None))
+    # the operator's CUDA kernel is the launch; a stand-in cannot pass the
+    # dispatcher, so the wrapper's call goes to that kernel directly
+    assert torch._C._dispatch_has_kernel_for_dispatch_key('gpe_torch::fused_edgeconv',
+                                                           'CUDA')
+    monkeypatch.setattr(edgeconv, 'fused_edgeconv_op', edgeconv._fused_edgeconv_cuda)
     layers = _synthetic_mlp(rng, [(6, 8), (8, 8)])
     edgeconv.fused_edgeconv(_CudaStandIn(2, n_points, 3), _torch_fold(layers), k=5)
     assert len(launched) == 1

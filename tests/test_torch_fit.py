@@ -235,8 +235,6 @@ def test_fit_without_batches_raises(synthetic_dataset_root, tmp_path):
 
 
 def test_unported_options_raise(synthetic_dataset_root, tmp_path):
-    with pytest.raises(NotImplementedError, match='queue A item 6'):
-        pt_train.Trainer(SETUP, with_visualization=True, device='cpu')
     dataset = _dataset(pt_data, synthetic_dataset_root)
     dataset.config['on_device_sampling'] = True
     trainer = pt_train.Trainer(SETUP, pt_experiment.ExperimentWrappper({}, tmp_path),

@@ -57,6 +57,19 @@ def test_import_scan_covers_the_data_pipeline():
     assert (_PACKAGE / 'preprocess' / '_native' / 'mesh_ops.cpp').exists()
 
 
+def test_import_scan_covers_the_evaluation_modules():
+    """The evaluation, prediction and export modules are scanned too, and
+    importing the renderer needs no matplotlib."""
+    scanned = {str(p.relative_to(_PACKAGE)) for p in _PACKAGE.rglob('*.py')}
+    assert {'core/render.py', 'experiment/torch_import.py', 'experiment/serving.py',
+            'cli/on_test_set.py', 'cli/predict_per_example.py', 'cli/noise_levels.py',
+            'cli/export_serving.py'} <= scanned
+    assert 'matplotlib' not in {
+        node.names[0].name.split('.')[0] if isinstance(node, ast.Import) else node.module
+        for node in ast.parse((_PACKAGE / 'core' / 'render.py').read_text()).body
+        if isinstance(node, (ast.Import, ast.ImportFrom))}
+
+
 def test_chip_smoke_imports_no_jax():
     path = _PACKAGE.parent / 'chip_smoke.py'
     bad = sorted(set(_imported_roots(path)) & set(_FORBIDDEN))
