@@ -23,9 +23,17 @@ Phases, one JSON line each:
            (one index_add_, backward only) times, the backward's two
            kernels' device ms apart (torch.profiler)
   knn_gather_bwd_sweep  the backward at N in {1, 31, 32, 33, 2048}, k =
-           1..8, C in {3, 24, 150, 256}, both chunk counts, and on hub ids
+           1..16, C in {3, 24, 150, 256}, both chunk counts, and on hub ids
            (one point in every query's slots >= 1): repeatable, ordered,
            within 1e-5 of the plain version
+  kernel_k10, knn_gather_k10  the kernels at k = 10 (the one instance for
+           k = 9..16) at the pool10 variant's shapes, each against its plain
+           version with the bars above: rows 4-5 at (64, 2000, 3) 64-64-32,
+           (64, 200, 32) 128 x 3 and (64, 20, 128) 256 x 3; row 2 at (64,
+           2000, 32) and (64, 200, 128), and DynamicGraphPool on the card
+           given the kernel's ids against its plain version on the CPU (the
+           same kept ids, values within 1e-5); row 1 on (4, 10000, 3); row 8
+           at (30, 2000, 3), rows 8-9 at (30, 200, 32) and (30, 20, 128)
   serving  build_model at the published att.yaml widths (seeded init),
            build_serving_fn on a (64, 2000, 3) batch: output shapes and
            finiteness, 2 kernel launches per forward (conv0 + conv1), batch
@@ -153,6 +161,22 @@ at its published widths, seeded weights, between the bf16 phases and fit:
            FIT_EPOCHS epochs, then 1 resumed epoch: epoch s, ms per step,
            the mean train loss per epoch (the shape terms must fall) and the
            training steps' stitch recall
+The alternative encoders and decoders (ROADMAP queue A item 7), after
+training_lstm: the baseline with each variant's NN keys (ENCODER_VARIANTS)
+at full width:
+  encoders_decoders  per variant (pool10: EdgeConvPoolingFeatures at k 10,
+           GRU panel and double-reverse LSTM pattern decoders; gpool: graph
+           pooling; aggr_mean, aggr_add; pointnet: PointNet++ and MLP
+           decoders) SERVE_CALLS served batches (batch ms, clouds/s, peak
+           memory, exactly VARIANT_LAUNCHES' launches per forward, by shape
+           too), a 2-cloud batch against the CPU plain path, one profiled
+           serving call, VARIANT_STEPS training steps (step ms, the launches
+           per step, finite losses) and a step against the CPU plain path
+           (pointnet: 4 clouds, gradient bars scaled to the CPU's own 1e-7
+           noise floor); then the attention model with pool10's encoder,
+           served once (its attention weights over the 20 pooled points),
+           and farthest_point_sampling alone at pointnet's (64, 2000, 3):
+           host ms, device ms and kernel launches per call
 Then the two-stage pipeline of configs/stitch_model.yaml on the att f32
 fit run:
   stitch_pipeline  (0) the run resumed to STITCH_SHAPE_EPOCHS epochs (on
@@ -212,12 +236,16 @@ launches in the pipeline (the shape stage's resumed training and its
 predictions). The f32 entries of rows 4-7 carry `launches_visualization`,
 `launches_on_test_set`, `launches_predict_per_example` and `launches_export`
 (the f32 artifacts' calls), the bf16 entries of rows 4-7 `launches_export`
-(the bf16 artifact's).
+(the bf16 artifact's). The k = 10 entries carry the pool10 variant's
+launches at their shape (serving; rows 2, 4, 5 also `launches_training`);
+row 1's is on no path of the slice (`on_main_path` false, 0 launches).
+The f32 entries of rows 2, 4, 5, 8 and 9 carry `launches_variants`, the
+other variants' launches of their kernel at k = 5.
 Then each phase's seconds, the card's name and power limit, the kernels
 line (each bf16-mode kernel an entry of its own, its launches from the bf16
 phases), and as the last line {"ok": true, "device": {...}}. Any failed
 check exits non-zero. The build line gives each kernel instantiation's registers
-and spill bytes from `nvcc -Xptxas -v` and, where the toolkit has
+and spill bytes from `nvcc -Xptxas -v` (`k16`: the k = 9..16 instances') and, where the toolkit has
 cuobjdump, its count of tensor-core HMMA instructions in the SASS: the
 wide selections and every fused_edgeconv_kernel instantiation with k > 1
 (the edge MLP) must have some, and no k = 5 instantiation may spill. In the kernels line a kNN kernel's
@@ -319,6 +347,7 @@ ATT_TRAINER = {
     'optimizer': 'Adam', 'weight_decay': 0, 'lr_scheduling': {'mode': '1cyclic'},
 }
 BATCH, POINTS, K = 64, 2000, 5
+K_WIDE = 10                         # EdgeConvPoolingFeatures' k (the pool10 variant)
 TRAIN_BATCH = ATT_TRAINER['batch_size']
 TRAIN_STEPS = 6
 DX_MAX_REL = 1e-5
@@ -352,6 +381,39 @@ KNN_REPLACES = 'garment_pattern_estimation_tpu/ops/knn.py:257'
 KNN_WIDE_SOURCE = 'garment_pattern_estimation_torch/ops/csrc/knn_wide.cu'
 KNN_WIDE_REPLACES = ('garment_pattern_estimation_tpu/ops/knn.py:314, '
                      'garment_pattern_estimation_tpu/ops/knn.py:360')
+# The baseline of lstm_stitch_tags.yaml with each variant's NN keys: the
+# alternative encoders and decoders of the JAX registries, full widths,
+# depth not cut (ROADMAP queue A item 7)
+ENCODER_VARIANTS = {
+    'pool10': {'feature_extractor': 'EdgeConvPoolingFeatures', 'k_neighbors': K_WIDE,
+               'panel_decoder': 'GRUDecoderModule',
+               'pattern_decoder': 'LSTMDoubleReverseDecoderModule'},
+    'gpool': {'graph_pooling': True, 'skip_connections': False},
+    'aggr_mean': {'EConv_aggr': 'mean'},
+    'aggr_add': {'EConv_aggr': 'add'},
+    'pointnet': {'feature_extractor': 'PointNetPlusPlus', 'panel_decoder': 'MLPDecoder',
+                 'pattern_decoder': 'MLPDecoder'},
+}
+VARIANT_STEPS = 3
+# the CPU step check of pointnet: its MLP decoders normalize over the batch
+# rows, and on 2 clouds the CPU path alone moves the loss by 22% and the
+# gradient by 2.2 times its norm under 1e-7 input noise (4 clouds: 2.7e-5
+# and 2.6%), so it compares 4 clouds with the gradient bars scaled to that
+# floor (compare_step_cpu's noise_floor)
+VARIANT_STEP_CLOUDS = {'pointnet': 4}
+# kernel launches of each variant per serving forward and per training step
+# (the first layer's input, the cloud, takes no gradient: no backward there)
+_GATHER_STEP = {'knn_gather_fwd_small_c': 1, 'knn_gather_fwd_wide_c': 1, 'knn_gather_bwd': 1}
+VARIANT_LAUNCHES = {
+    'pool10': ({'fused_small_c': 1, 'fused_wide_c': 2, 'knn_wide': 2},
+               {'knn_gather_fwd_small_c': 1, 'knn_gather_fwd_wide_c': 2, 'knn_gather_bwd': 2,
+                'knn_wide': 2}),
+    'gpool': ({'fused_small_c': 1, 'fused_wide_c': 1, 'knn_wide': 2},
+              dict(_GATHER_STEP, knn_wide=2)),
+    'aggr_mean': ({'knn_gather_fwd_small_c': 1, 'knn_gather_fwd_wide_c': 1}, _GATHER_STEP),
+    'aggr_add': ({'knn_gather_fwd_small_c': 1, 'knn_gather_fwd_wide_c': 1}, _GATHER_STEP),
+    'pointnet': ({}, {}),
+}
 
 
 def emit(obj):
@@ -514,11 +576,11 @@ def chunked(fn, x, chunk):
     return torch.cat([fn(x[i:i + chunk]) for i in range(0, x.shape[0], chunk)])
 
 
-def check_kernel(name, x, folded, widths, *, tile_variant=False, bf16=False):
-    """Kernel against the plain version on the same inputs; returns the
-    kernel's output and its line of the kernels list (launches filled in
-    later). The single-tile variants are checked and timed on the whole
-    batch at once; the tiled ones (stress shapes) checked on the first
+def check_kernel(name, x, folded, widths, *, tile_variant=False, bf16=False, k=K):
+    """Kernel against the plain version on the same inputs at k neighbours;
+    returns the kernel's output and its line of the kernels list (launches
+    filled in later). The single-tile variants are checked and timed on the
+    whole batch at once; the tiled ones (stress shapes) checked on the first
     CHUNK clouds, their plain version timed on the whole batch CHUNK clouds
     at a time, and fewer timed runs (each call takes most of a second).
     `bf16`: the bf16 compute mode (`mlp_dtype=torch.bfloat16`, wide rows
@@ -528,11 +590,11 @@ def check_kernel(name, x, folded, widths, *, tile_variant=False, bf16=False):
 
     B, N, C = x.shape
     mlp_dtype = torch.bfloat16 if bf16 else torch.float32
-    out, idx = edgeconv.fused_edgeconv(x, folded, K, mlp_dtype=mlp_dtype, return_idx=True)
+    out, idx = edgeconv.fused_edgeconv(x, folded, k, mlp_dtype=mlp_dtype, return_idx=True)
     torch.cuda.synchronize()
     check_clouds = CHUNK if tile_variant else B
     xc, out_c, idx_c = x[:check_clouds], out[:check_clouds], idx[:check_clouds]
-    ref_idx, x_lp = edgeconv.edgeconv_select(xc, K, mlp_dtype)
+    ref_idx, x_lp = edgeconv.edgeconv_select(xc, k, mlp_dtype)
     agree_rows = (idx_c == ref_idx).all(dim=-1)
     id_share, n_rows, worst_tie, _ = check_ids(name, xc, idx_c, ref_idx)
 
@@ -543,8 +605,9 @@ def check_kernel(name, x, folded, widths, *, tile_variant=False, bf16=False):
     diff = (out_c - tail).abs()
     diff_agree = (out_c - full).abs()[agree_rows]
     line = {
-        'phase': 'kernel_bf16' if bf16 else 'kernel', 'name': name, 'shape': [B, N, C],
-        'checked_clouds': check_clouds, 'k': K, 'mlp': [2 * C, *widths],
+        'phase': ('kernel_bf16' if bf16 else 'kernel') + ('' if k == K else f'_k{k}'),
+        'name': name, 'shape': [B, N, C],
+        'checked_clouds': check_clouds, 'k': k, 'mlp': [2 * C, *widths],
         'mlp_dtype': str(mlp_dtype), 'id_agreement': id_share,
         'id_disagreeing_rows': n_rows, 'near_tie_ratio': worst_tie,
         'max_abs_err': diff.max().item(), 'max_rel_err': diff.max().item() / scale,
@@ -553,13 +616,13 @@ def check_kernel(name, x, folded, widths, *, tile_variant=False, bf16=False):
     }
     del tail, full, diff, diff_agree
     warmup, runs = (1, 5) if tile_variant else (3, 20)
-    line['ms'] = cuda_ms(lambda: edgeconv.fused_edgeconv(x, folded, K, mlp_dtype=mlp_dtype),
+    line['ms'] = cuda_ms(lambda: edgeconv.fused_edgeconv(x, folded, k, mlp_dtype=mlp_dtype),
                          warmup, runs)
     line['plain_ms'] = cuda_ms(lambda: chunked(
-        lambda xs: edgeconv.fused_edgeconv_reference(xs, folded, K, mlp_dtype), x,
+        lambda xs: edgeconv.fused_edgeconv_reference(xs, folded, k, mlp_dtype), x,
         check_clouds), warmup, 3 if tile_variant else runs)
     line['plain_chunk'] = check_clouds
-    line['bound_ms'], line['bound_by'] = bound(B, N, C, K, widths)
+    line['bound_ms'], line['bound_by'] = bound(B, N, C, k, widths)
     line['library_ms'] = None       # no single PyTorch call computes this layer
     emit(line)
     check(line['max_rel_err'] <= OUT_MAX_REL and line['mean_rel_err'] <= OUT_MEAN_REL,
@@ -570,7 +633,7 @@ def check_kernel(name, x, folded, widths, *, tile_variant=False, bf16=False):
     variant = 'small_c' if C <= 16 else 'wide_c'
     return out, {
         'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE,
-        'replaces': TILED_REPLACES[variant] if tile_variant else REPLACES,
+        'replaces': TILED_REPLACES[variant] if tile_variant else REPLACES, 'k': k,
         'launches': None, 'max_abs_err': line['max_abs_err'], 'ms': line['ms'],
         'plain_ms': line['plain_ms'], 'bound_ms': line['bound_ms'],
         'bound_by': line['bound_by'], 'library_ms': None}
@@ -604,7 +667,7 @@ def knn_phase(points):
     _, _, id_err = near_tie_ratio(points[:CHUNK], ids[:CHUNK], ref)
     del ref
     line = {'name': 'knn', 'route': 'cuda', 'source': KNN_SOURCE, 'replaces': KNN_REPLACES,
-            'launches': launches, 'max_abs_err': id_err,
+            'k': K, 'launches': launches, 'max_abs_err': id_err,
             'ms': cuda_ms(lambda: knn.knn(points, K), 2, 10),
             'plain_ms': cuda_ms(lambda: chunked(lambda xs: knn.knn_reference(xs, K),
                                                 points, CHUNK), 1, 3),
@@ -651,7 +714,7 @@ def knn_wide_phase(points):
     check(torch.equal(ids_c[..., 0], ref[..., 0]), 'knn_wide: slot 0 is not the query')
     del ref, ids, ids_c
     line = {'name': 'knn_wide', 'route': 'cuda', 'source': KNN_WIDE_SOURCE,
-            'replaces': KNN_WIDE_REPLACES, 'launches': None, 'max_abs_err': id_err,
+            'replaces': KNN_WIDE_REPLACES, 'k': K, 'launches': None, 'max_abs_err': id_err,
             'ms': cuda_ms(lambda: knn.knn(points, K), 1, 5),
             'plain_ms': cuda_ms(lambda: chunked(lambda xs: knn.knn_reference(xs, K),
                                                 points, CHUNK), 1, 3),
@@ -688,11 +751,12 @@ def gather_bound(B, N, C, k, backward):
     return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
 
 
-def check_knn_gather(x, backward, value_chunks=2):
+def check_knn_gather(x, backward, value_chunks=2, k=K):
     """The knn_gather forward (and, if asked, backward) kernels against the
-    plain versions on x, at `value_chunks` (1: the bf16 compute mode, wide
-    rows gathered and slots >= 1 scattered as their top bf16 truncation
-    chunk); returns their lines of the kernels list."""
+    plain versions on x at k neighbours, at `value_chunks` (1: the bf16
+    compute mode, wide rows gathered and slots >= 1 scattered as their top
+    bf16 truncation chunk); returns their lines of the kernels list. Names
+    at k != K end in `_k{k}_c{C}`."""
     import torch
     from garment_pattern_estimation_torch.ops import knn_gather as kg
     from garment_pattern_estimation_torch.ops.knn import truncate_bf16
@@ -700,30 +764,33 @@ def check_knn_gather(x, backward, value_chunks=2):
     B, N, C = x.shape
     variant = 'small_c' if C <= 16 else 'wide_c'
     suffix, phase = ('', 'knn_gather') if value_chunks == 2 else ('_bf16', 'knn_gather_bf16')
-    name = f'knn_gather_fwd_{variant}{suffix}'
-    nbr, idx = kg.knn_gather_fwd(x, K, value_chunks)
+    k_suffix = '' if k == K else f'_k{k}'
+    phase += k_suffix
+    name = f'knn_gather_fwd_{variant}{suffix}{k_suffix}' + ('' if k == K else f'_c{C}')
+    nbr, idx = kg.knn_gather_fwd(x, k, value_chunks)
     torch.cuda.synchronize()
-    ref_nbr, ref_idx = kg.knn_gather_reference(x, K, value_chunks)
+    ref_nbr, ref_idx = kg.knn_gather_reference(x, k, value_chunks)
     id_share, n_rows, worst_tie, _ = check_ids(name, x, idx, ref_idx)
     agree = (idx == ref_idx).transpose(1, 2)                  # (B, k, N)
     fwd_err = (nbr[agree] - ref_nbr[agree]).abs().max().item()
     fwd = {'name': name, 'route': 'cuda', 'source': GATHER_SOURCE,
-           'replaces': GATHER_FWD_REPLACES, 'launches': None, 'max_abs_err': fwd_err,
-           'ms': cuda_ms(lambda: kg.knn_gather_fwd(x, K, value_chunks)),
-           'plain_ms': cuda_ms(lambda: kg.knn_gather_reference(x, K, value_chunks)),
+           'replaces': GATHER_FWD_REPLACES, 'k': k, 'launches': None, 'max_abs_err': fwd_err,
+           'ms': cuda_ms(lambda: kg.knn_gather_fwd(x, k, value_chunks)),
+           'plain_ms': cuda_ms(lambda: kg.knn_gather_reference(x, k, value_chunks)),
            'library_ms': None}      # no single PyTorch call selects and gathers
-    fwd['bound_ms'], fwd['bound_by'] = gather_bound(B, N, C, K, backward=False)
-    emit({'phase': phase, 'shape': [B, N, C], 'k': K, 'value_chunks': value_chunks,
+    fwd['bound_ms'], fwd['bound_by'] = gather_bound(B, N, C, k, backward=False)
+    emit({'phase': phase, 'shape': [B, N, C], 'k': k, 'value_chunks': value_chunks,
           'id_agreement': id_share, 'id_disagreeing_rows': n_rows,
           'near_tie_ratio': worst_tie, **fwd})
     check(fwd_err == 0.0, f'{name}: gathered rows differ where the ids agree')
     if not backward:
         return [fwd]
 
-    name = 'knn_gather_bwd' if value_chunks == 2 else 'knn_gather_bwd_hi'
+    name = ('knn_gather_bwd' if value_chunks == 2 else 'knn_gather_bwd_hi') \
+        + ('' if k == K else f'_k{k}_c{C}')
     gen = torch.Generator(device=x.device).manual_seed(3)
     # standard normal cotangents: not bf16-valued, so value_chunks=1 truncates
-    g = torch.randn(B, K, N, C, generator=gen, device=x.device)
+    g = torch.randn(B, k, N, C, generator=gen, device=x.device)
     dx = kg.knn_gather_bwd(idx, g, value_chunks)
     dx_again = kg.knn_gather_bwd(idx, g, value_chunks)
     ref_dx = kg.knn_gather_backward_reference(idx, g, value_chunks)
@@ -737,18 +804,18 @@ def check_knn_gather(x, backward, value_chunks=2):
         rows[:, 1:] = truncate_bf16(rows[:, 1:])
     rows, buffer = rows.reshape(-1, C), torch.zeros(B * N, C, device=x.device)
     bwd = {'name': name, 'route': 'cuda', 'source': GATHER_SOURCE,
-           'replaces': GATHER_BWD_REPLACES, 'launches': None, 'max_abs_err': bwd_err,
+           'replaces': GATHER_BWD_REPLACES, 'k': k, 'launches': None, 'max_abs_err': bwd_err,
            'ms': cuda_ms(lambda: kg.knn_gather_bwd(idx, g, value_chunks)),
            'plain_ms': cuda_ms(lambda: kg.knn_gather_backward_reference(idx, g, value_chunks)),
            # one index_add_ of every slot's rows (slots >= 1 truncated first
            # at value_chunks=1) computes the same dx
            'library_ms': cuda_ms(lambda: buffer.index_add_(0, flat, rows))}
-    bwd['bound_ms'], bwd['bound_by'] = gather_bound(B, N, C, K, backward=True)
+    bwd['bound_ms'], bwd['bound_by'] = gather_bound(B, N, C, k, backward=True)
     deterministic = bool(torch.equal(dx, dx_again))
     ordered = bool(torch.equal(dx, kg.knn_gather_backward_ordered(idx, g, value_chunks)))
     bwd['split_ms'] = kernel_split(lambda: kg.knn_gather_bwd(idx, g, value_chunks),
                                    ('csr_kernel', 'sum_kernel'))
-    emit({'phase': phase, 'shape': [B, N, C], 'k': K, 'value_chunks': value_chunks,
+    emit({'phase': phase, 'shape': [B, N, C], 'k': k, 'value_chunks': value_chunks,
           'max_rel_err': bwd_err / scale, 'bitwise_repeatable': deterministic,
           'bitwise_ordered': ordered, **bwd})
     check(bwd_err <= DX_MAX_REL * scale, f'{name}: dx off the plain version by '
@@ -784,20 +851,22 @@ def kernel_split(fn, names, calls=20):
 
 def gather_backward_sweep():
     """Row 9 (the knn_gather backward: CSR of the transposed graph, then
-    one gathered sum per target) at N in {1, 31, 32, 33, 2048}, k = 1..8,
+    one gathered sum per target) at N in {1, 31, 32, 33, 2048}, k = 1..16,
     C in {3, 24, 150, 256} and both chunk counts on ids drawn from all N
     points, and on hub ids (one point named by every query in every slot
-    >= 1, so its list holds all N (k-1) entries): two runs bitwise equal,
-    bitwise equal to the ordered sum, within DX_MAX_REL of the plain
-    version's largest magnitude."""
+    >= 1, so its list holds all N (k-1) entries; at N = 2048 and k >= 9 the
+    lists are filled in the scratch, not in shared memory): two runs
+    bitwise equal, bitwise equal to the ordered sum, within DX_MAX_REL of
+    the plain version's largest magnitude."""
     import torch
     from garment_pattern_estimation_torch.ops import knn_gather as kg
 
     gen = torch.Generator(device='cuda').manual_seed(11)
-    cases = [(2, n, k, c, v, False) for n in (1, 31, 32, 33, 2048) for k in range(1, 9)
+    cases = [(2, n, k, c, v, False) for n in (1, 31, 32, 33, 2048) for k in range(1, 17)
              if k <= n for c in (3, 24, 150, 256) for v in (1, 2)]
     cases += [(TRAIN_BATCH, POINTS, K, 150, v, True) for v in (1, 2)]
-    cases += [(2, 2048, 8, 256, 2, True), (2, 33, 8, 3, 1, True)]
+    cases += [(2, 2048, 8, 256, 2, True), (2, 33, 8, 3, 1, True), (2, 2048, 16, 24, 2, True),
+              (TRAIN_BATCH, POINTS, K_WIDE, 3, 2, True)]
     worst = 0.0
     for B, N, k, C, value_chunks, hub in cases:
         if hub:
@@ -1888,7 +1957,7 @@ def gradient_gap(grads, ref):
 
 
 def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=False,
-                     epoch=0):
+                     epoch=0, noise_floor=False):
     """Loss and gradients of one train-mode step on the first `clouds`
     clouds on the card against the plain path of the same weights on the
     CPU, at the loss phase of `epoch`, held to the loss and norm bars;
@@ -1902,7 +1971,11 @@ def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=Fal
     ORDER_FLOOR_FACTOR times that gap. The bf16 mode rounds every product
     and its cotangents to 8 bits, and gradients that are small differences
     of large bf16 terms (conv0's first layer, the biases before a BN) move
-    by tens of percent with the order of a sum alone."""
+    by tens of percent with the order of a sum alone.
+
+    `noise_floor` (a model whose gradient moves under 1e-7 input noise by
+    more than the f32 bars): the gradient bars become the larger of the f32
+    bars and ORDER_FLOOR_FACTOR times that floor."""
     import torch
 
     small = {'features': batch['features'][:clouds],
@@ -1930,6 +2003,10 @@ def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=Fal
                    'ground_truth': {k: v.flip(0) for k, v in cpu_small['ground_truth'].items()}}
         _, flipped_grads = step_gradients(cpu_model, flipped, epoch)
         floor = gaps['cpu_cloud_order'] = gradient_gap(flipped_grads, cpu_grads)
+        grad_bar = max(grad_bar, ORDER_FLOOR_FACTOR * floor['grad_rel_l2'])
+        param_bar = max(param_bar, ORDER_FLOOR_FACTOR * floor['worst_param_rel_l2'])
+    if noise_floor:
+        floor = gaps['cpu_1e-7_noise']
         grad_bar = max(grad_bar, ORDER_FLOOR_FACTOR * floor['grad_rel_l2'])
         param_bar = max(param_bar, ORDER_FLOOR_FACTOR * floor['worst_param_rel_l2'])
     gaps['bars'] = {'grad_rel_l2': grad_bar, 'worst_param_rel_l2': param_bar}
@@ -2106,6 +2183,294 @@ def train_lstm_phase():
           'vs_cpu_plain': {f'epoch_{e}': g for e, g in gaps.items()}})
     return launches, lambda: trainer.train_step(model, batch, epoch=LSTM_STITCH_EPOCH,
                                                 generator=states)
+
+
+def all_launches():
+    """Every kernel wrapper's launch counts, one dict: fused_*, knn,
+    knn_wide, knn_gather_*."""
+    from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather
+    return {**{f'fused_{k}': v for k, v in edgeconv.launches.items()}, **knn.launches,
+            **{f'knn_gather_{k}': v for k, v in knn_gather.launches.items()}}
+
+
+def shape_launches():
+    """Every wrapper's launches by shape: {'counter N C k': launches}."""
+    from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather
+    out = {}
+    for prefix, counter in (('fused_', edgeconv.launches_by_shape), ('', knn.launches_by_shape),
+                            ('knn_gather_', knn_gather.launches_by_shape)):
+        for (variant, N, C, k), n in counter.items():
+            out[f'{prefix}{variant} {N} {C} {k}'] = n
+    return out
+
+
+def reset_all_launches():
+    from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather
+    for module in (edgeconv, knn, knn_gather):
+        module.reset_launches()
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def fps_line(points):
+    """farthest_point_sampling (plain PyTorch, M - 1 steps with no host
+    sync) at PointNet++'s shape: host ms per call (synchronized, median of
+    3 after one), device ms and its kernel launches per call
+    (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from garment_pattern_estimation_torch.models.blocks import farthest_point_sampling
+
+    M = int(0.2 * points.shape[1])
+    _, times = timed_calls(lambda: farthest_point_sampling(points, M), 4)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        farthest_point_sampling(points, M)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    return {'shape': list(points.shape), 'samples': M, 'host_ms': statistics.median(times[1:]),
+            'device_ms': sum(e.self_device_time_total for e in events) / 1e3,
+            'kernel_launches': sum(e.count for e in events)}
+
+
+def variant_phase(name):
+    """The baseline with ENCODER_VARIANTS[name] at full width: SERVE_CALLS
+    forwards of the (64, 2000, 3) batch of seed 1 (batch ms, clouds/s,
+    peak memory, the launches of each kernel per forward, exactly as
+    VARIANT_LAUNCHES says), a 2-cloud batch against the CPU plain path,
+    one profiled serving call, VARIANT_STEPS Adam steps at epoch 0 on the
+    stitched (30, 2000, 3) batch of seed 4 (step ms, launches per step as
+    VARIANT_LAUNCHES says, finite losses; they need not fall: Adam's first
+    steps move every weight by about the learning rate, which moves the
+    outputs of wide layers, the MLP decoders' 5750 most of all, by more than
+    three steps learn), and a 2-cloud step against the CPU plain path at the
+    training phase's bars (pointnet: VARIANT_STEP_CLOUDS). Returns the
+    launches by shape of serving and of training."""
+    import torch
+    from garment_pattern_estimation_torch.experiment import build_serving_fn
+    from garment_pattern_estimation_torch.models import build_model
+    from garment_pattern_estimation_torch.train import Trainer
+
+    phase = f'encoders_decoders {name}'
+    per_forward, per_step = VARIANT_LAUNCHES[name]
+    nn_config = dict(LSTM_NN_CONFIG, **ENCODER_VARIANTS[name])
+    model = build_model(LSTM_MODEL, ATT_DATA_CONFIG, nn_config, LSTM_LOSS_CONFIG, seed=0)
+    serve = build_serving_fn(model, ATT_DATA_CONFIG)
+    points = physical_points(1, BATCH, POINTS)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    preds, times = timed_calls(lambda: serve(points), SERVE_CALLS)
+    serving, serving_shapes = nonzero(all_launches()), shape_launches()
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = {k: v * SERVE_CALLS for k, v in per_forward.items()}
+    check(serving == expected, f'{phase}: serving launched {serving}, expected {expected}')
+    check_outputs(phase, preds, BATCH, POINTS, attention=False)
+    del preds
+    serve_err = compare_cpu(phase, model, serve, points[:2])
+    profile_phase(f'serving_{name}', lambda: serve(points))
+
+    trainer = Trainer(ATT_TRAINER)
+    trainer.make_optimizer(model, steps_per_epoch=VARIANT_STEPS)
+    batch = training_batch(torch.Generator().manual_seed(4), TRAIN_BATCH, 'cuda', stitched=True)
+    states = torch.Generator(device='cuda').manual_seed(ATT_TRAINER['random_seed'])
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    losses, step_times = [], []
+    for step in range(VARIANT_STEPS):
+        before = all_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        loss, _ = trainer.train_step(model, batch, epoch=0, generator=states)
+        torch.cuda.synchronize()
+        step_times.append((time.perf_counter() - start) * 1e3)
+        losses.append(loss.item())
+        launched = nonzero({k: v - before[k] for k, v in all_launches().items()})
+        check(launched == per_step,
+              f'{phase}: step {step} launched {launched}, expected {per_step}')
+    training, training_shapes = nonzero(all_launches()), shape_launches()
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(v) for v in losses), f'{phase}: losses {losses}')
+    gaps = compare_step_cpu(phase, model, batch, VARIANT_STEP_CLOUDS.get(name, 2),
+                            noise_floor=name in VARIANT_STEP_CLOUDS)
+
+    batch_ms = statistics.median(times[1:])
+    step_ms = statistics.median(step_times[1:])
+    emit({'phase': 'encoders_decoders', 'variant': name, 'model': LSTM_MODEL,
+          'nn_overrides': ENCODER_VARIANTS[name], 'batch': [BATCH, POINTS, 3],
+          'serving': {'calls': SERVE_CALLS, 'first_call_ms': times[0], 'batch_ms': batch_ms,
+                      'clouds_per_s': BATCH / batch_ms * 1e3, 'peak_memory_gb': serve_peak_gb,
+                      'launches': serving, 'launches_by_shape': serving_shapes,
+                      'vs_cpu_plain': serve_err},
+          'training': {'batch': [TRAIN_BATCH, POINTS, 3], 'steps': VARIANT_STEPS,
+                       'losses': losses, 'step_times_ms': step_times, 'step_ms': step_ms,
+                       'clouds_per_s': TRAIN_BATCH / step_ms * 1e3,
+                       'peak_memory_gb': train_peak_gb, 'launches': training,
+                       'launches_by_shape': training_shapes, 'vs_cpu_plain': gaps},
+          'kernel_launches': sum(serving.values()) + sum(training.values())})
+    return serving_shapes, training_shapes
+
+
+def attention_pool10_phase():
+    """The attention model with pool10's encoder and panel decoder on the
+    att widths: one served (64, 2000, 3) batch, whose attention weights
+    cover the encoder's 20 pooled points, and its launches."""
+    import torch
+    from garment_pattern_estimation_torch.experiment import build_serving_fn
+    from garment_pattern_estimation_torch.models import build_model
+
+    overrides = {k: v for k, v in ENCODER_VARIANTS['pool10'].items() if k != 'pattern_decoder'}
+    model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG,
+                        dict(ATT_NN_CONFIG, **overrides), seed=0)
+    serve = build_serving_fn(model, ATT_DATA_CONFIG)
+    points = physical_points(1, BATCH, POINTS)
+    serve(points)
+    reset_all_launches()
+    preds, times = timed_calls(lambda: serve(points), 1)
+    launches = nonzero(all_launches())
+    expected = VARIANT_LAUNCHES['pool10'][0]
+    check(launches == expected, f'attention pool10: launched {launches}, expected {expected}')
+    pooled = math.ceil(0.1 * math.ceil(0.1 * POINTS))
+    check_outputs('attention pool10', preds, BATCH, pooled)
+    emit({'phase': 'encoders_decoders', 'variant': 'attention_pool10',
+          'model': 'GarmentSegmentPattern3D', 'nn_overrides': overrides,
+          'batch': [BATCH, POINTS, 3], 'att_weights': list(preds['att_weights'].shape),
+          'batch_ms': times[0], 'launches': launches})
+
+
+def knn_k_line(name, points, k, quantized):
+    """The standalone kNN entry at k on `points` against the plain version
+    (small D: every id; wide D: the wide envelope of `check_ids`); its line
+    of the kernels list (launches filled in later) and the ids."""
+    import torch
+    from garment_pattern_estimation_torch.ops import knn
+
+    B, N, D = points.shape
+    ids = knn.knn(points, k)
+    torch.cuda.synchronize()
+    ref = knn.knn_reference(points, k)
+    id_share, n_rows, worst_tie, id_err = check_ids(name, points, ids, ref, quantized=quantized)
+    check(torch.equal(ids[..., 0], ref[..., 0]), f'{name}: slot 0 is not the query')
+    del ref
+    wide = D > 16
+    line = {'name': name, 'route': 'cuda', 'source': KNN_WIDE_SOURCE if wide else KNN_SOURCE,
+            'replaces': KNN_WIDE_REPLACES if wide else KNN_REPLACES, 'k': k,
+            'launches': None, 'max_abs_err': id_err,
+            'ms': cuda_ms(lambda: knn.knn(points, k)),
+            'plain_ms': cuda_ms(lambda: knn.knn_reference(points, k), 1, 5),
+            # torch.cdist + torch.topk: two calls, other rounding and ties
+            'library_ms': cuda_ms(lambda: torch.topk(torch.cdist(points, points), k,
+                                                     largest=False).indices, 1, 5)}
+    line['bound_ms'], line['bound_by'] = (knn_wide_bound if wide else knn_bound)(B, N, D, k)
+    emit({'phase': 'kernel_k10', 'shape': [B, N, D], 'id_agreement': id_share,
+          'id_disagreeing_rows': n_rows, 'near_tie_ratio': worst_tie, **line})
+    return line, ids
+
+
+def pool_on_card(x, ids):
+    """DynamicGraphPool (pool10's pool1: 32 wide, k 10, ratio 0.1) on the
+    card against its plain version on the CPU given the same ids: the same
+    kept ids, the same order where fitness values differ, values within
+    1e-5 of their scale."""
+    import torch
+    from garment_pattern_estimation_torch.models.blocks import DynamicGraphPool
+
+    torch.manual_seed(13)
+    pool = DynamicGraphPool(x.shape[-1], k=K_WIDE, pool_ratio=0.1)
+    card_pool = copy.deepcopy(pool).cuda()
+    with torch.no_grad():
+        out, kept = card_pool.pool(x, ids)
+        ref, ref_kept = pool.pool(x.cpu(), ids.cpu())
+    kept, out = kept.cpu(), out.cpu()
+    same = torch.equal(kept.sort(1).values, ref_kept.sort(1).values)
+    order, ref_order = kept.argsort(1), ref_kept.argsort(1)
+    err = (out.gather(1, order[..., None].expand_as(out))
+           - ref.gather(1, ref_order[..., None].expand_as(ref))).abs().max().item()
+    scale = ref.abs().max().item()
+    line = {'phase': 'kernel_k10', 'name': 'dynamic_graph_pool_on_kernel_ids',
+            'shape': list(x.shape), 'kept': kept.shape[1], 'same_kept_ids': same,
+            'same_order': bool(torch.equal(kept, ref_kept)), 'max_rel_err': err / scale}
+    emit(line)
+    check(same and err <= 1e-5 * scale, f'pool on the card off its plain version: {line}')
+
+
+def wide_k_kernels():
+    """The kernels at k = K_WIDE at pool10's shapes, each against its plain
+    version: rows 4-5 at conv1 (64, 2000, 3) 64-64-32, conv2 (64, 200, 32)
+    128 x 3, conv3 (64, 20, 128) 256 x 3; row 2 at the pools' (64, 2000,
+    32) and (64, 200, 128), with the pool itself on the kernel's ids; row 1
+    on a (4, 10000, 3) cloud; row 8 at training's (30, 2000, 3), rows 8-9 at
+    (30, 200, 32) and (30, 20, 128) (the layers whose input takes a
+    gradient). Returns the kernels-line entries by key."""
+    import torch
+
+    gen = torch.Generator().manual_seed(12)
+    x0 = torch.randn(BATCH, POINTS, 3, generator=gen).cuda()
+    lines = {}
+    x1, lines['fused_small_c'] = check_kernel('fused_edgeconv_small_c_k10', x0, random_folded(
+        gen, 3, [64, 64, 32], 'cuda'), [64, 64, 32], k=K_WIDE)
+    lines['knn_wide_2000'], ids = knn_k_line('knn_wide_k10', x1, K_WIDE, quantized=False)
+    pool_on_card(x1, ids)
+    x2 = x1[:, :POINTS // 10].contiguous()            # pool1 keeps 200 of 2000
+    x3, lines['fused_wide_c_200'] = check_kernel('fused_edgeconv_wide_c_k10', x2, random_folded(
+        gen, 32, [128] * 3, 'cuda'), [128] * 3, k=K_WIDE)
+    lines['knn_wide_200'], _ = knn_k_line('knn_wide_k10_c128', x3, K_WIDE, quantized=False)
+    _, lines['fused_wide_c_20'] = check_kernel(
+        'fused_edgeconv_wide_c_k10_c128', x3[:, :POINTS // 100].contiguous(),
+        random_folded(gen, 128, [256] * 3, 'cuda'), [256] * 3, k=K_WIDE)
+    lines['knn'], _ = knn_k_line('knn_k10', torch.randn(CHUNK, STRESS_POINTS, 3,
+                                                         generator=gen).cuda(), K_WIDE, True)
+    gathers = check_knn_gather(x0[:TRAIN_BATCH].contiguous(), False, k=K_WIDE) \
+        + check_knn_gather(x2[:TRAIN_BATCH].contiguous(), True, k=K_WIDE) \
+        + check_knn_gather(x3[:TRAIN_BATCH, :POINTS // 100].contiguous(), True, k=K_WIDE)
+    lines.update(zip(('gather_fwd_small_c', 'gather_fwd_wide_c_200', 'gather_bwd_200',
+                      'gather_fwd_wide_c_20', 'gather_bwd_20'), gathers))
+    return lines
+
+
+def encoders_decoders(seconds, k10_lines, k5_lines):
+    """The variant phases, the attention model with pool10, then FPS alone
+    at pointnet's serving shape (`fps_line`). Each
+    variant sets the counts to 0 before its serving and its training and
+    reads them after: the k = K_WIDE entries of `k10_lines` take pool10's
+    launches by shape (row 1's is on no path of the slice: the pools rank
+    32-wide features); each (kernels-line entry, counter, 0 serving or 1
+    training) of `k5_lines` gets `launches_variants`, the other variants'
+    launches of that counter at k = K."""
+    variant_launches = {}
+    for name in ENCODER_VARIANTS:
+        variant_launches[name] = timed(seconds, f'encoders_decoders_{name}', variant_phase, name)
+    timed(seconds, 'encoders_decoders_attention_pool10', attention_pool10_phase)
+    emit({'phase': 'encoders_decoders', 'variant': 'fps',
+          **fps_line(physical_points(1, BATCH, POINTS))})
+    pool10_serving, pool10_training = variant_launches['pool10']
+    for key, counter in (('fused_small_c', f'fused_small_c {POINTS} 3 {K_WIDE}'),
+                         ('fused_wide_c_200', f'fused_wide_c {POINTS // 10} 32 {K_WIDE}'),
+                         ('fused_wide_c_20', f'fused_wide_c {POINTS // 100} 128 {K_WIDE}'),
+                         ('knn_wide_2000', f'knn_wide {POINTS} 32 {K_WIDE}'),
+                         ('knn_wide_200', f'knn_wide {POINTS // 10} 128 {K_WIDE}')):
+        k10_lines[key]['launches'] = pool10_serving.get(counter, 0)
+        k10_lines[key]['launches_training'] = pool10_training.get(counter, 0)
+    for key, counter in (
+            ('gather_fwd_small_c', f'knn_gather_fwd_small_c {POINTS} 3 {K_WIDE}'),
+            ('gather_fwd_wide_c_200', f'knn_gather_fwd_wide_c {POINTS // 10} 32 {K_WIDE}'),
+            ('gather_bwd_200', f'knn_gather_bwd {POINTS // 10} 32 {K_WIDE}'),
+            ('gather_fwd_wide_c_20', f'knn_gather_fwd_wide_c {POINTS // 100} 128 {K_WIDE}'),
+            ('gather_bwd_20', f'knn_gather_bwd {POINTS // 100} 128 {K_WIDE}')):
+        k10_lines[key]['launches'] = pool10_training.get(counter, 0)
+    k10_lines['knn']['launches'] = 0
+    k10_lines['knn']['on_main_path'] = False
+    for key, line in k10_lines.items():
+        check(key == 'knn' or line['launches'] > 0,
+              f'encoders_decoders: {line["name"]} was not launched on pool10\'s path')
+    for line, counter, which in k5_lines:
+        line['launches_variants'] = {
+            name: sum(n for key, n in counts[which].items()
+                      if key.split()[0] == counter and key.split()[-1] == str(K))
+            for name, counts in variant_launches.items() if name != 'pool10'}
 
 
 def stress_train_phase(bf16=False):
@@ -2408,14 +2773,18 @@ def main():
     hmma = {n: sass_hmma(r['path']) for n, r in report.items()}
     ptxas = {n: ptxas_usage(r['log']) for n, r in report.items()}
     emit({'phase': 'build', 'seconds': {n: r['seconds'] for n, r in report.items()},
-          'ptxas': ptxas, 'sass_hmma': hmma})
+          'ptxas': ptxas, 'sass_hmma': hmma,
+          # [registers, spill store bytes, spill load bytes] of the k = 16 instances
+          'k16': {f'{lib}:{n}': u for lib, usage in ptxas.items() for n, u in usage.items()
+                  if template_args(n)[:1] == [16]}})
     for lib, kernel in (('knn_wide', 'knn_wide_kernel<5>'),
                         ('knn_gather', 'knn_gather_fwd_kernel<5,0,0>')):
         check(hmma[lib] is None or hmma[lib].get(kernel, 0) > 0,
               f'build: no HMMA instruction in {kernel}')
     fused = [n for n in ptxas['fused_edgeconv'] if n.startswith('fused_edgeconv_kernel<')]
-    # 30 small-C (k x key dims x tiling), 16 wide-C and 8 selection-only
-    check(len(fused) == 54, f'build: {len(fused)} fused_edgeconv_kernel instantiations, not 54')
+    # k = 1..8 and the k = 9..16 instance: 34 small-C (k x key dims x
+    # tiling), 18 wide-C and 9 selection-only
+    check(len(fused) == 61, f'build: {len(fused)} fused_edgeconv_kernel instantiations, not 61')
     if hmma['fused_edgeconv'] is not None:
         # the edge MLP (and the wide selections) on tensor cores in every
         # instantiation that selects neighbours
@@ -2454,6 +2823,7 @@ def main():
     small_bf16, wide_bf16, gather_bf16 = timed(seconds, 'kernel_bf16+knn_gather_bf16',
                                                att_kernels, True)
     timed(seconds, 'knn_gather_bwd_sweep', gather_backward_sweep)
+    k10_lines = timed(seconds, 'kernel_k10+knn_gather_k10', wide_k_kernels)
     knn_line, small_tiled_line, wide_tiled_line, knn_wide_line, small_tiled_bf16, \
         wide_tiled_bf16 = timed(seconds, 'knn+kernel_tiled(+bf16)+knn_wide', stress_kernels,
                                 widths)
@@ -2501,6 +2871,12 @@ def main():
     lstm_launches, lstm_step = timed(seconds, 'training_lstm', train_lstm_phase)
     for line in gather_lines:
         line['launches_lstm'] = lstm_launches[launch_key(line['name'])]
+
+    # the alternative encoders and decoders, each variant on its own counts
+    encoders_decoders(seconds, k10_lines, [
+        (small_line, 'fused_small_c', 0), (wide_line, 'fused_wide_c', 0),
+        (knn_wide_line, 'knn_wide', 0),
+        *((g, 'knn_gather_' + launch_key(g['name']), 1) for g in gather_lines)])
     timed(seconds, 'profile_training_step_lstm', profile_phase, 'training_step_lstm',
           lstm_step)
     del lstm_step
@@ -2560,7 +2936,7 @@ def main():
     print(card, flush=True)
     kernels = [small_line, wide_line, small_tiled_line, wide_tiled_line, knn_line,
                knn_wide_line, *gather_lines, small_bf16, wide_bf16, small_tiled_bf16,
-               wide_tiled_bf16, *gather_bf16]
+               wide_tiled_bf16, *gather_bf16, *k10_lines.values()]
     for line in kernels:
         line['bound_share'] = line['bound_ms'] / line['ms']
     emit({'kernels': kernels})

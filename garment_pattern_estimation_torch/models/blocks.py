@@ -1,9 +1,13 @@
 """Building blocks of the pattern-shape models, eval and train forward.
 
-Counterparts of garment_pattern_estimation_tpu/models/blocks.py. Parameter
-names follow the reference NeuralTailor state dict (`MLP`: `{j}.0` Linear,
-`{j}.2` BatchNorm1d; LSTM: `weight_ih_l{k}` ...), so the port loads a
-reference checkpoint with a plain `load_state_dict`.
+Counterparts of garment_pattern_estimation_tpu/models/blocks.py: every
+encoder (`EdgeConvFeatures`, with or without graph pooling,
+`EdgeConvPoolingFeatures`, `PointNetPlusPlus`) and decoder (the LSTM,
+double-reverse LSTM, GRU and MLP decoders, the LSTM encoder) of its
+registries. Parameter names follow the reference NeuralTailor state dict
+(`MLP`: `{j}.0` Linear, `{j}.2` BatchNorm1d; LSTM and GRU: `weight_ih_l{k}`
+...), so the port loads a reference checkpoint with a plain
+`load_state_dict`.
 
 EdgeConv routes as the JAX layer does. Eval folds each BatchNorm's running
 statistics into the next layer and runs the fused kernel up to 16384 points
@@ -27,11 +31,12 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..device import resolve_compute_dtype
 from ..ops.edgeconv import fold_mlp_bn, fused_edgeconv, fused_edgeconv_supported
 from ..ops.edgeconv_train import MODES as TRAIN_MODES, chunked_edgeconv_train
-from ..ops.knn import knn as knn_search
+from ..ops.knn import knn as knn_search, pairwise_sq_dists
 from ..ops.knn_gather import knn_gather, knn_gather_supported
 from ..ops.pooling import GLOBAL_POOLS, gather_neighbors
 
@@ -142,9 +147,14 @@ class MLP(nn.ModuleList):
         return self._affine(x, *pending)
 
 
+# the chunked sweeps' name of each aggregation
+_SWEEP_AGGREGATION = {'max': 'max', 'mean': 'mean', 'add': 'sum'}
+
+
 class EdgeConv(nn.Module):
-    """One dynamic EdgeConv layer, max aggregation: kNN graph on the current
-    features, edge MLP on [x_i ; x_j - x_i], max over the k neighbours.
+    """One dynamic EdgeConv layer: kNN graph on the current features, edge
+    MLP on [x_i ; x_j - x_i], then the max, mean or sum (`aggr` 'max',
+    'mean', 'add') over the k neighbours.
 
     Routing, as garment_pattern_estimation_tpu/models/blocks.py:196-284:
       * train, chunked (`train_chunked`, None = when B N k max(C, widths) 4
@@ -152,11 +162,12 @@ class EdgeConv(nn.Module):
         `ops.edgeconv_train.chunked_edgeconv_train` (`train_chunk_size`
         queries per sweep step, `train_mode` its schedule), then the
         running statistics from its (mean, var) pairs;
-      * train, N <= 2048: `knn_gather` (kernels on the card) and the edge
-        MLP on the slot-major (B, k, N, C) rows;
-      * train past 2048 points and eval past 16384: `knn`,
-        `gather_neighbors` and the edge MLP on (B, N, k, C);
-      * eval up to 16384 points: the fused layer `fused_edgeconv`.
+      * eval, max, up to 16384 points: the fused layer `fused_edgeconv`
+        (the only aggregation it takes);
+      * train, and eval with mean or add, N <= 2048: `knn_gather` (kernels
+        on the card) and the edge MLP on the slot-major (B, k, N, C) rows;
+      * otherwise: `knn`, `gather_neighbors` and the edge MLP on
+        (B, N, k, C).
     `compute_dtype` (bf16) reaches the MLP, the chunked sweeps, the fused
     layer's `mlp_dtype` (its output stays f32) and knn_gather's one value
     chunk; the kNN runs on the f32 upcast of the input on every path (a
@@ -173,12 +184,12 @@ class EdgeConv(nn.Module):
                  train_chunk_size: int | None = None, train_mode: str = 'fused_final',
                  compute_dtype=None):
         super().__init__()
-        if aggr != 'max':
-            raise NotImplementedError(
-                f'EdgeConv: aggregation <{aggr}> is not ported (only max)')
+        if aggr not in _SWEEP_AGGREGATION:
+            raise ValueError(f'EdgeConv::unsupported aggregation {aggr}')
         if train_mode not in TRAIN_MODES:
             raise ValueError(f'unknown EdgeConv train mode {train_mode!r}')
         self.k = k
+        self.aggr = aggr
         self.mlp_features = list(mlp_features)
         self.train_chunked = train_chunked
         self.train_chunk_size = train_chunk_size
@@ -198,67 +209,233 @@ class EdgeConv(nn.Module):
         B, N, C = x.shape
         k = min(self.k, N)
         bf16 = self.compute_dtype == torch.bfloat16
-        if self.training:
-            if self.chunked(B, N, C):
-                idx = knn_search(x.detach(), k)
-                out, stats = chunked_edgeconv_train(
-                    x, idx, self.nn, chunk=self.train_chunk_size, mode=self.train_mode,
-                    compute_dtype=self.compute_dtype)
-                self.nn.update_running_stats(stats)
-                return out
-            if knn_gather_supported(N):
-                # bf16: the gathered rows and their cotangents in one chunk
-                neighbours, _ = knn_gather(x, k, value_chunks=1 if bf16 else 2)
-                return torch.amax(self.nn(edge_pair=(x, neighbours, 1)), dim=1)
-        elif fused_edgeconv_supported(N, C):
+        if self.training and self.chunked(B, N, C):
+            idx = knn_search(x.detach(), k)
+            out, stats = chunked_edgeconv_train(
+                x, idx, self.nn, chunk=self.train_chunk_size,
+                aggr=_SWEEP_AGGREGATION[self.aggr], mode=self.train_mode,
+                compute_dtype=self.compute_dtype)
+            self.nn.update_running_stats(stats)
+            return out
+        if not self.training and self.aggr == 'max' and fused_edgeconv_supported(N, C):
             return fused_edgeconv(x, self.nn.folded(), k=self.k,
                                   mlp_dtype=torch.bfloat16 if bf16 else torch.float32)
-        neighbours = gather_neighbors(x, knn_search(x.detach(), k))    # (B, N, k, C)
-        return torch.amax(self.nn(edge_pair=(x, neighbours, 2)), dim=2)
+        if (self.training or self.aggr != 'max') and knn_gather_supported(N):
+            # bf16: the gathered rows and their cotangents in one chunk
+            neighbours, _ = knn_gather(x, k, value_chunks=1 if bf16 else 2)
+            axis = 1
+        else:
+            neighbours = gather_neighbors(x, knn_search(x.detach(), k))    # (B, N, k, C)
+            axis = 2
+        edges = self.nn(edge_pair=(x, neighbours, axis))
+        if self.aggr == 'max':
+            return torch.amax(edges, dim=axis)
+        return torch.mean(edges, dim=axis) if self.aggr == 'mean' else torch.sum(edges, dim=axis)
 
 
 class EdgeConvFeatures(nn.Module):
     """Stacked dynamic EdgeConv layers + optional xyz skip + optional global
     pool and linear head. Returns (global encoding | None, per-point
-    features (B, N, F) f32, mask=None). `train_chunk_size` and `train_mode`
-    reach every layer (`EdgeConv`), and `compute_dtype` every layer whose
-    id is not in `f32_conv_layers` (those stay f32)."""
+    features (B, N', F) f32, mask=None); `out_features` is F. `train_chunk_size`
+    and `train_mode` reach every layer (`EdgeConv`), and `compute_dtype`
+    every layer whose id is not in `f32_conv_layers` (those stay f32).
+
+    `graph_pooling`: layer i (of c = conv_depth) has widths
+    int(econv_hidden / (c - i)) and int(econv_feature / (c - i)), and a
+    `DynamicGraphPool` (k_neighbors, pool_ratio) follows it, so N' is N
+    coarsened once per layer; it cannot be combined with the xyz skip
+    (ValueError, as the JAX package raises)."""
 
     def __init__(self, out_size: int, conv_depth: int = 2, k_neighbors: int = 5,
                  econv_hidden: int = 200, econv_hidden_depth: int = 2,
                  econv_feature: int = 112, econv_aggr: str = 'max',
                  global_pool: str = 'mean', skip_connections: bool = False,
-                 graph_pooling: bool = False, global_head: bool = True,
-                 train_chunk_size: int | None = None, train_mode: str = 'fused_final',
-                 compute_dtype=None, f32_conv_layers: Sequence[int] = ()):
+                 graph_pooling: bool = False, pool_ratio: float = 0.1,
+                 global_head: bool = True, train_chunk_size: int | None = None,
+                 train_mode: str = 'fused_final', compute_dtype=None,
+                 f32_conv_layers: Sequence[int] = ()):
         super().__init__()
-        if graph_pooling:
-            raise NotImplementedError(
-                'EdgeConvFeatures: graph_pooling (DynamicGraphPool) is not '
-                'ported yet (ROADMAP queue A)')
+        if graph_pooling and skip_connections:
+            raise ValueError(
+                'EdgeConvFeatures::graph_pooling coarsens the point set and cannot be '
+                'combined with xyz skip connections')
         self.global_pool = global_pool
         self.skip_connections = skip_connections
-        mlp = [econv_hidden] * econv_hidden_depth + [econv_feature]
-        widths = [3] + [econv_feature] * conv_depth       # xyz in
+        if graph_pooling:
+            features = [int(econv_feature / c) for c in range(conv_depth, 0, -1)]
+            hidden = [int(econv_hidden / c) for c in range(conv_depth, 0, -1)]
+        else:
+            features, hidden = [econv_feature] * conv_depth, [econv_hidden] * conv_depth
+        widths = [3] + features                            # xyz in
         self.conv_layers = nn.ModuleList(
-            EdgeConv(widths[i], mlp, k=k_neighbors, aggr=econv_aggr,
-                     train_chunk_size=train_chunk_size, train_mode=train_mode,
+            EdgeConv(widths[i], [hidden[i]] * econv_hidden_depth + [features[i]],
+                     k=k_neighbors, aggr=econv_aggr, train_chunk_size=train_chunk_size,
+                     train_mode=train_mode,
                      compute_dtype=None if i in tuple(f32_conv_layers) else compute_dtype)
             for i in range(conv_depth))
-        out_features = econv_feature + (3 if skip_connections else 0)
+        self.pool_layers = nn.ModuleList(
+            DynamicGraphPool(features[i], k=k_neighbors, pool_ratio=pool_ratio)
+            for i in range(conv_depth)) if graph_pooling else None
+        self.out_features = widths[-1] + (3 if skip_connections else 0)
         # the global head exists only where the model pools globally
-        self.lin = nn.Linear(out_features, out_size) if global_head else None
+        self.lin = nn.Linear(self.out_features, out_size) if global_head else None
 
     def forward(self, positions, pool_global: bool = True):
         out = positions
-        for conv in self.conv_layers:      # k is cut to N inside the layer
+        for i, conv in enumerate(self.conv_layers):      # k is cut to N inside the layer
             out = conv(out)
+            if self.pool_layers is not None:
+                out, _ = self.pool_layers[i](out)
         if self.skip_connections:
             out = torch.cat([out.to(positions.dtype), positions], dim=-1)
         out = out.float()                  # the heads and the loss stay f32
         if pool_global:
             return self.lin(GLOBAL_POOLS[self.global_pool](out)), out, None
         return None, out, None
+
+
+class DynamicGraphPool(nn.Module):
+    """Self-attention graph pooling on point features
+    (garment_pattern_estimation_tpu/models/blocks.py:370-411): each point's
+    kNN cluster (k nearest on the detached features, the standalone kNN
+    kernel on the card) is summarized by attention over its neighbours
+    (query: the cluster's max), an LEConv-style fitness ranks the clusters,
+    and the ceil(pool_ratio N) fittest survive, gated by their fitness.
+    Returns (selected (B, keep, C), their point ids (B, keep))."""
+
+    def __init__(self, feature_size: int, k: int = 10, pool_ratio: float = 0.5):
+        super().__init__()
+        self.k = k
+        self.pool_ratio = pool_ratio
+        self.att = nn.Linear(2 * feature_size, 1)
+        self.fit_self = nn.Linear(feature_size, 1)
+        self.fit_nbr = nn.Linear(feature_size, 1)
+
+    def keep(self, n_points):
+        """Clusters kept out of n_points: the JAX package's float expression."""
+        return max(math.ceil(self.pool_ratio * n_points), 1)
+
+    def forward(self, x):
+        x = x.float()
+        return self.pool(x, knn_search(x.detach().contiguous(), min(self.k, x.shape[1])))
+
+    def pool(self, x, idx):
+        """The pooling on given kNN ids (B, N, k), slot 0 the point itself."""
+        B, N, C = x.shape
+        neighbours = gather_neighbors(x, idx)                         # (B, N, k, C)
+        query = torch.amax(neighbours, dim=2)
+        att_in = torch.cat([query[:, :, None, :].expand_as(neighbours), neighbours], dim=-1)
+        weights = torch.softmax(F.leaky_relu(self.att(att_in)[..., 0], 0.01), dim=-1)
+        cluster = torch.einsum('bnk,bnkc->bnc', weights, neighbours)
+        fitness = torch.tanh(
+            self.fit_self(cluster)[..., 0]
+            + self.fit_nbr(cluster - torch.mean(gather_neighbors(cluster, idx), dim=2))[..., 0])
+        # jax.lax.top_k puts the lower index first among equal values, and
+        # tanh saturates to exactly +-1 in f32: a stable sort keeps that order
+        top_idx = torch.sort(fitness, dim=1, descending=True, stable=True).indices
+        top_idx = top_idx[:, :self.keep(N)]
+        selected = cluster.gather(1, top_idx[..., None].expand(-1, -1, C))
+        return selected * fitness.gather(1, top_idx)[..., None], top_idx
+
+
+class EdgeConvPoolingFeatures(nn.Module):
+    """Three EdgeConv layers with a `DynamicGraphPool` after the first two,
+    a max pool and a linear head
+    (garment_pattern_estimation_tpu/models/blocks.py:414-444): widths
+    64-64-n1, n2 x 3, n3 x 3, k cut to each stage's point count. Always
+    returns the global encoding beside the per-point features (B, N'', n3)."""
+
+    def __init__(self, out_size: int, n_features1: int = 32, n_features2: int = 128,
+                 n_features3: int = 256, k: int = 10, pool_ratio: float = 0.5):
+        super().__init__()
+        self.conv1 = EdgeConv(3, [64, 64, n_features1], k=k)
+        self.pool1 = DynamicGraphPool(n_features1, k=k, pool_ratio=pool_ratio)
+        self.conv2 = EdgeConv(n_features1, [n_features2] * 3, k=k)
+        self.pool2 = DynamicGraphPool(n_features2, k=k, pool_ratio=pool_ratio)
+        self.conv3 = EdgeConv(n_features2, [n_features3] * 3, k=k)
+        self.lin = nn.Linear(n_features3, out_size)
+        self.out_features = n_features3
+
+    def forward(self, positions, pool_global: bool = True):
+        out, _ = self.pool1(self.conv1(positions))
+        out, _ = self.pool2(self.conv2(out))
+        out = self.conv3(out)
+        return self.lin(torch.amax(out, dim=1)), out, None
+
+
+def farthest_point_sampling(positions, num_samples):
+    """FPS ids (B, M) int64 over (B, N, 3), from point 0, the first maximum
+    on ties (garment_pattern_estimation_tpu/models/blocks.py:451-469): M - 1
+    steps of plain PyTorch with no host sync."""
+    positions = positions.detach()
+    B, N, _ = positions.shape
+    idx = torch.zeros(B, num_samples, dtype=torch.int64, device=positions.device)
+    dists = torch.full((B, N), math.inf, device=positions.device)
+    for i in range(1, num_samples):
+        last = positions.gather(1, idx[:, i - 1, None, None].expand(B, 1, 3))
+        dists = torch.minimum(dists, torch.sum((positions - last) ** 2, dim=-1))
+        idx[:, i] = torch.argmax(dists, dim=1)
+    return idx
+
+
+class SetAbstraction(nn.Module):
+    """FPS centroids, radius neighbourhoods capped at the `max_neighbors`
+    nearest, a shared MLP on each neighbour's [features ; relative position]
+    and a max over the valid ones (garment_pattern_estimation_tpu/models/
+    blocks.py:472-509). The MLP runs on every gathered row, out-of-radius
+    ones included, so they enter its batch statistics as in JAX."""
+
+    def __init__(self, in_features: int, mlp_features: Sequence[int], ratio: float = 0.2,
+                 radius: float = 0.3, max_neighbors: int = 25):
+        super().__init__()
+        self.ratio = ratio
+        self.radius = radius
+        self.max_neighbors = max_neighbors
+        self.mlp = MLP([in_features + 3, *mlp_features])
+
+    def forward(self, features, positions):
+        B, N, _ = positions.shape
+        M = max(int(self.ratio * N), 1)
+        centroids = positions.gather(
+            1, farthest_point_sampling(positions, M)[..., None].expand(B, M, 3))
+        d = pairwise_sq_dists(centroids, positions)                  # (B, M, N)
+        capped = torch.where(d <= self.radius ** 2, d, math.inf)
+        # the nearest inside the radius, lower id first on ties (the
+        # out-of-radius infinities tie too, and decide which rows enter BN)
+        top, nbr_idx = torch.sort(capped, dim=-1, stable=True)
+        K = min(self.max_neighbors, N)
+        valid = torch.isfinite(top[..., :K])                         # (B, M, K)
+        nbr_idx = nbr_idx[..., :K]
+        local = gather_neighbors(positions, nbr_idx) - centroids[:, :, None, :]
+        if features is not None:
+            local = torch.cat([gather_neighbors(features, nbr_idx), local], dim=-1)
+        h = self.mlp(local.reshape(-1, local.shape[-1])).reshape(B, M, K, -1)
+        pooled = torch.amax(torch.where(valid[..., None], h, -math.inf), dim=2)
+        return torch.where(torch.isfinite(pooled), pooled, 0.0), centroids
+
+
+class PointNetPlusPlus(nn.Module):
+    """One set abstraction (ratio 0.2, radius r1, 25 neighbours, MLP
+    hidden-hidden-feature), then a per-point MLP on [features ; centroid],
+    a max pool and a linear head
+    (garment_pattern_estimation_tpu/models/blocks.py:512-537). Always
+    returns the global encoding beside the per-centroid features."""
+
+    def __init__(self, out_size: int, econv_hidden: int = 200, econv_feature: int = 150,
+                 r1: float = 0.3):
+        super().__init__()
+        widths = [econv_hidden, econv_hidden, econv_feature]
+        self.sa1 = SetAbstraction(0, widths, ratio=0.2, radius=r1)
+        self.mlp = MLP([econv_feature + 3, *widths])
+        self.lin = nn.Linear(econv_feature, out_size)
+        self.out_features = econv_feature
+
+    def forward(self, positions, pool_global: bool = True):
+        positions = positions.float()
+        h, centroids = self.sa1(None, positions)
+        local = torch.cat([h, centroids], dim=-1)
+        g = self.mlp(local.reshape(-1, local.shape[-1])).reshape(*local.shape[:2], -1)
+        return self.lin(torch.amax(g, dim=1)), g, None
 
 
 def inverted_dropout(x, rate, generator=None):
@@ -270,25 +447,34 @@ def inverted_dropout(x, rate, generator=None):
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
-class TorchLSTM(nn.Module):
-    """Multi-layer LSTM over (B, T, C) with nn.LSTM's parameter names,
-    layout and gate order (i, f, g, o), unrolled as an explicit cell loop
-    like the JAX scan."""
+class _RNN(nn.Module):
+    """The parameters of a multi-layer nn.LSTM / nn.GRU, their names and
+    layout: per layer `weight_ih_l{k}` (gates H, in), `weight_hh_l{k}`
+    (gates H, H), `bias_ih_l{k}`, `bias_hh_l{k}` (gates H)."""
+
+    GATES = 1
 
     def __init__(self, input_size: int, hidden_size: int, n_layers: int):
         super().__init__()
         self.hidden_size = hidden_size
         self.n_layers = n_layers
+        rows = self.GATES * hidden_size
         for layer in range(n_layers):
             fan_in = input_size if layer == 0 else hidden_size
-            self.register_parameter(
-                f'weight_ih_l{layer}', nn.Parameter(torch.empty(4 * hidden_size, fan_in)))
-            self.register_parameter(
-                f'weight_hh_l{layer}', nn.Parameter(torch.empty(4 * hidden_size, hidden_size)))
-            self.register_parameter(
-                f'bias_ih_l{layer}', nn.Parameter(torch.empty(4 * hidden_size)))
-            self.register_parameter(
-                f'bias_hh_l{layer}', nn.Parameter(torch.empty(4 * hidden_size)))
+            self.register_parameter(f'weight_ih_l{layer}',
+                                    nn.Parameter(torch.empty(rows, fan_in)))
+            self.register_parameter(f'weight_hh_l{layer}',
+                                    nn.Parameter(torch.empty(rows, hidden_size)))
+            self.register_parameter(f'bias_ih_l{layer}', nn.Parameter(torch.empty(rows)))
+            self.register_parameter(f'bias_hh_l{layer}', nn.Parameter(torch.empty(rows)))
+
+
+class TorchLSTM(_RNN):
+    """Multi-layer LSTM over (B, T, C) with nn.LSTM's parameter names,
+    layout and gate order (i, f, g, o), unrolled as an explicit cell loop
+    like the JAX scan."""
+
+    GATES = 4
 
     def forward(self, inputs, init_states, dropout=0.0, generator=None):
         """inputs (B, T, C); init_states: [(h0, c0)] per layer. Returns
@@ -318,59 +504,196 @@ class TorchLSTM(nn.Module):
         return x, final_states
 
 
-class LSTMDecoderModule(nn.Module):
-    """Encoding -> sequence: the encoding repeated `out_len` times feeds the
-    LSTM, a linear head maps hidden states to elements. In train mode
-    `dropout` acts between the LSTM layers, as in the JAX package's
-    `TorchLSTM`.
+class TorchGRU(_RNN):
+    """Multi-layer GRU over (B, T, C) with nn.GRU's parameter names, layout
+    and gate order (r, z, n), h' = (1 - z) n + z h, unrolled as an explicit
+    cell loop like the JAX scan (garment_pattern_estimation_tpu/models/
+    blocks.py:589-623); no dropout, as there."""
 
-    Initial states: with 'kaiming_normal' in `state_init` and a `generator`
-    from the caller, fresh normal states of std sqrt(2 / (batch * hidden))
-    on every forward, in train and eval mode alike (the reference's noise,
-    drawn h then c per layer, as the JAX package's `_init_states` draws
-    whenever it has the 'recurrent_init' rng); zeros without a generator
-    (serving)."""
+    GATES = 3
 
-    def __init__(self, encoding_size: int, hidden_size: int, out_elem_size: int,
-                 n_layers: int, out_len: int, dropout: float = 0.0,
-                 state_init: str = 'kaiming_normal'):
+    def forward(self, inputs, init_states):
+        """inputs (B, T, C); init_states: h0 per layer. Returns the outputs
+        (B, T, H) of the last layer."""
+        x = inputs
+        for layer in range(self.n_layers):
+            w_hh = getattr(self, f'weight_hh_l{layer}')
+            b_hh = getattr(self, f'bias_hh_l{layer}')
+            gates_x = x @ getattr(self, f'weight_ih_l{layer}').t() \
+                + getattr(self, f'bias_ih_l{layer}')
+            h = init_states[layer]
+            outs = []
+            for step in range(x.shape[1]):
+                xr, xz, xn = gates_x[:, step].chunk(3, dim=-1)
+                hr, hz, hn = (h @ w_hh.t() + b_hh).chunk(3, dim=-1)
+                r = torch.sigmoid(xr + hr)
+                z = torch.sigmoid(xz + hz)
+                n = torch.tanh(xn + r * hn)
+                h = (1 - z) * n + z * h
+                outs.append(h)
+            x = torch.stack(outs, dim=1)
+        return x
+
+
+class _Recurrent(nn.Module):
+    """The recurrent decoders' and the LSTM encoder's shared part: their
+    sizes, `dropout` between LSTM layers in train mode (`inverted_dropout`)
+    and the initial states. With 'kaiming_normal' in `state_init` and a
+    `generator` from the caller, fresh normal states of std
+    sqrt(2 / (batch * hidden)) on every forward, in train and eval mode
+    alike (the reference's noise, drawn h then c per layer, as the JAX
+    package's `_init_states` draws whenever it has the 'recurrent_init'
+    rng); zeros without a generator (serving)."""
+
+    def __init__(self, hidden_size: int, n_layers: int, out_len: int | None = None,
+                 dropout: float = 0.0, state_init: str = 'kaiming_normal'):
         super().__init__()
         self.hidden_size = hidden_size
         self.n_layers = n_layers
         self.out_len = out_len
         self.dropout = float(dropout or 0)
         self.state_init = state_init or ''
-        self.lstm = TorchLSTM(encoding_size, hidden_size, n_layers)
-        self.lin = nn.Linear(hidden_size, out_elem_size)
 
-    def initial_states(self, batch_size, device, generator=None):
-        """[(h0, c0)] per layer, (batch_size, hidden) each."""
+    def initial_states(self, batch_size, device, generator=None, with_cell=True):
+        """[(h0, c0)] per layer, or [h0] per layer without `with_cell`;
+        (batch_size, hidden) each."""
         if generator is not None and 'kaiming_normal' in self.state_init:
             std = math.sqrt(2.0 / (batch_size * self.hidden_size))
 
             def draw():
                 return (torch.randn(batch_size, self.hidden_size, generator=generator,
                                     device=generator.device) * std).to(device)
-            return [(draw(), draw()) for _ in range(self.n_layers)]
-        zeros = torch.zeros(batch_size, self.hidden_size, device=device)
-        return [(zeros, zeros)] * self.n_layers
+        else:
+            zeros = torch.zeros(batch_size, self.hidden_size, device=device)
+
+            def draw():
+                return zeros
+        return [(draw(), draw()) if with_cell else draw() for _ in range(self.n_layers)]
+
+    def repeated(self, encodings, out_len=None):
+        """The decoder input: each encoding repeated out_len (default the
+        module's) times, (B, T, E)."""
+        B, E = encodings.shape
+        return encodings[:, None, :].expand(B, out_len or self.out_len, E)
+
+    def train_dropout(self):
+        return self.dropout if self.training else 0.0
+
+
+class LSTMDecoderModule(_Recurrent):
+    """Encoding -> sequence: the encoding repeated `out_len` times feeds the
+    LSTM, a linear head maps hidden states to elements. In train mode
+    `dropout` acts between the LSTM layers, as in the JAX package's
+    `TorchLSTM`. Initial states: `_Recurrent`."""
+
+    def __init__(self, encoding_size: int, hidden_size: int, out_elem_size: int,
+                 n_layers: int, out_len: int, dropout: float = 0.0,
+                 state_init: str = 'kaiming_normal'):
+        super().__init__(hidden_size, n_layers, out_len, dropout, state_init)
+        self.lstm = TorchLSTM(encoding_size, hidden_size, n_layers)
+        self.lin = nn.Linear(hidden_size, out_elem_size)
 
     def forward(self, encodings, out_len=None, generator=None):
         """`generator` also draws the train-mode dropout masks between the
         LSTM layers, after the initial states."""
-        out_len = out_len or self.out_len
-        B = encodings.shape[0]
-        dec_input = encodings[:, None, :].expand(B, out_len, encodings.shape[-1])
-        out, _ = self.lstm(dec_input, self.initial_states(B, encodings.device, generator),
-                           dropout=self.dropout if self.training else 0.0,
-                           generator=generator)
+        out, _ = self.lstm(self.repeated(encodings, out_len),
+                           self.initial_states(encodings.shape[0], encodings.device, generator),
+                           dropout=self.train_dropout(), generator=generator)
         return self.lin(out)
+
+
+class LSTMDoubleReverseDecoderModule(_Recurrent):
+    """A decode in reverse order, flipped and concatenated with the decoder
+    input, then a forward LSTM that starts from the reverse pass's final
+    states (garment_pattern_estimation_tpu/models/blocks.py:682-706).
+    Initial states: `_Recurrent`, for the reverse pass; dropout masks: the
+    reverse pass's, then the forward pass's."""
+
+    def __init__(self, encoding_size: int, hidden_size: int, out_elem_size: int,
+                 n_layers: int, out_len: int, dropout: float = 0.0,
+                 state_init: str = 'kaiming_normal'):
+        super().__init__(hidden_size, n_layers, out_len, dropout, state_init)
+        self.lstm_reverse = TorchLSTM(encoding_size, hidden_size, n_layers)
+        self.lstm_forward = TorchLSTM(hidden_size + encoding_size, hidden_size, n_layers)
+        self.lin = nn.Linear(hidden_size, out_elem_size)
+
+    def forward(self, encodings, out_len=None, generator=None):
+        dec_input = self.repeated(encodings, out_len)
+        out, final_states = self.lstm_reverse(
+            dec_input, self.initial_states(encodings.shape[0], encodings.device, generator),
+            dropout=self.train_dropout(), generator=generator)
+        out, _ = self.lstm_forward(torch.cat([out.flip(1), dec_input], dim=-1), final_states,
+                                   dropout=self.train_dropout(), generator=generator)
+        return self.lin(out)
+
+
+class GRUDecoderModule(_Recurrent):
+    """The GRU variant of the sequence decoder
+    (garment_pattern_estimation_tpu/models/blocks.py:709-728): its cell is
+    `recurrent_cell`, the reference's name; initial states h only
+    (`_Recurrent`); `dropout` is not used, as in JAX."""
+
+    def __init__(self, encoding_size: int, hidden_size: int, out_elem_size: int,
+                 n_layers: int, out_len: int, dropout: float = 0.0,
+                 state_init: str = 'kaiming_normal'):
+        super().__init__(hidden_size, n_layers, out_len, 0.0, state_init)
+        self.recurrent_cell = TorchGRU(encoding_size, hidden_size, n_layers)
+        self.lin = nn.Linear(hidden_size, out_elem_size)
+
+    def forward(self, encodings, out_len=None, generator=None):
+        states = self.initial_states(encodings.shape[0], encodings.device, generator,
+                                     with_cell=False)
+        return self.lin(self.recurrent_cell(self.repeated(encodings, out_len), states))
+
+
+class LSTMEncoderModule(_Recurrent):
+    """Sequence (B, T, input_size) -> encoding: the last layer's final
+    hidden state (garment_pattern_estimation_tpu/models/blocks.py:731-745,
+    whose input width flax infers; no model uses it)."""
+
+    def __init__(self, input_size: int, encoding_size: int, n_layers: int,
+                 dropout: float = 0.0, state_init: str = 'kaiming_normal'):
+        super().__init__(encoding_size, n_layers, None, dropout, state_init)
+        self.lstm = TorchLSTM(input_size, encoding_size, n_layers)
+
+    def forward(self, sequences, generator=None):
+        _, final_states = self.lstm(
+            sequences, self.initial_states(sequences.shape[0], sequences.device, generator),
+            dropout=self.train_dropout(), generator=generator)
+        return final_states[-1][0]
+
+
+class MLPDecoder(nn.Module):
+    """Encoding -> fixed-length sequence through one MLP (Linear -> ReLU ->
+    BatchNorm, every layer) of widths [hidden_size out_len] x n_layers +
+    [out_elem_size out_len], reshaped to (B, out_len, out_elem_size)
+    (garment_pattern_estimation_tpu/models/blocks.py:748-765). `dropout`
+    and `state_init` are not used, as in JAX."""
+
+    def __init__(self, encoding_size: int, hidden_size: int, out_elem_size: int,
+                 n_layers: int, out_len: int, dropout: float = 0.0, state_init: str = ''):
+        super().__init__()
+        self.out_len = out_len
+        self.mlp = MLP([encoding_size] + [hidden_size * out_len] * n_layers
+                       + [out_elem_size * out_len])
+
+    def forward(self, encodings, out_len=None, generator=None):
+        """`generator` is not used: it is taken so that the models call
+        every decoder the same way."""
+        if out_len not in (None, self.out_len):
+            raise ValueError(f'MLPDecoder: built for out_len {self.out_len}, got {out_len}')
+        return self.mlp(encodings).reshape(encodings.shape[0], self.out_len, -1)
 
 
 DECODER_REGISTRY = {
     'LSTMDecoderModule': LSTMDecoderModule,
+    'LSTMDoubleReverseDecoderModule': LSTMDoubleReverseDecoderModule,
+    'GRUDecoderModule': GRUDecoderModule,
+    'MLPDecoder': MLPDecoder,
 }
 
 ENCODER_REGISTRY = {
     'EdgeConvFeatures': EdgeConvFeatures,
+    'PointNetPlusPlus': PointNetPlusPlus,
+    'EdgeConvPoolingFeatures': EdgeConvPoolingFeatures,
 }

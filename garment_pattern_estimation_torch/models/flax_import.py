@@ -1,23 +1,32 @@
 """The JAX package's flax variables -> the port's state dict.
 
 `variables` is the `{'params', 'batch_stats'}` tree of a JAX pattern-shape
-model (the attention model or the baseline `GarmentFullPattern3D`) or of
-the stitch model `StitchOnEdge3DPairs` as nested dicts of numpy arrays (any
-array type numpy can read). The result names its entries like the
-reference NeuralTailor state dict:
+model (the attention model or the baseline `GarmentFullPattern3D`, with
+any encoder and decoders of the JAX registries) or of the stitch model
+`StitchOnEdge3DPairs` as nested dicts of numpy arrays (any array type numpy
+can read). The result names its entries like the reference NeuralTailor
+state dict:
 
     feature_extractor.conv_layers.{i}.nn.{j}.0/.2   <- conv{i}/MLP_0/Dense_j, BatchNorm_j
+    feature_extractor.pool_layers.{i}.{P}           <- gpool{i}/{P}   (graph pooling)
+    feature_extractor.conv{i}.nn, .pool{i}.{P}      <- conv{i}/MLP_0, pool{i}/{P}
+                                                       (EdgeConvPoolingFeatures)
+    feature_extractor.sa1.mlp, .mlp                 <- sa1/MLP_0, MLP_0 (PointNetPlusPlus)
     feature_extractor.lin                           <- feature_extractor/lin
     point_segment_mlp.0.{j}.0/.2                    <- point_segment_mlp/Dense_j, BatchNorm_j
     panel_dec_lin, placement_decoder                <- Dense
     {D}.lstm.{weight,bias}_{ih,hh}_l{k}             <- {D}/lstm/l{k}_{w,b}_{ih,hh}
+    {D}.lstm_reverse, {D}.lstm_forward              <- {D}/lstm_reverse, lstm_forward
+    {D}.recurrent_cell                              <- {D}/gru
+    {D}.mlp                                         <- {D}/MLP_0  (MLPDecoder)
     {D}.lin                                         <- {D}/lin
 
-for each decoder D, panel_decoder and pattern_decoder
-(the attention head `point_segment_mlp` and `panel_dec_lin` in the
-attention model, `pattern_decoder` in the baseline), the names that
-garment_pattern_estimation_tpu/experiment/torch_import.py:89 reads back;
-for the stitch model
+for each pool P in att, fit_self and fit_nbr and each decoder D,
+panel_decoder and pattern_decoder (the attention head `point_segment_mlp`
+and `panel_dec_lin` in the attention model, `pattern_decoder` in the
+baseline), the names that
+garment_pattern_estimation_tpu/experiment/torch_import.py:89 reads back
+for the LSTM and GRU decoders; for the stitch model
 
     mlp.{j}.0/.2                                    <- mlp/Dense_j, BatchNorm_j
 
@@ -25,7 +34,7 @@ for the stitch model
 
 Dense kernels (in, out) are transposed to (out, in); BatchNorm scale, bias,
 mean and var become weight, bias, running_mean and running_var; LSTM
-weights keep their (torch) layout.
+and GRU weights keep their (torch) layout.
 """
 from __future__ import annotations
 
@@ -60,6 +69,7 @@ def _mlp(sd, prefix, params, stats):
 
 
 def _lstm(sd, prefix, params):
+    """A TorchLSTM's or TorchGRU's layers: their names are the same."""
     layer = 0
     while f'l{layer}_w_ih' in params:
         for ours, theirs in (('weight_ih', 'w_ih'), ('weight_hh', 'w_hh'),
@@ -67,17 +77,57 @@ def _lstm(sd, prefix, params):
             sd[f'{prefix}.{ours}_l{layer}'] = _tensor(params[f'l{layer}_{theirs}'])
         layer += 1
     if layer == 0:
-        raise KeyError(f'state_dict_from_flax: no LSTM layers under <{prefix}>')
+        raise KeyError(f'state_dict_from_flax: no recurrent layers under <{prefix}>')
 
 
-def _lstm_decoder(sd, name, params):
+# a decoder's recurrent cells: flax name -> the port's
+_DECODER_CELLS = {'lstm': 'lstm', 'lstm_reverse': 'lstm_reverse',
+                  'lstm_forward': 'lstm_forward', 'gru': 'recurrent_cell'}
+
+
+def _decoder(sd, name, params, stats):
+    """Any decoder of the JAX registry: its cells and head, or the MLP."""
     decoder = params[name]
-    if 'lstm' not in decoder:
-        raise NotImplementedError(
-            f'state_dict_from_flax: only the LSTM {name} is ported; got '
-            + ', '.join(sorted(decoder)))
-    _lstm(sd, f'{name}.lstm', decoder['lstm'])
+    if 'MLP_0' in decoder:                              # MLPDecoder
+        _mlp(sd, f'{name}.mlp', decoder['MLP_0'], stats[name]['MLP_0'])
+        return
+    cells = [cell for cell in _DECODER_CELLS if cell in decoder]
+    if not cells:
+        raise KeyError(f'state_dict_from_flax: no decoder layers under <{name}>: '
+                       + ', '.join(sorted(decoder)))
+    for cell in cells:
+        _lstm(sd, f'{name}.{_DECODER_CELLS[cell]}', decoder[cell])
     _dense(sd, f'{name}.lin', decoder['lin'])
+
+
+def _graph_pool(sd, prefix, params):
+    for dense in ('att', 'fit_self', 'fit_nbr'):
+        _dense(sd, f'{prefix}.{dense}', params[dense])
+
+
+def _encoder(sd, params, stats):
+    """EdgeConvFeatures (conv0.., gpool0..), EdgeConvPoolingFeatures
+    (conv1..3, pool1..2) or PointNetPlusPlus (sa1, MLP_0); the head `lin`."""
+    if 'sa1' in params:
+        _mlp(sd, 'feature_extractor.sa1.mlp', params['sa1']['MLP_0'], stats['sa1']['MLP_0'])
+        _mlp(sd, 'feature_extractor.mlp', params['MLP_0'], stats['MLP_0'])
+    elif 'pool1' in params:
+        for i in (1, 2, 3):
+            _mlp(sd, f'feature_extractor.conv{i}.nn', params[f'conv{i}']['MLP_0'],
+                 stats[f'conv{i}']['MLP_0'])
+        for i in (1, 2):
+            _graph_pool(sd, f'feature_extractor.pool{i}', params[f'pool{i}'])
+    else:
+        conv_id = 0
+        while f'conv{conv_id}' in params:
+            _mlp(sd, f'feature_extractor.conv_layers.{conv_id}.nn',
+                 params[f'conv{conv_id}']['MLP_0'], stats[f'conv{conv_id}']['MLP_0'])
+            if f'gpool{conv_id}' in params:
+                _graph_pool(sd, f'feature_extractor.pool_layers.{conv_id}',
+                            params[f'gpool{conv_id}'])
+            conv_id += 1
+    if 'lin' in params:
+        _dense(sd, 'feature_extractor.lin', params['lin'])
 
 
 def state_dict_from_flax(variables) -> OrderedDict:
@@ -89,21 +139,14 @@ def state_dict_from_flax(variables) -> OrderedDict:
         _mlp(sd, 'mlp', params['mlp'], stats['mlp'])
         return sd
 
-    fe_params, fe_stats = params['feature_extractor'], stats['feature_extractor']
-    conv_id = 0
-    while f'conv{conv_id}' in fe_params:
-        _mlp(sd, f'feature_extractor.conv_layers.{conv_id}.nn',
-             fe_params[f'conv{conv_id}']['MLP_0'], fe_stats[f'conv{conv_id}']['MLP_0'])
-        conv_id += 1
-    if 'lin' in fe_params:
-        _dense(sd, 'feature_extractor.lin', fe_params['lin'])
+    _encoder(sd, params['feature_extractor'], stats['feature_extractor'])
 
     if 'point_segment_mlp' in params:                  # the attention model
         _mlp(sd, 'point_segment_mlp.0', params['point_segment_mlp'],
              stats['point_segment_mlp'])
         _dense(sd, 'panel_dec_lin', params['panel_dec_lin'])
     if 'pattern_decoder' in params:                    # the baseline
-        _lstm_decoder(sd, 'pattern_decoder', params)
-    _lstm_decoder(sd, 'panel_decoder', params)
+        _decoder(sd, 'pattern_decoder', params, stats)
+    _decoder(sd, 'panel_decoder', params, stats)
     _dense(sd, 'placement_decoder', params['placement_decoder'])
     return sd

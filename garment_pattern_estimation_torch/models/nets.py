@@ -29,22 +29,20 @@ class GarmentFullPattern3DModule(nn.Module):
     """Baseline NeuralTailor shape model: the encoder pools the cloud into
     one encoding, the pattern LSTM unrolls it into `max_pattern_size` panel
     encodings, and the shared panel LSTM unrolls each into edges beside a
-    linear placement head. `edgeconv_train_chunk` and `edgeconv_train_mode`
-    set the chunked EdgeConv training path of every conv layer (NN config
-    keys of the same names); `compute_dtype` (bf16) is the mixed-precision
-    mode of the encoder's MLPs, less the conv ids in `f32_conv_layers`
-    (garment_pattern_estimation_tpu/models/nets.py:66-75). The decoders,
-    the placement head and the loss stay f32."""
+    linear placement head. The encoder and both decoders are any entry of
+    `blocks.ENCODER_REGISTRY` / `blocks.DECODER_REGISTRY`.
+    `edgeconv_train_chunk` and `edgeconv_train_mode` set the chunked
+    EdgeConv training path of every conv layer of `EdgeConvFeatures` (NN
+    config keys of the same names); `compute_dtype` (bf16) is the
+    mixed-precision mode of its MLPs, less the conv ids in `f32_conv_layers`
+    (garment_pattern_estimation_tpu/models/nets.py:66-75). The other
+    encoders, the decoders, the placement head and the loss stay f32."""
 
     def __init__(self, *, pattern_hidden_size=250, pattern_n_layers=2,
                  pattern_decoder='LSTMDecoderModule', **shared):
         super().__init__()
-        if pattern_decoder not in blocks.DECODER_REGISTRY:
-            raise NotImplementedError(
-                f'GarmentFullPattern3D: decoder <{pattern_decoder}> is not '
-                'ported yet (ROADMAP queue A)')
         self._setup_shared(global_head=True, **shared)
-        self.pattern_decoder = blocks.DECODER_REGISTRY[pattern_decoder](
+        self.pattern_decoder = _registered(blocks.DECODER_REGISTRY, pattern_decoder, 'decoder')(
             encoding_size=self.pattern_encoding_size, hidden_size=pattern_hidden_size,
             out_elem_size=self.panel_encoding_size, n_layers=pattern_n_layers,
             out_len=self.max_pattern_size, dropout=self.dropout, state_init=self.lstm_init)
@@ -57,19 +55,16 @@ class GarmentFullPattern3DModule(nn.Module):
                       panel_decoder='LSTMDecoderModule', conv_depth=2, k_neighbors=5,
                       econv_hidden=200, econv_hidden_depth=2, econv_feature=112,
                       econv_aggr='max', global_pool='mean', skip_connections=False,
-                      graph_pooling=False, edgeconv_train_chunk=None,
+                      graph_pooling=False, pool_ratio=0.1, edgeconv_train_chunk=None,
                       edgeconv_train_mode='fused_final', compute_dtype=None,
                       f32_conv_layers=()):
-        """The encoder (its global head `lin` with `global_head`), the panel
-        decoder and the placement head, which both models build alike."""
-        if feature_extractor not in blocks.ENCODER_REGISTRY:
-            raise NotImplementedError(
-                f'{type(self).__name__}: encoder <{feature_extractor}> is not '
-                'ported yet (ROADMAP queue A)')
-        if panel_decoder not in blocks.DECODER_REGISTRY:
-            raise NotImplementedError(
-                f'{type(self).__name__}: decoder <{panel_decoder}> is not '
-                'ported yet (ROADMAP queue A)')
+        """The encoder (for `EdgeConvFeatures`, its global head `lin` with
+        `global_head`; the other encoders always have one), the panel
+        decoder and the placement head, which both models build alike. Each
+        encoder takes the arguments garment_pattern_estimation_tpu/models/
+        nets.py:97-122 gives it."""
+        encoder_cls = _registered(blocks.ENCODER_REGISTRY, feature_extractor, 'encoder')
+        panel_decoder_cls = _registered(blocks.DECODER_REGISTRY, panel_decoder, 'decoder')
         self.element_size = element_size
         self.max_panel_len = max_panel_len
         self.max_pattern_size = max_pattern_size
@@ -82,17 +77,25 @@ class GarmentFullPattern3DModule(nn.Module):
         self.skip_connections = skip_connections
         self.global_pool = global_pool
 
-        self.feature_extractor = blocks.ENCODER_REGISTRY[feature_extractor](
-            out_size=pattern_encoding_size, conv_depth=conv_depth,
-            k_neighbors=k_neighbors, econv_hidden=econv_hidden,
-            econv_hidden_depth=econv_hidden_depth, econv_feature=econv_feature,
-            econv_aggr=econv_aggr, global_pool=global_pool,
-            skip_connections=skip_connections, graph_pooling=graph_pooling,
-            global_head=global_head, train_chunk_size=edgeconv_train_chunk,
-            train_mode=edgeconv_train_mode, compute_dtype=compute_dtype,
-            f32_conv_layers=f32_conv_layers)
+        if feature_extractor == 'EdgeConvFeatures':
+            self.feature_extractor = encoder_cls(
+                out_size=pattern_encoding_size, conv_depth=conv_depth,
+                k_neighbors=k_neighbors, econv_hidden=econv_hidden,
+                econv_hidden_depth=econv_hidden_depth, econv_feature=econv_feature,
+                econv_aggr=econv_aggr, global_pool=global_pool,
+                skip_connections=skip_connections, graph_pooling=graph_pooling,
+                pool_ratio=pool_ratio, global_head=global_head,
+                train_chunk_size=edgeconv_train_chunk, train_mode=edgeconv_train_mode,
+                compute_dtype=compute_dtype, f32_conv_layers=f32_conv_layers)
+        elif feature_extractor == 'EdgeConvPoolingFeatures':
+            self.feature_extractor = encoder_cls(
+                out_size=pattern_encoding_size, k=k_neighbors, pool_ratio=pool_ratio)
+        else:
+            self.feature_extractor = encoder_cls(
+                out_size=pattern_encoding_size, econv_hidden=econv_hidden,
+                econv_feature=econv_feature)
         # each decoded edge element: outline + stitch tag + free-edge logit
-        self.panel_decoder = blocks.DECODER_REGISTRY[panel_decoder](
+        self.panel_decoder = panel_decoder_cls(
             encoding_size=panel_encoding_size, hidden_size=panel_hidden_size,
             out_elem_size=element_size + stitch_tag_dim + 1,
             n_layers=panel_n_layers, out_len=max_panel_len, dropout=dropout,
@@ -138,7 +141,13 @@ class GarmentSegmentPattern3DModule(GarmentFullPattern3DModule):
     features are projected and take the pattern decoder's place. Under
     `compute_dtype` the attention MLP is bf16 too, unless
     `f32_attention_mlp` (garment_pattern_estimation_tpu/models/nets.py:186-190).
-    Sparsemax stays f32."""
+    Sparsemax stays f32.
+
+    The attention MLP's hidden widths are att_in = econv_feature (+ the
+    global encoding's width without `local_attention`, + 3 with the xyz
+    skip), as the JAX model sets them; its input and `panel_dec_lin`'s take
+    the encoder's per-point width (`out_features`: 256 for
+    `EdgeConvPoolingFeatures`), which flax infers."""
 
     def __init__(self, *, local_attention=True, f32_attention_mlp=False, **shared):
         nn.Module.__init__(self)          # the pattern decoder is not built
@@ -146,15 +155,16 @@ class GarmentSegmentPattern3DModule(GarmentFullPattern3DModule):
         self.local_attention = local_attention
 
         att_in = self.econv_feature
+        point_width = in_width = self.feature_extractor.out_features
         if not local_attention:
             att_in += self.pattern_encoding_size
+            in_width += self.pattern_encoding_size
         if self.skip_connections:
             att_in += 3                     # raw xyz concatenated by the encoder
         self.point_segment_mlp = nn.Sequential(blocks.MLP(
-            [att_in, att_in, att_in, self.max_pattern_size],
+            [in_width, att_in, att_in, self.max_pattern_size],
             compute_dtype=None if f32_attention_mlp else shared.get('compute_dtype')))
-        self.panel_dec_lin = nn.Linear(self.econv_feature + (3 if self.skip_connections else 0),
-                                       self.panel_encoding_size)
+        self.panel_dec_lin = nn.Linear(point_width, self.panel_encoding_size)
 
     def panel_encodings_from_3d(self, positions):
         """(panel encodings (B, P, E), attention weights (B, N, P))."""
@@ -194,6 +204,13 @@ class GarmentSegmentPattern3DModule(GarmentFullPattern3DModule):
             panel_encodings.reshape(-1, panel_encodings.shape[-1]), B, generator)
         preds['att_weights'] = att_weights
         return preds
+
+
+def _registered(registry, name, kind):
+    """The class `name` of a registry, or ValueError."""
+    if name not in registry:
+        raise ValueError(f'models.nets::unknown {kind} <{name}> (known: {sorted(registry)})')
+    return registry[name]
 
 
 class StitchOnEdge3DPairsModule(nn.Module):

@@ -76,13 +76,11 @@ _STITCH_LOSS_DEFAULTS = {
     'panel_order_inariant_loss': False,
 }
 
-# merged-config keys a model's module does not take: pool_ratio belongs to
-# graph pooling (not ported); the attention model has no pattern decoder,
-# the baseline no attention head
+# merged-config keys a model's module does not take: the attention model
+# has no pattern decoder, the baseline no attention head
 _UNUSED_BY_MODULE = {
-    'GarmentFullPattern3D': ('pool_ratio', 'local_attention', 'f32_attention_mlp'),
-    'GarmentSegmentPattern3D': ('pool_ratio', 'pattern_hidden_size', 'pattern_n_layers',
-                                'pattern_decoder'),
+    'GarmentFullPattern3D': ('local_attention', 'f32_attention_mlp'),
+    'GarmentSegmentPattern3D': ('pattern_hidden_size', 'pattern_n_layers', 'pattern_decoder'),
 }
 _MODULES = {'GarmentFullPattern3D': nets.GarmentFullPattern3DModule,
             'GarmentSegmentPattern3D': nets.GarmentSegmentPattern3DModule}
@@ -109,7 +107,8 @@ class GarmentModel:
 def init_weights(module: nn.Module, seed: int = 0):
     """Seeded init in the JAX package's scheme: Dense kernels lecun-normal
     (std sqrt(1/fan_in)), biases zero, BatchNorm identity statistics, LSTM
-    weights kaiming-normal (std sqrt(2/fan_in)) and biases U(+-1/sqrt(H))."""
+    and GRU weights kaiming-normal (std sqrt(2/fan_in)) and biases
+    U(+-1/sqrt(H))."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in module.modules():
@@ -119,7 +118,7 @@ def init_weights(module: nn.Module, seed: int = 0):
                 m.bias.zero_()
             elif isinstance(m, nn.BatchNorm1d):
                 m.reset_parameters()
-            elif isinstance(m, blocks.TorchLSTM):
+            elif isinstance(m, (blocks.TorchLSTM, blocks.TorchGRU)):
                 bound = 1.0 / math.sqrt(m.hidden_size)
                 for name, p in m.named_parameters():
                     if name.startswith('weight'):

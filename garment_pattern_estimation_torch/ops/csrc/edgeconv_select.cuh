@@ -14,6 +14,15 @@
 //                  quantized bits above a 32-bit column, so the column is
 //                  global whatever N is.
 // Both order the same pairs the same way.
+//
+// k. The kernels are instantiated at K = k for k <= EXACT_K = 8 and once
+// at K = MAX_K = 16 for every k in 9..16: that instance keeps each query's
+// ranked list of the K - 1 best pairs and fills slots 1..k-1 from its
+// head (the order by key and column is total, so the head is the k-1
+// best); slots k..K-1 repeat the query. The selected ids of a query row
+// take slot_capacity(K) ints of shared memory, 8 for K <= 8 as before the
+// K = 16 instance existed, and the candidate lists of the merge are sized
+// alike, so the K <= 8 instances keep their shared-memory layout.
 //   select_small_c  C <= 16, SMALL_QB = 128 query rows: exact f32
 //                   distances summed per dimension in dimension order
 //                   without FMA; keys staged through shared memory in
@@ -108,10 +117,21 @@ constexpr int IDX_MASK = (1 << 11) - 1;
 constexpr int MAX_N = 1 << 11;    // the int32 encoding's column bound
 constexpr int SMALL_C_MAX = 16;
 constexpr int WIDE_C_MAX = 256;
-constexpr int MAX_K = 8;
+constexpr int EXACT_K = 8;        // k at or below: an instance of its own
+constexpr int MAX_K = 16;         // the one instance for EXACT_K < k <= MAX_K
 constexpr int SMALL_LISTS = THREADS / 32;          // key lanes (warps) of the small-C selection
-constexpr int SMALL_HEADER_BYTES = SMALL_QB * MAX_K * 4;   // the selected neighbour ids
-constexpr int WIDE_HEADER_BYTES = WIDE_QB * MAX_K * 4;
+
+// The instance that serves k, and the ids a query row keeps in shared
+// memory for instance K (the header and the candidate lists are sized by it).
+__host__ __device__ constexpr int instance_k(int k) { return k <= EXACT_K ? k : MAX_K; }
+__host__ __device__ constexpr int slot_capacity(int K) { return K <= EXACT_K ? EXACT_K : MAX_K; }
+// The selected neighbour ids of QB query rows (the kernels' header).
+__host__ __device__ constexpr int header_bytes(int QB, int K) { return QB * slot_capacity(K) * 4; }
+// The slots instance K fills with neighbours for a launch of k: K itself
+// unless K is the shared MAX_K instance.
+template <int K> __device__ __forceinline__ int filled_slots(int k) {
+    return K <= EXACT_K ? K : k;
+}
 // bytes of one staged key window of the small-C selection (32 KB): 2048
 // columns at C <= 3 (16 bytes a key), the TPU kernel's column tile
 constexpr int SMALL_STAGE_BYTES = 32768;
@@ -206,12 +226,14 @@ __device__ __forceinline__ void insert(T (&best)[M], T v) {
     }
 }
 
-// The 16 lanes of one query (a half warp) merge their lists: k-1 rounds of
+// The 16 lanes of one query (a half warp) merge their lists: K-1 rounds of
 // a min over the half warp; the lane holding the winner pops it. R is a
-// ranking key type: Rank<TILED> or RankExact.
+// ranking key type: Rank<TILED> or RankExact. Slots past the launch's k
+// (filled_slots) take the query itself.
 template <int K, typename R>
 __device__ __forceinline__ void merge_lists(typename R::T (&best)[K - 1],
-                                            int* sidx, int q, int lane, int self) {
+                                            int* sidx, int q, int lane, int self, int k) {
+    const int filled = filled_slots<K>(k);
 #pragma unroll
     for (int s = 0; s < K - 1; ++s) {
         typename R::T m = best[0];
@@ -225,7 +247,8 @@ __device__ __forceinline__ void merge_lists(typename R::T (&best)[K - 1],
             for (int i = 0; i < K - 2; ++i) best[i] = best[i + 1];
             best[K - 2] = R::MAX;
         }
-        if (lane == 0) sidx[q * K + s + 1] = (m == R::MAX) ? self : R::column(m);
+        if (lane == 0) sidx[q * K + s + 1] = (m == R::MAX || s + 1 >= filled) ? self
+                                                                             : R::column(m);
     }
 }
 
@@ -235,7 +258,7 @@ __device__ __forceinline__ void merge_lists(typename R::T (&best)[K - 1],
 // per query row: each inserts its share of the lists, then merge_lists.
 template <int K, typename R>
 __device__ void merge_candidates(const typename R::T* cand, int lists, int QB, int N,
-                                 int n0, int* sidx) {
+                                 int n0, int* sidx, int k) {
     using T = typename R::T;
     const int t = threadIdx.x;
     const int hq = t / LANES_PER_QUERY, hl = t % LANES_PER_QUERY;
@@ -254,7 +277,7 @@ __device__ void merge_candidates(const typename R::T* cand, int lists, int QB, i
         }
         const int nq = min(n0 + q, N - 1);
         if (hl == 0) sidx[q * K] = nq;
-        merge_lists<K, R>(mine, sidx, q, hl, nq);
+        merge_lists<K, R>(mine, sidx, q, hl, nq, k);
     }
 }
 
@@ -296,11 +319,11 @@ constexpr int SMALL_SYNC_COLS = 512;  // columns between shares of the lanes' li
 
 // Fills sidx[SMALL_QB][K] for queries n0 .. n0 + SMALL_QB - 1 of the
 // batch element at xb (N, C), C <= CD = small_c_dims(C); a query row past
-// N repeats row N - 1. `work` holds small_select_bytes(window, C, TILED)
-// bytes; keys are staged `window` columns at a time.
+// N repeats row N - 1. `work` holds small_select_bytes(window, C, TILED, K)
+// bytes; keys are staged `window` columns at a time; k is the launch's.
 template <int K, bool TILED, int CD, bool LANE32 = true>
 __device__ void select_small_c(int N, int C, const float* xb, int n0,
-                               unsigned char* work, int* sidx, int window) {
+                               unsigned char* work, int* sidx, int window, int k) {
     using R = Rank<TILED>;                    // the merge's key: global columns
     using LR = ListRank<LANE32, TILED>;       // the lanes' lists' key
     using T = typename LR::T;
@@ -436,7 +459,7 @@ __device__ void select_small_c(int N, int C, const float* xb, int n0,
             cand[((lane + 32 * i) * SMALL_LISTS + warp) * (K - 1) + j] =
                 LR::global(best[i][j], warp);
     __syncthreads();
-    merge_candidates<K, R>(cand, SMALL_LISTS, SMALL_QB, N, n0, sidx);
+    merge_candidates<K, R>(cand, SMALL_LISTS, SMALL_QB, N, n0, sidx, k);
 }
 
 // ---- the wide selection on bf16 tensor cores ----
@@ -543,23 +566,25 @@ __device__ __forceinline__ void mma_bf16_from_zero(float (&d)[4], const unsigned
 // and norms plus two key units, or the candidate lists of the final merge
 // (which reuse the same bytes), whichever is larger.
 template <int QB>
-inline size_t wide_select_bytes(int C, int splits, size_t key_bytes) {
+inline size_t wide_select_bytes(int C, int splits, size_t key_bytes, int K) {
     using Tile = WideTile<QB>;
     constexpr int KT = Tile::WK * Tile::NT * 8;
     const size_t rs = padded_depth(C) + ROW_PAD;
     const size_t staged = static_cast<size_t>(splits) * QB * rs * 2 + QB * 4
                           + 2 * (KT * rs * 2 + KT * 4);
-    const size_t cand = static_cast<size_t>(QB) * 4 * Tile::WK * (MAX_K - 1) * key_bytes;
+    const size_t cand = static_cast<size_t>(QB) * 4 * Tile::WK * (slot_capacity(K) - 1)
+                        * key_bytes;
     return staged > cand ? staged : cand;
 }
 
 // Fills sidx[QB][K] for queries n0 .. n0 + QB - 1 of one cloud of N points
 // (`rows`, split into SPLITS chunks); a query row past N repeats row
 // N - 1. R ranks the distance q_norm + k_norm - 2 * cross, clamped at 0 if
-// CLAMP. `work` holds wide_select_bytes<QB>(C, SPLITS, sizeof(R::T)).
+// CLAMP. `work` holds wide_select_bytes<QB>(C, SPLITS, sizeof(R::T), K);
+// k is the launch's.
 template <int K, typename R, int SPLITS, int QB, bool CLAMP>
 __device__ void select_wide(int N, const SplitRows rows, int n0, unsigned char* work,
-                            int* sidx) {
+                            int* sidx, int k) {
     using T = typename R::T;
     using Tile = WideTile<QB>;
     constexpr int NT = Tile::NT;
@@ -694,15 +719,15 @@ __device__ void select_wide(int N, const SplitRows rows, int n0, unsigned char* 
         for (int i = 0; i < K - 1; ++i)
             cand[((row0 + 8 * h) * LISTS + wk * 4 + lane % 4) * (K - 1) + i] = best[h][i];
     __syncthreads();
-    merge_candidates<K, R>(cand, LISTS, QB, N, n0, sidx);
+    merge_candidates<K, R>(cand, LISTS, QB, N, n0, sidx, k);
 }
 
 // The fused layer's and knn_gather's wide selection: 2 chunks, the
 // quantized ranking of Rank<TILED>, distances clamped at 0.
 template <int K, bool TILED, int QB>
 __device__ void select_wide_c(int N, const SplitRows rows, int n0, unsigned char* work,
-                              int* sidx) {
-    select_wide<K, Rank<TILED>, 2, QB, true>(N, rows, n0, work, sidx);
+                              int* sidx, int k) {
+    select_wide<K, Rank<TILED>, 2, QB, true>(N, rows, n0, work, sidx, k);
 }
 
 // The key window of the small-C selection: SMALL_STAGE_BYTES of keys,
@@ -716,22 +741,23 @@ inline int small_c_window(int N, int C, int tile_n) {
 
 // Shared-memory bytes of select_small_c: two key windows, or the candidate
 // lists of the final merge (which reuse the same bytes), whichever is larger.
-inline size_t small_select_bytes(int window, int C, bool tiled) {
+inline size_t small_select_bytes(int window, int C, bool tiled, int K) {
     const size_t staged = 2 * static_cast<size_t>(small_window_stride(window))
                           * small_key_floats(small_c_dims(C)) * 4
                           + SMALL_QB * SMALL_LISTS * 4;              // shared_last
-    const size_t cand = static_cast<size_t>(SMALL_QB) * SMALL_LISTS * (MAX_K - 1)
+    const size_t cand = static_cast<size_t>(SMALL_QB) * SMALL_LISTS * (slot_capacity(K) - 1)
                         * (tiled ? sizeof(long long) : sizeof(int));
     return staged > cand ? staged : cand;
 }
 
-// Shared-memory bytes the selection of (N, C) needs beyond its header:
-// small C select_small_c's; wide C select_wide_c's, with WIDE_QB query
-// rows when tiled and TM otherwise.
-inline size_t select_bytes(int C, bool tiled, int window) {
-    if (C <= SMALL_C_MAX) return small_select_bytes(window, C, tiled);
-    return tiled ? wide_select_bytes<WIDE_QB>(C, 2, sizeof(long long))
-                 : wide_select_bytes<TM>(C, 2, sizeof(int));
+// Shared-memory bytes the selection of (N, C) at k needs beyond its
+// header: small C select_small_c's; wide C select_wide_c's, with WIDE_QB
+// query rows when tiled and TM otherwise.
+inline size_t select_bytes(int C, bool tiled, int window, int k) {
+    const int K = instance_k(k);
+    if (C <= SMALL_C_MAX) return small_select_bytes(window, C, tiled, K);
+    return tiled ? wide_select_bytes<WIDE_QB>(C, 2, sizeof(long long), K)
+                 : wide_select_bytes<TM>(C, 2, sizeof(int), K);
 }
 
 }  // namespace knn_select

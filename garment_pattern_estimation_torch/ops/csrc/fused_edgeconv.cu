@@ -78,6 +78,14 @@
 //            The tensor core's sum order differs from cuBLAS's, so outputs
 //            differ from the plain version's by f32 rounding (and the rare
 //            bf16 truncation it flips).
+// k. Instances K = 1..8 select and run the MLP on exactly k slots. The
+// K = 16 instance (edgeconv_select.cuh) serves k = 9..16: slots past k
+// repeat the query, whose edge row is built exactly as slot 0's (the
+// query's own f32 row), so its outputs equal slot 0's bit for bit and the
+// max is unchanged; the edge MLP runs the 16 slots in two groups of 8, the
+// K = 8 instance's tile of shared memory and accumulators, and the second
+// group's max takes the first's from the output it wrote. Left: the
+// repeated slots cost 16 / k of the MLP work.
 // Registers are held to 128 a thread (two blocks per SM), so one block's
 // selection (CUDA cores) overlaps another's edge MLP (tensor cores); the
 // 2-tile items keep the MLP's accumulators within that. Building with
@@ -111,7 +119,7 @@ struct Params {
     const float* x;               // (B, N, C) f32
     float* out;                   // (B, N, dims[n_layers]) f32
     int* idx_out;                 // (B, N, k) i32 or null
-    int B, N, C, n_chunks, n_layers;
+    int B, N, C, k, n_chunks, n_layers;
     int window;                   // small-C key window (columns)
     int dims[MAX_LAYERS + 1];     // dims[0] = 2C
     const uint2* w[MAX_LAYERS];   // bf16 B fragments, see fused_edgeconv_forward
@@ -162,18 +170,21 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
                  :: "r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
-// Layer l of the edge MLP on one slice: `in` holds SLICE * K rows of
-// in_s bf16 (slot-major); a hidden layer writes relu(h + bias) truncated to
-// bf16 into `out_buf` (rows of p.hid_stride, zero in the padded columns),
-// the last layer the max over the slots of the affine into p.out for the
-// queries n0 .. n0 + 15 of batch element b. Warp w takes the n-tiles
+// Layer l of the edge MLP on one slice: `in` holds SLICE * G rows of
+// in_s bf16 (slot-major, G slots); a hidden layer writes relu(h + bias)
+// truncated to bf16 into `out_buf` (rows of p.hid_stride, zero in the
+// padded columns), the last layer the max over the slots of the affine into
+// p.out for the queries n0 .. n0 + 15 of batch element b; with `merge`, the
+// max also takes the value p.out holds (this thread wrote it for an earlier
+// group of slots). Warp w takes the n-tiles
 // w * tw .. w * tw + tw - 1, tw = ceil(NT / WARPS) <= WARP_TILES; its B
 // fragments stream through its own B_STAGES-deep ring in shared memory
 // (`ring`), each lane copying (cp.async) and reading back only its own
 // 8 bytes a tile, so no barrier is needed.
-template <int K>
+template <int G>
 __device__ __forceinline__ void mlp_layer(const Params& p, int l, const uint16_t* in, int in_s,
-                                          uint16_t* out_buf, uint2* ring, int n0, int b) {
+                                          uint16_t* out_buf, uint2* ring, int n0, int b,
+                                          bool merge) {
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     const int dout = p.dims[l + 1];
     const int KS = padded_depth(p.dims[l]) / DEPTH_STEP;
@@ -199,9 +210,9 @@ __device__ __forceinline__ void mlp_layer(const Params& p, int l, const uint16_t
 #pragma unroll
         for (int s = 0; s < B_STAGES - 1; ++s) issue(s);
 
-        float acc[K][WARP_TILES][4];
+        float acc[G][WARP_TILES][4];
 #pragma unroll
-        for (int s = 0; s < K; ++s)
+        for (int s = 0; s < G; ++s)
 #pragma unroll
             for (int j = 0; j < WARP_TILES; ++j)
 #pragma unroll
@@ -217,7 +228,7 @@ __device__ __forceinline__ void mlp_layer(const Params& p, int l, const uint16_t
                 bf[j] = j < mine ? ring[((ks % B_STAGES) * WARP_TILES + j) * 32] : make_uint2(0u, 0u);
             issue(ks + B_STAGES - 1);             // into the stage read one step ago
 #pragma unroll
-            for (int s = 0; s < K; ++s) {
+            for (int s = 0; s < G; ++s) {
                 unsigned a[4];
                 ldmatrix_x4(a, a_base + s * SLICE * in_s + ks * DEPTH_STEP);
 #pragma unroll
@@ -233,7 +244,7 @@ __device__ __forceinline__ void mlp_layer(const Params& p, int l, const uint16_t
             const float b0 = bias[col], b1 = bias[col + 1];
             if (!last) {
 #pragma unroll
-                for (int s = 0; s < K; ++s) {
+                for (int s = 0; s < G; ++s) {
 #pragma unroll
                     for (int h = 0; h < 2; ++h) {
                         const int row = s * SLICE + lane / 4 + 8 * h;
@@ -251,26 +262,32 @@ __device__ __forceinline__ void mlp_layer(const Params& p, int l, const uint16_t
                 const float bv = e % 2 ? b1 : b0, av = p.a[c], dv = p.d[c];
                 float m = 0.f;
 #pragma unroll
-                for (int s = 0; s < K; ++s) {
+                for (int s = 0; s < G; ++s) {
                     const float h = fmaxf(acc[s][j][e] + bv, 0.f);
                     const float o = __fadd_rn(__fmul_rn(h, av), dv);
                     m = s == 0 ? o : fmaxf(m, o);
                 }
                 const int n = n0 + lane / 4 + 8 * (e / 2);
-                if (n < p.N && c < dout)
-                    p.out[(static_cast<size_t>(b) * p.N + n) * dout + c] = m;
+                if (n < p.N && c < dout) {
+                    float* o = p.out + (static_cast<size_t>(b) * p.N + n) * dout + c;
+                    *o = merge ? fmaxf(*o, m) : m;
+                }
             }
         }
     }
 }
 
-// Phase 2 for the block's QB query rows, SLICE at a time: builds each
-// slice's edge rows [x_i ; x_j - x_i] (bf16, zero to the padded depth) in
-// `work`, then runs the layers.
+// Phase 2 for the block's QB query rows, SLICE at a time and G slots at a
+// time (all K for K <= 8): builds the edge rows [x_i ; x_j - x_i] (bf16,
+// zero to the padded depth) of the slice's G slots in `work`, then runs the
+// layers. Slot 0, and the slots past k of the K = 16 instance (which hold
+// the query), take the query's own f32 row.
 template <int K, int QB, bool SMALL_C>
 __device__ void edge_mlp(const Params& p, const float* xb, const int* sidx_block,
                          int n0_block, unsigned char* work) {
-    constexpr int R = SLICE * K;              // edge rows: row = slot * SLICE + query
+    constexpr int G = K <= EXACT_K ? K : EXACT_K;    // slots per group
+    constexpr int R = SLICE * G;              // edge rows: row = slot * SLICE + query
+    const int filled = filled_slots<K>(p.k);
     const int t = threadIdx.x, b = blockIdx.y;
     const int N = p.N, C = p.C, D0 = padded_depth(2 * C);
     uint16_t* buf_in = reinterpret_cast<uint16_t*>(work);
@@ -283,54 +300,57 @@ __device__ void edge_mlp(const Params& p, const float* xb, const int* sidx_block
         const int n0 = n0_block + slice * SLICE;
         if (n0 >= N) break;
         const int* sidx = sidx_block + slice * SLICE * K;
-        // every (row, c < C) element: BUILD_LOADS per thread at a time, all
-        // loads issued before any store, so their L2 latencies overlap
-        const int total = R * C;
-        for (int e0 = 0; e0 < total; e0 += THREADS * BUILD_LOADS) {
-            float qv[BUILD_LOADS], xv[BUILD_LOADS];
+        for (int g0 = 0; g0 < K; g0 += G) {
+            // every (row, c < C) element: BUILD_LOADS per thread at a time, all
+            // loads issued before any store, so their L2 latencies overlap
+            const int total = R * C;
+            for (int e0 = 0; e0 < total; e0 += THREADS * BUILD_LOADS) {
+                float qv[BUILD_LOADS], xv[BUILD_LOADS];
 #pragma unroll
-            for (int i = 0; i < BUILD_LOADS; ++i) {
-                const int e = e0 + i * THREADS + t;
-                if (e < total) {
-                    const int r = e / C, c = e - r * C;
-                    const int s = r / SLICE, qq = r % SLICE;
-                    qv[i] = __ldg(xb + static_cast<size_t>(sidx[qq * K]) * C + c);
-                    xv[i] = __ldg(xb + static_cast<size_t>(sidx[qq * K + s]) * C + c);
-                }
-            }
-#pragma unroll
-            for (int i = 0; i < BUILD_LOADS; ++i) {
-                const int e = e0 + i * THREADS + t;
-                if (e < total) {
-                    const int r = e / C, c = e - r * C;
-                    float nv = qv[i];             // slot 0: the query's own f32 row
-                    if (r >= SLICE) {
-                        if (SMALL_C) {
-                            nv = xv[i];
-                        } else {
-                            const float hi = trunc_bf16(xv[i]);
-                            nv = p.n_chunks == 2 ? hi + trunc_bf16(xv[i] - hi) : hi;
-                        }
+                for (int i = 0; i < BUILD_LOADS; ++i) {
+                    const int e = e0 + i * THREADS + t;
+                    if (e < total) {
+                        const int r = e / C, c = e - r * C;
+                        const int s = r / SLICE, qq = r % SLICE;
+                        qv[i] = __ldg(xb + static_cast<size_t>(sidx[qq * K]) * C + c);
+                        xv[i] = __ldg(xb + static_cast<size_t>(sidx[qq * K + g0 + s]) * C + c);
                     }
-                    buf_in[r * p.in_stride + c] = static_cast<uint16_t>(trunc_bf16_bits(qv[i]));
-                    buf_in[r * p.in_stride + C + c] =
-                        static_cast<uint16_t>(trunc_bf16_bits(nv - qv[i]));
+                }
+#pragma unroll
+                for (int i = 0; i < BUILD_LOADS; ++i) {
+                    const int e = e0 + i * THREADS + t;
+                    if (e < total) {
+                        const int r = e / C, c = e - r * C;
+                        const int slot = g0 + r / SLICE;
+                        float nv = qv[i];         // slot 0: the query's own f32 row
+                        if (slot > 0 && (K <= EXACT_K || slot < filled)) {
+                            if (SMALL_C) {
+                                nv = xv[i];
+                            } else {
+                                const float hi = trunc_bf16(xv[i]);
+                                nv = p.n_chunks == 2 ? hi + trunc_bf16(xv[i] - hi) : hi;
+                            }
+                        }
+                        buf_in[r * p.in_stride + c] = static_cast<uint16_t>(trunc_bf16_bits(qv[i]));
+                        buf_in[r * p.in_stride + C + c] =
+                            static_cast<uint16_t>(trunc_bf16_bits(nv - qv[i]));
+                    }
                 }
             }
-        }
-        const int pad = D0 - 2 * C;               // zero depth past 2C
-        for (int e = t; e < R * pad; e += THREADS) {
-            const int r = e / pad;
-            buf_in[r * p.in_stride + 2 * C + (e - r * pad)] = 0;
-        }
-        __syncthreads();
-        PHASE_MARK(1, since);
-        for (int l = 0; l < p.n_layers; ++l) {
-            const uint16_t* in = l == 0 ? buf_in : (l % 2 ? buf_h : buf_in);
-            mlp_layer<K>(p, l, in, l == 0 ? p.in_stride : p.hid_stride,
-                         l % 2 ? buf_in : buf_h, ring, n0, b);
+            const int pad = D0 - 2 * C;               // zero depth past 2C
+            for (int e = t; e < R * pad; e += THREADS) {
+                const int r = e / pad;
+                buf_in[r * p.in_stride + 2 * C + (e - r * pad)] = 0;
+            }
             __syncthreads();
-            PHASE_MARK(2 + l, since);
+            PHASE_MARK(1, since);
+            for (int l = 0; l < p.n_layers; ++l) {
+                const uint16_t* in = l == 0 ? buf_in : (l % 2 ? buf_h : buf_in);
+                mlp_layer<G>(p, l, in, l == 0 ? p.in_stride : p.hid_stride,
+                             l % 2 ? buf_in : buf_h, ring, n0, b, K > G && g0 > 0);
+                __syncthreads();
+                PHASE_MARK(2 + l, since);
+            }
         }
     }
 }
@@ -343,7 +363,7 @@ fused_edgeconv_kernel(const Params p) {
     constexpr int QB = block_rows<SMALL_C, TILED>();
     extern __shared__ __align__(16) unsigned char smem[];
     int* sidx_block = reinterpret_cast<int*>(smem);                 // [QB][K]
-    unsigned char* work = smem + QB * MAX_K * 4;
+    unsigned char* work = smem + header_bytes(QB, K);
     const int b = blockIdx.y, n0_block = blockIdx.x * QB, t = threadIdx.x;
     const int N = p.N, C = p.C;
     const float* xb = p.x + static_cast<size_t>(b) * N * C;
@@ -354,17 +374,18 @@ fused_edgeconv_kernel(const Params p) {
     if constexpr (K == 1) {
         for (int e = t; e < QB; e += THREADS) sidx_block[e] = min(n0_block + e, N - 1);
     } else if constexpr (SMALL_C) {
-        select_small_c<K, TILED, CD>(N, C, xb, n0_block, work, sidx_block, p.window);
+        select_small_c<K, TILED, CD>(N, C, xb, n0_block, work, sidx_block, p.window, p.k);
     } else {
         select_wide_c<K, TILED, QB>(N, cloud_rows(p.split, p.P, C, 2, b, N), n0_block,
-                                    work, sidx_block);
+                                    work, sidx_block, p.k);
     }
     __syncthreads();
 
     if (p.idx_out != nullptr) {
-        for (int e = t; e < QB * K; e += THREADS) {
-            const int n = n0_block + e / K;
-            if (n < N) p.idx_out[(static_cast<size_t>(b) * N + n) * K + e % K] = sidx_block[e];
+        const int k = filled_slots<K>(p.k);
+        for (int e = t; e < QB * k; e += THREADS) {
+            const int q = e / k, s = e - q * k, n = n0_block + q;
+            if (n < N) p.idx_out[(static_cast<size_t>(b) * N + n) * k + s] = sidx_block[q * K + s];
         }
     }
 #ifdef PHASE_CLOCKS
@@ -397,6 +418,8 @@ cudaError_t launch_k(int k, const Params& p, size_t smem, cudaStream_t stream) {
         case 6: return launch<6, SMALL_C, TILED, CD, MLP>(p, smem, stream);
         case 7: return launch<7, SMALL_C, TILED, CD, MLP>(p, smem, stream);
         case 8: return launch<8, SMALL_C, TILED, CD, MLP>(p, smem, stream);
+        case 9: case 10: case 11: case 12: case 13: case 14: case 15: case 16:
+            return launch<MAX_K, SMALL_C, TILED, CD, MLP>(p, smem, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -442,7 +465,7 @@ extern "C" int fused_edgeconv_forward(
     p.x = static_cast<const float*>(x);
     p.out = static_cast<float*>(out);
     p.idx_out = static_cast<int*>(idx_out);
-    p.B = B; p.N = N; p.C = C; p.n_chunks = n_chunks; p.n_layers = n_layers;
+    p.B = B; p.N = N; p.C = C; p.k = k; p.n_chunks = n_chunks; p.n_layers = n_layers;
     int hidden = DEPTH_STEP;
     for (int l = 0; l <= n_layers; ++l) {
         p.dims[l] = dim[l];
@@ -464,11 +487,13 @@ extern "C" int fused_edgeconv_forward(
     const bool small_c = C <= SMALL_C_MAX;
     const bool tiled = N > MAX_N || tile_n > 0;
     p.window = small_c ? small_c_window(N, C, tile_n) : 0;
-    const size_t sel_bytes = select_bytes(C, tiled, p.window);
+    const size_t sel_bytes = select_bytes(C, tiled, p.window, k);
     const int in_rows = p.in_stride > p.hid_stride ? p.in_stride : p.hid_stride;
-    const size_t mlp_bytes = static_cast<size_t>(SLICE) * k * (in_rows + p.hid_stride) * 2
+    const int group = k <= EXACT_K ? k : EXACT_K;    // edge_mlp's slots per group
+    const size_t mlp_bytes = static_cast<size_t>(SLICE) * group * (in_rows + p.hid_stride) * 2
                              + RING_BYTES;
-    const size_t header = (small_c ? SMALL_QB : (tiled ? WIDE_QB : TM)) * MAX_K * 4;
+    const size_t header = header_bytes(small_c ? SMALL_QB : (tiled ? WIDE_QB : TM),
+                                       instance_k(k));
     const size_t smem = header + (sel_bytes > mlp_bytes ? sel_bytes : mlp_bytes);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (!small_c && k > 1) {
@@ -500,10 +525,10 @@ extern "C" int fused_edgeconv_select(const void* x, void* idx_out, void* scratch
     Params p{};
     p.x = static_cast<const float*>(x);
     p.idx_out = static_cast<int*>(idx_out);
-    p.B = B; p.N = N; p.C = C;
+    p.B = B; p.N = N; p.C = C; p.k = k;
     p.split = scratch;
     p.P = static_cast<size_t>(B) * N;
-    const size_t smem = WIDE_QB * MAX_K * 4 + select_bytes(C, true, 0);
+    const size_t smem = header_bytes(WIDE_QB, instance_k(k)) + select_bytes(C, true, 0, k);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (k > 1) {
         const cudaError_t err = launch_split<2>(p.x, p.P, C, scratch, s);

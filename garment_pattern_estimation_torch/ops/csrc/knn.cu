@@ -46,8 +46,8 @@ constexpr int MAX_KNN_N = 1 << 24;    // keeps every int index product in range
 
 struct Params {
     const float* x;               // (B, N, D) f32
-    int* idx;                     // (B, N, K) i32
-    int N, D, window;
+    int* idx;                     // (B, N, k) i32
+    int N, D, k, window;
 };
 
 template <int K, bool TILED, int CD, bool LANE32>
@@ -62,13 +62,14 @@ knn_kernel(const Params p) {
     if constexpr (K == 1) {
         if (t < SMALL_QB) sidx[t] = min(n0 + t, N - 1);
     } else {
-        select_small_c<K, TILED, CD, LANE32>(N, p.D, xb, n0, smem + SMALL_HEADER_BYTES,
-                                             sidx, p.window);
+        select_small_c<K, TILED, CD, LANE32>(N, p.D, xb, n0, smem + header_bytes(SMALL_QB, K),
+                                             sidx, p.window, p.k);
     }
     __syncthreads();
-    for (int e = t; e < SMALL_QB * K; e += THREADS) {
-        const int n = n0 + e / K;
-        if (n < N) p.idx[(static_cast<size_t>(b) * N + n) * K + e % K] = sidx[e];
+    const int k = filled_slots<K>(p.k);
+    for (int e = t; e < SMALL_QB * k; e += THREADS) {
+        const int q = e / k, s = e - q * k, n = n0 + q;
+        if (n < N) p.idx[(static_cast<size_t>(b) * N + n) * k + s] = sidx[q * K + s];
     }
 }
 
@@ -94,6 +95,8 @@ cudaError_t launch_k(int k, const Params& p, int B, size_t smem, cudaStream_t st
         case 6: return launch<6, TILED, CD, LANE32>(p, B, smem, stream);
         case 7: return launch<7, TILED, CD, LANE32>(p, B, smem, stream);
         case 8: return launch<8, TILED, CD, LANE32>(p, B, smem, stream);
+        case 9: case 10: case 11: case 12: case 13: case 14: case 15: case 16:
+            return launch<MAX_K, TILED, CD, LANE32>(p, B, smem, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -120,10 +123,11 @@ extern "C" int knn_forward(const void* x, void* idx, int B, int N, int D, int k,
     Params p{};
     p.x = static_cast<const float*>(x);
     p.idx = static_cast<int*>(idx);
-    p.N = N; p.D = D;
+    p.N = N; p.D = D; p.k = k;
     const bool tiled = N > MAX_N || tile_n > 0;
     p.window = small_c_window(N, D, tile_n);
-    const size_t smem = SMALL_HEADER_BYTES + select_bytes(D, tiled, p.window);
+    const size_t smem = header_bytes(SMALL_QB, instance_k(k))
+                        + select_bytes(D, tiled, p.window, k);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool xyz = small_c_dims(D) == 3;
     const cudaError_t err =

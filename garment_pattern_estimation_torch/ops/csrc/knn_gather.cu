@@ -41,6 +41,11 @@
 //     flight per warp and few loads wait on others. The adds run slot 0
 //     first, then ascending e, the order of the kernel this one replaced,
 //     so the same inputs give bitwise-equal dx on every run.
+// k = 9..16 run the selection's K = 16 instance (edgeconv_select.cuh),
+// which writes its first k slots. The CSR build keeps the lists in shared
+// memory while they fit (N (k-1) <= 14,336 entries at N = 2048, k = 8);
+// past that (N = 2000, k = 10: 244 KB) it fills them in place in the
+// caller's scratch, in the same order.
 // Slot 0 is added at full f32. With n_chunks = 2 the slots >= 1 are too:
 // the TPU kernel's two bf16 chunks exist because TPU f32 dots round their
 // inputs, and hi + lo is the f32 value. With n_chunks = 1 (the bf16 compute
@@ -85,9 +90,9 @@ constexpr unsigned short NO_TARGET = 0xffff;    // an id outside [0, N): contrib
 
 struct FwdParams {
     const float* x;               // (B, N, C) f32
-    float* nbr;                   // (B, K, N, C) f32
-    int* idx;                     // (B, N, K) i32
-    int B, N, C, n_chunks;
+    float* nbr;                   // (B, k, N, C) f32
+    int* idx;                     // (B, N, k) i32
+    int B, N, C, k, n_chunks;
     int window;                   // small C: the key window (columns)
     const void* split;            // wide C: split_rows_kernel's output for the B N points
     size_t P;                     // B N
@@ -100,6 +105,7 @@ struct BwdParams {
     int* offsets;                 // (B, N + 1) i32: each target's list in `entries`
     int* entries;                 // (B, N (K-1)) i32: entry ids, ascending within a target
     int B, N, C, K;
+    bool lists_in_smem;           // the CSR build fills its lists in shared memory
 };
 
 // Query rows per forward block: select_small_c's for small C, TM for wide C.
@@ -111,7 +117,7 @@ knn_gather_fwd_kernel(const FwdParams p) {
     constexpr int QB = fwd_rows<SMALL_C>();
     extern __shared__ __align__(16) unsigned char smem[];
     int* sidx = reinterpret_cast<int*>(smem);                       // [QB][K]
-    unsigned char* work = smem + QB * MAX_K * 4;
+    unsigned char* work = smem + header_bytes(QB, K);
     const int b = blockIdx.y, n0 = blockIdx.x * QB, t = threadIdx.x;
     const int N = p.N, C = p.C;
     const float* xb = p.x + static_cast<size_t>(b) * N * C;
@@ -119,21 +125,24 @@ knn_gather_fwd_kernel(const FwdParams p) {
     if constexpr (K == 1) {
         if (t < QB) sidx[t] = min(n0 + t, N - 1);
     } else if constexpr (SMALL_C) {
-        select_small_c<K, false, CD>(N, C, xb, n0, work, sidx, p.window);
+        select_small_c<K, false, CD>(N, C, xb, n0, work, sidx, p.window, p.k);
     } else {
-        select_wide_c<K, false, TM>(N, cloud_rows(p.split, p.P, C, 2, b, N), n0, work, sidx);
+        select_wide_c<K, false, TM>(N, cloud_rows(p.split, p.P, C, 2, b, N), n0, work, sidx,
+                                    p.k);
     }
     __syncthreads();
 
-    for (int e = t; e < QB * K; e += THREADS) {
-        const int n = n0 + e / K;
-        if (n < N) p.idx[(static_cast<size_t>(b) * N + n) * K + e % K] = sidx[e];
+    const int k = filled_slots<K>(p.k);
+    for (int e = t; e < QB * k; e += THREADS) {
+        const int q = e / k, s = e - q * k, n = n0 + q;
+        if (n < N) p.idx[(static_cast<size_t>(b) * N + n) * k + s] = sidx[q * K + s];
     }
 
     const int rows = min(QB, N - n0);
 #pragma unroll
     for (int s = 0; s < K; ++s) {
-        float* out = p.nbr + ((static_cast<size_t>(b) * K + s) * N + n0) * C;
+        if (K > EXACT_K && s >= k) break;
+        float* out = p.nbr + ((static_cast<size_t>(b) * k + s) * N + n0) * C;
         for (int e = t; e < rows * C; e += THREADS) {
             const int qq = e / C, c = e - qq * C;
             const float v = xb[sidx[qq * K + s] * C + c];
@@ -149,12 +158,14 @@ knn_gather_fwd_kernel(const FwdParams p) {
 
 // Shared bytes of the CSR build: the offsets (N + 1 ints, padded to 16
 // bytes), each warp's 16-bit count per target, each entry's 16-bit target
-// (padded to 4 bytes) and the filled lists (N (k-1) ints): 225,296 bytes
-// at N = 2048, k = 8, within the 232,448 a block may take.
-__host__ __device__ inline size_t csr_smem_bytes(int N, int K) {
+// (padded to 4 bytes) and, `with_lists`, the filled lists (N (k-1) ints):
+// 225,296 bytes at N = 2048, k = 8, within the 232,448 a block may take;
+// without the lists 200,720 at N = 2048, k = 16.
+constexpr size_t MAX_BLOCK_SMEM = 232448;
+__host__ __device__ inline size_t csr_smem_bytes(int N, int K, bool with_lists) {
     const size_t E = static_cast<size_t>(N) * (K - 1);
     return static_cast<size_t>((N + 4) / 4 * 4) * 4 + static_cast<size_t>(CSR_WARPS) * N * 2
-           + (E + 1) / 2 * 4 + E * 4;
+           + (E + 1) / 2 * 4 + (with_lists ? E * 4 : 0);
 }
 
 // The lanes of this warp whose target equals this lane's (NO_TARGET counts
@@ -177,10 +188,13 @@ knn_gather_csr_kernel(const BwdParams p) {
     int* off = reinterpret_cast<int*>(smem);                                  // [N + 1]
     unsigned short* cnt = reinterpret_cast<unsigned short*>(smem + (N + 4) / 4 * 16);  // [warps][N]
     unsigned short* tgt = cnt + CSR_WARPS * N;                                // [E]
-    int* lists = reinterpret_cast<int*>(tgt + (E + 1) / 2 * 2);               // [E]
     __shared__ int warp_sum[CSR_WARPS];
     const int b = blockIdx.x, t = threadIdx.x, lane = t % 32, warp = t / 32;
     const int* idxb = p.idx + static_cast<size_t>(b) * N * K;
+    int* entries = p.entries + static_cast<size_t>(b) * E;
+    // the filled lists: in shared memory, copied out at the end, or in place
+    int* lists = p.lists_in_smem ? reinterpret_cast<int*>(tgt + (E + 1) / 2 * 2)  // [E]
+                                 : entries;
 
     // ---- the target of every entry; counts to zero ----
     for (int i0 = 0; i0 < N * K; i0 += CSR_LOADS * CSR_THREADS) {
@@ -268,8 +282,8 @@ knn_gather_csr_kernel(const BwdParams p) {
     int* offsets = p.offsets + static_cast<size_t>(b) * (N + 1);
     for (int i = t; i <= N; i += CSR_THREADS) offsets[i] = off[i];
 
-    // ---- stable fill in shared memory: the warps' slices in order, each
-    // slice in order; then one coalesced copy out ----
+    // ---- stable fill: the warps' slices in order, each slice in order;
+    // then, from shared memory, one coalesced copy out ----
     for (int e0 = lo; e0 < hi; e0 += 32) {
         const int e = e0 + lane;
         const int target = e < hi ? tgt[e] : NO_TARGET;
@@ -281,8 +295,8 @@ knn_gather_csr_kernel(const BwdParams p) {
             wcnt[target] += static_cast<unsigned short>(__popc(same));
         __syncwarp();
     }
+    if (!p.lists_in_smem) return;
     __syncthreads();
-    int* entries = p.entries + static_cast<size_t>(b) * E;
     for (int i = t; i < off[N]; i += CSR_THREADS) entries[i] = lists[i];
 }
 
@@ -435,6 +449,8 @@ cudaError_t launch_fwd_k(int k, const FwdParams& p, size_t smem, cudaStream_t st
         case 6: return launch_fwd<6, SMALL_C, CD>(p, smem, stream);
         case 7: return launch_fwd<7, SMALL_C, CD>(p, smem, stream);
         case 8: return launch_fwd<8, SMALL_C, CD>(p, smem, stream);
+        case 9: case 10: case 11: case 12: case 13: case 14: case 15: case 16:
+            return launch_fwd<MAX_K, SMALL_C, CD>(p, smem, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -468,12 +484,13 @@ extern "C" int knn_gather_forward(const void* x, void* nbr, void* idx,
     p.x = static_cast<const float*>(x);
     p.nbr = static_cast<float*>(nbr);
     p.idx = static_cast<int*>(idx);
-    p.B = B; p.N = N; p.C = C; p.n_chunks = n_chunks;
+    p.B = B; p.N = N; p.C = C; p.k = k; p.n_chunks = n_chunks;
     p.split = scratch;
     p.P = static_cast<size_t>(B) * N;
     const bool small_c = C <= SMALL_C_MAX;
     p.window = small_c ? small_c_window(N, C, 0) : 0;
-    const size_t smem = (small_c ? SMALL_QB : TM) * MAX_K * 4 + select_bytes(C, false, p.window);
+    const size_t smem = header_bytes(small_c ? SMALL_QB : TM, instance_k(k))
+                        + select_bytes(C, false, p.window, k);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (!small_c && k > 1) {
         const cudaError_t err = launch_split<2>(p.x, p.P, C, scratch, s);
@@ -514,8 +531,9 @@ extern "C" int knn_gather_backward(const void* idx, const void* g, void* dx,
     p.offsets = static_cast<int*>(scratch);
     p.entries = p.offsets + static_cast<size_t>(B) * (N + 1);
     p.B = B; p.N = N; p.C = C; p.K = k;
+    p.lists_in_smem = csr_smem_bytes(N, k, true) <= MAX_BLOCK_SMEM;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const size_t smem = csr_smem_bytes(N, k);
+    const size_t smem = csr_smem_bytes(N, k, p.lists_in_smem);
     cudaError_t err = cudaFuncSetAttribute(
         knn_gather_csr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));

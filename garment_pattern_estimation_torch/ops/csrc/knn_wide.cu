@@ -55,8 +55,8 @@ constexpr int SPLITS = 3;
 
 struct Params {
     const void* split;            // split_rows_kernel's output for the B N points
-    int* idx;                     // (B, N, K) i32
-    int N, D;
+    int* idx;                     // (B, N, k) i32
+    int N, D, k;
     size_t P;                     // B N
 };
 
@@ -65,7 +65,7 @@ __global__ void __launch_bounds__(THREADS)
 knn_wide_kernel(const Params p) {
     extern __shared__ __align__(16) unsigned char smem[];
     int* sidx = reinterpret_cast<int*>(smem);                       // [WIDE_QB][K]
-    unsigned char* work = smem + WIDE_HEADER_BYTES;
+    unsigned char* work = smem + header_bytes(WIDE_QB, K);
     const int b = blockIdx.y, n0 = blockIdx.x * WIDE_QB, t = threadIdx.x;
     const int N = p.N;
 
@@ -73,12 +73,13 @@ knn_wide_kernel(const Params p) {
         if (t < WIDE_QB) sidx[t] = min(n0 + t, N - 1);
     } else {
         select_wide<K, RankExact, SPLITS, WIDE_QB, false>(
-            N, cloud_rows(p.split, p.P, p.D, SPLITS, b, N), n0, work, sidx);
+            N, cloud_rows(p.split, p.P, p.D, SPLITS, b, N), n0, work, sidx, p.k);
     }
     __syncthreads();
-    for (int e = t; e < WIDE_QB * K; e += THREADS) {
-        const int n = n0 + e / K;
-        if (n < N) p.idx[(static_cast<size_t>(b) * N + n) * K + e % K] = sidx[e];
+    const int k = filled_slots<K>(p.k);
+    for (int e = t; e < WIDE_QB * k; e += THREADS) {
+        const int q = e / k, s = e - q * k, n = n0 + q;
+        if (n < N) p.idx[(static_cast<size_t>(b) * N + n) * k + s] = sidx[q * K + s];
     }
 }
 
@@ -113,13 +114,14 @@ extern "C" int knn_wide_forward(const void* x, void* idx, void* scratch, size_t 
     Params p{};
     p.split = scratch;
     p.idx = static_cast<int*>(idx);
-    p.N = N; p.D = D;
+    p.N = N; p.D = D; p.k = k;
     p.P = static_cast<size_t>(B) * N;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = launch_split<SPLITS>(static_cast<const float*>(x), p.P, D, scratch, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t smem = WIDE_HEADER_BYTES
-                        + wide_select_bytes<WIDE_QB>(D, SPLITS, sizeof(RankExact::T));
+    const size_t smem = header_bytes(WIDE_QB, instance_k(k))
+                        + wide_select_bytes<WIDE_QB>(D, SPLITS, sizeof(RankExact::T),
+                                                     instance_k(k));
     switch (k) {
         case 1: return static_cast<int>(launch<1>(p, B, smem, s));
         case 2: return static_cast<int>(launch<2>(p, B, smem, s));
@@ -129,6 +131,8 @@ extern "C" int knn_wide_forward(const void* x, void* idx, void* scratch, size_t 
         case 6: return static_cast<int>(launch<6>(p, B, smem, s));
         case 7: return static_cast<int>(launch<7>(p, B, smem, s));
         case 8: return static_cast<int>(launch<8>(p, B, smem, s));
+        case 9: case 10: case 11: case 12: case 13: case 14: case 15: case 16:
+            return static_cast<int>(launch<MAX_K>(p, B, smem, s));
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -23,6 +23,7 @@ statistics.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -35,17 +36,20 @@ MAX_FUSED_N = 1 << 14       # the JAX package's fused bound (_MAX_FUSED_N)
 _WIDE_C_MAX = 256
 _MAX_LAYERS = 4
 _MAX_WIDTH = 256            # widest edge-MLP layer the kernel takes
-_MAX_K = 8
+_MAX_K = 16
 
 # Launches of the CUDA kernel, by variant: single tile (N <= 2048) or
-# column-tiled. Only `fused_edgeconv` adds to them, once per kernel launch;
-# calls that take the plain version do not.
+# column-tiled; `launches_by_shape` by (variant, N, C, k). Only
+# `fused_edgeconv` adds to them, once per kernel launch; calls that take the
+# plain version do not.
 launches = {'small_c': 0, 'wide_c': 0, 'small_c_tiled': 0, 'wide_c_tiled': 0}
+launches_by_shape = collections.Counter()
 
 
 def reset_launches():
     for key in launches:
         launches[key] = 0
+    launches_by_shape.clear()
 
 
 def fused_edgeconv_supported(n_points, n_channels):
@@ -264,6 +268,8 @@ def _launch(x, folded, k, mlp_dtype, return_idx, tile_n):
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'fused_edgeconv: kernel launch failed with CUDA error {err}')
-    variant = 'small_c' if C <= SMALL_C_MAX else 'wide_c'
-    launches[variant + ('_tiled' if N > MAX_N or tile_n is not None else '')] += 1
+    variant = ('small_c' if C <= SMALL_C_MAX else 'wide_c') \
+        + ('_tiled' if N > MAX_N or tile_n is not None else '')
+    launches[variant] += 1
+    launches_by_shape[variant, N, C, k] += 1
     return out, idx.long() if return_idx else _no_ids(x)

@@ -28,6 +28,7 @@ garment_pattern_estimation_tpu/ops/knn.py `knn_pallas`: its direct kernel
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -38,7 +39,7 @@ INT_MAX = torch.iinfo(torch.int32).max
 MAX_N = 1 << IDX_BITS              # columns the int32 packing can carry
 DIRECT_D_MAX = 16                  # D at or below: exact per-dimension distances
 WIDE_D_MAX = 256                   # the wide-D kernel's bound
-_MAX_K = 8
+_MAX_K = 16                        # the kernels' k: an instance per k to 8, one for 9..16
 _SPLIT_TERMS = 3                   # truncation chunks of the wide-D distances
 # partial products of the wide-D cross term, summed in this order: the
 # JAX package's _CROSS_PAIRS[3]
@@ -47,15 +48,17 @@ _CROSS_PAIRS = ((0, 0), (0, 1), (1, 0), (1, 1), (0, 2), (2, 0))
 # sign + exponent + top 7 fraction bits: exactly the bits of a bf16
 _TRUNC_MASK = ~0xFFFF
 
-# Launches of the CUDA kernels: 'knn' (D <= 16), 'knn_wide' (D > 16). Only
-# `knn` adds to them, once per kernel launch; calls that take the plain
-# version do not.
+# Launches of the CUDA kernels: 'knn' (D <= 16), 'knn_wide' (D > 16);
+# `launches_by_shape` by (kernel, N, D, k). Only `knn` adds to them, once
+# per kernel launch; calls that take the plain version do not.
 launches = {'knn': 0, 'knn_wide': 0}
+launches_by_shape = collections.Counter()
 
 
 def reset_launches():
     for key in launches:
         launches[key] = 0
+    launches_by_shape.clear()
 
 
 def round_up(x: int, m: int) -> int:
@@ -120,6 +123,17 @@ def wide_sq_dists(x: torch.Tensor) -> torch.Tensor:
         p = chunks[i] @ chunks[j].transpose(1, 2)
         cross = p if cross is None else cross + p
     return norm[:, :, None] + norm[:, None, :] - 2.0 * cross
+
+
+def pairwise_sq_dists(queries: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """(..., M, D) x (..., N, D) -> (..., M, N) squared distances as the
+    JAX package's `pairwise_sq_dists` forms them: q_norm + k_norm - 2 *
+    cross, the norms and the product in f32 (TF32 is off), not clamped.
+    Plain PyTorch: radius tests and rankings on it round as JAX's do."""
+    q_norm = torch.sum(queries * queries, dim=-1, keepdim=True)
+    k_norm = torch.sum(keys * keys, dim=-1, keepdim=True)
+    cross = queries @ keys.transpose(-1, -2)
+    return q_norm + k_norm.transpose(-1, -2) - 2.0 * cross
 
 
 def order_preserving_bits(values: torch.Tensor) -> torch.Tensor:
@@ -211,6 +225,7 @@ def _launch(points, k, tile_n):
     if err != 0:
         raise RuntimeError(f'knn: kernel launch failed with CUDA error {err}')
     launches['knn'] += 1
+    launches_by_shape['knn', N, D, k] += 1
     return idx.long()
 
 
@@ -236,4 +251,5 @@ def _launch_wide(points, k):
     if err != 0:
         raise RuntimeError(f'knn: wide-D kernel launch failed with CUDA error {err}')
     launches['knn_wide'] += 1
+    launches_by_shape['knn_wide', N, D, k] += 1
     return idx.long()

@@ -24,6 +24,7 @@ Counterpart of garment_pattern_estimation_tpu/ops/knn_gather.py:264-347
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -32,17 +33,20 @@ from .edgeconv import SMALL_C_MAX, edgeconv_select
 from .knn import MAX_N, scratch_bytes, truncate_bf16
 
 _WIDE_C_MAX = 256
-_MAX_K = 8
+_MAX_K = 16
 
 # Launches of the CUDA kernels, by variant ('bwd_hi': the backward at
-# value_chunks=1). Only the wrappers add to them, once per kernel launch;
-# calls that take the plain versions do not.
+# value_chunks=1); `launches_by_shape` by (variant, N, C, k). Only the
+# wrappers add to them, once per kernel launch; calls that take the plain
+# versions do not.
 launches = {'fwd_small_c': 0, 'fwd_wide_c': 0, 'bwd': 0, 'bwd_hi': 0}
+launches_by_shape = collections.Counter()
 
 
 def reset_launches():
     for key in launches:
         launches[key] = 0
+    launches_by_shape.clear()
 
 
 def knn_gather_supported(n_points):
@@ -172,7 +176,9 @@ def knn_gather_fwd(x, k, value_chunks=2):
         B, N, C, k, value_chunks, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'knn_gather: forward launch failed with CUDA error {err}')
-    launches['fwd_small_c' if C <= SMALL_C_MAX else 'fwd_wide_c'] += 1
+    variant = 'fwd_small_c' if C <= SMALL_C_MAX else 'fwd_wide_c'
+    launches[variant] += 1
+    launches_by_shape[variant, N, C, k] += 1
     return nbr, idx
 
 
@@ -193,8 +199,9 @@ def knn_gather_bwd(idx, g, value_chunks=2):
     if tuple(idx.shape) != (B, N, k):
         raise ValueError(f'knn_gather: ids {tuple(idx.shape)} do not fit g {tuple(g.shape)}')
     if N > MAX_N or C > _WIDE_C_MAX or not 1 <= k <= min(_MAX_K, N):
-        raise NotImplementedError(f'knn_gather: backward of N={N}, C={C}, k={k} is '
-                                  'beyond the kernel')
+        raise NotImplementedError(
+            f'knn_gather: backward of N={N}, C={C}, k={k} is beyond the kernel '
+            f'(N <= {MAX_N}, C <= {_WIDE_C_MAX}, 1 <= k <= min({_MAX_K}, N))')
     idx = idx.to(torch.int32).contiguous()
     g = g.float().contiguous()
     dx = torch.empty(B, N, C, device=g.device, dtype=torch.float32)
@@ -206,7 +213,9 @@ def knn_gather_bwd(idx, g, value_chunks=2):
         B, N, C, k, value_chunks, torch.cuda.current_stream(g.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'knn_gather: backward launch failed with CUDA error {err}')
-    launches['bwd' if value_chunks == 2 else 'bwd_hi'] += 1
+    variant = 'bwd' if value_chunks == 2 else 'bwd_hi'
+    launches[variant] += 1
+    launches_by_shape[variant, N, C, k] += 1
     return dx
 
 

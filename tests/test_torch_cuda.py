@@ -832,3 +832,131 @@ def test_exported_artifact_on_the_card(cuda, tmp_path, compute_dtype):
         assert torch.equal(out[key], ref[key]), key
     with pytest.raises(ValueError, match='exported for'):
         served(x)
+
+
+# ---- k above 8: one K = 16 instance serves k = 9..16 ----
+
+@pytest.mark.parametrize('k', [10, 16])
+@pytest.mark.parametrize('n_points,C,widths', [
+    (2000, 3, [64, 64, 32]),          # pool10's conv1
+    (200, 32, [128] * 3),             # conv2 on pool1's 200 points
+    (20, 128, [256] * 3),             # conv3 on pool2's 20 points, the widest MLP
+    (3000, 3, [200, 200, 150]),       # the column-tiled variants
+    (2049, 150, [200, 200, 150]),
+])
+def test_kernel_above_k8_matches_plain(cuda, rng, k, n_points, C, widths):
+    """The fused layer at k = 10 and 16 (the edge MLP in two groups of 8
+    slots, the slots past k repeating the query): small-C ids exactly the
+    plain version's, wide ids at least 99%, outputs within 1e-2 of the
+    plain tail's scale, 1e-4 on average."""
+    folded = _folded(rng, C, widths, cuda)
+    x = torch.from_numpy(rng.normal(size=(2, n_points, C)).astype(np.float32)).to(cuda)
+    for mlp_dtype in (torch.float32, torch.bfloat16):
+        out, idx = edgeconv.fused_edgeconv(x, folded, k=k, mlp_dtype=mlp_dtype,
+                                           return_idx=True)
+        torch.cuda.synchronize()
+        assert idx.shape == (2, n_points, min(k, n_points))
+        ref_idx, x_lp = edgeconv.edgeconv_select(x, k, mlp_dtype)
+        if C <= edgeconv.SMALL_C_MAX:
+            assert torch.equal(idx, ref_idx)
+        else:
+            assert (idx == ref_idx).float().mean().item() >= 0.99
+        tail = edgeconv.edgeconv_mlp_max(x, idx, x_lp, folded).cpu().numpy()
+        scale = float(np.abs(tail).max())
+        diff = np.abs(out.cpu().numpy() - tail)
+        assert diff.max() <= 1e-2 * scale and diff.mean() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize('k', [9, 10, 16])
+@pytest.mark.parametrize('n_points', [16, 2000, 10000, 17000])
+def test_small_c_above_k8_every_entry(cuda, rng, k, n_points):
+    """The small-C selection's K = 16 instance in the fused layer, the kNN
+    (int32 lists to 16384 points, int64 beyond) and knn_gather: ids exactly
+    the plain version's; at 16 points k = 16 takes every point."""
+    folded = _folded(rng, 3, [32, 24], cuda)
+    clouds = 1 if n_points > 2048 else 2
+    x = torch.from_numpy(rng.normal(size=(clouds, n_points, 3)).astype(np.float32)).to(cuda)
+    if n_points > edgeconv.MAX_FUSED_N:
+        assert torch.equal(knn.knn(x, k), knn.knn_reference(x, k))
+    else:
+        _check_small_c_entries(cuda, x, k, folded)
+
+
+@pytest.mark.parametrize('k', [10, 16])
+@pytest.mark.parametrize('D,n_points', [(32, 2000), (128, 200), (150, 10000)])
+def test_knn_wide_above_k8_matches_plain(cuda, rng, k, D, n_points):
+    test_knn_wide_matches_plain(cuda, rng, D, n_points, k)
+
+
+@pytest.mark.parametrize('k', [10, 16])
+@pytest.mark.parametrize('n_points,C,value_chunks', [
+    (2000, 3, 2), (200, 32, 2), (200, 32, 1), (20, 128, 2), (2048, 150, 2)])
+def test_knn_gather_above_k8_matches_plain(cuda, rng, k, n_points, C, value_chunks):
+    """Forward and backward at k = 10 and 16; past N (k-1) = 14,336 entries
+    (2000 points at k 10) the CSR lists are filled in the scratch."""
+    test_knn_gather_matches_plain(cuda, rng, n_points, C, min(k, n_points), value_chunks)
+
+
+@pytest.mark.parametrize('n_points,k,C,value_chunks', [
+    (n, k, c, v) for n in (17, 2000, 2048) for k in (9, 10, 16) for c in (3, 150)
+    for v in (1, 2)])
+def test_knn_gather_backward_order_above_k8(cuda, rng, n_points, k, C, value_chunks):
+    test_knn_gather_backward_order(cuda, rng, n_points, k, C, value_chunks)
+
+
+@pytest.mark.parametrize('n_points,k', [(2000, 10), (2048, 16)])
+def test_knn_gather_backward_hub_above_k8(cuda, rng, n_points, k):
+    test_knn_gather_backward_hub(cuda, rng, n_points, k, 24, 2)
+
+
+def test_k_above_16_raises(cuda, rng):
+    """k = 17 is past every kernel: NotImplementedError naming the cap."""
+    folded = _folded(rng, 3, [8, 8], cuda)
+    small = torch.randn(1, 100, 3, device=cuda)
+    wide = torch.randn(1, 100, 32, device=cuda)
+    with pytest.raises(NotImplementedError, match='16'):
+        knn.knn(small, 17)
+    with pytest.raises(NotImplementedError, match='16'):
+        knn.knn(wide, 17)
+    with pytest.raises(NotImplementedError, match='16'):
+        edgeconv.fused_edgeconv(small, folded, k=17)
+    with pytest.raises(NotImplementedError, match='16'):
+        knn_gather.knn_gather_fwd(small, 17)
+    idx = torch.zeros(1, 100, 17, dtype=torch.int64, device=cuda)
+    with pytest.raises(NotImplementedError, match='16'):
+        knn_gather.knn_gather_bwd(idx, torch.zeros(1, 17, 100, 3, device=cuda))
+
+
+@pytest.mark.parametrize('variant', ['pool10', 'gpool', 'aggr_mean', 'aggr_add', 'pointnet'])
+def test_encoder_decoder_variant_matches_cpu(cuda, variant):
+    """One eval forward of the baseline with each alternative encoder or
+    decoder (narrow widths, 2 x 2000 points) on the card against its CPU
+    plain path from the same weights: every output within 1e-2 of its
+    scale (near-tie ids may move a point's features, as the serving
+    phases of chip_smoke.py allow)."""
+    from garment_pattern_estimation_torch.models import build_model
+
+    overrides = {
+        'pool10': {'feature_extractor': 'EdgeConvPoolingFeatures', 'k_neighbors': 10,
+                   'panel_decoder': 'GRUDecoderModule',
+                   'pattern_decoder': 'LSTMDoubleReverseDecoderModule'},
+        'gpool': {'graph_pooling': True, 'skip_connections': False},
+        'aggr_mean': {'EConv_aggr': 'mean'},
+        'aggr_add': {'EConv_aggr': 'add'},
+        'pointnet': {'feature_extractor': 'PointNetPlusPlus', 'panel_decoder': 'MLPDecoder',
+                     'pattern_decoder': 'MLPDecoder'}}[variant]
+    data = {'element_size': 4, 'rotation_size': 4, 'translation_size': 3,
+            'max_panel_len': 6, 'max_pattern_len': 5}
+    nn_config = {'panel_encoding_size': 32, 'panel_hidden_size': 32, 'panel_n_layers': 2,
+                 'pattern_encoding_size': 32, 'pattern_hidden_size': 32,
+                 'EConv_hidden': 32, 'EConv_feature': 48, 'skip_connections': True,
+                 **overrides}
+    model = build_model('GarmentFullPattern3D', data, nn_config, device='cpu', seed=3)
+    card = copy.deepcopy(model.module).to(cuda)
+    x = torch.randn(2, 2000, 3, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        ref = model.module(x)
+        out = card(x.to(cuda))
+    for key, value in ref.items():
+        scale = value.abs().max().item()
+        assert (out[key].cpu() - value).abs().max().item() <= 1e-2 * scale, key

@@ -105,8 +105,9 @@ def test_build_model_on_cpu_is_eval_and_lossless():
 def test_unported_options_raise():
     """The baseline builds (its pattern decoder, no attention head); the
     stitch model builds on the CPU with the registry's defaults and gives
-    (B, P) logits; graph pooling is not ported and raises; LSTM dropout
-    runs in train mode."""
+    (B, P) logits; graph pooling builds (a pool after each conv layer) and
+    raises ValueError with the xyz skip, as the JAX package does; LSTM
+    dropout runs in train mode."""
     full = build_model('GarmentFullPattern3D', _DATA, _NN, device='cpu')
     assert {'pattern_decoder.lstm.weight_ih_l0', 'feature_extractor.lin.weight'} \
         <= set(full.module.state_dict())
@@ -119,7 +120,12 @@ def test_unported_options_raise():
     assert not stitch.module.training
     with torch.no_grad():
         assert stitch(torch.randn(2, 7, 16)).shape == (2, 7)
-    with pytest.raises(NotImplementedError):
+    pooled = build_model('GarmentSegmentPattern3D', _DATA,
+                         dict(_NN, graph_pooling=True, skip_connections=False), device='cpu')
+    assert len(pooled.module.feature_extractor.pool_layers) == 2
+    with torch.no_grad():
+        assert pooled(torch.zeros(1, 16, 3))['att_weights'].shape == (1, 1, 3)
+    with pytest.raises(ValueError, match='skip connections'):
         build_model('GarmentSegmentPattern3D', _DATA,
                     dict(_NN, graph_pooling=True), device='cpu')
     with pytest.raises(ValueError):
