@@ -17,7 +17,8 @@ Phases, one JSON line each:
            and its backward at (30, 2000, 150), k = 5, the training step's
            shapes, against the plain PyTorch versions: ids as above, gathered
            rows bitwise equal where the ids agree, dx within 1e-5 of its
-           largest magnitude of the plain index_add_ on the kernel's ids,
+           largest magnitude of the plain index_add_ on the kernel's ids
+           (summed in f64: CUDA's f32 index_add_ sums in a changing order),
            two backward runs bitwise equal and equal to the ordered sum
            (`knn_gather_backward_ordered`); kernel, plain and library
            (one index_add_, backward only) times, the backward's two
@@ -25,7 +26,7 @@ Phases, one JSON line each:
   knn_gather_bwd_sweep  the backward at N in {1, 31, 32, 33, 2048}, k =
            1..16, C in {3, 24, 150, 256}, both chunk counts, and on hub ids
            (one point in every query's slots >= 1): repeatable, ordered,
-           within 1e-5 of the plain version
+           within 1e-5 of the plain version summed in f64
   kernel_k10, knn_gather_k10  the kernels at k = 10 (the one instance for
            k = 9..16) at the pool10 variant's shapes, each against its plain
            version with the bars above: rows 4-5 at (64, 2000, 3) 64-64-32,
@@ -177,6 +178,31 @@ at full width:
            served once (its attention weights over the 20 pooled points),
            and farthest_point_sampling alone at pointnet's (64, 2000, 3):
            host ms, device ms and kernel launches per call
+The on-device sampling mode (dataset.on_device_sampling,
+preprocess/device_sampling.py), after encoders_decoders:
+  device_sampling  the sampling stage on 64 meshes of bench.py's
+           construction (4096 vertices, 8192 faces; labels drawn after
+           them), 2000 points, point_noise_w 0.01, against its CPU core on
+           the same draws: face ids equal but within 1e-6 of the total area
+           of a step of the cumulative areas or the two devices' own gap on
+           the steps (count printed), points within 1e-5 of the mesh extent
+           where the ids agree, snap ids equal but near ties of the f64
+           distances (count printed), labels equal there; the stage's ms
+           with and without the snap (CUDA events, median of 20) and peak
+           memory
+  mesh_to_prediction, mesh_to_prediction_bf16  make_predict_fn with the
+           sampler on those meshes, att at the published widths (f32, bf16):
+           shapes and finiteness, exactly 1 + 1 fused launches per call, no
+           snap; ms per batch (median after the first of 11), clouds/s, peak
+           memory, and the forward alone on one of the stage's clouds
+and after fit_lstm:
+  fit_on_device  `fit` as the att f32 fit with on_device_sampling at the
+           default caps (8192 / 16384) and trainer.profile {start_step: 2,
+           num_steps: 2}: finite losses, a new cloud every step and one per
+           epoch for validation (seeds and draws agree), exact launches of
+           rows 4-5 and 8-9, no snap, checkpoints load back, the window's
+           Chrome trace names rows 8-9's kernels; per epoch the batch loop's
+           ms per step and loader-wait share beside the host-sampled fit's
 Then the two-stage pipeline of configs/stitch_model.yaml on the att f32
 fit run:
   stitch_pipeline  (0) the run resumed to STITCH_SHAPE_EPOCHS epochs (on
@@ -240,7 +266,9 @@ predictions). The f32 entries of rows 4-7 carry `launches_visualization`,
 launches at their shape (serving; rows 2, 4, 5 also `launches_training`);
 row 1's is on no path of the slice (`on_main_path` false, 0 launches).
 The f32 entries of rows 2, 4, 5, 8 and 9 carry `launches_variants`, the
-other variants' launches of their kernel at k = 5.
+other variants' launches of their kernel at k = 5. The entries of rows 4-5
+(f32 and bf16) carry `launches_mesh_to_prediction`, and the f32 entries of
+rows 4, 5, 8 and 9 `launches_fit_on_device`.
 Then each phase's seconds, the card's name and power limit, the kernels
 line (each bf16-mode kernel an entry of its own, its launches from the bf16
 phases), and as the last line {"ok": true, "device": {...}}. Any failed
@@ -793,9 +821,9 @@ def check_knn_gather(x, backward, value_chunks=2, k=K):
     g = torch.randn(B, k, N, C, generator=gen, device=x.device)
     dx = kg.knn_gather_bwd(idx, g, value_chunks)
     dx_again = kg.knn_gather_bwd(idx, g, value_chunks)
-    ref_dx = kg.knn_gather_backward_reference(idx, g, value_chunks)
+    ref_dx = kg.knn_gather_backward_reference(idx, g, value_chunks, torch.float64)
     torch.cuda.synchronize()
-    bwd_err = (dx - ref_dx).abs().max().item()
+    bwd_err = (dx.double() - ref_dx).abs().max().item()
     scale = ref_dx.abs().max().item()
     flat = (idx.transpose(1, 2).long()
             + (torch.arange(B, device=x.device) * N)[:, None, None]).reshape(-1)
@@ -823,7 +851,7 @@ def check_knn_gather(x, backward, value_chunks=2, k=K):
     check(deterministic, f'{name}: two runs on the same inputs differ')
     check(ordered, f'{name}: dx differs from the ordered sum (slot 0, then ascending entry)')
     if value_chunks == 1:
-        full = kg.knn_gather_backward_reference(idx, g, 2)
+        full = kg.knn_gather_backward_reference(idx, g, 2, torch.float64)
         check((full - ref_dx).abs().max().item() > DX_MAX_REL * scale,
               f'{name}: the cotangents did not exercise the truncation')
     return [fwd, bwd]
@@ -857,7 +885,9 @@ def gather_backward_sweep():
     >= 1, so its list holds all N (k-1) entries; at N = 2048 and k >= 9 the
     lists are filled in the scratch, not in shared memory): two runs
     bitwise equal, bitwise equal to the ordered sum, within DX_MAX_REL of
-    the plain version's largest magnitude."""
+    the largest magnitude of the plain version summed in f64 (a hub's
+    30720-term f32 sum in the atomic order of CUDA's index_add_ is itself
+    off by up to about 1e-5 of it, by a different amount in every run)."""
     import torch
     from garment_pattern_estimation_torch.ops import knn_gather as kg
 
@@ -877,12 +907,12 @@ def gather_backward_sweep():
         g = torch.randn(B, k, N, C, generator=gen, device='cuda')
         dx = kg.knn_gather_bwd(idx, g, value_chunks)
         dx_again = kg.knn_gather_bwd(idx, g, value_chunks)
-        ref = kg.knn_gather_backward_reference(idx, g, value_chunks)
+        ref = kg.knn_gather_backward_reference(idx, g, value_chunks, torch.float64)
         name = f'knn_gather_bwd_sweep: B={B} N={N} k={k} C={C} chunks={value_chunks} hub={hub}'
         check(torch.equal(dx, dx_again), f'{name}: two runs differ')
         check(torch.equal(dx, kg.knn_gather_backward_ordered(idx, g, value_chunks)),
               f'{name}: dx differs from the ordered sum')
-        err = (dx - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        err = (dx.double() - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
         check(err <= DX_MAX_REL, f'{name}: dx off the plain version by {err} of its scale')
         worst = max(worst, err)
     emit({'phase': 'knn_gather_bwd_sweep', 'cases': len(cases),
@@ -897,18 +927,18 @@ FIT_LSTM_STITCH_EPOCH = 1      # lstm_stitch_tags.yaml's 40, cut so the stitch p
 SHAPE_TERMS = ('pattern_loss', 'loop_loss', 'rotation_loss', 'translation_loss')
 
 
-def fit_dataset():
+def fit_dataset(**extra):
     """Garment3DPatternFullDataset on parity_run/data_big/ (3 folders x 100
     garments) at 2000 points, padded to att.yaml's 23 panels x 14 edges and
     24 stitches (its data_big panel classes would set 11 panel slots and cut
-    the decoder below the published width)."""
+    the decoder below the published width); `extra` joins the config."""
     from garment_pattern_estimation_torch.data import Garment3DPatternFullDataset
 
     root = ROOT / 'parity_run' / 'data_big'
     config = {'data_folders': FIT_FOLDERS, 'mesh_samples': POINTS,
               'max_pattern_len': ATT_DATA_CONFIG['max_pattern_len'],
               'max_panel_len': ATT_DATA_CONFIG['max_panel_len'],
-              'max_num_stitches': ATT_DATA_CONFIG['max_num_stitches']}
+              'max_num_stitches': ATT_DATA_CONFIG['max_num_stitches'], **extra}
     return Garment3DPatternFullDataset(root, config, gt_caching=True, feature_caching=True)
 
 
@@ -1122,6 +1152,303 @@ def fit_phase(out_dir, variant=''):
         line['step_ms_breakdown'] = breakdown
     emit(line)
     return launches, experiment.run_id
+
+
+# the on-device sampling stage (dataset.on_device_sampling) at bench.py's
+# mesh -> prediction shape (bench.py:232-273): 64 meshes of 4096 vertices
+# and 8192 faces, 2000 points, point_noise_w 0.01, bench.py's statistics
+MESH_V_CAP, MESH_F_CAP = 4096, 8192
+MESH_NOISE_W = 0.01
+MESH_STATS = {'f_shift': [0.037, -28.06, 1.078], 'f_scale': [16.35, 30.95, 9.60]}
+MESH_BOUNDARY_REL = 1e-6          # face ids may differ this near a step, of the total area
+MESH_POINT_REL = 1e-5             # of the mesh's extent
+MESH_TIE_REL = 1e-5               # snap ids may differ where the f64 distances tie this close
+FIT_PROFILE = {'start_step': 2, 'num_steps': 2}
+# rows 8-9's kernels, which the trace of fit_on_device's window must name
+FIT_TRACE_KERNELS = ('knn_gather_fwd_kernel', 'knn_gather_csr_kernel', 'knn_gather_sum_kernel')
+
+
+def mesh_batch():
+    """bench.py:254-258's meshes: default_rng(0), vertices normal x 20, faces
+    drawn over all vertices (every vertex real); then per-vertex labels in
+    0..22 from the same generator (bench.py's are zeros, which no label check
+    could tell apart). Host tensors."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    verts = rng.normal(size=(BATCH, MESH_V_CAP, 3)).astype(np.float32) * 20.0
+    faces = rng.integers(0, MESH_V_CAP, size=(BATCH, MESH_F_CAP, 3)).astype(np.int32)
+    labels = rng.integers(0, ATT_DATA_CONFIG['max_pattern_len'], size=(BATCH, MESH_V_CAP))
+    return {'verts': torch.from_numpy(verts), 'faces': torch.from_numpy(faces),
+            'n_verts': torch.full((BATCH,), MESH_V_CAP, dtype=torch.int32),
+            'vert_labels': torch.from_numpy(labels.astype(np.int32))}
+
+
+def mesh_data_config():
+    """att.yaml's data layout with bench.py's sampling settings."""
+    return dict(ATT_DATA_CONFIG, mesh_samples=POINTS, point_noise_w=MESH_NOISE_W,
+                standardize=dict(ATT_DATA_CONFIG['standardize'], **MESH_STATS))
+
+
+class SnapCounter:
+    """Counts the calls of device_sampling.snap_to_vertices while entered."""
+
+    def __enter__(self):
+        from garment_pattern_estimation_torch.preprocess import device_sampling as ds
+        self.calls, self._snap = 0, ds.snap_to_vertices
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self._snap(*args, **kwargs)
+        ds.snap_to_vertices = counted
+        return self
+
+    def __exit__(self, *exc):
+        from garment_pattern_estimation_torch.preprocess import device_sampling as ds
+        ds.snap_to_vertices = self._snap
+
+
+def device_sampling_phase():
+    """The sampling stage on the card against its CPU core with the same
+    draws (a seeded CPU generator): face ids equal but for draws within
+    MESH_BOUNDARY_REL of the total area of a step of the cumulative areas
+    (the card's scan rounds otherwise; their count printed), points within
+    MESH_POINT_REL of the mesh extent where the ids agree, snap ids equal
+    but for near ties of the f64 distances (count printed), labels equal
+    where the snap ids agree; then the stage's ms with and without the snap
+    (CUDA events, median of 20) and its peak memory."""
+    import torch
+    from garment_pattern_estimation_torch.preprocess import device_sampling as ds
+
+    phase = 'device_sampling'
+    host = mesh_batch()
+    mesh = {k: v.cuda() for k, v in host.items()}
+    sampler = ds.make_batch_sampler(mesh_data_config())
+    draws = sampler.draws(torch.Generator().manual_seed(0), BATCH, 'cpu')
+    card_draws = [d.cuda() for d in draws]
+    pts, ids = ds.sample_surface_from_draws(mesh['verts'], mesh['faces'], *card_draws,
+                                            MESH_NOISE_W)
+    ref_pts, ref_ids = ds.sample_surface_from_draws(host['verts'], host['faces'], *draws,
+                                                    MESH_NOISE_W)
+    valid = torch.ones(BATCH, MESH_V_CAP, dtype=torch.bool)
+    snap = ds.snap_to_vertices(pts, mesh['verts'], valid.cuda()).cpu()
+    ref_snap = ds.snap_to_vertices(ref_pts, host['verts'], valid)
+    std, labels = sampler.from_draws(mesh, *card_draws)
+    ref_std, ref_labels = sampler.from_draws(host, *draws)
+    pts, ids, std, labels = pts.cpu(), ids.cpu(), std.cpu(), labels.cpu()
+
+    same = ids == ref_ids
+    cdf = torch.cumsum(ds.face_areas(host['verts'], host['faces']), -1).double()
+    card_cdf = torch.cumsum(ds.face_areas(mesh['verts'], mesh['faces']), -1).cpu().double()
+    total = cdf[:, -1]
+    # a draw lands on another face only within MESH_BOUNDARY_REL of a step,
+    # or within the devices' own disagreement on the steps and the total
+    slack = (card_cdf - cdf).abs().amax(1) + (card_cdf[:, -1] - total).abs()
+    allowance = torch.maximum(slack, MESH_BOUNDARY_REL * total)
+    for b, n in (~same).nonzero().tolist():
+        gap = float((cdf[b] - float(draws[0][b, n]) * total[b]).abs().min())
+        check(gap <= float(allowance[b]),
+              f'{phase}: face id of point ({b}, {n}) differs {gap / float(total[b])} of the '
+              'total area from a step')
+    extent = (host['verts'].amax(1) - host['verts'].amin(1)).amax(1)
+    point_gap = float(((pts - ref_pts).abs().amax(-1) / extent[:, None])[same].max())
+    check(point_gap <= MESH_POINT_REL, f'{phase}: points {point_gap} of the extent apart')
+    scale = torch.tensor(MESH_STATS['f_scale'])
+    std_gap = float((((std - ref_std).abs() * scale).amax(-1) / extent[:, None])[same].max())
+    check(std_gap <= MESH_POINT_REL, f'{phase}: standardized points {std_gap} apart')
+    differ = ((snap != ref_snap) & same).nonzero().tolist()
+    for b, n in differ:
+        p = ref_pts[b, n].double()
+        d = [float(((host['verts'][b, i].double() - p) ** 2).sum())
+             for i in (int(ref_snap[b, n]), int(snap[b, n]))]
+        check(abs(d[1] - d[0]) <= MESH_TIE_REL * max(d[0], 1e-30),
+              f'{phase}: snap of ({b}, {n}) differs beyond a near tie: {d}')
+    agree = same & (snap == ref_snap)
+    check(bool((labels == ref_labels)[agree].all()), f'{phase}: labels differ')
+    check(labels.dtype == torch.int32 and bool((labels >= 0).all()),
+          f'{phase}: labels {labels.dtype}, min {int(labels.min())}')
+
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    times, peaks = {}, {}
+    for key, with_labels in (('with_snap', True), ('without_snap', False)):
+        times[key] = cuda_ms(lambda: sampler(gen, mesh, labels=with_labels))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sampler(gen, mesh, labels=with_labels)
+        torch.cuda.synchronize()
+        peaks[key] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    emit({'phase': phase, 'meshes': [BATCH, MESH_V_CAP, MESH_F_CAP], 'points': POINTS,
+          'point_noise_w': MESH_NOISE_W, 'face_id_boundary_draws': int((~same).sum()),
+          'max_cdf_slack_of_total': float((slack / total).max()),
+          'snap_near_ties': len(differ), 'max_point_gap_of_extent': point_gap,
+          'max_std_gap_of_extent': std_gap, 'ms': times, 'peak_memory_gb': peaks,
+          'snap_chunk_bytes': ds.SNAP_CHUNK_BYTES})
+
+
+def mesh_to_prediction_phase(bf16=False):
+    """make_predict_fn with the sampler on the card-resident mesh batch of
+    device_sampling (att at the published widths, seeded weights, f32 or the
+    bf16 mode): SERVE_CALLS calls, outputs shaped and finite, exactly 1 + 1
+    fused launches per call and no snap; ms per batch (median after the
+    first call), clouds/s, peak memory, and the forward alone on one of the
+    stage's clouds the same way, so the sampler's share shows. Returns the
+    launches."""
+    import torch
+    from garment_pattern_estimation_torch.models import build_model
+    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
+    from garment_pattern_estimation_torch.preprocess import device_sampling as ds
+    from garment_pattern_estimation_torch.train import make_predict_fn
+
+    suffix = '_bf16' if bf16 else ''
+    phase = 'mesh_to_prediction' + suffix
+    model_name, nn_section, _ = VARIANTS[suffix]
+    config = mesh_data_config()
+    model = build_model(model_name, config, nn_section, seed=0)
+    sampler = ds.make_batch_sampler(config)
+    mesh = {k: v.cuda() for k, v in mesh_batch().items()}
+    predict = make_predict_fn(model, device_sampler=sampler)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with SnapCounter() as snaps:
+        preds, times = timed_calls(lambda: predict(mesh), SERVE_CALLS)
+    launches = dict(edgeconv.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = {'small_c': SERVE_CALLS, 'wide_c': SERVE_CALLS,
+                'small_c_tiled': 0, 'wide_c_tiled': 0}
+    check(launches == expected, f'{phase}: launches {launches}, expected {expected}')
+    check(not any(knn_gather.launches.values()),
+          f'{phase}: knn_gather launched {knn_gather.launches}')
+    check(snaps.calls == 0, f'{phase}: the snap ran {snaps.calls} times')
+    check_outputs(phase, {k: torch.from_numpy(v) for k, v in preds.items()}, BATCH, POINTS)
+
+    points, _ = sampler(torch.Generator(device='cuda').manual_seed(2), mesh, labels=False)
+    forward = make_predict_fn(model)
+    _, forward_times = timed_calls(lambda: forward(points), SERVE_CALLS)
+    q1, batch_ms, q3 = statistics.quantiles(times[1:], n=4)
+    forward_ms = statistics.median(forward_times[1:])
+    emit({'phase': phase, 'model': model_name, 'compute_dtype': model.config['compute_dtype'],
+          'meshes': [BATCH, MESH_V_CAP, MESH_F_CAP], 'points': POINTS, 'calls': SERVE_CALLS,
+          'launches': launches, 'snap_calls': snaps.calls, 'first_call_ms': times[0],
+          'batch_ms': batch_ms, 'batch_ms_quartiles': [q1, q3],
+          'clouds_per_s': BATCH / batch_ms * 1e3, 'peak_memory_gb': peak_gb,
+          'forward_alone_ms': forward_ms, 'sampler_share': 1.0 - forward_ms / batch_ms})
+    return launches
+
+
+def fit_on_device_phase(out_dir, fit_run_id):
+    """Trainer.fit as the `fit` phase (att f32, parity_run/data_big, batch 30,
+    FIT_EPOCHS epochs) with dataset.on_device_sampling at the default caps
+    (8192 vertices, 16384 faces) and trainer.profile FIT_PROFILE: finite
+    losses; every training step draws another cloud and validation one per
+    epoch (seeds and draws agree); exact launches of rows 4-5 (one each per
+    validation batch) and 8-9 (one each per step); no snap (att.yaml's loss
+    reads no labels); 'best' and 'latest' load back; the profiler's trace
+    exists and names rows 8-9's kernels. Per epoch: ms per step in the batch
+    loop and the loader-wait share, beside the host-sampled fit run's.
+    Returns the launches."""
+    import torch
+    from garment_pattern_estimation_torch.experiment import ExperimentWrappper
+    from garment_pattern_estimation_torch.models import build_model
+    from garment_pattern_estimation_torch.preprocess import device_sampling as ds
+    from garment_pattern_estimation_torch.train import Trainer
+
+    phase = 'fit_on_device'
+    model_name, nn_section, loss_section = VARIANTS['']
+    setup = dict(ATT_TRAINER, epochs=FIT_EPOCHS, profile=FIT_PROFILE)
+    start = time.perf_counter()
+    dataset = fit_dataset(on_device_sampling=True)
+    experiment = ExperimentWrappper({'experiment': {'project_name': 'chip_smoke',
+                                                    'run_name': phase}},
+                                    output_root=out_dir)
+    trainer = Trainer(setup, experiment, dataset, dict(FIT_SPLIT))
+    setup_s = time.perf_counter() - start
+    model = build_model(model_name, dataset.config, nn_section, loss_section, seed=0)
+
+    seen = []
+    draws = ds.BatchSampler.draws
+
+    def recorded(self, generator, batch, device):
+        out = draws(self, generator, batch, device)
+        seen.append((generator.initial_seed(), out[0][0, :16].clone()))
+        return out
+    ds.BatchSampler.draws = recorded
+    reset_launches()
+    try:
+        with SnapCounter() as snaps:
+            start = time.perf_counter()
+            trainer.fit(model)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - start
+    finally:
+        ds.BatchSampler.draws = draws
+    launches = phase_launches()
+    steps, epochs = read_records(experiment)
+    spe = len(trainer.datawrapper.loaders.train)
+    n_valid = len(trainer.datawrapper.loaders.validation)
+    check([r['epoch'] for r in epochs] == list(range(FIT_EPOCHS)),
+          f'{phase}: epochs {[r["epoch"] for r in epochs]}')
+    check(len(steps) == FIT_EPOCHS * spe, f'{phase}: {len(steps)} steps')
+    check(all(math.isfinite(r['loss']) for r in steps)
+          and all(math.isfinite(r['valid_loss']) for r in epochs), f'{phase}: a loss is not finite')
+    expected = {'fused_small_c': FIT_EPOCHS * n_valid, 'fused_wide_c': FIT_EPOCHS * n_valid,
+                'fused_small_c_tiled': 0, 'fused_wide_c_tiled': 0,
+                'knn_gather_fwd_small_c': FIT_EPOCHS * spe,
+                'knn_gather_fwd_wide_c': FIT_EPOCHS * spe,
+                'knn_gather_bwd': FIT_EPOCHS * spe, 'knn_gather_bwd_hi': 0}
+    check(launches == expected, f'{phase}: launches {launches}, expected {expected}')
+    check(snaps.calls == 0, f'{phase}: the snap ran {snaps.calls} times')
+    seeds = [s for s, _ in seen]
+    check(len(seen) == FIT_EPOCHS * (spe + n_valid)
+          and len(set(seeds)) == FIT_EPOCHS * (spe + 1),
+          f'{phase}: {len(seen)} draws from {len(set(seeds))} streams')
+    for (s0, d0), (s1, d1) in zip(seen, seen[1:]):
+        check((s0 == s1) == bool(torch.equal(d0, d1)),
+              f'{phase}: draws of streams {s0} and {s1} do not follow their seeds')
+
+    twin = build_model(model_name, dataset.config, nn_section, loss_section, seed=1)
+    for alias in ('best', 'latest'):
+        state = experiment.get_checkpoint_file(alias, map_location='cuda')
+        twin.module.load_state_dict(state['model'])
+        trainer.optimizer.load_state_dict(state['optimizer'])
+    trace = experiment.run_dir() / 'profile' / (
+        f'steps_{FIT_PROFILE["start_step"]}-'
+        f'{FIT_PROFILE["start_step"] + FIT_PROFILE["num_steps"]}.pt.trace.json')
+    check(trace.exists(), f'{phase}: no profiler trace {trace.name}')
+    names = {e.get('name', '') for e in json.loads(trace.read_text())['traceEvents']}
+    traced = {kernel: any(kernel in n for n in names) for kernel in FIT_TRACE_KERNELS}
+    check(all(traced.values()), f'{phase}: the trace lacks kernels: {traced}')
+
+    host_exp = ExperimentWrappper({'experiment': {'project_name': 'chip_smoke',
+                                                  'run_name': 'fit', 'run_id': fit_run_id}},
+                                  output_root=out_dir)
+    host_steps, host_epochs = read_records(host_exp)
+
+    def per_epoch(records, step_records):
+        return [{'epoch': r['epoch'], 'epoch_s': r['epoch_time'],
+                 'train_loop_ms_per_step': r['train_time'] / spe * 1e3,
+                 'loader_wait_share': r['data_time'] / r['epoch_time'],
+                 'median_host_step_ms': statistics.median(
+                     s['step_time'] for s in step_records if s['epoch'] == r['epoch']) * 1e3,
+                 'train_loss': statistics.mean(s['loss'] for s in step_records
+                                               if s['epoch'] == r['epoch']),
+                 'valid_loss': r['valid_loss']}
+                for r in records if r['epoch'] < FIT_EPOCHS]
+
+    emit({'phase': phase, 'model': model_name, 'garments': len(dataset),
+          'batch': setup['batch_size'], 'points': POINTS,
+          'caps': [dataset.config['mesh_vertex_cap'], dataset.config['mesh_face_cap']],
+          'steps_per_epoch': spe, 'valid_batches': n_valid, 'setup_s': setup_s,
+          'fit_s': fit_s, 'launches': launches, 'snap_calls': snaps.calls,
+          'draw_streams': len(set(seeds)), 'profile': {'window': FIT_PROFILE,
+                                                       'trace_mb': trace.stat().st_size / 1e6,
+                                                       'kernels_traced': traced},
+          'per_epoch': per_epoch(epochs, steps),
+          'host_sampled_fit_per_epoch': per_epoch(host_epochs, host_steps)})
+    return launches
 
 
 # configs/stitch_model.yaml, its dataset, NN and trainer sections (copied:
@@ -2881,6 +3208,16 @@ def main():
           lstm_step)
     del lstm_step
 
+    # the on-device sampling stage, then mesh -> prediction through it
+    timed(seconds, 'device_sampling', device_sampling_phase)
+    for bf16, (small, wide) in ((False, (small_line, wide_line)),
+                                (True, (small_bf16, wide_bf16))):
+        suffix = '_bf16' if bf16 else ''
+        mesh_launches = timed(seconds, 'mesh_to_prediction' + suffix,
+                              mesh_to_prediction_phase, bf16)
+        small['launches_mesh_to_prediction'] = mesh_launches['small_c']
+        wide['launches_mesh_to_prediction'] = mesh_launches['wide_c']
+
     # Trainer.fit over the dataset, then the stitch pipeline on the att f32
     # run, then the evaluation, prediction and export CLIs on its runs: their
     # own launch counts, set to 0 just before each and read just after
@@ -2899,6 +3236,13 @@ def main():
             wide[key] = fit_launches['fused_wide_c']
             for line in gathers:
                 line[key] = fit_launches['knn_gather_' + launch_key(line['name'])]
+        # on-device sampling through fit, beside the host-sampled fit run
+        ods_launches = timed(seconds, 'fit_on_device', fit_on_device_phase, runs_dir,
+                             run_ids[''])
+        small_line['launches_fit_on_device'] = ods_launches['fused_small_c']
+        wide_line['launches_fit_on_device'] = ods_launches['fused_wide_c']
+        for line in gather_lines:
+            line['launches_fit_on_device'] = ods_launches['knn_gather_' + launch_key(line['name'])]
         stitch_launches, stitch_run_id = timed(seconds, 'stitch_pipeline',
                                                stitch_pipeline_phase, runs_dir, run_ids[''])
         small_line['launches_stitch_pipeline'] = stitch_launches['fused_small_c']

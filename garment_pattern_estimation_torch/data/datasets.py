@@ -10,12 +10,12 @@ of nn/data/datasets.py on a numpy pipeline:
   * GarmentBaseDataset — failed-sim filtering via dataset_properties.json,
     template nicknames, design-parameter filtering, size inference
   * Garment3DPatternFullDataset — point-cloud features (sampled via the
-    native preprocessing library, deterministic per datapoint), padded
-    pattern GT dict, standardization stats, prediction -> spec saving
+    native preprocessing library, deterministic per datapoint) or, with
+    `on_device_sampling`, the padded mesh the device stage samples
+    (preprocess/device_sampling.py), padded pattern GT dict,
+    standardization stats, prediction -> spec saving
   * GarmentStitchPairsDataset — edge-pair features for the stitch model,
     preferring `*predicted*specification.json` files
-
-On-device sampling (`on_device_sampling`) is not ported: it raises.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ import numpy as np
 
 from ..core import NNSewingPattern, PanelClasses, Properties, InvalidPatternDefError
 from ..preprocess import mesh as mesh_ops
+from ..preprocess.device_sampling import pad_mesh
 from ..losses.stitches import tags_to_stitches_np
 from . import transforms
 from .loader import Subset
@@ -249,7 +250,11 @@ class BaseDataset:
 
     def _estimate_data_shape(self):
         elem = self[0]
-        feature_size = elem['features'].shape[0]
+        feats = elem['features']
+        # on-device-sampling features are mesh dicts; the cloud the encoder
+        # sees is still mesh_samples points
+        feature_size = self.config.get('mesh_samples') if isinstance(feats, dict) \
+            else feats.shape[0]
         gt = elem['ground_truth']
         gt_size = gt.shape[0] if hasattr(gt, 'shape') else None
         self.config['feature_size'] = feature_size
@@ -439,14 +444,13 @@ class Garment3DPatternFullDataset(GarmentBaseDataset):
         start_config.setdefault('mesh_samples', 2000)
         start_config.setdefault('point_noise_w', 0)
         start_config.setdefault('sampling_seed', 601)
+        # on-device sampling mode: features are padded (V, F) mesh tensors,
+        # and the sampling, noise and label snap of _sample_points /
+        # _point_classes_from_mesh run on the device before the encoder
+        # (preprocess/device_sampling.make_batch_sampler)
         start_config.setdefault('on_device_sampling', False)
         start_config.setdefault('mesh_vertex_cap', 8192)
         start_config.setdefault('mesh_face_cap', 16384)
-        if start_config['on_device_sampling']:
-            raise NotImplementedError(
-                f'{self.__class__.__name__}: on_device_sampling '
-                '(garment_pattern_estimation_tpu/preprocess/device_sampling.py) is not '
-                'ported; set dataset.on_device_sampling: false')
         self.segm_cached = {}
         super().__init__(root_dir, start_config, gt_caching=gt_caching,
                          feature_caching=feature_caching, in_transforms=in_transforms)
@@ -468,7 +472,18 @@ class Garment3DPatternFullDataset(GarmentBaseDataset):
             stats = self.config['standardize']
         elif training is not None:
             samples = [training[i] for i in range(len(training))]
-            features = np.stack([s['features'] for s in samples])
+            if isinstance(samples[0]['features'], dict):
+                # on-device-sampling mode: the statistics still come from
+                # host-sampled training clouds, once; the device stage
+                # applies them to every draw
+                features = np.stack([
+                    self._sample_points(
+                        f"{s['data_folder']}/{s['name']}",
+                        [f.name for f in
+                         (self.root_path / s['data_folder'] / s['name']).glob('*')])[0]
+                    for s in samples])
+            else:
+                features = np.stack([s['features'] for s in samples])
             gt_field = lambda key: np.stack([s['ground_truth'][key] for s in samples])
 
             feature_shift, feature_scale = self._get_distribution_stats(features)
@@ -596,6 +611,14 @@ class Garment3DPatternFullDataset(GarmentBaseDataset):
         if datapoint_name in self.feature_cached:
             features = self.feature_cached[datapoint_name]
             segm = self.segm_cached[datapoint_name]
+        elif self.config.get('on_device_sampling'):
+            # the padded mesh; the per-point segmentation comes out of the
+            # device stage, so none is attached to the GT here
+            features = self._mesh_features(datapoint_name, folder_elements)
+            segm = None
+            if self.feature_caching:
+                self.feature_cached[datapoint_name] = features
+                self.segm_cached[datapoint_name] = segm
         else:
             points, verts = self._sample_points(datapoint_name, folder_elements)
             segm = self._point_classes_from_mesh(points, verts, datapoint_name,
@@ -660,6 +683,55 @@ class Garment3DPatternFullDataset(GarmentBaseDataset):
     def sample_mesh_points(num_points, verts, faces, seed=None):
         """Standalone sampling routine (reference API: datasets.py:845-861)."""
         return mesh_ops.sample_mesh_points(num_points, verts, faces, seed=seed)
+
+    def _mesh_features(self, datapoint_name, folder_elements):
+        """on_device_sampling features: the mesh padded to the configured
+        (vertex, face) capacity, with per-VERTEX class labels (-1 on padded
+        rows and where no segmentation exists). The host path's point-level
+        'stitch'/'None' reassignment (_point_classes_from_mesh) happens at
+        the vertex level here, so the device stage's one nearest-vertex snap
+        yields final labels."""
+        obj_list = [f for f in folder_elements
+                    if self.config['obj_filetag'] in f and '.obj' in f]
+        if not obj_list:
+            raise RuntimeError(
+                f'Dataset::Error::geometry file *{self.config["obj_filetag"]}*.obj '
+                f'not found for {datapoint_name}')
+        verts, faces = mesh_ops.read_triangle_mesh(
+            str(self.root_path / datapoint_name / obj_list[0]))
+        v_cap = self.config['mesh_vertex_cap']
+        f_cap = self.config['mesh_face_cap']
+        if len(verts) > v_cap or len(faces) > f_cap:
+            raise RuntimeError(
+                f'Dataset::Error::{datapoint_name} exceeds the on-device mesh '
+                f'capacity ({len(verts)}V/{len(faces)}F vs {v_cap}/{f_cap}) — '
+                'raise dataset.mesh_vertex_cap / mesh_face_cap')
+
+        labels = np.full(len(verts), -1, dtype=np.int32)
+        seg_list = [f for f in folder_elements
+                    if self.config['obj_filetag'] in f and 'segmentation.txt' in f]
+        if seg_list:
+            with open(self.root_path / datapoint_name / seg_list[0], 'r') as f:
+                vert_labels = np.array([line.rstrip() for line in f])
+            if len(vert_labels) >= len(verts):
+                vert_labels = vert_labels[:len(verts)]
+                unlabeled = (vert_labels == 'stitch') | (vert_labels == 'None')
+                if unlabeled.any() and (~unlabeled).any():
+                    snap, _ = mesh_ops.snap_points(verts[unlabeled], verts[~unlabeled])
+                    labeled_pos = np.flatnonzero(~unlabeled)
+                    vert_labels[unlabeled] = vert_labels[labeled_pos[snap]]
+                if self.panel_classifier is not None:
+                    labels = self.panel_classifier.map(
+                        self.template_name(datapoint_name), vert_labels).astype(np.int32)
+                else:
+                    unique = {n: i for i, n in enumerate(np.unique(vert_labels))}
+                    labels = np.array([unique[n] for n in vert_labels], dtype=np.int32)
+
+        pv, pf, n_verts = pad_mesh(verts, faces, v_cap, f_cap)
+        padded_labels = np.full(v_cap, -1, dtype=np.int32)
+        padded_labels[:len(labels)] = labels
+        return {'verts': pv, 'faces': pf,
+                'n_verts': np.int32(n_verts), 'vert_labels': padded_labels}
 
     def _point_classes_from_mesh(self, points, verts, datapoint_name, folder_elements):
         """Transfer per-vertex segmentation labels to sampled points via

@@ -40,6 +40,10 @@ class FeatureStandartization:
         self.scale = np.asarray(scale, dtype=np.float32)
 
     def __call__(self, sample):
+        if isinstance(sample['features'], dict):
+            # on-device-sampling mode: features are raw mesh tensors; the
+            # device stage standardizes the sampled points itself
+            return sample
         updated = dict(sample)
         updated['features'] = (sample['features'] - self.shift) / self.scale
         return updated

@@ -67,22 +67,25 @@ def knn_gather_reference(x, k, value_chunks=2):
     return nbr, idx
 
 
-def knn_gather_backward_reference(idx, g, value_chunks=2):
+def knn_gather_backward_reference(idx, g, value_chunks=2, dtype=torch.float32):
     """Plain PyTorch backward: ids (B, N, k) and the neighbour cotangent
-    g (B, k, N, C) -> dx (B, N, C) f32, slot 0 added to the query row at
-    full f32 and slots 1..k-1 scatter-added into their neighbours' rows:
-    at full f32 (`value_chunks=2`) or truncated to bf16 (`value_chunks=1`,
-    the low 16 bits cleared, not rounded)."""
+    g (B, k, N, C) -> dx (B, N, C) in `dtype`, slot 0 added to the query
+    row at full f32 and slots 1..k-1 scatter-added into their neighbours'
+    rows: at full f32 (`value_chunks=2`) or truncated to bf16
+    (`value_chunks=1`, the low 16 bits cleared, not rounded). The sums run
+    in `dtype`. On a CUDA tensor `index_add_` adds atomically, so at f32
+    the order of a long sum, and its last bits, change from run to run;
+    `dtype=torch.float64` gives an oracle of value that does not."""
     B, k, N, C = g.shape
     g = g.float()
-    dx = g[:, 0].clone()
+    dx = g[:, 0].to(dtype, copy=True).contiguous()
     if k > 1:
         flat = idx[:, :, 1:].transpose(1, 2).long() \
             + (torch.arange(B, device=g.device) * N)[:, None, None]
         rows = g[:, 1:].reshape(-1, C)
         if value_chunks == 1:
             rows = truncate_bf16(rows)
-        dx.view(B * N, C).index_add_(0, flat.reshape(-1), rows)
+        dx.view(B * N, C).index_add_(0, flat.reshape(-1), rows.to(dtype))
     return dx
 
 

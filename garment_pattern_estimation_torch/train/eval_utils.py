@@ -5,8 +5,10 @@ Counterpart of garment_pattern_estimation_tpu/train/eval_utils.py. The
 stitch model's exhaustive pairs (every cross-panel edge pair of a pattern,
 a different count per pattern) are padded to a power-of-two bucket and
 masked, as the JAX package pads them to bound its compilations: the same
-shapes, so the two compute the same means. On-device sampling (mesh-dict
-features) is not ported: its sampler argument raises.
+shapes, so the two compute the same means. Mesh-dict features
+(`dataset.on_device_sampling`) are sampled on the model's device first
+(preprocess/device_sampling.py); the snap of their labels runs only where
+the loss reads them.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import numpy as np
 import torch
 
 from ..core import InvalidPatternDefError
+from ..preprocess.device_sampling import (SAMPLING_STREAM, maybe_batch_sampler,
+                                          reads_segmentation)
 
 
 def _bucket_size(n):
@@ -29,11 +33,9 @@ def _generator(device, rng_seed, counter):
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def _no_device_sampler(device_sampler):
-    if device_sampler is not None:
-        raise NotImplementedError(
-            'eval_utils: on-device sampling '
-            '(garment_pattern_estimation_tpu/preprocess/device_sampling.py) is not ported')
+def _on_device(features, device):
+    """A mesh-dict batch's tensors on `device`."""
+    return {k: torch.as_tensor(v).to(device) for k, v in features.items()}
 
 
 def make_predict_fn(model, state=None, rng_seed=0, bucket_pairs=False, device_sampler=None):
@@ -46,8 +48,12 @@ def make_predict_fn(model, state=None, rng_seed=0, bucket_pairs=False, device_sa
     seeded from `rng_seed` and the call's count, as the JAX predict
     function folds the count into its key (serving passes none and gets
     zeros). `bucket_pairs`: a 2-D (n_pairs, F) input is padded with zero
-    rows to `_bucket_size(n_pairs)` and the output cut back to n_pairs."""
-    _no_device_sampler(device_sampler)
+    rows to `_bucket_size(n_pairs)` and the output cut back to n_pairs.
+
+    `device_sampler` (preprocess/device_sampling.make_batch_sampler): mesh
+    dict features are sampled on the model's device ahead of the forward,
+    from the call's own sampling stream, without the label snap: the
+    mesh -> prediction path."""
     if state is not None:
         model.module.load_state_dict(state)
     device = model.device
@@ -57,6 +63,13 @@ def make_predict_fn(model, state=None, rng_seed=0, bucket_pairs=False, device_sa
     def predict(features):
         counter[0] += 1
         model.module.eval()
+        if isinstance(features, dict):
+            if device_sampler is None:
+                raise ValueError('make_predict_fn: mesh features need a device_sampler '
+                                 '(preprocess.device_sampling.make_batch_sampler)')
+            features, _ = device_sampler(
+                _generator(device, rng_seed, SAMPLING_STREAM + counter[0]),
+                _on_device(features, device), labels=False)
         features = torch.as_tensor(features, dtype=torch.float32)
         real = features.shape[0]
         if bucket_pairs and features.dim() == 2:
@@ -79,17 +92,21 @@ def eval_metrics(model, state, data_wrapper, section='test', rng_seed=0,
     per-folder section, a dict of them by folder), from the module with
     `state` loaded (None keeps its weights). NaN metrics are skipped batch
     by batch, as the reference skips None-valued ones
-    (nn/metrics/eval_utils.py:12-76)."""
-    _no_device_sampler(device_sampler)
+    (nn/metrics/eval_utils.py:12-76). Mesh-dict batches are sampled by
+    `device_sampler`, by default the dataset config's
+    (`maybe_batch_sampler`), with the labels in the ground truth where the
+    loss reads them."""
+    if device_sampler is None:
+        device_sampler = maybe_batch_sampler(data_wrapper.dataset.config)
     if state is not None:
         model.module.load_state_dict(state)
     if hasattr(model.loss, 'with_quality_eval'):
         model.loss.with_quality_eval = True
     loader = data_wrapper.get_loader(section)
     if isinstance(loader, dict):
-        return {folder: _eval_metrics_per_loader(model, sub_loader, rng_seed)
+        return {folder: _eval_metrics_per_loader(model, sub_loader, rng_seed, device_sampler)
                 for folder, sub_loader in loader.items()}
-    return _eval_metrics_per_loader(model, loader, rng_seed)
+    return _eval_metrics_per_loader(model, loader, rng_seed, device_sampler)
 
 
 def _bucket_pad(features, gt):
@@ -111,7 +128,7 @@ def _bucket_pad(features, gt):
 
 
 @torch.no_grad()
-def _eval_metrics_per_loader(model, loader, rng_seed=0):
+def _eval_metrics_per_loader(model, loader, rng_seed=0, device_sampler=None):
     device = model.device
     model.module.eval()
     current_metrics = {'full_loss': []}
@@ -131,8 +148,17 @@ def _eval_metrics_per_loader(model, loader, rng_seed=0):
         if not isinstance(gt, dict) and (gt is None or np.asarray(gt).size == 0):
             gt = batch['features']  # reconstruction fallback
 
-        features = np.asarray(batch['features'], dtype=np.float32)
+        features = batch['features']
         mask = None
+        if isinstance(features, dict):
+            labels = reads_segmentation(model.loss)
+            features, segm = device_sampler(
+                _generator(device, rng_seed, SAMPLING_STREAM + batch_idx),
+                _on_device(features, device), labels=labels)
+            if labels:
+                gt = dict(gt, segmentation=segm)
+        else:
+            features = np.asarray(features, dtype=np.float32)
         if not isinstance(gt, dict) and features.ndim == 3 and np.asarray(gt).ndim == 2:
             # stitch pairs: variable pair counts -> bucketed + masked
             features, gt, mask = _bucket_pad(features, np.asarray(gt))
@@ -141,7 +167,7 @@ def _eval_metrics_per_loader(model, loader, rng_seed=0):
             gt = {k: torch.as_tensor(v).to(device) for k, v in gt.items()}
         else:
             gt = torch.as_tensor(np.asarray(gt)).to(device)
-        preds = model.module(torch.from_numpy(features).to(device), generator=generator)
+        preds = model.module(torch.as_tensor(features).to(device), generator=generator)
         if mask is None:
             full_loss, loss_dict, _ = model.loss(preds, gt)
         else:

@@ -17,11 +17,17 @@ or a caller drives the steps itself:
 
 A batch is {'features': (B, N, 3) standardized points, 'ground_truth':
 {name: tensor}} as `data.DataLoader` collates it, or for the stitch model
-{'features': (B, P, 16) edge pairs, 'ground_truth': (B, P) bool}. With
-`with_visualization`, `fit` renders one prediction per data folder after
-each epoch into the run's `intermediate_preds/` (`_log_an_image`). Not
-ported: on-device sampling (raises), the device mesh and data-parallel
-placement, and the profiler window.
+{'features': (B, P, 16) edge pairs, 'ground_truth': (B, P) bool}. Under
+`dataset.on_device_sampling` the features are a padded mesh dict, and each
+step first draws its cloud on the device (`device_sampler`,
+preprocess/device_sampling.py): a fresh cloud every training step, one
+cloud per epoch for validation, the labels in the ground truth where the
+loss reads them. With `with_visualization`, `fit` renders one prediction
+per data folder after each epoch into the run's `intermediate_preds/`
+(`_log_an_image`). `trainer.profile` (true, or {start_step, num_steps},
+defaults 10 and 5) traces a window of `fit`'s steps with `torch.profiler`
+into the run's `profile/`. Not ported: the device mesh and data-parallel
+placement.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ import torch
 
 from ..data import DatasetWrapper
 from ..device import resolve_device
+from ..preprocess.device_sampling import SAMPLING_STREAM, maybe_batch_sampler, reads_segmentation
 
 
 def cosine_onecycle_schedule(transition_steps, peak_value, pct_start=0.3,
@@ -100,6 +107,8 @@ class Trainer:
         self.schedule = None
         self.step_count = 0
         self._root_seed = None
+        self.device_sampler = None   # set in fit once the dataset config is final
+        self._profiler = None
 
         # trainer.best_by: the 'best' checkpoint tracks a validation metric
         # instead of the loss (garment_pattern_estimation_tpu/train/trainer.py:57-90)
@@ -179,26 +188,47 @@ class Trainer:
         return self.optimizer
 
     def _place(self, batch):
-        """(features, ground truth) on the device; the ground truth is a
-        dict of tensors (the shape models) or one tensor (the stitch
-        model's (B, P) labels)."""
-        gt = batch['ground_truth']
-        gt = {k: v.to(self.device, non_blocking=True) for k, v in gt.items()} \
-            if isinstance(gt, dict) else gt.to(self.device, non_blocking=True)
-        return batch['features'].to(self.device, non_blocking=True).float(), gt
+        """(features, ground truth) on the device; the features are points
+        or a mesh dict, the ground truth a dict of tensors (the shape
+        models) or one tensor (the stitch model's (B, P) labels)."""
+        def place(value):
+            if isinstance(value, dict):
+                return {k: v.to(self.device, non_blocking=True) for k, v in value.items()}
+            return value.to(self.device, non_blocking=True)
+        features = place(batch['features'])
+        if not isinstance(features, dict):
+            features = features.float()
+        return features, place(batch['ground_truth'])
 
-    def train_step(self, model, batch, epoch, generator=None):
+    def _sample(self, features, gt, generator, labels):
+        """A mesh-dict batch's cloud drawn on the device by
+        `device_sampler` from `generator`, with the snapped labels in the
+        ground truth when `labels` (the snap runs only then). Points pass
+        through."""
+        if not isinstance(features, dict):
+            return features, gt
+        if self.device_sampler is None:
+            raise ValueError('Trainer: mesh features need trainer.device_sampler '
+                             '(fit sets it from dataset.on_device_sampling)')
+        features, segm = self.device_sampler(generator, features, labels=labels)
+        if labels:
+            gt = dict(gt, segmentation=segm)
+        return features, gt
+
+    def train_step(self, model, batch, epoch, generator=None, sampling_generator=None):
         """One optimizer step on `batch`: train-mode forward (batch
         statistics, BN running averages updated), the composed loss at the
         epoch's phase, backward, update. The lr is the schedule at the
         number of steps taken before this one. `generator` draws the LSTM
         decoders' random initial states, their dropout masks and the loss's
-        random GT panel order (the JAX step's three rng streams). Returns
+        random GT panel order (the JAX step's three rng streams);
+        `sampling_generator` a mesh batch's cloud (`_sample`). Returns
         (loss, dict of the loss terms and quality metrics), detached, on the
         device."""
         if self.optimizer is None:
             raise RuntimeError('Trainer: call make_optimizer before train_step')
-        features, gt = self._place(batch)
+        features, gt = self._sample(*self._place(batch), sampling_generator,
+                                    reads_segmentation(model.loss))
         epoch_c = canonical_epoch(model.loss.config, *phase_of(model.loss.config, epoch))
         for group in self.optimizer.param_groups:
             group['lr'] = self.schedule(self.step_count)
@@ -212,14 +242,16 @@ class Trainer:
         return loss.detach(), {k: v.detach() for k, v in loss_dict.items()}
 
     @torch.no_grad()
-    def eval_step(self, model, batch, epoch, generator=None):
+    def eval_step(self, model, batch, epoch, generator=None, sampling_generator=None):
         """Eval-mode forward (running statistics, the fused EdgeConv kernel
         on the card) and the composed loss with its quality metrics.
         `generator` draws the LSTM decoder's random initial states, as the
         JAX trainer's eval step draws them from its 'recurrent_init' rng;
         without one they are zeros. The loss draws its random GT panel order
-        from it too. Returns (loss, dict)."""
-        features, gt = self._place(batch)
+        from it too; `sampling_generator` draws a mesh batch's cloud.
+        Returns (loss, dict)."""
+        features, gt = self._sample(*self._place(batch), sampling_generator,
+                                    reads_segmentation(model.loss))
         epoch_c = canonical_epoch(model.loss.config, *phase_of(model.loss.config, epoch))
         model.module.eval()
         preds = model.module(features, generator=generator)
@@ -240,13 +272,16 @@ class Trainer:
         fetched once per epoch. Under `compute_dtype: bfloat16` the last
         `f32_tail_epochs` epochs (or every epoch after an early-stop signal
         in the bf16 phase) run the module in f32, parameters and optimizer
-        state shared; the module's compute dtypes are restored on return."""
+        state shared; the module's compute dtypes are restored on return.
+
+        Under `dataset.on_device_sampling` each training step draws its
+        cloud from the stream of its step, validation from the epoch's
+        stream, each offset by SAMPLING_STREAM from the LSTM states' stream
+        of the same step or epoch (those streams are unchanged). A profiler
+        window (`trainer.profile`) still open when fit ends is stopped and
+        written."""
         if not self.datawrapper:
             raise RuntimeError('Trainer: fit called before use_dataset()')
-        if self.datawrapper.dataset.config.get('on_device_sampling'):
-            raise NotImplementedError(
-                'Trainer: on_device_sampling '
-                '(garment_pattern_estimation_tpu/preprocess/device_sampling.py) is not ported')
         if self.experiment is None:
             raise RuntimeError('Trainer: fit needs an experiment tracker')
         if self._root_seed is None:
@@ -274,6 +309,10 @@ class Trainer:
         if state is not None:
             model.module.load_state_dict(state)
         self.make_optimizer(model, len(train_loader))
+        # after _start_experiment: a resumed run's restored config decides
+        # whether the on-device sampling stage is part of the step
+        self.device_sampler = maybe_batch_sampler(self.datawrapper.dataset.config)
+        sampling = self.device_sampler is not None
 
         if start_epoch > 0:
             checkpoint = self.experiment.get_checkpoint_file('latest', map_location=self.device)
@@ -323,8 +362,11 @@ class Trainer:
                     except StopIteration:
                         break
                     step_start = time.perf_counter()
+                    self._maybe_profile(self.step_count)
+                    stream = self.step_count + 1
                     loss, loss_dict = self.train_step(
-                        model, batch, epoch, self._generator(self.step_count + 1))
+                        model, batch, epoch, self._generator(stream),
+                        self._generator(SAMPLING_STREAM + stream) if sampling else None)
                     log_step += 1
                     pending.append((log_step, batch_i, self.step_count - 1, loss, loss_dict,
                                     time.perf_counter() - step_start,
@@ -349,8 +391,12 @@ class Trainer:
                 # validation: one transfer at the end
                 valid_losses, valid_monitors = [], []
                 for batch in valid_loader:
-                    vloss, vdict = self.eval_step(model, batch, epoch,
-                                                  self._generator(2 ** 20 + epoch))
+                    # the same streams for every batch: validation sees the
+                    # same clouds whenever it runs at a given epoch
+                    stream = 2 ** 20 + epoch
+                    vloss, vdict = self.eval_step(
+                        model, batch, epoch, self._generator(stream),
+                        self._generator(SAMPLING_STREAM + stream) if sampling else None)
                     valid_losses.append(vloss)
                     if self._monitor_key:
                         if self._monitor_key not in vdict:
@@ -420,6 +466,8 @@ class Trainer:
         finally:
             for m, dtype in dtypes.items():
                 m.compute_dtype = dtype
+            if self._profiler is not None:
+                self._profile_stop()
 
         print('Trainer::Finished training')
         return model.module.state_dict()
@@ -441,6 +489,39 @@ class Trainer:
             self.experiment.add_config('NN', model.config)
         return start_epoch
 
+    def _maybe_profile(self, step_count):
+        """Start or stop the `trainer.profile` window before the step
+        numbered `step_count` (the optimizer steps taken before it, resumed
+        runs included): it starts at `start_step` and stops at
+        `start_step + num_steps` (garment_pattern_estimation_tpu/train/
+        trainer.py:564)."""
+        profile_cfg = self.setup.get('profile')
+        if not profile_cfg:
+            return
+        start = profile_cfg.get('start_step', 10) if isinstance(profile_cfg, dict) else 10
+        steps = profile_cfg.get('num_steps', 5) if isinstance(profile_cfg, dict) else 5
+        if step_count == start and self._profiler is None:
+            trace_dir = Path(self.experiment.run_dir()) / 'profile'
+            trace_dir.mkdir(exist_ok=True)
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == 'cuda':
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.start()
+            self._profile_file = trace_dir / f'steps_{start}-{start + steps}.pt.trace.json'
+            print(f'Trainer::profiler trace started -> {trace_dir}')
+        elif self._profiler is not None and step_count == start + steps:
+            self._profile_stop()
+
+    def _profile_stop(self):
+        """Stop the profiler window and write its Chrome trace."""
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        profiler, self._profiler = self._profiler, None
+        profiler.stop()
+        profiler.export_chrome_trace(str(self._profile_file))
+        print(f'Trainer::profiler trace stopped -> {self._profile_file}')
+
     def _save_checkpoint(self, model, epoch, best=False):
         """(garment_pattern_estimation_tpu/train/trainer.py:597)"""
         state = {'epoch': epoch, 'step': self.step_count,
@@ -456,7 +537,8 @@ class Trainer:
         Unlike the JAX trainer, nothing here is caught: the eval forward
         (the fused EdgeConv kernel on the card) raises as everywhere else,
         and `PatternSpec.serialize` already makes a failed render a
-        warning."""
+        warning. Mesh batches are sampled from the stream 2**21 + epoch,
+        without the label snap."""
         loader = self.datawrapper.loaders.valid_single_per_data
         if loader is None:
             print('Trainer::Error::suitable loader is not available. Nothing logged')
@@ -464,7 +546,11 @@ class Trainer:
         model.module.eval()
         img_files = []
         for batch in loader:
-            preds = model.module(batch['features'].to(self.device).float())
+            features, _ = self._place(batch)
+            if isinstance(features, dict):
+                features, _ = self._sample(features, None, self._generator(2 ** 21 + epoch),
+                                           labels=False)
+            preds = model.module(features)
             preds = {k: v.float().cpu().numpy() for k, v in preds.items()}
             img_files += self.datawrapper.dataset.save_prediction_batch(
                 preds, batch['name'], batch['data_folder'], save_to=self.folder_for_preds)

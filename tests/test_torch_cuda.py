@@ -51,6 +51,13 @@ through it the kernel's outputs and ids are bitwise those of a direct
 launch, and a serving artifact exported with `torch.export` on the card
 launches the kernel once per layer and call, equals `build_serving_fn`
 bitwise and refuses a CPU input.
+
+The on-device sampling stage on the card against its CPU core with the
+same draws: face ids equal except draws within 1e-6 of the total area of a
+step of the cumulative areas, or within the two devices' own gap on the
+steps (the card's scan rounds otherwise), points
+within 1e-5 of the mesh extent where the ids agree, labels equal except
+near ties.
 """
 import copy
 
@@ -311,9 +318,9 @@ def test_knn_gather_matches_plain(cuda, rng, n_points, C, k, value_chunks):
     agree = (idx == ref_idx).transpose(1, 2)                       # (B, k, N)
     assert torch.equal(nbr[agree], ref_nbr[agree])
 
-    ref_dx = knn_gather.knn_gather_backward_reference(idx, g, value_chunks)
+    ref_dx = knn_gather.knn_gather_backward_reference(idx, g, value_chunks, torch.float64)
     scale = ref_dx.abs().max().item()
-    assert (dx - ref_dx).abs().max().item() <= 1e-5 * scale
+    assert (dx.double() - ref_dx).abs().max().item() <= 1e-5 * scale
     (dx_again,) = torch.autograd.grad(knn_gather.knn_gather(x, k, value_chunks)[0], x, g)
     assert torch.equal(dx, dx_again)
 
@@ -336,12 +343,13 @@ def test_knn_gather_single_chunk_backward(cuda, rng, n_points, k):
     torch.cuda.synchronize()
     assert knn_gather.launches['bwd_hi'] == before['bwd_hi'] + 2
     assert knn_gather.launches['bwd'] == before['bwd']
-    ref_dx = knn_gather.knn_gather_backward_reference(idx, g, value_chunks=1)
+    ref_dx = knn_gather.knn_gather_backward_reference(idx, g, value_chunks=1, dtype=torch.float64)
     scale = ref_dx.abs().max().item()
-    assert (dx - ref_dx).abs().max().item() <= 1e-5 * scale
+    assert (dx.double() - ref_dx).abs().max().item() <= 1e-5 * scale
     assert torch.equal(dx, dx_again)
     if k > 1:                             # the truncation is not a no-op here
-        full = knn_gather.knn_gather_backward_reference(idx, g, value_chunks=2)
+        full = knn_gather.knn_gather_backward_reference(idx, g, value_chunks=2,
+                                                        dtype=torch.float64)
         assert (full - ref_dx).abs().max().item() > 1e-5 * scale
 
 
@@ -364,8 +372,8 @@ def test_knn_gather_backward_order(cuda, rng, n_points, k, C, value_chunks):
     torch.cuda.synchronize()
     assert torch.equal(dx, dx_again)
     assert torch.equal(dx, knn_gather.knn_gather_backward_ordered(idx, g, value_chunks))
-    ref_dx = knn_gather.knn_gather_backward_reference(idx, g, value_chunks)
-    assert (dx - ref_dx).abs().max().item() <= 1e-5 * ref_dx.abs().max().item()
+    ref_dx = knn_gather.knn_gather_backward_reference(idx, g, value_chunks, torch.float64)
+    assert (dx.double() - ref_dx).abs().max().item() <= 1e-5 * ref_dx.abs().max().item()
 
 
 @pytest.mark.parametrize('n_points,k,C,value_chunks', [
@@ -383,8 +391,8 @@ def test_knn_gather_backward_hub(cuda, rng, n_points, k, C, value_chunks):
     dx = knn_gather.knn_gather_bwd(idx, g, value_chunks)
     torch.cuda.synchronize()
     assert torch.equal(dx, knn_gather.knn_gather_backward_ordered(idx, g, value_chunks))
-    ref_dx = knn_gather.knn_gather_backward_reference(idx, g, value_chunks)
-    assert (dx - ref_dx).abs().max().item() <= 1e-5 * ref_dx.abs().max().item()
+    ref_dx = knn_gather.knn_gather_backward_reference(idx, g, value_chunks, torch.float64)
+    assert (dx.double() - ref_dx).abs().max().item() <= 1e-5 * ref_dx.abs().max().item()
 
 
 def test_knn_gather_backward_scratch(cuda):
@@ -960,3 +968,87 @@ def test_encoder_decoder_variant_matches_cpu(cuda, variant):
     for key, value in ref.items():
         scale = value.abs().max().item()
         assert (out[key].cpu() - value).abs().max().item() <= 1e-2 * scale, key
+
+
+# ---- the on-device sampling stage (preprocess/device_sampling.py) ----
+
+def _padded_meshes(rng, batch, n_verts, n_faces, v_cap, f_cap):
+    """bench.py's meshes: gaussian vertices x 20, random faces, padded."""
+    from garment_pattern_estimation_torch.preprocess.device_sampling import pad_mesh
+    meshes = [pad_mesh((rng.normal(size=(n_verts, 3)) * 20).astype(np.float32),
+                       rng.integers(0, n_verts, (n_faces, 3)), v_cap, f_cap)
+              for _ in range(batch)]
+    return {'verts': torch.from_numpy(np.stack([m[0] for m in meshes])),
+            'faces': torch.from_numpy(np.stack([m[1] for m in meshes])),
+            'n_verts': torch.tensor([m[2] for m in meshes], dtype=torch.int32),
+            'vert_labels': torch.from_numpy(
+                rng.integers(-1, 23, (batch, v_cap)).astype(np.int32))}
+
+
+@pytest.mark.parametrize('batch,points,n_verts,n_faces,v_cap,f_cap,noise_w', [
+    (2, 60, 200, 400, 256, 512, 0.0),
+    (4, 2000, 4000, 8000, 4096, 8192, 0.01),
+])
+def test_device_sampling_matches_cpu(cuda, rng, batch, points, n_verts, n_faces, v_cap,
+                                     f_cap, noise_w):
+    """The sampling stage on the card against its CPU core with the same
+    draws: face ids equal except draws within 1e-6 x total of a step of the
+    cumulative areas or within the devices' own gap on the steps (the
+    card's parallel scan rounds otherwise), points
+    within 1e-5 of the mesh extent where the ids agree, labels equal there
+    except near ties of the f64 distances (1e-5 relative), and no snap
+    without labels."""
+    from garment_pattern_estimation_torch.preprocess import device_sampling as ds
+    mesh = _padded_meshes(rng, batch, n_verts, n_faces, v_cap, f_cap)
+    stats = {'f_shift': [0.03, -28.0, 1.07], 'f_scale': [16.3, 30.9, 9.6]}
+    sampler = ds.make_batch_sampler({'mesh_samples': points, 'point_noise_w': noise_w,
+                                     'standardize': stats})
+    draws = sampler.draws(torch.Generator().manual_seed(3), batch, 'cpu')
+    on_card = {k: v.to(cuda) for k, v in mesh.items()}
+    card_draws = [None if d is None else d.to(cuda) for d in draws]
+    ours, our_labels = sampler.from_draws(on_card, *card_draws)
+    ref, ref_labels = sampler.from_draws(mesh, *draws)
+    assert ours.device == on_card['verts'].device and ours.shape == (batch, points, 3)
+    _, our_ids = ds.sample_surface_from_draws(on_card['verts'], on_card['faces'],
+                                              *card_draws[:3])
+    _, ref_ids = ds.sample_surface_from_draws(mesh['verts'], mesh['faces'], *draws[:3])
+    cdf = torch.cumsum(ds.face_areas(mesh['verts'], mesh['faces']), -1).double().numpy()
+    card_cdf = torch.cumsum(ds.face_areas(on_card['verts'], on_card['faces']), -1)
+    card_cdf = card_cdf.cpu().double().numpy()
+    scale = np.asarray(stats['f_scale'])
+    for b in range(batch):
+        same = our_ids[b].cpu().numpy() == ref_ids[b].numpy()
+        step = cdf[b][-1]
+        # within 1e-6 of a step, or within the devices' own disagreement on
+        # the steps and the total
+        slack = np.abs(card_cdf[b] - cdf[b]).max() + abs(card_cdf[b][-1] - step)
+        targets = draws[0][b].numpy()[~same].astype(np.float64) * step
+        assert np.all(np.abs(targets[:, None] - cdf[b][None]).min(1)
+                      <= max(1e-6 * step, slack))
+        verts = mesh['verts'][b, :n_verts].numpy()
+        gap = np.abs((ours[b].cpu().numpy() - ref[b].numpy()) * scale)[same]
+        assert gap.max() <= 1e-5 * float(np.ptp(verts, axis=0).max())
+        raw = ref[b].numpy() * scale + np.asarray(stats['f_shift'])
+        # where the face ids agree (elsewhere the points themselves differ)
+        differ = np.flatnonzero((our_labels[b].cpu().numpy() != ref_labels[b].numpy()) & same)
+        for i in differ:
+            d = np.sort(((raw[i].astype(np.float64) - verts) ** 2).sum(-1))
+            assert d[1] - d[0] <= 1e-5 * max(d[0], 1e-12), i
+    _, none = sampler(torch.Generator(device=cuda).manual_seed(1), on_card, labels=False)
+    assert none is None
+
+
+def test_device_sampling_draws_on_the_card(cuda, rng):
+    """The sampler draws with a generator on the card: a seed repeats its
+    cloud, another seed gives another, and every point is finite."""
+    from garment_pattern_estimation_torch.preprocess import device_sampling as ds
+    mesh = {k: v.to(cuda) for k, v in _padded_meshes(rng, 3, 200, 400, 256, 512).items()}
+    sampler = ds.make_batch_sampler({'mesh_samples': 500, 'point_noise_w': 0.01,
+                                     'standardize': {'f_shift': [0, 0, 0],
+                                                     'f_scale': [1, 1, 1]}})
+    first, labels = sampler(torch.Generator(device=cuda).manual_seed(5), mesh)
+    again, _ = sampler(torch.Generator(device=cuda).manual_seed(5), mesh)
+    other, _ = sampler(torch.Generator(device=cuda).manual_seed(6), mesh)
+    assert torch.equal(first, again) and not torch.equal(first, other)
+    assert torch.isfinite(first).all() and labels.dtype == torch.int32
+    assert int(labels.min()) >= 0

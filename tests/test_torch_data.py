@@ -181,6 +181,24 @@ def test_balanced_batches_match_over_two_epochs(wrappers):
 
 
 def test_on_device_sampling_raises(synthetic_dataset_root):
+    """The mode the port used to refuse now works: the dataset yields
+    padded mesh dicts, equal to the JAX dataset's, with no point
+    segmentation in the ground truth, and a mesh above the capacity raises
+    as in the JAX package."""
     root = synthetic_dataset_root
-    with pytest.raises(NotImplementedError, match='on_device_sampling'):
-        pt_data.Garment3DPatternFullDataset(root, _config(root, on_device_sampling=True))
+    config = _config(root, on_device_sampling=True, mesh_vertex_cap=256, mesh_face_cap=512)
+    ours = pt_data.Garment3DPatternFullDataset(root, config)
+    theirs = jx_data.Garment3DPatternFullDataset(root, config)
+    assert ours.config['feature_size'] == 200
+    for i in (0, len(theirs) - 1):
+        features = ours[i]['features']
+        assert {k: v.shape for k, v in features.items()} == {
+            'verts': (256, 3), 'faces': (512, 3), 'n_verts': (), 'vert_labels': (256,)}
+        for key, value in theirs[i]['features'].items():
+            np.testing.assert_array_equal(features[key], value)
+        assert 'segmentation' not in ours[i]['ground_truth']
+    small = pt_data.Garment3DPatternFullDataset.__new__(pt_data.Garment3DPatternFullDataset)
+    small.__dict__.update(ours.__dict__, config=dict(ours.config, mesh_vertex_cap=8))
+    name = ours.datapoints_names[0]
+    with pytest.raises(RuntimeError, match='on-device mesh capacity'):
+        small._mesh_features(name, [f.name for f in (root / name).glob('*')])

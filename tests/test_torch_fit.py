@@ -235,13 +235,20 @@ def test_fit_without_batches_raises(synthetic_dataset_root, tmp_path):
 
 
 def test_unported_options_raise(synthetic_dataset_root, tmp_path):
-    dataset = _dataset(pt_data, synthetic_dataset_root)
-    dataset.config['on_device_sampling'] = True
-    trainer = pt_train.Trainer(SETUP, pt_experiment.ExperimentWrappper({}, tmp_path),
-                               dataset, dict(SPLIT), device='cpu')
+    """`on_device_sampling`, which fit used to refuse, now runs: the
+    batches are mesh dicts, fit builds the device sampler from the dataset
+    config and trains on its clouds with finite losses."""
+    dataset = _dataset(pt_data, synthetic_dataset_root, on_device_sampling=True,
+                       mesh_vertex_cap=256, mesh_face_cap=512)
+    exp = pt_experiment.ExperimentWrappper({}, tmp_path)
+    trainer = pt_train.Trainer(dict(SETUP, epochs=1), exp, dataset, dict(SPLIT), device='cpu')
+    assert isinstance(next(iter(trainer.datawrapper.loaders.train))['features'], dict)
     model = pt_build_model('GarmentSegmentPattern3D', dataset.config, NN, LOSS, device='cpu')
-    with pytest.raises(NotImplementedError, match='on_device_sampling'):
-        trainer.fit(model)
+    trainer.fit(model)
+    assert trainer.device_sampler is not None
+    steps, epochs = _records(exp)
+    assert len(steps) == trainer.step_count > 0 and [r['epoch'] for r in epochs] == [0]
+    assert all(np.isfinite(r['loss']) for r in steps) and np.isfinite(epochs[0]['valid_loss'])
 
 
 def test_f32_tail_on_a_bf16_model(synthetic_dataset_root, tmp_path, monkeypatch):

@@ -154,6 +154,33 @@ def test_single_chunk_backward_reference_truncates_slots_above_zero(rng):
     np.testing.assert_allclose(dx.numpy(), expect, rtol=1e-5, atol=1e-6)
 
 
+def test_backward_reference_sums_in_the_given_dtype(rng):
+    """dtype=float64: a hub's long sum (every query names one point in
+    every slot >= 1) within 1e-12 of numpy's f64 sum, the f32 result within
+    1e-5 of it, at both chunk counts, and the cotangent left as it was
+    (B = 1, where slot 0 is already contiguous)."""
+    for B in (1, 2):
+        k, N, C = 8, 500, 3
+        idx = torch.full((B, N, k), N // 3, dtype=torch.int64)
+        idx[:, :, 0] = torch.arange(N)
+        g = torch.from_numpy(rng.normal(size=(B, k, N, C)).astype(np.float32))
+        g_before = g.clone()
+        for value_chunks in (1, 2):
+            g_np = g.numpy()
+            if value_chunks == 1:
+                g_np = (g_np.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+            expect = g.numpy()[:, 0].astype(np.float64)
+            expect[:, N // 3] += g_np[:, 1:].astype(np.float64).sum(axis=(1, 2))
+            dx64 = knn_gather.knn_gather_backward_reference(idx, g, value_chunks,
+                                                           torch.float64)
+            dx32 = knn_gather.knn_gather_backward_reference(idx, g, value_chunks)
+            assert dx64.dtype == torch.float64 and dx32.dtype == torch.float32
+            scale = np.abs(expect).max()
+            assert np.abs(dx64.numpy() - expect).max() <= 1e-12 * scale
+            assert np.abs(dx32.numpy() - expect).max() <= 1e-5 * scale
+        assert torch.equal(g, g_before)
+
+
 def test_k_above_n_raises():
     with pytest.raises(ValueError, match='exceeds the point count'):
         knn_gather.knn_gather(torch.zeros(1, 4, 3), 5)

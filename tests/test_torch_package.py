@@ -70,6 +70,19 @@ def test_import_scan_covers_the_evaluation_modules():
         if isinstance(node, (ast.Import, ast.ImportFrom))}
 
 
+def test_import_scan_covers_the_sampling_and_tool_modules():
+    """The on-device sampling stage and the two host CLIs are scanned too,
+    and importing the attention-weights CLI needs no matplotlib."""
+    scanned = {str(p.relative_to(_PACKAGE)) for p in _PACKAGE.rglob('*.py')}
+    assert {'preprocess/device_sampling.py', 'cli/att_weights_viz.py',
+            'cli/utility_scripts.py'} <= scanned
+    top_level = {node.names[0].name.split('.')[0] if isinstance(node, ast.Import)
+                 else node.module
+                 for node in ast.parse((_PACKAGE / 'cli' / 'att_weights_viz.py').read_text()).body
+                 if isinstance(node, (ast.Import, ast.ImportFrom))}
+    assert 'matplotlib' not in top_level
+
+
 def test_chip_smoke_imports_no_jax():
     path = _PACKAGE.parent / 'chip_smoke.py'
     bad = sorted(set(_imported_roots(path)) & set(_FORBIDDEN))

@@ -241,7 +241,8 @@ def test_bucketed_prediction_equals_unpadded():
 def test_eval_metrics_bucketed_and_masked_match_jax():
     """eval_metrics over variable pair counts at batch 1 (the exhaustive
     mode) takes the bucketed, masked path on both sides; a NaN metric is
-    skipped batch by batch."""
+    skipped batch by batch. A device sampler samples mesh-dict batches
+    only: pair batches pass it by, as in the JAX package."""
     rng = np.random.default_rng(17)
     variables = _variables(rng, 32, 3)
     jax_model, model = _models({'stitch_hidden_size': 32}, variables)
@@ -267,9 +268,8 @@ def test_eval_metrics_bucketed_and_masked_match_jax():
         np.testing.assert_allclose(value, theirs[key], rtol=1e-5, atol=1e-6, err_msg=key)
     per_folder = eval_utils.eval_metrics(model, None, Wrapper(torch.from_numpy), 'per_folder')
     assert set(per_folder) == {'a', 'b'}
-    with pytest.raises(NotImplementedError, match='on-device sampling'):
-        eval_utils.eval_metrics(model, None, Wrapper(torch.from_numpy), 'test',
-                                device_sampler=object())
+    assert eval_utils.eval_metrics(model, None, Wrapper(torch.from_numpy), 'test',
+                                   device_sampler=object()) == ours
 
 
 def _spec(synthetic_dataset_root):
@@ -358,6 +358,12 @@ def test_shape_predict_fn_with_drawn_states_matches_jax(monkeypatch):
 
 
 def test_predict_fn_sampler_raises():
+    """make_predict_fn takes a device sampler (it used to refuse one), which
+    samples mesh-dict features only: pair features pass it by, as in the
+    JAX package; a mesh dict without a sampler raises ValueError."""
     model = build_model('StitchOnEdge3DPairs', DATA, {}, device='cpu')
-    with pytest.raises(NotImplementedError, match='on-device sampling'):
-        eval_utils.make_predict_fn(model, device_sampler=copy.copy)
+    x = np.random.default_rng(0).normal(size=(2, 7, 16)).astype(np.float32)
+    np.testing.assert_array_equal(eval_utils.make_predict_fn(model, device_sampler=copy.copy)(x),
+                                  eval_utils.make_predict_fn(model)(x))
+    with pytest.raises(ValueError, match='device_sampler'):
+        eval_utils.make_predict_fn(model)({'verts': np.zeros((1, 4, 3), np.float32)})
