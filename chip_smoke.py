@@ -228,6 +228,29 @@ fit run:
            pattern and the buckets met; the stitches written back through
            save_prediction_batch with the bucketed predict function, whose
            logits must equal the unpadded forward's to 1e-6 of their scale
+k above 16 (fault C5: the capacity instances K = 32, 64, 128 of every
+kernel, for k = 17..128), after the k = 10 phases:
+  k_range  each of rows 1-9 at k in K_RANGE (17, 20, 32, 64, 128) at one
+           shape each (k_range_kernels), against its plain version with the
+           k = 5 bars; their times, bounds and library calls
+  kernel_k20, knn_gather_k20  rows 1-9 at k = 20 at the shapes of the k =
+           20 main path below (k20_kernels; the stress rows on the whole
+           batch, checked on its first CHUNK clouds)
+and, after the f32 and bf16 phases, att with NN.k_neighbors set to 20 in
+memory (DGCNN's published k), each on its own counts:
+  serving_k20, serving_k20_bf16  as `serving`: 1 + 1 fused launches per
+           forward (rows 4-5), batch ms, a 2-cloud batch against the CPU
+  stress_k20  the 128 x 10,000 batch served STRESS_CALLS times (1 + 1
+           tiled launches per forward, rows 6-7; 1 cloud against the CPU),
+           then K20_STRESS_STEPS chunked training steps (1 knn + 1 knn_wide
+           launch per step, rows 1-3): ms and peak memory
+  train_k20  as `training`: 1 + 1 + 1 knn_gather launches per step (rows
+           8-9), the 2-cloud step against the CPU at the att step's bars
+and, after stitch_pipeline:
+  parity_check  the port's cli/parity_check.py on the att f32 fit run's best
+           checkpoint over parity_run/data_big/ (its test split): a first
+           pass writes the report, a second pass with --expected from it
+           must exit 0 with every row passing; rows 4-5's launches per pass
 Then the evaluation, prediction and export entry points, each through the
 port's CLI as a user calls it (a system file and one config per run,
 naming the att f32 fit run resumed by stitch_pipeline and its stitch run):
@@ -268,12 +291,18 @@ row 1's is on no path of the slice (`on_main_path` false, 0 launches).
 The f32 entries of rows 2, 4, 5, 8 and 9 carry `launches_variants`, the
 other variants' launches of their kernel at k = 5. The entries of rows 4-5
 (f32 and bf16) carry `launches_mesh_to_prediction`, and the f32 entries of
-rows 4, 5, 8 and 9 `launches_fit_on_device`.
+rows 4, 5, 8 and 9 `launches_fit_on_device`, and the f32 entries of rows 4-5
+`launches_parity_check`. The k = 20 entries (rows 4, 5, 6, 7, 1, 2, 8 small
+and wide C, 9) carry the k = 20 main path's launches (rows 4-5 also
+`launches_serving_k20_bf16`); the k = 128 entries, from k_range, are on no
+path (`on_main_path` false, 0 launches).
 Then each phase's seconds, the card's name and power limit, the kernels
 line (each bf16-mode kernel an entry of its own, its launches from the bf16
 phases), and as the last line {"ok": true, "device": {...}}. Any failed
 check exits non-zero. The build line gives each kernel instantiation's registers
-and spill bytes from `nvcc -Xptxas -v` (`k16`: the k = 9..16 instances') and, where the toolkit has
+and spill bytes from `nvcc -Xptxas -v` (`k16`: the k = 9..16 instances';
+`k_capacity`: the K = 32, 64, 128 instances'; `k_capacity_csr`: row 9's
+large-k CSR build) and, where the toolkit has
 cuobjdump, its count of tensor-core HMMA instructions in the SASS: the
 wide selections and every fused_edgeconv_kernel instantiation with k > 1
 (the edge MLP) must have some, and no k = 5 instantiation may spill. In the kernels line a kNN kernel's
@@ -376,6 +405,9 @@ ATT_TRAINER = {
 }
 BATCH, POINTS, K = 64, 2000, 5
 K_WIDE = 10                         # EdgeConvPoolingFeatures' k (the pool10 variant)
+K_DGCNN = 20                        # DGCNN's published k (WangYueFt/dgcnn --k 20)
+K_RANGE = (17, K_DGCNN, 32, 64, 128)    # the k_range phase: each capacity instance
+K20_STRESS_STEPS = 2
 TRAIN_BATCH = ATT_TRAINER['batch_size']
 TRAIN_STEPS = 6
 DX_MAX_REL = 1e-5
@@ -604,7 +636,8 @@ def chunked(fn, x, chunk):
     return torch.cat([fn(x[i:i + chunk]) for i in range(0, x.shape[0], chunk)])
 
 
-def check_kernel(name, x, folded, widths, *, tile_variant=False, bf16=False, k=K):
+def check_kernel(name, x, folded, widths, *, tile_variant=False, bf16=False, k=K,
+                 phase=None, timing=None):
     """Kernel against the plain version on the same inputs at k neighbours;
     returns the kernel's output and its line of the kernels list (launches
     filled in later). The single-tile variants are checked and timed on the
@@ -612,7 +645,9 @@ def check_kernel(name, x, folded, widths, *, tile_variant=False, bf16=False, k=K
     CHUNK clouds, their plain version timed on the whole batch CHUNK clouds
     at a time, and fewer timed runs (each call takes most of a second).
     `bf16`: the bf16 compute mode (`mlp_dtype=torch.bfloat16`, wide rows
-    gathered as their top truncation chunk), on both sides."""
+    gathered as their top truncation chunk), on both sides. `phase` names
+    the printed line's phase; `timing` (warm-up, runs) sets the kernel's
+    and the plain version's timed calls."""
     import torch
     from garment_pattern_estimation_torch.ops import edgeconv
 
@@ -633,7 +668,7 @@ def check_kernel(name, x, folded, widths, *, tile_variant=False, bf16=False, k=K
     diff = (out_c - tail).abs()
     diff_agree = (out_c - full).abs()[agree_rows]
     line = {
-        'phase': ('kernel_bf16' if bf16 else 'kernel') + ('' if k == K else f'_k{k}'),
+        'phase': phase or ('kernel_bf16' if bf16 else 'kernel') + ('' if k == K else f'_k{k}'),
         'name': name, 'shape': [B, N, C],
         'checked_clouds': check_clouds, 'k': k, 'mlp': [2 * C, *widths],
         'mlp_dtype': str(mlp_dtype), 'id_agreement': id_share,
@@ -643,7 +678,7 @@ def check_kernel(name, x, folded, widths, *, tile_variant=False, bf16=False, k=K
         'max_rel_err_vs_full_plain': diff_agree.max().item() / scale,
     }
     del tail, full, diff, diff_agree
-    warmup, runs = (1, 5) if tile_variant else (3, 20)
+    warmup, runs = timing or ((1, 5) if tile_variant else (3, 20))
     line['ms'] = cuda_ms(lambda: edgeconv.fused_edgeconv(x, folded, k, mlp_dtype=mlp_dtype),
                          warmup, runs)
     line['plain_ms'] = cuda_ms(lambda: chunked(
@@ -779,12 +814,13 @@ def gather_bound(B, N, C, k, backward):
     return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
 
 
-def check_knn_gather(x, backward, value_chunks=2, k=K):
+def check_knn_gather(x, backward, value_chunks=2, k=K, phase_name=None, timing=(3, 20)):
     """The knn_gather forward (and, if asked, backward) kernels against the
     plain versions on x at k neighbours, at `value_chunks` (1: the bf16
     compute mode, wide rows gathered and slots >= 1 scattered as their top
     bf16 truncation chunk); returns their lines of the kernels list. Names
-    at k != K end in `_k{k}_c{C}`."""
+    at k != K end in `_k{k}_c{C}`; `phase_name` names the printed lines' phase,
+    `timing` (warm-up, runs) sets the timed calls."""
     import torch
     from garment_pattern_estimation_torch.ops import knn_gather as kg
     from garment_pattern_estimation_torch.ops.knn import truncate_bf16
@@ -793,7 +829,7 @@ def check_knn_gather(x, backward, value_chunks=2, k=K):
     variant = 'small_c' if C <= 16 else 'wide_c'
     suffix, phase = ('', 'knn_gather') if value_chunks == 2 else ('_bf16', 'knn_gather_bf16')
     k_suffix = '' if k == K else f'_k{k}'
-    phase += k_suffix
+    phase = phase_name or phase + k_suffix
     name = f'knn_gather_fwd_{variant}{suffix}{k_suffix}' + ('' if k == K else f'_c{C}')
     nbr, idx = kg.knn_gather_fwd(x, k, value_chunks)
     torch.cuda.synchronize()
@@ -803,8 +839,8 @@ def check_knn_gather(x, backward, value_chunks=2, k=K):
     fwd_err = (nbr[agree] - ref_nbr[agree]).abs().max().item()
     fwd = {'name': name, 'route': 'cuda', 'source': GATHER_SOURCE,
            'replaces': GATHER_FWD_REPLACES, 'k': k, 'launches': None, 'max_abs_err': fwd_err,
-           'ms': cuda_ms(lambda: kg.knn_gather_fwd(x, k, value_chunks)),
-           'plain_ms': cuda_ms(lambda: kg.knn_gather_reference(x, k, value_chunks)),
+           'ms': cuda_ms(lambda: kg.knn_gather_fwd(x, k, value_chunks), *timing),
+           'plain_ms': cuda_ms(lambda: kg.knn_gather_reference(x, k, value_chunks), *timing),
            'library_ms': None}      # no single PyTorch call selects and gathers
     fwd['bound_ms'], fwd['bound_by'] = gather_bound(B, N, C, k, backward=False)
     emit({'phase': phase, 'shape': [B, N, C], 'k': k, 'value_chunks': value_chunks,
@@ -833,11 +869,12 @@ def check_knn_gather(x, backward, value_chunks=2, k=K):
     rows, buffer = rows.reshape(-1, C), torch.zeros(B * N, C, device=x.device)
     bwd = {'name': name, 'route': 'cuda', 'source': GATHER_SOURCE,
            'replaces': GATHER_BWD_REPLACES, 'k': k, 'launches': None, 'max_abs_err': bwd_err,
-           'ms': cuda_ms(lambda: kg.knn_gather_bwd(idx, g, value_chunks)),
-           'plain_ms': cuda_ms(lambda: kg.knn_gather_backward_reference(idx, g, value_chunks)),
+           'ms': cuda_ms(lambda: kg.knn_gather_bwd(idx, g, value_chunks), *timing),
+           'plain_ms': cuda_ms(lambda: kg.knn_gather_backward_reference(idx, g, value_chunks),
+                               *timing),
            # one index_add_ of every slot's rows (slots >= 1 truncated first
            # at value_chunks=1) computes the same dx
-           'library_ms': cuda_ms(lambda: buffer.index_add_(0, flat, rows))}
+           'library_ms': cuda_ms(lambda: buffer.index_add_(0, flat, rows), *timing)}
     bwd['bound_ms'], bwd['bound_by'] = gather_bound(B, N, C, k, backward=True)
     deterministic = bool(torch.equal(dx, dx_again))
     ordered = bool(torch.equal(dx, kg.knn_gather_backward_ordered(idx, g, value_chunks)))
@@ -2127,17 +2164,23 @@ def timed_calls(fn, calls):
     return out, times
 
 
-# the served and fitted models by phase suffix: (model, NN section, loss section)
+# the served and fitted models by phase suffix: (model, NN section, loss section);
+# '_k20': att.yaml's model with NN.k_neighbors set to DGCNN's 20 in memory
 VARIANTS = {'': ('GarmentSegmentPattern3D', ATT_NN_CONFIG, ATT_LOSS_CONFIG),
             '_bf16': ('GarmentSegmentPattern3D', ATT_BF16_NN_CONFIG, ATT_LOSS_CONFIG),
-            '_lstm': (LSTM_MODEL, LSTM_NN_CONFIG, LSTM_LOSS_CONFIG)}
+            '_lstm': (LSTM_MODEL, LSTM_NN_CONFIG, LSTM_LOSS_CONFIG),
+            '_k20': ('GarmentSegmentPattern3D', dict(ATT_NN_CONFIG, k_neighbors=K_DGCNN),
+                     ATT_LOSS_CONFIG),
+            '_k20_bf16': ('GarmentSegmentPattern3D',
+                          dict(ATT_BF16_NN_CONFIG, k_neighbors=K_DGCNN), ATT_LOSS_CONFIG)}
 
 
 def serve_phase(variant=''):
     """Serving of att (`variant` ''), of att in the bf16 mode (att_bf16.yaml,
-    '_bf16') or of the baseline (lstm_stitch_tags.yaml, '_lstm'): SERVE_CALLS
-    forwards of a (64, 2000, 3) batch. Returns the launches, the model, the
-    serving function and the batch."""
+    '_bf16'), of the baseline (lstm_stitch_tags.yaml, '_lstm') or of att at
+    k = 20 ('_k20', '_k20_bf16'): SERVE_CALLS forwards of a (64, 2000, 3)
+    batch. Returns the launches, the model, the serving function and the
+    batch."""
     import torch
     from garment_pattern_estimation_torch.experiment import build_serving_fn
     from garment_pattern_estimation_torch.models import build_model
@@ -2170,6 +2213,7 @@ def serve_phase(variant=''):
     q1, batch_ms, q3 = statistics.quantiles(times[1:], n=4)
     emit({'phase': phase, 'model': model_name, 'batch': [BATCH, POINTS, 3],
           'calls': SERVE_CALLS, 'compute_dtype': model.config['compute_dtype'],
+          'k_neighbors': nn_section['k_neighbors'],
           'launches': launches, 'launches_per_forward': {
               k: v / SERVE_CALLS for k, v in launches.items()},
           'first_call_ms': times[0], 'batch_ms': batch_ms,
@@ -2179,13 +2223,13 @@ def serve_phase(variant=''):
     return launches, model, serve, points
 
 
-def stress_serving_phase(model, serve, bf16=False):
+def stress_serving_phase(model, serve, bf16=False, phase=None):
     """The same served model on the stress batch: every EdgeConv layer
     through the column-tiled kernels. Returns the launches and the batch."""
     import torch
     from garment_pattern_estimation_torch.ops import edgeconv
 
-    phase = 'stress_serving_bf16' if bf16 else 'stress_serving'
+    phase = phase or ('stress_serving_bf16' if bf16 else 'stress_serving')
     points = physical_points(6, STRESS_BATCH, STRESS_POINTS)
     torch.cuda.reset_peak_memory_stats()
     edgeconv.reset_launches()
@@ -2204,6 +2248,7 @@ def stress_serving_phase(model, serve, bf16=False):
     batch_ms = statistics.median(times[1:])
     emit({'phase': phase, 'batch': [STRESS_BATCH, STRESS_POINTS, 3],
           'compute_dtype': model.config['compute_dtype'],
+          'k_neighbors': model.config['k_neighbors'],
           'calls': STRESS_CALLS, 'launches': launches, 'launches_per_forward': {
               k: v / STRESS_CALLS for k, v in launches.items()},
           'call_ms': times, 'first_call_ms': times[0], 'batch_ms': batch_ms,
@@ -2344,20 +2389,21 @@ def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=Fal
     return gaps
 
 
-def train_phase(bf16=False):
-    """att training, f32 or the bf16 mode: TRAIN_STEPS steps on one
-    (30, 2000, 3) batch. The bf16 mode gathers and scatters one value chunk
-    (knn_gather's 'bwd_hi' backward). Returns the launches and a function
-    that takes one more step."""
+def train_phase(bf16=False, variant=None, phase=None):
+    """att training, f32 or the bf16 mode (or the model of `variant`):
+    TRAIN_STEPS steps on one (30, 2000, 3) batch. The bf16 mode gathers and
+    scatters one value chunk (knn_gather's 'bwd_hi' backward). Returns the
+    launches and a function that takes one more step."""
     import torch
     from garment_pattern_estimation_torch.models import build_model
     from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
     from garment_pattern_estimation_torch.train import Trainer
 
-    phase = 'training_bf16' if bf16 else 'training'
+    phase = phase or ('training_bf16' if bf16 else 'training')
     per_step_expected = {'fwd_small_c': 1, 'fwd_wide_c': 1, 'bwd': 0 if bf16 else 1,
                          'bwd_hi': 1 if bf16 else 0}
-    model_name, nn_section, loss_section = VARIANTS['_bf16' if bf16 else '']
+    model_name, nn_section, loss_section = VARIANTS[
+        variant if variant is not None else '_bf16' if bf16 else '']
     model = build_model(model_name, ATT_DATA_CONFIG, nn_section, loss_section, seed=0)
     trainer = Trainer(ATT_TRAINER)
     trainer.make_optimizer(model, steps_per_epoch=TRAIN_STEPS)
@@ -2404,6 +2450,7 @@ def train_phase(bf16=False):
     q1, step_ms, q3 = statistics.quantiles(times[1:], n=4)
     emit({'phase': phase, 'batch': [TRAIN_BATCH, POINTS, 3], 'steps': TRAIN_STEPS,
           'compute_dtype': model.config['compute_dtype'],
+          'k_neighbors': nn_section['k_neighbors'],
           'launches': launches, 'losses': losses,
           # a corr_* metric is NaN when no pattern's panel count is right
           'terms_last_step': {k: v.item() if math.isfinite(v.item()) else None
@@ -2668,31 +2715,37 @@ def attention_pool10_phase():
           'batch_ms': times[0], 'launches': launches})
 
 
-def knn_k_line(name, points, k, quantized):
+def knn_k_line(name, points, k, quantized, phase='kernel_k10', chunk=None):
     """The standalone kNN entry at k on `points` against the plain version
     (small D: every id; wide D: the wide envelope of `check_ids`); its line
-    of the kernels list (launches filled in later) and the ids."""
+    of the kernels list (launches filled in later) and the ids. `chunk`:
+    the plain versions run, and the ids are checked, that many clouds at a
+    time (the first chunk checked), as the stress phases do."""
     import torch
     from garment_pattern_estimation_torch.ops import knn
 
     B, N, D = points.shape
+    chunk = chunk or B
     ids = knn.knn(points, k)
     torch.cuda.synchronize()
-    ref = knn.knn_reference(points, k)
-    id_share, n_rows, worst_tie, id_err = check_ids(name, points, ids, ref, quantized=quantized)
-    check(torch.equal(ids[..., 0], ref[..., 0]), f'{name}: slot 0 is not the query')
+    ref = knn.knn_reference(points[:chunk], k)
+    id_share, n_rows, worst_tie, id_err = check_ids(name, points[:chunk], ids[:chunk], ref,
+                                                    quantized=quantized)
+    check(torch.equal(ids[:chunk, :, 0], ref[..., 0]), f'{name}: slot 0 is not the query')
     del ref
     wide = D > 16
     line = {'name': name, 'route': 'cuda', 'source': KNN_WIDE_SOURCE if wide else KNN_SOURCE,
             'replaces': KNN_WIDE_REPLACES if wide else KNN_REPLACES, 'k': k,
             'launches': None, 'max_abs_err': id_err,
             'ms': cuda_ms(lambda: knn.knn(points, k)),
-            'plain_ms': cuda_ms(lambda: knn.knn_reference(points, k), 1, 5),
+            'plain_ms': cuda_ms(lambda: chunked(lambda xs: knn.knn_reference(xs, k), points,
+                                                chunk), 1, 5 if chunk == B else 3),
             # torch.cdist + torch.topk: two calls, other rounding and ties
-            'library_ms': cuda_ms(lambda: torch.topk(torch.cdist(points, points), k,
-                                                     largest=False).indices, 1, 5)}
+            'library_ms': cuda_ms(lambda: chunked(lambda xs: torch.topk(
+                torch.cdist(xs, xs), k, largest=False).indices, points, chunk),
+                1, 5 if chunk == B else 3)}
     line['bound_ms'], line['bound_by'] = (knn_wide_bound if wide else knn_bound)(B, N, D, k)
-    emit({'phase': 'kernel_k10', 'shape': [B, N, D], 'id_agreement': id_share,
+    emit({'phase': phase, 'shape': [B, N, D], 'checked_clouds': chunk, 'id_agreement': id_share,
           'id_disagreeing_rows': n_rows, 'near_tie_ratio': worst_tie, **line})
     return line, ids
 
@@ -2758,6 +2811,133 @@ def wide_k_kernels():
     return lines
 
 
+def k_range_kernels(widths):
+    """Each of rows 1-9 at every k of K_RANGE (the capacity instances K =
+    32, 64, 128 and k = 17, 20 within K = 32), at one shape each, against
+    its plain version with the bars of the k = 5 phases: rows 4-5 at (16,
+    2000, 3) and (16, 2000, 150), rows 6-7 (the column-tiled variants) at
+    (4, 10000, 3) and (4, 10000, 150), all at att.yaml's widths; row 1 at
+    (4, 10000, 3); rows 2-3 at (8, 2000, 150); rows 8-9 at (16, 2000, 3)
+    and (16, 2000, 150). Returns {(row, k): line}
+    (row 8's wide-C forward under 8.5)."""
+    import torch
+    from garment_pattern_estimation_torch.ops import edgeconv
+
+    gen = torch.Generator().manual_seed(14)
+    x0 = torch.randn(16, POINTS, 3, generator=gen).cuda()
+    s0 = torch.randn(CHUNK, STRESS_POINTS, 3, generator=gen).cuda()
+    conv0 = random_folded(gen, 3, widths, 'cuda')
+    conv1 = random_folded(gen, widths[-1], widths, 'cuda')
+    timing = (1, 5)
+    lines = {}
+    # conv1's inputs: conv0's outputs at k = 5, as in the model
+    x1, s1 = (edgeconv.fused_edgeconv(x, conv0, K).contiguous() for x in (x0, s0))
+    for k in K_RANGE:
+        _, lines[4, k] = check_kernel(f'fused_edgeconv_small_c_k{k}', x0, conv0, widths, k=k,
+                                      phase='k_range', timing=timing)
+        _, lines[5, k] = check_kernel(f'fused_edgeconv_wide_c_k{k}', x1, conv1, widths, k=k,
+                                      phase='k_range', timing=timing)
+        _, lines[6, k] = check_kernel(f'fused_edgeconv_small_c_tiled_k{k}', s0, conv0, widths,
+                                      k=k, tile_variant=True, phase='k_range', timing=timing)
+        _, lines[7, k] = check_kernel(f'fused_edgeconv_wide_c_tiled_k{k}', s1, conv1, widths,
+                                      k=k, tile_variant=True, phase='k_range', timing=timing)
+        lines[1, k], _ = knn_k_line(f'knn_k{k}', s0, k, True, phase='k_range')
+        lines[2, k], _ = knn_k_line(f'knn_wide_k{k}', x1[:8].contiguous(), k, False,
+                                    phase='k_range')
+        (lines[8, k],) = check_knn_gather(x0, False, k=k, phase_name='k_range',
+                                          timing=timing)
+        lines[8.5, k], lines[9, k] = check_knn_gather(x1, True, k=k, phase_name='k_range',
+                                                      timing=timing)
+    for line in lines.values():
+        line['launches'] = 0            # set from the main path for k = 20
+    return lines
+
+
+def k20_kernels(widths):
+    """The kernels at k = 20 at the shapes of the k = 20 main path, each
+    against its plain version: rows 4-5 at serving's (64, 2000, 3) and (64,
+    2000, 150), rows 8-9 at training's (30, 2000, 3) and (30, 2000, 150),
+    rows 6-7 and 1-3 at the stress batch (128, 10000, C), checked on its
+    first CHUNK clouds. Returns {row: line} (row 8's wide-C forward under
+    8.5)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(20)
+    x0 = torch.randn(BATCH, POINTS, 3, generator=gen).cuda()
+    conv0 = random_folded(gen, 3, widths, 'cuda')
+    conv1 = random_folded(gen, widths[-1], widths, 'cuda')
+    k, lines = K_DGCNN, {}
+    x1, lines[4] = check_kernel('fused_edgeconv_small_c_k20', x0, conv0, widths, k=k)
+    x1 = x1.contiguous()
+    _, lines[5] = check_kernel('fused_edgeconv_wide_c_k20', x1, conv1, widths, k=k)
+    (lines[8],) = check_knn_gather(x0[:TRAIN_BATCH].contiguous(), False, k=k)
+    lines[8.5], lines[9] = check_knn_gather(x1[:TRAIN_BATCH].contiguous(), True, k=k)
+    del x0, x1
+    s0 = torch.randn(STRESS_BATCH, STRESS_POINTS, 3, generator=gen).cuda()
+    lines[1], _ = knn_k_line('knn_k20_stress', s0, k, True, phase='kernel_k20', chunk=CHUNK)
+    s1, lines[6] = check_kernel('fused_edgeconv_small_c_tiled_k20', s0, conv0, widths, k=k,
+                                tile_variant=True)
+    s1 = s1.contiguous()
+    _, lines[7] = check_kernel('fused_edgeconv_wide_c_tiled_k20', s1, conv1, widths, k=k,
+                               tile_variant=True)
+    lines[2], _ = knn_k_line('knn_wide_k20_stress', s1, k, False, phase='kernel_k20',
+                             chunk=CHUNK)
+    return lines
+
+
+def parity_check_phase(out_dir, fit_run_id):
+    """The port's parity CLI (cli/parity_check.py) on the att f32 fit run's
+    best checkpoint over parity_run/data_big/ (its split, 30 test
+    garments): a first pass writes the report; a second pass with
+    `--expected` from the first pass's shape metrics must exit 0. Returns
+    the launches of each pass (rows 4-5: one each per test batch)."""
+    from garment_pattern_estimation_torch.cli import parity_check
+    from garment_pattern_estimation_torch.experiment import ExperimentWrappper
+
+    run = ExperimentWrappper({'experiment': {
+        'project_name': 'chip_smoke', 'run_name': 'fit', 'run_id': fit_run_id}},
+        output_root=out_dir / 'experiments')
+    aliases = json.loads((run.checkpoint_dir() / 'aliases.json').read_text())
+    checkpoint = run.checkpoint_dir() / f'checkpoint_{aliases["best"]}.pt'
+    config = out_dir / 'parity_shape.yaml'         # JSON is YAML
+    config.write_text(json.dumps({
+        'dataset': {'class': 'Garment3DPatternFullDataset', 'data_folders': FIT_FOLDERS,
+                    'mesh_samples': POINTS,
+                    'max_pattern_len': ATT_DATA_CONFIG['max_pattern_len'],
+                    'max_panel_len': ATT_DATA_CONFIG['max_panel_len'],
+                    'max_num_stitches': ATT_DATA_CONFIG['max_num_stitches']},
+        'data_split': FIT_SPLIT, 'NN': dict(ATT_NN_CONFIG, loss=ATT_LOSS_CONFIG),
+        'trainer': {'batch_size': ATT_TRAINER['batch_size']}}))
+    args = ['--dataset_root', str(ROOT / 'parity_run' / 'data_big'),
+            '--shape_config', str(config), '--shape_pth', str(checkpoint)]
+    passes = []
+    for name, extra in (('first', []),
+                        ('expected', ['--expected', str(out_dir / 'parity_expected.json')])):
+        reset_launches()
+        start = time.perf_counter()
+        rc = parity_check.main(args + ['--output', str(out_dir / f'parity_{name}.json')]
+                               + extra)
+        seconds = time.perf_counter() - start
+        report = json.loads((out_dir / f'parity_{name}.json').read_text())
+        passes.append({'pass': name, 'rc': rc, 'seconds': seconds, 'launches': phase_launches(),
+                       'comparisons': report.get('comparisons')})
+        check(rc == 0, f'parity_check: the {name} pass exited {rc}')
+        if name == 'first':
+            metrics = report['shape_metrics']
+            check(sorted(metrics) == sorted(parity_check.SHAPE_METRICS)
+                  and all(math.isfinite(v) for v in metrics.values()),
+                  f'parity_check: shape metrics {metrics}')
+            (out_dir / 'parity_expected.json').write_text(json.dumps(metrics))
+    check(all(c['pass'] for c in passes[1]['comparisons']) and len(passes[1]['comparisons'])
+          == len(parity_check.SHAPE_METRICS), f'parity_check: {passes[1]}')
+    for one in passes:
+        check(one['launches']['fused_small_c'] > 0 and one['launches']['fused_wide_c'] > 0,
+              f'parity_check: the {one["pass"]} pass launched {one["launches"]}')
+    emit({'phase': 'parity_check', 'checkpoint': checkpoint.name, 'shape_metrics': metrics,
+          'passes': passes})
+    return [one['launches'] for one in passes]
+
+
 def encoders_decoders(seconds, k10_lines, k5_lines):
     """The variant phases, the attention model with pool10, then FPS alone
     at pointnet's serving shape (`fps_line`). Each
@@ -2800,24 +2980,27 @@ def encoders_decoders(seconds, k10_lines, k5_lines):
             for name, counts in variant_launches.items() if name != 'pool10'}
 
 
-def stress_train_phase(bf16=False):
-    """Training at the stress configuration, f32 or the bf16 mode: every
-    EdgeConv layer through the chunked sweeps ('fused_final'), conv0's kNN
-    through the small-D kernel and conv1's through the wide-D one. The bf16
-    mode then takes one 'streamed' step, as the JAX bench tries both
-    schedules. Returns the launches and a function that takes one more
-    ('fused_final') step."""
+def stress_train_phase(bf16=False, variant=None, steps=STRESS_TRAIN_STEPS, cpu_check=True,
+                       phase=None):
+    """Training at the stress configuration, f32 or the bf16 mode (or the
+    model of `variant`): `steps` steps, every EdgeConv layer through the
+    chunked sweeps ('fused_final'), conv0's kNN through the small-D kernel
+    and conv1's through the wide-D one. The bf16 mode then takes one
+    'streamed' step, as the JAX bench tries both schedules. `cpu_check`:
+    the forced-chunk step against the CPU plain path. Returns the launches
+    and a function that takes one more ('fused_final') step."""
     import torch
     from garment_pattern_estimation_torch.models import build_model
     from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather
     from garment_pattern_estimation_torch.ops.edgeconv_train import _default_chunk
     from garment_pattern_estimation_torch.train import Trainer
 
-    phase = 'stress_training_bf16' if bf16 else 'stress_training'
-    model_name, nn_section, loss_section = VARIANTS['_bf16' if bf16 else '']
+    phase = phase or ('stress_training_bf16' if bf16 else 'stress_training')
+    model_name, nn_section, loss_section = VARIANTS[
+        variant if variant is not None else '_bf16' if bf16 else '']
     model = build_model(model_name, ATT_DATA_CONFIG, nn_section, loss_section, seed=0)
     trainer = Trainer(ATT_TRAINER)
-    trainer.make_optimizer(model, steps_per_epoch=STRESS_TRAIN_STEPS)
+    trainer.make_optimizer(model, steps_per_epoch=steps)
     batch = training_batch(torch.Generator().manual_seed(8), STRESS_BATCH, 'cuda',
                            STRESS_POINTS)
     states = torch.Generator(device='cuda').manual_seed(ATT_TRAINER['random_seed'])
@@ -2842,7 +3025,7 @@ def stress_train_phase(bf16=False):
     for counter in (edgeconv, knn, knn_gather):
         counter.reset_launches()
     losses, times = [], []
-    for _ in range(STRESS_TRAIN_STEPS):
+    for _ in range(steps):
         loss, terms, ms = step_once()
         losses.append(loss)
         times.append(ms)
@@ -2873,12 +3056,14 @@ def stress_train_phase(bf16=False):
 
     # bf16: 2 clouds, so the CPU's order floor can swap them
     clouds = 2 if bf16 else 1
-    gaps = compare_step_cpu(phase, model, batch, clouds, forced, order_floor=bf16)
+    gaps = compare_step_cpu(phase, model, batch, clouds, forced, order_floor=bf16) \
+        if cpu_check else None
     step_ms = statistics.median(times[1:])
     emit({'phase': phase, 'batch': [STRESS_BATCH, STRESS_POINTS, 3],
           'compute_dtype': model.config['compute_dtype'],
-          'steps': STRESS_TRAIN_STEPS, 'train_mode': convs[0].train_mode,
-          'chunk': _default_chunk(STRESS_BATCH, STRESS_POINTS, K, max(
+          'k_neighbors': nn_section['k_neighbors'],
+          'steps': steps, 'train_mode': convs[0].train_mode,
+          'chunk': _default_chunk(STRESS_BATCH, STRESS_POINTS, nn_section['k_neighbors'], max(
               ATT_NN_CONFIG['EConv_hidden'], ATT_NN_CONFIG['EConv_feature'])),
           'launches': launches,
           'losses': losses,
@@ -3101,17 +3286,23 @@ def main():
     ptxas = {n: ptxas_usage(r['log']) for n, r in report.items()}
     emit({'phase': 'build', 'seconds': {n: r['seconds'] for n, r in report.items()},
           'ptxas': ptxas, 'sass_hmma': hmma,
-          # [registers, spill store bytes, spill load bytes] of the k = 16 instances
+          # [registers, spill store bytes, spill load bytes] of the k = 16
+          # instance and of the capacity instances K = 32, 64, 128
           'k16': {f'{lib}:{n}': u for lib, usage in ptxas.items() for n, u in usage.items()
-                  if template_args(n)[:1] == [16]}})
+                  if template_args(n)[:1] == [16]},
+          'k_capacity': {f'{lib}:{n}': u for lib, usage in ptxas.items()
+                         for n, u in usage.items() if template_args(n)[:1] in ([32], [64], [128])},
+          'k_capacity_csr': {n: u for n, u in ptxas['knn_gather'].items()
+                             if n.startswith('knn_gather_csr_large_kernel')}})
     for lib, kernel in (('knn_wide', 'knn_wide_kernel<5>'),
                         ('knn_gather', 'knn_gather_fwd_kernel<5,0,0>')):
         check(hmma[lib] is None or hmma[lib].get(kernel, 0) > 0,
               f'build: no HMMA instruction in {kernel}')
     fused = [n for n in ptxas['fused_edgeconv'] if n.startswith('fused_edgeconv_kernel<')]
     # k = 1..8 and the k = 9..16 instance: 34 small-C (k x key dims x
-    # tiling), 18 wide-C and 9 selection-only
-    check(len(fused) == 61, f'build: {len(fused)} fused_edgeconv_kernel instantiations, not 61')
+    # tiling), 18 wide-C and 9 selection-only; the capacity instances K =
+    # 32, 64, 128 (one per tiling): 6 small-C, 3 wide-C, 3 selection-only
+    check(len(fused) == 73, f'build: {len(fused)} fused_edgeconv_kernel instantiations, not 73')
     if hmma['fused_edgeconv'] is not None:
         # the edge MLP (and the wide selections) on tensor cores in every
         # instantiation that selects neighbours
@@ -3151,6 +3342,8 @@ def main():
                                                att_kernels, True)
     timed(seconds, 'knn_gather_bwd_sweep', gather_backward_sweep)
     k10_lines = timed(seconds, 'kernel_k10+knn_gather_k10', wide_k_kernels)
+    k_range_lines = timed(seconds, 'k_range', k_range_kernels, widths)
+    k20_lines = timed(seconds, 'kernel_k20', k20_kernels, widths)
     knn_line, small_tiled_line, wide_tiled_line, knn_wide_line, small_tiled_bf16, \
         wide_tiled_bf16 = timed(seconds, 'knn+kernel_tiled(+bf16)+knn_wide', stress_kernels,
                                 widths)
@@ -3188,6 +3381,34 @@ def main():
         timed(seconds, 'profile_stress_training_step' + suffix, profile_phase,
               'stress_training_step' + suffix, stress_train_step)
         del stress_train_step
+
+    # att at DGCNN's k = 20: serving, the stress batch, training, each on
+    # its own counts, set to 0 just before and read just after
+    launches, model, serve, points = timed(seconds, 'serving_k20', serve_phase, '_k20')
+    k20_lines[4]['launches'], k20_lines[5]['launches'] = launches['small_c'], launches['wide_c']
+    stress_launches, stress_points = timed(seconds, 'stress_k20_serving', stress_serving_phase,
+                                           model, serve, False, 'stress_k20')
+    k20_lines[6]['launches'] = stress_launches['small_c_tiled']
+    k20_lines[7]['launches'] = stress_launches['wide_c_tiled']
+    del model, serve, points, stress_points
+    launches, model, serve, points = timed(seconds, 'serving_k20_bf16', serve_phase,
+                                           '_k20_bf16')
+    k20_lines[4]['launches_serving_k20_bf16'] = launches['small_c']
+    k20_lines[5]['launches_serving_k20_bf16'] = launches['wide_c']
+    del model, serve, points
+    train_launches, _ = timed(seconds, 'train_k20', train_phase, False, '_k20', 'train_k20')
+    for row, key in ((8, 'fwd_small_c'), (8.5, 'fwd_wide_c'), (9, 'bwd')):
+        k20_lines[row]['launches'] = train_launches[key]
+    stress_train_launches, _ = timed(seconds, 'stress_k20_training', stress_train_phase, False,
+                                     '_k20', K20_STRESS_STEPS, False, 'stress_k20')
+    k20_lines[1]['launches'] = stress_train_launches['knn']
+    k20_lines[2]['launches'] = stress_train_launches['knn_wide']
+    for line in k20_lines.values():
+        check(line['launches'] > 0, f'k = 20 path: {line["name"]} was not launched')
+    for k in K_RANGE:
+        if k != K_DGCNN:
+            for row in (1, 2, 4, 5, 6, 7, 8, 8.5, 9):
+                k_range_lines[row, k]['on_main_path'] = False
 
     # the baseline GarmentFullPattern3D (lstm_stitch_tags.yaml, f32): the
     # launches of rows 4-5 and 8-9 on its own serving and training paths
@@ -3250,6 +3471,10 @@ def main():
         for line in gather_lines:
             line['launches_stitch_pipeline'] = \
                 stitch_launches['knn_gather_' + launch_key(line['name'])]
+        parity_launches = timed(seconds, 'parity_check', parity_check_phase, out_dir,
+                                run_ids[''])
+        small_line['launches_parity_check'] = sum(p['fused_small_c'] for p in parity_launches)
+        wide_line['launches_parity_check'] = sum(p['fused_wide_c'] for p in parity_launches)
 
         rows = {'fused_small_c': small_line, 'fused_wide_c': wide_line,
                 'fused_small_c_tiled': small_tiled_line, 'fused_wide_c_tiled': wide_tiled_line}
@@ -3280,7 +3505,9 @@ def main():
     print(card, flush=True)
     kernels = [small_line, wide_line, small_tiled_line, wide_tiled_line, knn_line,
                knn_wide_line, *gather_lines, small_bf16, wide_bf16, small_tiled_bf16,
-               wide_tiled_bf16, *gather_bf16, *k10_lines.values()]
+               wide_tiled_bf16, *gather_bf16, *k10_lines.values(),
+               *(k20_lines[row] for row in (4, 5, 6, 7, 1, 2, 8, 8.5, 9)),
+               *(k_range_lines[row, 128] for row in (4, 5, 6, 7, 1, 2, 8, 8.5, 9))]
     for line in kernels:
         line['bound_share'] = line['bound_ms'] / line['ms']
     emit({'kernels': kernels})

@@ -15,14 +15,17 @@
 //                  global whatever N is.
 // Both order the same pairs the same way.
 //
-// k. The kernels are instantiated at K = k for k <= EXACT_K = 8 and once
-// at K = MAX_K = 16 for every k in 9..16: that instance keeps each query's
-// ranked list of the K - 1 best pairs and fills slots 1..k-1 from its
-// head (the order by key and column is total, so the head is the k-1
-// best); slots k..K-1 repeat the query. The selected ids of a query row
-// take slot_capacity(K) ints of shared memory, 8 for K <= 8 as before the
-// K = 16 instance existed, and the candidate lists of the merge are sized
-// alike, so the K <= 8 instances keep their shared-memory layout.
+// k. The kernels are instantiated at K = k for k <= EXACT_K = 8, once at
+// K = MAX_K = 16 for every k in 9..16, and once per capacity bucket
+// K = 32, 64, 128 (LARGE_K_MAX) for k in 17..32, 33..64, 65..128: such an
+// instance keeps each query's ranked list of its best pairs and fills
+// slots 1..k-1 from its head (the order by key and column is total, so the
+// head is the k-1 best); slots k..K-1 repeat the query. The selected ids
+// of a query row take slot_capacity(K) ints of shared memory, 8 for K <= 8
+// as before the K = 16 instance existed, and the candidate lists of the
+// merge are sized alike, so the K <= 8 instances keep their shared-memory
+// layout. The instances above MAX_K select differently (see "k above
+// MAX_K" below); those up to MAX_K are as they were.
 //   select_small_c  C <= 16, SMALL_QB = 128 query rows: exact f32
 //                   distances summed per dimension in dimension order
 //                   without FMA; keys staged through shared memory in
@@ -96,6 +99,29 @@
 // per direction), wgmma and TMA are not used, and the epilogue's packing
 // and compare run for every pair on the CUDA cores.
 //
+// k above MAX_K. A list of K - 1 keys a thread would not fit in
+// registers, so each query row's list belongs to one warp: sorted across
+// the warp, lane l holding positions l, l + 32, ... (K / 32 keys a lane),
+// keys always 64-bit (Rank<true>, or RankExact for the wide-D kNN; both
+// rank like the 32-bit keys). 32 candidates at a time, one per lane, meet
+// the list's (k-1)-th key with one compare and a ballot; each survivor is
+// inserted with one ballot per register (its position) and two shuffles
+// per register (the shift), then the bound is read again, so the few
+// survivors left behind are dropped at once. The order of arrival does not
+// matter: the list always holds the best keys offered so far.
+//   select_small_c_large  LARGE_QB = 32 query rows per block, LARGE_QW = 4
+//                   per warp in registers; keys staged in windows of
+//                   LARGE_WINDOW_BYTES, lane j taking column j of each
+//                   32, the distances computed as select_small_c computes
+//                   them (so the ids equal the plain version's);
+//   select_wide     the same MMA tiles on 64 query rows (K = 32) or 32
+//                   (K = 64, 128: the lists take QB K 8 bytes), each tile's
+//                   distances written to shared memory and scanned by the
+//                   warps, QB / 8 query rows each, their lists in shared
+//                   memory between tiles.
+// Left: the insert path costs about K (1 + ln(N / K)) inserts per query
+// row, each a few dozen instructions for the whole warp; no batch merge.
+//
 // The plain PyTorch versions with the same ranking are ops/edgeconv.py:
 // edgeconv_select and ops/knn.py: knn_reference; their sums run in
 // cuBLAS's order, so ids may differ from them at near ties only.
@@ -119,12 +145,28 @@ constexpr int SMALL_C_MAX = 16;
 constexpr int WIDE_C_MAX = 256;
 constexpr int EXACT_K = 8;        // k at or below: an instance of its own
 constexpr int MAX_K = 16;         // the one instance for EXACT_K < k <= MAX_K
+constexpr int LARGE_K_MAX = 128;  // the largest capacity instance: k <= 128
 constexpr int SMALL_LISTS = THREADS / 32;          // key lanes (warps) of the small-C selection
+constexpr int LARGE_QW = 4;       // query rows per warp of select_small_c_large
+constexpr int LARGE_QB = SMALL_LISTS * LARGE_QW;   // query rows per block of it (32)
+constexpr int LARGE_WINDOW_BYTES = 32768;          // its staged key window
+constexpr int LARGE_WIDE_QB = 32; // query rows per block of the wide selection at K = 64, 128
 
 // The instance that serves k, and the ids a query row keeps in shared
 // memory for instance K (the header and the candidate lists are sized by it).
-__host__ __device__ constexpr int instance_k(int k) { return k <= EXACT_K ? k : MAX_K; }
-__host__ __device__ constexpr int slot_capacity(int K) { return K <= EXACT_K ? EXACT_K : MAX_K; }
+__host__ __device__ constexpr int instance_k(int k) {
+    return k <= EXACT_K ? k : k <= MAX_K ? MAX_K : k <= 32 ? 32 : k <= 64 ? 64 : LARGE_K_MAX;
+}
+__host__ __device__ constexpr int slot_capacity(int K) {
+    return K <= EXACT_K ? EXACT_K : K <= MAX_K ? MAX_K : K;
+}
+// Query rows per block of instance K: select_small_c's (small C),
+// select_wide's streaming (`stream`) or single-tile ones (wide C); above
+// MAX_K, the large-k selections'.
+__host__ __device__ constexpr int select_rows(bool small_c, bool stream, int K) {
+    return K > MAX_K ? (small_c ? LARGE_QB : K <= 32 ? WIDE_QB : LARGE_WIDE_QB)
+                     : small_c ? SMALL_QB : (stream ? WIDE_QB : TM);
+}
 // The selected neighbour ids of QB query rows (the kernels' header).
 __host__ __device__ constexpr int header_bytes(int QB, int K) { return QB * slot_capacity(K) * 4; }
 // The slots instance K fills with neighbours for a launch of k: K itself
@@ -223,6 +265,71 @@ __device__ __forceinline__ void insert(T (&best)[M], T v) {
         const T lo = best[i] < v ? best[i] : v;
         v = best[i] < v ? v : best[i];
         best[i] = lo;
+    }
+}
+
+// The 64-bit key a large-k list ranks by: Rank<true> for the quantized
+// rankings (the same order as Rank<false>), RankExact as it is.
+template <typename R> struct LargeRank { using type = R; };
+template <> struct LargeRank<Rank<false>> { using type = Rank<true>; };
+
+// The entry at warp-uniform position pos of a warp's list, on every lane.
+template <typename T, int L>
+__device__ __forceinline__ T warp_list_at(const T (&list)[L], int pos) {
+    T v = list[0];
+#pragma unroll
+    for (int i = 1; i < L; ++i)
+        if (pos / 32 == i) v = list[i];
+    return __shfl_sync(0xffffffffu, v, pos % 32);
+}
+
+// Inserts v (the same on every lane) into the warp's ascending list (lane
+// l holds positions l + 32 i); the last entry falls off.
+template <typename T, int L>
+__device__ __forceinline__ void warp_list_insert(T (&list)[L], T v, int lane) {
+    int pos = 0;
+#pragma unroll
+    for (int i = 0; i < L; ++i) pos += __popc(__ballot_sync(0xffffffffu, list[i] < v));
+    T up[L], last[L];
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+        up[i] = __shfl_up_sync(0xffffffffu, list[i], 1);       // position - 1, lane > 0
+        last[i] = __shfl_sync(0xffffffffu, list[i], 31);       // position 32 i + 31
+    }
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+        const int p = lane + 32 * i;
+        const T prev = lane > 0 ? up[i] : (i > 0 ? last[i - 1] : v);
+        if (p > pos) list[i] = prev;
+        else if (p == pos) list[i] = v;
+    }
+}
+
+// One candidate per lane (MAX: none) offered to a warp's list whose
+// (k-1)-th key is `bound`: the candidates below it are inserted in lane
+// order, each against the bound as it stands, and `bound` is kept current.
+template <typename T, int L>
+__device__ __forceinline__ void warp_list_offer(T (&list)[L], T& bound, T v, int lane, int k) {
+    unsigned pass = __ballot_sync(0xffffffffu, v < bound);
+    while (pass) {
+        const int src = __ffs(pass) - 1;
+        warp_list_insert(list, __shfl_sync(0xffffffffu, v, src), lane);
+        bound = warp_list_at(list, k - 2);
+        pass &= __ballot_sync(0xffffffffu, v < bound) & ~((2u << src) - 1u);
+    }
+}
+
+// A warp writes a query row's slots from its list: slot 0 `self`, slots
+// 1..k-1 the list's head (`self` where the list ran short), slots past k
+// `self`.
+template <typename R, int K, int L>
+__device__ __forceinline__ void warp_list_write(const typename R::T (&list)[L], int* row,
+                                                int self, int k, int lane) {
+    if (lane == 0) row[0] = self;
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+        const int s = lane + 32 * i + 1;
+        if (s < K) row[s] = s < k && list[i] != R::MAX ? R::column(list[i]) : self;
     }
 }
 
@@ -462,6 +569,74 @@ __device__ void select_small_c(int N, int C, const float* xb, int n0,
     merge_candidates<K, R>(cand, SMALL_LISTS, SMALL_QB, N, n0, sidx, k);
 }
 
+// select_small_c for K > MAX_K: fills sidx[LARGE_QB][K] for queries
+// n0 .. n0 + LARGE_QB - 1 (a row past N repeats row N - 1); `work` holds
+// LARGE_WINDOW_BYTES. Warp w owns query rows w LARGE_QW .. + LARGE_QW - 1,
+// each with its warp list; every window of keys is staged in shared memory
+// and scanned 32 columns at a time.
+template <int K, int CD>
+__device__ void select_small_c_large(int N, int C, const float* xb, int n0,
+                                     unsigned char* work, int* sidx, int k) {
+    using R = Rank<true>;
+    using T = R::T;
+    constexpr int L = K / 32;
+    constexpr int KF = small_key_floats(CD);
+    constexpr int WINDOW = LARGE_WINDOW_BYTES / (KF * 4);
+    const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+    float* keys = reinterpret_cast<float*>(work);                  // [WINDOW][KF]
+    float qx[LARGE_QW][CD];
+    int self[LARGE_QW];
+    T list[LARGE_QW][L], bound[LARGE_QW];
+#pragma unroll
+    for (int i = 0; i < LARGE_QW; ++i) {
+        self[i] = n0 + warp * LARGE_QW + i;
+        const int nq = min(self[i], N - 1);
+#pragma unroll
+        for (int c = 0; c < CD; ++c) qx[i][c] = c < C ? xb[nq * C + c] : 0.f;
+#pragma unroll
+        for (int j = 0; j < L; ++j) list[i][j] = R::MAX;
+        bound[i] = R::MAX;
+    }
+    for (int w0 = 0; w0 < N; w0 += WINDOW) {
+        const int wn = min(WINDOW, N - w0);
+        __syncthreads();                          // the last window is consumed
+        for (int e = t; e < wn * KF; e += THREADS) {
+            const int j = e / KF, c = e - j * KF;
+            keys[e] = c < C ? xb[static_cast<size_t>(w0 + j) * C + c] : 0.f;
+        }
+        __syncthreads();
+        for (int j0 = 0; j0 < wn; j0 += 32) {
+            const int j = j0 + lane;
+            float kx[KF];
+#pragma unroll
+            for (int v = 0; v < KF / 4; ++v) {
+                const float4 f = j < wn ? reinterpret_cast<const float4*>(keys + j * KF)[v]
+                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+                kx[4 * v] = f.x; kx[4 * v + 1] = f.y; kx[4 * v + 2] = f.z; kx[4 * v + 3] = f.w;
+            }
+#pragma unroll
+            for (int i = 0; i < LARGE_QW; ++i) {
+                // exact f32 in dimension order, d*d then add: no FMA
+                // contraction, so the bits equal the plain version's
+                float d = 0.f;
+#pragma unroll
+                for (int c = 0; c < CD; ++c) {
+                    const float df = __fsub_rn(qx[i][c], kx[c]);
+                    const float sq = __fmul_rn(df, df);
+                    d = c == 0 ? sq : __fadd_rn(d, sq);
+                }
+                const int gj = w0 + j;
+                const T v = j < wn && gj != self[i] ? R::pack(d, gj) : R::MAX;
+                warp_list_offer(list[i], bound[i], v, lane, k);
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < LARGE_QW; ++i)
+        warp_list_write<R, K>(list[i], sidx + (warp * LARGE_QW + i) * K, min(self[i], N - 1),
+                              k, lane);
+}
+
 // ---- the wide selection on bf16 tensor cores ----
 
 __host__ __device__ inline int padded_depth(int C) { return (C + DEPTH_STEP - 1) / DEPTH_STEP * DEPTH_STEP; }
@@ -546,6 +721,7 @@ __device__ __forceinline__ SplitRows cloud_rows(const void* scratch, size_t P, i
 template <int QB> struct WideTile;
 template <> struct WideTile<TM> { static constexpr int WQ = 1, WK = 8, NT = 2; };
 template <> struct WideTile<WIDE_QB> { static constexpr int WQ = 4, WK = 2, NT = 4; };
+template <> struct WideTile<LARGE_WIDE_QB> { static constexpr int WQ = 2, WK = 4, NT = 2; };
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -564,7 +740,8 @@ __device__ __forceinline__ void mma_bf16_from_zero(float (&d)[4], const unsigned
 
 // Shared-memory bytes of select_wide for C dimensions: the queries' chunks
 // and norms plus two key units, or the candidate lists of the final merge
-// (which reuse the same bytes), whichever is larger.
+// (which reuse the same bytes), whichever is larger. Above MAX_K: the
+// staged bytes, then a tile's distances (f32) and the rows' lists (64-bit).
 template <int QB>
 inline size_t wide_select_bytes(int C, int splits, size_t key_bytes, int K) {
     using Tile = WideTile<QB>;
@@ -572,21 +749,36 @@ inline size_t wide_select_bytes(int C, int splits, size_t key_bytes, int K) {
     const size_t rs = padded_depth(C) + ROW_PAD;
     const size_t staged = static_cast<size_t>(splits) * QB * rs * 2 + QB * 4
                           + 2 * (KT * rs * 2 + KT * 4);
+    if (K > MAX_K) return staged + static_cast<size_t>(QB) * KT * 4 + static_cast<size_t>(QB) * K * 8;
     const size_t cand = static_cast<size_t>(QB) * 4 * Tile::WK * (slot_capacity(K) - 1)
                         * key_bytes;
     return staged > cand ? staged : cand;
+}
+
+// wide_select_bytes at instance K's query rows (select_rows)
+inline size_t wide_bytes(int C, int splits, size_t key_bytes, int K, bool stream) {
+    switch (select_rows(false, stream, K)) {
+        case TM: return wide_select_bytes<TM>(C, splits, key_bytes, K);
+        case LARGE_WIDE_QB: return wide_select_bytes<LARGE_WIDE_QB>(C, splits, key_bytes, K);
+        default: return wide_select_bytes<WIDE_QB>(C, splits, key_bytes, K);
+    }
 }
 
 // Fills sidx[QB][K] for queries n0 .. n0 + QB - 1 of one cloud of N points
 // (`rows`, split into SPLITS chunks); a query row past N repeats row
 // N - 1. R ranks the distance q_norm + k_norm - 2 * cross, clamped at 0 if
 // CLAMP. `work` holds wide_select_bytes<QB>(C, SPLITS, sizeof(R::T), K);
-// k is the launch's.
+// k is the launch's. Above MAX_K (LARGE) the tiles' pairs go to warp lists
+// instead of per-thread lists.
 template <int K, typename R, int SPLITS, int QB, bool CLAMP>
 __device__ void select_wide(int N, const SplitRows rows, int n0, unsigned char* work,
                             int* sidx, int k) {
     using T = typename R::T;
     using Tile = WideTile<QB>;
+    constexpr bool LARGE = K > MAX_K;
+    using LR = typename LargeRank<R>::type;
+    using LT = typename LR::T;
+    constexpr int LL = K / 32;                    // LARGE: list keys per lane
     constexpr int NT = Tile::NT;
     constexpr int KT = Tile::WK * NT * 8;
     constexpr int LISTS = 4 * Tile::WK;           // candidate lists per query row
@@ -597,6 +789,11 @@ __device__ void select_wide(int N, const SplitRows rows, int n0, unsigned char* 
     float* q_norm = reinterpret_cast<float*>(q_split + SPLITS * QB * RS);   // [QB]
     unsigned char* stages = reinterpret_cast<unsigned char*>(q_norm + QB);
     const int stage_bytes = KT * RS * 2 + KT * 4;  // [KT][RS] bf16, then [KT] norms
+    // LARGE: a tile's distances [QB][KT] and each query row's list [QB][K]
+    float* tile = reinterpret_cast<float*>(stages + 2 * stage_bytes);
+    LT* lists = reinterpret_cast<LT*>(tile + QB * KT);
+    if constexpr (LARGE)
+        for (int e = t; e < QB * K; e += THREADS) lists[e] = LR::MAX;
 
     for (int e = t; e < SPLITS * QB * pieces; e += THREADS) {
         const int s = e / (QB * pieces), r = e - s * QB * pieces;
@@ -623,11 +820,13 @@ __device__ void select_wide(int N, const SplitRows rows, int n0, unsigned char* 
         cp_async_commit();
     };
 
-    T best[2][K - 1];                 // rows wq * 16 + lane / 4 (+ 8), ascending
+    T best[2][LARGE ? 1 : K - 1];     // rows wq * 16 + lane / 4 (+ 8), ascending
+    if constexpr (!LARGE) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int i = 0; i < K - 1; ++i) best[h][i] = R::MAX;
+            for (int i = 0; i < K - 1; ++i) best[h][i] = R::MAX;
+    }
     float acc[NT][4];
     float qn[2] = {0.f, 0.f};
     const int row0 = wq * 16 + lane / 4;
@@ -700,26 +899,57 @@ __device__ void select_wide(int N, const SplitRows rows, int n0, unsigned char* 
                     // 2 * cross is exact, so a contraction into one FMA rounds alike
                     float dd = (qn[h] + k_norm[col]) - 2.f * acc[nt][e];
                     if (CLAMP) dd = fmaxf(dd, 0.f);
-                    if (gj < N && gj != n0 + row0 + 8 * h) {
+                    if constexpr (LARGE) {
+                        tile[(row0 + 8 * h) * KT + col] = dd;
+                    } else if (gj < N && gj != n0 + row0 + 8 * h) {
                         const T v = R::pack(dd, gj);
                         if (v < best[h][K - 2]) insert(best[h], v);
                     }
+                }
+            }
+            if constexpr (LARGE) {        // each warp scans its rows of the tile
+                __syncthreads();
+                for (int i = 0; i < QB / 8; ++i) {
+                    const int q = warp * (QB / 8) + i;
+                    LT list[LL];
+#pragma unroll
+                    for (int l = 0; l < LL; ++l) list[l] = lists[q * K + lane + 32 * l];
+                    LT bound = warp_list_at(list, k - 2);
+#pragma unroll
+                    for (int s = 0; s < KT; s += 32) {
+                        const int gj = jt + s + lane;
+                        const LT v = gj < N && gj != n0 + q ? LR::pack(tile[q * KT + s + lane], gj)
+                                                            : LR::MAX;
+                        warp_list_offer(list, bound, v, lane, k);
+                    }
+#pragma unroll
+                    for (int l = 0; l < LL; ++l) lists[q * K + lane + 32 * l] = list[l];
                 }
             }
         }
         __syncthreads();              // the unit's stage is consumed
     }
 
-    // merge: every thread's two lists through shared memory, then 16 lanes
-    // per query row
-    T* cand = reinterpret_cast<T*>(work);         // [QB][LISTS][K - 1]
+    if constexpr (LARGE) {            // the warps' lists into the slots
+        for (int i = 0; i < QB / 8; ++i) {
+            const int q = warp * (QB / 8) + i;
+            LT list[LL];
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+            for (int l = 0; l < LL; ++l) list[l] = lists[q * K + lane + 32 * l];
+            warp_list_write<LR, K>(list, sidx + q * K, min(n0 + q, N - 1), k, lane);
+        }
+    } else {
+        // merge: every thread's two lists through shared memory, then 16
+        // lanes per query row
+        T* cand = reinterpret_cast<T*>(work);     // [QB][LISTS][K - 1]
 #pragma unroll
-        for (int i = 0; i < K - 1; ++i)
-            cand[((row0 + 8 * h) * LISTS + wk * 4 + lane % 4) * (K - 1) + i] = best[h][i];
-    __syncthreads();
-    merge_candidates<K, R>(cand, LISTS, QB, N, n0, sidx, k);
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < K - 1; ++i)
+                cand[((row0 + 8 * h) * LISTS + wk * 4 + lane % 4) * (K - 1) + i] = best[h][i];
+        __syncthreads();
+        merge_candidates<K, R>(cand, LISTS, QB, N, n0, sidx, k);
+    }
 }
 
 // The fused layer's and knn_gather's wide selection: 2 chunks, the
@@ -751,13 +981,14 @@ inline size_t small_select_bytes(int window, int C, bool tiled, int K) {
 }
 
 // Shared-memory bytes the selection of (N, C) at k needs beyond its
-// header: small C select_small_c's; wide C select_wide_c's, with WIDE_QB
-// query rows when tiled and TM otherwise.
+// header: small C select_small_c's (select_small_c_large's key window
+// above MAX_K); wide C select_wide_c's, with WIDE_QB query rows when tiled
+// and TM otherwise (select_rows above MAX_K).
 inline size_t select_bytes(int C, bool tiled, int window, int k) {
     const int K = instance_k(k);
-    if (C <= SMALL_C_MAX) return small_select_bytes(window, C, tiled, K);
-    return tiled ? wide_select_bytes<WIDE_QB>(C, 2, sizeof(long long), K)
-                 : wide_select_bytes<TM>(C, 2, sizeof(int), K);
+    if (C <= SMALL_C_MAX) return K > MAX_K ? LARGE_WINDOW_BYTES
+                                           : small_select_bytes(window, C, tiled, K);
+    return wide_bytes(C, 2, tiled ? sizeof(long long) : sizeof(int), K, tiled);
 }
 
 }  // namespace knn_select

@@ -85,7 +85,10 @@
 // max is unchanged; the edge MLP runs the 16 slots in two groups of 8, the
 // K = 8 instance's tile of shared memory and accumulators, and the second
 // group's max takes the first's from the output it wrote. Left: the
-// repeated slots cost 16 / k of the MLP work.
+// repeated slots cost 16 / k of the MLP work. The capacity instances K =
+// 32, 64, 128 serve k = 17..128 (select_small_c_large, 32 query rows a
+// block, or select_wide's warp lists, edgeconv_select.cuh) and run only the
+// groups of 8 that hold a slot below k: 3 groups at k = 20, 16 at 128.
 // Registers are held to 128 a thread (two blocks per SM), so one block's
 // selection (CUDA cores) overlaps another's edge MLP (tensor cores); the
 // 2-tile items keep the MLP's accumulators within that. Building with
@@ -148,8 +151,8 @@ template <bool SMALL_C, int CD> __host__ __device__ constexpr int min_blocks() {
 }
 
 // query rows per block
-template <bool SMALL_C, bool TILED> __host__ __device__ constexpr int block_rows() {
-    return SMALL_C ? SMALL_QB : (TILED ? WIDE_QB : TM);
+template <bool SMALL_C, bool TILED, int K> __host__ __device__ constexpr int block_rows() {
+    return select_rows(SMALL_C, TILED, K);
 }
 
 __device__ __forceinline__ uint32_t trunc_bf16_bits(float v) {
@@ -288,6 +291,8 @@ __device__ void edge_mlp(const Params& p, const float* xb, const int* sidx_block
     constexpr int G = K <= EXACT_K ? K : EXACT_K;    // slots per group
     constexpr int R = SLICE * G;              // edge rows: row = slot * SLICE + query
     const int filled = filled_slots<K>(p.k);
+    // the slots the groups cover: all K up to MAX_K, those below k above it
+    const int slots = K > MAX_K ? round_up(filled, G) : K;
     const int t = threadIdx.x, b = blockIdx.y;
     const int N = p.N, C = p.C, D0 = padded_depth(2 * C);
     uint16_t* buf_in = reinterpret_cast<uint16_t*>(work);
@@ -300,7 +305,7 @@ __device__ void edge_mlp(const Params& p, const float* xb, const int* sidx_block
         const int n0 = n0_block + slice * SLICE;
         if (n0 >= N) break;
         const int* sidx = sidx_block + slice * SLICE * K;
-        for (int g0 = 0; g0 < K; g0 += G) {
+        for (int g0 = 0; g0 < slots; g0 += G) {
             // every (row, c < C) element: BUILD_LOADS per thread at a time, all
             // loads issued before any store, so their L2 latencies overlap
             const int total = R * C;
@@ -360,7 +365,7 @@ __device__ void edge_mlp(const Params& p, const float* xb, const int* sidx_block
 template <int K, bool SMALL_C, bool TILED, int CD, bool MLP>
 __global__ void __launch_bounds__(THREADS, min_blocks<SMALL_C, CD>())
 fused_edgeconv_kernel(const Params p) {
-    constexpr int QB = block_rows<SMALL_C, TILED>();
+    constexpr int QB = block_rows<SMALL_C, TILED, K>();
     extern __shared__ __align__(16) unsigned char smem[];
     int* sidx_block = reinterpret_cast<int*>(smem);                 // [QB][K]
     unsigned char* work = smem + header_bytes(QB, K);
@@ -373,6 +378,8 @@ fused_edgeconv_kernel(const Params p) {
 
     if constexpr (K == 1) {
         for (int e = t; e < QB; e += THREADS) sidx_block[e] = min(n0_block + e, N - 1);
+    } else if constexpr (SMALL_C && K > MAX_K) {
+        select_small_c_large<K, CD>(N, C, xb, n0_block, work, sidx_block, p.k);
     } else if constexpr (SMALL_C) {
         select_small_c<K, TILED, CD>(N, C, xb, n0_block, work, sidx_block, p.window, p.k);
     } else {
@@ -400,13 +407,15 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    constexpr int QB = block_rows<SMALL_C, TILED>();
+    constexpr int QB = block_rows<SMALL_C, TILED, K>();
     const dim3 grid((p.N + QB - 1) / QB, p.B);
     kernel<<<grid, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
 
-// CD: select_small_c's dimensions (small C), 0 for wide C.
+// CD: select_small_c's dimensions (small C), 0 for wide C. Above MAX_K one
+// instance per capacity serves both tilings: its keys are 64-bit and its
+// query rows do not depend on N.
 template <bool SMALL_C, bool TILED, int CD, bool MLP = true>
 cudaError_t launch_k(int k, const Params& p, size_t smem, cudaStream_t stream) {
     switch (k) {
@@ -420,13 +429,19 @@ cudaError_t launch_k(int k, const Params& p, size_t smem, cudaStream_t stream) {
         case 8: return launch<8, SMALL_C, TILED, CD, MLP>(p, smem, stream);
         case 9: case 10: case 11: case 12: case 13: case 14: case 15: case 16:
             return launch<MAX_K, SMALL_C, TILED, CD, MLP>(p, smem, stream);
+        default: break;
+    }
+    switch (instance_k(k)) {
+        case 32: return launch<32, SMALL_C, false, CD, MLP>(p, smem, stream);
+        case 64: return launch<64, SMALL_C, false, CD, MLP>(p, smem, stream);
+        case LARGE_K_MAX: return launch<LARGE_K_MAX, SMALL_C, false, CD, MLP>(p, smem, stream);
         default: return cudaErrorInvalidValue;
     }
 }
 
 bool valid_input(int B, int N, int C, int k, size_t scratch_bytes) {
     return B >= 1 && N >= 1 && N <= MAX_FUSED_N && C >= 1 && C <= WIDE_C_MAX && k >= 1
-           && k <= MAX_K && k <= N
+           && k <= LARGE_K_MAX && k <= N
            && scratch_bytes >= (C <= SMALL_C_MAX ? 0 : split_bytes(static_cast<size_t>(B) * N, C, 2));
 }
 
@@ -492,7 +507,7 @@ extern "C" int fused_edgeconv_forward(
     const int group = k <= EXACT_K ? k : EXACT_K;    // edge_mlp's slots per group
     const size_t mlp_bytes = static_cast<size_t>(SLICE) * group * (in_rows + p.hid_stride) * 2
                              + RING_BYTES;
-    const size_t header = header_bytes(small_c ? SMALL_QB : (tiled ? WIDE_QB : TM),
+    const size_t header = header_bytes(select_rows(small_c, tiled, instance_k(k)),
                                        instance_k(k));
     const size_t smem = header + (sel_bytes > mlp_bytes ? sel_bytes : mlp_bytes);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -528,7 +543,8 @@ extern "C" int fused_edgeconv_select(const void* x, void* idx_out, void* scratch
     p.B = B; p.N = N; p.C = C; p.k = k;
     p.split = scratch;
     p.P = static_cast<size_t>(B) * N;
-    const size_t smem = header_bytes(WIDE_QB, instance_k(k)) + select_bytes(C, true, 0, k);
+    const size_t smem = header_bytes(select_rows(false, true, instance_k(k)), instance_k(k))
+                        + select_bytes(C, true, 0, k);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (k > 1) {
         const cudaError_t err = launch_split<2>(p.x, p.P, C, scratch, s);

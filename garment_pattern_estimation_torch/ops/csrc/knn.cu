@@ -31,7 +31,9 @@
 // limit across the 8 key lanes every 512 columns; the lists of the 8 key
 // lanes merge at the end. Left on the table: each unordered pair is
 // computed in both directions, and a warp still takes the insert path on
-// many of its first steps, while its 128 lists fill.
+// many of its first steps, while its 128 lists fill. k = 17..128 run the
+// capacity instances K = 32, 64, 128 (select_small_c_large: a warp list
+// per query row, 32 query rows a block; edgeconv_select.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,21 +55,24 @@ struct Params {
 template <int K, bool TILED, int CD, bool LANE32>
 __global__ void __launch_bounds__(THREADS)
 knn_kernel(const Params p) {
+    constexpr int QB = select_rows(true, TILED, K);
     extern __shared__ __align__(16) unsigned char smem[];
-    int* sidx = reinterpret_cast<int*>(smem);                       // [SMALL_QB][K]
-    const int b = blockIdx.y, n0 = blockIdx.x * SMALL_QB, t = threadIdx.x;
+    int* sidx = reinterpret_cast<int*>(smem);                       // [QB][K]
+    const int b = blockIdx.y, n0 = blockIdx.x * QB, t = threadIdx.x;
     const int N = p.N;
     const float* xb = p.x + static_cast<size_t>(b) * N * p.D;
 
     if constexpr (K == 1) {
-        if (t < SMALL_QB) sidx[t] = min(n0 + t, N - 1);
+        if (t < QB) sidx[t] = min(n0 + t, N - 1);
+    } else if constexpr (K > MAX_K) {
+        select_small_c_large<K, CD>(N, p.D, xb, n0, smem + header_bytes(QB, K), sidx, p.k);
     } else {
         select_small_c<K, TILED, CD, LANE32>(N, p.D, xb, n0, smem + header_bytes(SMALL_QB, K),
                                              sidx, p.window, p.k);
     }
     __syncthreads();
     const int k = filled_slots<K>(p.k);
-    for (int e = t; e < SMALL_QB * k; e += THREADS) {
+    for (int e = t; e < QB * k; e += THREADS) {
         const int q = e / k, s = e - q * k, n = n0 + q;
         if (n < N) p.idx[(static_cast<size_t>(b) * N + n) * k + s] = sidx[q * K + s];
     }
@@ -79,7 +84,8 @@ cudaError_t launch(const Params& p, int B, size_t smem, cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.N + SMALL_QB - 1) / SMALL_QB, B);
+    constexpr int QB = select_rows(true, TILED, K);
+    const dim3 grid((p.N + QB - 1) / QB, B);
     kernel<<<grid, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
@@ -97,6 +103,12 @@ cudaError_t launch_k(int k, const Params& p, int B, size_t smem, cudaStream_t st
         case 8: return launch<8, TILED, CD, LANE32>(p, B, smem, stream);
         case 9: case 10: case 11: case 12: case 13: case 14: case 15: case 16:
             return launch<MAX_K, TILED, CD, LANE32>(p, B, smem, stream);
+        default: break;
+    }
+    switch (instance_k(k)) {          // one instance per capacity, any N
+        case 32: return launch<32, false, CD, true>(p, B, smem, stream);
+        case 64: return launch<64, false, CD, true>(p, B, smem, stream);
+        case LARGE_K_MAX: return launch<LARGE_K_MAX, false, CD, true>(p, B, smem, stream);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -118,7 +130,7 @@ cudaError_t launch_n(int k, const Params& p, int B, size_t smem, cudaStream_t st
 extern "C" int knn_forward(const void* x, void* idx, int B, int N, int D, int k,
                            int tile_n, void* stream) {
     if (B < 1 || B > 65535 || N < 1 || N > MAX_KNN_N || D < 1 || D > SMALL_C_MAX
-            || k < 1 || k > MAX_K || k > N || tile_n < 0 || tile_n > MAX_N)
+            || k < 1 || k > LARGE_K_MAX || k > N || tile_n < 0 || tile_n > MAX_N)
         return static_cast<int>(cudaErrorInvalidValue);
     Params p{};
     p.x = static_cast<const float*>(x);
@@ -126,7 +138,7 @@ extern "C" int knn_forward(const void* x, void* idx, int B, int N, int D, int k,
     p.N = N; p.D = D; p.k = k;
     const bool tiled = N > MAX_N || tile_n > 0;
     p.window = small_c_window(N, D, tile_n);
-    const size_t smem = header_bytes(SMALL_QB, instance_k(k))
+    const size_t smem = header_bytes(select_rows(true, tiled, instance_k(k)), instance_k(k))
                         + select_bytes(D, tiled, p.window, k);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool xyz = small_c_dims(D) == 3;

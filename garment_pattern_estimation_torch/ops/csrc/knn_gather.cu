@@ -42,10 +42,18 @@
 //     first, then ascending e, the order of the kernel this one replaced,
 //     so the same inputs give bitwise-equal dx on every run.
 // k = 9..16 run the selection's K = 16 instance (edgeconv_select.cuh),
-// which writes its first k slots. The CSR build keeps the lists in shared
-// memory while they fit (N (k-1) <= 14,336 entries at N = 2048, k = 8);
-// past that (N = 2000, k = 10: 244 KB) it fills them in place in the
-// caller's scratch, in the same order.
+// which writes its first k slots; k = 17..128 the capacity instances K =
+// 32, 64, 128 (warp lists, edgeconv_select.cuh). The CSR build keeps the
+// lists in shared memory while they fit (N (k-1) <= 14,336 entries at N =
+// 2048, k = 8); past that (N = 2000, k = 10: 244 KB) it fills them in
+// place in the caller's scratch, in the same order. Above k = 16 neither
+// the 16-bit targets (N (k-1) of them, 520 KB at N = 2048, k = 128) nor
+// the 16-bit counts (a hub's list reaches N (k-1) > 65535) fit, so
+// knn_gather_csr_large_kernel builds the same CSR from int counts:
+// shared-memory atomic counts per target (their sums do not depend on the
+// order), a scan, and a fill by one warp walking the entries in ascending
+// order (ranks within a step from __match_any_sync), targets staged from
+// the ids by the whole block.
 // Slot 0 is added at full f32. With n_chunks = 2 the slots >= 1 are too:
 // the TPU kernel's two bf16 chunks exist because TPU f32 dots round their
 // inputs, and hi + lo is the f32 value. With n_chunks = 1 (the bf16 compute
@@ -108,13 +116,16 @@ struct BwdParams {
     bool lists_in_smem;           // the CSR build fills its lists in shared memory
 };
 
-// Query rows per forward block: select_small_c's for small C, TM for wide C.
-template <bool SMALL_C> __host__ __device__ constexpr int fwd_rows() { return SMALL_C ? SMALL_QB : TM; }
+// Query rows per forward block: select_small_c's for small C, TM for wide C
+// (select_rows: the large-k selections' above MAX_K).
+template <bool SMALL_C, int K> __host__ __device__ constexpr int fwd_rows() {
+    return select_rows(SMALL_C, false, K);
+}
 
 template <int K, bool SMALL_C, int CD>
 __global__ void __launch_bounds__(THREADS)
 knn_gather_fwd_kernel(const FwdParams p) {
-    constexpr int QB = fwd_rows<SMALL_C>();
+    constexpr int QB = fwd_rows<SMALL_C, K>();
     extern __shared__ __align__(16) unsigned char smem[];
     int* sidx = reinterpret_cast<int*>(smem);                       // [QB][K]
     unsigned char* work = smem + header_bytes(QB, K);
@@ -124,10 +135,12 @@ knn_gather_fwd_kernel(const FwdParams p) {
 
     if constexpr (K == 1) {
         if (t < QB) sidx[t] = min(n0 + t, N - 1);
+    } else if constexpr (SMALL_C && K > MAX_K) {
+        select_small_c_large<K, CD>(N, C, xb, n0, work, sidx, p.k);
     } else if constexpr (SMALL_C) {
         select_small_c<K, false, CD>(N, C, xb, n0, work, sidx, p.window, p.k);
     } else {
-        select_wide_c<K, false, TM>(N, cloud_rows(p.split, p.P, C, 2, b, N), n0, work, sidx,
+        select_wide_c<K, false, QB>(N, cloud_rows(p.split, p.P, C, 2, b, N), n0, work, sidx,
                                     p.k);
     }
     __syncthreads();
@@ -139,6 +152,22 @@ knn_gather_fwd_kernel(const FwdParams p) {
     }
 
     const int rows = min(QB, N - n0);
+    if constexpr (K > MAX_K) {        // the k slots, not unrolled
+        for (int s = 0; s < k; ++s) {
+            float* out = p.nbr + ((static_cast<size_t>(b) * k + s) * N + n0) * C;
+            for (int e = t; e < rows * C; e += THREADS) {
+                const int qq = e / C, c = e - qq * C;
+                const float v = xb[sidx[qq * K + s] * C + c];
+                float o = v;
+                if (!SMALL_C && s > 0) {
+                    const float hi = trunc_bf16(v);
+                    o = p.n_chunks == 2 ? hi + trunc_bf16(v - hi) : hi;
+                }
+                out[e] = o;
+            }
+        }
+        return;
+    }
 #pragma unroll
     for (int s = 0; s < K; ++s) {
         if (K > EXACT_K && s >= k) break;
@@ -300,6 +329,80 @@ knn_gather_csr_kernel(const BwdParams p) {
     for (int i = t; i < off[N]; i += CSR_THREADS) entries[i] = lists[i];
 }
 
+// The CSR of knn_gather_csr_kernel for k > MAX_K: one block of CSR_THREADS
+// per batch element; shared memory holds the offsets (N + 1 ints), the
+// targets' counts and then fill cursors (N), and a stage of CSR_STAGE
+// targets. Entry e = n (k-1) + s - 1 of every (query n, slot s >= 1); an
+// id outside [0, N) has no target.
+constexpr int CSR_STAGE = 4096;
+
+__host__ __device__ inline size_t csr_large_smem_bytes(int N) {
+    return (static_cast<size_t>(2) * N + 1 + CSR_STAGE) * 4;
+}
+
+__global__ void __launch_bounds__(CSR_THREADS)
+knn_gather_csr_large_kernel(const BwdParams p) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int N = p.N, K = p.K, E = N * (K - 1);
+    int* off = reinterpret_cast<int*>(smem);          // [N + 1]
+    int* cur = off + N + 1;                            // [N]: counts, then cursors
+    int* stage = cur + N;                              // [CSR_STAGE]
+    const int b = blockIdx.x, t = threadIdx.x, lane = t % 32, warp = t / 32;
+    const int* idxb = p.idx + static_cast<size_t>(b) * N * K;
+    int* entries = p.entries + static_cast<size_t>(b) * E;
+    auto target = [&](int e) {
+        const int n = e / (K - 1), s = e - n * (K - 1) + 1;
+        const int id = idxb[n * K + s];
+        return id >= 0 && id < N ? id : -1;
+    };
+
+    for (int v = t; v < N; v += CSR_THREADS) cur[v] = 0;
+    __syncthreads();
+    for (int e = t; e < E; e += CSR_THREADS) {
+        const int id = target(e);
+        if (id >= 0) atomicAdd(cur + id, 1);
+    }
+    __syncthreads();
+    if (warp == 0) {                  // exclusive scan of the counts
+        int run = 0;
+        for (int v0 = 0; v0 < N; v0 += 32) {
+            const int v = v0 + lane;
+            const int c = v < N ? cur[v] : 0;
+            int incl = c;
+#pragma unroll
+            for (int d = 1; d < 32; d *= 2) {
+                const int y = __shfl_up_sync(0xffffffffu, incl, d);
+                if (lane >= d) incl += y;
+            }
+            if (v < N) off[v] = cur[v] = run + incl - c;
+            run += __shfl_sync(0xffffffffu, incl, 31);
+        }
+        if (lane == 0) off[N] = run;
+    }
+    __syncthreads();
+    int* offsets = p.offsets + static_cast<size_t>(b) * (N + 1);
+    for (int i = t; i <= N; i += CSR_THREADS) offsets[i] = off[i];
+
+    // stable fill: warp 0 places the staged entries in ascending order
+    for (int s0 = 0; s0 < E; s0 += CSR_STAGE) {
+        const int sn = min(CSR_STAGE, E - s0);
+        for (int i = t; i < sn; i += CSR_THREADS) stage[i] = target(s0 + i);
+        __syncthreads();
+        if (warp == 0) {
+            for (int i0 = 0; i0 < sn; i0 += 32) {
+                const int i = i0 + lane;
+                const int tg = i < sn ? stage[i] : -1;
+                const unsigned same = __match_any_sync(0xffffffffu, tg);
+                if (tg >= 0) entries[cur[tg] + __popc(same & ((1u << lane) - 1u))] = s0 + i;
+                __syncwarp();
+                if (tg >= 0 && lane == __ffs(same) - 1) cur[tg] += __popc(same);
+                __syncwarp();
+            }
+        }
+        __syncthreads();
+    }
+}
+
 template <int VEC> struct VecOf;
 template <> struct VecOf<1> { using T = float; };
 template <> struct VecOf<2> { using T = float2; };
@@ -432,7 +535,7 @@ cudaError_t launch_fwd(const FwdParams& p, size_t smem, cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    constexpr int QB = fwd_rows<SMALL_C>();
+    constexpr int QB = fwd_rows<SMALL_C, K>();
     const dim3 grid((p.N + QB - 1) / QB, p.B);
     kernel<<<grid, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
@@ -451,13 +554,19 @@ cudaError_t launch_fwd_k(int k, const FwdParams& p, size_t smem, cudaStream_t st
         case 8: return launch_fwd<8, SMALL_C, CD>(p, smem, stream);
         case 9: case 10: case 11: case 12: case 13: case 14: case 15: case 16:
             return launch_fwd<MAX_K, SMALL_C, CD>(p, smem, stream);
+        default: break;
+    }
+    switch (instance_k(k)) {
+        case 32: return launch_fwd<32, SMALL_C, CD>(p, smem, stream);
+        case 64: return launch_fwd<64, SMALL_C, CD>(p, smem, stream);
+        case LARGE_K_MAX: return launch_fwd<LARGE_K_MAX, SMALL_C, CD>(p, smem, stream);
         default: return cudaErrorInvalidValue;
     }
 }
 
 bool valid_shape(int B, int N, int C, int k) {
     return B >= 1 && N >= 1 && N <= MAX_N && C >= 1 && C <= WIDE_C_MAX
-           && k >= 1 && k <= MAX_K && k <= N;
+           && k >= 1 && k <= LARGE_K_MAX && k <= N;
 }
 
 }  // namespace
@@ -489,7 +598,7 @@ extern "C" int knn_gather_forward(const void* x, void* nbr, void* idx,
     p.P = static_cast<size_t>(B) * N;
     const bool small_c = C <= SMALL_C_MAX;
     p.window = small_c ? small_c_window(N, C, 0) : 0;
-    const size_t smem = header_bytes(small_c ? SMALL_QB : TM, instance_k(k))
+    const size_t smem = header_bytes(select_rows(small_c, false, instance_k(k)), instance_k(k))
                         + select_bytes(C, false, p.window, k);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (!small_c && k > 1) {
@@ -531,14 +640,24 @@ extern "C" int knn_gather_backward(const void* idx, const void* g, void* dx,
     p.offsets = static_cast<int*>(scratch);
     p.entries = p.offsets + static_cast<size_t>(B) * (N + 1);
     p.B = B; p.N = N; p.C = C; p.K = k;
-    p.lists_in_smem = csr_smem_bytes(N, k, true) <= MAX_BLOCK_SMEM;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const size_t smem = csr_smem_bytes(N, k, p.lists_in_smem);
-    cudaError_t err = cudaFuncSetAttribute(
-        knn_gather_csr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    knn_gather_csr_kernel<<<B, CSR_THREADS, smem, s>>>(p);
+    cudaError_t err;
+    if (k > MAX_K) {
+        const size_t smem = csr_large_smem_bytes(N);
+        err = cudaFuncSetAttribute(knn_gather_csr_large_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        knn_gather_csr_large_kernel<<<B, CSR_THREADS, smem, s>>>(p);
+    } else {
+        p.lists_in_smem = csr_smem_bytes(N, k, true) <= MAX_BLOCK_SMEM;
+        const size_t smem = csr_smem_bytes(N, k, p.lists_in_smem);
+        err = cudaFuncSetAttribute(
+            knn_gather_csr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        knn_gather_csr_kernel<<<B, CSR_THREADS, smem, s>>>(p);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     // vector width: rows start on C-float boundaries, so C and the base

@@ -39,6 +39,9 @@
 // unordered pair is computed in both directions (a symmetric schedule
 // would merge candidates across blocks), mma.sync instead of wgmma with
 // TMA, and the split chunks cost 1.6 times the f32 cloud's L2 traffic.
+// k = 17..128 run the capacity instances K = 32 (64 query rows a block),
+// 64 and 128 (32 rows: their warp lists take QB K 8 bytes); a block's
+// shared memory is at most 206 KB (D = 256, K = 32).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -63,21 +66,22 @@ struct Params {
 template <int K>
 __global__ void __launch_bounds__(THREADS)
 knn_wide_kernel(const Params p) {
+    constexpr int QB = select_rows(false, true, K);
     extern __shared__ __align__(16) unsigned char smem[];
-    int* sidx = reinterpret_cast<int*>(smem);                       // [WIDE_QB][K]
-    unsigned char* work = smem + header_bytes(WIDE_QB, K);
-    const int b = blockIdx.y, n0 = blockIdx.x * WIDE_QB, t = threadIdx.x;
+    int* sidx = reinterpret_cast<int*>(smem);                       // [QB][K]
+    unsigned char* work = smem + header_bytes(QB, K);
+    const int b = blockIdx.y, n0 = blockIdx.x * QB, t = threadIdx.x;
     const int N = p.N;
 
     if constexpr (K == 1) {
-        if (t < WIDE_QB) sidx[t] = min(n0 + t, N - 1);
+        if (t < QB) sidx[t] = min(n0 + t, N - 1);
     } else {
-        select_wide<K, RankExact, SPLITS, WIDE_QB, false>(
+        select_wide<K, RankExact, SPLITS, QB, false>(
             N, cloud_rows(p.split, p.P, p.D, SPLITS, b, N), n0, work, sidx, p.k);
     }
     __syncthreads();
     const int k = filled_slots<K>(p.k);
-    for (int e = t; e < WIDE_QB * k; e += THREADS) {
+    for (int e = t; e < QB * k; e += THREADS) {
         const int q = e / k, s = e - q * k, n = n0 + q;
         if (n < N) p.idx[(static_cast<size_t>(b) * N + n) * k + s] = sidx[q * K + s];
     }
@@ -89,7 +93,8 @@ cudaError_t launch(const Params& p, int B, size_t smem, cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.N + WIDE_QB - 1) / WIDE_QB, B);
+    constexpr int QB = select_rows(false, true, K);
+    const dim3 grid((p.N + QB - 1) / QB, B);
     kernel<<<grid, THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
@@ -108,7 +113,7 @@ extern "C" size_t knn_wide_scratch_bytes(int B, int N, int D) {
 extern "C" int knn_wide_forward(const void* x, void* idx, void* scratch, size_t scratch_bytes,
                                 int B, int N, int D, int k, void* stream) {
     if (B < 1 || B > 65535 || N < 1 || N > MAX_KNN_N || D <= SMALL_C_MAX
-            || D > WIDE_C_MAX || k < 1 || k > MAX_K || k > N
+            || D > WIDE_C_MAX || k < 1 || k > LARGE_K_MAX || k > N
             || scratch_bytes < knn_wide_scratch_bytes(B, N, D))
         return static_cast<int>(cudaErrorInvalidValue);
     Params p{};
@@ -119,9 +124,8 @@ extern "C" int knn_wide_forward(const void* x, void* idx, void* scratch, size_t 
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = launch_split<SPLITS>(static_cast<const float*>(x), p.P, D, scratch, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t smem = header_bytes(WIDE_QB, instance_k(k))
-                        + wide_select_bytes<WIDE_QB>(D, SPLITS, sizeof(RankExact::T),
-                                                     instance_k(k));
+    const size_t smem = header_bytes(select_rows(false, true, instance_k(k)), instance_k(k))
+                        + wide_bytes(D, SPLITS, sizeof(RankExact::T), instance_k(k), true);
     switch (k) {
         case 1: return static_cast<int>(launch<1>(p, B, smem, s));
         case 2: return static_cast<int>(launch<2>(p, B, smem, s));
@@ -133,6 +137,12 @@ extern "C" int knn_wide_forward(const void* x, void* idx, void* scratch, size_t 
         case 8: return static_cast<int>(launch<8>(p, B, smem, s));
         case 9: case 10: case 11: case 12: case 13: case 14: case 15: case 16:
             return static_cast<int>(launch<MAX_K>(p, B, smem, s));
+        default: break;
+    }
+    switch (instance_k(k)) {
+        case 32: return static_cast<int>(launch<32>(p, B, smem, s));
+        case 64: return static_cast<int>(launch<64>(p, B, smem, s));
+        case LARGE_K_MAX: return static_cast<int>(launch<LARGE_K_MAX>(p, B, smem, s));
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

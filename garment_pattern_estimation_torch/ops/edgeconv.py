@@ -28,15 +28,14 @@ import ctypes
 
 import torch
 
-from .knn import (DIRECT_D_MAX, MAX_N, exact_sq_dists, scratch_bytes, select_ranked,
-                  split_bf16, truncate_bf16)
+from .knn import (DIRECT_D_MAX, K_INSTANCES, MAX_K, MAX_N, exact_sq_dists, scratch_bytes,
+                  select_ranked, split_bf16, truncate_bf16)
 
 SMALL_C_MAX = DIRECT_D_MAX  # C at or below: the exact per-dimension path
 MAX_FUSED_N = 1 << 14       # the JAX package's fused bound (_MAX_FUSED_N)
 _WIDE_C_MAX = 256
 _MAX_LAYERS = 4
 _MAX_WIDTH = 256            # widest edge-MLP layer the kernel takes
-_MAX_K = 16
 
 # Launches of the CUDA kernel, by variant: single tile (N <= 2048) or
 # column-tiled; `launches_by_shape` by (variant, N, C, k). Only
@@ -231,10 +230,11 @@ def _launch(x, folded, k, mlp_dtype, return_idx, tile_n):
     k = min(k, N)
     if tile_n is not None and not 1 <= tile_n <= MAX_N:
         raise ValueError(f'fused_edgeconv: tile_n={tile_n} is outside 1..{MAX_N}')
-    if C > _WIDE_C_MAX or k > _MAX_K or len(layers) > _MAX_LAYERS:
+    if C > _WIDE_C_MAX or k > MAX_K or len(layers) > _MAX_LAYERS:
         raise NotImplementedError(
             f'fused_edgeconv: C={C}, k={k}, {len(layers)} layers is beyond the '
-            f'kernel (C <= {_WIDE_C_MAX}, k <= {_MAX_K}, <= {_MAX_LAYERS} layers)')
+            f'kernel (C <= {_WIDE_C_MAX}, k <= {MAX_K}: {K_INSTANCES}; '
+            f'<= {_MAX_LAYERS} layers)')
     dims = [2 * C] + [w.shape[1] for w, _ in layers]
     if layers[0][0].shape[0] != 2 * C or max(dims[1:]) > _MAX_WIDTH:
         raise ValueError(f'fused_edgeconv: edge MLP widths {dims} do not fit '

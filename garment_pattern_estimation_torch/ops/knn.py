@@ -39,7 +39,10 @@ INT_MAX = torch.iinfo(torch.int32).max
 MAX_N = 1 << IDX_BITS              # columns the int32 packing can carry
 DIRECT_D_MAX = 16                  # D at or below: exact per-dimension distances
 WIDE_D_MAX = 256                   # the wide-D kernel's bound
-_MAX_K = 16                        # the kernels' k: an instance per k to 8, one for 9..16
+# the kernels' k: an instance per k to 8, one for 9..16, then one per
+# capacity bucket 17..32, 33..64, 65..128 (k read at run time)
+MAX_K = 128
+K_INSTANCES = 'an instance per k to 8, one for 9..16, 17..32, 33..64 and 65..128'
 _SPLIT_TERMS = 3                   # truncation chunks of the wide-D distances
 # partial products of the wide-D cross term, summed in this order: the
 # JAX package's _CROSS_PAIRS[3]
@@ -204,8 +207,9 @@ def _check_launch(points, k):
     if points.dtype != torch.float32:
         raise TypeError(f'knn: points must be float32, got {points.dtype}')
     k = min(k, points.shape[1])
-    if not 1 <= k <= _MAX_K:
-        raise NotImplementedError(f'knn: k={k} is beyond the kernel (1 <= k <= {_MAX_K})')
+    if not 1 <= k <= MAX_K:
+        raise NotImplementedError(
+            f'knn: k={k} is beyond the kernels (1 <= k <= {MAX_K}: {K_INSTANCES})')
     return points.contiguous(), k
 
 

@@ -30,10 +30,9 @@ import ctypes
 import torch
 
 from .edgeconv import SMALL_C_MAX, edgeconv_select
-from .knn import MAX_N, scratch_bytes, truncate_bf16
+from .knn import K_INSTANCES, MAX_K, MAX_N, scratch_bytes, truncate_bf16
 
 _WIDE_C_MAX = 256
-_MAX_K = 16
 
 # Launches of the CUDA kernels, by variant ('bwd_hi': the backward at
 # value_chunks=1); `launches_by_shape` by (variant, N, C, k). Only the
@@ -137,10 +136,10 @@ def _check(x, k):
             f'knn_gather: N={N} > {MAX_N} exceeds the packed column ids; '
             'EdgeConv trains such clouds through the standalone kNN '
             '(models.blocks.EdgeConv)')
-    if C > _WIDE_C_MAX or not 1 <= k <= min(_MAX_K, N):
+    if C > _WIDE_C_MAX or not 1 <= k <= min(MAX_K, N):
         raise NotImplementedError(
             f'knn_gather: C={C}, k={k} is beyond the kernel '
-            f'(C <= {_WIDE_C_MAX}, 1 <= k <= min({_MAX_K}, N))')
+            f'(C <= {_WIDE_C_MAX}, 1 <= k <= min({MAX_K}, N): {K_INSTANCES})')
 
 
 def _library():
@@ -201,10 +200,10 @@ def knn_gather_bwd(idx, g, value_chunks=2):
     B, k, N, C = g.shape
     if tuple(idx.shape) != (B, N, k):
         raise ValueError(f'knn_gather: ids {tuple(idx.shape)} do not fit g {tuple(g.shape)}')
-    if N > MAX_N or C > _WIDE_C_MAX or not 1 <= k <= min(_MAX_K, N):
+    if N > MAX_N or C > _WIDE_C_MAX or not 1 <= k <= min(MAX_K, N):
         raise NotImplementedError(
             f'knn_gather: backward of N={N}, C={C}, k={k} is beyond the kernel '
-            f'(N <= {MAX_N}, C <= {_WIDE_C_MAX}, 1 <= k <= min({_MAX_K}, N))')
+            f'(N <= {MAX_N}, C <= {_WIDE_C_MAX}, 1 <= k <= min({MAX_K}, N): {K_INSTANCES})')
     idx = idx.to(torch.int32).contiguous()
     g = g.float().contiguous()
     dx = torch.empty(B, N, C, device=g.device, dtype=torch.float32)

@@ -918,21 +918,129 @@ def test_knn_gather_backward_hub_above_k8(cuda, rng, n_points, k):
 
 
 def test_k_above_16_raises(cuda, rng):
-    """k = 17 is past every kernel: NotImplementedError naming the cap."""
+    """k = 129 is past every kernel (the capacity instances end at 128):
+    NotImplementedError naming the cap."""
     folded = _folded(rng, 3, [8, 8], cuda)
-    small = torch.randn(1, 100, 3, device=cuda)
-    wide = torch.randn(1, 100, 32, device=cuda)
-    with pytest.raises(NotImplementedError, match='16'):
-        knn.knn(small, 17)
-    with pytest.raises(NotImplementedError, match='16'):
-        knn.knn(wide, 17)
-    with pytest.raises(NotImplementedError, match='16'):
-        edgeconv.fused_edgeconv(small, folded, k=17)
-    with pytest.raises(NotImplementedError, match='16'):
-        knn_gather.knn_gather_fwd(small, 17)
-    idx = torch.zeros(1, 100, 17, dtype=torch.int64, device=cuda)
-    with pytest.raises(NotImplementedError, match='16'):
-        knn_gather.knn_gather_bwd(idx, torch.zeros(1, 17, 100, 3, device=cuda))
+    small = torch.randn(1, 200, 3, device=cuda)
+    wide = torch.randn(1, 200, 32, device=cuda)
+    with pytest.raises(NotImplementedError, match='128'):
+        knn.knn(small, 129)
+    with pytest.raises(NotImplementedError, match='128'):
+        knn.knn(wide, 129)
+    with pytest.raises(NotImplementedError, match='128'):
+        edgeconv.fused_edgeconv(small, folded, k=129)
+    with pytest.raises(NotImplementedError, match='128'):
+        knn_gather.knn_gather_fwd(small, 129)
+    idx = torch.zeros(1, 200, 129, dtype=torch.int64, device=cuda)
+    with pytest.raises(NotImplementedError, match='128'):
+        knn_gather.knn_gather_bwd(idx, torch.zeros(1, 129, 200, 3, device=cuda))
+
+
+# ---- k above 16: the capacity instances K = 32, 64, 128 ----
+
+K_RANGE = (17, 20, 32, 64, 128)
+
+
+@pytest.mark.parametrize('k', K_RANGE)
+@pytest.mark.parametrize('n_points,C,widths', [
+    (2000, 3, [200, 200, 150]),       # row 4: the att conv0 at k = 20
+    (2000, 150, [200, 200, 150]),     # row 5: conv1
+    (3000, 3, [64, 32]),              # row 6: the column-tiled small C
+    (2500, 150, [64, 32]),            # row 7: the streamed wide C
+    (130, 24, [24, 16]),              # ragged query blocks, k near N
+    (2049, 256, [32, 16]),            # the widest C
+])
+def test_kernel_above_k16_matches_plain(cuda, rng, k, n_points, C, widths):
+    """The fused layer at k = 17..128: small-C ids exactly the plain
+    version's, wide ids at least 99% and every disagreement a near tie of
+    the quantized distances, outputs within 1e-2 of the plain tail's scale
+    (1e-4 on average), f32 and bf16 MLP, one launch per call."""
+    folded = _folded(rng, C, widths, cuda)
+    x = torch.from_numpy(rng.normal(size=(2, n_points, C)).astype(np.float32)).to(cuda)
+    for mlp_dtype in (torch.float32, torch.bfloat16):
+        before = sum(edgeconv.launches.values())
+        out, idx = edgeconv.fused_edgeconv(x, folded, k=k, mlp_dtype=mlp_dtype,
+                                           return_idx=True)
+        torch.cuda.synchronize()
+        assert sum(edgeconv.launches.values()) == before + 1
+        assert idx.shape == (2, n_points, min(k, n_points))
+        ref_idx, x_lp = edgeconv.edgeconv_select(x, k, mlp_dtype)
+        assert torch.equal(idx[..., 0], ref_idx[..., 0])
+        if C <= edgeconv.SMALL_C_MAX:
+            assert torch.equal(idx, ref_idx)
+        else:
+            assert (idx == ref_idx).float().mean().item() >= 0.99
+        tail = edgeconv.edgeconv_mlp_max(x, idx, x_lp, folded).cpu().numpy()
+        scale = float(np.abs(tail).max())
+        diff = np.abs(out.cpu().numpy() - tail)
+        assert diff.max() <= 1e-2 * scale and diff.mean() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize('k', K_RANGE)
+@pytest.mark.parametrize('shape', [(2, 5000, 3), (2, 300, 16), (1, 16385, 3), (3, 129, 8)])
+def test_knn_above_k16_matches_plain(cuda, rng, k, shape):
+    """Row 1 at k = 17..128: ids exactly the plain version's."""
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
+    before = knn.launches['knn']
+    ids = knn.knn(x, k)
+    torch.cuda.synchronize()
+    assert knn.launches['knn'] == before + 1
+    assert torch.equal(ids, knn.knn_reference(x, k))
+
+
+@pytest.mark.parametrize('k', K_RANGE)
+@pytest.mark.parametrize('D,n_points', [(150, 2000), (32, 300), (256, 2049), (150, 10000)])
+def test_knn_wide_above_k16_matches_plain(cuda, rng, k, D, n_points):
+    """Rows 2-3 at k = 17..128: the bars of test_knn_wide_matches_plain."""
+    test_knn_wide_matches_plain(cuda, rng, D, n_points, k)
+
+
+@pytest.mark.parametrize('k', K_RANGE)
+def test_small_c_above_k16_duplicates_and_ties(cuda, rng, k):
+    """Integer coordinates with duplicate points: every distance ties with
+    many others, and the lower column must win in the fused layer, the kNN
+    and knn_gather alike."""
+    x = torch.from_numpy(rng.integers(-3, 4, size=(2, 600, 3)).astype(np.float32))
+    x[:, 300:] = x[:, :300]
+    x = x.to(cuda)
+    folded = _folded(rng, 3, [16, 8], cuda)
+    _check_small_c_entries(cuda, x, k, folded)
+
+
+@pytest.mark.parametrize('k', K_RANGE)
+@pytest.mark.parametrize('n_points,C,value_chunks', [
+    (2000, 3, 2), (2000, 150, 2), (2000, 150, 1), (300, 32, 2), (2048, 256, 2)])
+def test_knn_gather_above_k16_matches_plain(cuda, rng, k, n_points, C, value_chunks):
+    """Rows 8-9 at k = 17..128: forward ids and rows, backward dx within
+    1e-5 of the f64 plain version, two runs bitwise equal."""
+    test_knn_gather_matches_plain(cuda, rng, n_points, C, k, value_chunks)
+
+
+@pytest.mark.parametrize('n_points,k,C,value_chunks', [
+    (n, k, c, v) for n in (129, 2048) for k in K_RANGE for c in (3, 150) for v in (1, 2)])
+def test_knn_gather_backward_order_above_k16(cuda, rng, n_points, k, C, value_chunks):
+    test_knn_gather_backward_order(cuda, rng, n_points, k, C, value_chunks)
+
+
+@pytest.mark.parametrize('n_points,k,C,value_bar', [
+    (2000, 20, 150, 1e-5), (2048, 128, 24, 1e-4), (2048, 64, 256, 1e-4)])
+def test_knn_gather_backward_hub_above_k16(cuda, rng, n_points, k, C, value_bar):
+    """A hub holding all N (k-1) entries: 260,096 at N = 2048, k = 128,
+    past any 16-bit count. The kernels equal the ordered sum bitwise. That
+    f32 sum of 129,024 or 260,096 terms, one add at a time, is itself off
+    the f64 oracle by 1.0e-5 and 1.4e-5 of its largest magnitude (measured
+    on the card), so those two hubs are held to the oracle within 1e-4;
+    the 38,000-term hub within test_knn_gather_backward_hub's 1e-5."""
+    B, hub = 2, n_points // 3
+    idx = torch.full((B, n_points, k), hub, dtype=torch.int64)
+    idx[:, :, 0] = torch.arange(n_points)
+    idx = idx.to(cuda)
+    g = torch.from_numpy(rng.normal(size=(B, k, n_points, C)).astype(np.float32)).to(cuda)
+    dx = knn_gather.knn_gather_bwd(idx, g)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, knn_gather.knn_gather_backward_ordered(idx, g))
+    ref_dx = knn_gather.knn_gather_backward_reference(idx, g, 2, torch.float64)
+    assert (dx.double() - ref_dx).abs().max().item() <= value_bar * ref_dx.abs().max().item()
 
 
 @pytest.mark.parametrize('variant', ['pool10', 'gpool', 'aggr_mean', 'aggr_add', 'pointnet'])

@@ -83,6 +83,14 @@ def test_import_scan_covers_the_sampling_and_tool_modules():
     assert 'matplotlib' not in top_level
 
 
+def test_import_scan_covers_the_comparator():
+    """The parity CLI is scanned too: it reads a JAX report, never imports
+    the JAX package."""
+    scanned = {str(p.relative_to(_PACKAGE)) for p in _PACKAGE.rglob('*.py')}
+    assert 'cli/parity_check.py' in scanned
+    assert not set(_imported_roots(_PACKAGE / 'cli' / 'parity_check.py')) & set(_FORBIDDEN)
+
+
 def test_chip_smoke_imports_no_jax():
     path = _PACKAGE.parent / 'chip_smoke.py'
     bad = sorted(set(_imported_roots(path)) & set(_FORBIDDEN))
