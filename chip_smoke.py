@@ -195,7 +195,34 @@ preprocess/device_sampling.py), after encoders_decoders:
            shapes and finiteness, exactly 1 + 1 fused launches per call, no
            snap; ms per batch (median after the first of 11), clouds/s, peak
            memory, and the forward alone on one of the stage's clouds
-and after fit_lstm:
+after fit_lstm, data parallelism over torch.distributed (parallel/), each
+line with `ranks`, R = torch.cuda.device_count() (one card: a world-1 NCCL
+group over a TCP store on 127.0.0.1, in this process; more: R NCCL ranks
+spawned, one card each, and the world-1 group still serves parallel_ring):
+  parallel_fit  `Trainer.fit` of the att f32 fit cell (the same data, split,
+           seed, weights and schedule) with trainer.mesh {data: R}, stopped
+           after its first epoch's validation: every step's loss against the
+           fit run's epoch 0 (the first within 1e-5 relative), the
+           validation loss within 1e-4 relative (R >= 2: or twice the gap
+           that 1e-7 relative noise on the clouds makes in one process's
+           run, the floor of summing in another order; where the batch of
+           30 does not divide over R its padded rows enter the statistics
+           and the gaps are printed only), rows 8-9 once per step and
+           rows 4-5 once per validation batch as in fit, ms per step beside
+           fit's epoch 0 (the collectives' cost at this R)
+  parallel_ring  `parallel.ring._ring_merge` driven over P = 4 shards, in
+           ring order, of (8, 2000, 3) and (8, 2000, 150) clouds: ids
+           against `knn_gather_reference` on the whole cloud (at least 99%
+           equal, every difference within one 21-bit bucket of the exact
+           distance plus 2^-15 of the squared norms: the plain version ranks
+           per-dimension sums for small C and split bf16 products for wide
+           C, the ring the f32 norm expansion, as JAX's does), rows equal to
+           the gathered cloud; `sharded_encoder_step` over the world-1 group
+           (att's two EdgeConv layers, 8 x 2000 points) within 2e-4 of scale
+           of the same layers unsharded in plain f32, the JAX ring tests'
+           bar (the fused kernels round the edge MLP to bf16: their gap is
+           printed)
+and then:
   fit_on_device  `fit` as the att f32 fit with on_device_sampling at the
            default caps (8192 / 16384) and trainer.profile {start_step: 2,
            num_steps: 2}: finite losses, a new cloud every step and one per
@@ -292,7 +319,8 @@ The f32 entries of rows 2, 4, 5, 8 and 9 carry `launches_variants`, the
 other variants' launches of their kernel at k = 5. The entries of rows 4-5
 (f32 and bf16) carry `launches_mesh_to_prediction`, and the f32 entries of
 rows 4, 5, 8 and 9 `launches_fit_on_device`, and the f32 entries of rows 4-5
-`launches_parity_check`. The k = 20 entries (rows 4, 5, 6, 7, 1, 2, 8 small
+`launches_parity_check`, and the f32 entries of rows 4, 5, 8 and 9
+`launches_parallel_fit`. The k = 20 entries (rows 4, 5, 6, 7, 1, 2, 8 small
 and wide C, 9) carry the k = 20 main path's launches (rows 4-5 also
 `launches_serving_k20_bf16`); the k = 128 entries, from k_range, are on no
 path (`on_main_path` false, 0 launches).
@@ -414,6 +442,7 @@ DX_MAX_REL = 1e-5
 TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_PARAM_GRAD_REL = 1e-3, 1e-2, 5e-2
 OUT_MAX_REL, OUT_MEAN_REL = 1e-2, 1e-4
 ORDER_FLOOR_FACTOR = 2.0           # bf16 gradient bars: this many times the CPU's order floor
+PARALLEL_FIT_HELD_STEPS = 4       # parallel_fit at R >= 2: these first steps' losses within 1e-5
 WIDE_ID_AGREEMENT = 0.99
 NEAR_TIE_REL = 2.0 ** -10          # 4 quantization buckets of the packed distance
 NORM_ULPS = 2.0 ** -18             # 32 f32 ulps of the squared norms
@@ -1189,6 +1218,289 @@ def fit_phase(out_dir, variant=''):
         line['step_ms_breakdown'] = breakdown
     emit(line)
     return launches, experiment.run_id
+
+
+PARALLEL_RING_SHARDS = 4
+PARALLEL_RING_SHAPES = ((8, 2000, 3), (8, 2000, 150))
+RING_BUCKET_REL = 2.0 ** -12      # one bucket of the 21-bit ranking class
+RING_NORM_REL = 2.0 ** -15        # the two distance formulas' rounding, of the squared norms
+
+
+class _EpochDone(Exception):
+    """Stops `fit` once its first epoch's record is logged."""
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _parallel_fit_run(out_dir, ranks, perturb=None, pad=None):
+    """Trainer.fit of the att f32 fit cell over a data mesh of `ranks`
+    ranks in the process group that exists, stopped after the first
+    epoch's record; `perturb` scales every cloud by 1 + perturb * a seeded
+    normal draw; `pad` pads every batch to a multiple of `pad` rows (the
+    last sample repeated) and cuts the predictions to the real batch before
+    the loss, as a mesh of `pad` ranks does. Returns (launches, steps per
+    epoch, validation batches, fit s, step records, epoch record, the first
+    step's gradient as it enters the optimizer): the records read back on
+    the first rank, None on the others; the gradient flat on the host."""
+    import torch
+    from garment_pattern_estimation_torch.experiment import ExperimentWrappper
+    from garment_pattern_estimation_torch.models import build_model
+    from garment_pattern_estimation_torch.parallel import is_first_rank
+    from garment_pattern_estimation_torch.parallel.mesh import pad_batch_to_multiple
+    from garment_pattern_estimation_torch.train import Trainer
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    model_name, nn_section, loss_section = VARIANTS['']
+    dataset = fit_dataset()
+    experiment = ExperimentWrappper({'experiment': {'project_name': 'chip_smoke',
+                                                    'run_name': 'parallel_fit'}},
+                                    output_root=out_dir)
+    # the fit phase's schedule: FIT_EPOCHS epochs, of which the first runs
+    setup = dict(ATT_TRAINER, epochs=FIT_EPOCHS, mesh={'data': ranks})
+    trainer = Trainer(setup, experiment, dataset, dict(FIT_SPLIT))
+    model = build_model(model_name, dataset.config, nn_section, loss_section, seed=0)
+    log = experiment.log
+
+    def log_then_stop(record, step=None):
+        log(record, step)
+        if 'valid_loss' in record:
+            raise _EpochDone
+
+    experiment.log = log_then_stop
+    if perturb:
+        place, gen = trainer._place, torch.Generator().manual_seed(5)
+
+        def perturbed(batch):
+            features, gt = place(batch)
+            noise = torch.randn(features.shape, generator=gen).to(features.device)
+            return features * (1 + perturb * noise), gt
+
+        trainer._place = perturbed
+    if pad:
+        trainer._pad = lambda batch: pad_batch_to_multiple(
+            {'features': batch['features'], 'ground_truth': batch['ground_truth']}, pad)
+    first_grad = []
+
+    def keep_first_gradient(optimizer, args, kwargs):
+        if not first_grad:
+            first_grad.append(torch.cat([p.grad.reshape(-1) for g in optimizer.param_groups
+                                         for p in g['params'] if p.grad is not None]).cpu())
+
+    hook = register_optimizer_step_pre_hook(keep_first_gradient)
+    reset_launches()
+    start = time.perf_counter()
+    try:
+        trainer.fit(model)
+        fail('parallel_fit: fit ended before its first epoch record')
+    except _EpochDone:
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    fit_s = time.perf_counter() - start
+    records = read_records(experiment) if is_first_rank() else (None, None)
+    return (phase_launches(), len(trainer.datawrapper.loaders.train),
+            len(trainer.datawrapper.loaders.validation), fit_s, *records, first_grad[0])
+
+
+def _parallel_fit_rank(out_dir, ranks, result_path):
+    """`_parallel_fit_run` on a spawned rank; the first writes the result
+    (the gradient beside it, as a tensor file)."""
+    import torch
+    from garment_pattern_estimation_torch.parallel import is_first_rank
+
+    *result, grad = _parallel_fit_run(out_dir, ranks)
+    if is_first_rank():
+        Path(result_path).write_text(json.dumps(result))
+        torch.save(grad, result_path + '.grad.pt')
+
+
+def _relative_gaps(steps, ref_steps):
+    return [abs(r['loss'] - f['loss']) / abs(f['loss']) for r, f in zip(steps, ref_steps)]
+
+
+def parallel_fit_phase(runs_dir, fit_run_id):
+    """trainer.mesh {data: R} over the att f32 fit cell's first epoch. R = 1
+    runs in this process's world-1 group against the fit run: its losses
+    are bitwise fit's. R >= 2 spawns R NCCL ranks and holds them against
+    one process on the same padded batches (`pad`; the duplicates enter the
+    BatchNorm statistics and the LSTM states' std, as in the JAX step): the
+    first step's gradient, the first PARALLEL_FIT_HELD_STEPS steps' losses
+    and the validation loss. Checks the launches and returns rank 0's."""
+    import torch
+    from garment_pattern_estimation_torch.experiment import ExperimentWrappper
+    from garment_pattern_estimation_torch.parallel.dryrun import spawn
+
+    ranks = torch.cuda.device_count()
+    line = {'phase': 'parallel_fit', 'ranks': ranks, 'backend': 'nccl', 'mesh': {'data': ranks}}
+    if ranks == 1:
+        launches, spe, n_valid, fit_s, steps, epochs, _ = _parallel_fit_run(runs_dir, 1)
+        ref_steps, ref_epochs = read_records(ExperimentWrappper(
+            {'experiment': {'project_name': 'chip_smoke', 'run_name': 'fit',
+                            'run_id': fit_run_id}}, output_root=runs_dir))
+        ref_steps = [r for r in ref_steps if r['epoch'] == 0]
+        held, valid_bar = 1, 1e-4
+    else:
+        result_path = runs_dir / 'parallel_fit.json'
+        spawn(_parallel_fit_rank, ranks, runs_dir, ranks, str(result_path), backend='nccl')
+        launches, spe, n_valid, fit_s, steps, epochs = json.loads(result_path.read_text())
+        grad = torch.load(str(result_path) + '.grad.pt')
+        # the reference: one process on the batches padded to R
+        *_, ref_steps, ref_epochs, ref_grad = _parallel_fit_run(runs_dir, 1, pad=ranks)
+        grad_gap = ((grad - ref_grad).norm() / ref_grad.norm()).item()
+        check(grad_gap <= 1e-5,
+              f'parallel_fit: the first step\'s gradient {grad_gap} of its norm off one process\'s')
+        # R ranks sum each statistic and gradient in another order; through
+        # near-tie neighbours and Adam's steps that moves the epoch's
+        # validation loss as much as perturbing the clouds by 1e-7 does: the
+        # validation bar is the larger of 1e-4 and ORDER_FLOOR_FACTOR times
+        # that floor, one process's perturbed run against the reference
+        floor_epochs = _parallel_fit_run(runs_dir, 1, perturb=1e-7, pad=ranks)[5]
+        floor = abs(floor_epochs[0]['valid_loss'] - ref_epochs[0]['valid_loss']) \
+            / abs(ref_epochs[0]['valid_loss'])
+        held, valid_bar = PARALLEL_FIT_HELD_STEPS, max(1e-4, ORDER_FLOOR_FACTOR * floor)
+        line.update(grad_gap=grad_gap, valid_floor_1e7=floor)
+    check(len(steps) == len(ref_steps) == spe and len(epochs) == 1,
+          f'parallel_fit: {len(steps)} steps and {len(epochs)} epochs against the reference\'s '
+          f'{len(ref_steps)} steps of epoch 0')
+    check(all(math.isfinite(r['loss']) for r in steps)
+          and math.isfinite(epochs[0]['valid_loss']), 'parallel_fit: a loss is not finite')
+    gaps = _relative_gaps(steps, ref_steps)
+    ref_valid = ref_epochs[0]['valid_loss']
+    valid_gap = abs(epochs[0]['valid_loss'] - ref_valid) / abs(ref_valid)
+    check(max(gaps[:held]) <= 1e-5,
+          f'parallel_fit: step losses {gaps[:held]} relative off the reference\'s')
+    check(valid_gap <= valid_bar,
+          f'parallel_fit: validation loss {valid_gap} relative off the reference\'s '
+          f'(bar {valid_bar})')
+    expected = {'fused_small_c': n_valid, 'fused_wide_c': n_valid, 'fused_small_c_tiled': 0,
+                'fused_wide_c_tiled': 0, 'knn_gather_fwd_small_c': spe,
+                'knn_gather_fwd_wide_c': spe, 'knn_gather_bwd': spe, 'knn_gather_bwd_hi': 0}
+    check(launches == expected, f'parallel_fit: launches {launches}, expected {expected}')
+    fit_steps, fit_epochs = read_records(ExperimentWrappper(
+        {'experiment': {'project_name': 'chip_smoke', 'run_name': 'fit', 'run_id': fit_run_id}},
+        output_root=runs_dir))
+    line.update(steps=spe, valid_batches=n_valid, fit_s=fit_s,
+                reference='fit' if ranks == 1 else f'one process, batches padded to {ranks}',
+                step_loss_gaps=gaps, held_steps=held, valid_loss=epochs[0]['valid_loss'],
+                reference_valid_loss=ref_valid, valid_gap=valid_gap, valid_bar=valid_bar,
+                ms_per_step=epochs[0]['train_time'] / spe * 1e3,
+                fit_ms_per_step=fit_epochs[0]['train_time'] / spe * 1e3, launches=launches)
+    emit(line)
+    return launches
+
+
+def ring_near_ties(x, idx, ref_idx):
+    """(share of equal ids, rows that differ, worst ratio of a distance gap
+    to its bound): over the differing rows, the exact f64 distances of the
+    two id sets, sorted, may differ by one 21-bit bucket of the distance
+    plus RING_NORM_REL of the squared norms."""
+    share = (idx == ref_idx).float().mean().item()
+    rows = (~(idx == ref_idx).all(dim=-1)).nonzero()
+    if not rows.numel():
+        return share, 0, 0.0
+    b, n = rows[:, 0], rows[:, 1]
+    q = x[b, n].double()
+
+    def dists(ids):
+        nbr = x[b[:, None], ids[b, n].long()].double()
+        return ((nbr - q[:, None]) ** 2).sum(-1).sort(dim=-1).values, \
+            (nbr ** 2).sum(-1).amax(-1) + (q ** 2).sum(-1)
+
+    (d_ring, n_ring), (d_ref, n_ref) = dists(idx), dists(ref_idx)
+    allowed = RING_BUCKET_REL * d_ref + RING_NORM_REL * n_ring.maximum(n_ref)[:, None]
+    return share, int(rows.shape[0]), ((d_ring - d_ref).abs() / allowed).max().item()
+
+
+def parallel_ring_phase():
+    """The ring's merge over P shards on one card against the plain kNN +
+    gather on the whole cloud, and the sharded encoder step over the
+    world-1 group against the unsharded layers."""
+    import torch
+    import torch.distributed as dist
+    from garment_pattern_estimation_torch.models.blocks import MLP, EdgeConv
+    from garment_pattern_estimation_torch.ops.knn_gather import knn_gather_reference
+    from garment_pattern_estimation_torch.parallel.dryrun import (
+        _edgeconv_plain, _random_mlp_state)
+    from garment_pattern_estimation_torch.parallel.ring import (
+        _ring_init, _ring_merge, _ring_output, make_points_mesh, sharded_encoder_step)
+
+    gen = torch.Generator().manual_seed(12)
+    shards = PARALLEL_RING_SHARDS
+    line = {'phase': 'parallel_ring', 'ranks': dist.get_world_size(), 'shards': shards,
+            'k': K, 'merge': []}
+    for B, N, C in PARALLEL_RING_SHAPES:
+        x = torch.randn(B, N, C, generator=gen).cuda()
+        S = N // shards
+
+        def ring():
+            """Each query shard's ring, its keys fed in ring order."""
+            nbrs, ids = [], []
+            for me in range(shards):
+                q = x[:, me * S:(me + 1) * S]
+                acc = _ring_init(q, K, shards)
+                for step in range(shards):
+                    src = (me - step) % shards
+                    acc = _ring_merge(q, x[:, src * S:(src + 1) * S], src, acc, me)
+                nbr, idx = _ring_output(q, acc, me)
+                nbrs.append(nbr)
+                ids.append(idx)
+            return torch.cat(nbrs, dim=1), torch.cat(ids, dim=1)
+
+        nbr, idx = ring()
+        _, ref_idx = knn_gather_reference(x, K)
+        share, rows, worst = ring_near_ties(x, idx, ref_idx)
+        name = f'parallel_ring {(B, N, C)}'
+        check(share >= WIDE_ID_AGREEMENT, f'{name}: ids agree on {share}')
+        check(worst <= 1.0, f'{name}: a differing neighbour is {worst} x the near-tie bound')
+        flat = idx + (torch.arange(B, device=x.device) * N)[:, None, None]
+        check(torch.equal(nbr, x.reshape(B * N, C)[flat]), f'{name}: rows are not the cloud\'s')
+        line['merge'].append({'shape': [B, N, C], 'id_share': share, 'rows_differ': rows,
+                              'worst_tie_ratio': worst, 'ms': cuda_ms(ring, 1, 5),
+                              'plain_ms': cuda_ms(lambda: knn_gather_reference(x, K), 1, 5)})
+
+    widths = [ATT_NN_CONFIG['EConv_hidden']] * ATT_NN_CONFIG['EConv_hidden_depth'] \
+        + [ATT_NN_CONFIG['EConv_feature']]
+    layers = [EdgeConv(3, widths, k=K), EdgeConv(widths[-1], widths, k=K)]
+    for layer in layers:
+        layer.nn.load_state_dict(_random_mlp_state(layer.nn, gen))
+        layer.cuda().eval()
+    x = torch.randn(8, POINTS, 3, generator=gen).cuda()
+    with torch.no_grad():
+        h, pooled = sharded_encoder_step(make_points_mesh(), [l.nn for l in layers], x, K)
+        ref = _edgeconv_plain(layers[1].nn, _edgeconv_plain(layers[0].nn, x, K), K)
+        fused = layers[1](layers[0](x))
+    scale = max(ref.abs().max().item(), 1.0)
+    h_gap = (h - ref).abs().max().item() / scale
+    pool_gap = (pooled - ref.mean(dim=1)).abs().max().item() / scale
+    check(h_gap <= 2e-4 and pool_gap <= 2e-4,
+          f'parallel_ring: sharded encoder {h_gap}, pool {pool_gap} of scale off the layers')
+    line['encoder'] = {'shape': list(x.shape), 'widths': widths, 'features_gap': h_gap,
+                       'pool_gap': pool_gap,
+                       'fused_kernels_gap': (fused - ref).abs().max().item() / scale,
+                       'fused_kernels_mean_gap': (fused - ref).abs().mean().item() / scale}
+    emit(line)
+
+
+class World1Group:
+    """A world-1 NCCL process group over a TCP store on 127.0.0.1 for the
+    `with` block, on card 0."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+        torch.cuda.set_device(0)
+        dist.init_process_group('nccl', init_method=f'tcp://127.0.0.1:{_free_port()}',
+                                rank=0, world_size=1)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 # the on-device sampling stage (dataset.on_device_sampling) at bench.py's
@@ -3457,6 +3769,17 @@ def main():
             wide[key] = fit_launches['fused_wide_c']
             for line in gathers:
                 line[key] = fit_launches['knn_gather_' + launch_key(line['name'])]
+        # data parallelism: the att fit cell over a data mesh of the cards,
+        # then the ring; each on its own counts
+        with World1Group():
+            parallel_launches = timed(seconds, 'parallel_fit', parallel_fit_phase, runs_dir,
+                                      run_ids[''])
+            timed(seconds, 'parallel_ring', parallel_ring_phase)
+        small_line['launches_parallel_fit'] = parallel_launches['fused_small_c']
+        wide_line['launches_parallel_fit'] = parallel_launches['fused_wide_c']
+        for line in gather_lines:
+            line['launches_parallel_fit'] = \
+                parallel_launches['knn_gather_' + launch_key(line['name'])]
         # on-device sampling through fit, beside the host-sampled fit run
         ods_launches = timed(seconds, 'fit_on_device', fit_on_device_phase, runs_dir,
                              run_ids[''])

@@ -2,6 +2,11 @@
 
     python -m garment_pattern_estimation_torch.cli.train -c configs/att.yaml --system system.json
 
+or data-parallel over G cards of one host, one process each:
+
+    torchrun --standalone --nproc_per_node=G -m garment_pattern_estimation_torch.cli.train \
+        -c configs/att.yaml --system system.json
+
 The port's counterpart of garment_pattern_estimation_tpu/cli/train.py. It
 reads the same YAML schema (experiment / dataset + data_split / NN /
 trainer sections) with the `old_experiment` flows of the dataset section:
@@ -13,6 +18,11 @@ the sections merged into one dataset root, and the stitch model trained on
 it (the two-model pipeline handoff). The run ends with the best
 checkpoint's metrics on the validation and test sections, whole and by
 data folder.
+
+Under torchrun every rank builds the dataset and the model and runs
+`Trainer.fit` (`trainer.mesh`: data only, and its `data` must be G); the
+first rank alone predicts a shape run's sections, writes the run's files
+and, after fit, evaluates the best checkpoint.
 """
 from __future__ import annotations
 
@@ -20,10 +30,12 @@ import argparse
 from pathlib import Path
 
 import numpy as np
+import torch.distributed as dist
 
 from .common import build_dataset, load_yaml, make_experiment, merge_repos, system_properties
-from ..device import resolve_device
 from ..models import build_model
+from ..parallel import broadcast_object, init_from_env, is_first_rank
+from ..parallel.collectives import initialized
 from ..train import Trainer, eval_metrics, make_predict_fn
 
 
@@ -76,8 +88,16 @@ def main(argv=None):
     np.set_printoptions(precision=4, suppress=True)
     config, args = get_values_from_args(argv)
     system_info = system_properties(args.system)
-    device = resolve_device(args.device)
+    owns_group = not initialized()
+    device = init_from_env(args.device)          # a process group under torchrun
+    try:
+        return _train(config, system_info, device)
+    finally:
+        if owns_group and initialized():
+            dist.destroy_process_group()
 
+
+def _train(config, system_info, device):
     experiment = make_experiment(config, system_info)
     datasets_path = Path(system_info['datasets_path'])
 
@@ -85,7 +105,9 @@ def main(argv=None):
     dataset_section = config['dataset']
     old = dataset_section.get('old_experiment')
     if old and old.get('predictions'):
-        datasets_path = predict_old_experiment(old, system_info, datasets_path, device)
+        if is_first_rank():
+            datasets_path = predict_old_experiment(old, system_info, datasets_path, device)
+        datasets_path = broadcast_object(datasets_path)
     if old and old.get('stats'):
         old_split, config['dataset'] = get_old_data_config(dataset_section, system_info)
         # fine-tuning (weights: true) on a different dataset composition
@@ -131,6 +153,8 @@ def main(argv=None):
 
     # --- train ---
     state = trainer.fit(model, state=warm_state)
+    if not is_first_rank():
+        return experiment
 
     # --- final evaluation on the best checkpoint ---
     try:

@@ -21,6 +21,11 @@ Run directory layout:
             checkpoint_<N>.pt
             aliases.json    # {"latest": N, "best": M}
         artifacts/          # split files, panel classes, dataset props, …
+
+Under a process group (data-parallel training, `parallel/`) only the first
+rank writes: every rank keeps the run's state in memory and reads its files,
+`init_run` broadcasts the first rank's run id, and each checkpoint save ends
+in a barrier, so a rank that loads it next finds it whole.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..parallel.collectives import barrier, broadcast_object, is_first_rank
 from .checkpoint import save_checkpoint_file, load_checkpoint_file
 
 
@@ -116,7 +122,23 @@ class ExperimentWrappper:
     # ------------- lifecycle -------------
     def init_run(self, config_extras=None):
         """Create a new run directory, or resume when run_id points to an
-        existing one (reference: experiment.py:47-66, resume='allow')."""
+        existing one (reference: experiment.py:47-66, resume='allow'). Under
+        a process group the first rank does so, then every other rank takes
+        its run id, resume flag and checkpoint counter and reads the run's
+        files."""
+        if is_first_rank():
+            self._init_run_files(config_extras)
+        self.run_id, self.resumed, self.checkpoint_counter = broadcast_object(
+            (self.run_id, self.resumed, self.checkpoint_counter))
+        if not is_first_rank():
+            if self.resumed:
+                self._load_run_files()
+            if config_extras:
+                self.config.update(_to_jsonable(config_extras))
+        self.initialized = True
+        return self.run_id
+
+    def _init_run_files(self, config_extras):
         if self.run_id is None:
             self.run_id = uuid.uuid4().hex[:8]
         self.resumed = self.run_dir().exists() and (
@@ -137,8 +159,6 @@ class ExperimentWrappper:
         self._save_config()
         if not (self.run_dir() / 'summary.json').exists():
             self._save_summary()
-        self.initialized = True
-        return self.run_id
 
     def is_finished(self):
         return (self.run_dir() / 'finished.marker').exists() if self.run_id \
@@ -146,7 +166,7 @@ class ExperimentWrappper:
 
     def stop(self):
         if self.run_id and self.run_dir().exists():
-            (self.run_dir() / 'finished.marker').write_text(str(time.time()))
+            self._write('finished.marker', str(time.time()))
 
     def _load_run_files(self):
         config_file = self.run_dir() / 'config.json'
@@ -154,13 +174,18 @@ class ExperimentWrappper:
         self.config = json.loads(config_file.read_text()) if config_file.exists() else {}
         self.summary = json.loads(summary_file.read_text()) if summary_file.exists() else {}
 
+    def _write(self, name, text, mode='w'):
+        """Write (or append) `text` to the run's file `name`: the one place
+        where the run's text files are written, by the first rank only."""
+        if is_first_rank():
+            with open(self.run_dir() / name, mode) as f:
+                f.write(text)
+
     def _save_config(self):
-        with open(self.run_dir() / 'config.json', 'w') as f:
-            json.dump(_to_jsonable(self.config), f, indent=2)
+        self._write('config.json', json.dumps(_to_jsonable(self.config), indent=2))
 
     def _save_summary(self):
-        with open(self.run_dir() / 'summary.json', 'w') as f:
-            json.dump(_to_jsonable(self.summary), f, indent=2)
+        self._write('summary.json', json.dumps(_to_jsonable(self.summary), indent=2))
 
     # ------------- config & stats -------------
     def add_config(self, section, config_dict):
@@ -182,10 +207,12 @@ class ExperimentWrappper:
             self._save_summary()
 
     def add_artifact(self, path, name=None, type=None):
-        """Copy a file/dir into the run's artifacts."""
+        """Copy a file/dir into the run's artifacts (the first rank only)."""
         import shutil
         src = Path(path)
         dst = self.local_artifacts_path() / (name or src.name)
+        if not is_first_rank():
+            return dst
         if src.is_dir():
             shutil.copytree(src, dst, dirs_exist_ok=True)
         else:
@@ -197,8 +224,7 @@ class ExperimentWrappper:
         self._local_step = step if step is not None else self._local_step + 1
         record = {'step': self._local_step}
         record.update({k: _to_jsonable(v) for k, v in metrics.items()})
-        with open(self.run_dir() / 'metrics.jsonl', 'a') as f:
-            f.write(json.dumps(record) + '\n')
+        self._write('metrics.jsonl', json.dumps(record) + '\n', mode='a')
 
     def last_best_validation_loss(self):
         return self.summary.get('best_valid_loss')
@@ -239,11 +265,18 @@ class ExperimentWrappper:
     def save_checkpoint(self, state, aliases=(), wait_for_upload=False):
         """Save a versioned checkpoint; `state` is a dict of tensors and
         plain types (`checkpoint.save_checkpoint_file`). Aliases
-        ('best', …) point at versions; 'latest' always updates."""
-        self.checkpoint_dir().mkdir(parents=True, exist_ok=True)
+        ('best', …) point at versions; 'latest' always updates. Under a
+        process group the first rank writes, and every rank waits for it."""
         version = self.checkpoint_counter
         self.checkpoint_counter += 1
         path = self.checkpoint_dir() / f'checkpoint_{version}.pt'
+        if is_first_rank():
+            self._write_checkpoint(state, path, version, aliases)
+        barrier()
+        return path
+
+    def _write_checkpoint(self, state, path, version, aliases):
+        self.checkpoint_dir().mkdir(parents=True, exist_ok=True)
         save_checkpoint_file(state, path)
 
         aliases_map = self._aliases()
@@ -262,7 +295,6 @@ class ExperimentWrappper:
                 continue
             if v not in keep and v < version - 2:
                 old.unlink(missing_ok=True)
-        return path
 
     def get_checkpoint_file(self, alias='latest', map_location='cpu'):
         """Load a checkpoint dict by alias ('latest'/'best') or version."""

@@ -83,7 +83,12 @@ class MLP(nn.ModuleList):
     each product's input, folded W and folded b go to bf16 (the fold
     itself, a W and d @ W + b, in f32), the ReLU runs in bf16, statistics
     come from the f32 upcast, and the final affine x * a + d runs in f32
-    and is cast to bf16."""
+    and is cast to bf16.
+
+    `data_shard` (None, or a `parallel.DataShard` that `Trainer` sets under
+    a data mesh): the train forward's statistics are the means over the
+    mesh's ranks of each rank's moments, those of the global batch, and
+    the chunked sweeps' too (`ops.edgeconv_train`)."""
 
     def __init__(self, sizes: Sequence[int], eps: float = 1e-5, compute_dtype=None):
         super().__init__(
@@ -92,6 +97,7 @@ class MLP(nn.ModuleList):
             for fan_in, fan_out in zip(sizes[:-1], sizes[1:]))
         self.eps = eps
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
+        self.data_shard = None
 
     def folded(self):
         """([(W (in, out), b)], (a, d)) with every BN folded."""
@@ -138,8 +144,10 @@ class MLP(nn.ModuleList):
                 x = self._layer(x, W, b)
             xf = x.float()
             dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=dims)
-            var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+            mean, sq = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+            if self.data_shard is not None:
+                mean, sq = self.data_shard.mean(torch.stack([mean, sq]))
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             _update_running(bn, mean, var)
             a = bn.weight * torch.rsqrt(var + self.eps)
             d = bn.bias - mean * a
@@ -214,7 +222,7 @@ class EdgeConv(nn.Module):
             out, stats = chunked_edgeconv_train(
                 x, idx, self.nn, chunk=self.train_chunk_size,
                 aggr=_SWEEP_AGGREGATION[self.aggr], mode=self.train_mode,
-                compute_dtype=self.compute_dtype)
+                compute_dtype=self.compute_dtype, data_shard=self.nn.data_shard)
             self.nn.update_running_stats(stats)
             return out
         if not self.training and self.aggr == 'max' and fused_edgeconv_supported(N, C):
@@ -438,12 +446,18 @@ class PointNetPlusPlus(nn.Module):
         return self.lin(torch.amax(g, dim=1)), g, None
 
 
-def inverted_dropout(x, rate, generator=None):
+def inverted_dropout(x, rate, generator=None, shard=None):
     """flax's `nn.Dropout(rate)` in train mode: each element kept with
     probability 1 - rate and scaled by 1 / (1 - rate), else zero. The mask
-    is drawn from `generator` (torch's default generator without one)."""
+    is drawn from `generator` (torch's default generator without one); with
+    a `parallel.DataShard`, for the global batch, of which x holds this
+    rank's rows."""
     device = x.device if generator is None else generator.device
-    keep = torch.rand(x.shape, generator=generator, device=device).to(x.device) >= rate
+    shape = x.shape if shard is None else (x.shape[0] * shard.size, *x.shape[1:])
+    keep = torch.rand(shape, generator=generator, device=device)
+    if shard is not None:
+        keep = shard.rows(keep)
+    keep = keep.to(x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -476,11 +490,12 @@ class TorchLSTM(_RNN):
 
     GATES = 4
 
-    def forward(self, inputs, init_states, dropout=0.0, generator=None):
+    def forward(self, inputs, init_states, dropout=0.0, generator=None, shard=None):
         """inputs (B, T, C); init_states: [(h0, c0)] per layer. Returns
         (outputs (B, T, H), [(h, c)] final states per layer). `dropout` > 0
         drops that share of each layer's output but the last's
-        (`inverted_dropout`, masks from `generator`)."""
+        (`inverted_dropout`, masks from `generator`, for the global batch
+        under a `shard`)."""
         x = inputs
         final_states = []
         for layer in range(self.n_layers):
@@ -500,7 +515,7 @@ class TorchLSTM(_RNN):
             x = torch.stack(outs, dim=1)
             final_states.append((h, c))
             if dropout > 0 and layer < self.n_layers - 1:
-                x = inverted_dropout(x, dropout, generator)
+                x = inverted_dropout(x, dropout, generator, shard)
         return x, final_states
 
 
@@ -543,7 +558,9 @@ class _Recurrent(nn.Module):
     sqrt(2 / (batch * hidden)) on every forward, in train and eval mode
     alike (the reference's noise, drawn h then c per layer, as the JAX
     package's `_init_states` draws whenever it has the 'recurrent_init'
-    rng); zeros without a generator (serving)."""
+    rng); zeros without a generator (serving). Under a `data_shard` (set by
+    `Trainer` under a data mesh) the states and dropout masks are drawn for
+    the global batch, std included, and this rank keeps its rows."""
 
     def __init__(self, hidden_size: int, n_layers: int, out_len: int | None = None,
                  dropout: float = 0.0, state_init: str = 'kaiming_normal'):
@@ -553,16 +570,20 @@ class _Recurrent(nn.Module):
         self.out_len = out_len
         self.dropout = float(dropout or 0)
         self.state_init = state_init or ''
+        self.data_shard = None
 
     def initial_states(self, batch_size, device, generator=None, with_cell=True):
         """[(h0, c0)] per layer, or [h0] per layer without `with_cell`;
         (batch_size, hidden) each."""
         if generator is not None and 'kaiming_normal' in self.state_init:
-            std = math.sqrt(2.0 / (batch_size * self.hidden_size))
+            shard = self.data_shard
+            rows = batch_size * (1 if shard is None else shard.size)
+            std = math.sqrt(2.0 / (rows * self.hidden_size))
 
             def draw():
-                return (torch.randn(batch_size, self.hidden_size, generator=generator,
-                                    device=generator.device) * std).to(device)
+                drawn = torch.randn(rows, self.hidden_size, generator=generator,
+                                    device=generator.device) * std
+                return (drawn if shard is None else shard.rows(drawn)).to(device)
         else:
             zeros = torch.zeros(batch_size, self.hidden_size, device=device)
 
@@ -598,7 +619,8 @@ class LSTMDecoderModule(_Recurrent):
         LSTM layers, after the initial states."""
         out, _ = self.lstm(self.repeated(encodings, out_len),
                            self.initial_states(encodings.shape[0], encodings.device, generator),
-                           dropout=self.train_dropout(), generator=generator)
+                           dropout=self.train_dropout(), generator=generator,
+                           shard=self.data_shard)
         return self.lin(out)
 
 
@@ -621,9 +643,10 @@ class LSTMDoubleReverseDecoderModule(_Recurrent):
         dec_input = self.repeated(encodings, out_len)
         out, final_states = self.lstm_reverse(
             dec_input, self.initial_states(encodings.shape[0], encodings.device, generator),
-            dropout=self.train_dropout(), generator=generator)
+            dropout=self.train_dropout(), generator=generator, shard=self.data_shard)
         out, _ = self.lstm_forward(torch.cat([out.flip(1), dec_input], dim=-1), final_states,
-                                   dropout=self.train_dropout(), generator=generator)
+                                   dropout=self.train_dropout(), generator=generator,
+                                   shard=self.data_shard)
         return self.lin(out)
 
 
@@ -659,7 +682,7 @@ class LSTMEncoderModule(_Recurrent):
     def forward(self, sequences, generator=None):
         _, final_states = self.lstm(
             sequences, self.initial_states(sequences.shape[0], sequences.device, generator),
-            dropout=self.train_dropout(), generator=generator)
+            dropout=self.train_dropout(), generator=generator, shard=self.data_shard)
         return final_states[-1][0]
 
 

@@ -260,12 +260,13 @@ def _launch(x, folded, k, mlp_dtype, return_idx, tile_n):
     dims_arr = (ctypes.c_int * len(dims))(*dims)
     w_arr = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
     b_arr = (ctypes.c_void_p * len(biases))(*[b.data_ptr() for b in biases])
-    err = fn(x.data_ptr(), out.data_ptr(), idx.data_ptr() if idx is not None else None,
-             scratch.data_ptr(), scratch.numel(), B, N, C, k,
-             2 if mlp_dtype == torch.float32 else 1, len(layers),
-             tile_n or 0, ctypes.addressof(dims_arr), ctypes.addressof(w_arr),
-             ctypes.addressof(b_arr), a_pad.data_ptr(), d_pad.data_ptr(),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):            # the launch goes to the current device
+        err = fn(x.data_ptr(), out.data_ptr(), idx.data_ptr() if idx is not None else None,
+                 scratch.data_ptr(), scratch.numel(), B, N, C, k,
+                 2 if mlp_dtype == torch.float32 else 1, len(layers),
+                 tile_n or 0, ctypes.addressof(dims_arr), ctypes.addressof(w_arr),
+                 ctypes.addressof(b_arr), a_pad.data_ptr(), d_pad.data_ptr(),
+                 torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'fused_edgeconv: kernel launch failed with CUDA error {err}')
     variant = ('small_c' if C <= SMALL_C_MAX else 'wide_c') \

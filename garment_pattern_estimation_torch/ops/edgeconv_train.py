@@ -100,7 +100,7 @@ def _aggregate(a, aggr):
 
 
 def chunked_edgeconv_train(x, idx, mlp, *, eps=1e-5, chunk=None, aggr='max',
-                           mode='chunked', compute_dtype=None):
+                           mode='chunked', compute_dtype=None, data_shard=None):
     """EdgeConv training forward with global BatchNorm batch statistics in
     O(B * chunk * k * C) memory.
 
@@ -122,6 +122,9 @@ def chunked_edgeconv_train(x, idx, mlp, *, eps=1e-5, chunk=None, aggr='max',
     'bfloat16' or a torch dtype): bf16 runs the products and ReLUs in bf16,
     the statistics and normalizations in f32; 'fused_final' aggregates the
     bf16 activations and 'streamed' keeps them in bf16, as the JAX sweeps do.
+    `data_shard` (a `parallel.DataShard`, under a data mesh): each layer's
+    moments are the means over the mesh's ranks of every rank's, those of
+    the global batch (each rank holds as many rows).
 
     Returns (out (B, N, F), [(mean_l, var_l)] per layer), both
     differentiable; the variances are biased, E[a^2] - E[a]^2 clamped at 0.
@@ -189,8 +192,10 @@ def chunked_edgeconv_train(x, idx, mlp, *, eps=1e-5, chunk=None, aggr='max',
             s2 = res[1] if s2 is None else s2 + res[1]
             if len(res) == 3:
                 ys.append(res[2])
-        mean = s1 / count
-        stats.append((mean, torch.clamp_min(s2 / count - mean * mean, 0.0)))
+        mean, sq = s1 / count, s2 / count
+        if data_shard is not None:
+            mean, sq = data_shard.mean(torch.stack([mean, sq]))
+        stats.append((mean, torch.clamp_min(sq - mean * mean, 0.0)))
         if is_final:
             final_agg = ys
         elif produce_buf:

@@ -224,8 +224,9 @@ def _launch(points, k, tile_n):
     fn = _build.load_library('knn').knn_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    err = fn(points.data_ptr(), idx.data_ptr(), B, N, D, k, tile_n or 0,
-             torch.cuda.current_stream(points.device).cuda_stream)
+    with torch.cuda.device(points.device):       # the launch goes to the current device
+        err = fn(points.data_ptr(), idx.data_ptr(), B, N, D, k, tile_n or 0,
+                 torch.cuda.current_stream(points.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'knn: kernel launch failed with CUDA error {err}')
     launches['knn'] += 1
@@ -250,8 +251,9 @@ def _launch_wide(points, k):
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_size_t] + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
-    err = fn(points.data_ptr(), idx.data_ptr(), scratch.data_ptr(), scratch.numel(),
-             B, N, D, k, torch.cuda.current_stream(points.device).cuda_stream)
+    with torch.cuda.device(points.device):
+        err = fn(points.data_ptr(), idx.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                 B, N, D, k, torch.cuda.current_stream(points.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'knn: wide-D kernel launch failed with CUDA error {err}')
     launches['knn_wide'] += 1

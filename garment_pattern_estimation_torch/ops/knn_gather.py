@@ -173,9 +173,10 @@ def knn_gather_fwd(x, k, value_chunks=2):
     lib = _library()
     scratch = torch.empty(scratch_bytes(lib, 'knn_gather', B, N, C), device=x.device,
                           dtype=torch.uint8)
-    err = lib.knn_gather_forward(
-        x.data_ptr(), nbr.data_ptr(), idx.data_ptr(), scratch.data_ptr(), scratch.numel(),
-        B, N, C, k, value_chunks, torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):            # the launch goes to the current device
+        err = lib.knn_gather_forward(
+            x.data_ptr(), nbr.data_ptr(), idx.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            B, N, C, k, value_chunks, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'knn_gather: forward launch failed with CUDA error {err}')
     variant = 'fwd_small_c' if C <= SMALL_C_MAX else 'fwd_wide_c'
@@ -210,9 +211,10 @@ def knn_gather_bwd(idx, g, value_chunks=2):
     lib = _library()
     scratch = torch.empty(lib.knn_gather_bwd_scratch_bytes(B, N, k), device=g.device,
                           dtype=torch.uint8)
-    err = lib.knn_gather_backward(
-        idx.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(), scratch.numel(),
-        B, N, C, k, value_chunks, torch.cuda.current_stream(g.device).cuda_stream)
+    with torch.cuda.device(g.device):
+        err = lib.knn_gather_backward(
+            idx.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            B, N, C, k, value_chunks, torch.cuda.current_stream(g.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'knn_gather: backward launch failed with CUDA error {err}')
     variant = 'bwd' if value_chunks == 2 else 'bwd_hi'

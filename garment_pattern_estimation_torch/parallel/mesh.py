@@ -1,0 +1,175 @@
+"""Process-group set-up, device meshes and batch placement for data-parallel
+training over `torch.distributed`.
+
+Counterpart of garment_pattern_estimation_tpu/parallel/mesh.py:23-105. The
+JAX package shards the batch axis of a `jax.sharding.Mesh` and lets XLA
+insert the collectives; here each rank is a process with one card, the mesh
+is a `torch.distributed.device_mesh.DeviceMesh` over the world of an
+initialised process group, a rank holds its rows of the padded global batch
+(`shard_batch`), and the collectives are written out (`collectives.py`).
+
+    device = init_from_env()          # torchrun's RANK / WORLD_SIZE / LOCAL_RANK
+    mesh = make_mesh()                # ('data',) over the whole world
+
+`DataShard` is what the models see of a mesh: the data group, this rank's
+place on it, the mean of per-rank statistics over it, and this rank's rows
+of a tensor drawn for the global batch.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from ..device import resolve_device
+from .collectives import all_reduce_sum, initialized
+
+DATA_AXIS = 'data'
+POINTS_AXIS = 'points'
+
+
+def init_from_env(device=None) -> torch.device:
+    """The default process group from the variables `torchrun` sets (RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), and this rank's
+    device. NCCL on the card, after `torch.cuda.set_device(LOCAL_RANK)`;
+    gloo when `device` is the CPU. Without WORLD_SIZE in the environment,
+    or with a group already initialised, no group is made: the device alone
+    is resolved."""
+    if initialized() or 'WORLD_SIZE' not in os.environ:
+        return resolve_device(device)
+    cpu = device is not None and torch.device(device).type == 'cpu'
+    if not cpu:
+        resolve_device(device)                       # raises without a card
+        torch.cuda.set_device(int(os.environ.get('LOCAL_RANK', 0)))
+    dist.init_process_group('gloo' if cpu else 'nccl', init_method='env://')
+    return resolve_device(device)
+
+
+def _device_type():
+    return 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+
+
+def _whole_world(n, what):
+    world = dist.get_world_size()
+    if n != world:
+        raise ValueError(f'{what}: a mesh of {n} ranks needs a world of {n} processes, this '
+                         f'one has {world} (torchrun --nproc_per_node={n} ...)')
+
+
+def make_mesh(n=None):
+    """1-D data-parallel mesh ('data',) over the world (`n`, if given, must
+    be the world size)."""
+    n = dist.get_world_size() if n is None else int(n)
+    _whole_world(n, 'make_mesh')
+    return init_device_mesh(_device_type(), (n,), mesh_dim_names=(DATA_AXIS,))
+
+
+def make_mesh_2d(data, points):
+    """2-D (data x points) mesh over the world, row-major: rank = d * points
+    + p. The batch shards over 'data'; each data slice shards its clouds'
+    point axis over 'points'."""
+    _whole_world(data * points, 'make_mesh_2d')
+    return init_device_mesh(_device_type(), (data, points),
+                            mesh_dim_names=(DATA_AXIS, POINTS_AXIS))
+
+
+def _axis(mesh, name):
+    """(this rank's coordinate, size) on the mesh axis `name`."""
+    dim = mesh.mesh_dim_names.index(name)
+    return mesh.get_local_rank(dim), mesh.size(dim)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _is_array(x):
+    return isinstance(x, (torch.Tensor, np.ndarray)) and x.ndim > 0
+
+
+def shard_batch(mesh, batch):
+    """This rank's rows of every tensor or array of a (nested) batch whose
+    leading axis divides by the mesh's data axis (callers pad first:
+    `pad_batch_to_multiple`); other leaves pass through. On a 2-D mesh the
+    3-D `features` (B, N, C) also keep this rank's point slice."""
+    rank, size = _axis(mesh, DATA_AXIS)
+
+    def rows(x):
+        if not _is_array(x):
+            return x
+        if x.shape[0] % size:
+            raise ValueError(f'shard_batch: {x.shape[0]} rows do not divide over {size} ranks')
+        n = x.shape[0] // size
+        return x[rank * n:(rank + 1) * n]
+
+    placed = _tree_map(rows, batch)
+    features = placed.get('features') if isinstance(placed, dict) else None
+    if POINTS_AXIS in mesh.mesh_dim_names and _is_array(features) and features.ndim == 3:
+        p, points = _axis(mesh, POINTS_AXIS)
+        if features.shape[1] % points:
+            raise ValueError(f'shard_batch: {features.shape[1]} points do not divide over '
+                             f'{points} ranks')
+        s = features.shape[1] // points
+        placed['features'] = features[:, p * s:(p + 1) * s]
+    return placed
+
+
+@torch.no_grad()
+def replicate(mesh, module):
+    """Every parameter and buffer of `module` broadcast in place from the
+    mesh's first rank."""
+    src = int(mesh.mesh.flatten()[0])
+    for tensor in list(module.parameters()) + list(module.buffers()):
+        dist.broadcast(tensor.data, src=src)
+    return module
+
+
+def pad_batch_to_multiple(batch, multiple):
+    """Right-pad the leading axis of every tensor or array of the batch's
+    size to a multiple of `multiple`, repeating the last sample. Returns
+    (padded batch, real size)."""
+    sizes = []
+    _tree_map(lambda x: sizes.append(x.shape[0]) if _is_array(x) else None, batch)
+    size = sizes[0]
+    pad = (-size) % multiple
+    if pad == 0:
+        return batch, size
+
+    def pad_rows(x):
+        if not _is_array(x) or x.shape[0] != size:
+            return x
+        if isinstance(x, torch.Tensor):
+            return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+        return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+
+    return _tree_map(pad_rows, batch), size
+
+
+class DataShard:
+    """This rank's share of a batch sharded over a mesh's data axis: the
+    data group, `rank` on it and its `size`. Every rank holds the same
+    number of rows (`shard_batch` pads first), so a statistic over the
+    global batch is the mean of the ranks' statistics (`mean`), and a
+    tensor drawn for the global batch yields this rank's rows (`rows`)."""
+
+    def __init__(self, mesh):
+        dim = mesh.mesh_dim_names.index(DATA_AXIS)
+        self.group = mesh.get_group(dim)
+        self.rank, self.size = _axis(mesh, DATA_AXIS)
+
+    def mean(self, value):
+        """The mean over the ranks of per-rank `value`s, differentiable
+        (each rank's cotangents are summed)."""
+        return all_reduce_sum(value / self.size, self.group)
+
+    def rows(self, tensor):
+        """This rank's rows of a tensor of the global batch."""
+        n = tensor.shape[0] // self.size
+        return tensor[self.rank * n:(self.rank + 1) * n]

@@ -26,8 +26,22 @@ loss reads them. With `with_visualization`, `fit` renders one prediction
 per data folder after each epoch into the run's `intermediate_preds/`
 (`_log_an_image`). `trainer.profile` (true, or {start_step, num_steps},
 defaults 10 and 5) traces a window of `fit`'s steps with `torch.profiler`
-into the run's `profile/`. Not ported: the device mesh and data-parallel
-placement.
+into the run's `profile/`.
+
+Data parallelism (`trainer.mesh`, garment_pattern_estimation_tpu/train/
+trainer.py:290-313): when a process group is initialised (`torchrun
+--nproc_per_node=W`, `parallel.init_from_env`), `fit` trains over a 'data'
+mesh of the W ranks, one card each; `trainer.mesh: {data: W}` must name the
+world, and absent it is the world. Every rank iterates the same loaders; a
+step pads the batch to a multiple of W (the last sample repeated), runs its
+rows, with BatchNorm statistics and LSTM random draws of the whole padded
+batch, gathers the predictions, slices them to the real batch and computes
+the whole batch's loss, as the JAX step over a mesh slices inside the
+step; the parameter gradients are summed over the ranks. A step computes
+what one process computes on the padded batch. Only the first rank writes
+files. Without a process group, `trainer.mesh` absent or {data: 1}, fit
+runs in one process. `points > 1` (points-sharded training) is not ported
+and raises.
 """
 from __future__ import annotations
 
@@ -37,9 +51,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import DatasetWrapper
 from ..device import resolve_device
+from ..parallel import (
+    DataShard, all_gather_rows, broadcast_object, is_first_rank, make_mesh,
+    pad_batch_to_multiple, replicate, sum_gradients)
+from ..parallel.collectives import initialized
 from ..preprocess.device_sampling import SAMPLING_STREAM, maybe_batch_sampler, reads_segmentation
 
 
@@ -109,6 +128,7 @@ class Trainer:
         self._root_seed = None
         self.device_sampler = None   # set in fit once the dataset config is final
         self._profiler = None
+        self.data_shard = None       # this rank's share of a data mesh (`use_mesh`)
 
         # trainer.best_by: the 'best' checkpoint tracks a validation metric
         # instead of the loss (garment_pattern_estimation_tpu/train/trainer.py:57-90)
@@ -138,13 +158,17 @@ class Trainer:
         if random_seed:
             self.setup['random_seed'] = random_seed
         elif not self.setup.get('random_seed'):
-            self.setup['random_seed'] = int(time.time())
+            # the first rank's clock: every rank must draw the same streams
+            self.setup['random_seed'] = broadcast_object(int(time.time()))
         self._root_seed = int(self.setup['random_seed'])
 
     def use_dataset(self, dataset, split_info):
         """Split, loaders and (with_norm) standardization
         (garment_pattern_estimation_tpu/train/trainer.py:104)."""
         self.datawrapper = DatasetWrapper(dataset)
+        if initialized() and split_info.get('random_seed') is None:
+            # every rank must draw the same split and batch order
+            split_info = dict(split_info, random_seed=broadcast_object(int(time.time())))
         self.datawrapper.load_split(split_info)
         self.datawrapper.new_loaders(self.setup['batch_size'], shuffle_train=True)
         workers = dataset.config.get('cache_fill_workers')
@@ -187,6 +211,68 @@ class Trainer:
         self.step_count = 0
         return self.optimizer
 
+    def mesh_from_setup(self):
+        """The data mesh `trainer.mesh` asks for, or None: with a process
+        group, a mesh of the world (`data` must equal it); without one,
+        None, and `data` must be 1. `points > 1` raises NotImplementedError
+        (ROADMAP queue A8: points-sharded training)."""
+        config = self.setup.get('mesh') or {}
+        if int(config.get('points', 1)) > 1:
+            raise NotImplementedError(
+                'Trainer: trainer.mesh.points > 1 (points-sharded training) is not ported '
+                '(ROADMAP queue A8: the encoder\'s ring EdgeConv with its backward and the '
+                'point-axis reductions of the attention and global pools); use a data mesh')
+        world = dist.get_world_size() if initialized() else 1
+        data = int(config.get('data', world))
+        if data != world:
+            raise ValueError(
+                f'Trainer: trainer.mesh.data = {data} needs {data} processes, one card each, '
+                f'and this run has {world}: start it with torchrun --standalone '
+                f'--nproc_per_node={data} -m garment_pattern_estimation_torch.cli.train ...')
+        return make_mesh(data) if initialized() else None
+
+    def use_mesh(self, model, mesh):
+        """Train and evaluate `model` data-parallel over `mesh` (a 'data'
+        mesh of the world, `parallel.make_mesh`): its parameters and buffers
+        are broadcast from the first rank, and its BatchNorm statistics and
+        random draws become those of the global batch (`DataShard` on every
+        module that takes one). `mesh` None returns to one process."""
+        self.data_shard = None if mesh is None else DataShard(mesh)
+        for module in model.module.modules():
+            if hasattr(module, 'data_shard'):
+                module.data_shard = self.data_shard
+        if mesh is not None:
+            replicate(mesh, model.module)
+
+    def _pad(self, batch):
+        """Under a data mesh, the batch's features and ground truth padded
+        to a multiple of the ranks (the last sample repeated) and its real
+        size; else the batch and None."""
+        if self.data_shard is None:
+            return batch, None
+        return pad_batch_to_multiple({'features': batch['features'],
+                                      'ground_truth': batch['ground_truth']},
+                                     self.data_shard.size)
+
+    def _forward(self, model, features, gt, real, generator):
+        """(predictions, ground truth) of the whole batch. Under a data mesh
+        this rank runs its rows of the padded batch, and the predictions of
+        every rank are gathered and, with the ground truth, cut to the
+        `real` batch."""
+        shard = self.data_shard
+        if shard is None:
+            return model.module(features, generator=generator), gt
+        preds = model.module(shard.rows(features), generator=generator)
+
+        def whole(value):
+            return all_gather_rows(value, shard.group)[:real]
+        if isinstance(preds, dict):
+            preds = {k: whole(v) for k, v in preds.items()}
+        else:
+            preds = whole(preds)
+        gt = {k: v[:real] for k, v in gt.items()} if isinstance(gt, dict) else gt[:real]
+        return preds, gt
+
     def _place(self, batch):
         """(features, ground truth) on the device; the features are points
         or a mesh dict, the ground truth a dict of tensors (the shape
@@ -224,9 +310,12 @@ class Trainer:
         random GT panel order (the JAX step's three rng streams);
         `sampling_generator` a mesh batch's cloud (`_sample`). Returns
         (loss, dict of the loss terms and quality metrics), detached, on the
-        device."""
+        device. Under a data mesh (`use_mesh`) the loss is the whole batch's
+        and the gradients, left on the parameters, are summed over the
+        ranks."""
         if self.optimizer is None:
             raise RuntimeError('Trainer: call make_optimizer before train_step')
+        batch, real = self._pad(batch)
         features, gt = self._sample(*self._place(batch), sampling_generator,
                                     reads_segmentation(model.loss))
         epoch_c = canonical_epoch(model.loss.config, *phase_of(model.loss.config, epoch))
@@ -234,9 +323,11 @@ class Trainer:
             group['lr'] = self.schedule(self.step_count)
         model.module.train()
         self.optimizer.zero_grad(set_to_none=True)
-        preds = model.module(features, generator=generator)
+        preds, gt = self._forward(model, features, gt, real, generator)
         loss, loss_dict, _ = model.loss(preds, gt, epoch=epoch_c, generator=generator)
         loss.backward()
+        if self.data_shard is not None:
+            sum_gradients(model.module.parameters(), self.data_shard.group)
         self.optimizer.step()
         self.step_count += 1
         return loss.detach(), {k: v.detach() for k, v in loss_dict.items()}
@@ -249,12 +340,13 @@ class Trainer:
         JAX trainer's eval step draws them from its 'recurrent_init' rng;
         without one they are zeros. The loss draws its random GT panel order
         from it too; `sampling_generator` draws a mesh batch's cloud.
-        Returns (loss, dict)."""
+        Returns (loss, dict): under a data mesh the whole batch's."""
+        batch, real = self._pad(batch)
         features, gt = self._sample(*self._place(batch), sampling_generator,
                                     reads_segmentation(model.loss))
         epoch_c = canonical_epoch(model.loss.config, *phase_of(model.loss.config, epoch))
         model.module.eval()
-        preds = model.module(features, generator=generator)
+        preds, gt = self._forward(model, features, gt, real, generator)
         loss, loss_dict, _ = model.loss(preds, gt, epoch=epoch_c, generator=generator)
         return loss, loss_dict
 
@@ -279,11 +371,17 @@ class Trainer:
         stream, each offset by SAMPLING_STREAM from the LSTM states' stream
         of the same step or epoch (those streams are unchanged). A profiler
         window (`trainer.profile`) still open when fit ends is stopped and
-        written."""
+        written.
+
+        Under a process group fit trains data-parallel over `trainer.mesh`
+        (`mesh_from_setup`, `use_mesh`), and returns to one process when it
+        ends; only the first rank writes the run's files, renders images
+        and profiles."""
         if not self.datawrapper:
             raise RuntimeError('Trainer: fit called before use_dataset()')
         if self.experiment is None:
             raise RuntimeError('Trainer: fit needs an experiment tracker')
+        mesh = self.mesh_from_setup()
         if self._root_seed is None:
             self.init_randomizer()
 
@@ -322,8 +420,12 @@ class Trainer:
             self.experiment.checkpoint_counter = max(
                 self.experiment.checkpoint_counter, start_epoch)
             print(f'Trainer::Resumed run from epoch {start_epoch}')
+        if mesh is not None:
+            self.use_mesh(model, mesh)
+            print(f'Trainer::data-parallel mesh over {self.data_shard.size} ranks')
 
-        if self.log_with_visualization:
+        log_images = self.log_with_visualization and is_first_rank()
+        if log_images:
             self.folder_for_preds = Path(self.experiment.run_dir()) / 'intermediate_preds'
             self.folder_for_preds.mkdir(exist_ok=True)
 
@@ -446,7 +548,7 @@ class Trainer:
                 self.experiment.log(epoch_record, step=log_step)
                 self.experiment.add_statistic('best_valid_loss', best_valid_loss)
 
-                if self.log_with_visualization:
+                if log_images:
                     self._log_an_image(model, epoch, log_step)
 
                 if self._early_stopping(es_tracking, last_loss, best_valid_loss,
@@ -468,6 +570,8 @@ class Trainer:
                 m.compute_dtype = dtype
             if self._profiler is not None:
                 self._profile_stop()
+            if mesh is not None:
+                self.use_mesh(model, None)
 
         print('Trainer::Finished training')
         return model.module.state_dict()
@@ -485,8 +589,9 @@ class Trainer:
             self.datawrapper.load_split(split, batch_size)
         else:
             start_epoch = 0
-            self.datawrapper.save_to_wandb(self.experiment)
-            self.experiment.add_config('NN', model.config)
+            if is_first_rank():
+                self.datawrapper.save_to_wandb(self.experiment)
+                self.experiment.add_config('NN', model.config)
         return start_epoch
 
     def _maybe_profile(self, step_count):
@@ -494,9 +599,9 @@ class Trainer:
         numbered `step_count` (the optimizer steps taken before it, resumed
         runs included): it starts at `start_step` and stops at
         `start_step + num_steps` (garment_pattern_estimation_tpu/train/
-        trainer.py:564)."""
+        trainer.py:564). Under a process group the first rank profiles."""
         profile_cfg = self.setup.get('profile')
-        if not profile_cfg:
+        if not profile_cfg or not is_first_rank():
             return
         start = profile_cfg.get('start_step', 10) if isinstance(profile_cfg, dict) else 10
         steps = profile_cfg.get('num_steps', 5) if isinstance(profile_cfg, dict) else 5

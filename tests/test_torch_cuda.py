@@ -52,6 +52,14 @@ launch, and a serving artifact exported with `torch.export` on the card
 launches the kernel once per layer and call, equals `build_serving_fn`
 bitwise and refuses a CPU input.
 
+Data parallelism (parallel/): every kernel launcher runs on its input's
+card whatever the current device is (two cards); a world-1 NCCL group's
+data-parallel step equals the same step without a group (loss 1e-5
+relative, gradient 1e-5 of its norm; the same kernels on the same rows, the
+collectives of one rank copy); R NCCL ranks, one card each, equal one
+process on the padded batch with the same bars and pass
+`dryrun_multichip(R)` (two cards or more).
+
 The on-device sampling stage on the card against its CPU core with the
 same draws: face ids equal except draws within 1e-6 of the total area of a
 step of the cumulative areas, or within the two devices' own gap on the
@@ -60,6 +68,7 @@ within 1e-5 of the mesh extent where the ids agree, labels equal except
 near ties.
 """
 import copy
+import json
 
 import numpy as np
 import pytest
@@ -1160,3 +1169,131 @@ def test_device_sampling_draws_on_the_card(cuda, rng):
     assert torch.equal(first, again) and not torch.equal(first, other)
     assert torch.isfinite(first).all() and labels.dtype == torch.int32
     assert int(labels.min()) >= 0
+
+
+# ---- data parallelism (parallel/) ----
+
+def _cards(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f'needs {n} cards')
+
+
+def test_launchers_follow_the_input_card(cuda, rng):
+    """Under `torch.cuda.device(1)` each launcher runs on card 0, where its
+    input is: outputs there and equal to the plain versions."""
+    _cards(2)
+    card0 = torch.device('cuda', 0)
+    x = torch.from_numpy(rng.normal(size=(2, 300, 3)).astype(np.float32)).to(card0)
+    wide = torch.from_numpy(rng.normal(size=(2, 300, 24)).astype(np.float32)).to(card0)
+    folded = _folded(rng, 3, [16, 8], card0)
+    with torch.cuda.device(1):
+        ids = knn.knn(x, 5)
+        wide_ids = knn.knn(wide, 5)
+        out, out_ids = edgeconv.fused_edgeconv(x, folded, k=5, return_idx=True)
+        nbr, idx = knn_gather.knn_gather_fwd(x, 5)
+        dx = knn_gather.knn_gather_bwd(idx, torch.ones_like(nbr))
+    torch.cuda.synchronize(card0)
+    assert all(t.device == card0 for t in (ids, wide_ids, out, nbr, dx))
+    assert torch.equal(ids, knn.knn_reference(x, 5))
+    assert (wide_ids == knn.knn_reference(wide, 5)).float().mean().item() >= 0.99
+    assert torch.equal(out_ids, edgeconv.edgeconv_select(x, 5, torch.float32)[0])
+    assert torch.equal(idx, knn_gather.knn_gather_reference(x, 5)[1])
+    ref_dx = knn_gather.knn_gather_backward_reference(idx, torch.ones_like(nbr))
+    assert torch.allclose(dx, ref_dx, rtol=1e-6, atol=1e-6)
+
+
+# tests/torch_parallel_ranks.py's cases with the port's seeded weights:
+# random LSTM states and dropout, through the knn_gather kernels or the
+# chunked sweeps (the kNN kernel)
+CARD_CASES = ('drawn', 'chunked')
+
+
+def _dp_inputs(tmp_path):
+    import torch_parallel_ranks as ranks
+
+    states = {case: ranks.port_state(case) for case in CARD_CASES}
+    return ranks, ranks.write_inputs(tmp_path / 'inputs.npz', states), states
+
+
+def _check_dp(ranks, out, arrays, states, world):
+    batch = ranks.batch_of(arrays)
+    for case in CARD_CASES:
+        losses, grads, eval_loss = ranks.padded_oracle(case, states[case], batch, world, 'cuda:0')
+        gap, same_names = ranks.gradient_gap(out, case, grads)
+        assert same_names and gap <= 1e-5, (case, gap)
+        np.testing.assert_allclose([out[f'{case}.loss0'], out[f'{case}.loss1']], losses,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(out[f'{case}.eval'], eval_loss, rtol=1e-5)
+        assert bool(out[f'{case}.same_params'])
+
+
+def test_world1_nccl_step_equals_no_group(cuda, tmp_path):
+    """A data-parallel step over a world-1 NCCL group (the collectives, the
+    gather and the gradient sum all run) against the step without one."""
+    import torch.distributed as dist
+
+    ranks, arrays, states = _dp_inputs(tmp_path)
+    torch.cuda.set_device(0)
+    dist.init_process_group('nccl', store=dist.FileStore(str(tmp_path / 'store'), 1),
+                            rank=0, world_size=1)
+    try:
+        ranks.dp_rank(str(tmp_path / 'inputs.npz'), str(tmp_path / 'out.npz'), CARD_CASES)
+    finally:
+        dist.destroy_process_group()
+    _check_dp(ranks, dict(np.load(tmp_path / 'out.npz')), arrays, states, 1)
+
+
+def test_nccl_ranks_step_equals_one_process(cuda, tmp_path):
+    """R = device_count() NCCL ranks, one card each, against one process on
+    the batch padded to R; then `dryrun_multichip(R)`."""
+    from garment_pattern_estimation_torch.parallel.dryrun import dryrun_multichip, spawn
+
+    _cards(2)
+    world = torch.cuda.device_count()
+    ranks, arrays, states = _dp_inputs(tmp_path)
+    spawn(ranks.dp_rank, world, str(tmp_path / 'inputs.npz'), str(tmp_path / 'out.npz'),
+          CARD_CASES, backend='nccl')
+    _check_dp(ranks, dict(np.load(tmp_path / 'out.npz')), arrays, states, world)
+    dryrun_multichip(world)
+
+
+@pytest.mark.parametrize('nproc', [1, 2])
+def test_train_cli_under_torchrun(cuda, tmp_path, nproc):
+    """`torchrun --standalone --nproc_per_node=G -m ...cli.train` on G cards
+    (`init_from_env`: NCCL, each rank on its LOCAL_RANK's card) against the
+    CLI in one process without torchrun: the first epoch's validation loss
+    within 1e-4 relative, the first step's loss within 1e-5, the same run
+    files, and the final evaluation of the best checkpoint on the first rank
+    while the others have left the group."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import torch_parallel_ranks as ranks
+
+    _cards(nproc)
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(repo),
+                                                       os.environ.get('PYTHONPATH', '')]))
+    root, first_six = repo / 'parity_run' / 'data_big', {'max_datapoints_per_type': 6}
+    runs = []
+    for name, mesh, launcher in (
+            ('one', None, []),
+            ('torchrun', {'data': nproc}, ['-m', 'torch.distributed.run', '--standalone',
+                                           f'--nproc_per_node={nproc}'])):
+        argv = ranks.cli_workdir(root, tmp_path / name, mesh, first_six)
+        done = subprocess.run([sys.executable, *launcher, '-m',
+                               'garment_pattern_estimation_torch.cli.train', *argv],
+                              cwd=tmp_path / name, env=env, capture_output=True, text=True,
+                              timeout=600)
+        assert done.returncode == 0, done.stderr[-4000:]
+        runs.append(ranks.cli_run_files(tmp_path / name))
+    (one, files_one), (dp, files_dp) = runs
+    assert files_dp == files_one and (dp / 'finished.marker').exists()
+    (valid_one,), steps_one = ranks.cli_losses(one)
+    (valid_dp,), steps_dp = ranks.cli_losses(dp)
+    np.testing.assert_allclose(valid_dp, valid_one, rtol=1e-4)
+    np.testing.assert_allclose(steps_dp[0], steps_one[0], rtol=1e-5)
+    summary = json.loads((dp / 'summary.json').read_text())
+    assert {'valid_on_best.full_loss', 'test_on_best.full_loss'} <= set(summary)

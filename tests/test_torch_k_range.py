@@ -23,6 +23,7 @@ call with that k and never the plain version; k = 129 raises
 NotImplementedError naming 128. A stand-in CUDA tensor and a fake library
 make that checkable without a card.
 """
+import contextlib
 import types
 
 import numpy as np
@@ -179,14 +180,16 @@ class _FakeLibrary:
 
 @pytest.fixture()
 def fake_card(monkeypatch):
-    """Allocations on 'cuda' land on the CPU, the stream is a dummy, every
-    library is a _FakeLibrary, and the plain versions raise."""
+    """Allocations on 'cuda' land on the CPU, the stream and the launchers'
+    device guard are dummies, every library is a _FakeLibrary, and the plain
+    versions raise."""
     lib = _FakeLibrary()
     real_empty = torch.empty
     monkeypatch.setattr(torch, 'empty',
                         lambda *shape, device=None, **kwargs: real_empty(*shape, **kwargs))
     monkeypatch.setattr(torch.cuda, 'current_stream',
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, 'device', lambda device: contextlib.nullcontext())
     monkeypatch.setattr(_build, 'load_library', lambda name: lib)
 
     def plain(*args, **kwargs):

@@ -91,6 +91,35 @@ def test_import_scan_covers_the_comparator():
     assert not set(_imported_roots(_PACKAGE / 'cli' / 'parity_check.py')) & set(_FORBIDDEN)
 
 
+def test_import_scan_covers_the_parallel_modules():
+    """The data-parallel and ring modules are scanned, and so is the rank
+    module the spawned test processes import: the ranks never import JAX."""
+    scanned = {str(p.relative_to(_PACKAGE)) for p in _PACKAGE.rglob('*.py')}
+    assert {'parallel/__init__.py', 'parallel/mesh.py', 'parallel/collectives.py',
+            'parallel/ring.py', 'parallel/dryrun.py'} <= scanned
+    ranks = _PACKAGE.parent / 'tests' / 'torch_parallel_ranks.py'
+    assert not set(_imported_roots(ranks)) & set(_FORBIDDEN)
+
+
+def test_resolve_device_under_a_process_group(monkeypatch, tmp_path):
+    """Under a process group (torchrun) None and 'cuda' name this rank's
+    card, cuda:LOCAL_RANK; an indexed card and the CPU stay as named. The
+    card is faked: a world-1 gloo group on the CPU."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setenv('LOCAL_RANK', '3')
+    assert resolve_device(None) == torch.device('cuda')            # no group yet
+    dist.init_process_group('gloo', store=dist.FileStore(str(tmp_path / 'store'), 1),
+                            rank=0, world_size=1)
+    try:
+        assert resolve_device(None) == resolve_device('cuda') == torch.device('cuda', 3)
+        assert resolve_device('cuda:1') == torch.device('cuda', 1)
+        assert resolve_device('cpu') == torch.device('cpu')
+    finally:
+        dist.destroy_process_group()
+
+
 def test_chip_smoke_imports_no_jax():
     path = _PACKAGE.parent / 'chip_smoke.py'
     bad = sorted(set(_imported_roots(path)) & set(_FORBIDDEN))
