@@ -23,8 +23,9 @@ Phases, one JSON line each:
            (`knn_gather_backward_ordered`); kernel, plain and library
            (one index_add_, backward only) times, the backward's two
            kernels' device ms apart (torch.profiler)
-  knn_gather_bwd_sweep  the backward at N in {1, 31, 32, 33, 2048}, k =
-           1..16, C in {3, 24, 150, 256}, both chunk counts, and on hub ids
+  knn_gather_bwd_sweep  the backward at N in {1, 31, 32, 33, 2048}, k in
+           {1, 2, 3, 5, 8, 9, 16}, C in {3, 24, 150, 256}, both chunk counts,
+           and on hub ids
            (one point in every query's slots >= 1): repeatable, ordered,
            within 1e-5 of the plain version summed in f64
   kernel_k10, knn_gather_k10  the kernels at k = 10 (the one instance for
@@ -273,6 +274,36 @@ memory (DGCNN's published k), each on its own counts:
            launch per step, rows 1-3): ms and peak memory
   train_k20  as `training`: 1 + 1 + 1 knn_gather launches per step (rows
            8-9), the 2-cloud step against the CPU at the att step's bars
+Every shape the JAX package takes (faults C6, C7), after kernel_k20:
+  wide_shapes  rows 2, 4-5 and 8-9 at the shapes of att with one NN key
+           changed (WIDE_VARIANTS: EConv_feature 300, EConv_hidden 512,
+           EConv_hidden_depth 4), each against its plain version with the
+           k = 5 bars (wide_shape_kernels)
+  k_large  rows 4-9 at k = 129 and 200 (the selection of all N keys, then
+           the edge MLP or the rows) at the k = 200 paths' shapes (rows 4-5
+           at serving's 64 clouds, the plain version 16 at a time), rows
+           6-7 at (4, 10000, C) at k = 200, with the k = 5 bars
+           (k_large_kernels)
+and, after train_k20, each on its own counts:
+  serving_<variant>, train_<variant>  att at each WIDE_VARIANTS width as
+           `serving` (WIDE_SERVE_CALLS batches; conv1 at C = 300 through
+           knn_gather in eval, as the JAX models route it) and `training`
+           (WIDE_TRAIN_STEPS steps; the 2-cloud step's gradient bars the
+           larger of the f32 bars and twice the CPU's own 1e-7 noise floor)
+  serving_k200, train_k200  att at k = 200: (64, 2000, 3) served, and
+           steps on a (6, 2000, 3) batch (at 7 clouds the layers would take
+           the chunked sweeps, whose standalone kNN stops at 128, as the JAX
+           package's does)
+and, after parallel_ring:
+  points_sharded  trainer.mesh {data: 1, points: 2} at att's published
+           widths: two ranks (NCCL on two cards, else gloo on one) against
+           one process, both steps' losses within rtol 2e-5 and the first
+           gradient within 1e-5 of its norm, or twice one process's order
+           floor where larger (the clouds in reverse order, and scaled by
+           1 + 1e-7 noise); conv1's ring ids against knn_gather's kernel,
+           differences near ties. A probe ring shift of a card tensor runs
+           first: only its failure is printed as the phase not having run
+           (`ran` false); the training ranks' failure fails the script
 and, after stitch_pipeline:
   parity_check  the port's cli/parity_check.py on the att f32 fit run's best
            checkpoint over parity_run/data_big/ (its test split): a first
@@ -323,7 +354,11 @@ rows 4, 5, 8 and 9 `launches_fit_on_device`, and the f32 entries of rows 4-5
 `launches_parallel_fit`. The k = 20 entries (rows 4, 5, 6, 7, 1, 2, 8 small
 and wide C, 9) carry the k = 20 main path's launches (rows 4-5 also
 `launches_serving_k20_bf16`); the k = 128 entries, from k_range, are on no
-path (`on_main_path` false, 0 launches).
+path (`on_main_path` false, 0 launches). The wide_shapes entries carry
+their variant and the launches of its serving and training phases (row 8
+at C = 300 also `launches_serving`; row 2 at D = 300 is on no path); the
+k_large entries at k = 200 of rows 4-5 and 8-9 the launches of
+serving_k200 and train_k200, the others none (`on_main_path` false).
 Then each phase's seconds, the card's name and power limit, the kernels
 line (each bf16-mode kernel an entry of its own, its launches from the bf16
 phases), and as the last line {"ok": true, "device": {...}}. Any failed
@@ -348,7 +383,21 @@ Tolerances: the edge MLP truncates activations to bf16 and the kernel sums
 in another order than cuBLAS, so one flipped truncation moves an activation
 by up to 2^-8 of itself; outputs are held to 1e-2 of their largest
 magnitude, 1e-4 on average.
+
+A train step against the CPU plain path (compare_step_cpu) holds its
+discrete choices and its arithmetic apart. The card's step records each
+choice with its input: the kNN ids of every knn_gather and kNN call and the
+clusters each DynamicGraphPool keeps. Each choice is held against the plain
+version on that same input (small-C ids equal, every other differing id or
+kept cluster a near tie), and the CPU step then takes the card's
+choices, so that its loss and gradient bars see the arithmetic alone. A
+near tie that rounding flips otherwise moves a model's loss by a step: on
+pool10, whose 20- and 200-point kNN graphs are full of near ties, 1e-6
+noise in the weights moves the CPU path's loss by 3e-3 about once in three
+draws. The sampling choices of PointNet++ (farthest points, ball query) are
+not recorded; its step keeps the noise-floor bars.
 """
+import contextlib
 import copy
 import json
 import math
@@ -436,6 +485,18 @@ K_WIDE = 10                         # EdgeConvPoolingFeatures' k (the pool10 var
 K_DGCNN = 20                        # DGCNN's published k (WangYueFt/dgcnn --k 20)
 K_RANGE = (17, K_DGCNN, 32, 64, 128)    # the k_range phase: each capacity instance
 K20_STRESS_STEPS = 2
+# the widths the card refused before (fault C6): att.yaml with one NN key
+# changed each; conv1 at EConv_feature 300 takes 300 channels
+WIDE_VARIANTS = {'_feature300': {'EConv_feature': 300}, '_hidden512': {'EConv_hidden': 512},
+                 '_depth4': {'EConv_hidden_depth': 4}}
+WIDE_SERVE_CALLS, WIDE_TRAIN_STEPS = 5, 3
+K_LARGE = 200                       # 128 < k <= N (fault C7): the selection of all N keys
+K_LARGE_RANGE = (129, K_LARGE)
+# the largest batch whose k = 200 layers stay off the chunked sweeps (B N k
+# 200 4 bytes <= 2 GB), which rank through the standalone kNN (k <= 128)
+K_LARGE_TRAIN_BATCH = 6
+K_LARGE_PLAIN_CHUNK = 16            # clouds a call of the plain fused layer takes at k > 128
+POINTS_MESH = {'data': 1, 'points': 2}
 TRAIN_BATCH = ATT_TRAINER['batch_size']
 TRAIN_STEPS = 6
 DX_MAX_REL = 1e-5
@@ -446,6 +507,7 @@ PARALLEL_FIT_HELD_STEPS = 4       # parallel_fit at R >= 2: these first steps' l
 WIDE_ID_AGREEMENT = 0.99
 NEAR_TIE_REL = 2.0 ** -10          # 4 quantization buckets of the packed distance
 NORM_ULPS = 2.0 ** -18             # 32 f32 ulps of the squared norms
+POOL_TIE_REL = 1e-5                # kept clusters may differ within this of the fitness scale
 SERVE_CALLS = 11
 STRESS_BATCH, STRESS_POINTS = 128, 10000    # the JAX package's stress configuration
 STRESS_CALLS = 5
@@ -666,17 +728,20 @@ def chunked(fn, x, chunk):
 
 
 def check_kernel(name, x, folded, widths, *, tile_variant=False, bf16=False, k=K,
-                 phase=None, timing=None):
+                 phase=None, timing=None, plain_chunk=None):
     """Kernel against the plain version on the same inputs at k neighbours;
     returns the kernel's output and its line of the kernels list (launches
     filled in later). The single-tile variants are checked and timed on the
     whole batch at once; the tiled ones (stress shapes) checked on the first
     CHUNK clouds, their plain version timed on the whole batch CHUNK clouds
     at a time, and fewer timed runs (each call takes most of a second).
-    `bf16`: the bf16 compute mode (`mlp_dtype=torch.bfloat16`, wide rows
-    gathered as their top truncation chunk), on both sides. `phase` names
-    the printed line's phase; `timing` (warm-up, runs) sets the kernel's
-    and the plain version's timed calls."""
+    `plain_chunk`: the plain version runs on that many clouds at a time, in
+    the check and in its timing, where the whole batch's edge rows would not
+    fit the card (the kernel still runs on the whole batch). `bf16`: the
+    bf16 compute mode (`mlp_dtype=torch.bfloat16`, wide rows gathered as
+    their top truncation chunk), on both sides. `phase` names the printed
+    line's phase; `timing` (warm-up, runs) sets the kernel's and the plain
+    version's timed calls."""
     import torch
     from garment_pattern_estimation_torch.ops import edgeconv
 
@@ -685,14 +750,23 @@ def check_kernel(name, x, folded, widths, *, tile_variant=False, bf16=False, k=K
     out, idx = edgeconv.fused_edgeconv(x, folded, k, mlp_dtype=mlp_dtype, return_idx=True)
     torch.cuda.synchronize()
     check_clouds = CHUNK if tile_variant else B
+    step = plain_chunk or check_clouds
     xc, out_c, idx_c = x[:check_clouds], out[:check_clouds], idx[:check_clouds]
-    ref_idx, x_lp = edgeconv.edgeconv_select(xc, k, mlp_dtype)
+    ref_idx = chunked(lambda xs: edgeconv.edgeconv_select(xs, k, mlp_dtype)[0], xc, step)
     agree_rows = (idx_c == ref_idx).all(dim=-1)
     id_share, n_rows, worst_tie, _ = check_ids(name, xc, idx_c, ref_idx)
 
-    tail = edgeconv.edgeconv_mlp_max(xc, idx_c, x_lp, folded)
-    full = edgeconv.edgeconv_mlp_max(xc, ref_idx, x_lp, folded)
-    del ref_idx, x_lp
+    def plain_tails(i):
+        """The plain edge MLP and max on clouds i.. i + step, over the
+        kernel's ids (the tail) and over the plain selection's (full)."""
+        xs = xc[i:i + step]
+        x_lp = edgeconv.gathered_rows(xs.float(), 2 if mlp_dtype == torch.float32 else 1)
+        return (edgeconv.edgeconv_mlp_max(xs, idx_c[i:i + step], x_lp, folded),
+                edgeconv.edgeconv_mlp_max(xs, ref_idx[i:i + step], x_lp, folded))
+
+    tail, full = (torch.cat(parts) for parts in zip(*map(plain_tails,
+                                                         range(0, check_clouds, step))))
+    del ref_idx
     scale = tail.abs().max().item()
     diff = (out_c - tail).abs()
     diff_agree = (out_c - full).abs()[agree_rows]
@@ -712,8 +786,8 @@ def check_kernel(name, x, folded, widths, *, tile_variant=False, bf16=False, k=K
                          warmup, runs)
     line['plain_ms'] = cuda_ms(lambda: chunked(
         lambda xs: edgeconv.fused_edgeconv_reference(xs, folded, k, mlp_dtype), x,
-        check_clouds), warmup, 3 if tile_variant else runs)
-    line['plain_chunk'] = check_clouds
+        step), warmup, 3 if tile_variant else runs)
+    line['plain_chunk'] = step
     line['bound_ms'], line['bound_by'] = bound(B, N, C, k, widths)
     line['library_ms'] = None       # no single PyTorch call computes this layer
     emit(line)
@@ -859,7 +933,8 @@ def check_knn_gather(x, backward, value_chunks=2, k=K, phase_name=None, timing=(
     suffix, phase = ('', 'knn_gather') if value_chunks == 2 else ('_bf16', 'knn_gather_bf16')
     k_suffix = '' if k == K else f'_k{k}'
     phase = phase_name or phase + k_suffix
-    name = f'knn_gather_fwd_{variant}{suffix}{k_suffix}' + ('' if k == K else f'_c{C}')
+    c_suffix = '' if k == K and C in (3, 150) else f'_c{C}'
+    name = f'knn_gather_fwd_{variant}{suffix}{k_suffix}{c_suffix}'
     nbr, idx = kg.knn_gather_fwd(x, k, value_chunks)
     torch.cuda.synchronize()
     ref_nbr, ref_idx = kg.knn_gather_reference(x, k, value_chunks)
@@ -879,8 +954,7 @@ def check_knn_gather(x, backward, value_chunks=2, k=K, phase_name=None, timing=(
     if not backward:
         return [fwd]
 
-    name = ('knn_gather_bwd' if value_chunks == 2 else 'knn_gather_bwd_hi') \
-        + ('' if k == K else f'_k{k}_c{C}')
+    name = ('knn_gather_bwd' if value_chunks == 2 else 'knn_gather_bwd_hi') + k_suffix + c_suffix
     gen = torch.Generator(device=x.device).manual_seed(3)
     # standard normal cotangents: not bf16-valued, so value_chunks=1 truncates
     g = torch.randn(B, k, N, C, generator=gen, device=x.device)
@@ -945,7 +1019,8 @@ def kernel_split(fn, names, calls=20):
 
 def gather_backward_sweep():
     """Row 9 (the knn_gather backward: CSR of the transposed graph, then
-    one gathered sum per target) at N in {1, 31, 32, 33, 2048}, k = 1..16,
+    one gathered sum per target) at N in {1, 31, 32, 33, 2048}, k in {1, 2,
+    3, 5, 8, 9, 16},
     C in {3, 24, 150, 256} and both chunk counts on ids drawn from all N
     points, and on hub ids (one point named by every query in every slot
     >= 1, so its list holds all N (k-1) entries; at N = 2048 and k >= 9 the
@@ -958,7 +1033,9 @@ def gather_backward_sweep():
     from garment_pattern_estimation_torch.ops import knn_gather as kg
 
     gen = torch.Generator(device='cuda').manual_seed(11)
-    cases = [(2, n, k, c, v, False) for n in (1, 31, 32, 33, 2048) for k in range(1, 17)
+    # k: each exact instance's ends and the K = 16 instance's (cut from
+    # every k of 1..16 to keep the script within half its time limit)
+    cases = [(2, n, k, c, v, False) for n in (1, 31, 32, 33, 2048) for k in (1, 2, 3, 5, 8, 9, 16)
              if k <= n for c in (3, 24, 150, 256) for v in (1, 2)]
     cases += [(TRAIN_BATCH, POINTS, K, 150, v, True) for v in (1, 2)]
     cases += [(2, 2048, 8, 256, 2, True), (2, 33, 8, 3, 1, True), (2, 2048, 16, 24, 2, True),
@@ -2484,10 +2561,25 @@ VARIANTS = {'': ('GarmentSegmentPattern3D', ATT_NN_CONFIG, ATT_LOSS_CONFIG),
             '_k20': ('GarmentSegmentPattern3D', dict(ATT_NN_CONFIG, k_neighbors=K_DGCNN),
                      ATT_LOSS_CONFIG),
             '_k20_bf16': ('GarmentSegmentPattern3D',
-                          dict(ATT_BF16_NN_CONFIG, k_neighbors=K_DGCNN), ATT_LOSS_CONFIG)}
+                          dict(ATT_BF16_NN_CONFIG, k_neighbors=K_DGCNN), ATT_LOSS_CONFIG),
+            '_k200': ('GarmentSegmentPattern3D', dict(ATT_NN_CONFIG, k_neighbors=K_LARGE),
+                      ATT_LOSS_CONFIG),
+            **{variant: ('GarmentSegmentPattern3D', dict(ATT_NN_CONFIG, **change),
+                         ATT_LOSS_CONFIG) for variant, change in WIDE_VARIANTS.items()}}
 
 
-def serve_phase(variant=''):
+def eval_launches(nn_section, calls):
+    """The fused and knn_gather launches of `calls` att eval forwards: conv0
+    (C = 3) fused; conv1 (C = EConv_feature) fused up to C = 256, through
+    knn_gather's wide forward beyond (fused_edgeconv_supported, as the JAX
+    models route it)."""
+    wide = nn_section['EConv_feature'] <= 256
+    return ({'small_c': calls, 'wide_c': calls if wide else 0, 'small_c_tiled': 0,
+             'wide_c_tiled': 0},
+            {'fwd_small_c': 0, 'fwd_wide_c': 0 if wide else calls, 'bwd': 0, 'bwd_hi': 0})
+
+
+def serve_phase(variant='', calls=SERVE_CALLS):
     """Serving of att (`variant` ''), of att in the bf16 mode (att_bf16.yaml,
     '_bf16'), of the baseline (lstm_stitch_tags.yaml, '_lstm') or of att at
     k = 20 ('_k20', '_k20_bf16'): SERVE_CALLS forwards of a (64, 2000, 3)
@@ -2507,16 +2599,15 @@ def serve_phase(variant=''):
     torch.cuda.reset_peak_memory_stats()
     edgeconv.reset_launches()
     knn_gather.reset_launches()
-    preds, times = timed_calls(lambda: serve(points), SERVE_CALLS)
+    preds, times = timed_calls(lambda: serve(points), calls)
     launches = dict(edgeconv.launches)
+    gather_launches = dict(knn_gather.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expected = {'small_c': SERVE_CALLS, 'wide_c': SERVE_CALLS,
-                'small_c_tiled': 0, 'wide_c_tiled': 0}
+    expected, expected_gather = eval_launches(nn_section, calls)
     check(launches == expected,
-          f'{phase}: launches {launches}, expected {SERVE_CALLS} of each single-tile '
-          f'variant ({2 * SERVE_CALLS} for {SERVE_CALLS} forwards)')
-    check(not any(knn_gather.launches.values()),
-          f'{phase}: knn_gather launched {knn_gather.launches} in eval')
+          f'{phase}: launches {launches}, expected {expected} for {calls} forwards')
+    check(gather_launches == expected_gather,
+          f'{phase}: knn_gather launched {gather_launches} in eval, expected {expected_gather}')
     check_outputs(phase, preds, BATCH, POINTS, attention=variant != '_lstm')
     # a 2-cloud batch against the plain path of the same weights on the CPU
     ref_err = compare_cpu(phase, model, serve, points[:2])
@@ -2524,14 +2615,20 @@ def serve_phase(variant=''):
     # the first call pays one-time set-up (allocator, cuBLAS handles)
     q1, batch_ms, q3 = statistics.quantiles(times[1:], n=4)
     emit({'phase': phase, 'model': model_name, 'batch': [BATCH, POINTS, 3],
-          'calls': SERVE_CALLS, 'compute_dtype': model.config['compute_dtype'],
-          'k_neighbors': nn_section['k_neighbors'],
+          'calls': calls, 'compute_dtype': model.config['compute_dtype'],
+          'k_neighbors': nn_section['k_neighbors'], 'econv': [
+              nn_section['EConv_hidden'], nn_section['EConv_hidden_depth'],
+              nn_section['EConv_feature']],
           'launches': launches, 'launches_per_forward': {
-              k: v / SERVE_CALLS for k, v in launches.items()},
+              k: v / calls for k, v in launches.items()},
+          'knn_gather_launches': gather_launches,
+          'launches_by_shape': {' '.join(map(str, key)): n
+                                for key, n in edgeconv.launches_by_shape.items()},
           'first_call_ms': times[0], 'batch_ms': batch_ms,
           'batch_ms_quartiles': [q1, q3],
           'clouds_per_s': BATCH / batch_ms * 1e3, 'peak_memory_gb': peak_gb,
           'vs_cpu_plain': ref_err})
+    launches.update({'knn_gather_' + key: n for key, n in gather_launches.items()})
     return launches, model, serve, points
 
 
@@ -2640,6 +2737,148 @@ def gradient_gap(grads, ref):
             'worst_param': worst[1], 'worst_element_rel': max_rel}
 
 
+class StepChoices:
+    """The discrete choices of a train-mode forward, recorded on the card
+    and replayed on the CPU (see the module docstring). Within `record()`
+    the model's knn_gather, kNN and DynamicGraphPool calls run as they are
+    and each choice is kept with its input, in call order; `check(name,
+    cpu_module)` holds each against the plain version on that input on the
+    CPU; within `replay()` the same calls take the recorded choices in the
+    same order, the plain arithmetic on them: knn_gather's rows and its
+    backward (`knn_gather_backward_reference`), the pool's clusters,
+    fitness and gating."""
+
+    def __init__(self, module):
+        self.names = {id(m): n for n, m in module.named_modules()}
+        self.records = []
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _patched(gather, search, pool):
+        from garment_pattern_estimation_torch.models import blocks
+
+        saved = blocks.knn_gather, blocks.knn_search, blocks.DynamicGraphPool.pool
+        blocks.knn_gather, blocks.knn_search, blocks.DynamicGraphPool.pool = gather, search, pool
+        try:
+            yield
+        finally:
+            blocks.knn_gather, blocks.knn_search, blocks.DynamicGraphPool.pool = saved
+
+    def record(self):
+        from garment_pattern_estimation_torch.models import blocks
+        gather, search, pool = blocks.knn_gather, blocks.knn_search, blocks.DynamicGraphPool.pool
+        records, names = self.records, self.names
+
+        def recorded_gather(x, k, value_chunks=2):
+            neighbours, ids = gather(x, k, value_chunks)
+            records.append(('knn_gather', x.detach().cpu(), k, value_chunks, ids.cpu()))
+            return neighbours, ids
+
+        def recorded_search(x, k):
+            ids = search(x, k)
+            records.append(('knn', x.detach().cpu(), k, None, ids.cpu()))
+            return ids
+
+        def recorded_pool(module, x, idx):
+            out, top = pool(module, x, idx)
+            records.append(('pool', x.detach().cpu(), idx.cpu(), names[id(module)], top.cpu()))
+            return out, top
+        return self._patched(recorded_gather, recorded_search, recorded_pool)
+
+    def check(self, name, cpu_module):
+        """Each recorded choice against the plain version on its recorded
+        input: small-C ids all equal, every wide-C id that differs a near
+        tie (`near_tie_ratio`), every kept cluster that differs within
+        POOL_TIE_REL of the fitness scale of the cutoff. The share of equal
+        ids is reported, not held: the kernel checks hold it at 99% on
+        thousands of rows, and a step's 20-point cloud of pooled clusters
+        has 400 ids, where one row's near tie moves it by 0.25% a slot.
+        Returns a line per choice, after checking them all."""
+        import torch
+        from garment_pattern_estimation_torch.ops import edgeconv, knn
+
+        modules = dict(cpu_module.named_modules())
+        lines, bad = [], []
+        for kind, x, a, b, choice in self.records:
+            with torch.no_grad():
+                if kind == 'pool':
+                    cluster, fitness = modules[b].clusters(x, a)
+                    keep = choice.shape[1]
+                    ref = torch.sort(fitness, dim=1, descending=True, stable=True).indices[:, :keep]
+                    cutoff = fitness.gather(1, ref[:, -1:])
+                    kept, ref_kept = (torch.zeros_like(fitness, dtype=torch.bool).scatter_(
+                        1, t, True) for t in (choice, ref))
+                    differ = kept != ref_kept
+                    tie = (fitness - cutoff).abs() <= POOL_TIE_REL * fitness.abs().max()
+                    line = {'kind': kind, 'shape': list(x.shape),
+                            'kept_differ': int(differ.sum()),
+                            'kept_differ_off_tie': int((differ & ~tie).sum())}
+                    ok = line['kept_differ_off_tie'] == 0
+                else:
+                    quantized = kind == 'knn_gather'
+                    ref = edgeconv.edgeconv_select(
+                        x, a, torch.float32 if b == 2 else torch.bfloat16)[0] \
+                        if quantized else knn.knn_reference(x, a)
+                    share = (choice == ref).float().mean().item()
+                    worst_tie, n_rows, _ = near_tie_ratio(x, choice, ref, quantized)
+                    line = {'kind': kind, 'shape': list(x.shape), 'k': a, 'id_share': share,
+                            'rows_differ': n_rows, 'worst_near_tie': worst_tie}
+                    ok = share == 1.0 if x.shape[-1] <= 16 else worst_tie <= 1.0
+            lines.append(line)
+            if not ok:
+                bad.append(len(lines) - 1)
+        check(not bad, f'{name}: the card step\'s choices {bad} are off the plain version: {lines}')
+        return lines
+
+    @contextlib.contextmanager
+    def replay(self):
+        import torch
+        from garment_pattern_estimation_torch.ops import edgeconv
+        from garment_pattern_estimation_torch.ops.knn_gather import knn_gather_backward_reference
+        pending = list(self.records)
+
+        def take(kind, x):
+            check(pending and pending[0][0] == kind and pending[0][1].shape == x.shape,
+                  f'replay: a {kind} call on {list(x.shape)} where the card made '
+                  f'{pending[0][:1] if pending else "no more"}')
+            return pending.pop(0)
+
+        class GatherOnIds(torch.autograd.Function):
+            """knn_gather's plain forward and backward on given ids."""
+
+            @staticmethod
+            def forward(ctx, x, ids, value_chunks):
+                B, N, C = x.shape
+                rows = edgeconv.gathered_rows(x.float(), value_chunks)
+                flat = ids.transpose(1, 2) + (torch.arange(B) * N)[:, None, None]
+                neighbours = rows.reshape(B * N, C)[flat.reshape(-1)].reshape(B, -1, N, C)
+                neighbours[:, 0] = x.float()
+                ctx.save_for_backward(ids)
+                ctx.value_chunks = value_chunks
+                return neighbours
+
+            @staticmethod
+            def backward(ctx, g):
+                (ids,) = ctx.saved_tensors
+                return knn_gather_backward_reference(ids, g, ctx.value_chunks), None, None
+
+        def replayed_gather(x, k, value_chunks=2):
+            ids = take('knn_gather', x)[4]
+            return GatherOnIds.apply(x, ids, value_chunks), ids
+
+        def replayed_search(x, k):
+            return take('knn', x)[4]
+
+        def replayed_pool(module, x, idx):
+            top = take('pool', x)[4]
+            cluster, fitness = module.clusters(x, idx)
+            return module.select(cluster, fitness, top), top
+
+        with self._patched(replayed_gather, replayed_search, replayed_pool):
+            yield
+        check(not pending, f'replay: {len(pending)} recorded choices were not taken')
+
+
 def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=False,
                      epoch=0, noise_floor=False):
     """Loss and gradients of one train-mode step on the first `clouds`
@@ -2647,7 +2886,9 @@ def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=Fal
     CPU, at the loss phase of `epoch`, held to the loss and norm bars;
     beside them the floor, the CPU path against itself on the cloud
     perturbed by 1e-7. `configure` (a function of the module) sets both
-    copies up first.
+    copies up first. The CPU step takes the card step's discrete choices,
+    each first held against the plain version on the card's input
+    (`StepChoices`); the floors' steps make their own.
 
     `order_floor` (the bf16 mode, clouds >= 2): the CPU path also runs on
     the same clouds in reverse batch order, the same math summed in another
@@ -2671,12 +2912,17 @@ def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=Fal
     for m in (card_model, cpu_model):
         if configure is not None:
             configure(m.module)
-    card_loss, card_grads = step_gradients(card_model, small, epoch)
+    choices = StepChoices(card_model.module)
+    with choices.record():
+        card_loss, card_grads = step_gradients(card_model, small, epoch)
+    choice_lines = choices.check(name, cpu_model.module)
     cpu_small = {'features': small['features'].cpu(),
                  'ground_truth': {k: v.cpu() for k, v in small['ground_truth'].items()}}
-    cpu_loss, cpu_grads = step_gradients(cpu_model, cpu_small, epoch)
+    with choices.replay():
+        cpu_loss, cpu_grads = step_gradients(cpu_model, cpu_small, epoch)
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
-    gaps = {'loss_rel': loss_rel, **gradient_gap(card_grads, cpu_grads)}
+    gaps = {'loss_rel': loss_rel, **gradient_gap(card_grads, cpu_grads),
+            'choices': choice_lines}
     noisy = cpu_small['features'] * (1 + 1e-7 * torch.randn(
         cpu_small['features'].shape, generator=torch.Generator().manual_seed(5)))
     _, noisy_grads = step_gradients(cpu_model, dict(cpu_small, features=noisy), epoch)
@@ -2701,11 +2947,15 @@ def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=Fal
     return gaps
 
 
-def train_phase(bf16=False, variant=None, phase=None):
+def train_phase(bf16=False, variant=None, phase=None, batch_size=TRAIN_BATCH,
+                steps=TRAIN_STEPS, noise_floor=False):
     """att training, f32 or the bf16 mode (or the model of `variant`):
-    TRAIN_STEPS steps on one (30, 2000, 3) batch. The bf16 mode gathers and
-    scatters one value chunk (knn_gather's 'bwd_hi' backward). Returns the
-    launches and a function that takes one more step."""
+    `steps` steps on one (batch_size, 2000, 3) batch (30: att.yaml's).
+    The bf16 mode gathers and scatters one value chunk (knn_gather's
+    'bwd_hi' backward). `noise_floor`: the 2-cloud step's gradient bars
+    are the larger of the f32 bars and twice the CPU's own 1e-7 noise
+    floor (compare_step_cpu). Returns the launches and a function that
+    takes one more step."""
     import torch
     from garment_pattern_estimation_torch.models import build_model
     from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
@@ -2718,15 +2968,15 @@ def train_phase(bf16=False, variant=None, phase=None):
         variant if variant is not None else '_bf16' if bf16 else '']
     model = build_model(model_name, ATT_DATA_CONFIG, nn_section, loss_section, seed=0)
     trainer = Trainer(ATT_TRAINER)
-    trainer.make_optimizer(model, steps_per_epoch=TRAIN_STEPS)
-    batch = training_batch(torch.Generator().manual_seed(4), TRAIN_BATCH, 'cuda')
+    trainer.make_optimizer(model, steps_per_epoch=steps)
+    batch = training_batch(torch.Generator().manual_seed(4), batch_size, 'cuda')
     states = torch.Generator(device='cuda').manual_seed(ATT_TRAINER['random_seed'])
 
     torch.cuda.reset_peak_memory_stats()
     edgeconv.reset_launches()
     knn_gather.reset_launches()
     losses, times = [], []
-    for step in range(TRAIN_STEPS):
+    for step in range(steps):
         before = dict(knn_gather.launches)
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -2750,17 +3000,17 @@ def train_phase(bf16=False, variant=None, phase=None):
     knn_gather.reset_launches()
     eval_loss, _ = trainer.eval_step(model, batch, epoch=0)
     torch.cuda.synchronize()
-    check(edgeconv.launches == {'small_c': 1, 'wide_c': 1, 'small_c_tiled': 0,
-                                'wide_c_tiled': 0},
-          f'{phase}: eval_step launched {edgeconv.launches}, expected 1 + 1 fused')
-    check(not any(knn_gather.launches.values()), f'{phase}: eval_step launched knn_gather')
+    expected, expected_gather = eval_launches(nn_section, 1)
+    check(edgeconv.launches == expected and knn_gather.launches == expected_gather,
+          f'{phase}: eval_step launched {edgeconv.launches} and {knn_gather.launches}, '
+          f'expected {expected} and {expected_gather}')
     check(math.isfinite(eval_loss.item()), f'{phase}: eval loss {eval_loss.item()}')
 
     # a 2-cloud step against the plain path of the same weights on the CPU
-    gaps = compare_step_cpu(phase, model, batch, 2, order_floor=bf16)
+    gaps = compare_step_cpu(phase, model, batch, 2, order_floor=bf16, noise_floor=noise_floor)
 
     q1, step_ms, q3 = statistics.quantiles(times[1:], n=4)
-    emit({'phase': phase, 'batch': [TRAIN_BATCH, POINTS, 3], 'steps': TRAIN_STEPS,
+    emit({'phase': phase, 'batch': [batch_size, POINTS, 3], 'steps': steps,
           'compute_dtype': model.config['compute_dtype'],
           'k_neighbors': nn_section['k_neighbors'],
           'launches': launches, 'losses': losses,
@@ -2768,7 +3018,7 @@ def train_phase(bf16=False, variant=None, phase=None):
           'terms_last_step': {k: v.item() if math.isfinite(v.item()) else None
                               for k, v in terms.items()},
           'step_times_ms': times, 'step_ms': step_ms, 'step_ms_quartiles': [q1, q3],
-          'clouds_per_s': TRAIN_BATCH / step_ms * 1e3,
+          'clouds_per_s': batch_size / step_ms * 1e3,
           'eval_loss': eval_loss.item(), 'eval_launches': dict(edgeconv.launches),
           'vs_cpu_plain': gaps, 'peak_memory_gb': peak_gb})
     return launches, lambda: trainer.train_step(model, batch, epoch=0, generator=states)
@@ -3197,6 +3447,259 @@ def k20_kernels(widths):
     return lines
 
 
+def variant_widths(variant):
+    """The edge-MLP widths of att's EdgeConv layers in `variant`."""
+    nn_section = VARIANTS[variant][1]
+    return [nn_section['EConv_hidden']] * nn_section['EConv_hidden_depth'] \
+        + [nn_section['EConv_feature']]
+
+
+def wide_shape_kernels():
+    """Rows 2, 4-5 and 8-9 at the shapes of the WIDE_VARIANTS main paths,
+    each against its plain version with the k = 5 bars: rows 4-5 at
+    serving's (64, 2000, 3) and (64, 2000, 150) for '_hidden512' (6 -> 512
+    -> 512 -> 150: 5 slots of 520-column edge rows fit one launch) and
+    '_depth4' (five layers); for '_feature300' row 4 at (64, 2000, 3) -> 300
+    and conv1's (30, 2000, 300) through rows 8-9 (C past 256: the model's
+    conv1 takes knn_gather in eval too), and row 2 at (8, 2000, 300) (on no
+    path: 2000-point layers rank through knn_gather). Returns {(variant,
+    row): line} (row 8's wide-C forward under 8.5)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(16)
+    x0 = torch.randn(BATCH, POINTS, 3, generator=gen).cuda()
+    lines = {}
+    for variant in WIDE_VARIANTS:
+        widths = variant_widths(variant)
+        conv0 = random_folded(gen, 3, widths, 'cuda')
+        x1, lines[variant, 4] = check_kernel(f'fused_edgeconv_small_c{variant}', x0, conv0,
+                                             widths, phase='wide_shapes')
+        x1 = x1.contiguous()
+        if widths[-1] <= 256:
+            conv1 = random_folded(gen, widths[-1], widths, 'cuda')
+            _, lines[variant, 5] = check_kernel(f'fused_edgeconv_wide_c{variant}', x1, conv1,
+                                                widths, phase='wide_shapes')
+        else:
+            lines[variant, 8.5], lines[variant, 9] = check_knn_gather(
+                x1[:TRAIN_BATCH].contiguous(), True, phase_name='wide_shapes')
+            lines[variant, 2], _ = knn_k_line(f'knn_wide_d{widths[-1]}', x1[:8].contiguous(),
+                                              K, False, phase='wide_shapes')
+            lines[variant, 2]['launches'], lines[variant, 2]['on_main_path'] = 0, False
+    for (variant, _), line in lines.items():
+        line['variant'] = variant
+    return lines
+
+
+def k_large_kernels(widths):
+    """Rows 4-9 at k = 129 and 200 (the selection of all N keys, then the
+    edge MLP or the rows), each against its plain version with the k = 5
+    bars: rows 4-5 at serving_k200's (64, 2000, 3) and (64, 2000, 150), the
+    plain version 16 clouds at a time (the whole batch's edge rows would
+    hold about 30 GB), rows 8-9 at the k = 200 training step's (6, 2000, 3)
+    and (6, 2000, 150), att.yaml's widths; rows 6-7 at (4, 10000, 3) and
+    (4, 10000, 150) at k = 200 (on no path). Returns {(row, k): line} (row
+    8's wide-C forward under 8.5)."""
+    import torch
+    from garment_pattern_estimation_torch.ops import edgeconv
+
+    gen = torch.Generator().manual_seed(15)
+    x0 = torch.randn(BATCH, POINTS, 3, generator=gen).cuda()
+    conv0 = random_folded(gen, 3, widths, 'cuda')
+    conv1 = random_folded(gen, widths[-1], widths, 'cuda')
+    timing, lines = (1, 5), {}
+    x1 = edgeconv.fused_edgeconv(x0, conv0, K).contiguous()
+    for k in K_LARGE_RANGE:
+        _, lines[4, k] = check_kernel(f'fused_edgeconv_small_c_k{k}', x0, conv0, widths, k=k,
+                                      phase='k_large', timing=timing,
+                                      plain_chunk=K_LARGE_PLAIN_CHUNK)
+        _, lines[5, k] = check_kernel(f'fused_edgeconv_wide_c_k{k}', x1, conv1, widths, k=k,
+                                      phase='k_large', timing=timing,
+                                      plain_chunk=K_LARGE_PLAIN_CHUNK)
+        (lines[8, k],) = check_knn_gather(x0[:K_LARGE_TRAIN_BATCH].contiguous(), False, k=k,
+                                          phase_name='k_large', timing=timing)
+        lines[8.5, k], lines[9, k] = check_knn_gather(
+            x1[:K_LARGE_TRAIN_BATCH].contiguous(), True, k=k, phase_name='k_large',
+            timing=timing)
+    del x0, x1
+    s0 = torch.randn(CHUNK, STRESS_POINTS, 3, generator=gen).cuda()
+    s1, lines[6, K_LARGE] = check_kernel(f'fused_edgeconv_small_c_tiled_k{K_LARGE}', s0, conv0,
+                                         widths, k=K_LARGE, tile_variant=True, phase='k_large',
+                                         timing=(1, 3))
+    _, lines[7, K_LARGE] = check_kernel(f'fused_edgeconv_wide_c_tiled_k{K_LARGE}',
+                                        s1.contiguous(), conv1, widths, k=K_LARGE,
+                                        tile_variant=True, phase='k_large', timing=(1, 3))
+    for line in lines.values():
+        line['launches'] = 0            # set from the main path for k = 200 (rows 4-5, 8-9)
+    return lines
+
+
+def _points_steps(device, mesh, result_path=None, flip=False, perturb=None):
+    """Two training steps of att at its published widths (EConv 200-200-150,
+    k = 5; zero LSTM states, so the step does not depend on the clouds'
+    order) on a (4, 2000, 3) batch, its clouds in reverse order with `flip`
+    and scaled by 1 + perturb * a seeded normal draw with `perturb`, over
+    `mesh` (trainer.mesh) in the process group that exists, or in one
+    process (mesh None). Returns (the two losses, the first step's gradient
+    flat on the host); the first rank also writes them to `result_path`."""
+    import torch
+    from garment_pattern_estimation_torch.models import build_model
+    from garment_pattern_estimation_torch.parallel import is_first_rank
+    from garment_pattern_estimation_torch.train import Trainer
+
+    nn_section = dict(ATT_NN_CONFIG, lstm_init='zeros')
+    model = build_model('GarmentSegmentPattern3D', ATT_DATA_CONFIG, nn_section, ATT_LOSS_CONFIG,
+                        device=device, seed=0)
+    trainer = Trainer(dict(ATT_TRAINER, mesh=mesh), device=device)
+    trainer.make_optimizer(model, steps_per_epoch=2)
+    if mesh is not None:
+        trainer.use_mesh(model, trainer.mesh_from_setup())
+    batch = training_batch(torch.Generator().manual_seed(4), 4, device)
+    if flip:
+        batch = {'features': batch['features'].flip(0),
+                 'ground_truth': {k: v.flip(0) for k, v in batch['ground_truth'].items()}}
+    if perturb:
+        noise = torch.randn(batch['features'].shape, generator=torch.Generator().manual_seed(5))
+        batch = dict(batch, features=batch['features'] * (1 + perturb * noise.to(device)))
+    losses, grad = [], None
+    for step in range(2):
+        states = torch.Generator(device=device).manual_seed(100 + step)
+        loss, _ = trainer.train_step(model, batch, epoch=0, generator=states)
+        losses.append(loss.item())
+        if grad is None:
+            grad = torch.cat([p.grad.reshape(-1) for p in model.module.parameters()
+                              if p.grad is not None]).cpu()
+    if result_path is not None and is_first_rank():
+        Path(result_path).write_text(json.dumps(losses))
+        torch.save(grad, result_path + '.grad.pt')
+    return losses, grad
+
+
+def _rank_card(backend):
+    """This spawned rank's card: rank r's under NCCL, card 0 under gloo
+    (both ranks on one card), made the current one."""
+    import torch
+    import torch.distributed as dist
+
+    device = torch.device('cuda', dist.get_rank() if backend == 'nccl' else 0)
+    torch.cuda.set_device(device)
+    return device
+
+
+def _ring_shift_probe(backend, result_path):
+    """One `ring_shift` of a card tensor over the spawned ranks: the first
+    rank writes the device and the values it received (the last rank's)."""
+    import torch
+    import torch.distributed as dist
+    from garment_pattern_estimation_torch.parallel.collectives import ring_shift
+
+    got = ring_shift(torch.full((4,), float(dist.get_rank()), device=_rank_card(backend)))
+    if dist.get_rank() == 0:
+        Path(result_path).write_text(json.dumps([got.device.type, got.tolist()]))
+
+
+def _points_rank(backend, result_path):
+    """`_points_steps` over POINTS_MESH on a spawned rank."""
+    _points_steps(_rank_card(backend), POINTS_MESH, result_path)
+
+
+def _ring_against_knn_gather(gen):
+    """The neighbours of the points-sharded conv1 against one process's:
+    att's conv0 (random weights, the fused layer) on a (4, 2000, 3) cloud
+    gives conv1's (4, 2000, 150) input; the ring's 'kernel' ranking, its two
+    shards driven in one process (plain PyTorch, cuBLAS sums), against
+    knn_gather's kernel (MMA sums) at k = 5. Differences must be near ties,
+    as the kernels' wide ids against their plain versions. Returns (share
+    of equal ids, rows that differ, worst near-tie ratio)."""
+    import torch
+    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
+    from garment_pattern_estimation_torch.parallel.ring import (_ring_init, _ring_merge,
+                                                                _ring_output)
+
+    widths = variant_widths('')
+    x0 = torch.randn(4, POINTS, 3, generator=gen).cuda()
+    x = edgeconv.fused_edgeconv(x0, random_folded(gen, 3, widths, 'cuda'), K).contiguous()
+    shards, S = POINTS_MESH['points'], POINTS // POINTS_MESH['points']
+    ids = []
+    for me in range(shards):
+        q = x[:, me * S:(me + 1) * S]
+        acc = _ring_init(q, K, shards)
+        for step in range(shards):
+            src = (me - step) % shards
+            acc = _ring_merge(q, x[:, src * S:(src + 1) * S], src, acc, me, ranking='kernel')
+        ids.append(_ring_output(q, acc, me)[1])
+    _, kernel_ids = knn_gather.knn_gather_fwd(x, K)
+    share, rows, worst, _ = check_ids('points_sharded ring', x, torch.cat(ids, dim=1),
+                                      kernel_ids.long())
+    return share, rows, worst
+
+
+def points_sharded_phase(out_dir):
+    """trainer.mesh {data: 1, points: 2} on the card: 2 ranks, each holding
+    half of every cloud's points (the ring EdgeConv, the pool summed over
+    the points ranks), at att's published widths, against one process on
+    the same batch. Two cards: NCCL ranks, one card each; one card: two
+    gloo ranks on it (gloo's ring shift staged through the host).
+
+    First a probe: one ring shift of a card tensor over the 2 ranks. Only
+    its failure (the group cannot move card tensors) is printed as the
+    phase not having run; the training ranks run outside any handler, so
+    their failure fails the script.
+
+    Bars: the losses within rtol 2e-5 and the gradient within 1e-5 of its
+    norm (the CPU test's bars), or ORDER_FLOOR_FACTOR times the order floor
+    of each where that is larger: the gap of one process against itself, on the clouds in reverse order (the shapes' cuBLAS and
+    atomic sum orders) and on the clouds scaled by 1 + 1e-7 noise (which
+    moves near ties as the ring's cuBLAS distances do against knn_gather's
+    MMA sums at conv1's 150 channels; the ids of the two are printed). A
+    gradient counted p times, or a rank's share dropped, is off by about
+    its whole norm."""
+    import torch
+    from garment_pattern_estimation_torch.parallel.dryrun import spawn
+
+    cards = torch.cuda.device_count()
+    backend = 'nccl' if cards >= 2 else 'gloo'
+    line = {'phase': 'points_sharded', 'mesh': POINTS_MESH, 'backend': backend,
+            'cards': min(cards, 2), 'batch': [4, POINTS, 3], 'widths': variant_widths('')}
+    probe_path = out_dir / 'points_probe.json'
+    try:
+        spawn(_ring_shift_probe, 2, backend, str(probe_path), backend=backend)
+    except Exception as err:       # the group's transport of card tensors, not a check
+        emit(dict(line, ran=False, reason=f'{type(err).__name__}: {err}'[:2000]))
+        return
+    device_type, received = json.loads(probe_path.read_text())
+    check(device_type == 'cuda' and received == [1.0] * 4,
+          f'points_sharded: ring_shift of a card tensor gave {device_type} {received}')
+    result_path = str(out_dir / 'points_sharded.json')
+    start = time.perf_counter()
+    spawn(_points_rank, 2, backend, result_path, backend=backend)
+    line['ranks_s'] = time.perf_counter() - start
+    losses = json.loads(Path(result_path).read_text())
+    grad = torch.load(result_path + '.grad.pt')
+    card = torch.device('cuda', 0)
+    ref_losses, ref_grad = _points_steps(card, None)
+    floors = {'flip': _points_steps(card, None, flip=True),
+              'noise_1e-7': _points_steps(card, None, perturb=1e-7)}
+
+    def gaps(other):
+        return (max(abs(a - b) / abs(b) for a, b in zip(other[0], ref_losses)),
+                ((other[1] - ref_grad).norm() / ref_grad.norm()).item())
+
+    loss_gap, grad_gap = gaps((losses, grad))
+    loss_floor, grad_floor = (max(v) for v in zip(*map(gaps, floors.values())))
+    loss_bar = max(2e-5, ORDER_FLOOR_FACTOR * loss_floor)
+    grad_bar = max(1e-5, ORDER_FLOOR_FACTOR * grad_floor)
+    share, rows, worst = _ring_against_knn_gather(torch.Generator().manual_seed(17))
+    line.update(ran=True, losses=losses, reference_losses=ref_losses, loss_gap=loss_gap,
+                grad_gap=grad_gap, floors={k: gaps(v) for k, v in floors.items()},
+                loss_bar=loss_bar, grad_bar=grad_bar,
+                conv1_ring_vs_knn_gather={'id_share': share, 'rows_differ': rows,
+                                          'worst_tie_ratio': worst})
+    emit(line)
+    check(loss_gap <= loss_bar, f'points_sharded: step losses {loss_gap} off one process')
+    check(grad_gap <= grad_bar,
+          f'points_sharded: first-step gradient {grad_gap} of its norm off one process')
+
+
 def parity_check_phase(out_dir, fit_run_id):
     """The port's parity CLI (cli/parity_check.py) on the att f32 fit run's
     best checkpoint over parity_run/data_big/ (its split, 30 test
@@ -3613,13 +4116,20 @@ def main():
     fused = [n for n in ptxas['fused_edgeconv'] if n.startswith('fused_edgeconv_kernel<')]
     # k = 1..8 and the k = 9..16 instance: 34 small-C (k x key dims x
     # tiling), 18 wide-C and 9 selection-only; the capacity instances K =
-    # 32, 64, 128 (one per tiling): 6 small-C, 3 wide-C, 3 selection-only
-    check(len(fused) == 73, f'build: {len(fused)} fused_edgeconv_kernel instantiations, not 73')
+    # 32, 64, 128 (one per tiling): 6 small-C, 3 wide-C, 3 selection-only;
+    # the small-C selections alone of the two-launch layers (K = 1, 16, 32,
+    # 64, 128): 12, and the wide-C K = 1 one untiled
+    check(len(fused) == 86, f'build: {len(fused)} fused_edgeconv_kernel instantiations, not 86')
     if hmma['fused_edgeconv'] is not None:
         # the edge MLP (and the wide selections) on tensor cores in every
-        # instantiation that selects neighbours
-        without = [n for n in fused if template_args(n)[0] > 1
-                   and not hmma['fused_edgeconv'].get(n, 0)]
+        # instantiation that selects neighbours, but a small-C selection
+        # alone (template arguments K, small C, tiled, key dims, MLP)
+        without = [n for n in ptxas['fused_edgeconv']
+                   if (n.startswith('fused_edgeconv_kernel<') and template_args(n)[0] > 1
+                       and template_args(n)[1:5:3] != [1, 0])
+                   or n.startswith(('fused_edgeconv_mlp_kernel<',
+                                    'fused_edgeconv_select_kernel<'))
+                   if not hmma['fused_edgeconv'].get(n, 0)]
         check(not without, f'build: no HMMA instruction in {without}')
     spilled = [f'{lib}:{n}' for lib, usage in ptxas.items() for n, (_, stores, loads)
                in usage.items() if template_args(n)[:1] == [5] and (stores or loads)]
@@ -3656,6 +4166,8 @@ def main():
     k10_lines = timed(seconds, 'kernel_k10+knn_gather_k10', wide_k_kernels)
     k_range_lines = timed(seconds, 'k_range', k_range_kernels, widths)
     k20_lines = timed(seconds, 'kernel_k20', k20_kernels, widths)
+    wide_lines = timed(seconds, 'wide_shapes_kernels', wide_shape_kernels)
+    k_large_lines = timed(seconds, 'k_large_kernels', k_large_kernels, widths)
     knn_line, small_tiled_line, wide_tiled_line, knn_wide_line, small_tiled_bf16, \
         wide_tiled_bf16 = timed(seconds, 'knn+kernel_tiled(+bf16)+knn_wide', stress_kernels,
                                 widths)
@@ -3722,6 +4234,39 @@ def main():
             for row in (1, 2, 4, 5, 6, 7, 8, 8.5, 9):
                 k_range_lines[row, k]['on_main_path'] = False
 
+    # att at the widths of WIDE_VARIANTS and at k = 200, each on its own
+    # counts: WIDE_SERVE_CALLS served (64, 2000, 3) batches and
+    # WIDE_TRAIN_STEPS training steps
+    for variant in WIDE_VARIANTS:
+        launches, model, serve, points = timed(seconds, 'serving' + variant, serve_phase,
+                                               variant, WIDE_SERVE_CALLS)
+        del model, serve, points
+        # the deeper and wider MLPs' gradients move more under 1e-7 input
+        # noise than att's (depth 4: 0.021 of their norm on the CPU)
+        train_launches, _ = timed(seconds, 'train' + variant, train_phase, False, variant,
+                                  'train' + variant, TRAIN_BATCH, WIDE_TRAIN_STEPS, True)
+        wide_lines[variant, 4]['launches'] = launches['small_c']
+        if (variant, 5) in wide_lines:
+            wide_lines[variant, 5]['launches'] = launches['wide_c']
+        else:
+            wide_lines[variant, 8.5]['launches'] = train_launches['fwd_wide_c']
+            wide_lines[variant, 8.5]['launches_serving'] = launches['knn_gather_fwd_wide_c']
+            wide_lines[variant, 9]['launches'] = train_launches['bwd']
+    launches, model, serve, points = timed(seconds, 'serving_k200', serve_phase, '_k200',
+                                           WIDE_SERVE_CALLS)
+    del model, serve, points
+    k_large_lines[4, K_LARGE]['launches'] = launches['small_c']
+    k_large_lines[5, K_LARGE]['launches'] = launches['wide_c']
+    train_launches, _ = timed(seconds, 'train_k200', train_phase, False, '_k200', 'train_k200',
+                              K_LARGE_TRAIN_BATCH, WIDE_TRAIN_STEPS, True)
+    for row, key in ((8, 'fwd_small_c'), (8.5, 'fwd_wide_c'), (9, 'bwd')):
+        k_large_lines[row, K_LARGE]['launches'] = train_launches[key]
+    for (row, k), line in k_large_lines.items():
+        line['on_main_path'] = k == K_LARGE and row not in (6, 7)
+    for line in [*wide_lines.values(), *k_large_lines.values()]:
+        check(not line.get('on_main_path', True) or line['launches'] > 0,
+              f'wide_shapes / k_large path: {line["name"]} was not launched')
+
     # the baseline GarmentFullPattern3D (lstm_stitch_tags.yaml, f32): the
     # launches of rows 4-5 and 8-9 on its own serving and training paths
     launches, model, serve, points = timed(seconds, 'serving_lstm', serve_phase, '_lstm')
@@ -3775,6 +4320,8 @@ def main():
             parallel_launches = timed(seconds, 'parallel_fit', parallel_fit_phase, runs_dir,
                                       run_ids[''])
             timed(seconds, 'parallel_ring', parallel_ring_phase)
+        # points sharding: {data: 1, points: 2} against one process
+        timed(seconds, 'points_sharded', points_sharded_phase, out_dir)
         small_line['launches_parallel_fit'] = parallel_launches['fused_small_c']
         wide_line['launches_parallel_fit'] = parallel_launches['fused_wide_c']
         for line in gather_lines:
@@ -3830,7 +4377,8 @@ def main():
                knn_wide_line, *gather_lines, small_bf16, wide_bf16, small_tiled_bf16,
                wide_tiled_bf16, *gather_bf16, *k10_lines.values(),
                *(k20_lines[row] for row in (4, 5, 6, 7, 1, 2, 8, 8.5, 9)),
-               *(k_range_lines[row, 128] for row in (4, 5, 6, 7, 1, 2, 8, 8.5, 9))]
+               *(k_range_lines[row, 128] for row in (4, 5, 6, 7, 1, 2, 8, 8.5, 9)),
+               *wide_lines.values(), *k_large_lines.values()]
     for line in kernels:
         line['bound_share'] = line['bound_ms'] / line['ms']
     emit({'kernels': kernels})

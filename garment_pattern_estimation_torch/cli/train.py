@@ -20,9 +20,9 @@ checkpoint's metrics on the validation and test sections, whole and by
 data folder.
 
 Under torchrun every rank builds the dataset and the model and runs
-`Trainer.fit` (`trainer.mesh`: data only, and its `data` must be G); the
-first rank alone predicts a shape run's sections, writes the run's files
-and, after fit, evaluates the best checkpoint.
+`Trainer.fit` (`trainer.mesh`: {data: G}, or {data: d, points: p} with
+d p = G); the first rank alone predicts a shape run's sections, writes the
+run's files and, after fit, evaluates the best checkpoint.
 """
 from __future__ import annotations
 

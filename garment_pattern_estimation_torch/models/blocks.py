@@ -155,6 +155,23 @@ class MLP(nn.ModuleList):
         return self._affine(x, *pending)
 
 
+def points_pool(kind, features, shard=None, dim=1):
+    """GLOBAL_POOLS[kind] over the point axis `dim` of `features`; on a
+    points shard (`parallel.mesh.PointsShard`) the pool of the whole cloud:
+    'add' the local sums summed over the points ranks, 'mean' that over the
+    global point count. A max over a points shard is not ported (it needs an
+    all-reduce max whose backward goes to the rank holding the maximum):
+    NotImplementedError."""
+    if shard is None:
+        return GLOBAL_POOLS[kind](features, dim=dim)
+    if kind not in ('mean', 'add'):
+        raise NotImplementedError(
+            f'the {kind!r} global pool over points-sharded clouds is not ported '
+            "(trainer.mesh.points > 1 takes global_pool 'mean' or 'add')")
+    total = shard.sum(torch.sum(features, dim=dim))
+    return total / (features.shape[dim] * shard.size) if kind == 'mean' else total
+
+
 # the chunked sweeps' name of each aggregation
 _SWEEP_AGGREGATION = {'max': 'max', 'mean': 'mean', 'add': 'sum'}
 
@@ -170,16 +187,25 @@ class EdgeConv(nn.Module):
         `ops.edgeconv_train.chunked_edgeconv_train` (`train_chunk_size`
         queries per sweep step, `train_mode` its schedule), then the
         running statistics from its (mean, var) pairs;
-      * eval, max, up to 16384 points: the fused layer `fused_edgeconv`
+      * eval, max, up to 16384 points, C <= 256 and edge-MLP widths up to
+        2048 (`fused_edgeconv_supported`): the fused layer `fused_edgeconv`
         (the only aggregation it takes);
-      * train, and eval with mean or add, N <= 2048: `knn_gather` (kernels
-        on the card) and the edge MLP on the slot-major (B, k, N, C) rows;
-      * otherwise: `knn`, `gather_neighbors` and the edge MLP on
-        (B, N, k, C).
+      * otherwise, N <= 2048: `knn_gather` (kernels on the card, any C and
+        k <= N) and the edge MLP on the slot-major (B, k, N, C) rows;
+      * otherwise: `knn` (k <= 128, as the JAX package's), `gather_neighbors`
+        and the edge MLP on (B, N, k, C).
     `compute_dtype` (bf16) reaches the MLP, the chunked sweeps, the fused
     layer's `mlp_dtype` (its output stays f32) and knn_gather's one value
     chunk; the kNN runs on the f32 upcast of the input on every path (a
     bf16 input, the previous layer's output, upcasts exactly).
+
+    `points_shard` (None, or a `parallel.mesh.PointsShard` that `Trainer`
+    sets under a data x points mesh): the input is this rank's slice of
+    each cloud's points, and the layer, in train and eval mode alike, is
+    the ring (`parallel.ring.ring_knn_gather` with the kernels' ranking and
+    knn_gather's rows, `low_precision_rows`), the edge MLP (its statistics
+    over the whole mesh, `MLP.data_shard`) and the aggregation over the
+    slots, as the JAX package's points-sharded step runs its unfused layer.
     """
 
     # the unfused path materializes (B, N, k, W) for the widest W among the
@@ -204,6 +230,7 @@ class EdgeConv(nn.Module):
         self.train_mode = train_mode
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.nn = MLP([2 * in_channels, *mlp_features], compute_dtype=self.compute_dtype)
+        self.points_shard = None
 
     def chunked(self, B, N, C):
         """Whether train mode takes the chunked sweeps for a (B, N, C) input."""
@@ -217,6 +244,8 @@ class EdgeConv(nn.Module):
         B, N, C = x.shape
         k = min(self.k, N)
         bf16 = self.compute_dtype == torch.bfloat16
+        if self.points_shard is not None:
+            return self._points_sharded(x, bf16)
         if self.training and self.chunked(B, N, C):
             idx = knn_search(x.detach(), k)
             out, stats = chunked_edgeconv_train(
@@ -225,20 +254,33 @@ class EdgeConv(nn.Module):
                 compute_dtype=self.compute_dtype, data_shard=self.nn.data_shard)
             self.nn.update_running_stats(stats)
             return out
-        if not self.training and self.aggr == 'max' and fused_edgeconv_supported(N, C):
+        if not self.training and self.aggr == 'max' \
+                and fused_edgeconv_supported(N, C, self.mlp_features):
             return fused_edgeconv(x, self.nn.folded(), k=self.k,
                                   mlp_dtype=torch.bfloat16 if bf16 else torch.float32)
-        if (self.training or self.aggr != 'max') and knn_gather_supported(N):
+        if knn_gather_supported(N):
             # bf16: the gathered rows and their cotangents in one chunk
             neighbours, _ = knn_gather(x, k, value_chunks=1 if bf16 else 2)
             axis = 1
         else:
             neighbours = gather_neighbors(x, knn_search(x.detach(), k))    # (B, N, k, C)
             axis = 2
-        edges = self.nn(edge_pair=(x, neighbours, axis))
+        return self._aggregate(self.nn(edge_pair=(x, neighbours, axis)), axis)
+
+    def _aggregate(self, edges, axis):
         if self.aggr == 'max':
             return torch.amax(edges, dim=axis)
         return torch.mean(edges, dim=axis) if self.aggr == 'mean' else torch.sum(edges, dim=axis)
+
+    def _points_sharded(self, x, bf16):
+        """The layer on this rank's points (B, S, C) of clouds of P S points."""
+        from ..parallel.ring import low_precision_rows, ring_knn_gather
+
+        shard = self.points_shard
+        k = min(self.k, x.shape[1] * shard.size)
+        neighbours, _ = ring_knn_gather(x, k, shard.group, ranking='kernel')
+        neighbours = low_precision_rows(neighbours, 1 if bf16 else 2)       # (B, S, k, C)
+        return self._aggregate(self.nn(edge_pair=(x, neighbours, 2)), 2)
 
 
 class EdgeConvFeatures(nn.Module):
@@ -287,6 +329,9 @@ class EdgeConvFeatures(nn.Module):
         self.out_features = widths[-1] + (3 if skip_connections else 0)
         # the global head exists only where the model pools globally
         self.lin = nn.Linear(self.out_features, out_size) if global_head else None
+        # under a data x points mesh (`Trainer.use_mesh`): the pool sums over
+        # the points ranks
+        self.points_shard = None
 
     def forward(self, positions, pool_global: bool = True):
         out = positions
@@ -298,7 +343,7 @@ class EdgeConvFeatures(nn.Module):
             out = torch.cat([out.to(positions.dtype), positions], dim=-1)
         out = out.float()                  # the heads and the loss stay f32
         if pool_global:
-            return self.lin(GLOBAL_POOLS[self.global_pool](out)), out, None
+            return self.lin(points_pool(self.global_pool, out, self.points_shard)), out, None
         return None, out, None
 
 
@@ -329,7 +374,15 @@ class DynamicGraphPool(nn.Module):
 
     def pool(self, x, idx):
         """The pooling on given kNN ids (B, N, k), slot 0 the point itself."""
-        B, N, C = x.shape
+        cluster, fitness = self.clusters(x, idx)
+        # jax.lax.top_k puts the lower index first among equal values, and
+        # tanh saturates to exactly +-1 in f32: a stable sort keeps that order
+        top_idx = torch.sort(fitness, dim=1, descending=True, stable=True).indices
+        top_idx = top_idx[:, :self.keep(x.shape[1])]
+        return self.select(cluster, fitness, top_idx), top_idx
+
+    def clusters(self, x, idx):
+        """Each point's cluster (B, N, C) and its fitness (B, N)."""
         neighbours = gather_neighbors(x, idx)                         # (B, N, k, C)
         query = torch.amax(neighbours, dim=2)
         att_in = torch.cat([query[:, :, None, :].expand_as(neighbours), neighbours], dim=-1)
@@ -338,12 +391,13 @@ class DynamicGraphPool(nn.Module):
         fitness = torch.tanh(
             self.fit_self(cluster)[..., 0]
             + self.fit_nbr(cluster - torch.mean(gather_neighbors(cluster, idx), dim=2))[..., 0])
-        # jax.lax.top_k puts the lower index first among equal values, and
-        # tanh saturates to exactly +-1 in f32: a stable sort keeps that order
-        top_idx = torch.sort(fitness, dim=1, descending=True, stable=True).indices
-        top_idx = top_idx[:, :self.keep(N)]
-        selected = cluster.gather(1, top_idx[..., None].expand(-1, -1, C))
-        return selected * fitness.gather(1, top_idx)[..., None], top_idx
+        return cluster, fitness
+
+    @staticmethod
+    def select(cluster, fitness, top_idx):
+        """The clusters of `top_idx` (B, keep), gated by their fitness."""
+        selected = cluster.gather(1, top_idx[..., None].expand(-1, -1, cluster.shape[-1]))
+        return selected * fitness.gather(1, top_idx)[..., None]
 
 
 class EdgeConvPoolingFeatures(nn.Module):

@@ -182,12 +182,22 @@ class GarmentSegmentPattern3DModule(GarmentFullPattern3DModule):
         logits = self.point_segment_mlp(att_input.reshape(B * N, -1)).reshape(B, N, -1)
         weights = sparsemax(logits.float())                              # (B, N, P)
 
-        # mean/add pools contract over N as one product; max needs the
+        # mean/add pools contract over N as one product (summed over the
+        # points ranks under a points mesh, over the global N); max needs the
         # per-panel weighted features
+        shard = self.feature_extractor.points_shard \
+            if hasattr(self.feature_extractor, 'points_shard') else None
         if self.global_pool in ('mean', 'add'):
             pooled = torch.einsum('bnp,bnf->bpf', weights, point_features)
+            if shard is not None:
+                pooled = shard.sum(pooled)
+                N = N * shard.size
             if self.global_pool == 'mean':
                 pooled = pooled / N
+        elif shard is not None:
+            raise NotImplementedError(
+                f'the {self.global_pool!r} attention pool over points-sharded clouds is not '
+                "ported (trainer.mesh.points > 1 takes global_pool 'mean' or 'add')")
         else:
             weighted = torch.einsum('bnp,bnf->bpnf', weights, point_features)
             pooled = GLOBAL_POOLS[self.global_pool](

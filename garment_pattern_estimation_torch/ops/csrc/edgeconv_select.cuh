@@ -32,7 +32,12 @@
 //                   windows of `window` columns (see below);
 //   select_wide     16 < C <= 256, QB query rows (16, or WIDE_QB = 64 for
 //                   the kernels that stream a whole 10^4-point cloud):
-//                   q_norm + k_norm - 2 * cross on bf16 tensor cores.
+//                   q_norm + k_norm - 2 * cross on bf16 tensor cores;
+//                   select_wide_general the same for any C, staged
+//                   WIDE_C_MAX features at a time (kernels of their own, so
+//                   the C <= 256 instances are as they were);
+//   select_all_kernel  k > LARGE_K_MAX (the fused layer and knn_gather):
+//                   every key of a few query rows, see below.
 //
 // select_wide. split_rows_kernel first writes every point once into
 // device memory as SPLITS bf16 truncation chunks (hi, lo[, lo2]), each
@@ -151,6 +156,7 @@ constexpr int LARGE_QW = 4;       // query rows per warp of select_small_c_large
 constexpr int LARGE_QB = SMALL_LISTS * LARGE_QW;   // query rows per block of it (32)
 constexpr int LARGE_WINDOW_BYTES = 32768;          // its staged key window
 constexpr int LARGE_WIDE_QB = 32; // query rows per block of the wide selection at K = 64, 128
+constexpr size_t MAX_BLOCK_SMEM = 232448;          // the most shared memory a block may take
 
 // The instance that serves k, and the ids a query row keeps in shared
 // memory for instance K (the header and the candidate lists are sized by it).
@@ -685,6 +691,39 @@ split_rows_kernel(const float* x, size_t P, int C, int Dp, uint16_t* split, floa
     if (lane == 0) norm[p] = static_cast<float>(s);
 }
 
+// split_rows_kernel for C > WIDE_C_MAX: the row in passes of WIDE_C_MAX
+// columns, each lane's squares summed across them in one f64 accumulator.
+template <int SPLITS>
+__global__ void __launch_bounds__(256)
+split_rows_wide_kernel(const float* x, size_t P, int C, int Dp, uint16_t* split, float* norm) {
+    const size_t p = (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
+    const int lane = threadIdx.x % 32;
+    if (p >= P) return;
+    const float* row = x + p * C;
+    double s = 0.0;
+    for (int c0 = 0; c0 < Dp; c0 += WIDE_C_MAX) {
+#pragma unroll
+        for (int i = 0; i < WIDE_C_MAX / 32; ++i) {
+            const int c = c0 + lane + 32 * i;
+            const float v = c < C ? row[c] : 0.f;
+            if (c < Dp) {
+                float r = v;
+#pragma unroll
+                for (int t = 0; t < SPLITS; ++t) {
+                    const float chunk = trunc_bf16(r);
+                    split[(t * P + p) * Dp + c] = static_cast<uint16_t>(__float_as_uint(chunk) >> 16);
+                    r = r - chunk;
+                }
+            }
+            const double vd = v;
+            s = __fma_rn(vd, vd, s);
+        }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) norm[p] = static_cast<float>(s);
+}
+
 // Splits x (P, C) into `scratch` (split_bytes(P, C, SPLITS) bytes).
 template <int SPLITS>
 inline cudaError_t launch_split(const float* x, size_t P, int C, void* scratch,
@@ -693,8 +732,12 @@ inline cudaError_t launch_split(const float* x, size_t P, int C, void* scratch,
     float* norm = reinterpret_cast<float*>(
         static_cast<unsigned char*>(scratch) + split_bytes(P, C, SPLITS) - P * 4);
     const size_t blocks = (P + 7) / 8;
-    split_rows_kernel<SPLITS><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-        x, P, C, padded_depth(C), split, norm);
+    if (C > WIDE_C_MAX)
+        split_rows_wide_kernel<SPLITS><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+            x, P, C, padded_depth(C), split, norm);
+    else
+        split_rows_kernel<SPLITS><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+            x, P, C, padded_depth(C), split, norm);
     return cudaGetLastError();
 }
 
@@ -742,11 +785,17 @@ __device__ __forceinline__ void mma_bf16_from_zero(float (&d)[4], const unsigned
 // and norms plus two key units, or the candidate lists of the final merge
 // (which reuse the same bytes), whichever is larger. Above MAX_K: the
 // staged bytes, then a tile's distances (f32) and the rows' lists (64-bit).
+// The depth select_wide stages at once: the padded depth, at most
+// WIDE_C_MAX (wider rows are staged in chunks of WIDE_C_MAX).
+__host__ __device__ inline int staged_depth(int C) {
+    return padded_depth(C) < WIDE_C_MAX ? padded_depth(C) : WIDE_C_MAX;
+}
+
 template <int QB>
 inline size_t wide_select_bytes(int C, int splits, size_t key_bytes, int K) {
     using Tile = WideTile<QB>;
     constexpr int KT = Tile::WK * Tile::NT * 8;
-    const size_t rs = padded_depth(C) + ROW_PAD;
+    const size_t rs = staged_depth(C) + ROW_PAD;
     const size_t staged = static_cast<size_t>(splits) * QB * rs * 2 + QB * 4
                           + 2 * (KT * rs * 2 + KT * 4);
     if (K > MAX_K) return staged + static_cast<size_t>(QB) * KT * 4 + static_cast<size_t>(QB) * K * 8;
@@ -952,12 +1001,444 @@ __device__ void select_wide(int N, const SplitRows rows, int n0, unsigned char* 
     }
 }
 
+// select_wide for any depth, and for the large-k selection (ALL). The rows
+// are staged staged_depth(C) <= WIDE_C_MAX features at a time: unit u of a
+// key tile is (depth chunk d, key chunk kc), d ascending and kc descending
+// within it, and the products of a chunk are summed in select_wide's order
+// into the same f32 accumulators, so at one chunk (C <= WIDE_C_MAX) a pair's
+// value is select_wide's. The queries' chunks of depth chunk d are staged
+// with the first unit of d (once for the whole cloud when there is one
+// chunk); the unit before such a restage does not overlap the next unit's
+// loads. ALL: no lists; the quantized distance bits of every column (~0u
+// for the query itself) of query rows 0..kept-1 go to keys[row * kstride +
+// column] (the large-k selection ranks them); other rows of the MMA tile are
+// computed and dropped. `work` holds wide_select_bytes<QB>(C, SPLITS,
+// sizeof(R::T), K) bytes (wide_all_bytes(C) for ALL).
+template <int K, typename R, int SPLITS, int QB, bool CLAMP, bool ALL = false>
+__device__ void select_wide_general(int N, const SplitRows rows, int n0, unsigned char* work,
+                                    int* sidx, int k, unsigned* keys = nullptr, int kept = 0,
+                                    int kstride = 0) {
+    using T = typename R::T;
+    using Tile = WideTile<QB>;
+    constexpr bool LARGE = !ALL && K > MAX_K;
+    constexpr bool LISTS = !ALL && !LARGE;
+    using LR = typename LargeRank<R>::type;
+    using LT = typename LR::T;
+    constexpr int LL = LARGE ? K / 32 : 1;        // LARGE: list keys per lane
+    constexpr int NT = Tile::NT;
+    constexpr int KT = Tile::WK * NT * 8;
+    constexpr int NLISTS = 4 * Tile::WK;          // candidate lists per query row
+    const int Dp = rows.Dp, DS = Dp < WIDE_C_MAX ? Dp : WIDE_C_MAX, RS = DS + ROW_PAD;
+    const int NDC = (Dp + DS - 1) / DS;           // depth chunks
+    const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+    const int wq = warp % Tile::WQ, wk = warp / Tile::WQ;
+    uint16_t* q_split = reinterpret_cast<uint16_t*>(work);            // [SPLITS][QB][RS]
+    float* q_norm = reinterpret_cast<float*>(q_split + SPLITS * QB * RS);   // [QB]
+    unsigned char* stages = reinterpret_cast<unsigned char*>(q_norm + QB);
+    const int stage_bytes = KT * RS * 2 + KT * 4;  // [KT][RS] bf16, then [KT] norms
+    float* tile = reinterpret_cast<float*>(stages + 2 * stage_bytes);   // LARGE: [QB][KT]
+    LT* lists = reinterpret_cast<LT*>(tile + QB * KT);                  // LARGE: [QB][K]
+    if constexpr (LARGE)
+        for (int e = t; e < QB * K; e += THREADS) lists[e] = LR::MAX;
+
+    // the queries' chunks of depth chunk d
+    auto issue_queries = [&](int d) {
+        const int d0 = d * DS, pieces = min(DS, Dp - d0) / 8;
+        for (int e = t; e < SPLITS * QB * pieces; e += THREADS) {
+            const int s = e / (QB * pieces), r = e - s * QB * pieces;
+            const int qq = r / pieces, pc = r - qq * pieces;
+            const size_t n = min(n0 + qq, N - 1);
+            cp_async16(q_split + (s * QB + qq) * RS + pc * 8,
+                       rows.split + s * rows.chunk_stride + n * Dp + d0 + pc * 8);
+        }
+    };
+    const int per_tile = SPLITS * NDC;
+    // unit u: key tile u / per_tile, depth chunk d, key chunk kc
+    auto issue = [&](int u) {
+        const int r = u % per_tile, d = r / SPLITS;
+        const int jt = (u / per_tile) * KT, kc = SPLITS - 1 - (r - d * SPLITS);
+        const int d0 = d * DS, pieces = min(DS, Dp - d0) / 8;
+        unsigned char* st = stages + (u & 1) * stage_bytes;
+        uint16_t* kx = reinterpret_cast<uint16_t*>(st);
+        float* k_norm = reinterpret_cast<float*>(st + KT * RS * 2);
+        const uint16_t* src = rows.split + kc * rows.chunk_stride;
+        for (int e = t; e < KT * pieces; e += THREADS) {
+            const int jj = e / pieces, pc = e - jj * pieces;
+            const size_t j = min(jt + jj, N - 1);
+            cp_async16(kx + jj * RS + pc * 8, src + j * Dp + d0 + pc * 8);
+        }
+        for (int e = t; e < KT; e += THREADS) cp_async4(k_norm + e, rows.norm + min(jt + e, N - 1));
+        cp_async_commit();
+    };
+
+    T best[2][LISTS ? K - 1 : 1];     // rows wq * 16 + lane / 4 (+ 8), ascending
+    if constexpr (LISTS) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < K - 1; ++i) best[h][i] = R::MAX;
+    }
+    float acc[NT][4];
+    float qn[2] = {0.f, 0.f};
+    const int row0 = wq * 16 + lane / 4;
+    const int a_off = (wq * 16 + lane % 8 + ((lane / 8) % 2) * 8) * RS + (lane / 16) * 8;
+    const int b_off = (wk * NT * 8 + lane % 8 + (lane / 16) * 8) * RS + ((lane / 8) % 2) * 8;
+
+    const int units = (N + KT - 1) / KT * per_tile;
+    issue_queries(0);
+    for (int e = t; e < QB; e += THREADS) cp_async4(q_norm + e, rows.norm + min(n0 + e, N - 1));
+    issue(0);                         // one group with the queries
+    for (int u = 0; u < units; ++u) {
+        // the next unit starts a new depth chunk of a multi-chunk row: its
+        // queries are staged after this unit, its keys with them
+        const bool restage = NDC > 1 && (u + 1) % SPLITS == 0;
+        if (u + 1 < units && !restage) {
+            issue(u + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (u == 0) {
+            qn[0] = q_norm[row0];
+            qn[1] = q_norm[row0 + 8];
+        }
+        const int r = u % per_tile, d = r / SPLITS;
+        const int kc = SPLITS - 1 - (r - d * SPLITS);
+        const int depth = min(DS, Dp - d * DS);
+        if (kc == SPLITS - 1 && d == 0) {
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+        }
+        const unsigned char* st = stages + (u & 1) * stage_bytes;
+        const uint16_t* kx = reinterpret_cast<const uint16_t*>(st) + b_off;
+        for (int qc = SPLITS - 1 - kc; qc >= 0; --qc) {
+            const uint16_t* qa = q_split + qc * QB * RS + a_off;
+#pragma unroll 2
+            for (int ks = 0; ks < depth; ks += DEPTH_STEP) {
+                unsigned a[4];
+                ldmatrix_x4(a, qa + ks);
+#pragma unroll
+                for (int np = 0; np < NT / 2; ++np) {
+                    unsigned b[4];
+                    ldmatrix_x4(b, kx + np * 16 * RS + ks);
+                    float step[2][4];
+                    mma_bf16_from_zero(step[0], a, b[0], b[1]);
+                    mma_bf16_from_zero(step[1], a, b[2], b[3]);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        acc[2 * np][e] = __fadd_rn(acc[2 * np][e], step[0][e]);
+                        acc[2 * np + 1][e] = __fadd_rn(acc[2 * np + 1][e], step[1][e]);
+                    }
+                }
+            }
+        }
+        if (kc == 0 && d == NDC - 1) {        // the tile's cross terms are complete
+            const int jt = (u / per_tile) * KT;
+            const float* k_norm = reinterpret_cast<const float*>(st + KT * RS * 2);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int h = e / 2, row = row0 + 8 * h;
+                    const int col = wk * NT * 8 + nt * 8 + 2 * (lane % 4) + e % 2;
+                    const int gj = jt + col;
+                    float dd = (qn[h] + k_norm[col]) - 2.f * acc[nt][e];
+                    if (CLAMP) dd = fmaxf(dd, 0.f);
+                    if constexpr (ALL) {
+                        if (row < kept && gj < N)
+                            keys[row * kstride + gj] = gj == n0 + row
+                                ? ~0u : (__float_as_uint(dd) & ~static_cast<unsigned>(IDX_MASK));
+                    } else if constexpr (LARGE) {
+                        tile[row * KT + col] = dd;
+                    } else if (gj < N && gj != n0 + row) {
+                        const T v = R::pack(dd, gj);
+                        if (v < best[h][K - 2]) insert(best[h], v);
+                    }
+                }
+            }
+            if constexpr (LARGE) {        // each warp scans its rows of the tile
+                __syncthreads();
+                for (int i = 0; i < QB / 8; ++i) {
+                    const int q = warp * (QB / 8) + i;
+                    LT list[LL];
+#pragma unroll
+                    for (int l = 0; l < LL; ++l) list[l] = lists[q * K + lane + 32 * l];
+                    LT bound = warp_list_at(list, k - 2);
+#pragma unroll
+                    for (int s = 0; s < KT; s += 32) {
+                        const int gj = jt + s + lane;
+                        const LT v = gj < N && gj != n0 + q ? LR::pack(tile[q * KT + s + lane], gj)
+                                                            : LR::MAX;
+                        warp_list_offer(list, bound, v, lane, k);
+                    }
+#pragma unroll
+                    for (int l = 0; l < LL; ++l) lists[q * K + lane + 32 * l] = list[l];
+                }
+            }
+        }
+        __syncthreads();              // the unit's stage is consumed
+        if (u + 1 < units && restage) {
+            issue_queries((u + 1) % per_tile / SPLITS);
+            issue(u + 1);
+        }
+    }
+
+    if constexpr (LARGE) {            // the warps' lists into the slots
+        for (int i = 0; i < QB / 8; ++i) {
+            const int q = warp * (QB / 8) + i;
+            LT list[LL];
+#pragma unroll
+            for (int l = 0; l < LL; ++l) list[l] = lists[q * K + lane + 32 * l];
+            warp_list_write<LR, K>(list, sidx + q * K, min(n0 + q, N - 1), k, lane);
+        }
+    } else if constexpr (LISTS) {
+        T* cand = reinterpret_cast<T*>(work);     // [QB][NLISTS][K - 1]
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < K - 1; ++i)
+                cand[((row0 + 8 * h) * NLISTS + wk * 4 + lane % 4) * (K - 1) + i] = best[h][i];
+        __syncthreads();
+        merge_candidates<K, R>(cand, NLISTS, QB, N, n0, sidx, k);
+    }
+}
+
 // The fused layer's and knn_gather's wide selection: 2 chunks, the
-// quantized ranking of Rank<TILED>, distances clamped at 0.
-template <int K, bool TILED, int QB>
+// quantized ranking of Rank<TILED>, distances clamped at 0. GENERAL takes
+// select_wide_general (any depth); otherwise C <= WIDE_C_MAX.
+template <int K, bool TILED, int QB, bool GENERAL = false>
 __device__ void select_wide_c(int N, const SplitRows rows, int n0, unsigned char* work,
                               int* sidx, int k) {
-    select_wide<K, Rank<TILED>, 2, QB, true>(N, rows, n0, work, sidx, k);
+    if constexpr (GENERAL)
+        select_wide_general<K, Rank<TILED>, 2, QB, true>(N, rows, n0, work, sidx, k);
+    else
+        select_wide<K, Rank<TILED>, 2, QB, true>(N, rows, n0, work, sidx, k);
+}
+
+// ---- k above LARGE_K_MAX: every key of a few query rows ----
+//
+// select_all_kernel serves 128 < k <= N (the fused layer and knn_gather;
+// the standalone kNN stops at 128, as the JAX package's knn_pallas does).
+// A block takes `rows` query rows of one cloud and writes, per row, the
+// quantized distance bits of all N columns to shared memory (~0u for the
+// query itself, so it is never chosen: k - 1 <= N - 1 others exist). The
+// distances are those of the k <= 128 paths: small C exact f32 per
+// dimension in dimension order (select_small_c's arithmetic), wide C the
+// 2-term split products on the tensor cores (select_wide_general, ALL), so
+// the ids equal theirs. Then one warp per row (rank_row): a radix select on
+// the 21 distance bits, most significant first (21 counting passes over
+// the row), finds the (k-1)-th smallest distance T and how many of the
+// keys equal to T are taken (the lowest columns); the chosen columns, in
+// column order, are gathered 32 at a time, and each one's slot is its rank
+// in (distance, column) order, counted over the whole row. Slot 0 is the
+// query, slots 1..k-1 ascend as _extract_topk's do, ties to the lower
+// column. The ids go to device memory (B, N, k) int32: the fused layer's
+// edge MLP and knn_gather's row gather read them in a second launch.
+// Left: the ranking counts over the whole row for every 32 chosen columns
+// (ceil((k-1) / 32) N compares a row); the wide rows of an MMA tile past
+// `rows` are computed and dropped (at N > 2048 a block keeps 1-5 of its 16).
+
+constexpr int ALL_BUF = 64;       // per warp: chosen columns waiting for their slots
+constexpr int ALL_MAX_ROWS = 16;
+
+__host__ __device__ inline int all_kstride(int N) { return (N + 3) / 4 * 4; }
+
+// Shared bytes of select_wide_general's staging in ALL mode (TM rows).
+__host__ __device__ inline size_t wide_all_bytes(int C) {
+    using Tile = WideTile<TM>;
+    constexpr int KT = Tile::WK * Tile::NT * 8;
+    const size_t rs = staged_depth(C) + ROW_PAD;
+    return 2 * TM * rs * 2 + TM * 4 + 2 * (KT * rs * 2 + KT * 4);
+}
+
+// Bytes before the rows' keys: the wide staging, or the small-C query rows.
+__host__ __device__ inline size_t all_head_bytes(int C, bool small_c, int rows) {
+    return small_c ? static_cast<size_t>(rows) * SMALL_C_MAX * 4 : wide_all_bytes(C);
+}
+
+inline size_t all_bytes(int N, int C, bool small_c, int rows) {
+    return all_head_bytes(C, small_c, rows) + static_cast<size_t>(rows) * all_kstride(N) * 4
+           + (THREADS / 32) * ALL_BUF * 4;
+}
+
+// Query rows per block of select_all_kernel for (N, C): the most that fit,
+// at most ALL_MAX_ROWS (and the MMA tile's TM for wide C); 0 if none does.
+inline int all_rows(int N, int C, bool small_c) {
+    int rows = small_c ? ALL_MAX_ROWS : TM;
+    while (rows > 0 && all_bytes(N, C, small_c, rows) > MAX_BLOCK_SMEM) --rows;
+    return rows;
+}
+
+__device__ __forceinline__ int warp_sum(int v) { return __reduce_add_sync(0xffffffffu, v); }
+
+// One warp: slots 0..k-1 of query row `self` into out[0..k-1] from its keys
+// (kstride entries, ~0u past N); buf holds ALL_BUF ints of this warp.
+__device__ void rank_row(const unsigned* keys, int kstride, int k, int* out, int self,
+                         int* buf) {
+    const int lane = threadIdx.x % 32;
+    const uint4* k4 = reinterpret_cast<const uint4*>(keys);
+    const int n4 = kstride / 4;
+    unsigned prefix = 0u;
+    int need = k - 1;
+    for (int bit = 31; bit >= 11; --bit) {
+        const unsigned hi = bit == 31 ? 0u : ~0u << (bit + 1);
+        int c = 0;
+        for (int j = lane; j < n4; j += 32) {
+            const uint4 v = k4[j];
+            c += ((v.x & hi) == prefix && !((v.x >> bit) & 1u))
+                 + ((v.y & hi) == prefix && !((v.y >> bit) & 1u))
+                 + ((v.z & hi) == prefix && !((v.z >> bit) & 1u))
+                 + ((v.w & hi) == prefix && !((v.w >> bit) & 1u));
+        }
+        c = warp_sum(c);
+        if (c < need) {
+            prefix |= 1u << bit;
+            need -= c;
+        }
+    }
+    // T = prefix; the first `need` keys equal to T in column order are taken
+    int cut = 0, seen = 0;
+    for (int j0 = 0; j0 < kstride; j0 += 32) {
+        const int j = j0 + lane;
+        const unsigned m = __ballot_sync(0xffffffffu, j < kstride && keys[j] == prefix);
+        const int c = __popc(m);
+        if (seen + c >= need) {
+            unsigned mm = m;
+            for (int i = 1; i < need - seen; ++i) mm &= mm - 1u;
+            cut = j0 + __ffs(mm) - 1;
+            break;
+        }
+        seen += c;
+    }
+    // a chosen column's slot: 1 + its rank in (distance, column) order
+    auto place = [&](int j) {
+        const unsigned vj = j >= 0 ? keys[j] : 0u;
+        int rank = 0;
+        for (int i4 = 0; i4 < n4; ++i4) {
+            const uint4 v = k4[i4];
+            const int i = 4 * i4;
+            rank += (v.x < vj || (v.x == vj && i < j)) + (v.y < vj || (v.y == vj && i + 1 < j))
+                    + (v.z < vj || (v.z == vj && i + 2 < j))
+                    + (v.w < vj || (v.w == vj && i + 3 < j));
+        }
+        if (j >= 0) out[1 + rank] = j;
+    };
+    if (lane == 0) out[0] = self;
+    int fill = 0;
+    for (int j0 = 0; j0 < kstride; j0 += 32) {
+        const int j = j0 + lane;
+        const unsigned v = j < kstride ? keys[j] : ~0u;
+        const bool chosen = v < prefix || (v == prefix && j <= cut);
+        const unsigned m = __ballot_sync(0xffffffffu, chosen);
+        if (chosen) buf[fill + __popc(m & ((1u << lane) - 1u))] = j;
+        fill += __popc(m);
+        __syncwarp();
+        if (fill >= 32) {
+            place(buf[lane]);
+            const int left = fill - 32;
+            const int moved = lane < left ? buf[32 + lane] : 0;
+            __syncwarp();
+            if (lane < left) buf[lane] = moved;
+            __syncwarp();
+            fill = left;
+        }
+    }
+    if (fill > 0) place(lane < fill ? buf[lane] : -1);
+}
+
+struct AllParams {
+    const float* x;               // (B, N, C) f32
+    const void* split;            // wide C: split_rows_kernel's output (2 chunks)
+    int* idx;                     // (B, N, k) i32
+    int N, C, k, rows;
+    size_t P;                     // B N
+};
+
+// One block per (batch element, `rows` query rows): the keys, then the
+// rows' slots; all_bytes(N, C, SMALL_C, rows) bytes of shared memory.
+template <bool SMALL_C>
+__global__ void __launch_bounds__(THREADS)
+select_all_kernel(const AllParams p) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int b = blockIdx.y, n0 = blockIdx.x * p.rows, t = threadIdx.x, warp = t / 32;
+    const int N = p.N, C = p.C, kstride = all_kstride(N);
+    unsigned char* head = smem;
+    unsigned* keys = reinterpret_cast<unsigned*>(head + all_head_bytes(C, SMALL_C, p.rows));
+    int* bufs = reinterpret_cast<int*>(keys + static_cast<size_t>(p.rows) * kstride);
+    const float* xb = p.x + static_cast<size_t>(b) * N * C;
+    if constexpr (SMALL_C) {
+        float* q = reinterpret_cast<float*>(head);                 // [rows][C]
+        for (int e = t; e < p.rows * C; e += THREADS) {
+            const int r = e / C;
+            q[e] = xb[min(n0 + r, N - 1) * C + e - r * C];
+        }
+        __syncthreads();
+        for (int e = t; e < p.rows * kstride; e += THREADS) {
+            const int r = e / kstride, j = e - r * kstride, n = n0 + r;
+            unsigned v = ~0u;
+            if (j < N && n < N && j != n) {
+                // exact f32 in dimension order, d*d then add: no FMA
+                // contraction, select_small_c's bits
+                float d = 0.f;
+                for (int c = 0; c < C; ++c) {
+                    const float df = __fsub_rn(q[r * C + c], xb[static_cast<size_t>(j) * C + c]);
+                    const float sq = __fmul_rn(df, df);
+                    d = c == 0 ? sq : __fadd_rn(d, sq);
+                }
+                v = __float_as_uint(d) & ~static_cast<unsigned>(IDX_MASK);
+            }
+            keys[e] = v;
+        }
+    } else {
+        for (int e = t; e < p.rows * kstride; e += THREADS) keys[e] = ~0u;
+        // the staging's first barrier orders these stores before any key's
+        select_wide_general<1, Rank<true>, 2, TM, true, true>(
+            N, cloud_rows(p.split, p.P, C, 2, b, N), n0, head, nullptr, p.k, keys, p.rows,
+            kstride);
+    }
+    __syncthreads();
+    for (int r = warp; r < p.rows; r += THREADS / 32) {
+        const int n = n0 + r;
+        if (n >= N) break;
+        rank_row(keys + static_cast<size_t>(r) * kstride, kstride, p.k,
+                 p.idx + (static_cast<size_t>(b) * N + n) * p.k, n, bufs + warp * ALL_BUF);
+    }
+}
+
+// Launches select_all_kernel for x (B, N, C), 128 < k <= N, into idx
+// (B, N, k) i32; wide C reads the split rows in `split` (launch_split<2>
+// first). Returns cudaErrorInvalidValue where no row fits shared memory.
+// (a template, so that a source which never calls it builds no select_all_kernel)
+template <typename = void>
+inline cudaError_t launch_select_all(const float* x, const void* split, int* idx, int B,
+                                     int N, int C, int k, cudaStream_t stream) {
+    const bool small_c = C <= SMALL_C_MAX;
+    const int rows = all_rows(N, C, small_c);
+    if (rows < 1) return cudaErrorInvalidValue;
+    AllParams p{};
+    p.x = x; p.split = split; p.idx = idx;
+    p.N = N; p.C = C; p.k = k; p.rows = rows;
+    p.P = static_cast<size_t>(B) * N;
+    const size_t smem = all_bytes(N, C, small_c, rows);
+    const dim3 grid((N + rows - 1) / rows, B);
+    cudaError_t err;
+    if (small_c) {
+        err = cudaFuncSetAttribute(select_all_kernel<true>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
+        if (err != cudaSuccess) return err;
+        select_all_kernel<true><<<grid, THREADS, smem, stream>>>(p);
+    } else {
+        err = cudaFuncSetAttribute(select_all_kernel<false>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
+        if (err != cudaSuccess) return err;
+        select_all_kernel<false><<<grid, THREADS, smem, stream>>>(p);
+    }
+    return cudaGetLastError();
 }
 
 // The key window of the small-C selection: SMALL_STAGE_BYTES of keys,

@@ -108,9 +108,8 @@ namespace {
 
 using namespace knn_select;
 
-constexpr int MAX_LAYERS = 4;
 constexpr int MAX_FUSED_N = 1 << 14;  // the TPU package's fused bound
-constexpr int MAX_WIDTH = 256;    // widest edge-MLP layer
+constexpr int MAX_WIDTH = 2048;   // widest edge-MLP layer, and the widest edge input 2C
 constexpr int WARPS = THREADS / 32;
 constexpr int SLICE = 16;         // query rows per edge-MLP pass: one MMA row tile per slot
 constexpr int WARP_TILES = 2;     // most 8-column n-tiles a warp takes at once
@@ -121,14 +120,16 @@ constexpr int BUILD_LOADS = 8;    // x elements each thread loads at once for th
 struct Params {
     const float* x;               // (B, N, C) f32
     float* out;                   // (B, N, dims[n_layers]) f32
-    int* idx_out;                 // (B, N, k) i32 or null
+    int* idx_out;                 // (B, N, k) i32 or null; the MLP launch's ids
     int B, N, C, k, n_chunks, n_layers;
     int window;                   // small-C key window (columns)
-    int dims[MAX_LAYERS + 1];     // dims[0] = 2C
-    const uint2* w[MAX_LAYERS];   // bf16 B fragments, see fused_edgeconv_forward
-    const float* bias[MAX_LAYERS];  // f32 (256,)
-    const float* a;               // f32 (256,): final affine scale
-    const float* d;               // f32 (256,): final affine shift
+    // the layer table in device memory (fused_edgeconv_forward): layer l's
+    // bf16 B fragments w[l], f32 bias[l] and widths dims[l] -> dims[l + 1]
+    const uint2* const* w;
+    const float* const* bias;     // each zero-padded to its width rounded up to 16
+    const long long* dims;        // dims[0] = 2C
+    const float* a;               // f32: final affine scale, padded as a bias
+    const float* d;               // f32: final affine shift
     int in_stride;                // bf16 per row of the edge-input buffer
     int hid_stride;               // bf16 per row of the hidden-activation buffer
     const void* split;            // wide C: split_rows_kernel's output for the B N points
@@ -189,8 +190,8 @@ __device__ __forceinline__ void mlp_layer(const Params& p, int l, const uint16_t
                                           uint16_t* out_buf, uint2* ring, int n0, int b,
                                           bool merge) {
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-    const int dout = p.dims[l + 1];
-    const int KS = padded_depth(p.dims[l]) / DEPTH_STEP;
+    const int dout = static_cast<int>(p.dims[l + 1]);
+    const int KS = padded_depth(static_cast<int>(p.dims[l])) / DEPTH_STEP;
     const int NT = padded_depth(dout) / 8;
     // items of tw n-tiles, dealt to the warps in turn
     const int tw = min(WARP_TILES, (NT + WARPS - 1) / WARPS);
@@ -284,15 +285,17 @@ __device__ __forceinline__ void mlp_layer(const Params& p, int l, const uint16_t
 // time (all K for K <= 8): builds the edge rows [x_i ; x_j - x_i] (bf16,
 // zero to the padded depth) of the slice's G slots in `work`, then runs the
 // layers. Slot 0, and the slots past k of the K = 16 instance (which hold
-// the query), take the query's own f32 row.
-template <int K, int QB, bool SMALL_C>
+// the query), take the query's own f32 row. K = 0: the ids are the
+// selection launch's, (B, N, k) in device memory at sidx_block (row stride
+// k, rows past N read as row N - 1), for any k, in ceil(k / G) groups.
+template <int K, int QB, bool SMALL_C, int G = (K <= EXACT_K ? K : EXACT_K)>
 __device__ void edge_mlp(const Params& p, const float* xb, const int* sidx_block,
                          int n0_block, unsigned char* work) {
-    constexpr int G = K <= EXACT_K ? K : EXACT_K;    // slots per group
+    constexpr bool RUNTIME = K == 0;
     constexpr int R = SLICE * G;              // edge rows: row = slot * SLICE + query
-    const int filled = filled_slots<K>(p.k);
+    const int filled = RUNTIME ? p.k : filled_slots<K>(p.k);
     // the slots the groups cover: all K up to MAX_K, those below k above it
-    const int slots = K > MAX_K ? round_up(filled, G) : K;
+    const int slots = RUNTIME || K > MAX_K ? round_up(filled, G) : K;
     const int t = threadIdx.x, b = blockIdx.y;
     const int N = p.N, C = p.C, D0 = padded_depth(2 * C);
     uint16_t* buf_in = reinterpret_cast<uint16_t*>(work);
@@ -305,6 +308,7 @@ __device__ void edge_mlp(const Params& p, const float* xb, const int* sidx_block
         const int n0 = n0_block + slice * SLICE;
         if (n0 >= N) break;
         const int* sidx = sidx_block + slice * SLICE * K;
+        const int last_q = min(SLICE, N - n0) - 1;    // RUNTIME: the slice's last row
         for (int g0 = 0; g0 < slots; g0 += G) {
             // every (row, c < C) element: BUILD_LOADS per thread at a time, all
             // loads issued before any store, so their L2 latencies overlap
@@ -317,8 +321,16 @@ __device__ void edge_mlp(const Params& p, const float* xb, const int* sidx_block
                     if (e < total) {
                         const int r = e / C, c = e - r * C;
                         const int s = r / SLICE, qq = r % SLICE;
-                        qv[i] = __ldg(xb + static_cast<size_t>(sidx[qq * K]) * C + c);
-                        xv[i] = __ldg(xb + static_cast<size_t>(sidx[qq * K + g0 + s]) * C + c);
+                        if constexpr (RUNTIME) {
+                            const int* ids = sidx + min(qq, last_q) * p.k;
+                            const int qid = __ldg(ids), slot = g0 + s;
+                            qv[i] = __ldg(xb + static_cast<size_t>(qid) * C + c);
+                            xv[i] = __ldg(xb + static_cast<size_t>(slot < filled ? __ldg(ids + slot)
+                                                                                  : qid) * C + c);
+                        } else {
+                            qv[i] = __ldg(xb + static_cast<size_t>(sidx[qq * K]) * C + c);
+                            xv[i] = __ldg(xb + static_cast<size_t>(sidx[qq * K + g0 + s]) * C + c);
+                        }
                     }
                 }
 #pragma unroll
@@ -328,7 +340,7 @@ __device__ void edge_mlp(const Params& p, const float* xb, const int* sidx_block
                         const int r = e / C, c = e - r * C;
                         const int slot = g0 + r / SLICE;
                         float nv = qv[i];         // slot 0: the query's own f32 row
-                        if (slot > 0 && (K <= EXACT_K || slot < filled)) {
+                        if (slot > 0 && ((!RUNTIME && K <= EXACT_K) || slot < filled)) {
                             if (SMALL_C) {
                                 nv = xv[i];
                             } else {
@@ -352,7 +364,7 @@ __device__ void edge_mlp(const Params& p, const float* xb, const int* sidx_block
             for (int l = 0; l < p.n_layers; ++l) {
                 const uint16_t* in = l == 0 ? buf_in : (l % 2 ? buf_h : buf_in);
                 mlp_layer<G>(p, l, in, l == 0 ? p.in_stride : p.hid_stride,
-                             l % 2 ? buf_in : buf_h, ring, n0, b, K > G && g0 > 0);
+                             l % 2 ? buf_in : buf_h, ring, n0, b, g0 > 0);
                 __syncthreads();
                 PHASE_MARK(2 + l, since);
             }
@@ -360,8 +372,9 @@ __device__ void edge_mlp(const Params& p, const float* xb, const int* sidx_block
     }
 }
 
-// MLP = false: the selection alone (ids into p.idx_out), for measuring the
-// two phases apart.
+// MLP = false: the selection alone (ids into p.idx_out): the first launch
+// of a small-C layer the one-launch instances do not take (see
+// fused_edgeconv_mlp_kernel), and for measuring the two phases apart.
 template <int K, bool SMALL_C, bool TILED, int CD, bool MLP>
 __global__ void __launch_bounds__(THREADS, min_blocks<SMALL_C, CD>())
 fused_edgeconv_kernel(const Params p) {
@@ -413,6 +426,38 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
+// The wide-C selection alone at any depth (select_wide_general): the first
+// launch of a wide-C layer the one-launch instances do not take; ids into
+// p.idx_out, the split rows in p.split.
+template <int K, bool TILED>
+__global__ void __launch_bounds__(THREADS, 2)
+fused_edgeconv_select_kernel(const Params p) {
+    constexpr int QB = block_rows<false, TILED, K>();
+    extern __shared__ __align__(16) unsigned char smem[];
+    int* sidx_block = reinterpret_cast<int*>(smem);                 // [QB][K]
+    const int b = blockIdx.y, n0_block = blockIdx.x * QB, t = threadIdx.x, N = p.N;
+    select_wide_c<K, TILED, QB, true>(N, cloud_rows(p.split, p.P, p.C, 2, b, N), n0_block,
+                                      smem + header_bytes(QB, K), sidx_block, p.k);
+    __syncthreads();
+    const int k = filled_slots<K>(p.k);
+    for (int e = t; e < QB * k; e += THREADS) {
+        const int q = e / k, s = e - q * k, n = n0_block + q;
+        if (n < N) p.idx_out[(static_cast<size_t>(b) * N + n) * k + s] = sidx_block[q * K + s];
+    }
+}
+
+template <int K, bool TILED>
+cudaError_t launch_select(const Params& p, size_t smem, cudaStream_t stream) {
+    auto kernel = fused_edgeconv_select_kernel<K, TILED>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    constexpr int QB = block_rows<false, TILED, K>();
+    const dim3 grid((p.N + QB - 1) / QB, p.B);
+    kernel<<<grid, THREADS, smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
 // CD: select_small_c's dimensions (small C), 0 for wide C. Above MAX_K one
 // instance per capacity serves both tilings: its keys are 64-bit and its
 // query rows do not depend on N.
@@ -439,10 +484,131 @@ cudaError_t launch_k(int k, const Params& p, size_t smem, cudaStream_t stream) {
     }
 }
 
+// The selection alone for the two-launch path at k <= LARGE_K_MAX: the K = 16
+// instance serves every k <= 16 (it fills the first k slots), the capacity
+// instances the rest; small C takes select_small_c(_large)
+// (fused_edgeconv_kernel, MLP = false), wide C select_wide_general
+// (fused_edgeconv_select_kernel), which takes any depth.
+template <bool SMALL_C, bool TILED, int CD>
+cudaError_t launch_select_k(int k, const Params& p, size_t smem, cudaStream_t stream) {
+    if (k == 1) return launch<1, SMALL_C, TILED, SMALL_C ? 3 : 0, false>(p, smem, stream);
+    const int K = instance_k(k < MAX_K ? MAX_K : k);
+    if constexpr (!SMALL_C) {
+        switch (K) {
+            case MAX_K: return launch_select<MAX_K, TILED>(p, smem, stream);
+            case 32: return launch_select<32, false>(p, smem, stream);
+            case 64: return launch_select<64, false>(p, smem, stream);
+            default: return launch_select<LARGE_K_MAX, false>(p, smem, stream);
+        }
+    } else {
+        switch (K) {
+            case MAX_K: return launch<MAX_K, SMALL_C, TILED, CD, false>(p, smem, stream);
+            case 32: return launch<32, SMALL_C, false, CD, false>(p, smem, stream);
+            case 64: return launch<64, SMALL_C, false, CD, false>(p, smem, stream);
+            default: return launch<LARGE_K_MAX, SMALL_C, false, CD, false>(p, smem, stream);
+        }
+    }
+}
+
+// The second launch of a layer that one launch does not take: the edge MLP
+// and max over the selection launch's ids (p.idx_out, (B, N, k)), one
+// SLICE of query rows per block, G slots per group (the widest layers leave
+// room for fewer: 8 up to 256 columns, then 4, 2, 1).
+template <int G, bool SMALL_C>
+__global__ void __launch_bounds__(THREADS, 2)
+fused_edgeconv_mlp_kernel(const Params p) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int b = blockIdx.y, n0 = blockIdx.x * SLICE;
+    const float* xb = p.x + static_cast<size_t>(b) * p.N * p.C;
+    edge_mlp<0, SLICE, SMALL_C, G>(p, xb, p.idx_out + (static_cast<size_t>(b) * p.N + n0) * p.k,
+                                   n0, smem);
+}
+
+template <int G, bool SMALL_C>
+cudaError_t launch_mlp(const Params& p, size_t smem, cudaStream_t stream) {
+    auto kernel = fused_edgeconv_mlp_kernel<G, SMALL_C>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.N + SLICE - 1) / SLICE, p.B);
+    kernel<<<grid, THREADS, smem, stream>>>(p);
+    return cudaGetLastError();
+}
+
+template <bool SMALL_C>
+cudaError_t launch_mlp_g(int group, const Params& p, size_t smem, cudaStream_t stream) {
+    switch (group) {
+        case 8: return launch_mlp<8, SMALL_C>(p, smem, stream);
+        case 4: return launch_mlp<4, SMALL_C>(p, smem, stream);
+        case 2: return launch_mlp<2, SMALL_C>(p, smem, stream);
+        default: return launch_mlp<1, SMALL_C>(p, smem, stream);
+    }
+}
+
 bool valid_input(int B, int N, int C, int k, size_t scratch_bytes) {
-    return B >= 1 && N >= 1 && N <= MAX_FUSED_N && C >= 1 && C <= WIDE_C_MAX && k >= 1
-           && k <= LARGE_K_MAX && k <= N
+    return B >= 1 && B <= 65535 && N >= 1 && N <= MAX_FUSED_N && C >= 1 && k >= 1 && k <= N
            && scratch_bytes >= (C <= SMALL_C_MAX ? 0 : split_bytes(static_cast<size_t>(B) * N, C, 2));
+}
+
+// How a layer launches: one fused launch, or (split) a selection launch and
+// an MLP launch of `group` slots per group; 0 launches where no plan fits.
+struct Plan {
+    int launches = 0;
+    int group = 0;                // the MLP's slots per group
+    bool tiled = false;
+    int window = 0;               // small-C key window
+    int in_stride = 0, hid_stride = 0;
+    size_t smem = 0;              // the fused launch's, or the selection launch's
+    size_t mlp_smem = 0;          // the MLP launch's
+};
+
+Plan make_plan(int N, int C, int k, int n_layers, const int* dim, int tile_n) {
+    Plan plan;
+    if (n_layers < 1 || dim[0] != 2 * C || 2 * C > MAX_WIDTH) return plan;
+    int hidden = DEPTH_STEP;
+    for (int l = 1; l <= n_layers; ++l) {
+        if (dim[l] < 1 || dim[l] > MAX_WIDTH) return plan;
+        if (l < n_layers && dim[l] > hidden) hidden = dim[l];
+    }
+    plan.in_stride = padded_depth(2 * C) + ROW_PAD;
+    plan.hid_stride = padded_depth(hidden) + ROW_PAD;
+    const size_t in_rows = plan.in_stride > plan.hid_stride ? plan.in_stride : plan.hid_stride;
+    auto mlp_bytes = [&](int group) {
+        return static_cast<size_t>(SLICE) * group * (in_rows + plan.hid_stride) * 2 + RING_BYTES;
+    };
+    const bool small_c = C <= SMALL_C_MAX;
+    plan.tiled = N > MAX_N || tile_n > 0;
+    plan.window = small_c ? small_c_window(N, C, tile_n) : 0;
+    if (k <= LARGE_K_MAX && C <= WIDE_C_MAX) {
+        const int group = k <= EXACT_K ? k : EXACT_K;    // edge_mlp's slots per group
+        const size_t sel = select_bytes(C, plan.tiled, plan.window, k);
+        const size_t mlp = mlp_bytes(group);
+        plan.smem = header_bytes(select_rows(small_c, plan.tiled, instance_k(k)), instance_k(k))
+                    + (sel > mlp ? sel : mlp);
+        if (plan.smem <= MAX_BLOCK_SMEM) {
+            plan.launches = 1;
+            return plan;
+        }
+    }
+    for (int group = EXACT_K; group >= 1; group /= 2) {
+        if (mlp_bytes(group) <= MAX_BLOCK_SMEM) {
+            plan.group = group;
+            break;
+        }
+    }
+    if (plan.group == 0) return plan;
+    plan.mlp_smem = mlp_bytes(plan.group);
+    if (k > LARGE_K_MAX) {
+        if (all_rows(N, C, small_c) < 1) return plan;
+    } else {
+        const int K = k == 1 ? 1 : instance_k(k < MAX_K ? MAX_K : k);
+        const bool tiled = plan.tiled && K <= MAX_K;
+        plan.smem = header_bytes(select_rows(small_c, tiled, K), K)
+                    + select_bytes(C, tiled, plan.window, K);
+        if (plan.smem > MAX_BLOCK_SMEM) return plan;
+    }
+    plan.launches = 2;
+    return plan;
 }
 
 }  // namespace
@@ -453,79 +619,100 @@ extern "C" size_t fused_edgeconv_scratch_bytes(int B, int N, int C) {
     return C <= SMALL_C_MAX ? 0 : split_bytes(static_cast<size_t>(B) * N, C, 2);
 }
 
+// Kernel launches fused_edgeconv_forward makes for a layer of (N, C, k) and
+// edge-MLP widths dims[0..n_layers] (dims[0] = 2C), split rows aside: 1 (the
+// fused kernel), 2 (a selection launch, then the edge MLP over its ids in
+// idx_out, which the caller must then pass: k > 128, C > 256, or layers too
+// wide for the fused kernel's shared memory), or 0 where it takes no such
+// layer (a width past 2048, k > N).
+extern "C" int fused_edgeconv_launches(int N, int C, int k, int n_layers, const void* dims,
+                                       int tile_n) {
+    if (N < 1 || N > MAX_FUSED_N || C < 1 || k < 1 || k > N || tile_n < 0 || tile_n > MAX_N)
+        return 0;
+    return make_plan(N, C, k, n_layers, static_cast<const int*>(dims), tile_n).launches;
+}
+
 // Launches the fused EdgeConv on `stream`; `scratch` holds
-// fused_edgeconv_scratch_bytes(B, N, C) bytes. weights[l] holds layer l's
-// (dims[l], dims[l+1]) matrix rounded to bf16 and zero-padded to
-// (Din, Dout) = (dims[l], dims[l+1]) rounded up to multiples of 16, in
-// mma.sync B-fragment order: for 16-deep step ks < Din / 16, n-tile
-// nt < Dout / 8 (columns 8 nt .. 8 nt + 7) and lane L, 4 bf16 [r][e]
-// (r, e in {0, 1}) = W[16 ks + 8 r + 2 (L % 4) + e][8 nt + L / 4], at
-// ((ks * Dout / 8 + nt) * 32 + L) * 4. Biases and the final affine are
-// f32 (256,), zero beyond the layer's width. The tiled variants run when
-// N > 2048 or when tile_n > 0 (which also caps the small-C key window at
-// tile_n columns, at most 2048); tile_n = 0 chooses by N. Returns the CUDA
-// error code (0 = ok); an argument the kernel does not take returns
+// fused_edgeconv_scratch_bytes(B, N, C) bytes. `dims` (host) holds the
+// widths dims[0..n_layers]; `table` (device memory) the layer table: n_layers
+// pointers to each layer's weights, n_layers to its biases, then the
+// n_layers + 1 widths, all 64-bit. Layer l's weights are its (dims[l],
+// dims[l+1]) matrix rounded to bf16 and zero-padded to (Din, Dout) =
+// (dims[l], dims[l+1]) rounded up to multiples of 16, in mma.sync
+// B-fragment order: for 16-deep step ks < Din / 16, n-tile nt < Dout / 8
+// (columns 8 nt .. 8 nt + 7) and lane L, 4 bf16 [r][e] (r, e in {0, 1}) =
+// W[16 ks + 8 r + 2 (L % 4) + e][8 nt + L / 4], at ((ks * Dout / 8 + nt) *
+// 32 + L) * 4. Biases and the final affine are f32, zero-padded to the
+// layer's Dout. The tiled variants run when N > 2048 or when tile_n > 0
+// (which also caps the small-C key window at tile_n columns, at most
+// 2048); tile_n = 0 chooses by N. Where fused_edgeconv_launches is 2,
+// idx_out (B, N, k) receives the ids and must not be null. Returns the CUDA
+// error code (0 = ok); an argument the kernels do not take returns
 // cudaErrorInvalidValue.
 extern "C" int fused_edgeconv_forward(
         const void* x, void* out, void* idx_out, void* scratch, size_t scratch_bytes,
         int B, int N, int C, int k, int n_chunks, int n_layers, int tile_n,
-        const void* dims, const void* weights, const void* biases,
-        const void* a, const void* d, void* stream) {
+        const void* dims, const void* table, const void* a, const void* d, void* stream) {
     const int* dim = static_cast<const int*>(dims);
-    if (!valid_input(B, N, C, k, scratch_bytes) || n_layers < 1 || n_layers > MAX_LAYERS
-            || tile_n < 0 || tile_n > MAX_N || (n_chunks != 1 && n_chunks != 2)
-            || dim[0] != 2 * C)
+    if (!valid_input(B, N, C, k, scratch_bytes) || tile_n < 0 || tile_n > MAX_N
+            || (n_chunks != 1 && n_chunks != 2))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const Plan plan = make_plan(N, C, k, n_layers, dim, tile_n);
+    if (plan.launches == 0 || (plan.launches == 2 && idx_out == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     Params p{};
     p.x = static_cast<const float*>(x);
     p.out = static_cast<float*>(out);
     p.idx_out = static_cast<int*>(idx_out);
     p.B = B; p.N = N; p.C = C; p.k = k; p.n_chunks = n_chunks; p.n_layers = n_layers;
-    int hidden = DEPTH_STEP;
-    for (int l = 0; l <= n_layers; ++l) {
-        p.dims[l] = dim[l];
-        if (dim[l] < 1 || (l > 0 && dim[l] > MAX_WIDTH))
-            return static_cast<int>(cudaErrorInvalidValue);
-        if (l > 0 && l < n_layers && dim[l] > hidden) hidden = dim[l];
-    }
-    for (int l = 0; l < n_layers; ++l) {
-        p.w[l] = static_cast<const uint2* const*>(weights)[l];
-        p.bias[l] = static_cast<const float* const*>(biases)[l];
-    }
+    const long long* tab = static_cast<const long long*>(table);
+    p.w = reinterpret_cast<const uint2* const*>(tab);
+    p.bias = reinterpret_cast<const float* const*>(tab + n_layers);
+    p.dims = tab + 2 * n_layers;
     p.a = static_cast<const float*>(a);
     p.d = static_cast<const float*>(d);
-    p.in_stride = padded_depth(2 * C) + ROW_PAD;
-    p.hid_stride = padded_depth(hidden) + ROW_PAD;
+    p.in_stride = plan.in_stride;
+    p.hid_stride = plan.hid_stride;
     p.split = scratch;
     p.P = static_cast<size_t>(B) * N;
+    p.window = plan.window;
 
     const bool small_c = C <= SMALL_C_MAX;
-    const bool tiled = N > MAX_N || tile_n > 0;
-    p.window = small_c ? small_c_window(N, C, tile_n) : 0;
-    const size_t sel_bytes = select_bytes(C, tiled, p.window, k);
-    const int in_rows = p.in_stride > p.hid_stride ? p.in_stride : p.hid_stride;
-    const int group = k <= EXACT_K ? k : EXACT_K;    // edge_mlp's slots per group
-    const size_t mlp_bytes = static_cast<size_t>(SLICE) * group * (in_rows + p.hid_stride) * 2
-                             + RING_BYTES;
-    const size_t header = header_bytes(select_rows(small_c, tiled, instance_k(k)),
-                                       instance_k(k));
-    const size_t smem = header + (sel_bytes > mlp_bytes ? sel_bytes : mlp_bytes);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (!small_c && k > 1) {
         const cudaError_t err = launch_split<2>(p.x, p.P, C, scratch, s);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     cudaError_t err;
-    if (!small_c) {
-        err = tiled ? launch_k<false, true, 0>(k, p, smem, s)
-                    : launch_k<false, false, 0>(k, p, smem, s);
-    } else if (small_c_dims(C) == 3) {
-        err = tiled ? launch_k<true, true, 3>(k, p, smem, s)
-                    : launch_k<true, false, 3>(k, p, smem, s);
-    } else {
-        err = tiled ? launch_k<true, true, SMALL_C_MAX>(k, p, smem, s)
-                    : launch_k<true, false, SMALL_C_MAX>(k, p, smem, s);
+    const bool tiled = plan.tiled;
+    if (plan.launches == 1) {
+        if (!small_c) {
+            err = tiled ? launch_k<false, true, 0>(k, p, plan.smem, s)
+                        : launch_k<false, false, 0>(k, p, plan.smem, s);
+        } else if (small_c_dims(C) == 3) {
+            err = tiled ? launch_k<true, true, 3>(k, p, plan.smem, s)
+                        : launch_k<true, false, 3>(k, p, plan.smem, s);
+        } else {
+            err = tiled ? launch_k<true, true, SMALL_C_MAX>(k, p, plan.smem, s)
+                        : launch_k<true, false, SMALL_C_MAX>(k, p, plan.smem, s);
+        }
+        return static_cast<int>(err);
     }
+    if (k > LARGE_K_MAX) {
+        err = launch_select_all(p.x, scratch, p.idx_out, B, N, C, k, s);
+    } else if (!small_c) {
+        err = tiled ? launch_select_k<false, true, 0>(k, p, plan.smem, s)
+                    : launch_select_k<false, false, 0>(k, p, plan.smem, s);
+    } else if (small_c_dims(C) == 3) {
+        err = tiled ? launch_select_k<true, true, 3>(k, p, plan.smem, s)
+                    : launch_select_k<true, false, 3>(k, p, plan.smem, s);
+    } else {
+        err = tiled ? launch_select_k<true, true, SMALL_C_MAX>(k, p, plan.smem, s)
+                    : launch_select_k<true, false, SMALL_C_MAX>(k, p, plan.smem, s);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = small_c ? launch_mlp_g<true>(plan.group, p, plan.mlp_smem, s)
+                  : launch_mlp_g<false>(plan.group, p, plan.mlp_smem, s);
     return static_cast<int>(err);
 }
 
@@ -535,7 +722,8 @@ extern "C" int fused_edgeconv_forward(
 extern "C" int fused_edgeconv_select(const void* x, void* idx_out, void* scratch,
                                      size_t scratch_bytes, int B, int N, int C, int k,
                                      void* stream) {
-    if (!valid_input(B, N, C, k, scratch_bytes) || C <= SMALL_C_MAX || idx_out == nullptr)
+    if (!valid_input(B, N, C, k, scratch_bytes) || C <= SMALL_C_MAX || C > WIDE_C_MAX
+            || k > LARGE_K_MAX || idx_out == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
     Params p{};
     p.x = static_cast<const float*>(x);

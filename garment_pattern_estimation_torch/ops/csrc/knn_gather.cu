@@ -185,12 +185,66 @@ knn_gather_fwd_kernel(const FwdParams p) {
     }
 }
 
+// The forward for C > WIDE_C_MAX: select_wide_general (rows staged
+// WIDE_C_MAX features at a time), the K = 16 instance for every k <= 16,
+// then the k slots' rows as the forward kernel writes them.
+template <int K>
+__global__ void __launch_bounds__(THREADS)
+knn_gather_fwd_general_kernel(const FwdParams p) {
+    constexpr int QB = fwd_rows<false, K>();
+    extern __shared__ __align__(16) unsigned char smem[];
+    int* sidx = reinterpret_cast<int*>(smem);                       // [QB][K]
+    const int b = blockIdx.y, n0 = blockIdx.x * QB, t = threadIdx.x;
+    const int N = p.N, C = p.C;
+    const float* xb = p.x + static_cast<size_t>(b) * N * C;
+    select_wide_c<K, false, QB, true>(N, cloud_rows(p.split, p.P, C, 2, b, N), n0,
+                                      smem + header_bytes(QB, K), sidx, p.k);
+    __syncthreads();
+    const int k = p.k;
+    for (int e = t; e < QB * k; e += THREADS) {
+        const int q = e / k, s = e - q * k, n = n0 + q;
+        if (n < N) p.idx[(static_cast<size_t>(b) * N + n) * k + s] = sidx[q * K + s];
+    }
+    const int rows = min(QB, N - n0);
+    for (int s = 0; s < k; ++s) {
+        float* out = p.nbr + ((static_cast<size_t>(b) * k + s) * N + n0) * C;
+        for (int e = t; e < rows * C; e += THREADS) {
+            const int qq = e / C, c = e - qq * C;
+            const float v = xb[static_cast<size_t>(sidx[qq * K + s]) * C + c];
+            float o = v;
+            if (s > 0) {
+                const float hi = trunc_bf16(v);
+                o = p.n_chunks == 2 ? hi + trunc_bf16(v - hi) : hi;
+            }
+            out[e] = o;
+        }
+    }
+}
+
+// The rows of the ids select_all_kernel wrote, for k > LARGE_K_MAX: block
+// (x, s, b) writes slot s of THREADS consecutive (query, feature) elements,
+// slot-major as the forward kernel writes them.
+__global__ void __launch_bounds__(THREADS)
+knn_gather_rows_kernel(const FwdParams p) {
+    const int b = blockIdx.z, s = blockIdx.y, N = p.N, C = p.C, k = p.k;
+    const size_t e = static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x;
+    if (e >= static_cast<size_t>(N) * C) return;
+    const int n = static_cast<int>(e / C), c = static_cast<int>(e - static_cast<size_t>(n) * C);
+    const float* xb = p.x + static_cast<size_t>(b) * N * C;
+    const float v = xb[static_cast<size_t>(p.idx[(static_cast<size_t>(b) * N + n) * k + s]) * C + c];
+    float o = v;                      // slot 0 and small C: the exact row
+    if (C > SMALL_C_MAX && s > 0) {
+        const float hi = trunc_bf16(v);
+        o = p.n_chunks == 2 ? hi + trunc_bf16(v - hi) : hi;
+    }
+    p.nbr[(static_cast<size_t>(b) * k + s) * N * C + e] = o;
+}
+
 // Shared bytes of the CSR build: the offsets (N + 1 ints, padded to 16
 // bytes), each warp's 16-bit count per target, each entry's 16-bit target
 // (padded to 4 bytes) and, `with_lists`, the filled lists (N (k-1) ints):
 // 225,296 bytes at N = 2048, k = 8, within the 232,448 a block may take;
 // without the lists 200,720 at N = 2048, k = 16.
-constexpr size_t MAX_BLOCK_SMEM = 232448;
 __host__ __device__ inline size_t csr_smem_bytes(int N, int K, bool with_lists) {
     const size_t E = static_cast<size_t>(N) * (K - 1);
     return static_cast<size_t>((N + 4) / 4 * 4) * 4 + static_cast<size_t>(CSR_WARPS) * N * 2
@@ -450,17 +504,18 @@ __device__ __forceinline__ void store_row(float* row, int cv, int lane,
 // holds the stream position S_i where target i starts; each group of 32
 // stream items gets its source rows from one load of the list, and the rows
 // are loaded SUM_ROWS at a time before they are added.
+// The sum of columns c0 .. c0 + cw - 1 (cw <= WIDE_C_MAX) of the warp's targets.
 template <int CHUNKS, int VEC>
-__global__ void __launch_bounds__(SUM_THREADS, SUM_MIN_BLOCKS)
-knn_gather_sum_kernel(const BwdParams p) {
+__device__ __forceinline__ void sum_targets(const BwdParams& p, int c0, int cw) {
     const int b = blockIdx.y, lane = threadIdx.x % 32;
     const int t0 = (blockIdx.x * SUM_WARPS + threadIdx.x / 32) * SUM_TARGETS;
     if (t0 >= p.N) return;
-    const int N = p.N, C = p.C, K = p.K, cv = C / VEC;
+    const int N = p.N, C = p.C, K = p.K;
+    const int cv = cw / VEC;
     const int nt = min(SUM_TARGETS, N - t0);
     const int* list = p.entries + static_cast<size_t>(b) * N * (K - 1);
-    const float* gb = p.g + static_cast<size_t>(b) * K * N * C;
-    float* dxb = p.dx + (static_cast<size_t>(b) * N + t0) * C;
+    const float* gb = p.g + static_cast<size_t>(b) * K * N * C + c0;
+    float* dxb = p.dx + (static_cast<size_t>(b) * N + t0) * C + c0;
 
     const int my_off = lane <= nt ? p.offsets[static_cast<size_t>(b) * (N + 1) + t0 + lane] : 0;
     const int base = __shfl_sync(0xffffffffu, my_off, 0);
@@ -513,10 +568,30 @@ knn_gather_sum_kernel(const BwdParams p) {
 }
 
 template <int CHUNKS, int VEC>
+__global__ void __launch_bounds__(SUM_THREADS, SUM_MIN_BLOCKS)
+knn_gather_sum_kernel(const BwdParams p) {
+    sum_targets<CHUNKS, VEC>(p, 0, p.C);
+}
+
+// C > WIDE_C_MAX: block z sums the columns WIDE_C_MAX z .. + WIDE_C_MAX - 1.
+template <int CHUNKS, int VEC>
+__global__ void __launch_bounds__(SUM_THREADS, SUM_MIN_BLOCKS)
+knn_gather_sum_wide_kernel(const BwdParams p) {
+    const int c0 = blockIdx.z * WIDE_C_MAX;
+    sum_targets<CHUNKS, VEC>(p, c0, min(WIDE_C_MAX, p.C - c0));
+}
+
+template <int CHUNKS, int VEC>
 cudaError_t launch_sum(const BwdParams& p, cudaStream_t stream) {
     constexpr int per_block = SUM_WARPS * SUM_TARGETS;
-    const dim3 grid((p.N + per_block - 1) / per_block, p.B);
-    knn_gather_sum_kernel<CHUNKS, VEC><<<grid, SUM_THREADS, 0, stream>>>(p);
+    if (p.C > WIDE_C_MAX) {
+        const dim3 grid((p.N + per_block - 1) / per_block, p.B,
+                        (p.C + WIDE_C_MAX - 1) / WIDE_C_MAX);
+        knn_gather_sum_wide_kernel<CHUNKS, VEC><<<grid, SUM_THREADS, 0, stream>>>(p);
+    } else {
+        const dim3 grid((p.N + per_block - 1) / per_block, p.B);
+        knn_gather_sum_kernel<CHUNKS, VEC><<<grid, SUM_THREADS, 0, stream>>>(p);
+    }
     return cudaGetLastError();
 }
 
@@ -529,9 +604,13 @@ cudaError_t launch_sum_vec(int vec, const BwdParams& p, cudaStream_t stream) {
     }
 }
 
-template <int K, bool SMALL_C, int CD>
+template <int K, bool SMALL_C, int CD, bool GENERAL = false>
 cudaError_t launch_fwd(const FwdParams& p, size_t smem, cudaStream_t stream) {
-    auto kernel = knn_gather_fwd_kernel<K, SMALL_C, CD>;
+    void (*kernel)(const FwdParams);
+    if constexpr (GENERAL)
+        kernel = knn_gather_fwd_general_kernel<K>;
+    else
+        kernel = knn_gather_fwd_kernel<K, SMALL_C, CD>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
@@ -564,9 +643,21 @@ cudaError_t launch_fwd_k(int k, const FwdParams& p, size_t smem, cudaStream_t st
     }
 }
 
+// Wide C past WIDE_C_MAX: select_wide_general's instances, the K = 16 one
+// for every k <= 16 (it fills the first k slots).
+cudaError_t launch_fwd_general(int k, const FwdParams& p, size_t smem, cudaStream_t stream) {
+    if (k == 1) return launch_fwd<1, false, 0>(p, smem, stream);
+    switch (instance_k(k < MAX_K ? MAX_K : k)) {
+        case MAX_K: return launch_fwd<MAX_K, false, 0, true>(p, smem, stream);
+        case 32: return launch_fwd<32, false, 0, true>(p, smem, stream);
+        case 64: return launch_fwd<64, false, 0, true>(p, smem, stream);
+        case LARGE_K_MAX: return launch_fwd<LARGE_K_MAX, false, 0, true>(p, smem, stream);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
 bool valid_shape(int B, int N, int C, int k) {
-    return B >= 1 && N >= 1 && N <= MAX_N && C >= 1 && C <= WIDE_C_MAX
-           && k >= 1 && k <= LARGE_K_MAX && k <= N;
+    return B >= 1 && B <= 65535 && N >= 1 && N <= MAX_N && C >= 1 && k >= 1 && k <= N;
 }
 
 }  // namespace
@@ -597,18 +688,28 @@ extern "C" int knn_gather_forward(const void* x, void* nbr, void* idx,
     p.split = scratch;
     p.P = static_cast<size_t>(B) * N;
     const bool small_c = C <= SMALL_C_MAX;
-    p.window = small_c ? small_c_window(N, C, 0) : 0;
-    const size_t smem = header_bytes(select_rows(small_c, false, instance_k(k)), instance_k(k))
-                        + select_bytes(C, false, p.window, k);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (!small_c && k > 1) {
         const cudaError_t err = launch_split<2>(p.x, p.P, C, scratch, s);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
+    if (k > LARGE_K_MAX) {            // the ids, then their rows
+        cudaError_t err = launch_select_all(p.x, scratch, p.idx, B, N, C, k, s);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        const dim3 grid(static_cast<unsigned>((static_cast<size_t>(N) * C + THREADS - 1) / THREADS),
+                        k, B);
+        knn_gather_rows_kernel<<<grid, THREADS, 0, s>>>(p);
+        return static_cast<int>(cudaGetLastError());
+    }
+    p.window = small_c ? small_c_window(N, C, 0) : 0;
+    const int K = C > WIDE_C_MAX && k > 1 ? instance_k(k < MAX_K ? MAX_K : k) : instance_k(k);
+    const size_t smem = header_bytes(select_rows(small_c, false, K), K)
+                        + select_bytes(C, false, p.window, K);
     const cudaError_t err =
-        !small_c ? launch_fwd_k<false, 0>(k, p, smem, s)
-                 : (small_c_dims(C) == 3 ? launch_fwd_k<true, 3>(k, p, smem, s)
-                                         : launch_fwd_k<true, SMALL_C_MAX>(k, p, smem, s));
+        C > WIDE_C_MAX ? launch_fwd_general(k, p, smem, s)
+        : !small_c ? launch_fwd_k<false, 0>(k, p, smem, s)
+                   : (small_c_dims(C) == 3 ? launch_fwd_k<true, 3>(k, p, smem, s)
+                                           : launch_fwd_k<true, SMALL_C_MAX>(k, p, smem, s));
     return static_cast<int>(err);
 }
 

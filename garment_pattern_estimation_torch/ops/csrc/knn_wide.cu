@@ -1,5 +1,5 @@
 // Standalone kNN ids for Hopper (sm_90a), wide D: points (B, N, D) f32,
-// 16 < D <= 256 -> ids (B, N, k) i32, slot 0 the query itself, slots
+// D > 16 -> ids (B, N, k) i32, slot 0 the query itself, slots
 // 1..k-1 the k-1 smallest (squared distance, column) pairs over the other
 // points, ranked by the full f32 distance (not quantized), ties to the
 // lower column.
@@ -41,7 +41,9 @@
 // TMA, and the split chunks cost 1.6 times the f32 cloud's L2 traffic.
 // k = 17..128 run the capacity instances K = 32 (64 query rows a block),
 // 64 and 128 (32 rows: their warp lists take QB K 8 bytes); a block's
-// shared memory is at most 206 KB (D = 256, K = 32).
+// shared memory is at most 206 KB (D = 256, K = 32). D > 256 stages the
+// rows 256 features at a time (select_wide_general, the K = 16 instance for
+// every k <= 16): the same shared memory as D = 256.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -87,9 +89,32 @@ knn_wide_kernel(const Params p) {
     }
 }
 
+// D past WIDE_C_MAX: the rows staged in chunks (select_wide_general); the
+// K = 16 instance serves every k <= 16 (it fills the first k slots).
 template <int K>
+__global__ void __launch_bounds__(THREADS)
+knn_wide_general_kernel(const Params p) {
+    constexpr int QB = select_rows(false, true, K);
+    extern __shared__ __align__(16) unsigned char smem[];
+    int* sidx = reinterpret_cast<int*>(smem);                       // [QB][K]
+    const int b = blockIdx.y, n0 = blockIdx.x * QB, t = threadIdx.x, N = p.N;
+    select_wide_general<K, RankExact, SPLITS, QB, false>(
+        N, cloud_rows(p.split, p.P, p.D, SPLITS, b, N), n0, smem + header_bytes(QB, K), sidx,
+        p.k);
+    __syncthreads();
+    for (int e = t; e < QB * p.k; e += THREADS) {
+        const int q = e / p.k, s = e - q * p.k, n = n0 + q;
+        if (n < N) p.idx[(static_cast<size_t>(b) * N + n) * p.k + s] = sidx[q * K + s];
+    }
+}
+
+template <int K, bool GENERAL = false>
 cudaError_t launch(const Params& p, int B, size_t smem, cudaStream_t stream) {
-    auto kernel = knn_wide_kernel<K>;
+    void (*kernel)(const Params);
+    if constexpr (GENERAL)
+        kernel = knn_wide_general_kernel<K>;
+    else
+        kernel = knn_wide_kernel<K>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
@@ -106,14 +131,14 @@ extern "C" size_t knn_wide_scratch_bytes(int B, int N, int D) {
     return split_bytes(static_cast<size_t>(B) * N, D, SPLITS);
 }
 
-// Launches the wide-D kNN on `stream`: x (B, N, D) f32, 16 < D <= 256 ->
+// Launches the wide-D kNN on `stream`: x (B, N, D) f32, D > 16 ->
 // idx (B, N, k) i32; `scratch` holds knn_wide_scratch_bytes(B, N, D) bytes
 // (the split rows). Returns the CUDA error code (0 = ok); an argument the
 // kernel does not take returns cudaErrorInvalidValue.
 extern "C" int knn_wide_forward(const void* x, void* idx, void* scratch, size_t scratch_bytes,
                                 int B, int N, int D, int k, void* stream) {
     if (B < 1 || B > 65535 || N < 1 || N > MAX_KNN_N || D <= SMALL_C_MAX
-            || D > WIDE_C_MAX || k < 1 || k > LARGE_K_MAX || k > N
+            || k < 1 || k > LARGE_K_MAX || k > N
             || scratch_bytes < knn_wide_scratch_bytes(B, N, D))
         return static_cast<int>(cudaErrorInvalidValue);
     Params p{};
@@ -124,6 +149,18 @@ extern "C" int knn_wide_forward(const void* x, void* idx, void* scratch, size_t 
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = launch_split<SPLITS>(static_cast<const float*>(x), p.P, D, scratch, s);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (D > WIDE_C_MAX) {             // the K = 16 instance serves every k <= 16
+        const int K = k == 1 ? 1 : instance_k(k < MAX_K ? MAX_K : k);
+        const size_t smem = header_bytes(select_rows(false, true, K), K)
+                            + wide_bytes(D, SPLITS, sizeof(RankExact::T), K, true);
+        switch (K) {
+            case 1: return static_cast<int>(launch<1>(p, B, smem, s));
+            case MAX_K: return static_cast<int>(launch<MAX_K, true>(p, B, smem, s));
+            case 32: return static_cast<int>(launch<32, true>(p, B, smem, s));
+            case 64: return static_cast<int>(launch<64, true>(p, B, smem, s));
+            default: return static_cast<int>(launch<LARGE_K_MAX, true>(p, B, smem, s));
+        }
+    }
     const size_t smem = header_bytes(select_rows(false, true, instance_k(k)), instance_k(k))
                         + wide_bytes(D, SPLITS, sizeof(RankExact::T), instance_k(k), true);
     switch (k) {

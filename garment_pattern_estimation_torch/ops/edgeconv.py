@@ -1,10 +1,14 @@
 """Fused dynamic EdgeConv: kNN + neighbour gather + edge MLP + max.
 
-`fused_edgeconv` is the eval layer, for N <= MAX_FUSED_N (16384). On a CUDA
-tensor it launches the hand-written kernel `csrc/fused_edgeconv.cu` (one
-launch, the (B, N, k, C) gathered tensor never reaches device memory) or
-raises; on a CPU tensor it runs `fused_edgeconv_reference`, the plain
-PyTorch version with the same numerics at any N:
+`fused_edgeconv` is the eval layer, for N <= MAX_FUSED_N (16384), any C
+and k <= N, an edge MLP of any depth whose widths (and 2C) are at most
+MAX_FUSED_WIDTH (2048). On a CUDA tensor it launches the hand-written
+kernels of `csrc/fused_edgeconv.cu` or raises: one launch up to k = 128, C =
+256 and the widths whose edge rows fit shared memory, else a selection
+launch and an edge-MLP launch over its ids (the (B, N, k, C) gathered
+tensor never reaches device memory either way). On a CPU tensor it runs
+`fused_edgeconv_reference`, the plain PyTorch version with the same
+numerics at any N:
 
   * selection by (quantized distance, column), self in slot 0, the k-1
     nearest others after it, ties to the lower column (`knn.select_ranked`);
@@ -28,19 +32,19 @@ import ctypes
 
 import torch
 
-from .knn import (DIRECT_D_MAX, K_INSTANCES, MAX_K, MAX_N, exact_sq_dists, scratch_bytes,
-                  select_ranked, split_bf16, truncate_bf16)
+from .knn import (DIRECT_D_MAX, MAX_N, exact_sq_dists, scratch_bytes, select_ranked,
+                  split_bf16, truncate_bf16)
 
 SMALL_C_MAX = DIRECT_D_MAX  # C at or below: the exact per-dimension path
 MAX_FUSED_N = 1 << 14       # the JAX package's fused bound (_MAX_FUSED_N)
-_WIDE_C_MAX = 256
-_MAX_LAYERS = 4
-_MAX_WIDTH = 256            # widest edge-MLP layer the kernel takes
+MODEL_C_MAX = 256           # C at or below: the models fuse (the JAX package's bound)
+MAX_FUSED_WIDTH = 2048      # widest edge-MLP layer (and edge input 2C) the kernels take
 
-# Launches of the CUDA kernel, by variant: single tile (N <= 2048) or
-# column-tiled; `launches_by_shape` by (variant, N, C, k). Only
-# `fused_edgeconv` adds to them, once per kernel launch; calls that take the
-# plain version do not.
+# Launches of the CUDA kernels, by variant: single tile (N <= 2048) or
+# column-tiled, one per layer; `launches_by_shape` by (variant, N, C, k)
+# for the one-launch layers and by (variant + '_select' | '_mlp', N, C, k)
+# for each launch of a two-launch layer. Only `fused_edgeconv` adds to
+# them; calls that take the plain version do not.
 launches = {'small_c': 0, 'wide_c': 0, 'small_c_tiled': 0, 'wide_c_tiled': 0}
 launches_by_shape = collections.Counter()
 
@@ -51,10 +55,15 @@ def reset_launches():
     launches_by_shape.clear()
 
 
-def fused_edgeconv_supported(n_points, n_channels):
-    """Whether the fused layer takes (N, C): N <= MAX_FUSED_N, C <= 256,
-    as the JAX package's `fused_edgeconv_supported`."""
-    return n_points <= MAX_FUSED_N and n_channels <= _WIDE_C_MAX
+def fused_edgeconv_supported(n_points, n_channels, widths=()):
+    """Whether a model fuses an EdgeConv layer of (N, C) and edge-MLP
+    `widths`: N <= MAX_FUSED_N and C <= 256, the JAX package's
+    `fused_edgeconv_supported`, and every width at most MAX_FUSED_WIDTH,
+    the kernels' bound (the layer's edge rows must fit shared memory).
+    `models.blocks.EdgeConv` routes any other layer to knn_gather (N <=
+    2048) or the standalone kNN, then the edge MLP and the max."""
+    return (n_points <= MAX_FUSED_N and n_channels <= MODEL_C_MAX
+            and max(widths, default=0) <= MAX_FUSED_WIDTH)
 
 
 def fold_mlp_bn(layers, eps=1e-5):
@@ -83,31 +92,47 @@ def fold_mlp_bn(layers, eps=1e-5):
     return folded, (a, d)
 
 
+def edgeconv_sq_dists(queries, keys):
+    """(B, S, C) queries x (B, T, C) keys, f32 -> (B, S, T) squared
+    distances as the fused layer and knn_gather rank them: exact f32 per
+    dimension in dimension order for C <= SMALL_C_MAX (`knn.exact_sq_dists`);
+    else q_norm + k_norm - 2 * (hi.hi + hi.lo + lo.hi) of the bf16
+    truncation splits, clamped at 0. The selection of a whole cloud calls it
+    with the cloud as both; the points-sharded ring
+    (`parallel.ring.ring_knn_gather`) with a query shard and a key shard."""
+    if queries.shape[-1] <= SMALL_C_MAX:
+        return exact_sq_dists(queries, keys)
+    q_norm = torch.sum(queries * queries, dim=-1)
+    k_norm = torch.sum(keys * keys, dim=-1)
+    q_hi, q_lo = split_bf16(queries)
+    k_hi, k_lo = split_bf16(keys)
+    # each partial product is exact (bf16-exact operands); TF32 is off
+    cross = q_hi @ k_hi.transpose(1, 2)
+    cross = cross + q_hi @ k_lo.transpose(1, 2)
+    cross = cross + q_lo @ k_hi.transpose(1, 2)
+    return torch.clamp_min(q_norm[:, :, None] + k_norm[:, None, :] - 2 * cross, 0.0)
+
+
+def gathered_rows(x, value_chunks=2):
+    """The rows (..., C) f32 that the kernels gather for slots >= 1: exact
+    for C <= SMALL_C_MAX, else the bf16 truncation split hi + lo
+    (value_chunks 2, the f32 mode) or hi (1, the bf16 mode)."""
+    if x.shape[-1] <= SMALL_C_MAX:
+        return x
+    hi, lo = split_bf16(x)
+    return hi + lo if value_chunks == 2 else hi
+
+
 def edgeconv_select(x, k, mlp_dtype=torch.float32):
     """Neighbour ids (B, N, k) int64 and the rows to gather (B, N, C) f32.
 
     Slot 0 is the query itself; slots 1..k-1 hold the k-1 smallest
     (quantized distance, column) pairs over the other columns, compared
     lexicographically: the kernels' selection for any N."""
-    B, N, C = x.shape
-    k = min(k, N)
+    k = min(k, x.shape[1])
     xf = x.float()
-    if C <= SMALL_C_MAX:
-        # exact f32, dimension by dimension: the kernel's order
-        dists = exact_sq_dists(xf)
-        x_lp = xf
-    else:
-        q_norm = torch.sum(xf * xf, dim=-1)
-        hi, lo = split_bf16(xf)
-        # each partial product is exact (bf16-exact operands); TF32 is off
-        cross = hi @ hi.transpose(1, 2)
-        cross = cross + hi @ lo.transpose(1, 2)
-        cross = cross + lo @ hi.transpose(1, 2)
-        dists = torch.clamp_min(
-            q_norm[:, :, None] + q_norm[:, None, :] - 2 * cross, 0.0)
-        del cross
-        x_lp = hi + lo if mlp_dtype == torch.float32 else hi
-    return select_ranked(dists, k), x_lp
+    ids = select_ranked(edgeconv_sq_dists(xf, xf), k)
+    return ids, gathered_rows(xf, 2 if mlp_dtype == torch.float32 else 1)
 
 
 def edgeconv_mlp_max(x, idx, x_lp, folded):
@@ -213,9 +238,18 @@ def _pack_weight(w):
 
 
 def _pad_vector(v):
-    padded = torch.zeros(_MAX_WIDTH, device=v.device, dtype=torch.float32)
+    """f32 zero-padded to its length rounded up to 16 (the kernel reads a
+    layer's padded width)."""
+    padded = torch.zeros(-(-v.shape[0] // 16) * 16, device=v.device, dtype=torch.float32)
     padded[:v.shape[0]] = v
     return padded
+
+
+def _layer_table(weights, biases, dims, device):
+    """The kernel's layer table in device memory (int64): the weights'
+    pointers, the biases', then the widths."""
+    return torch.tensor([w.data_ptr() for w in weights] + [b.data_ptr() for b in biases]
+                        + dims, dtype=torch.int64).to(device)
 
 
 def _launch(x, folded, k, mlp_dtype, return_idx, tile_n):
@@ -230,15 +264,14 @@ def _launch(x, folded, k, mlp_dtype, return_idx, tile_n):
     k = min(k, N)
     if tile_n is not None and not 1 <= tile_n <= MAX_N:
         raise ValueError(f'fused_edgeconv: tile_n={tile_n} is outside 1..{MAX_N}')
-    if C > _WIDE_C_MAX or k > MAX_K or len(layers) > _MAX_LAYERS:
-        raise NotImplementedError(
-            f'fused_edgeconv: C={C}, k={k}, {len(layers)} layers is beyond the '
-            f'kernel (C <= {_WIDE_C_MAX}, k <= {MAX_K}: {K_INSTANCES}; '
-            f'<= {_MAX_LAYERS} layers)')
     dims = [2 * C] + [w.shape[1] for w, _ in layers]
-    if layers[0][0].shape[0] != 2 * C or max(dims[1:]) > _MAX_WIDTH:
-        raise ValueError(f'fused_edgeconv: edge MLP widths {dims} do not fit '
-                         f'C={C} or exceed {_MAX_WIDTH}')
+    if layers[0][0].shape[0] != 2 * C:
+        raise ValueError(f'fused_edgeconv: edge MLP widths {dims} do not fit C={C}')
+    if max(dims) > MAX_FUSED_WIDTH:
+        raise NotImplementedError(
+            f'fused_edgeconv: edge MLP widths {dims} pass {MAX_FUSED_WIDTH}, beyond the '
+            'kernels\' shared memory; models.blocks.EdgeConv takes such a layer through '
+            'knn_gather or the standalone kNN (fused_edgeconv_supported)')
     for t in [t for layer in layers for t in layer] + [a, d]:
         if t.device != x.device:
             raise ValueError('fused_edgeconv: weights and x are on different devices')
@@ -246,31 +279,43 @@ def _launch(x, folded, k, mlp_dtype, return_idx, tile_n):
     weights = [_pack_weight(w.float()) for w, _ in layers]
     biases = [_pad_vector(b.float()) for _, b in layers]
     a_pad, d_pad = _pad_vector(a.float()), _pad_vector(d.float())
-    out = torch.empty(B, N, dims[-1], device=x.device, dtype=torch.float32)
-    idx = torch.empty(B, N, k, device=x.device, dtype=torch.int32) \
-        if return_idx else None
+    table = _layer_table(weights, biases, dims, x.device)
 
     lib = _build.load_library('fused_edgeconv')
+    fn_launches = lib.fused_edgeconv_launches
+    fn_launches.restype = ctypes.c_int
+    fn_launches.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int]
+    dims_arr = (ctypes.c_int * len(dims))(*dims)
+    n_launches = fn_launches(N, C, k, len(layers), ctypes.addressof(dims_arr), tile_n or 0)
+    if n_launches not in (1, 2):
+        raise NotImplementedError(
+            f'fused_edgeconv: N={N}, C={C}, k={k}, widths {dims} is beyond the kernels')
+    out = torch.empty(B, N, dims[-1], device=x.device, dtype=torch.float32)
+    # a two-launch layer passes its ids from the first launch to the second
+    idx = torch.empty(B, N, k, device=x.device, dtype=torch.int32) \
+        if return_idx or n_launches == 2 else None
+
     scratch = torch.empty(scratch_bytes(lib, 'fused_edgeconv', B, N, C), device=x.device,
                           dtype=torch.uint8)
     fn = lib.fused_edgeconv_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_size_t] + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p] * 6
-    dims_arr = (ctypes.c_int * len(dims))(*dims)
-    w_arr = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
-    b_arr = (ctypes.c_void_p * len(biases))(*[b.data_ptr() for b in biases])
+        + [ctypes.c_void_p] * 5
     with torch.cuda.device(x.device):            # the launch goes to the current device
         err = fn(x.data_ptr(), out.data_ptr(), idx.data_ptr() if idx is not None else None,
                  scratch.data_ptr(), scratch.numel(), B, N, C, k,
                  2 if mlp_dtype == torch.float32 else 1, len(layers),
-                 tile_n or 0, ctypes.addressof(dims_arr), ctypes.addressof(w_arr),
-                 ctypes.addressof(b_arr), a_pad.data_ptr(), d_pad.data_ptr(),
+                 tile_n or 0, ctypes.addressof(dims_arr), table.data_ptr(),
+                 a_pad.data_ptr(), d_pad.data_ptr(),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'fused_edgeconv: kernel launch failed with CUDA error {err}')
     variant = ('small_c' if C <= SMALL_C_MAX else 'wide_c') \
         + ('_tiled' if N > MAX_N or tile_n is not None else '')
     launches[variant] += 1
-    launches_by_shape[variant, N, C, k] += 1
+    if n_launches == 1:
+        launches_by_shape[variant, N, C, k] += 1
+    else:
+        launches_by_shape[variant + '_select', N, C, k] += 1
+        launches_by_shape[variant + '_mlp', N, C, k] += 1
     return out, idx.long() if return_idx else _no_ids(x)

@@ -18,10 +18,10 @@ the k-1 smallest pairs over the other columns.
     at 0 nor quantized: ranked by the full f32 value, -0 tied with +0
     (`wide_sq_dists`, `select_exact`).
 
-`knn(points, k)` gives ids (B, N, k) for D <= 256. A CPU tensor takes
-`knn_reference`, the plain PyTorch version, at any D; a CUDA tensor
-launches the hand-written kernel `csrc/knn.cu` (D <= 16) or
-`csrc/knn_wide.cu` (16 < D <= 256), or raises. Counterpart of
+`knn(points, k)` gives ids (B, N, k) for k <= 128. A CPU tensor takes
+`knn_reference`, the plain PyTorch version; a CUDA tensor launches the
+hand-written kernel `csrc/knn.cu` (D <= 16) or `csrc/knn_wide.cu` (D > 16,
+staged 256 features at a time past 256), or raises. Counterpart of
 garment_pattern_estimation_tpu/ops/knn.py `knn_pallas`: its direct kernel
 `_knn_kernel_direct` (D <= 16) and the wide-D kernels `_knn_kernel` and
 `_knn_kernel_hbm`.
@@ -38,9 +38,9 @@ IDX_MASK = (1 << IDX_BITS) - 1
 INT_MAX = torch.iinfo(torch.int32).max
 MAX_N = 1 << IDX_BITS              # columns the int32 packing can carry
 DIRECT_D_MAX = 16                  # D at or below: exact per-dimension distances
-WIDE_D_MAX = 256                   # the wide-D kernel's bound
-# the kernels' k: an instance per k to 8, one for 9..16, then one per
-# capacity bucket 17..32, 33..64, 65..128 (k read at run time)
+# the kNN kernels' k: an instance per k to 8, one for 9..16, then one per
+# capacity bucket 17..32, 33..64, 65..128 (k read at run time); the fused
+# layer and knn_gather also take 128 < k <= N (a selection of all N keys)
 MAX_K = 128
 K_INSTANCES = 'an instance per k to 8, one for 9..16, 17..32, 33..64 and 65..128'
 _SPLIT_TERMS = 3                   # truncation chunks of the wide-D distances
@@ -86,12 +86,14 @@ def split_bf16(x: torch.Tensor, terms: int = 2) -> list[torch.Tensor]:
     return chunks
 
 
-def exact_sq_dists(x: torch.Tensor) -> torch.Tensor:
-    """(B, N, D) f32 -> (B, N, N) squared distances, (q - k)^2 summed in
-    dimension order, each step rounded: the small-D kernels' arithmetic."""
+def exact_sq_dists(x: torch.Tensor, keys: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, N, D) f32 queries x (B, M, D) keys (None: the queries) -> (B, N,
+    M) squared distances, (q - k)^2 summed in dimension order, each step
+    rounded: the small-D kernels' arithmetic."""
+    keys = x if keys is None else keys
     dists = None
     for dim in range(x.shape[-1]):
-        diff = x[:, :, None, dim] - x[:, None, :, dim]
+        diff = x[:, :, None, dim] - keys[:, None, :, dim]
         sq = diff * diff
         dists = sq if dists is None else dists + sq
     return dists
@@ -178,7 +180,7 @@ def knn_reference(points, k):
 def knn(points, k, *, tile_n=None):
     """points (B, N, D) -> ids (B, N, min(k, N)) int64, self in slot 0. A
     CPU tensor takes `knn_reference`; a CUDA tensor launches the kernel of
-    its D (D <= 256) or raises. `tile_n` (CUDA, D <= 16 only) forces the
+    its D (k <= 128, as the JAX package's `knn_pallas`) or raises. `tile_n` (CUDA, D <= 16 only) forces the
     int64-ranked small-D kernel with key windows of that many columns, as
     the TPU kernel's `tile_n` forces its column tiles."""
     _check_d(points)
@@ -209,7 +211,9 @@ def _check_launch(points, k):
     k = min(k, points.shape[1])
     if not 1 <= k <= MAX_K:
         raise NotImplementedError(
-            f'knn: k={k} is beyond the kernels (1 <= k <= {MAX_K}: {K_INSTANCES})')
+            f'knn: k={k} is beyond the kNN kernels (1 <= k <= {MAX_K}: {K_INSTANCES}), as '
+            f'beyond the JAX package\'s knn_pallas; the fused layer (ops.edgeconv) and '
+            f'knn_gather (ops.knn_gather) take 128 < k <= N')
     return points.contiguous(), k
 
 
@@ -237,9 +241,6 @@ def _launch(points, k, tile_n):
 def _launch_wide(points, k):
     from . import _build
 
-    if points.shape[-1] > WIDE_D_MAX:
-        raise NotImplementedError(
-            f'knn: D={points.shape[-1]} is beyond the wide-D kernel (D <= {WIDE_D_MAX})')
     points, k = _check_launch(points, k)
     B, N, D = points.shape
     idx = torch.empty(B, N, k, device=points.device, dtype=torch.int32)

@@ -30,14 +30,13 @@ import ctypes
 import torch
 
 from .edgeconv import SMALL_C_MAX, edgeconv_select
-from .knn import K_INSTANCES, MAX_K, MAX_N, scratch_bytes, truncate_bf16
-
-_WIDE_C_MAX = 256
+from .knn import MAX_K, MAX_N, scratch_bytes, truncate_bf16
 
 # Launches of the CUDA kernels, by variant ('bwd_hi': the backward at
-# value_chunks=1); `launches_by_shape` by (variant, N, C, k). Only the
-# wrappers add to them, once per kernel launch; calls that take the plain
-# versions do not.
+# value_chunks=1), one per call; `launches_by_shape` by (variant, N, C, k),
+# and for a forward at k > 128, which is two launches (the selection of
+# all N keys, then the rows), by (variant + '_select' | '_rows', N, C, k).
+# Only the wrappers add to them; calls that take the plain versions do not.
 launches = {'fwd_small_c': 0, 'fwd_wide_c': 0, 'bwd': 0, 'bwd_hi': 0}
 launches_by_shape = collections.Counter()
 
@@ -136,10 +135,8 @@ def _check(x, k):
             f'knn_gather: N={N} > {MAX_N} exceeds the packed column ids; '
             'EdgeConv trains such clouds through the standalone kNN '
             '(models.blocks.EdgeConv)')
-    if C > _WIDE_C_MAX or not 1 <= k <= min(MAX_K, N):
-        raise NotImplementedError(
-            f'knn_gather: C={C}, k={k} is beyond the kernel '
-            f'(C <= {_WIDE_C_MAX}, 1 <= k <= min({MAX_K}, N): {K_INSTANCES})')
+    if not 1 <= k <= N:
+        raise NotImplementedError(f'knn_gather: k={k} is outside 1 <= k <= N = {N}')
 
 
 def _library():
@@ -181,7 +178,11 @@ def knn_gather_fwd(x, k, value_chunks=2):
         raise RuntimeError(f'knn_gather: forward launch failed with CUDA error {err}')
     variant = 'fwd_small_c' if C <= SMALL_C_MAX else 'fwd_wide_c'
     launches[variant] += 1
-    launches_by_shape[variant, N, C, k] += 1
+    if k <= MAX_K:
+        launches_by_shape[variant, N, C, k] += 1
+    else:
+        launches_by_shape[variant + '_select', N, C, k] += 1
+        launches_by_shape[variant + '_rows', N, C, k] += 1
     return nbr, idx
 
 
@@ -201,10 +202,10 @@ def knn_gather_bwd(idx, g, value_chunks=2):
     B, k, N, C = g.shape
     if tuple(idx.shape) != (B, N, k):
         raise ValueError(f'knn_gather: ids {tuple(idx.shape)} do not fit g {tuple(g.shape)}')
-    if N > MAX_N or C > _WIDE_C_MAX or not 1 <= k <= min(MAX_K, N):
+    if N > MAX_N or not 1 <= k <= N:
         raise NotImplementedError(
-            f'knn_gather: backward of N={N}, C={C}, k={k} is beyond the kernel '
-            f'(N <= {MAX_N}, C <= {_WIDE_C_MAX}, 1 <= k <= min({MAX_K}, N): {K_INSTANCES})')
+            f'knn_gather: backward of N={N}, k={k} is beyond the kernels '
+            f'(N <= {MAX_N}, 1 <= k <= N)')
     idx = idx.to(torch.int32).contiguous()
     g = g.float().contiguous()
     dx = torch.empty(B, N, C, device=g.device, dtype=torch.float32)

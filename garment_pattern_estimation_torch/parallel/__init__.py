@@ -3,18 +3,20 @@ the port's counterpart of garment_pattern_estimation_tpu/parallel/.
 
     mesh.py         process-group set-up from torchrun's environment, device
                     meshes, padding, sharding and replication of a batch
-                    and a module, `DataShard`
+                    and a module, `DataShard`, `PointsShard`
     collectives.py  autograd-aware all-reduce, row gather and ring shift;
                     the gradient sum; first-rank helpers
     ring.py         ring kNN + gather, the points-sharded EdgeConv and
                     encoder step
     dryrun.py       `dryrun_multichip(n, device)`: n ranks (n cards, or
                     gloo CPU processes with device='cpu') through one DP
-                    step, the sharded encoder and the ring
+                    step, the sharded encoder, the ring and a 2-D step
 
 `Trainer.fit` trains over W processes, one card each, when a process group
 is initialised (`torchrun --nproc_per_node=W -m
-garment_pattern_estimation_torch.cli.train ...`).
+garment_pattern_estimation_torch.cli.train ...`): over a data mesh, or with
+`trainer.mesh: {data: d, points: p}` (d p = W) over a data x points mesh,
+each cloud's points sharded over the points ranks.
 """
 
 from .collectives import (

@@ -109,18 +109,20 @@ def all_gather_rows(x, group=None):
 
 def _shift(x, group, step):
     """Send `x` `step` ranks on around the group's ring and receive from
-    `step` ranks back."""
+    `step` ranks back. Under gloo a card's tensor travels through the host
+    (gloo sends host memory)."""
     size = dist.get_world_size(group)
     if size == 1:
         return x.clone()
     rank = dist.get_rank(group)
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x, _global(group, (rank + step) % size), group),
+    staged = x.is_cuda and dist.get_backend(group) == 'gloo'
+    send = x.detach().cpu() if staged else x.contiguous()
+    out = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, _global(group, (rank + step) % size), group),
            dist.P2POp(dist.irecv, out, _global(group, (rank - step) % size), group)]
     for request in dist.batch_isend_irecv(ops):
         request.wait()
-    return out
+    return out.to(x.device) if staged else out
 
 
 class _RingShift(torch.autograd.Function):

@@ -12,10 +12,11 @@ the CPU, and checks in each:
      identical after the step;
   2. `sharded_encoder_step` over a points mesh of the n ranks against the
      same layers unsharded in plain f32 (`_edgeconv_plain`), within 2e-4;
-  3. for n >= 4 (even), the ring on a 2 x n/2 data x points mesh, as 2.
-
-The JAX dry run's last part, a training step on the 2-D mesh, waits for
-points-sharded training (ROADMAP queue A8).
+  3. for n >= 4 (even), the ring on a 2 x n/2 data x points mesh, as 2;
+  4. for n >= 4 (even), the training step of 1. on that 2 x n/2 mesh
+     (`trainer.mesh: {data: 2, points: n/2}`): its loss, at the same
+     weights on the same batch, within 1e-3 of the data-parallel step's
+     (__graft_entry__.py:196-216's bar).
 
     python -m garment_pattern_estimation_torch.parallel.dryrun 2               # 2 cards
     python -m garment_pattern_estimation_torch.parallel.dryrun 2 --device cpu  # gloo
@@ -125,9 +126,9 @@ def _dryrun_rank(backend):
     device = torch.device('cuda', rank) if backend == 'nccl' else torch.device('cpu')
 
     # 1. one data-parallel training step
+    setup = {'batch_size': 2 * n, 'epochs': 1, 'learning_rate': 1e-3, 'optimizer': 'Adam'}
     model = build_model('GarmentSegmentPattern3D', _DATA, _NN, _LOSS, device=device, seed=0)
-    trainer = Trainer({'batch_size': 2 * n, 'epochs': 1, 'learning_rate': 1e-3,
-                       'optimizer': 'Adam'}, device=device)
+    trainer = Trainer(setup, device=device)
     trainer.make_optimizer(model, 1)
     trainer.use_mesh(model, make_mesh())
     loss, _ = trainer.train_step(model, _batch(2 * n, 32, 5, 6), 0)
@@ -166,6 +167,20 @@ def _dryrun_rank(backend):
         S = x.shape[1] // (n // 2)
         _check_close('2-D ring features', h, ref[2 * d:2 * d + 2, p * S:(p + 1) * S])
         _check_close('2-D ring pool', pooled, ref[2 * d:2 * d + 2].mean(dim=1))
+
+        # 4. the training step of 1. on the 2-D mesh
+        model = build_model('GarmentSegmentPattern3D', _DATA, _NN, _LOSS, device=device, seed=0)
+        trainer = Trainer(dict(setup, mesh={'data': 2, 'points': n // 2}), device=device)
+        trainer.make_optimizer(model, 1)
+        trainer.use_mesh(model, trainer.mesh_from_setup())
+        loss2, _ = trainer.train_step(model, _batch(2 * n, 32, 5, 6), 0)
+        if not torch.isfinite(loss2) or abs(float(loss2) - float(loss)) \
+                >= 1e-3 * max(abs(float(loss)), 1.0):
+            raise AssertionError(f'dryrun_multichip::2-D mesh loss {float(loss2)} != DP loss '
+                                 f'{float(loss)}')
+        if rank == 0:
+            print(f'dryrun_multichip::2d-mesh ok loss={float(loss2):.4f} '
+                  f'mesh=2x{n // 2} (data x points)', flush=True)
     if rank == 0:
         print(f'dryrun_multichip::ok loss={float(loss):.4f} ranks={n} backend={backend}',
               flush=True)

@@ -12,8 +12,10 @@ initialised process group, a rank holds its rows of the padded global batch
     mesh = make_mesh()                # ('data',) over the whole world
 
 `DataShard` is what the models see of a mesh: the data group, this rank's
-place on it, the mean of per-rank statistics over it, and this rank's rows
-of a tensor drawn for the global batch.
+place on it, the mean of per-rank statistics over the mesh, and this rank's
+rows of a tensor drawn for the global batch; on a 2-D (data x points) mesh
+also `PointsShard`, this rank's slice of every cloud's points and the
+points group that sums over them.
 """
 from __future__ import annotations
 
@@ -98,7 +100,9 @@ def shard_batch(mesh, batch):
     """This rank's rows of every tensor or array of a (nested) batch whose
     leading axis divides by the mesh's data axis (callers pad first:
     `pad_batch_to_multiple`); other leaves pass through. On a 2-D mesh the
-    3-D `features` (B, N, C) also keep this rank's point slice."""
+    3-D `features` (B, N, C) and the per-point ground truth
+    (`ground_truth['segmentation']`, (B, N)) also keep this rank's point
+    slice."""
     rank, size = _axis(mesh, DATA_AXIS)
 
     def rows(x):
@@ -110,14 +114,23 @@ def shard_batch(mesh, batch):
         return x[rank * n:(rank + 1) * n]
 
     placed = _tree_map(rows, batch)
-    features = placed.get('features') if isinstance(placed, dict) else None
-    if POINTS_AXIS in mesh.mesh_dim_names and _is_array(features) and features.ndim == 3:
-        p, points = _axis(mesh, POINTS_AXIS)
-        if features.shape[1] % points:
-            raise ValueError(f'shard_batch: {features.shape[1]} points do not divide over '
+    if POINTS_AXIS not in mesh.mesh_dim_names or not isinstance(placed, dict):
+        return placed
+    p, points = _axis(mesh, POINTS_AXIS)
+
+    def point_slice(x):
+        if x.shape[1] % points:
+            raise ValueError(f'shard_batch: {x.shape[1]} points do not divide over '
                              f'{points} ranks')
-        s = features.shape[1] // points
-        placed['features'] = features[:, p * s:(p + 1) * s]
+        s = x.shape[1] // points
+        return x[:, p * s:(p + 1) * s]
+
+    features = placed.get('features')
+    if _is_array(features) and features.ndim == 3:
+        placed['features'] = point_slice(features)
+    gt = placed.get('ground_truth')
+    if isinstance(gt, dict) and _is_array(gt.get('segmentation')):
+        placed['ground_truth'] = dict(gt, segmentation=point_slice(gt['segmentation']))
     return placed
 
 
@@ -152,22 +165,57 @@ def pad_batch_to_multiple(batch, multiple):
     return _tree_map(pad_rows, batch), size
 
 
+class PointsShard:
+    """This rank's slice of every cloud's points on a (data x points) mesh:
+    the points group, `rank` on it and its `size`. Rank p holds the points
+    [p S, (p + 1) S) of each of its clouds."""
+
+    def __init__(self, mesh):
+        self.group = mesh.get_group(mesh.mesh_dim_names.index(POINTS_AXIS))
+        self.rank, self.size = _axis(mesh, POINTS_AXIS)
+
+    def local(self, tensor):
+        """This rank's points of (B, N, ...) clouds (N must divide)."""
+        if tensor.shape[1] % self.size:
+            raise ValueError(f'PointsShard: {tensor.shape[1]} points do not divide over '
+                             f'{self.size} ranks')
+        s = tensor.shape[1] // self.size
+        return tensor[:, self.rank * s:(self.rank + 1) * s]
+
+    def sum(self, value):
+        """The sum over the points ranks of per-rank partial sums, on every
+        rank; its backward sums the cotangents (a rank that uses the sum
+        for its own points holds a share of the cotangent)."""
+        return all_reduce_sum(value, self.group)
+
+
 class DataShard:
     """This rank's share of a batch sharded over a mesh's data axis: the
     data group, `rank` on it and its `size`. Every rank holds the same
     number of rows (`shard_batch` pads first), so a statistic over the
     global batch is the mean of the ranks' statistics (`mean`), and a
-    tensor drawn for the global batch yields this rank's rows (`rows`)."""
+    tensor drawn for the global batch yields this rank's rows (`rows`).
+
+    On a 2-D mesh `points` is the `PointsShard`, and the statistics group
+    (`stats_group`, the group of `mean` and of the gradient sum) is the
+    whole mesh: every rank holds the same number of (cloud, point) rows, so
+    a per-point statistic is the mean over all ranks, and a per-cloud one,
+    which the points ranks of a data slice hold alike, is too."""
 
     def __init__(self, mesh):
         dim = mesh.mesh_dim_names.index(DATA_AXIS)
         self.group = mesh.get_group(dim)
         self.rank, self.size = _axis(mesh, DATA_AXIS)
+        self.points = PointsShard(mesh) if POINTS_AXIS in mesh.mesh_dim_names else None
+        if self.points is None:
+            self.stats_group, self.stats_size = self.group, self.size
+        else:                 # make_mesh_2d spans the world: the default group
+            self.stats_group, self.stats_size = None, self.size * self.points.size
 
     def mean(self, value):
-        """The mean over the ranks of per-rank `value`s, differentiable
-        (each rank's cotangents are summed)."""
-        return all_reduce_sum(value / self.size, self.group)
+        """The mean over the statistics group's ranks of per-rank `value`s,
+        differentiable (each rank's cotangents are summed)."""
+        return all_reduce_sum(value / self.stats_size, self.stats_group)
 
     def rows(self, tensor):
         """This rank's rows of a tensor of the global batch."""

@@ -11,10 +11,15 @@ with their rows, into its running list (`_ring_merge`). After P steps every
 query holds its exact global neighbourhood and no rank has held the whole
 cloud.
 
-The selection is the port's kernels' (PARITY.md #5, #7): each distance,
-from `ops.knn.pairwise_sq_dists` (the JAX formula, TF32 off), is ranked by
-the top 21 bits of its f32 value (`_quantized`), ties go to the lower
-global index, and slot 0 is the query itself.
+The selection is the port's kernels' (PARITY.md #5, #7): each distance is
+ranked by the top 21 bits of its f32 value (`_quantized`), ties go to the
+lower global index, and slot 0 is the query itself. The distance is
+`ops.knn.pairwise_sq_dists` (the JAX ring's formula, TF32 off) by default;
+`ranking='kernel'` takes the fused layer's and knn_gather's (one function,
+`ops.edgeconv.edgeconv_sq_dists`: exact per dimension up to 16 features,
+the 2-term split products beyond), so a points-sharded layer picks the
+neighbours the one-process layer's plain version picks, and
+`low_precision_rows` gathers their rows as knn_gather does.
 
 The hand-written kNN kernels do not fit a ring step: they rank a cloud
 against itself, while a ring step ranks a query shard against another
@@ -28,7 +33,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
-from ..ops.knn import IDX_MASK, INT_MAX, pairwise_sq_dists
+from ..ops.edgeconv import edgeconv_sq_dists, gathered_rows
+from ..ops.knn import IDX_MASK, INT_MAX, pairwise_sq_dists, truncate_bf16
 from ..ops.pooling import gather_neighbors
 from .collectives import all_reduce_sum, ring_shift
 from .mesh import POINTS_AXIS, _axis, _device_type, _whole_world
@@ -38,6 +44,31 @@ def _quantized(dists):
     """Distances as int32 in the kernels' 21-bit ranking class
     (non-negative f32 bits order as their int32 pattern)."""
     return torch.clamp_min(dists, 0.0).view(torch.int32) & ~IDX_MASK
+
+
+_RANKINGS = {'norm': pairwise_sq_dists, 'kernel': edgeconv_sq_dists}
+
+
+class _LowPrecisionRows(torch.autograd.Function):
+    """knn_gather's rows of slots >= 1 (`ops.edgeconv.gathered_rows`); the
+    cotangent passes at full f32 (value_chunks 2) or truncated to bf16 (1),
+    as knn_gather's backward adds it."""
+
+    @staticmethod
+    def forward(ctx, rows, value_chunks):
+        ctx.value_chunks = value_chunks
+        out = gathered_rows(rows, value_chunks)
+        return out.clone() if out is rows else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (truncate_bf16(g) if ctx.value_chunks == 1 else g), None
+
+
+def low_precision_rows(nbr, value_chunks):
+    """Neighbours (B, S, k, C) with slots >= 1 as knn_gather gathers them."""
+    return torch.cat([nbr[:, :, :1], _LowPrecisionRows.apply(nbr[:, :, 1:], value_chunks)],
+                     dim=2)
 
 
 def _topk_with_values(qd, idx, vals, k):
@@ -60,17 +91,20 @@ def _ring_init(x_local, k, shards):
             x_local.new_zeros(B, S, km1, C))
 
 
-def _ring_merge(x_local, keys, src, acc, me):
+def _ring_merge(x_local, keys, src, acc, me, ranking='norm'):
     """One ring step: the keys (B, S, C) of shard `src` ranked against the
-    queries of shard `me`, their best candidates merged into the running
-    list `acc` (`_ring_init`). Returns the new list."""
+    queries of shard `me` by the `ranking`'s distances, their best
+    candidates merged into the running list `acc` (`_ring_init`). Returns
+    the new list."""
     acc_qd, acc_i, acc_v = acc
     B, S, C = x_local.shape
     km1 = acc_qd.shape[-1]
     ar = torch.arange(S, device=x_local.device)
     row, col = me * S + ar, src * S + ar
+    with torch.no_grad():
+        dists = _RANKINGS[ranking](x_local.detach(), keys.detach())
     qd = torch.where(col[None, None, :] == row[None, :, None], INT_MAX,
-                     _quantized(pairwise_sq_dists(x_local, keys)))           # self -> slot 0
+                     _quantized(dists))                                      # self -> slot 0
     key = (qd.to(torch.int64) << 32) | col
     key, pos = torch.topk(key, min(km1, S), dim=-1, largest=False, sorted=True)
     return _topk_with_values(torch.cat([acc_qd, (key >> 32).to(torch.int32)], dim=-1),
@@ -87,19 +121,20 @@ def _ring_output(x_local, acc, me):
             torch.cat([row[None, :, None].expand(B, S, 1), acc_i], dim=-1))
 
 
-def ring_knn_gather(x_local, k, group=None):
+def ring_knn_gather(x_local, k, group=None, ranking='norm'):
     """Global kNN + neighbour rows of a points-sharded cloud.
 
     x_local (B, S, C): this rank's shard of a (B, P S, C) cloud sharded
     contiguously over the P ranks of `group` (None: the default group).
     Returns neighbours (B, S, k, C), slot 0 the query itself, and their
-    global ids (B, S, k) int64, for this rank's queries. Differentiable in
-    the gathered rows (through the ring's backward)."""
+    global ids (B, S, k) int64, for this rank's queries, ranked by the
+    distances of `ranking` ('norm' or 'kernel', see above). Differentiable
+    in the gathered rows (through the ring's backward)."""
     shards, me = dist.get_world_size(group), dist.get_rank(group)
     acc = _ring_init(x_local, k, shards)
     keys = x_local
     for step in range(shards):
-        acc = _ring_merge(x_local, keys, (me - step) % shards, acc, me)
+        acc = _ring_merge(x_local, keys, (me - step) % shards, acc, me, ranking)
         if step + 1 < shards:
             keys = ring_shift(keys, group)
     return _ring_output(x_local, acc, me)

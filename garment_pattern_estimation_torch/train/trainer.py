@@ -40,8 +40,24 @@ the whole batch's loss, as the JAX step over a mesh slices inside the
 step; the parameter gradients are summed over the ranks. A step computes
 what one process computes on the padded batch. Only the first rank writes
 files. Without a process group, `trainer.mesh` absent or {data: 1}, fit
-runs in one process. `points > 1` (points-sharded training) is not ported
-and raises.
+runs in one process.
+
+Points sharding (`trainer.mesh: {data: d, points: p}`, p > 1, d p
+processes): a (data x points) mesh; each rank holds its data slice's rows
+and, of each cloud, its p-th slice of the points. Every EdgeConv layer is
+the ring (`models.blocks.EdgeConv`, points_shard), the BatchNorm statistics
+are means over all d p ranks, sparsemax and the attention MLP stay per
+point, and the attention pool's (and the global pool's) sum over the
+points is summed over the points ranks (`PointsShard.sum`, whose backward
+sums the cotangents). The predictions, the same on the points ranks of a
+data slice, are gathered over the data ranks, and every rank computes the
+whole batch's loss, but only the first points rank of each data slice
+takes its backward (the others' cotangents flow in through the pool's
+sum): so every parameter's gradient is the sum over all ranks of their
+shares, the post-pool layers' counted once, and one sum over the mesh
+gives the one-process gradient on the padded batch. A `segmentation` loss
+term (its per-point term would need the same split), a max pool and the
+graph-pooling and PointNet++ encoders raise NotImplementedError there.
 """
 from __future__ import annotations
 
@@ -56,7 +72,7 @@ import torch.distributed as dist
 from ..data import DatasetWrapper
 from ..device import resolve_device
 from ..parallel import (
-    DataShard, all_gather_rows, broadcast_object, is_first_rank, make_mesh,
+    DataShard, all_gather_rows, broadcast_object, is_first_rank, make_mesh, make_mesh_2d,
     pad_batch_to_multiple, replicate, sum_gradients)
 from ..parallel.collectives import initialized
 from ..preprocess.device_sampling import SAMPLING_STREAM, maybe_batch_sampler, reads_segmentation
@@ -106,6 +122,21 @@ def canonical_epoch(loss_config, stitch_phase, order_random):
             return epoch
     raise ValueError(f'Trainer: unsatisfiable loss phase: stitch={stitch_phase} '
                      f'order_random={order_random} (ews={ews}, ewo={ewo})')
+
+
+def _check_points_sharding(model):
+    """NotImplementedError for what points-sharded training does not take."""
+    from ..models.blocks import DynamicGraphPool, EdgeConvPoolingFeatures, SetAbstraction
+
+    if 'segmentation' in getattr(model.loss, 'l_components', ()):
+        raise NotImplementedError(
+            'Trainer: the segmentation loss term under trainer.mesh.points > 1 is not ported '
+            '(its per-point term would need the sum over the points ranks)')
+    for module in model.module.modules():
+        if isinstance(module, (DynamicGraphPool, EdgeConvPoolingFeatures, SetAbstraction)):
+            raise NotImplementedError(
+                f'Trainer: {type(module).__name__} under trainer.mesh.points > 1 is not ported '
+                '(points sharding takes the EdgeConvFeatures encoder without graph pooling)')
 
 
 class Trainer:
@@ -212,17 +243,23 @@ class Trainer:
         return self.optimizer
 
     def mesh_from_setup(self):
-        """The data mesh `trainer.mesh` asks for, or None: with a process
-        group, a mesh of the world (`data` must equal it); without one,
-        None, and `data` must be 1. `points > 1` raises NotImplementedError
-        (ROADMAP queue A8: points-sharded training)."""
+        """The mesh `trainer.mesh` asks for, or None: with a process group, a
+        data mesh of the world (`data` must equal it), or for `points` p > 1
+        a (data x points) mesh of d p = the world ranks (`data` d defaults
+        to 1 there, as in the JAX trainer); without one, None, and `data`
+        and `points` must be 1."""
         config = self.setup.get('mesh') or {}
-        if int(config.get('points', 1)) > 1:
-            raise NotImplementedError(
-                'Trainer: trainer.mesh.points > 1 (points-sharded training) is not ported '
-                '(ROADMAP queue A8: the encoder\'s ring EdgeConv with its backward and the '
-                'point-axis reductions of the attention and global pools); use a data mesh')
         world = dist.get_world_size() if initialized() else 1
+        points = int(config.get('points', 1))
+        if points > 1:
+            data = int(config.get('data', 1))
+            if data * points != world:
+                raise ValueError(
+                    f'Trainer: trainer.mesh {{data: {data}, points: {points}}} needs '
+                    f'{data * points} processes, one card each, and this run has {world}: '
+                    f'start it with torchrun --standalone --nproc_per_node={data * points} '
+                    '-m garment_pattern_estimation_torch.cli.train ...')
+            return make_mesh_2d(data, points)
         data = int(config.get('data', world))
         if data != world:
             raise ValueError(
@@ -233,14 +270,23 @@ class Trainer:
 
     def use_mesh(self, model, mesh):
         """Train and evaluate `model` data-parallel over `mesh` (a 'data'
-        mesh of the world, `parallel.make_mesh`): its parameters and buffers
-        are broadcast from the first rank, and its BatchNorm statistics and
-        random draws become those of the global batch (`DataShard` on every
-        module that takes one). `mesh` None returns to one process."""
-        self.data_shard = None if mesh is None else DataShard(mesh)
+        mesh of the world, `parallel.make_mesh`, or a data x points mesh,
+        `make_mesh_2d`): its parameters and buffers are broadcast from the
+        first rank, its BatchNorm statistics and random draws become those
+        of the global batch (`DataShard` on every module that takes one),
+        and under a points axis its EdgeConv layers and pools work on this
+        rank's points (`points_shard`). `mesh` None returns to one
+        process."""
+        shard = None if mesh is None else DataShard(mesh)
+        points = shard.points if shard is not None else None
+        if points is not None:
+            _check_points_sharding(model)
+        self.data_shard = shard
         for module in model.module.modules():
             if hasattr(module, 'data_shard'):
-                module.data_shard = self.data_shard
+                module.data_shard = shard
+            if hasattr(module, 'points_shard'):
+                module.points_shard = points
         if mesh is not None:
             replicate(mesh, model.module)
 
@@ -262,7 +308,10 @@ class Trainer:
         shard = self.data_shard
         if shard is None:
             return model.module(features, generator=generator), gt
-        preds = model.module(shard.rows(features), generator=generator)
+        local = shard.rows(features)
+        if shard.points is not None:
+            local = shard.points.local(local).contiguous()
+        preds = model.module(local, generator=generator)
 
         def whole(value):
             return all_gather_rows(value, shard.group)[:real]
@@ -325,9 +374,15 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         preds, gt = self._forward(model, features, gt, real, generator)
         loss, loss_dict, _ = model.loss(preds, gt, epoch=epoch_c, generator=generator)
-        loss.backward()
-        if self.data_shard is not None:
-            sum_gradients(model.module.parameters(), self.data_shard.group)
+        shard = self.data_shard
+        if shard is not None and shard.points is not None and shard.points.rank > 0:
+            # the loss's backward on the first points rank of each data slice
+            # alone: the others get their cotangents through the pools' sums
+            (loss * 0.0).backward()
+        else:
+            loss.backward()
+        if shard is not None:
+            sum_gradients(model.module.parameters(), shard.stats_group)
         self.optimizer.step()
         self.step_count += 1
         return loss.detach(), {k: v.detach() for k, v in loss_dict.items()}
@@ -422,7 +477,9 @@ class Trainer:
             print(f'Trainer::Resumed run from epoch {start_epoch}')
         if mesh is not None:
             self.use_mesh(model, mesh)
-            print(f'Trainer::data-parallel mesh over {self.data_shard.size} ranks')
+            points = self.data_shard.points
+            print(f'Trainer::data-parallel mesh over {self.data_shard.size} ranks'
+                  + (f' x {points.size} points ranks' if points is not None else ''))
 
         log_images = self.log_with_visualization and is_first_rank()
         if log_images:

@@ -60,6 +60,14 @@ collectives of one rank copy); R NCCL ranks, one card each, equal one
 process on the padded batch with the same bars and pass
 `dryrun_multichip(R)` (two cards or more).
 
+Every shape the JAX package takes: the wide-D kNN past D = 256, knn_gather
+past C = 256 (forward and backward), the fused layer with edge MLPs of 5
+layers and up to 2048 wide (one launch where 5-8 slots of edge rows fit
+shared memory, else a selection launch and an edge-MLP launch of 4, 2 or
+1 slots a group), at C past 256 and at 128 < k <= N (the selection of all
+N keys), with the bars above; the standalone kNN still raises above 128,
+and a layer wider than 2048 is routed by EdgeConv to knn_gather.
+
 The on-device sampling stage on the card against its CPU core with the
 same draws: face ids equal except draws within 1e-6 of the total area of a
 step of the cumulative areas, or within the two devices' own gap on the
@@ -282,11 +290,17 @@ def test_tiled_wide_c_at_stress_shape(cuda, rng):
     assert diff.max().item() <= 1e-2 * scale and diff.mean().item() <= 1e-4 * scale
 
 
-def test_knn_wide_raises_past_256_and_on_wrong_dtype(cuda):
-    with pytest.raises(NotImplementedError, match='D=257'):
-        knn.knn(torch.zeros(1, 64, 257, device=cuda), 5)
+def test_knn_wide_wrong_dtype_raises(cuda):
     with pytest.raises(TypeError):
         knn.knn(torch.zeros(1, 64, 150, device=cuda, dtype=torch.float64), 5)
+
+
+@pytest.mark.parametrize('D', [257, 300, 512])
+@pytest.mark.parametrize('n_points,k', [(100, 5), (2000, 5), (2000, 20), (10000, 8), (300, 1)])
+def test_knn_wide_past_256_matches_plain(cuda, rng, D, n_points, k):
+    """D past 256, staged 256 features at a time: the bars of
+    test_knn_wide_matches_plain."""
+    test_knn_wide_matches_plain(cuda, rng, D, n_points, k)
 
 
 def test_wrong_dtype_raises(cuda, rng):
@@ -927,8 +941,9 @@ def test_knn_gather_backward_hub_above_k8(cuda, rng, n_points, k):
 
 
 def test_k_above_16_raises(cuda, rng):
-    """k = 129 is past every kernel (the capacity instances end at 128):
-    NotImplementedError naming the cap."""
+    """k = 129 is past the kNN kernels (their capacity instances end at 128,
+    as the JAX package's knn_pallas): NotImplementedError naming the cap.
+    The fused layer and knn_gather take it (the selection of all N keys)."""
     folded = _folded(rng, 3, [8, 8], cuda)
     small = torch.randn(1, 200, 3, device=cuda)
     wide = torch.randn(1, 200, 32, device=cuda)
@@ -936,13 +951,11 @@ def test_k_above_16_raises(cuda, rng):
         knn.knn(small, 129)
     with pytest.raises(NotImplementedError, match='128'):
         knn.knn(wide, 129)
-    with pytest.raises(NotImplementedError, match='128'):
-        edgeconv.fused_edgeconv(small, folded, k=129)
-    with pytest.raises(NotImplementedError, match='128'):
-        knn_gather.knn_gather_fwd(small, 129)
-    idx = torch.zeros(1, 200, 129, dtype=torch.int64, device=cuda)
-    with pytest.raises(NotImplementedError, match='128'):
-        knn_gather.knn_gather_bwd(idx, torch.zeros(1, 129, 200, 3, device=cuda))
+    assert edgeconv.fused_edgeconv(small, folded, k=129).shape == (1, 200, 8)
+    nbr, idx = knn_gather.knn_gather_fwd(small, 129)
+    assert nbr.shape == (1, 129, 200, 3) and idx.shape == (1, 200, 129)
+    assert knn_gather.knn_gather_bwd(idx, torch.zeros(1, 129, 200, 3, device=cuda)).shape \
+        == (1, 200, 3)
 
 
 # ---- k above 16: the capacity instances K = 32, 64, 128 ----
@@ -1297,3 +1310,146 @@ def test_train_cli_under_torchrun(cuda, tmp_path, nproc):
     np.testing.assert_allclose(steps_dp[0], steps_one[0], rtol=1e-5)
     summary = json.loads((dp / 'summary.json').read_text())
     assert {'valid_on_best.full_loss', 'test_on_best.full_loss'} <= set(summary)
+
+
+# ---- D and C past 256, edge MLPs of any depth and up to 2048 wide ----
+
+def _check_fused(cuda, rng, n_points, C, widths, k, mlp_dtype=torch.float32, clouds=2,
+                 launches=None, tile_n=None):
+    """The fused layer against the plain tail on its own ids: small-C ids
+    exactly the plain version's, wide ids at least 99% (a near tie of the
+    quantized distances otherwise), outputs within 1e-2 of the tail's
+    scale and 1e-4 on average; `launches` (1 or 2) launches per call."""
+    folded = _folded(rng, C, widths, cuda)
+    x = torch.from_numpy(rng.normal(size=(clouds, n_points, C)).astype(np.float32)).to(cuda)
+    before = dict(edgeconv.launches_by_shape)
+    out, idx = edgeconv.fused_edgeconv(x, folded, k=k, mlp_dtype=mlp_dtype, return_idx=True,
+                                       tile_n=tile_n)
+    torch.cuda.synchronize()
+    made = sum(edgeconv.launches_by_shape.values()) - sum(before.values())
+    if launches is not None:
+        assert made == launches
+    kk = min(k, n_points)
+    assert out.shape == (clouds, n_points, widths[-1]) and idx.shape == (clouds, n_points, kk)
+    ref_idx, x_lp = edgeconv.edgeconv_select(x, kk, mlp_dtype)
+    assert torch.equal(idx[..., 0], ref_idx[..., 0])
+    if C <= edgeconv.SMALL_C_MAX:
+        assert torch.equal(idx, ref_idx)
+    else:
+        assert (idx == ref_idx).float().mean().item() >= 0.99
+    tail = edgeconv.edgeconv_mlp_max(x, idx, x_lp, folded)
+    scale = tail.abs().max().item()
+    diff = (out - tail).abs()
+    assert diff.max().item() <= 1e-2 * scale and diff.mean().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize('n_points,C,widths,k,launches', [
+    (2000, 3, [512, 512, 150], 5, 1),        # att conv0 at EConv_hidden 512: 5 slots fit
+    (2000, 150, [512, 512, 150], 5, 1),      # conv1
+    (2000, 3, [200] * 4 + [150], 5, 1),      # EConv_hidden_depth 4: five layers
+    (2000, 150, [200] * 4 + [150], 20, 1),
+    (300, 150, [512, 512, 150], 20, 2),      # 8 slots of 520 columns do not fit: 4
+    (300, 24, [1024, 150], 5, 2),            # 2 slots a group
+    (300, 3, [2048, 64], 5, 2),              # 1 slot a group, the widest layer
+    (3000, 3, [512, 512, 150], 8, 2),        # column-tiled small C
+    (2500, 150, [1024, 64], 5, 2),           # column-tiled wide C
+    (2000, 300, [200, 200, 150], 5, 2),      # att conv1 at EConv_feature 300
+    (3000, 300, [200, 200, 150], 5, 2),      # past 2048 points
+    (500, 512, [64, 32], 20, 2),
+    (200, 1000, [64, 32], 1, 2),             # 2C = 2000 columns of edge input
+])
+def test_kernel_wide_shapes_match_plain(cuda, rng, n_points, C, widths, k, launches):
+    for mlp_dtype in (torch.float32, torch.bfloat16):
+        _check_fused(cuda, rng, n_points, C, widths, k, mlp_dtype, launches=launches)
+
+
+@pytest.mark.parametrize('C', [300, 512])
+@pytest.mark.parametrize('n_points,k,value_chunks', [(300, 5, 2), (2000, 5, 2), (2000, 5, 1),
+                                                     (2000, 20, 2), (2048, 1, 2)])
+def test_knn_gather_past_256_matches_plain(cuda, rng, C, n_points, k, value_chunks):
+    """knn_gather at C past 256 (the selection staged 256 features at a
+    time, the backward's sums in 256-column blocks): the bars of
+    test_knn_gather_matches_plain."""
+    test_knn_gather_matches_plain(cuda, rng, n_points, C, k, value_chunks)
+
+
+@pytest.mark.parametrize('n_points,k,C,value_chunks', [
+    (2000, 5, 300, 2), (2048, 20, 512, 1), (300, 200, 300, 2)])
+def test_knn_gather_backward_past_256(cuda, rng, n_points, k, C, value_chunks):
+    test_knn_gather_backward_order(cuda, rng, n_points, k, C, value_chunks)
+    if k <= 20:           # a hub of N (k-1) <= 38,000 terms: the 1e-5 bar holds
+        test_knn_gather_backward_hub(cuda, rng, n_points, k, C, value_chunks)
+
+
+def test_fused_widths_past_2048_raise(cuda, rng):
+    folded = _folded(rng, 3, [2056, 8], cuda)
+    with pytest.raises(NotImplementedError, match='2048'):
+        edgeconv.fused_edgeconv(torch.randn(1, 100, 3, device=cuda), folded, k=5)
+
+
+def test_edgeconv_routes_past_2048_to_knn_gather(cuda, rng):
+    """An eval layer wider than the fused kernels take runs knn_gather, the
+    edge MLP and the max, as the CPU path does."""
+    layer = EdgeConv(3, [2056, 16], k=5).eval()
+    x = torch.from_numpy(rng.normal(size=(2, 300, 3)).astype(np.float32))
+    before_fused = sum(edgeconv.launches.values())
+    before = knn_gather.launches['fwd_small_c']
+    with torch.no_grad():
+        out = copy.deepcopy(layer).to(cuda)(x.to(cuda))
+        ref = layer(x)
+    torch.cuda.synchronize()
+    assert sum(edgeconv.launches.values()) == before_fused
+    assert knn_gather.launches['fwd_small_c'] == before + 1
+    assert _rel_l2(out, ref) <= 1e-5
+
+
+# ---- 128 < k <= N: the selection of all N keys ----
+
+@pytest.mark.parametrize('k', [129, 200])
+@pytest.mark.parametrize('n_points,C,widths,clouds', [
+    (256, 3, [16], 2), (256, 24, [16], 2),   # the CPU tests' shapes
+    (2000, 3, [200, 200, 150], 2),           # row 4: the att conv0
+    (2000, 150, [200, 200, 150], 2),         # row 5: conv1
+    (10000, 3, [200, 200, 150], 1),          # row 6
+    (10000, 150, [200, 200, 150], 1),        # row 7
+    (2000, 300, [512, 150], 1),              # C past 256 and a wide layer
+])
+def test_kernel_above_k128_matches_plain(cuda, rng, k, n_points, C, widths, clouds):
+    for mlp_dtype in (torch.float32, torch.bfloat16):
+        _check_fused(cuda, rng, n_points, C, widths, k, mlp_dtype, clouds=clouds, launches=2)
+
+
+def test_kernel_k_equal_to_n(cuda, rng):
+    """k = N: every point is a neighbour."""
+    _check_fused(cuda, rng, 300, 3, [32, 16], 300, launches=2)
+    _check_fused(cuda, rng, 300, 150, [32, 16], 300, launches=2)
+
+
+@pytest.mark.parametrize('k', [129, 200])
+@pytest.mark.parametrize('n_points,C,value_chunks', [
+    (2000, 3, 2), (2000, 150, 2), (2000, 150, 1), (256, 24, 2), (2048, 300, 2)])
+def test_knn_gather_above_k128_matches_plain(cuda, rng, k, n_points, C, value_chunks):
+    """Rows 8-9 at k = 129 and 200: ids (B, N, k) and rows (B, k, N, C),
+    the backward's CSR at the run-time k: the bars of
+    test_knn_gather_matches_plain."""
+    test_knn_gather_matches_plain(cuda, rng, n_points, C, k, value_chunks)
+
+
+@pytest.mark.parametrize('n_points,k,C,value_chunks', [
+    (n, k, c, v) for n in (300, 2048) for k in (129, 200) for c in (3, 150) for v in (1, 2)])
+def test_knn_gather_backward_order_above_k128(cuda, rng, n_points, k, C, value_chunks):
+    test_knn_gather_backward_order(cuda, rng, n_points, k, C, value_chunks)
+
+
+def test_small_c_above_k128_duplicates_and_ties(cuda, rng):
+    """Integer lattice clouds, every point twice: the radix selection's ties
+    go to the lower column, in the fused layer and knn_gather alike."""
+    x = torch.from_numpy(rng.integers(-3, 4, size=(2, 600, 3)).astype(np.float32))
+    x[:, 300:] = x[:, :300]
+    x = x.to(cuda)
+    folded = _folded(rng, 3, [16, 8], cuda)
+    for k in (129, 200, 600):
+        ref = knn_gather.knn_gather_reference(x, k)[1]
+        _, idx = edgeconv.fused_edgeconv(x, folded, k=k, return_idx=True)
+        assert torch.equal(idx, ref)
+        assert torch.equal(knn_gather.knn_gather(x, k)[1], ref)

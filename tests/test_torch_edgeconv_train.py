@@ -213,6 +213,7 @@ def test_eval_edge_pair_form_matches_jax(rng, monkeypatch, C):
     monkeypatch.setattr(jax_blocks, 'fused_edgeconv_supported', lambda *args: False)
     monkeypatch.setattr(jax_blocks, 'knn_gather_supported', lambda *args: False)
     monkeypatch.setattr(blocks, 'fused_edgeconv_supported', lambda *args: False)
+    monkeypatch.setattr(blocks, 'knn_gather_supported', lambda *args: False)
     ref = jax_blocks.EdgeConv(widths, k=K, use_pallas=True).apply(
         {'params': {'MLP_0': params}, 'batch_stats': {'MLP_0': stats}}, jnp.asarray(x),
         train=False)

@@ -19,8 +19,9 @@ The EdgeConv module and the att model at k_neighbors 20 are held to the
 JAX package in tests/test_torch_k_range_model.py.
 
 Routing: a CUDA tensor at every k in 17..128 reaches the kernel's library
-call with that k and never the plain version; k = 129 raises
-NotImplementedError naming 128. A stand-in CUDA tensor and a fake library
+call with that k and never the plain version; k = 129 in the standalone
+kNN raises NotImplementedError naming 128 (the fused layer and knn_gather
+take it: tests/test_torch_wide_shapes.py). A stand-in CUDA tensor and a fake library
 make that checkable without a card.
 """
 import contextlib
@@ -266,17 +267,12 @@ def _folded_on_stand_ins():
 
 
 def test_k_129_raises_naming_the_bound(fake_card):
+    """The standalone kNN stops at 128, as knn_pallas does; the fused layer
+    and knn_gather take 128 < k <= N (tests/test_torch_wide_shapes.py)."""
     with pytest.raises(NotImplementedError, match='128'):
         knn.knn(_CudaStandIn(1, 200, 3), 129)
     with pytest.raises(NotImplementedError, match='128'):
         knn.knn(_CudaStandIn(1, 200, 150), 129)
-    with pytest.raises(NotImplementedError, match='128'):
-        knn_gather.knn_gather_fwd(_CudaStandIn(1, 200, 3), 129)
-    with pytest.raises(NotImplementedError, match='128'):
-        knn_gather.knn_gather_bwd(_CudaStandIn(1, 200, 129), _CudaStandIn(1, 129, 200, 3))
-    with pytest.raises(NotImplementedError, match='128'):
-        edgeconv._launch(_CudaStandIn(1, 200, 3), _folded_on_stand_ins(), 129, torch.float32,
-                         False, None)
     assert not any(name.endswith('ward') for name, _ in fake_card.calls)
 
 

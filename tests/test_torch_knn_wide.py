@@ -1,4 +1,4 @@
-"""The port's wide-D kNN (16 < D <= 256) against the JAX package's: the
+"""The port's wide-D kNN (D > 16) against the JAX package's: the
 plain port (the CPU path of `ops.knn.knn`) against `knn_pallas` with its
 `_knn_kernel` in interpret mode, forced onto small tiles (tile_m=16,
 tile_n=64) so its per-tile extraction and its merges of tiles run, on
@@ -154,9 +154,13 @@ def test_knn_wide_cuda_tensor_never_takes_the_plain_version(monkeypatch, D):
     assert len(launched) == 1
 
 
-def test_knn_wide_past_256_raises_on_the_card_path(monkeypatch):
+def test_knn_wide_past_256_takes_the_wide_kernel_on_the_card_path(monkeypatch):
+    """D = 257 (past one 256-feature stage) goes to the wide-D kernel as
+    D = 256 does; tile_n stays a small-D option."""
     _no_plain(monkeypatch)
-    with pytest.raises(NotImplementedError, match='D=257'):
-        knn.knn(_CudaStandIn(1, 64, 257), 5)
+    launched = []
+    monkeypatch.setattr(knn, '_launch_wide', lambda *args: launched.append(args))
+    knn.knn(_CudaStandIn(1, 64, 257), 5)
+    assert len(launched) == 1
     with pytest.raises(ValueError, match='tile_n'):
         knn.knn(_CudaStandIn(1, 64, 150), 5, tile_n=64)

@@ -258,5 +258,10 @@ def test_sharded_encoder_matches_jax(ring4):
     mesh = jax_make_mesh_2d(2, 2)
     placed = jax_shard_batch(mesh, {'features': arrays['enc2d.x']})['features']
     shards = {s.device: np.asarray(s.data) for s in placed.addressable_shards}
+    labels = np.arange(arrays['enc2d.x'].shape[0] * 32).reshape(-1, 32)
     for r, device in enumerate(mesh.devices.flatten()):
         np.testing.assert_array_equal(out['shard2d.features'][r], shards[device])
+        # the per-point ground truth keeps the same rows and points
+        d, p = divmod(r, 2)
+        np.testing.assert_array_equal(out['shard2d.segmentation'][r],
+                                      labels[2 * d:2 * d + 2, 16 * p:16 * p + 16])

@@ -76,13 +76,38 @@ def test_cli_first_rank_alone_writes(cli_runs):
     assert json.loads((two / 'config.json').read_text())['trainer']['mesh'] == {'data': 2}
 
 
+def test_cli_points_sharded_fit_matches_one_process(cli_runs, synthetic_dataset_root,
+                                                    tmp_path):
+    """`Trainer.fit` through the CLI under 2 gloo ranks at
+    `trainer.mesh: {data: 1, points: 2}` (each rank 30 of every cloud's 60
+    points): both steps' losses within rtol 2e-5 of the one-process run's
+    (the bar of tests/test_multichip.py:204), the same files written once,
+    and the validation loss within 1e-3 relative of one process's: the
+    sharded eval runs the ring and the f32 edge MLP, the one-process eval
+    the fused layer's bf16 one, and the two differ by 2.85e-4 here."""
+    (one, files_one), _ = cli_runs
+    argv = _workdir(synthetic_dataset_root, tmp_path / 'points', {'data': 1, 'points': 2})
+    mp.start_processes(ranks.cli_rank, args=(2, _free_port(), argv, str(tmp_path / 'points')),
+                       nprocs=2, start_method='spawn', join=True)
+    run, files = ranks.cli_run_files(tmp_path / 'points')
+    valid_one, steps_one = ranks.cli_losses(one)
+    valid, steps = ranks.cli_losses(run)
+    assert files == files_one and len(steps) == len(steps_one) == 2
+    np.testing.assert_allclose(steps, steps_one, rtol=2e-5)
+    assert len(valid) == 1
+    np.testing.assert_allclose(valid, valid_one, rtol=1e-3)
+    assert json.loads((run / 'config.json').read_text())['trainer']['mesh'] == \
+        {'data': 1, 'points': 2}
+
+
 @pytest.mark.parametrize('mesh,error,match', [
-    ({'data': 1, 'points': 2}, NotImplementedError, 'ROADMAP queue A8'),
+    ({'data': 1, 'points': 2}, ValueError, 'torchrun --standalone --nproc_per_node=2'),
     ({'data': 2}, ValueError, 'torchrun --standalone --nproc_per_node=2'),
 ], ids=['points', 'data_not_world'])
 def test_fit_refuses_meshes_it_cannot_run(synthetic_dataset_root, tmp_path, mesh, error, match):
-    """`trainer.mesh.points > 1` raises instead of training on one card, and
-    so does a `data` other than the number of processes; no run starts."""
+    """`trainer.mesh.points > 1` without its d p processes raises instead of
+    training on one card, and so does a `data` other than the number of
+    processes; no run starts."""
     dataset = pt_data.Garment3DPatternFullDataset(
         synthetic_dataset_root, {'data_folders': ranks.CLI_FOLDERS, 'mesh_samples': 60},
         gt_caching=True, feature_caching=True)

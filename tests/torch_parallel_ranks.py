@@ -46,6 +46,12 @@ SETUP = {'batch_size': B, 'epochs': 2, 'learning_rate': 0.002, 'optimizer': 'Ada
 STEPS_PER_EPOCH = 2
 # the DP cases: (NN section, the EdgeConv layers forced through the chunked sweeps)
 CASES = {'zero_states': (NN, False), 'drawn': (NN_DRAWN, False), 'chunked': (NN_DRAWN, True)}
+# the points-sharded cases: those two of the DP cases and a second EdgeConv
+# layer at C = 24, past the exact per-dimension ranking (DIRECT_D_MAX = 16):
+# the split products and the split rows of knn_gather
+NN_WIDE = dict(NN, EConv_feature=24, conv_depth=2)
+POINTS_CASES = ('zero_states', 'drawn', 'wide')
+MODELS = dict(CASES, wide=(NN_WIDE, False))
 CHUNK = 12                       # 32 queries: 3 chunks, the last one padded
 STEP_SEEDS = (100, 101)
 EVAL_SEED = 102
@@ -56,7 +62,7 @@ RING = [(2, 64, 3, 5), (1, 128, 7, 4)]
 
 def build(case, state, device='cpu'):
     """The case's model on `device` with the given weights."""
-    nn_config, chunked = CASES[case]
+    nn_config, chunked = MODELS[case]
     model = build_model('GarmentSegmentPattern3D', DATA, nn_config, LOSS, device=device)
     model.module.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
     if chunked:
@@ -94,7 +100,7 @@ def write_inputs(path, states):
 
 def port_state(case):
     """The case's model built from seed 0, as arrays."""
-    model = build_model('GarmentSegmentPattern3D', DATA, CASES[case][0], LOSS, device='cpu',
+    model = build_model('GarmentSegmentPattern3D', DATA, MODELS[case][0], LOSS, device='cpu',
                         seed=0)
     return {k: v.numpy() for k, v in model.module.state_dict().items()}
 
@@ -190,6 +196,37 @@ def dp_rank(inputs_path, out_path, cases=tuple(CASES)):
         np.savez(out_path, **out)
 
 
+def points_rank(inputs_path, out_path, cases=POINTS_CASES):
+    """Two train steps and an eval step of each case on the B = 5 batch over
+    `trainer.mesh: {data: D, points: world / D}` (D from the inputs):
+    losses and the first step's gradients, from the first rank."""
+    inputs = dict(np.load(inputs_path))
+    batch = batch_of(inputs)
+    data = int(inputs['mesh.data'])
+    mesh = {'data': data, 'points': dist.get_world_size() // data}
+    out = {}
+    for case in cases:
+        model = build(case, _split(inputs, f'{case}.'))
+        trainer = Trainer(dict(SETUP, mesh=mesh), device='cpu')
+        trainer.make_optimizer(model, STEPS_PER_EPOCH)
+        trainer.use_mesh(model, trainer.mesh_from_setup())
+        for i, seed in enumerate(STEP_SEEDS):
+            loss, _ = trainer.train_step(model, batch, 0,
+                                         torch.Generator().manual_seed(seed))
+            out[f'{case}.loss{i}'] = loss.numpy()
+            if i == 0:
+                out.update({f'{case}.grad.{n}': p.grad.numpy().copy()
+                            for n, p in model.module.named_parameters() if p.grad is not None})
+        loss, _ = trainer.eval_step(model, batch, 0, torch.Generator().manual_seed(EVAL_SEED))
+        out[f'{case}.eval'] = loss.numpy()
+        flat = torch.cat([p.detach().reshape(-1) for p in model.module.parameters()])
+        every = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
+        dist.all_gather(every, flat)
+        out[f'{case}.same_params'] = np.asarray(all(torch.equal(every[0], f) for f in every))
+    if dist.get_rank() == 0:
+        np.savez(out_path, **out)
+
+
 def _gather_rows(t, dim):
     every = [torch.empty_like(t) for _ in range(dist.get_world_size())]
     dist.all_gather(every, t.contiguous())
@@ -247,8 +284,12 @@ def ring_rank(inputs_path, out_path):
             h, pooled = sharded_encoder_step(mesh2d, [layer.nn], features, 3, data_axis='data')
         out['enc2d.h'] = _gather_rows(h[None], 0).numpy()        # rank = d * 2 + p
         out['enc2d.pooled'] = _gather_rows(pooled[None], 0).numpy()
-        out['shard2d.features'] = _gather_rows(
-            shard_batch(mesh2d, {'features': features})['features'][None], 0).numpy()
+        labels = torch.arange(features.shape[0] * features.shape[1]).reshape(features.shape[:2])
+        placed = shard_batch(mesh2d, {'features': features,
+                                      'ground_truth': {'segmentation': labels}})
+        out['shard2d.features'] = _gather_rows(placed['features'][None], 0).numpy()
+        out['shard2d.segmentation'] = _gather_rows(
+            placed['ground_truth']['segmentation'][None], 0).numpy()
     if rank == 0:
         np.savez(out_path, **out)
 
