@@ -153,7 +153,13 @@ def random_permutations(generator, batch_size, num_panels, device=None):
 class ComposedPatternLoss:
     """Compound loss on pattern predictions:
     `loss(preds, ground_truth, epoch=..., generator=...)` -> (full loss,
-    dict of the terms and quality metrics, loss-structure-updated flag)."""
+    dict of the terms and quality metrics, loss-structure-updated flag).
+
+    `points_shard` (None, or the `parallel.mesh.PointsShard` that `Trainer`
+    sets under a data x points mesh where the attention weights are this
+    rank's points of each cloud): the segmentation term reads this rank's
+    points of the GT labels and is the mean over every rank's points (its
+    local sum summed over the points ranks), the same on every rank."""
 
     def __init__(self, data_config, in_config=None):
         self.config = {
@@ -177,6 +183,7 @@ class ComposedPatternLoss:
         self.max_panel_len = data_config['max_panel_len']
         self.max_pattern_size = data_config['max_pattern_len']
         self.explicit_stitch_tags = data_config.get('explicit_stitch_tags', False)
+        self.points_shard = None
 
         # ground-truth standardization; a missing one is the identity, as in
         # the serving pipeline
@@ -339,8 +346,13 @@ class ComposedPatternLoss:
             loss_dict['translation_loss'] = transl
         if 'segmentation' in self.l_components:
             att = preds['att_weights'].reshape(-1, preds['att_weights'].shape[-1])
-            labels = gt['segmentation'].reshape(-1).long().clamp(0, att.shape[-1] - 1)
-            segm = sparsemax_loss(att, labels).mean()
+            labels = gt['segmentation']
+            if self.points_shard is not None:
+                labels = self.points_shard.local(labels)
+            labels = labels.reshape(-1).long().clamp(0, att.shape[-1] - 1)
+            segm = sparsemax_loss(att, labels)
+            segm = segm.mean() if self.points_shard is None \
+                else self.points_shard.mean(segm.sum(), segm.numel())
             full_loss = full_loss + self.config['segm_loss_weight'] * segm
             loss_dict['segm_loss'] = segm
         return full_loss, loss_dict

@@ -88,7 +88,8 @@ class MLP(nn.ModuleList):
     `data_shard` (None, or a `parallel.DataShard` that `Trainer` sets under
     a data mesh): the train forward's statistics are the means over the
     mesh's ranks of each rank's moments, those of the global batch, and
-    the chunked sweeps' too (`ops.edgeconv_train`)."""
+    the chunked sweeps' too (`ops.edgeconv_train`), each rank's weighed by
+    its rows where the points ranks hold uneven counts (`DataShard.mean`)."""
 
     def __init__(self, sizes: Sequence[int], eps: float = 1e-5, compute_dtype=None):
         super().__init__(
@@ -131,6 +132,18 @@ class MLP(nn.ModuleList):
                 if i == 0 and edge_pair is not None else self._layer(x, w, b)
         return self._affine(x, a, d)
 
+    def _moments(self, x):
+        """(mean, biased variance) in f32 of each channel of `x` over every
+        leading axis, as E[x^2] - E[x]^2 (as the JAX MLP); under a
+        `data_shard` the moments of the rows of every rank."""
+        xf = x.float()
+        dims = tuple(range(x.dim() - 1))
+        mean, sq = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+        if self.data_shard is not None:
+            rows = xf.numel() // xf.shape[-1]
+            mean, sq = self.data_shard.mean(torch.stack([mean, sq]), rows)
+        return mean, torch.clamp_min(sq - mean * mean, 0.0)
+
     def _train_forward(self, x, edge_pair):
         pending = None                          # the previous BN's (a, d)
         for i, (linear, _, bn) in enumerate(self):
@@ -142,12 +155,7 @@ class MLP(nn.ModuleList):
                 x = self._layer(x, a[:, None] * W, d @ W + b)
             else:
                 x = self._layer(x, W, b)
-            xf = x.float()
-            dims = tuple(range(x.dim() - 1))
-            mean, sq = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
-            if self.data_shard is not None:
-                mean, sq = self.data_shard.mean(torch.stack([mean, sq]))
-            var = torch.clamp_min(sq - mean * mean, 0.0)
+            mean, var = self._moments(x)
             _update_running(bn, mean, var)
             a = bn.weight * torch.rsqrt(var + self.eps)
             d = bn.bias - mean * a
@@ -159,17 +167,14 @@ def points_pool(kind, features, shard=None, dim=1):
     """GLOBAL_POOLS[kind] over the point axis `dim` of `features`; on a
     points shard (`parallel.mesh.PointsShard`) the pool of the whole cloud:
     'add' the local sums summed over the points ranks, 'mean' that over the
-    global point count. A max over a points shard is not ported (it needs an
-    all-reduce max whose backward goes to the rank holding the maximum):
-    NotImplementedError."""
+    ranks' point counts summed, 'max' the all-reduce max (ties share the
+    cotangent evenly, counted over every rank, as `torch.amax`'s do)."""
     if shard is None:
         return GLOBAL_POOLS[kind](features, dim=dim)
-    if kind not in ('mean', 'add'):
-        raise NotImplementedError(
-            f'the {kind!r} global pool over points-sharded clouds is not ported '
-            "(trainer.mesh.points > 1 takes global_pool 'mean' or 'add')")
-    total = shard.sum(torch.sum(features, dim=dim))
-    return total / (features.shape[dim] * shard.size) if kind == 'mean' else total
+    if kind == 'max':
+        return shard.max(features, dim)
+    total = torch.sum(features, dim=dim)
+    return shard.mean(total, features.shape[dim]) if kind == 'mean' else shard.sum(total)
 
 
 # the chunked sweeps' name of each aggregation
@@ -199,13 +204,17 @@ class EdgeConv(nn.Module):
     chunk; the kNN runs on the f32 upcast of the input on every path (a
     bf16 input, the previous layer's output, upcasts exactly).
 
-    `points_shard` (None, or a `parallel.mesh.PointsShard` that `Trainer`
-    sets under a data x points mesh): the input is this rank's slice of
-    each cloud's points, and the layer, in train and eval mode alike, is
-    the ring (`parallel.ring.ring_knn_gather` with the kernels' ranking and
-    knn_gather's rows, `low_precision_rows`), the edge MLP (its statistics
-    over the whole mesh, `MLP.data_shard`) and the aggregation over the
-    slots, as the JAX package's points-sharded step runs its unfused layer.
+    `forward(x, points_shard)` (a `parallel.mesh.PointsShard`, which the
+    encoder passes under a data x points mesh): the input is this rank's
+    slice of each cloud's points, and the layer, in train and eval mode
+    alike, is the ring (`parallel.ring.ring_knn_gather` with the kernels'
+    ranking and knn_gather's rows, `low_precision_rows`), the edge MLP (its
+    statistics over the whole mesh, `MLP.data_shard`) and the aggregation
+    over the slots, as the JAX package's points-sharded step runs its
+    unfused layer. `forward(x, unfused=True)` (a layer on whole clouds
+    gathered under such a mesh) keeps eval off the fused layer: the
+    knn_gather or kNN route in f32, as the JAX package's points mesh runs
+    the XLA layer; train mode routes as without it.
     """
 
     # the unfused path materializes (B, N, k, W) for the widest W among the
@@ -230,7 +239,6 @@ class EdgeConv(nn.Module):
         self.train_mode = train_mode
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
         self.nn = MLP([2 * in_channels, *mlp_features], compute_dtype=self.compute_dtype)
-        self.points_shard = None
 
     def chunked(self, B, N, C):
         """Whether train mode takes the chunked sweeps for a (B, N, C) input."""
@@ -239,13 +247,13 @@ class EdgeConv(nn.Module):
         widest = max([C, *self.mlp_features])
         return B * N * min(self.k, N) * widest * 4 > self._CHUNK_TRAIN_BYTES
 
-    def forward(self, x):
+    def forward(self, x, points_shard=None, unfused=False):
         x = x.float().contiguous()
         B, N, C = x.shape
         k = min(self.k, N)
         bf16 = self.compute_dtype == torch.bfloat16
-        if self.points_shard is not None:
-            return self._points_sharded(x, bf16)
+        if points_shard is not None:
+            return self._points_sharded(x, points_shard, bf16)
         if self.training and self.chunked(B, N, C):
             idx = knn_search(x.detach(), k)
             out, stats = chunked_edgeconv_train(
@@ -254,7 +262,7 @@ class EdgeConv(nn.Module):
                 compute_dtype=self.compute_dtype, data_shard=self.nn.data_shard)
             self.nn.update_running_stats(stats)
             return out
-        if not self.training and self.aggr == 'max' \
+        if not self.training and not unfused and self.aggr == 'max' \
                 and fused_edgeconv_supported(N, C, self.mlp_features):
             return fused_edgeconv(x, self.nn.folded(), k=self.k,
                                   mlp_dtype=torch.bfloat16 if bf16 else torch.float32)
@@ -272,11 +280,10 @@ class EdgeConv(nn.Module):
             return torch.amax(edges, dim=axis)
         return torch.mean(edges, dim=axis) if self.aggr == 'mean' else torch.sum(edges, dim=axis)
 
-    def _points_sharded(self, x, bf16):
+    def _points_sharded(self, x, shard, bf16):
         """The layer on this rank's points (B, S, C) of clouds of P S points."""
         from ..parallel.ring import low_precision_rows, ring_knn_gather
 
-        shard = self.points_shard
         k = min(self.k, x.shape[1] * shard.size)
         neighbours, _ = ring_knn_gather(x, k, shard.group, ranking='kernel')
         neighbours = low_precision_rows(neighbours, 1 if bf16 else 2)       # (B, S, k, C)
@@ -294,7 +301,17 @@ class EdgeConvFeatures(nn.Module):
     int(econv_hidden / (c - i)) and int(econv_feature / (c - i)), and a
     `DynamicGraphPool` (k_neighbors, pool_ratio) follows it, so N' is N
     coarsened once per layer; it cannot be combined with the xyz skip
-    (ValueError, as the JAX package raises)."""
+    (ValueError, as the JAX package raises).
+
+    `points_shard` (None, or the `parallel.mesh.PointsShard` that `Trainer`
+    sets under a data x points mesh): the input is this rank's points of
+    each cloud. Every layer is then the ring and the global pool sums (or
+    takes the maximum) over the points ranks; with graph pooling only the
+    first layer is: the first pool gathers its input over the points ranks
+    (`PointsShard.gather`), and it, every later layer (`unfused` in eval)
+    and pool, and the global pool run on the whole pooled clouds, the same
+    on every points rank. `output_shard()` says which the per-point
+    features are."""
 
     def __init__(self, out_size: int, conv_depth: int = 2, k_neighbors: int = 5,
                  econv_hidden: int = 200, econv_hidden_depth: int = 2,
@@ -329,21 +346,27 @@ class EdgeConvFeatures(nn.Module):
         self.out_features = widths[-1] + (3 if skip_connections else 0)
         # the global head exists only where the model pools globally
         self.lin = nn.Linear(self.out_features, out_size) if global_head else None
-        # under a data x points mesh (`Trainer.use_mesh`): the pool sums over
-        # the points ranks
         self.points_shard = None
 
+    def output_shard(self):
+        """The points shard of the per-point features: None where they are
+        whole clouds (no points mesh, or graph pooling's gather)."""
+        return None if self.pool_layers is not None else self.points_shard
+
     def forward(self, positions, pool_global: bool = True):
+        shard = self.points_shard                   # None once the clouds are whole
         out = positions
         for i, conv in enumerate(self.conv_layers):      # k is cut to N inside the layer
-            out = conv(out)
+            out = conv(out, shard, unfused=self.points_shard is not None)
             if self.pool_layers is not None:
+                if shard is not None:
+                    out, shard = shard.gather(out), None
                 out, _ = self.pool_layers[i](out)
         if self.skip_connections:
             out = torch.cat([out.to(positions.dtype), positions], dim=-1)
         out = out.float()                  # the heads and the loss stay f32
         if pool_global:
-            return self.lin(points_pool(self.global_pool, out, self.points_shard)), out, None
+            return self.lin(points_pool(self.global_pool, out, shard)), out, None
         return None, out, None
 
 
@@ -405,7 +428,10 @@ class EdgeConvPoolingFeatures(nn.Module):
     a max pool and a linear head
     (garment_pattern_estimation_tpu/models/blocks.py:414-444): widths
     64-64-n1, n2 x 3, n3 x 3, k cut to each stage's point count. Always
-    returns the global encoding beside the per-point features (B, N'', n3)."""
+    returns the global encoding beside the per-point features (B, N'', n3).
+    Under a points mesh (`points_shard`) conv1 is the ring and pool1
+    gathers its input: the rest runs on whole clouds (see
+    `EdgeConvFeatures`)."""
 
     def __init__(self, out_size: int, n_features1: int = 32, n_features2: int = 128,
                  n_features3: int = 256, k: int = 10, pool_ratio: float = 0.5):
@@ -417,11 +443,21 @@ class EdgeConvPoolingFeatures(nn.Module):
         self.conv3 = EdgeConv(n_features2, [n_features3] * 3, k=k)
         self.lin = nn.Linear(n_features3, out_size)
         self.out_features = n_features3
+        self.points_shard = None
+
+    def output_shard(self):
+        """None: the per-point features are whole clouds."""
+        return None
 
     def forward(self, positions, pool_global: bool = True):
-        out, _ = self.pool1(self.conv1(positions))
-        out, _ = self.pool2(self.conv2(out))
-        out = self.conv3(out)
+        shard = self.points_shard
+        out = self.conv1(positions, shard)
+        if shard is not None:
+            out = shard.gather(out)
+        unfused = shard is not None
+        out, _ = self.pool1(out)
+        out, _ = self.pool2(self.conv2(out, unfused=unfused))
+        out = self.conv3(out, unfused=unfused)
         return self.lin(torch.amax(out, dim=1)), out, None
 
 
@@ -445,7 +481,15 @@ class SetAbstraction(nn.Module):
     nearest, a shared MLP on each neighbour's [features ; relative position]
     and a max over the valid ones (garment_pattern_estimation_tpu/models/
     blocks.py:472-509). The MLP runs on every gathered row, out-of-radius
-    ones included, so they enter its batch statistics as in JAX."""
+    ones included, so they enter its batch statistics as in JAX.
+
+    With `points_shard` (the input is this rank's points of each cloud):
+    the positions (and features) are gathered over the points ranks, FPS
+    runs on the whole clouds, the same on every rank, and this rank keeps
+    its share of the centroids in order (`PointsShard.span`, uneven where
+    the ranks do not divide M), ball-queries them against the whole
+    clouds and runs the MLP, the largest tensor, on its rows (its
+    statistics weighed by its rows, `DataShard.mean`)."""
 
     def __init__(self, in_features: int, mlp_features: Sequence[int], ratio: float = 0.2,
                  radius: float = 0.3, max_neighbors: int = 25):
@@ -455,11 +499,25 @@ class SetAbstraction(nn.Module):
         self.max_neighbors = max_neighbors
         self.mlp = MLP([in_features + 3, *mlp_features])
 
-    def forward(self, features, positions):
+    def centroids(self, n_points):
+        """The centroid count M of a cloud of `n_points`."""
+        return max(int(self.ratio * n_points), 1)
+
+    def forward(self, features, positions, points_shard=None):
+        if points_shard is not None:
+            positions = points_shard.gather(positions.detach())
+            if features is not None:
+                features = points_shard.gather(features)
         B, N, _ = positions.shape
-        M = max(int(self.ratio * N), 1)
+        M = self.centroids(N)
         centroids = positions.gather(
             1, farthest_point_sampling(positions, M)[..., None].expand(B, M, 3))
+        if points_shard is not None:
+            start, stop = points_shard.span(M)
+            if start == stop:
+                raise ValueError(f'SetAbstraction: {M} centroids leave points rank '
+                                 f'{points_shard.rank} of {points_shard.size} none')
+            centroids, M = centroids[:, start:stop], stop - start
         d = pairwise_sq_dists(centroids, positions)                  # (B, M, N)
         capped = torch.where(d <= self.radius ** 2, d, math.inf)
         # the nearest inside the radius, lower id first on ties (the
@@ -481,7 +539,9 @@ class PointNetPlusPlus(nn.Module):
     hidden-hidden-feature), then a per-point MLP on [features ; centroid],
     a max pool and a linear head
     (garment_pattern_estimation_tpu/models/blocks.py:512-537). Always
-    returns the global encoding beside the per-centroid features."""
+    returns the global encoding beside the per-centroid features. Under a
+    points mesh (`points_shard`) the features are this rank's centroids'
+    (`SetAbstraction`), and the max pool is over every rank's."""
 
     def __init__(self, out_size: int, econv_hidden: int = 200, econv_feature: int = 150,
                  r1: float = 0.3):
@@ -491,13 +551,18 @@ class PointNetPlusPlus(nn.Module):
         self.mlp = MLP([econv_feature + 3, *widths])
         self.lin = nn.Linear(econv_feature, out_size)
         self.out_features = econv_feature
+        self.points_shard = None
+
+    def output_shard(self):
+        """The points shard of the per-centroid features (None: whole)."""
+        return self.points_shard
 
     def forward(self, positions, pool_global: bool = True):
         positions = positions.float()
-        h, centroids = self.sa1(None, positions)
+        h, centroids = self.sa1(None, positions, self.points_shard)
         local = torch.cat([h, centroids], dim=-1)
         g = self.mlp(local.reshape(-1, local.shape[-1])).reshape(*local.shape[:2], -1)
-        return self.lin(torch.amax(g, dim=1)), g, None
+        return self.lin(points_pool('max', g, self.points_shard)), g, None
 
 
 def inverted_dropout(x, rate, generator=None, shard=None):

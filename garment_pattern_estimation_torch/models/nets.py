@@ -21,7 +21,6 @@ import torch
 from torch import nn
 
 from . import blocks
-from ..ops.pooling import GLOBAL_POOLS
 from ..ops.sparsemax import sparsemax
 
 
@@ -182,27 +181,22 @@ class GarmentSegmentPattern3DModule(GarmentFullPattern3DModule):
         logits = self.point_segment_mlp(att_input.reshape(B * N, -1)).reshape(B, N, -1)
         weights = sparsemax(logits.float())                              # (B, N, P)
 
-        # mean/add pools contract over N as one product (summed over the
-        # points ranks under a points mesh, over the global N); max needs the
-        # per-panel weighted features
-        shard = self.feature_extractor.points_shard \
-            if hasattr(self.feature_extractor, 'points_shard') else None
+        # mean/add pools contract over N as one product; max needs the
+        # per-panel weighted features. Under a points mesh, where the
+        # encoder's point features are this rank's points, each is the
+        # pool over every points rank's (`blocks.points_pool`)
+        shard = self.feature_extractor.output_shard()
         if self.global_pool in ('mean', 'add'):
             pooled = torch.einsum('bnp,bnf->bpf', weights, point_features)
             if shard is not None:
-                pooled = shard.sum(pooled)
-                N = N * shard.size
-            if self.global_pool == 'mean':
+                pooled = shard.mean(pooled, N) if self.global_pool == 'mean' \
+                    else shard.sum(pooled)
+            elif self.global_pool == 'mean':
                 pooled = pooled / N
-        elif shard is not None:
-            raise NotImplementedError(
-                f'the {self.global_pool!r} attention pool over points-sharded clouds is not '
-                "ported (trainer.mesh.points > 1 takes global_pool 'mean' or 'add')")
         else:
-            weighted = torch.einsum('bnp,bnf->bpnf', weights, point_features)
-            pooled = GLOBAL_POOLS[self.global_pool](
-                weighted.reshape(B * self.max_pattern_size, N, -1)) \
-                .reshape(B, self.max_pattern_size, -1)
+            pooled = blocks.points_pool(
+                self.global_pool, torch.einsum('bnp,bnf->bpnf', weights, point_features),
+                shard, dim=2)
         return self.panel_dec_lin(pooled), weights
 
     def forward(self, positions, generator=None):

@@ -17,6 +17,13 @@ forward's output is used:
     cotangent of a replicated output, which counts such a gradient once per
     rank.)
   * `ring_shift`: the cotangent travels the ring the other way.
+  * `all_reduce_max` and `gather_points` on the points group: their output
+    feeds a computation that every points rank repeats, and only one rank
+    backpropagates the loss (the others backpropagate zeros), so each
+    backward first sums the cotangents over the group, then hands this
+    rank its share: the elements that hold the maximum, or its points.
+    (`all_gather_rows` would keep each rank's own cotangent and drop every
+    share but the backpropagating rank's.)
 
 `sum_gradients` sums the parameters' gradients over the data group after the
 backward, the counterpart of XLA's gradient psum: each rank's gradient is
@@ -105,6 +112,68 @@ def all_gather_rows(x, group=None):
     repeats identically: the backward keeps this rank's rows of the
     cotangent."""
     return _AllGatherRows.apply(x, group)
+
+
+class _AllReduceMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        out = torch.amax(x, dim=dim)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+        with torch.no_grad():
+            hits = x == out.unsqueeze(dim)
+            count = hits.sum(dim=dim, dtype=torch.float32)
+            dist.all_reduce(count, group=group)
+        ctx.save_for_backward(hits, count)
+        ctx.dim, ctx.group = dim, group
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        hits, count = ctx.saved_tensors
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        share = (g / count).to(g.dtype).unsqueeze(ctx.dim)
+        return torch.where(hits, share, 0.0), None, None
+
+
+def all_reduce_max(x, dim, group=None):
+    """The maximum of `x` over its axis `dim` and over the group's ranks
+    (each holding its part of that axis), on every rank. The backward sums
+    the cotangents over the group and splits each evenly among the
+    elements, on every rank, that equal the maximum: the gradient of
+    `torch.amax` (and of `jnp.max`) over the whole axis."""
+    return _AllReduceMax.apply(x, dim, group)
+
+
+class _GatherPoints(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sizes, group):
+        rank = dist.get_rank(group)
+        ctx.group, ctx.span = group, (sum(sizes[:rank]), sizes[rank])
+        width = max(sizes)
+        padded = x if x.shape[1] == width else torch.cat(
+            [x, x.new_zeros(x.shape[0], width - x.shape[1], *x.shape[2:])], dim=1)
+        parts = [torch.empty_like(padded) for _ in sizes]
+        dist.all_gather(parts, padded.contiguous(), group=group)
+        return torch.cat([part[:, :n] for part, n in zip(parts, sizes)], dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        start, n = ctx.span
+        return g[:, start:start + n], None, None
+
+
+def gather_points(x, group=None, sizes=None):
+    """Every rank's `x` (B, n_r, ...) joined along dim 1 in rank order (the
+    global point order of contiguous shards), on every rank. `sizes` lists
+    each rank's n_r (None: all equal to this rank's). The backward sums the
+    cotangents over the group and keeps this rank's points (a
+    reduce-scatter)."""
+    if sizes is None:
+        sizes = [x.shape[1]] * dist.get_world_size(group)
+    return _GatherPoints.apply(x, list(sizes), group)
 
 
 def _shift(x, group, step):

@@ -14,9 +14,11 @@ the CPU, and checks in each:
      same layers unsharded in plain f32 (`_edgeconv_plain`), within 2e-4;
   3. for n >= 4 (even), the ring on a 2 x n/2 data x points mesh, as 2;
   4. for n >= 4 (even), the training step of 1. on that 2 x n/2 mesh
-     (`trainer.mesh: {data: 2, points: n/2}`): its loss, at the same
-     weights on the same batch, within 1e-3 of the data-parallel step's
-     (__graft_entry__.py:196-216's bar).
+     (`trainer.mesh: {data: 2, points: n/2}`), and the same step of the
+     graph-pooled model (`_NN_POOLED`: the first pool gathers the points
+     ranks' shares): each loss, at the same weights on the same batch,
+     within 1e-3 of the data-parallel step's (__graft_entry__.py:196-216's
+     bar).
 
     python -m garment_pattern_estimation_torch.parallel.dryrun 2               # 2 cards
     python -m garment_pattern_estimation_torch.parallel.dryrun 2 --device cpu  # gloo
@@ -52,6 +54,10 @@ _NN = {'panel_encoding_size': 16, 'panel_hidden_size': 16, 'panel_n_layers': 1,
        'pattern_encoding_size': 16, 'EConv_hidden': 8, 'EConv_feature': 8,
        'EConv_hidden_depth': 2, 'k_neighbors': 3, 'conv_depth': 1,
        'skip_connections': True, 'global_pool': 'mean', 'local_attention': True}
+# graph pooling: conv0 on the ring, then a gather, the pools and conv1 on
+# whole clouds
+_NN_POOLED = dict(_NN, graph_pooling=True, skip_connections=False, conv_depth=2,
+                  pool_ratio=0.5)
 _LOSS = {'loss_components': ['shape', 'loop', 'rotation', 'translation'],
          'quality_components': [], 'panel_order_inariant_loss': False,
          'panel_origin_invariant_loss': False}
@@ -127,11 +133,18 @@ def _dryrun_rank(backend):
 
     # 1. one data-parallel training step
     setup = {'batch_size': 2 * n, 'epochs': 1, 'learning_rate': 1e-3, 'optimizer': 'Adam'}
-    model = build_model('GarmentSegmentPattern3D', _DATA, _NN, _LOSS, device=device, seed=0)
-    trainer = Trainer(setup, device=device)
-    trainer.make_optimizer(model, 1)
-    trainer.use_mesh(model, make_mesh())
-    loss, _ = trainer.train_step(model, _batch(2 * n, 32, 5, 6), 0)
+
+    def train_step(nn_config, mesh_config):
+        """(loss, model) of one step from seed 0's weights over `trainer.mesh`
+        `mesh_config` (None: a data mesh of the world)."""
+        model = build_model('GarmentSegmentPattern3D', _DATA, nn_config, _LOSS, device=device,
+                            seed=0)
+        trainer = Trainer(dict(setup, mesh=mesh_config), device=device)
+        trainer.make_optimizer(model, 1)
+        trainer.use_mesh(model, trainer.mesh_from_setup() if mesh_config else make_mesh())
+        return trainer.train_step(model, _batch(2 * n, 32, 5, 6), 0)[0], model
+
+    loss, model = train_step(_NN, None)
     if not torch.isfinite(loss):
         raise AssertionError(f'dryrun_multichip::non-finite loss {float(loss)}')
     flat = torch.cat([p.detach().reshape(-1) for p in model.module.parameters()])
@@ -168,19 +181,19 @@ def _dryrun_rank(backend):
         _check_close('2-D ring features', h, ref[2 * d:2 * d + 2, p * S:(p + 1) * S])
         _check_close('2-D ring pool', pooled, ref[2 * d:2 * d + 2].mean(dim=1))
 
-        # 4. the training step of 1. on the 2-D mesh
-        model = build_model('GarmentSegmentPattern3D', _DATA, _NN, _LOSS, device=device, seed=0)
-        trainer = Trainer(dict(setup, mesh={'data': 2, 'points': n // 2}), device=device)
-        trainer.make_optimizer(model, 1)
-        trainer.use_mesh(model, trainer.mesh_from_setup())
-        loss2, _ = trainer.train_step(model, _batch(2 * n, 32, 5, 6), 0)
-        if not torch.isfinite(loss2) or abs(float(loss2) - float(loss)) \
-                >= 1e-3 * max(abs(float(loss)), 1.0):
-            raise AssertionError(f'dryrun_multichip::2-D mesh loss {float(loss2)} != DP loss '
-                                 f'{float(loss)}')
-        if rank == 0:
-            print(f'dryrun_multichip::2d-mesh ok loss={float(loss2):.4f} '
-                  f'mesh=2x{n // 2} (data x points)', flush=True)
+        # 4. the training step of 1., and the graph-pooled model's, on the 2-D mesh
+        mesh2d = {'data': 2, 'points': n // 2}
+        pooled_loss = train_step(_NN_POOLED, None)[0]
+        for name, nn_config, dp_loss in (('', _NN, loss), (' graph-pooled', _NN_POOLED,
+                                                            pooled_loss)):
+            loss2 = train_step(nn_config, mesh2d)[0]
+            if not torch.isfinite(loss2) or abs(float(loss2) - float(dp_loss)) \
+                    >= 1e-3 * max(abs(float(dp_loss)), 1.0):
+                raise AssertionError(f'dryrun_multichip::2-D mesh{name} loss {float(loss2)} '
+                                     f'!= DP loss {float(dp_loss)}')
+            if rank == 0:
+                print(f'dryrun_multichip::2d-mesh{name} ok loss={float(loss2):.4f} '
+                      f'mesh=2x{n // 2} (data x points)', flush=True)
     if rank == 0:
         print(f'dryrun_multichip::ok loss={float(loss):.4f} ranks={n} backend={backend}',
               flush=True)

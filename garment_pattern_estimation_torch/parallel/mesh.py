@@ -27,7 +27,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from ..device import resolve_device
-from .collectives import all_reduce_sum, initialized
+from .collectives import all_reduce_max, all_reduce_sum, gather_points, initialized
 
 DATA_AXIS = 'data'
 POINTS_AXIS = 'points'
@@ -168,7 +168,12 @@ def pad_batch_to_multiple(batch, multiple):
 class PointsShard:
     """This rank's slice of every cloud's points on a (data x points) mesh:
     the points group, `rank` on it and its `size`. Rank p holds the points
-    [p S, (p + 1) S) of each of its clouds."""
+    [p S, (p + 1) S) of each of its clouds.
+
+    Every collective here is one whose backward sums the cotangents over
+    the points group: only one points rank backpropagates the loss, and a
+    rank that uses the result for its own points holds a share of the
+    cotangent (`collectives.py`)."""
 
     def __init__(self, mesh):
         self.group = mesh.get_group(mesh.mesh_dim_names.index(POINTS_AXIS))
@@ -182,11 +187,41 @@ class PointsShard:
         s = tensor.shape[1] // self.size
         return tensor[:, self.rank * s:(self.rank + 1) * s]
 
+    def sizes(self, n):
+        """Each rank's share of n items split in rank order as
+        `torch.tensor_split` splits them (the first n % size ranks one more)."""
+        return [n // self.size + (r < n % self.size) for r in range(self.size)]
+
+    def span(self, n):
+        """(start, stop) of this rank's share of n items (`sizes`)."""
+        sizes = self.sizes(n)
+        start = sum(sizes[:self.rank])
+        return start, start + sizes[self.rank]
+
     def sum(self, value):
         """The sum over the points ranks of per-rank partial sums, on every
-        rank; its backward sums the cotangents (a rank that uses the sum
-        for its own points holds a share of the cotangent)."""
+        rank."""
         return all_reduce_sum(value, self.group)
+
+    def mean(self, total, rows):
+        """The mean over every rank's rows from this rank's partial sum
+        `total` over its `rows` rows: the sums and the row counts summed in
+        one all-reduce, so shards of uneven size weigh by their rows."""
+        both = self.sum(torch.cat([total.reshape(-1), total.new_tensor([float(rows)])]))
+        return (both[:-1] / both[-1]).view_as(total)
+
+    def max(self, value, dim):
+        """The maximum over the axis `dim` of the ranks' parts of it
+        (`collectives.all_reduce_max`: ties share the cotangent evenly,
+        counted over every rank)."""
+        return all_reduce_max(value, dim, self.group)
+
+    def gather(self, tensor, sizes=None):
+        """The whole (B, N, ...) clouds from every rank's (B, n_r, ...)
+        points, in global order, on every rank; `sizes` the n_r (None: all
+        equal). Its backward keeps this rank's points of the summed
+        cotangents."""
+        return gather_points(tensor, self.group, sizes)
 
 
 class DataShard:
@@ -198,9 +233,10 @@ class DataShard:
 
     On a 2-D mesh `points` is the `PointsShard`, and the statistics group
     (`stats_group`, the group of `mean` and of the gradient sum) is the
-    whole mesh: every rank holds the same number of (cloud, point) rows, so
-    a per-point statistic is the mean over all ranks, and a per-cloud one,
-    which the points ranks of a data slice hold alike, is too."""
+    whole mesh: a per-point statistic is the mean over all ranks of each
+    rank's (weighed by their rows where those are uneven), and a per-cloud
+    one, or one of a stage that runs on whole gathered clouds, which the
+    points ranks of a data slice hold alike, is too."""
 
     def __init__(self, mesh):
         dim = mesh.mesh_dim_names.index(DATA_AXIS)
@@ -212,10 +248,24 @@ class DataShard:
         else:                 # make_mesh_2d spans the world: the default group
             self.stats_group, self.stats_size = None, self.size * self.points.size
 
-    def mean(self, value):
+    def mean(self, value, rows=None):
         """The mean over the statistics group's ranks of per-rank `value`s,
-        differentiable (each rank's cotangents are summed)."""
-        return all_reduce_sum(value / self.stats_size, self.stats_group)
+        differentiable (each rank's cotangents are summed). `rows` (on a
+        2-D mesh): the rows this rank's value is the mean of. Where the
+        ranks' counts differ (PointNet++'s centroids split unevenly over
+        the points ranks) each value is weighed by its rows; where they are
+        equal, or `rows` is None, by 1 / the group's size, so ranks that
+        hold the same rows (the stages after a gather) give their value
+        exactly, as a power-of-two count of halves sums exactly."""
+        equal = value / self.stats_size
+        if self.points is None or rows is None:
+            return all_reduce_sum(equal, self.stats_group)
+        counts = torch.tensor([rows, rows * rows], dtype=torch.float64, device=value.device)
+        dist.all_reduce(counts, group=self.stats_group)
+        total, squares = counts[0], counts[1]
+        uneven = squares * self.stats_size != total * total
+        weighted = value * (rows / total).to(value.dtype)
+        return all_reduce_sum(torch.where(uneven, weighted, equal), self.stats_group)
 
     def rows(self, tensor):
         """This rank's rows of a tensor of the global batch."""

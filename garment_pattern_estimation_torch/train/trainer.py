@@ -44,20 +44,27 @@ runs in one process.
 
 Points sharding (`trainer.mesh: {data: d, points: p}`, p > 1, d p
 processes): a (data x points) mesh; each rank holds its data slice's rows
-and, of each cloud, its p-th slice of the points. Every EdgeConv layer is
-the ring (`models.blocks.EdgeConv`, points_shard), the BatchNorm statistics
-are means over all d p ranks, sparsemax and the attention MLP stay per
-point, and the attention pool's (and the global pool's) sum over the
-points is summed over the points ranks (`PointsShard.sum`, whose backward
-sums the cotangents). The predictions, the same on the points ranks of a
-data slice, are gathered over the data ranks, and every rank computes the
-whole batch's loss, but only the first points rank of each data slice
-takes its backward (the others' cotangents flow in through the pool's
-sum): so every parameter's gradient is the sum over all ranks of their
-shares, the post-pool layers' counted once, and one sum over the mesh
-gives the one-process gradient on the padded batch. A `segmentation` loss
-term (its per-point term would need the same split), a max pool and the
-graph-pooling and PointNet++ encoders raise NotImplementedError there.
+and, of each cloud, its p-th slice of the points. The encoder works on
+this rank's points up to its first graph pool and on whole clouds after
+it (`models.blocks`: `EdgeConvFeatures`, `EdgeConvPoolingFeatures`,
+`PointNetPlusPlus`): an EdgeConv layer on a shard is the ring; the first
+graph pool gathers its input over the points ranks (`PointsShard.gather`),
+and the pools and layers after it run on the whole pooled clouds, the same
+on every points rank; PointNet++ gathers the positions, samples the
+centroids on the whole clouds and keeps this rank's share of them. The
+BatchNorm statistics are means over all d p ranks (weighted by their shares
+of rows where those are uneven), sparsemax and the attention MLP stay per point, and a pool over sharded
+points is the pool over every points rank's (`PointsShard.sum`, `mean`,
+`max`), as is the segmentation term (`ComposedPatternLoss.points_shard`).
+The predictions, the same on the points ranks of a data slice (the
+attention weights excepted, which are this rank's points where the
+encoder's output is sharded), are gathered over the data ranks, and every
+rank computes the whole batch's loss, but only the first points rank of
+each data slice takes its backward. The others' cotangents flow in through
+the collectives, each of whose backward sums the cotangents over the
+points ranks: so every parameter's gradient is the sum over all ranks of
+their shares, the post-pool layers' counted once, and one sum over the
+mesh gives the one-process gradient on the padded batch.
 """
 from __future__ import annotations
 
@@ -122,21 +129,6 @@ def canonical_epoch(loss_config, stitch_phase, order_random):
             return epoch
     raise ValueError(f'Trainer: unsatisfiable loss phase: stitch={stitch_phase} '
                      f'order_random={order_random} (ews={ews}, ewo={ewo})')
-
-
-def _check_points_sharding(model):
-    """NotImplementedError for what points-sharded training does not take."""
-    from ..models.blocks import DynamicGraphPool, EdgeConvPoolingFeatures, SetAbstraction
-
-    if 'segmentation' in getattr(model.loss, 'l_components', ()):
-        raise NotImplementedError(
-            'Trainer: the segmentation loss term under trainer.mesh.points > 1 is not ported '
-            '(its per-point term would need the sum over the points ranks)')
-    for module in model.module.modules():
-        if isinstance(module, (DynamicGraphPool, EdgeConvPoolingFeatures, SetAbstraction)):
-            raise NotImplementedError(
-                f'Trainer: {type(module).__name__} under trainer.mesh.points > 1 is not ported '
-                '(points sharding takes the EdgeConvFeatures encoder without graph pooling)')
 
 
 class Trainer:
@@ -279,16 +271,23 @@ class Trainer:
         process."""
         shard = None if mesh is None else DataShard(mesh)
         points = shard.points if shard is not None else None
-        if points is not None:
-            _check_points_sharding(model)
         self.data_shard = shard
         for module in model.module.modules():
             if hasattr(module, 'data_shard'):
                 module.data_shard = shard
             if hasattr(module, 'points_shard'):
                 module.points_shard = points
+        if hasattr(model.loss, 'points_shard'):
+            model.loss.points_shard = self._output_shard(model)
         if mesh is not None:
             replicate(mesh, model.module)
+
+    @staticmethod
+    def _output_shard(model):
+        """The points shard of the model's per-point outputs (the attention
+        weights): the encoder's (`output_shard`), None without one."""
+        encoder = getattr(model.module, 'feature_extractor', None)
+        return encoder.output_shard() if encoder is not None else None
 
     def _pad(self, batch):
         """Under a data mesh, the batch's features and ground truth padded
@@ -481,8 +480,11 @@ class Trainer:
             print(f'Trainer::data-parallel mesh over {self.data_shard.size} ranks'
                   + (f' x {points.size} points ranks' if points is not None else ''))
 
-        log_images = self.log_with_visualization and is_first_rank()
-        if log_images:
+        # under a points mesh every rank runs the images' forward on its
+        # points, and the first rank writes
+        sharded = self.data_shard is not None and self.data_shard.points is not None
+        log_images = self.log_with_visualization and (is_first_rank() or sharded)
+        if log_images and is_first_rank():
             self.folder_for_preds = Path(self.experiment.run_dir()) / 'intermediate_preds'
             self.folder_for_preds.mkdir(exist_ok=True)
 
@@ -700,11 +702,15 @@ class Trainer:
         (the fused EdgeConv kernel on the card) raises as everywhere else,
         and `PatternSpec.serialize` already makes a failed render a
         warning. Mesh batches are sampled from the stream 2**21 + epoch,
-        without the label snap."""
+        without the label snap. Under a points mesh every rank runs the
+        forward on its points, the attention weights are gathered over the
+        points ranks in global order where they are sharded (as
+        `PointsShard.sizes` splits them), and the first rank writes."""
         loader = self.datawrapper.loaders.valid_single_per_data
         if loader is None:
             print('Trainer::Error::suitable loader is not available. Nothing logged')
             return
+        points = self.data_shard.points if self.data_shard is not None else None
         model.module.eval()
         img_files = []
         for batch in loader:
@@ -712,7 +718,17 @@ class Trainer:
             if isinstance(features, dict):
                 features, _ = self._sample(features, None, self._generator(2 ** 21 + epoch),
                                            labels=False)
-            preds = model.module(features)
+            if points is None:
+                preds = model.module(features)
+            else:
+                preds = model.module(points.local(features).contiguous())
+                shard = self._output_shard(model)
+                if shard is not None and 'att_weights' in preds:
+                    att = preds['att_weights']
+                    total = shard.sum(att.new_tensor([float(att.shape[1])]))
+                    preds['att_weights'] = shard.gather(att, shard.sizes(int(total.item())))
+                if not is_first_rank():
+                    continue
             preds = {k: v.float().cpu().numpy() for k, v in preds.items()}
             img_files += self.datawrapper.dataset.save_prediction_batch(
                 preds, batch['name'], batch['data_folder'], save_to=self.folder_for_preds)

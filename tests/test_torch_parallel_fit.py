@@ -100,6 +100,26 @@ def test_cli_points_sharded_fit_matches_one_process(cli_runs, synthetic_dataset_
         {'data': 1, 'points': 2}
 
 
+def test_cli_points_sharded_fit_logs_whole_attention_weights(synthetic_dataset_root,
+                                                             tmp_path):
+    """`trainer.with_visualization` under `trainer.mesh: {data: 1, points:
+    2}`: every rank runs the images' forward on its 30 points of each
+    cloud, the attention weights are gathered over the points ranks, and
+    the first rank writes each one's weights for the whole 60-point cloud,
+    one sparsemax row per point (each sums to 1)."""
+    argv = ranks.cli_workdir(synthetic_dataset_root, tmp_path / 'viz', {'data': 1, 'points': 2},
+                             trainer={'with_visualization': True}) + ['--device', 'cpu']
+    mp.start_processes(ranks.cli_rank, args=(2, _free_port(), argv, str(tmp_path / 'viz')),
+                       nprocs=2, start_method='spawn', join=True)
+    run, _ = ranks.cli_run_files(tmp_path / 'viz')
+    weights = sorted((run / 'intermediate_preds').rglob('*_att_weights.txt'))
+    assert len(weights) == len(ranks.CLI_FOLDERS)
+    for path in weights:
+        att = np.loadtxt(path)
+        assert att.shape[0] == ranks.CLI_CONFIG['dataset']['mesh_samples']
+        np.testing.assert_allclose(att.sum(axis=1), 1.0, rtol=1e-5)
+
+
 @pytest.mark.parametrize('mesh,error,match', [
     ({'data': 1, 'points': 2}, ValueError, 'torchrun --standalone --nproc_per_node=2'),
     ({'data': 2}, ValueError, 'torchrun --standalone --nproc_per_node=2'),
