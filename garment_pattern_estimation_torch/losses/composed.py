@@ -201,6 +201,12 @@ class ComposedPatternLoss:
                                           'scale': std['gt_scale']['stitch_tags']}
         self._on_device = {}
 
+    @property
+    def pad_vector(self):
+        """The outline element of a padded edge in standardized units (the
+        JAX loss's `pad_vector`), on the CPU."""
+        return self._stats_on(torch.device('cpu'))['pad_vector']
+
     def _stats_on(self, device):
         """The standardization statistics and the pad vector as f32 tensors
         on `device`, made once per device."""

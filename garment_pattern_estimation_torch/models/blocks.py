@@ -26,6 +26,8 @@ with one value chunk, the chunked sweeps in bf16; the kNN stays f32.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Sequence
 
@@ -180,6 +182,21 @@ def points_pool(kind, features, shard=None, dim=1):
 # the chunked sweeps' name of each aggregation
 _SWEEP_AGGREGATION = {'max': 'max', 'mean': 'mean', 'add': 'sum'}
 
+# True inside `unfused_eval()`: every EdgeConv call takes `unfused=True`
+UNFUSED_EVAL = contextvars.ContextVar('unfused_eval', default=False)
+
+
+@contextlib.contextmanager
+def unfused_eval():
+    """Every EdgeConv call inside the block takes `unfused=True`: eval off
+    the fused layer, on knn_gather's exact rows (or the kNN route) with the
+    f32 edge MLP. Restored on exit, an exception included."""
+    token = UNFUSED_EVAL.set(True)
+    try:
+        yield
+    finally:
+        UNFUSED_EVAL.reset(token)
+
 
 class EdgeConv(nn.Module):
     """One dynamic EdgeConv layer: kNN graph on the current features, edge
@@ -214,7 +231,10 @@ class EdgeConv(nn.Module):
     unfused layer. `forward(x, unfused=True)` (a layer on whole clouds
     gathered under such a mesh) keeps eval off the fused layer: the
     knn_gather or kNN route in f32, as the JAX package's points mesh runs
-    the XLA layer; train mode routes as without it.
+    the XLA layer; train mode routes as without it. Under `unfused_eval()`
+    every call takes `unfused=True`: the f32 forward the parity CLI holds
+    beside the serving one against the torch reference replica (the fused
+    layer truncates its edge MLP's inputs to bf16, as the JAX kernel does).
     """
 
     # the unfused path materializes (B, N, k, W) for the widest W among the
@@ -262,7 +282,7 @@ class EdgeConv(nn.Module):
                 compute_dtype=self.compute_dtype, data_shard=self.nn.data_shard)
             self.nn.update_running_stats(stats)
             return out
-        if not self.training and not unfused and self.aggr == 'max' \
+        if not self.training and not (unfused or UNFUSED_EVAL.get()) and self.aggr == 'max' \
                 and fused_edgeconv_supported(N, C, self.mlp_features):
             return fused_edgeconv(x, self.nn.folded(), k=self.k,
                                   mlp_dtype=torch.bfloat16 if bf16 else torch.float32)

@@ -1,6 +1,7 @@
 """Rules of the port package that hold on any machine: it imports neither
 JAX nor the JAX package, and its entry points do not drift to the CPU."""
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -99,6 +100,43 @@ def test_import_scan_covers_the_parallel_modules():
             'parallel/ring.py', 'parallel/dryrun.py'} <= scanned
     ranks = _PACKAGE.parent / 'tests' / 'torch_parallel_ranks.py'
     assert not set(_imported_roots(ranks)) & set(_FORBIDDEN)
+
+
+# a path to a data file inside the JAX package
+_JAX_DATA_FILE = re.compile(r'garment_pattern_estimation_tpu/[\w/.-]*\.'
+                            r'(json|ya?ml|npz|npy|txt|csv|pth|pt|msgpack|obj)\b')
+
+
+def _data_paths_into_the_jax_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return sorted({node.value for node in ast.walk(tree)
+                   if isinstance(node, ast.Constant) and isinstance(node.value, str)
+                   and (_JAX_DATA_FILE.search(node.value)
+                        or 'garment_pattern_estimation_tpu/data_configs' in node.value)})
+
+
+@pytest.mark.parametrize('path', [*sorted(_PACKAGE.rglob('*.py')),
+                                  _PACKAGE.parent / 'chip_smoke.py'],
+                         ids=lambda p: p.name if p.parent == _PACKAGE.parent
+                         else str(p.relative_to(_PACKAGE)))
+def test_no_string_names_a_data_file_of_the_jax_package(path):
+    """Fault C8: no string literal of the port's modules or chip_smoke.py
+    names a file under garment_pattern_estimation_tpu/ (data_configs/ and
+    any other data file): the port reads its own copies."""
+    assert not _data_paths_into_the_jax_package(path)
+
+
+def test_data_configs_are_the_jax_packages_copied():
+    """The port's data_configs/ holds the five JSON files of the JAX
+    package's, byte for byte, and the scan above catches a path into the
+    JAX package's."""
+    theirs = _PACKAGE.parent / 'garment_pattern_estimation_tpu' / 'data_configs'
+    ours = _PACKAGE / 'data_configs'
+    names = sorted(p.name for p in theirs.glob('*.json'))
+    assert len(names) == 5 and sorted(p.name for p in ours.glob('*.json')) == names
+    assert all((ours / n).read_bytes() == (theirs / n).read_bytes() for n in names)
+    assert _JAX_DATA_FILE.search('./garment_pattern_estimation_tpu/data_configs/x.json')
+    assert not _JAX_DATA_FILE.search('garment_pattern_estimation_tpu/train/trainer.py:46')
 
 
 def test_resolve_device_under_a_process_group(monkeypatch, tmp_path):

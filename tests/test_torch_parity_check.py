@@ -12,7 +12,8 @@ distances and sums differently: rotation_l2 moves by about 1e-4 of itself
 here), and the reports carry the same keys. The port's
 `--jax_report` on the JAX report passes every row; `--expected` passes at
 1.005 times the port's own metrics and fails, with exit code 1, at 1.10
-times; the replica modes are refused.
+times; every replica-mode flag of the JAX CLI has its counterpart here,
+which parses (tests/test_torch_parity_train*.py run the modes).
 """
 import json
 
@@ -99,35 +100,51 @@ def test_expected_passes_and_fails(reports, tmp_path, monkeypatch, factor, rc):
     assert failed == ([] if rc == 0 else ['published:panel_shape_l2'])
 
 
-# the JAX CLI's modes that train or replay its torch reference replica
-REPLICA_FLAGS = ('--torch_cross_check', '--torch_train_cross_check',
-                 '--stitch_train_cross_check', '--train_epochs', '--train_seed',
-                 '--noise_floor', '--noise_seeds', '--jax_seeds', '--resume',
-                 '--stop_after_jax', '--torch_from_report')
+# the JAX CLI's modes that train or replay its torch reference replica, and
+# their values where they take one
+REPLICA_FLAGS = {'--torch_cross_check': None, '--torch_train_cross_check': None,
+                 '--stitch_train_cross_check': None, '--train_epochs': '3',
+                 '--train_seed': '2', '--noise_floor': None, '--noise_seeds': '2',
+                 '--jax_seeds': '1', '--resume': None, '--stop_after_jax': None,
+                 '--torch_from_report': 'r.json'}
+# the flags that name the JAX CLI's framework arm name the port's here
+PORT_FLAG = {'--jax_seeds': '--port_seeds', '--stop_after_jax': '--stop_after_port'}
 
 
-@pytest.mark.parametrize('flag', REPLICA_FLAGS)
-def test_replica_modes_are_refused(flag, capsys):
-    """Each replica flag of the JAX CLI exists there and is refused here."""
+@pytest.mark.parametrize('flag', sorted(REPLICA_FLAGS))
+def test_replica_flags_have_port_counterparts(flag):
+    """Each replica flag of the JAX CLI exists there, and its counterpart
+    (the same name, or `port` for `jax`) parses here to what the JAX CLI
+    parses it to."""
     import inspect
 
     from garment_pattern_estimation_tpu.cli import parity_check as jx_parity
 
     assert f"'{flag}'" in inspect.getsource(jx_parity.get_args)
-    with pytest.raises(SystemExit) as exit_info:
-        pt_parity.get_args(['--dataset_root', 'd', '--shape_pth', 'p.pth', flag])
-    assert exit_info.value.code == 2
-    assert 'unrecognized arguments' in capsys.readouterr().err
+    value = [] if REPLICA_FLAGS[flag] is None else [REPLICA_FLAGS[flag]]
+    ours = PORT_FLAG.get(flag, flag)
+    base = ['--dataset_root', 'd', '--shape_pth', 'p.pth']
+    theirs = vars(jx_parity.get_args(base + [flag] + value))
+    parsed = vars(pt_parity.get_args(base + [ours] + value))
+    dest = flag[2:].replace('-', '_')
+    assert parsed[ours[2:]] == theirs[dest] != jx_parity.get_args(base).__dict__[dest]
+    assert pt_parity.get_args(base).__dict__[ours[2:]] == jx_parity.get_args(base).__dict__[dest]
 
 
 def test_compare_rows_matches_the_jax_cli():
     """The same rows as the JAX CLI's _compare_rows, the 1e-3 floor on the
-    denominator included (an accuracy at 0)."""
+    denominator included (an accuracy at 0), and the same extra tolerance
+    from `floors` (absent keys 0)."""
     from garment_pattern_estimation_tpu.cli import parity_check as jx_parity
 
     ours = {'a': 0.5, 'b': 1e-4, 'c': 2.0, 'd': None}
     other = {'a': 0.51, 'b': 0.0, 'c': -3.0, 'd': 1.0, 'e': 1.0}
     keys = ['a', 'b', 'c', 'd', 'e']
-    assert pt_parity._compare_rows(ours, other, keys, 'x') \
-        == [row[:4] for row in jx_parity._compare_rows(ours, other, keys, 'x')]
+    for floors in (None, {'a': 0.05, 'c': 0.2}):
+        rows = pt_parity._compare_rows(ours, other, keys, 'x', floors=floors)
+        assert rows == jx_parity._compare_rows(ours, other, keys, 'x', floors=floors)
+        assert [len(row) for row in rows] == [5, 5, 5]
     assert pt_parity._compare_rows(ours, other, keys, 'x')[1][3] == pytest.approx(0.1)
+    assert [row[4] for row in pt_parity._compare_rows(ours, other, keys, 'x',
+                                                      floors={'a': 0.05, 'c': 0.2})] \
+        == [0.05, 0.0, 0.2]

@@ -165,7 +165,9 @@ def test_stitch_configs_parse_and_build():
     shape configs load unchanged; the stitch model builds from them at its
     published widths (16 -> 200 -> 200 -> 200 -> 1, BN after each layer),
     its `pre-trained` path (outside the repository) unread; chip_smoke.py's
-    copy of stitch_model.yaml's sections equals the file, less that path."""
+    copy of stitch_model.yaml's sections equals the file, less that path,
+    and with the parameter filter the port's copy of the file it names
+    (garment_pattern_estimation_torch/data_configs/)."""
     config = common.load_yaml(ROOT / 'configs' / 'stitch_model.yaml')
     assert DATASET_REGISTRY[config['dataset']['class']] is GarmentStitchPairsDataset
     assert config['dataset']['old_experiment']['predictions'] is True
@@ -177,7 +179,11 @@ def test_stitch_configs_parse_and_build():
                       'mlp.2.0.weight': (200, 200), 'mlp.3.0.weight': (1, 200)}
     assert model.config['loss']['quality_components'] == [
         'edge_pair_class', 'edge_pair_stitch_recall']
-    assert chip_smoke.STITCH_DATASET == config['dataset']
+    port_filter = config['dataset']['filter_by_params'].replace(
+        'garment_pattern_estimation_tpu/', 'garment_pattern_estimation_torch/')
+    assert chip_smoke.STITCH_DATASET == dict(config['dataset'], filter_by_params=port_filter)
+    assert (ROOT / port_filter).read_bytes() \
+        == (ROOT / config['dataset']['filter_by_params']).read_bytes()
     assert chip_smoke.STITCH_NN == {k: v for k, v in config['NN'].items()
                                     if k != 'pre-trained'}
     assert chip_smoke.STITCH_TRAINER == config['trainer']
