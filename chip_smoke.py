@@ -1,6 +1,13 @@
 """Chip smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --stitch_pairs_seed S    # stitch_pipeline on a printed pair draw
+    CUDA_VISIBLE_DEVICES=0,1,2,3 python3 chip_smoke.py --parallel_only   # multi-card host
+
+With no arguments it needs one card, and runs every phase below; with more
+cards visible the parallel phases take them (see parallel_fit,
+parallel_ring, points_sharded). `--parallel_only` runs the build, the att
+f32 fit and the parallel phases alone.
 
 Phases, one JSON line each:
   build    builds every CUDA source of the port (one nvcc each, in parallel)
@@ -174,8 +181,9 @@ at full width:
            too), a 2-cloud batch against the CPU plain path, one profiled
            serving call, VARIANT_STEPS training steps (step ms, the launches
            per step, finite losses) and a step against the CPU plain path
-           (pointnet: 4 clouds, gradient bars scaled to the CPU's own 1e-7
-           noise floor); then the attention model with pool10's encoder,
+           on the card's kNN, pool, ReLU and max choices (pointnet: 4
+           clouds, gradient bars scaled to the CPU's own 1e-7 noise
+           floor); then the attention model with pool10's encoder,
            served once (its attention weights over the 20 pooled points),
            and farthest_point_sampling alone at pointnet's (64, 2000, 3):
            host ms, device ms and kernel launches per call
@@ -199,27 +207,36 @@ preprocess/device_sampling.py), after encoders_decoders:
 after fit_lstm, data parallelism over torch.distributed (parallel/), each
 line with `ranks`, R = torch.cuda.device_count() (one card: a world-1 NCCL
 group over a TCP store on 127.0.0.1, in this process; more: R NCCL ranks
-spawned, one card each, and the world-1 group still serves parallel_ring):
+spawned, one card each, and the world-1 group still serves parallel_ring
+below four cards):
   parallel_fit  `Trainer.fit` of the att f32 fit cell (the same data, split,
            seed, weights and schedule) with trainer.mesh {data: R}, stopped
-           after its first epoch's validation: every step's loss against the
-           fit run's epoch 0 (the first within 1e-5 relative), the
-           validation loss within 1e-4 relative (R >= 2: or twice the gap
-           that 1e-7 relative noise on the clouds makes in one process's
-           run, the floor of summing in another order; where the batch of
-           30 does not divide over R its padded rows enter the statistics
-           and the gaps are printed only), rows 8-9 once per step and
-           rows 4-5 once per validation batch as in fit, ms per step beside
-           fit's epoch 0 (the collectives' cost at this R)
-  parallel_ring  `parallel.ring._ring_merge` driven over P = 4 shards, in
-           ring order, of (8, 2000, 3) and (8, 2000, 150) clouds: ids
+           after its first epoch's validation. R = 1: every step's loss
+           against the fit run's epoch 0 (the first within 1e-5 relative),
+           the validation loss within 1e-4 relative. R >= 2: against one
+           process on the batches padded to R, whose steps take the ranks'
+           kNN choices (each of the first step's held to the plain
+           version): the first step's gradient within 1e-5 of its norm,
+           the first 4 steps' losses within 1e-5 relative and the
+           validation loss within 1e-4, or twice the largest gap one
+           process's run on the same choices takes when its clouds are
+           scaled by 1 + 1e-7 noise (three draws) where that is larger:
+           R ranks sum each statistic and gradient in another order. Rows
+           8-9 once per step and rows 4-5 once per validation batch as in
+           fit, ms per step beside fit's epoch 0 (the collectives' cost at
+           this R)
+  parallel_ring  the ring over P = 4 shards of (8, 2000, 3) and (8, 2000,
+           150) clouds (four or more cards: `ring_knn_gather` on 4 NCCL
+           ranks, a shard and a card each; fewer: `parallel.ring._ring_merge`
+           driven over the shards in ring order on one card): ids
            against `knn_gather_reference` on the whole cloud (at least 99%
            equal, every difference within one 21-bit bucket of the exact
            distance plus 2^-15 of the squared norms: the plain version ranks
            per-dimension sums for small C and split bf16 products for wide
            C, the ring the f32 norm expansion, as JAX's does), rows equal to
-           the gathered cloud; `sharded_encoder_step` over the world-1 group
-           (att's two EdgeConv layers, 8 x 2000 points) within 2e-4 of scale
+           the gathered cloud; `sharded_encoder_step` over the 4 ranks or
+           the world-1 group (att's two EdgeConv layers, 8 x 2000 points)
+           within 2e-4 of scale
            of the same layers unsharded in plain f32, the JAX ring tests'
            bar (the fused kernels round the edge MLP to bf16: their gap is
            printed)
@@ -246,8 +263,14 @@ fit run:
            published widths (16 -> 200 x 3 -> 1): the eval forward of a
            (30, 400, 16) batch and Trainer.train_step (ms, pairs/s, peak
            memory), and the first step on STITCH_CPU_GARMENTS garments
-           against the CPU plain path (loss within 1e-5 relative, gradient
-           within 1e-4 of its norm); (4) Trainer.fit for FIT_EPOCHS epochs
+           (pairs drawn from a printed seed, `pairs_seed`) against the same
+           step in float64 on the CPU: loss within 1e-5 relative and
+           gradient within 1e-4 of its norm, or twice the largest gap of
+           the CPU f32 step over every order of the garments where that is
+           larger; the direct gap to the CPU f32 step, each BatchNorm's
+           cancellation E[x^2] / (var + eps), the logit column's batch
+           variance and share of zeros printed; (4) Trainer.fit for
+           FIT_EPOCHS epochs
            at batch 30 and one resumed: epoch s, ms per step, loader-wait
            share, the mean training loss must fall, the validation
            section's pair accuracy and stitch recall; (5) eval_metrics on
@@ -295,24 +318,28 @@ and, after train_k20, each on its own counts:
            the chunked sweeps, whose standalone kNN stops at 128, as the JAX
            package's does)
 and, after parallel_ring:
-  points_sharded  trainer.mesh {data: 1, points: 2} on (4, 2000, 3) at
+  points_sharded  trainer.mesh {data: d, points: p} on (4, 2000, 3) at
            full width: att, att with max pools, att with the segmentation
            term, the baseline with pool10's, gpool's and pointnet's
-           encoders, and att with pointnet's (POINTS_CASES): two ranks
-           (NCCL on two cards, else gloo on one) against one process, both
-           steps' losses within rtol 2e-5 and the first gradient within
-           1e-5 of its norm, or twice one process's order floor where
-           larger (the clouds in reverse order, and scaled by 1 + 1e-7
-           noise; pool10 also 1e-6); the baseline with pointnet's with its
-           BatchNorm moments in f64, and its first step in f64 within 1e-9
-           (POINTS_EXACT); the one process takes the first rank's kNN and
-           graph-pool choices (StepChoices), each of both steps' held to
-           the plain version; each rank's
-           launches of rows 2 and 8-9 per step as POINTS_STEP_LAUNCHES
+           encoders, and att with pointnet's (POINTS_CASES), each mesh an
+           entry of `meshes` with its backend and cards: {1, 2} as two gloo
+           ranks on one card, or as NCCL ranks on two or three cards; with
+           four or more also {2, 2} and {1, 4} (NCCL, a card a rank);
+           against one process, both steps' losses within rtol 2e-5 and
+           the first gradient within 1e-5 of its norm, or twice one
+           process's order floor where larger (the clouds in reverse order,
+           and scaled by 1 + 1e-7 noise; pool10 also 1e-6); the baseline
+           with pointnet's encoder with its BatchNorm moments in f64, and
+           with pool10's on {2, 2} (POINTS_MOMENTS64),
+           pointnet's first step also in f64 within 1e-9 (POINTS_EXACT); the one process takes the ring's neighbours and
+           the kNN and graph-pool choices of each data slice's first points
+           rank (StepChoices), each of both steps' held to the plain
+           version; each rank's launches of rows 2 and 8-9 per step as
+           POINTS_STEP_LAUNCHES
            says; conv1's ring ids against knn_gather's kernel, differences
-           near ties. A probe ring shift of a card tensor runs first: only
-           its failure is printed as the phase not having run (`ran`
-           false); the training ranks' failure fails the script
+           near ties. A probe ring shift of a card tensor runs first on
+           each mesh; its failure, as a training rank's, fails the script
+           (the probe's error printed in the mesh's entry)
 and, after stitch_pipeline:
   parity_check  the port's cli/parity_check.py on the att f32 fit run's best
            checkpoint over parity_run/data_big/ (its test split): a first
@@ -418,13 +445,20 @@ near tie that rounding flips otherwise moves a model's loss by a step: on
 pool10, whose 20- and 200-point kNN graphs are full of near ties, 1e-6
 noise in the weights moves the CPU path's loss by 3e-3 about once in three
 draws. The sampling choices of PointNet++ (farthest points, ball query) are
-not recorded; its step keeps the noise-floor bars.
+not recorded; its step keeps the noise-floor bars. The encoder variants'
+steps also record which inputs each ReLU passes and which entries win each
+max, and the CPU step takes those too (`StepChoices`' `kinks`): one ReLU
+input within rounding of 0 whose channel pool10's global max pool routes
+whole moved that step by more than its 1e-2 bar.
 """
+import argparse
 import contextlib
 import copy
+import itertools
 import json
 import math
 import os
+import random
 import re
 import statistics
 import subprocess
@@ -525,6 +559,10 @@ K_LARGE_RANGE = (129, K_LARGE)
 K_LARGE_TRAIN_BATCH = 6
 K_LARGE_PLAIN_CHUNK = 16            # clouds a call of the plain fused layer takes at k > 128
 POINTS_MESH = {'data': 1, 'points': 2}
+# points_sharded's meshes by the cards visible: {1, 2} on one card (two gloo
+# ranks) and on two or three (NCCL, a card each); four or more add {2, 2}
+# and {1, 4} (NCCL)
+POINTS_MESHES_4 = ({'data': 1, 'points': 2}, {'data': 2, 'points': 2}, {'data': 1, 'points': 4})
 POINTS_STEPS = 2
 TRAIN_BATCH = ATT_TRAINER['batch_size']
 TRAIN_STEPS = 6
@@ -532,11 +570,17 @@ DX_MAX_REL = 1e-5
 TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_PARAM_GRAD_REL = 1e-3, 1e-2, 5e-2
 OUT_MAX_REL, OUT_MEAN_REL = 1e-2, 1e-4
 ORDER_FLOOR_FACTOR = 2.0           # bf16 gradient bars: this many times the CPU's order floor
-PARALLEL_FIT_HELD_STEPS = 4       # parallel_fit at R >= 2: these first steps' losses within 1e-5
+PARALLEL_FIT_HELD_STEPS = 4       # parallel_fit at R >= 2: these first steps' losses held
+PARALLEL_FIT_FLOOR_SEEDS = (5, 6, 7)   # its floors: the largest over these 1e-7 noise draws
 WIDE_ID_AGREEMENT = 0.99
 NEAR_TIE_REL = 2.0 ** -10          # 4 quantization buckets of the packed distance
 NORM_ULPS = 2.0 ** -18             # 32 f32 ulps of the squared norms
 POOL_TIE_REL = 1e-5                # kept clusters may differ within this of the fitness scale
+# a ReLU side or a max's winner that the CPU would choose otherwise than the
+# card may differ within this of the largest magnitude of its call's input
+# (pointnet's decoder BatchNorms over 4 rows moved ReLU inputs by up to 3.7e-4
+# of it under f64 moments on the CPU; a faulty kernel moves them by their scale)
+KINK_TIE_REL = 1e-2
 SERVE_CALLS = 11
 STRESS_BATCH, STRESS_POINTS = 128, 10000    # the JAX package's stress configuration
 STRESS_CALLS = 5
@@ -603,13 +647,21 @@ POINTS_CASES = {
                      dict(_ATT_ZERO, **{k: v for k, v in ENCODER_VARIANTS['pointnet'].items()
                                         if k != 'pattern_decoder'}), ATT_LOSS_CONFIG, False),
 }
-# the cases whose f32 gradient the BatchNorm moments' rounding sets: the
-# baseline with PointNet++ and MLP decoders, whose MLP pattern decoder
-# normalizes the 4 clouds' near-equal encodings, where E[x^2] - E[x]^2 in
-# f32 (as the JAX MLP takes it) cancels to a few % of the variance, and the
-# gradient follows that rounding. Their f32 steps are held with the moments
-# in f64 (`_moments64`), their whole first step in f64 (`_float64`) within
-# POINTS_F64_BAR or twice its order floor, and the plain f32 gaps printed
+# the cases whose f32 step the BatchNorm moments' rounding sets, where
+# E[x^2] - E[x]^2 in f32 (as the JAX MLP takes it) cancels to a few % of the
+# variance and the step follows that rounding, by the meshes where it does:
+# the baseline with PointNet++ and MLP decoders on every mesh (its MLP
+# pattern decoder normalizes the 4 clouds' near-equal encodings), the
+# baseline with pool10's encoder on {2, 2}, where each data slice's
+# BatchNorms take the moments of its half of the batch's few pooled points
+# over the data ranks (tests/torch_chip_rehearsal.py, 200 points, plain
+# f32: pool10's step losses 1.99e-2 off one process at {2, 2} against a
+# bar of 1.62e-2; 3.8e-4 at {1, 2} and 2.5e-3 at {1, 4}, bars 1.6e-2).
+# On those meshes their steps are held with the moments in f64
+# (`_moments64`), on the others in plain f32; POINTS_EXACT's whole first
+# step also in f64 (`_float64`, the plain PyTorch path) within
+# POINTS_F64_BAR or twice its order floor
+POINTS_MOMENTS64 = {'pointnet': POINTS_MESHES_4, 'pool10': ({'data': 2, 'points': 2},)}
 POINTS_EXACT = ('pointnet',)
 POINTS_F64_BAR = 1e-9
 # the input-noise scales of each case's noise floors: 1e-7, and 1e-6 for
@@ -1387,16 +1439,20 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _parallel_fit_run(out_dir, ranks, perturb=None, pad=None):
+def _parallel_fit_run(out_dir, ranks, perturb=None, pad=None, record=False, replay=None,
+                      perturb_seed=5):
     """Trainer.fit of the att f32 fit cell over a data mesh of `ranks`
     ranks in the process group that exists, stopped after the first
-    epoch's record; `perturb` scales every cloud by 1 + perturb * a seeded
-    normal draw; `pad` pads every batch to a multiple of `pad` rows (the
+    epoch's record; `perturb` scales every cloud by 1 + perturb * a normal
+    draw of `perturb_seed`; `pad` pads every batch to a multiple of `pad` rows (the
     last sample repeated) and cuts the predictions to the real batch before
-    the loss, as a mesh of `pad` ranks does. Returns (launches, steps per
-    epoch, validation batches, fit s, step records, epoch record, the first
-    step's gradient as it enters the optimizer): the records read back on
-    the first rank, None on the others; the gradient flat on the host."""
+    the loss, as a mesh of `pad` ranks does. `record`: the training
+    steps' knn_gather choices are kept (`StepChoices`); `replay` (such
+    records of the whole batches): the steps take them. Returns (launches,
+    steps per epoch, validation batches, fit s, step records, epoch record,
+    the first step's gradient as it enters the optimizer, the steps'
+    choices or None): the records read back on the first rank, None on the
+    others; the gradient flat on the host."""
     import torch
     from garment_pattern_estimation_torch.experiment import ExperimentWrappper
     from garment_pattern_estimation_torch.models import build_model
@@ -1423,7 +1479,7 @@ def _parallel_fit_run(out_dir, ranks, perturb=None, pad=None):
 
     experiment.log = log_then_stop
     if perturb:
-        place, gen = trainer._place, torch.Generator().manual_seed(5)
+        place, gen = trainer._place, torch.Generator().manual_seed(perturb_seed)
 
         def perturbed(batch):
             features, gt = place(batch)
@@ -1435,6 +1491,9 @@ def _parallel_fit_run(out_dir, ranks, perturb=None, pad=None):
         trainer._pad = lambda batch: pad_batch_to_multiple(
             {'features': batch['features'], 'ground_truth': batch['ground_truth']}, pad)
     first_grad = []
+    choices = StepChoices(model.module)
+    if replay is not None:
+        choices.records = list(replay)
 
     def keep_first_gradient(optimizer, args, kwargs):
         if not first_grad:
@@ -1445,7 +1504,10 @@ def _parallel_fit_run(out_dir, ranks, perturb=None, pad=None):
     reset_launches()
     start = time.perf_counter()
     try:
-        trainer.fit(model)
+        with choices.record() if record else \
+                choices.replay(passthrough=True) if replay is not None \
+                else contextlib.nullcontext():
+            trainer.fit(model)
         fail('parallel_fit: fit ended before its first epoch record')
     except _EpochDone:
         torch.cuda.synchronize()
@@ -1454,19 +1516,27 @@ def _parallel_fit_run(out_dir, ranks, perturb=None, pad=None):
     fit_s = time.perf_counter() - start
     records = read_records(experiment) if is_first_rank() else (None, None)
     return (phase_launches(), len(trainer.datawrapper.loaders.train),
-            len(trainer.datawrapper.loaders.validation), fit_s, *records, first_grad[0])
+            len(trainer.datawrapper.loaders.validation), fit_s, *records, first_grad[0],
+            choices.records if record else None)
 
 
 def _parallel_fit_rank(out_dir, ranks, result_path):
-    """`_parallel_fit_run` on a spawned rank; the first writes the result
-    (the gradient beside it, as a tensor file)."""
+    """`_parallel_fit_run` on a spawned rank, its steps' choices recorded;
+    the first rank writes the result, the gradient and every rank's choices
+    joined along the batch (the one process's calls on the whole padded
+    batches) beside it, as tensor files."""
     import torch
+    import torch.distributed as dist
     from garment_pattern_estimation_torch.parallel import is_first_rank
 
-    *result, grad = _parallel_fit_run(out_dir, ranks)
+    *result, grad, choices = _parallel_fit_run(out_dir, ranks, record=True)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, choices)
     if is_first_rank():
         Path(result_path).write_text(json.dumps(result))
         torch.save(grad, result_path + '.grad.pt')
+        torch.save([_joined_record(parts) for parts in zip(*every)],
+                   result_path + '.choices.pt')
 
 
 def _relative_gaps(steps, ref_steps):
@@ -1476,11 +1546,14 @@ def _relative_gaps(steps, ref_steps):
 def parallel_fit_phase(runs_dir, fit_run_id):
     """trainer.mesh {data: R} over the att f32 fit cell's first epoch. R = 1
     runs in this process's world-1 group against the fit run: its losses
-    are bitwise fit's. R >= 2 spawns R NCCL ranks and holds them against
-    one process on the same padded batches (`pad`; the duplicates enter the
-    BatchNorm statistics and the LSTM states' std, as in the JAX step): the
-    first step's gradient, the first PARALLEL_FIT_HELD_STEPS steps' losses
-    and the validation loss. Checks the launches and returns rank 0's."""
+    are bitwise fit's. R >= 2 spawns R NCCL ranks, records their kNN
+    choices, and holds them against one process on the same padded batches
+    (`pad`; the duplicates enter the BatchNorm statistics and the LSTM
+    states' std, as in the JAX step) that takes those choices: the first
+    step's gradient, the first PARALLEL_FIT_HELD_STEPS steps' losses and
+    the validation loss, each within its bar or ORDER_FLOOR_FACTOR times
+    its floor (PARALLEL_FIT_FLOOR_SEEDS). Checks the launches and returns
+    rank 0's."""
     import torch
     from garment_pattern_estimation_torch.experiment import ExperimentWrappper
     from garment_pattern_estimation_torch.parallel.dryrun import spawn
@@ -1488,32 +1561,54 @@ def parallel_fit_phase(runs_dir, fit_run_id):
     ranks = torch.cuda.device_count()
     line = {'phase': 'parallel_fit', 'ranks': ranks, 'backend': 'nccl', 'mesh': {'data': ranks}}
     if ranks == 1:
-        launches, spe, n_valid, fit_s, steps, epochs, _ = _parallel_fit_run(runs_dir, 1)
+        launches, spe, n_valid, fit_s, steps, epochs, *_ = _parallel_fit_run(runs_dir, 1)
         ref_steps, ref_epochs = read_records(ExperimentWrappper(
             {'experiment': {'project_name': 'chip_smoke', 'run_name': 'fit',
                             'run_id': fit_run_id}}, output_root=runs_dir))
         ref_steps = [r for r in ref_steps if r['epoch'] == 0]
-        held, valid_bar = 1, 1e-4
+        held, step_bar, valid_bar = 1, 1e-5, 1e-4
     else:
         result_path = runs_dir / 'parallel_fit.json'
         spawn(_parallel_fit_rank, ranks, runs_dir, ranks, str(result_path), backend='nccl')
         launches, spe, n_valid, fit_s, steps, epochs = json.loads(result_path.read_text())
         grad = torch.load(str(result_path) + '.grad.pt')
-        # the reference: one process on the batches padded to R
-        *_, ref_steps, ref_epochs, ref_grad = _parallel_fit_run(runs_dir, 1, pad=ranks)
+        records = torch.load(str(result_path) + '.choices.pt')
+        # the first step's choices held to the plain version (each step
+        # makes one per EdgeConv layer)
+        held_to_plain = StepChoices(torch.nn.Module())
+        held_to_plain.records = records[:len(records) // spe]
+        choice_lines = held_to_plain.check('parallel_fit', torch.nn.Module())
+        # the reference: one process on the batches padded to R, its steps
+        # on the ranks' neighbours (near ties of a layer's kNN on features
+        # that differ in their last bits would flip, and a flip moves the
+        # gradient by a share of its norm); R ranks sum each statistic and
+        # gradient in another order, and through ReLU and sparsemax
+        # boundaries and Adam's steps that moves the run as much as
+        # perturbing the clouds by 1e-7 does: each bar is the larger of
+        # its own and ORDER_FLOOR_FACTOR times that floor, one process's
+        # perturbed run (on the same neighbours) against the reference
+        *_, ref_steps, ref_epochs, ref_grad, _ = _parallel_fit_run(runs_dir, 1, pad=ranks,
+                                                                   replay=records)
+        held = PARALLEL_FIT_HELD_STEPS
+        draws = []
+        for seed in PARALLEL_FIT_FLOOR_SEEDS:
+            *_, floor_steps, floor_epochs, floor_grad, _ = _parallel_fit_run(
+                runs_dir, 1, perturb=1e-7, pad=ranks, replay=records, perturb_seed=seed)
+            draws.append({
+                'grad': ((floor_grad - ref_grad).norm() / ref_grad.norm()).item(),
+                'step_loss': max(_relative_gaps(floor_steps, ref_steps)[:held]),
+                'valid': abs(floor_epochs[0]['valid_loss'] - ref_epochs[0]['valid_loss'])
+                / abs(ref_epochs[0]['valid_loss'])})
+        floors = {k: max(d[k] for d in draws) for k in draws[0]}
         grad_gap = ((grad - ref_grad).norm() / ref_grad.norm()).item()
-        check(grad_gap <= 1e-5,
-              f'parallel_fit: the first step\'s gradient {grad_gap} of its norm off one process\'s')
-        # R ranks sum each statistic and gradient in another order; through
-        # near-tie neighbours and Adam's steps that moves the epoch's
-        # validation loss as much as perturbing the clouds by 1e-7 does: the
-        # validation bar is the larger of 1e-4 and ORDER_FLOOR_FACTOR times
-        # that floor, one process's perturbed run against the reference
-        floor_epochs = _parallel_fit_run(runs_dir, 1, perturb=1e-7, pad=ranks)[5]
-        floor = abs(floor_epochs[0]['valid_loss'] - ref_epochs[0]['valid_loss']) \
-            / abs(ref_epochs[0]['valid_loss'])
-        held, valid_bar = PARALLEL_FIT_HELD_STEPS, max(1e-4, ORDER_FLOOR_FACTOR * floor)
-        line.update(grad_gap=grad_gap, valid_floor_1e7=floor)
+        grad_bar = max(1e-5, ORDER_FLOOR_FACTOR * floors['grad'])
+        step_bar = max(1e-5, ORDER_FLOOR_FACTOR * floors['step_loss'])
+        valid_bar = max(1e-4, ORDER_FLOOR_FACTOR * floors['valid'])
+        line.update(grad_gap=grad_gap, grad_bar=grad_bar, floors_1e7=floors,
+                    floor_draws=draws, choices=choice_lines)
+        check(grad_gap <= grad_bar,
+              f'parallel_fit: the first step\'s gradient {grad_gap} of its norm off one '
+              f'process\'s (bar {grad_bar})')
     check(len(steps) == len(ref_steps) == spe and len(epochs) == 1,
           f'parallel_fit: {len(steps)} steps and {len(epochs)} epochs against the reference\'s '
           f'{len(ref_steps)} steps of epoch 0')
@@ -1522,8 +1617,9 @@ def parallel_fit_phase(runs_dir, fit_run_id):
     gaps = _relative_gaps(steps, ref_steps)
     ref_valid = ref_epochs[0]['valid_loss']
     valid_gap = abs(epochs[0]['valid_loss'] - ref_valid) / abs(ref_valid)
-    check(max(gaps[:held]) <= 1e-5,
-          f'parallel_fit: step losses {gaps[:held]} relative off the reference\'s')
+    check(max(gaps[:held]) <= step_bar,
+          f'parallel_fit: step losses {gaps[:held]} relative off the reference\'s '
+          f'(bar {step_bar})')
     check(valid_gap <= valid_bar,
           f'parallel_fit: validation loss {valid_gap} relative off the reference\'s '
           f'(bar {valid_bar})')
@@ -1566,62 +1662,134 @@ def ring_near_ties(x, idx, ref_idx):
     return share, int(rows.shape[0]), ((d_ring - d_ref).abs() / allowed).max().item()
 
 
-def parallel_ring_phase():
-    """The ring's merge over P shards on one card against the plain kNN +
-    gather on the whole cloud, and the sharded encoder step over the
-    world-1 group against the unsharded layers."""
+def _ring_inputs():
+    """parallel_ring's seeded inputs on the host: a cloud of each
+    PARALLEL_RING_SHAPES shape, att's two EdgeConv layers (random MLP
+    states, eval mode) and their (8, POINTS, 3) cloud."""
     import torch
-    import torch.distributed as dist
-    from garment_pattern_estimation_torch.models.blocks import MLP, EdgeConv
-    from garment_pattern_estimation_torch.ops.knn_gather import knn_gather_reference
-    from garment_pattern_estimation_torch.parallel.dryrun import (
-        _edgeconv_plain, _random_mlp_state)
-    from garment_pattern_estimation_torch.parallel.ring import (
-        _ring_init, _ring_merge, _ring_output, make_points_mesh, sharded_encoder_step)
+    from garment_pattern_estimation_torch.models.blocks import EdgeConv
+    from garment_pattern_estimation_torch.parallel.dryrun import _random_mlp_state
 
     gen = torch.Generator().manual_seed(12)
-    shards = PARALLEL_RING_SHARDS
-    line = {'phase': 'parallel_ring', 'ranks': dist.get_world_size(), 'shards': shards,
-            'k': K, 'merge': []}
-    for B, N, C in PARALLEL_RING_SHAPES:
-        x = torch.randn(B, N, C, generator=gen).cuda()
-        S = N // shards
-
-        def ring():
-            """Each query shard's ring, its keys fed in ring order."""
-            nbrs, ids = [], []
-            for me in range(shards):
-                q = x[:, me * S:(me + 1) * S]
-                acc = _ring_init(q, K, shards)
-                for step in range(shards):
-                    src = (me - step) % shards
-                    acc = _ring_merge(q, x[:, src * S:(src + 1) * S], src, acc, me)
-                nbr, idx = _ring_output(q, acc, me)
-                nbrs.append(nbr)
-                ids.append(idx)
-            return torch.cat(nbrs, dim=1), torch.cat(ids, dim=1)
-
-        nbr, idx = ring()
-        _, ref_idx = knn_gather_reference(x, K)
-        share, rows, worst = ring_near_ties(x, idx, ref_idx)
-        name = f'parallel_ring {(B, N, C)}'
-        check(share >= WIDE_ID_AGREEMENT, f'{name}: ids agree on {share}')
-        check(worst <= 1.0, f'{name}: a differing neighbour is {worst} x the near-tie bound')
-        flat = idx + (torch.arange(B, device=x.device) * N)[:, None, None]
-        check(torch.equal(nbr, x.reshape(B * N, C)[flat]), f'{name}: rows are not the cloud\'s')
-        line['merge'].append({'shape': [B, N, C], 'id_share': share, 'rows_differ': rows,
-                              'worst_tie_ratio': worst, 'ms': cuda_ms(ring, 1, 5),
-                              'plain_ms': cuda_ms(lambda: knn_gather_reference(x, K), 1, 5)})
-
-    widths = [ATT_NN_CONFIG['EConv_hidden']] * ATT_NN_CONFIG['EConv_hidden_depth'] \
-        + [ATT_NN_CONFIG['EConv_feature']]
+    clouds = [torch.randn(*shape, generator=gen) for shape in PARALLEL_RING_SHAPES]
+    widths = variant_widths('')
     layers = [EdgeConv(3, widths, k=K), EdgeConv(widths[-1], widths, k=K)]
     for layer in layers:
         layer.nn.load_state_dict(_random_mlp_state(layer.nn, gen))
-        layer.cuda().eval()
-    x = torch.randn(8, POINTS, 3, generator=gen).cuda()
+        layer.eval()
+    return clouds, layers, torch.randn(8, POINTS, 3, generator=gen)
+
+
+def _ring_in_process(x):
+    """The ring over PARALLEL_RING_SHARDS shards of `x`, driven in this
+    process: each query shard's merge fed its keys in ring order."""
+    import torch
+    from garment_pattern_estimation_torch.parallel.ring import (_ring_init, _ring_merge,
+                                                                _ring_output)
+
+    shards = PARALLEL_RING_SHARDS
+    S = x.shape[1] // shards
+    nbrs, ids = [], []
+    for me in range(shards):
+        q = x[:, me * S:(me + 1) * S]
+        acc = _ring_init(q, K, shards)
+        for step in range(shards):
+            src = (me - step) % shards
+            acc = _ring_merge(q, x[:, src * S:(src + 1) * S], src, acc, me)
+        nbr, idx = _ring_output(q, acc, me)
+        nbrs.append(nbr)
+        ids.append(idx)
+    return torch.cat(nbrs, dim=1), torch.cat(ids, dim=1)
+
+
+def _ring_rank(result_path):
+    """parallel_ring on a spawned NCCL rank of a world of
+    PARALLEL_RING_SHARDS ranks, one shard each: `ring_knn_gather` of each
+    cloud (its ms) and `sharded_encoder_step`; the first rank writes the
+    whole clouds' neighbours, ids, ms, features and pool."""
+    import torch
+    import torch.distributed as dist
+    from garment_pattern_estimation_torch.parallel.collectives import all_gather_rows
+    from garment_pattern_estimation_torch.parallel.ring import (
+        make_points_mesh, ring_knn_gather, sharded_encoder_step)
+
+    rank, shards = dist.get_rank(), dist.get_world_size()
+    clouds, layers, x = _ring_inputs()
+    result = {'merge': []}
+
+    def joined(t):
+        """Every rank's (B, S, ...) shard, whole (B, N, ...) clouds."""
+        return all_gather_rows(t.transpose(0, 1).contiguous()).transpose(0, 1).cpu()
+
+    for cloud in clouds:
+        S = cloud.shape[1] // shards
+        local = cloud[:, rank * S:(rank + 1) * S].cuda()
+        nbr, idx = ring_knn_gather(local, K)
+        ms = cuda_ms(lambda: ring_knn_gather(local, K), 1, 5)
+        result['merge'].append((joined(nbr), joined(idx), ms))
     with torch.no_grad():
-        h, pooled = sharded_encoder_step(make_points_mesh(), [l.nn for l in layers], x, K)
+        h, pooled = sharded_encoder_step(make_points_mesh(), [l.nn.cuda() for l in layers],
+                                         x.cuda(), K)
+    result['encoder'] = (joined(h), pooled.cpu())
+    if rank == 0:
+        torch.save(result, result_path)
+
+
+def parallel_ring_phase(out_dir):
+    """The ring's merge over P = PARALLEL_RING_SHARDS shards against the
+    plain kNN + gather on the whole cloud, and the sharded encoder against
+    the unsharded layers: with fewer than P cards the merge driven over the
+    P shards on one card and the encoder over the world-1 group; with P or
+    more, P NCCL ranks, a card and a shard each (`ring_knn_gather`,
+    `sharded_encoder_step` over a points mesh of P)."""
+    import torch
+    import torch.distributed as dist
+    from garment_pattern_estimation_torch.ops.knn_gather import knn_gather_reference
+    from garment_pattern_estimation_torch.parallel.dryrun import _edgeconv_plain, spawn
+    from garment_pattern_estimation_torch.parallel.ring import (make_points_mesh,
+                                                                sharded_encoder_step)
+
+    shards = PARALLEL_RING_SHARDS
+    spawned = torch.cuda.device_count() >= shards
+    clouds, layers, x = _ring_inputs()
+    line = {'phase': 'parallel_ring', 'shards': shards, 'k': K, 'merge': [],
+            'ranks': shards if spawned else dist.get_world_size(), 'backend': 'nccl',
+            'cards': shards if spawned else 1}
+    if spawned:
+        result_path = out_dir / 'parallel_ring.pt'
+        spawn(_ring_rank, shards, str(result_path), backend='nccl')
+        result = torch.load(result_path)
+        runs = [(nbr.cuda(), idx.cuda(), ms) for nbr, idx, ms in result['merge']]
+    else:
+        runs = []
+        for cloud in clouds:
+            cloud = cloud.cuda()
+            nbr, idx = _ring_in_process(cloud)
+            runs.append((nbr, idx, cuda_ms(lambda: _ring_in_process(cloud), 1, 5)))
+    for cloud, (nbr, idx, ms) in zip(clouds, runs):
+        x_card = cloud.cuda()
+        B, N, C = x_card.shape
+        _, ref_idx = knn_gather_reference(x_card, K)
+        share, rows, worst = ring_near_ties(x_card, idx, ref_idx)
+        name = f'parallel_ring {(B, N, C)}'
+        check(share >= WIDE_ID_AGREEMENT, f'{name}: ids agree on {share}')
+        check(worst <= 1.0, f'{name}: a differing neighbour is {worst} x the near-tie bound')
+        flat = idx + (torch.arange(B, device=x_card.device) * N)[:, None, None]
+        check(torch.equal(nbr, x_card.reshape(B * N, C)[flat]),
+              f'{name}: rows are not the cloud\'s')
+        line['merge'].append({'shape': [B, N, C], 'id_share': share, 'rows_differ': rows,
+                              'worst_tie_ratio': worst, 'ms': ms,
+                              'plain_ms': cuda_ms(lambda: knn_gather_reference(x_card, K), 1,
+                                                  5)})
+
+    for layer in layers:
+        layer.cuda()
+    x = x.cuda()
+    with torch.no_grad():
+        if spawned:
+            h, pooled = (t.cuda() for t in result['encoder'])
+        else:
+            h, pooled = sharded_encoder_step(make_points_mesh(), [l.nn for l in layers], x, K)
         ref = _edgeconv_plain(layers[1].nn, _edgeconv_plain(layers[0].nn, x, K), K)
         fused = layers[1](layers[0](x))
     scale = max(ref.abs().max().item(), 1.0)
@@ -1629,8 +1797,8 @@ def parallel_ring_phase():
     pool_gap = (pooled - ref.mean(dim=1)).abs().max().item() / scale
     check(h_gap <= 2e-4 and pool_gap <= 2e-4,
           f'parallel_ring: sharded encoder {h_gap}, pool {pool_gap} of scale off the layers')
-    line['encoder'] = {'shape': list(x.shape), 'widths': widths, 'features_gap': h_gap,
-                       'pool_gap': pool_gap,
+    line['encoder'] = {'shape': list(x.shape), 'widths': variant_widths(''),
+                       'features_gap': h_gap, 'pool_gap': pool_gap,
                        'fused_kernels_gap': (fused - ref).abs().max().item() / scale,
                        'fused_kernels_mean_gap': (fused - ref).abs().mean().item() / scale}
     emit(line)
@@ -1987,12 +2155,123 @@ STITCH_TRAINER = {'batch_size': 30, 'epochs': 400, 'random_seed': 300, 'learning
 STITCH_SHAPE_EPOCHS = 24
 STITCH_STEP_CALLS = 8
 STITCH_CPU_GARMENTS = 4
+# the first stitch step on the card is held to the same step in float64 on
+# the CPU: its gaps to f64 within these bars or ORDER_FLOOR_FACTOR times the
+# largest gap of the CPU f32 step over every order of the garments. The
+# step's BatchNorm variances are E[x^2] - E[x]^2 in f32 (as the JAX MLP's):
+# where a batch's rows differ little against their mean (each garment's
+# stitched pairs repeat its few stitches) the rounding of that difference
+# moves the whole gradient (tests/test_torch_stitch_conditioning.py: up to
+# 9e-3 of its norm on the CPU alone)
 STITCH_LOSS_REL = 1e-5
 STITCH_GRAD_REL = 1e-4
 STITCH_BUCKET_ABS = 1e-6
 
 
-def stitch_pipeline_phase(out_dir, shape_run_id):
+def _stitch_first_step(data_config, setup, initial, garments, device, steps_per_epoch,
+                       f64=False, record=None):
+    """The stitch model's first Trainer.train_step from the weights
+    `initial` on `garments` on `device` (in float64 throughout with `f64`):
+    (loss, {name: gradient on the host}). `record` (a list) gets each
+    BatchNorm's worst E[x^2] / (var + eps) over its channels
+    ('cancellation'), and the last one's batch variance and share of
+    zeros in its ReLU'd input column."""
+    import torch
+    from garment_pattern_estimation_torch.models import build_model
+    from garment_pattern_estimation_torch.models.blocks import MLP
+    from garment_pattern_estimation_torch.train import Trainer
+
+    twin = build_model('StitchOnEdge3DPairs', data_config, STITCH_NN, STITCH_NN['loss'],
+                       device=device, seed=0)
+    twin.module.load_state_dict(initial)
+    stepper = Trainer(setup, device=device)
+    stepper.make_optimizer(twin, steps_per_epoch)
+    features = garments['features']
+    if f64:
+        twin.module.double()
+        features = features.double()
+    real = MLP._moments
+
+    def moments(self, x):
+        mean, var = real(self, x)
+        sq = (x.double() ** 2).mean(dim=tuple(range(x.dim() - 1)))
+        record.append({'cancellation': (sq / (var.double() + self.eps)).max().item(),
+                       'var': var.double().max().item(),
+                       'zero_share': (x == 0).double().mean().item()})
+        return mean, var
+
+    if record is not None:
+        MLP._moments = moments
+    try:
+        with _float64(f64):
+            loss, _ = stepper.train_step(twin, {'features': features,
+                                                'ground_truth': garments['ground_truth']}, 0)
+    finally:
+        MLP._moments = real
+    return loss.item(), {n: p.grad.detach().cpu().double()
+                         for n, p in twin.module.named_parameters()}
+
+
+def _stitch_gaps(run, ref):
+    """(relative loss gap, the gradient's relative L2 gap) of a
+    `_stitch_first_step` result to `ref`'s."""
+    return (abs(run[0] - ref[0]) / abs(ref[0]),
+            gradient_gap(run[1], ref[1])['grad_rel_l2'])
+
+
+def stitch_order_floors(step, garments, exact, orders=None):
+    """The largest (loss, gradient) gaps to `exact` of `step` (a function of
+    a batch) on `garments` in each of `orders` (every order of the
+    garments: the same sums in other orders)."""
+    orders = orders or list(itertools.permutations(range(len(garments['features']))))
+    gaps = [_stitch_gaps(step({k: v[list(order)] for k, v in garments.items()}), exact)
+            for order in orders]
+    return [max(g[i] for g in gaps) for i in (0, 1)]
+
+
+def stitch_bars(floors):
+    """The stitch check's (loss, gradient) bars from `stitch_order_floors`:
+    STITCH_LOSS_REL and STITCH_GRAD_REL, or ORDER_FLOOR_FACTOR times the
+    floor where that is larger."""
+    return [max(fixed, ORDER_FLOOR_FACTOR * floor)
+            for fixed, floor in zip((STITCH_LOSS_REL, STITCH_GRAD_REL), floors)]
+
+
+def stitch_step_check(data_config, setup, initial, garments, steps_per_epoch):
+    """The stitch model's first step on `garments` on the card against the
+    same step in float64 on the CPU, from the weights `initial`: (the
+    step's line, the direct gaps to the CPU f32 step). Held (`held`): the
+    card's loss and gradient gaps to f64 within STITCH_LOSS_REL and
+    STITCH_GRAD_REL, or ORDER_FLOOR_FACTOR times the largest such gap of
+    the CPU f32 step over every order of the garments where that is
+    larger. The line also gives the CPU f32 step's gaps in the batch's
+    order, the card's worst parameter against f64, each BatchNorm's
+    cancellation E[x^2] / (var + eps) and the logit column's batch
+    variance and share of zeros on the card."""
+    def step(device, batch=garments, f64=False, record=None):
+        return _stitch_first_step(data_config, setup, initial, batch, device, steps_per_epoch,
+                                  f64, record)
+
+    record = []
+    card, cpu, exact = step('cuda', record=record), step('cpu'), step('cpu', f64=True)
+    card_gaps, cpu_gaps = _stitch_gaps(card, exact), _stitch_gaps(cpu, exact)
+    floors = stitch_order_floors(lambda batch: step('cpu', batch), garments, exact)
+    bars = stitch_bars(floors)
+    line = {
+        'card_to_f64': {'loss_rel': card_gaps[0], 'grad_rel_l2': card_gaps[1]},
+        'cpu_to_f64': {'loss_rel': cpu_gaps[0], 'grad_rel_l2': cpu_gaps[1]},
+        'cpu_orders_to_f64_max': {'loss_rel': floors[0], 'grad_rel_l2': floors[1]},
+        'bars': {'loss_rel': bars[0], 'grad_rel_l2': bars[1]},
+        'held': card_gaps[0] <= bars[0] and card_gaps[1] <= bars[1],
+        'card_worst_param_to_f64': gradient_gap(card[1], exact[1])['worst_param'],
+        'logit_bn_batch_var': record[-1]['var'],
+        'logit_relu_zero_share': record[-1]['zero_share'],
+        'moments_cancellation': [r['cancellation'] for r in record]}
+    return line, {'loss_rel': abs(card[0] - cpu[0]) / abs(cpu[0]),
+                  **gradient_gap(card[1], cpu[1])}
+
+
+def stitch_pipeline_phase(out_dir, shape_run_id, pairs_seed=None):
     """The two-stage pipeline of configs/stitch_model.yaml on the att f32
     run that `fit` finished (`shape_run_id` under `out_dir`): (0) the run
     resumed from 'latest' to STITCH_SHAPE_EPOCHS epochs (Trainer.fit), then
@@ -2002,11 +2281,15 @@ def stitch_pipeline_phase(out_dir, shape_run_id):
     launch of rows 4 and 5 per predicted batch; (2) GarmentStitchPairsDataset
     on the merged root with stitch_model.yaml's dataset section, only the
     data folders, the split (FIT_SPLIT) and the parameter filter (none)
-    changed; (3) the eval forward of a (30, 400, 16) batch and
-    Trainer.train_step (ms, pairs/s, peak memory), and the first step on
-    STITCH_CPU_GARMENTS garments against the CPU plain path from the same
-    weights (loss within STITCH_LOSS_REL relative, gradient within
-    STITCH_GRAD_REL of its norm); (4) Trainer.fit for FIT_EPOCHS epochs at
+    changed, the pairs drawn from a printed seed (`pairs_seed`, a
+    replayed draw; fresh entropy where None); (3) the eval forward of a (30, 400,
+    16) batch and Trainer.train_step (ms, pairs/s, peak memory), and the
+    first step on STITCH_CPU_GARMENTS garments against the same step in
+    float64 on the CPU from the same weights: the card's loss within
+    STITCH_LOSS_REL relative of the f64 loss and its gradient within
+    STITCH_GRAD_REL of the f64 gradient's norm, or ORDER_FLOOR_FACTOR
+    times the largest such gap of the CPU f32 step over every order of
+    the garments where that is larger (the step's own conditioning); (4) Trainer.fit for FIT_EPOCHS epochs at
     the published widths and batch 30, then one resumed epoch: the mean
     training loss must fall, the validation section's pair accuracy and
     stitch recall from `eval_metrics`; (5) `eval_metrics` on the test
@@ -2098,7 +2381,11 @@ def stitch_pipeline_phase(out_dir, shape_run_id):
 
     # (2) the stitch dataset on the merged root
     start = time.perf_counter()
-    data_config = dict(STITCH_DATASET, data_folders=FIT_FOLDERS, filter_by_params=None)
+    if pairs_seed is None:
+        pairs_seed = random.SystemRandom().randrange(2 ** 31)
+    line['pairs_seed'] = pairs_seed
+    data_config = dict(STITCH_DATASET, data_folders=FIT_FOLDERS, filter_by_params=None,
+                       pairs_seed=pairs_seed)
     dataset = GarmentStitchPairsDataset(merged, data_config, gt_caching=True,
                                         feature_caching=True)
     setup = dict(STITCH_TRAINER, epochs=FIT_EPOCHS)
@@ -2146,24 +2433,18 @@ def stitch_pipeline_phase(out_dir, shape_run_id):
         'step_peak_memory_gb': torch.cuda.max_memory_allocated() / 1e9,
         'step_losses': [losses[0], losses[-1]]}
 
-    # the first step on a few garments against the CPU plain path
+    # the first step on a few garments against its f64 witness on the CPU
     small = {'features': batch['features'][:STITCH_CPU_GARMENTS],
              'ground_truth': batch['ground_truth'][:STITCH_CPU_GARMENTS]}
-    results = {}
-    for device in ('cuda', 'cpu'):
-        twin = build_model('StitchOnEdge3DPairs', dataset.config, STITCH_NN, STITCH_NN['loss'],
-                           device=device, seed=0)
-        twin.module.load_state_dict(initial)
-        stepper = Trainer(setup, device=device)
-        stepper.make_optimizer(twin, len(trainer.datawrapper.loaders.train))
-        loss, _ = stepper.train_step(twin, small, 0)
-        results[device] = (loss.item(), {n: p.grad.detach().cpu()
-                                         for n, p in twin.module.named_parameters()})
-    loss_rel = abs(results['cuda'][0] - results['cpu'][0]) / abs(results['cpu'][0])
-    gaps = {'loss_rel': loss_rel, **gradient_gap(results['cuda'][1], results['cpu'][1])}
-    check(loss_rel <= STITCH_LOSS_REL and gaps['grad_rel_l2'] <= STITCH_GRAD_REL,
-          f'stitch_pipeline: the {STITCH_CPU_GARMENTS}-garment step is off the CPU path: {gaps}')
+    first_step, gaps = stitch_step_check(dataset.config, setup, initial, small,
+                                         len(trainer.datawrapper.loaders.train))
     line['forward_and_step']['vs_cpu_plain'] = gaps
+    line['forward_and_step']['first_step'] = first_step
+    if not first_step['held']:
+        emit(line)
+        fail(f'stitch_pipeline: the {STITCH_CPU_GARMENTS}-garment step of pairs_seed '
+             f'{pairs_seed} is off its f64 witness beyond the CPU f32 steps\' floor: '
+             f'{first_step}')
 
     # (4) fit, then one resumed epoch
     model = build_model('StitchOnEdge3DPairs', dataset.config, STITCH_NN, STITCH_NN['loss'],
@@ -2820,28 +3101,53 @@ class StepChoices:
     CPU; within `replay()` the same calls take the recorded choices in the
     same order, the plain arithmetic on them: knn_gather's rows and its
     backward (`knn_gather_backward_reference`), the pool's clusters,
-    fitness and gating."""
+    fitness and gating.
 
-    def __init__(self, module):
+    `kinks`: every `torch.relu` and `torch.amax` of the step (nn.ReLU and
+    F.relu call the former) is a choice too: which inputs the ReLU passes,
+    and which entries win each max (all of an exact tie). A ReLU input
+    within rounding of 0, or two entries of a max within rounding of each
+    other, can fall either way on the card and on the CPU, and one such
+    entry that a global max pool routes a whole channel's cotangent
+    through moves the step's gradient by a percent (pool10's 20-point
+    stage). The replay holds each choice that the CPU would make otherwise
+    within KINK_TIE_REL of its call's scale (`kink_lines`)."""
+
+    def __init__(self, module, kinks=False):
         self.names = {id(m): n for n, m in module.named_modules()}
         self.records = []
+        self.kinks = [] if kinks else None
 
-    @staticmethod
     @contextlib.contextmanager
-    def _patched(gather, search, pool):
+    def _patched(self, gather, search, pool, relu=None, amax=None):
+        import torch
         from garment_pattern_estimation_torch.models import blocks
 
-        saved = blocks.knn_gather, blocks.knn_search, blocks.DynamicGraphPool.pool
+        saved = (blocks.knn_gather, blocks.knn_search, blocks.DynamicGraphPool.pool,
+                 torch.relu, torch.amax)
         blocks.knn_gather, blocks.knn_search, blocks.DynamicGraphPool.pool = gather, search, pool
+        if self.kinks is not None:
+            torch.relu, torch.amax = relu, amax
         try:
             yield
         finally:
-            blocks.knn_gather, blocks.knn_search, blocks.DynamicGraphPool.pool = saved
+            (blocks.knn_gather, blocks.knn_search, blocks.DynamicGraphPool.pool,
+             torch.relu, torch.amax) = saved
 
     def record(self):
+        import torch
         from garment_pattern_estimation_torch.models import blocks
         gather, search, pool = blocks.knn_gather, blocks.knn_search, blocks.DynamicGraphPool.pool
-        records, names = self.records, self.names
+        relu, amax = torch.relu, torch.amax
+        records, names, kinks = self.records, self.names, self.kinks
+
+        def recorded_relu(x):
+            kinks.append(('relu', x.shape, (x > 0).cpu()))
+            return relu(x)
+
+        def recorded_amax(x, dim=(), keepdim=False):
+            kinks.append(('max', x.shape, (x == amax(x, dim=dim, keepdim=True)).cpu()))
+            return amax(x, dim=dim, keepdim=keepdim)
 
         def recorded_gather(x, k, value_chunks=2):
             neighbours, ids = gather(x, k, value_chunks)
@@ -2859,7 +3165,8 @@ class StepChoices:
             records.append(('pool', x.detach().cpu(), idx.cpu(), (names[id(module)], weights),
                             top.cpu()))
             return out, top
-        return self._patched(recorded_gather, recorded_search, recorded_pool)
+        return self._patched(recorded_gather, recorded_search, recorded_pool,
+                             recorded_relu, recorded_amax)
 
     def check(self, name, cpu_module):
         """Each recorded choice against the plain version on its recorded
@@ -2921,6 +3228,10 @@ class StepChoices:
         from garment_pattern_estimation_torch.models import blocks
         pending = list(self.records)
         real = blocks.knn_gather, blocks.knn_search, blocks.DynamicGraphPool.pool
+        relu, amax = torch.relu, torch.amax
+        kinks = list(self.kinks or ())
+        self.kink_lines = {kind: {'calls': 0, 'differ': 0, 'worst_rel': 0.0}
+                           for kind in ('relu', 'max')}
 
         def next_is(kind, x):
             return bool(pending) and pending[0][0] == kind and pending[0][1].shape == x.shape
@@ -2968,13 +3279,48 @@ class StepChoices:
             cluster, fitness = module.clusters(x, idx)
             return module.select(cluster, fitness, top), top
 
-        with self._patched(replayed_gather, replayed_search, replayed_pool):
+        def kink(kind, x):
+            check(bool(kinks) and kinks[0][:2] == (kind, x.shape),
+                  f'replay: a {kind} on {list(x.shape)} where the card made '
+                  f'{kinks[0][:2] if kinks else "no more"}')
+            return kinks.pop(0)[2].to(x.device)
+
+        def tally(kind, x, differ, off):
+            line = self.kink_lines[kind]
+            line['calls'] += 1
+            line['differ'] += int(differ.sum())
+            if differ.any():
+                scale = x.abs().max().clamp_min(torch.finfo(x.dtype).tiny)
+                line['worst_rel'] = max(line['worst_rel'], (off[differ].max() / scale).item())
+
+        def replayed_relu(x):
+            passes = kink('relu', x)
+            with torch.no_grad():
+                tally('relu', x, passes != (x > 0), x.abs())
+            return torch.where(passes, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+        def replayed_amax(x, dim=(), keepdim=False):
+            wins = kink('max', x)
+            masked = torch.where(wins, x, torch.full((), -math.inf, dtype=x.dtype,
+                                                     device=x.device))
+            with torch.no_grad():
+                own, took = (amax(t, dim=dim, keepdim=True) for t in (x, masked))
+                tally('max', x, ((own != took) & wins), (own - took).expand_as(x))
+            return amax(masked, dim=dim, keepdim=keepdim)
+
+        with self._patched(replayed_gather, replayed_search, replayed_pool,
+                           replayed_relu, replayed_amax):
             yield
         check(not pending, f'replay: {len(pending)} recorded choices were not taken')
+        check(not kinks, f'replay: {len(kinks)} recorded ReLU and max choices were not taken')
+        for kind, line in self.kink_lines.items():
+            check(line['worst_rel'] <= KINK_TIE_REL,
+                  f'replay: a {kind} choice of the card is off the CPU\'s by more than a '
+                  f'tie: {self.kink_lines}')
 
 
 def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=False,
-                     epoch=0, noise_floor=False):
+                     epoch=0, noise_floor=False, kinks=False):
     """Loss and gradients of one train-mode step on the first `clouds`
     clouds on the card against the plain path of the same weights on the
     CPU, at the loss phase of `epoch`, held to the loss and norm bars;
@@ -2994,7 +3340,11 @@ def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=Fal
 
     `noise_floor` (a model whose gradient moves under 1e-7 input noise by
     more than the f32 bars): the gradient bars become the larger of the f32
-    bars and ORDER_FLOOR_FACTOR times that floor."""
+    bars and ORDER_FLOOR_FACTOR times that floor.
+
+    `kinks`: the CPU step also takes the card's ReLU and max choices
+    (`StepChoices`), each that the CPU would make otherwise held within
+    KINK_TIE_REL of its call's scale; their counts are in the line."""
     import torch
 
     small = {'features': batch['features'][:clouds],
@@ -3006,7 +3356,7 @@ def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=Fal
     for m in (card_model, cpu_model):
         if configure is not None:
             configure(m.module)
-    choices = StepChoices(card_model.module)
+    choices = StepChoices(card_model.module, kinks)
     with choices.record():
         card_loss, card_grads = step_gradients(card_model, small, epoch)
     choice_lines = choices.check(name, cpu_model.module)
@@ -3016,7 +3366,7 @@ def compare_step_cpu(name, model, batch, clouds, configure=None, order_floor=Fal
         cpu_loss, cpu_grads = step_gradients(cpu_model, cpu_small, epoch)
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
     gaps = {'loss_rel': loss_rel, **gradient_gap(card_grads, cpu_grads),
-            'choices': choice_lines}
+            'choices': choice_lines, **({'kinks': choices.kink_lines} if kinks else {})}
     noisy = cpu_small['features'] * (1 + 1e-7 * torch.randn(
         cpu_small['features'].shape, generator=torch.Generator().manual_seed(5)))
     _, noisy_grads = step_gradients(cpu_model, dict(cpu_small, features=noisy), epoch)
@@ -3277,7 +3627,8 @@ def variant_phase(name):
     steps move every weight by about the learning rate, which moves the
     outputs of wide layers, the MLP decoders' 5750 most of all, by more than
     three steps learn), and a 2-cloud step against the CPU plain path at the
-    training phase's bars (pointnet: VARIANT_STEP_CLOUDS). Returns the
+    training phase's bars (pointnet: VARIANT_STEP_CLOUDS), the CPU step
+    taking the card's kNN, pool, ReLU and max choices. Returns the
     launches by shape of serving and of training."""
     import torch
     from garment_pattern_estimation_torch.experiment import build_serving_fn
@@ -3325,7 +3676,7 @@ def variant_phase(name):
     train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(math.isfinite(v) for v in losses), f'{phase}: losses {losses}')
     gaps = compare_step_cpu(phase, model, batch, VARIANT_STEP_CLOUDS.get(name, 2),
-                            noise_floor=name in VARIANT_STEP_CLOUDS)
+                            noise_floor=name in VARIANT_STEP_CLOUDS, kinks=True)
 
     batch_ms = statistics.median(times[1:])
     step_ms = statistics.median(step_times[1:])
@@ -3695,8 +4046,49 @@ def _moments64(on):
         MLP._moments = real
 
 
+@contextlib.contextmanager
+def _ring_recorded(calls, choices):
+    """Within the block each `parallel.ring.ring_knn_gather` call (a
+    points-sharded EdgeConv layer's) appends (its input shard, k, its ids)
+    to `calls`, on the host, and a placeholder ('ring', its index) to
+    `choices.records` where `choices` is given."""
+    from garment_pattern_estimation_torch.parallel import ring
+
+    real = ring.ring_knn_gather
+
+    def recorded(x, k, group=None, ranking='norm'):
+        neighbours, ids = real(x, k, group, ranking)
+        if choices is not None:
+            choices.records.append(('ring', len(calls)))
+        calls.append((x.detach().cpu(), k, ids.cpu()))
+        return neighbours, ids
+
+    ring.ring_knn_gather = recorded
+    try:
+        yield
+    finally:
+        ring.ring_knn_gather = real
+
+
+def _whole_ring_calls(calls, mesh):
+    """This step's ring calls (`_ring_recorded`) of every rank, those of
+    this rank's data slice joined along the points: per call the record
+    of the one process's knn_gather call on the whole clouds, ('knn_gather',
+    input, k, 2 (the f32 rows the points cases train on), ids). Every rank
+    must call it."""
+    import torch
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, calls)
+    first = dist.get_rank() // mesh['points'] * mesh['points']
+    return [('knn_gather', torch.cat([c[0] for c in parts], dim=1), parts[0][1], 2,
+             torch.cat([c[2] for c in parts], dim=1))
+            for parts in zip(*every[first:first + mesh['points']])]
+
+
 def _points_steps(device, mesh, case, flip=False, perturb=None, record=False, replay=None,
-                  f64=False, moments64=False):
+                  f64=False, moments64=False, keep_ring=False):
     """POINTS_STEPS training steps of `case` on its batch, its clouds in
     reverse order with `flip` and scaled by 1 + perturb * a seeded normal
     draw with `perturb`, over `mesh` (trainer.mesh) in the process group
@@ -3704,10 +4096,14 @@ def _points_steps(device, mesh, case, flip=False, perturb=None, record=False, re
     the batch and the steps in float64 (`_float64`), with `moments64` the
     BatchNorm moments (`_moments64`). `record`: the steps'
     kNN, knn_gather and graph-pool choices are kept (`StepChoices`), each
-    step's apart; `replay` (such records): the steps take them where the
-    calls match (`StepChoices.replay(passthrough=True)`: the ring's first
-    layer records none). Returns (the losses, the first step's gradient
-    flat on the host in float64, the records by step or None)."""
+    step's apart; `keep_ring` (every rank of a mesh passes it): the ring
+    layers' choices too, each the knn_gather record of the one process's
+    call on the whole clouds of this rank's data slice
+    (`_whole_ring_calls`), in call order; `replay` (such records): the
+    steps take them where the calls match
+    (`StepChoices.replay(passthrough=True)`). Returns (the losses, the
+    first step's gradient flat on the host in float64, the records by step
+    or None)."""
     import torch
     from garment_pattern_estimation_torch.train import Trainer
 
@@ -3739,9 +4135,17 @@ def _points_steps(device, mesh, case, flip=False, perturb=None, record=False, re
         for step in range(POINTS_STEPS):
             choices = StepChoices(model.module)
             states = torch.Generator(device=device).manual_seed(100 + step)
-            with choices.record() if record else contextlib.nullcontext():
+            ring_calls = []
+            with choices.record() if record else contextlib.nullcontext(), \
+                    _ring_recorded(ring_calls, choices if record else None) if keep_ring \
+                    else contextlib.nullcontext():
                 loss, _ = trainer.train_step(model, batch, epoch=0, generator=states)
             losses.append(loss.item())
+            if keep_ring:
+                whole = _whole_ring_calls(ring_calls, mesh)
+                if record:
+                    choices.records = [whole[r[1]] if r[0] == 'ring' else r
+                                       for r in choices.records]
             if record:
                 records.append(choices.records)
             if grad is None:
@@ -3773,36 +4177,59 @@ def _ring_shift_probe(backend, result_path):
         Path(result_path).write_text(json.dumps([got.device.type, got.tolist()]))
 
 
-def _points_rank(backend, out_dir):
-    """Every POINTS_CASES case through `_points_steps` over POINTS_MESH on a
-    spawned rank, the first rank recording its choices: the first rank
-    writes each case's losses, gradient, choices and every rank's kernel
-    launches in those steps (`points_<case>.json`, `.grad.pt`,
-    `.choices.pt`), and POINTS_EXACT's steps with the BatchNorm moments in
-    f64 and in f64 (`.exact.pt`)."""
+def _points_rank(backend, out_dir, mesh):
+    """Every POINTS_CASES case through `_points_steps` over `mesh` on a
+    spawned rank (with the BatchNorm moments in f64 where POINTS_MOMENTS64
+    names the case and the mesh), the first points rank of each data slice
+    recording its choices: the first rank writes each case's losses,
+    gradient and every rank's kernel launches in those steps
+    (`points_<case>.json`, `.grad.pt`), each data slice's first points rank
+    its choices (`.choices.<data rank>.pt`), and the first rank
+    POINTS_EXACT's steps in f64 (`.f64.pt`)."""
     import torch
     import torch.distributed as dist
 
     device = _rank_card(backend)
-    first = dist.get_rank() == 0
+    rank = dist.get_rank()
+    recorder = rank % mesh['points'] == 0
     for case in POINTS_CASES:
         reset_all_launches()
-        losses, grad, records = _points_steps(device, POINTS_MESH, case, record=first)
+        losses, grad, records = _points_steps(
+            device, mesh, case, record=recorder, keep_ring=True,
+            moments64=mesh in POINTS_MOMENTS64.get(case, ()))
         torch.cuda.synchronize()
         launches = [None] * dist.get_world_size()
         dist.all_gather_object(launches, nonzero(all_launches()))
         if case in POINTS_EXACT:
-            exact_runs = {'moments64': _points_steps(device, POINTS_MESH, case,
-                                                     moments64=True)[:2],
-                          'f64': _points_steps(device, POINTS_MESH, case, f64=True)[:2]}
-        if first:
-            path = Path(out_dir) / f'points_{case}'
+            f64_run = _points_steps(device, mesh, case, f64=True)[:2]
+        path = Path(out_dir) / f'points_{case}'
+        if recorder:
+            torch.save(records, f'{path}.choices.{rank // mesh["points"]}.pt')
+        if rank == 0:
             path.with_suffix('.json').write_text(json.dumps({'losses': losses,
                                                              'launches': launches}))
             torch.save(grad, str(path) + '.grad.pt')
-            torch.save(records, str(path) + '.choices.pt')
             if case in POINTS_EXACT:
-                torch.save(exact_runs, str(path) + '.exact.pt')
+                torch.save(f64_run, str(path) + '.f64.pt')
+
+
+def _merged_choices(path, data):
+    """The choices of a case's steps over every data slice (`_points_rank`'s
+    `.choices.<d>.pt`), each record's tensors joined along the batch in data
+    rank order: the one process's calls on the whole batch. Per step."""
+    import torch
+
+    slices = [torch.load(f'{path}.choices.{d}.pt') for d in range(data)]
+    return [[_joined_record(r) for r in zip(*steps)] for steps in zip(*slices)]
+
+
+def _joined_record(parts):
+    """One `StepChoices` record from each data slice, as the one process's
+    on the whole batch: its tensors joined along the batch, the rest (k,
+    the value chunks, a pool's name and weights) alike on every slice."""
+    import torch
+
+    return tuple(torch.cat(f) if isinstance(f[0], torch.Tensor) else f[0] for f in zip(*parts))
 
 
 def _ring_against_knn_gather(gen):
@@ -3845,11 +4272,13 @@ def _step_gaps(run, ref, steps=POINTS_STEPS):
 
 
 def points_sharded_phase(out_dir):
-    """trainer.mesh {data: 1, points: 2} on the card: 2 ranks, each holding
-    half of every cloud's points, for each POINTS_CASES case at full
-    width, against one process on the same batch. Two cards: NCCL ranks,
-    one card each; one card: two gloo ranks on it (gloo's ring shift
-    staged through the host). The cases: att (the ring EdgeConv, the mean
+    """trainer.mesh {data: d, points: p} on the card: d p ranks, each
+    holding 1 / p of its data slice's clouds' points, for each POINTS_CASES
+    case at full width, against one process on the same batch. The meshes
+    by the cards visible: one card, {1, 2} as two gloo ranks on it (gloo's
+    ring shift staged through the host); two or three, {1, 2} as NCCL
+    ranks, a card each; four or more, {1, 2}, {2, 2} and {1, 4}
+    (POINTS_MESHES_4), NCCL ranks, a card each. The cases: att (the ring EdgeConv, the mean
     pool summed over the points ranks), att with `max` pools (the
     all-reduce max) and with the segmentation term (the mean over every
     rank's points), the baseline with pool10's and gpool's encoders (the
@@ -3858,17 +4287,19 @@ def points_sharded_phase(out_dir):
     the centroids; its global max pool is the all-reduce max) and att with
     pointnet's encoder (the attention pool over every rank's centroids).
 
-    First a probe: one ring shift of a card tensor over the 2 ranks. Only
-    its failure (the group cannot move card tensors) is printed as the
-    phase not having run; the training ranks run outside any handler, so
-    their failure fails the script.
+    Each mesh first runs a probe: one ring shift of a card tensor over its
+    ranks. Its failure fails the script, its error printed on the phase's
+    line; so does a training rank's.
 
-    Each case: POINTS_STEPS steps. The first rank records its kNN,
-    knn_gather and graph-pool choices; each of every step's is held
-    against the plain version on its input (`StepChoices.check`), and the
-    one-process steps take them where their calls match (the stages after
-    a gather: near ties of the pools' kNN on clouds whose features differ
-    in their last bits would flip, and a flip moves pool10's loss by 1e-3).
+    Each case: POINTS_STEPS steps. The first points rank of each data
+    slice records its kNN, knn_gather and graph-pool choices, and the ring
+    layers' neighbours joined over the points ranks (`_whole_ring_calls`),
+    all joined over the slices (`_merged_choices`); each of every step's is
+    held against the plain version on its input (`StepChoices.check`), and
+    the one-process steps take them (near ties of a kNN on clouds whose
+    features differ in their last bits would flip: a flip moves pool10's
+    loss by 1e-3, and, after the first Adam step, att's second loss by
+    1e-4 on four ranks in a CPU rehearsal at 200 points).
     Bars: the losses within rtol 2e-5 and the gradient within 1e-5 of its
     norm (the CPU tests' bars), or ORDER_FLOOR_FACTOR times the order floor
     of each where that is larger: the largest gap of one process against
@@ -3879,10 +4310,10 @@ def points_sharded_phase(out_dir):
     too, as the one process does: they measure how far rounding moves the
     step at fixed choices (noise flips near ties of the pools' kNN
     otherwise, and a flip moves the gradient by tens of % of its norm, a
-    bar that would hide a rank's dropped share). POINTS_EXACT's case is
-    held with its BatchNorm moments in f64, and its first step in f64
-    within POINTS_F64_BAR (see POINTS_EXACT). A gradient counted p
-    times, or a rank's share dropped, is off by about its whole norm. Each
+    bar that would hide a rank's dropped share). The cases and meshes of
+    POINTS_MOMENTS64 are held with their BatchNorm moments in f64, and
+    POINTS_EXACT's first step in f64 within POINTS_F64_BAR (see
+    POINTS_MOMENTS64). A gradient counted p times, or a rank's share dropped, is off by about its whole norm. Each
     rank's launches are POINTS_STEP_LAUNCHES' per step: the ring launches
     none, the stages after a gather what one process launches for them."""
     import torch
@@ -3891,89 +4322,114 @@ def points_sharded_phase(out_dir):
     start = time.perf_counter()
     cards = torch.cuda.device_count()
     backend = 'nccl' if cards >= 2 else 'gloo'
-    line = {'phase': 'points_sharded', 'mesh': POINTS_MESH, 'backend': backend,
-            'cards': min(cards, 2), 'batch': [4, POINTS, 3], 'steps': POINTS_STEPS,
-            'widths': variant_widths('')}
-    probe_path = out_dir / 'points_probe.json'
-    try:
-        spawn(_ring_shift_probe, 2, backend, str(probe_path), backend=backend)
-    except Exception as err:       # the group's transport of card tensors, not a check
-        emit(dict(line, ran=False, reason=f'{type(err).__name__}: {err}'[:2000]))
-        return
-    device_type, received = json.loads(probe_path.read_text())
-    check(device_type == 'cuda' and received == [1.0] * 4,
-          f'points_sharded: ring_shift of a card tensor gave {device_type} {received}')
-    ranks_start = time.perf_counter()
-    spawn(_points_rank, 2, backend, str(out_dir), backend=backend)
-    line['ranks_s'] = time.perf_counter() - ranks_start
+    meshes = POINTS_MESHES_4 if cards >= 4 else (POINTS_MESH,)
+    line = {'phase': 'points_sharded', 'batch': [4, POINTS, 3], 'steps': POINTS_STEPS,
+            'widths': variant_widths(''), 'meshes': []}
     card = torch.device('cuda', 0)
-    cases, failed = {}, []
-    for case in POINTS_CASES:
-        path = out_dir / f'points_{case}'
-        result = json.loads(path.with_suffix('.json').read_text())
-        losses, launches = result['losses'], result['launches']
-        grad = torch.load(str(path) + '.grad.pt')
-        records = torch.load(str(path) + '.choices.pt')
-        choices = StepChoices(_points_model(case, card).module)
-        choices.records = [r for step in records for r in step]
-        choice_lines = choices.check(f'points_sharded {case}',
-                                     _points_model(case, 'cpu').module)
-        entry = {}
-        moments64 = case in POINTS_EXACT
-        if moments64:
-            # the f32 steps held with the BatchNorm moments in f64; the
-            # plain f32 ones' gaps printed; the f64 first step (its loss and
-            # gradient: the second loss follows Adam's update of gradients
-            # that are 0 in exact arithmetic, a bias before a BatchNorm,
-            # lr-sized with the rounding's sign, in f64 too) within
-            # POINTS_F64_BAR or twice its order floor (the clouds reversed)
-            exact_runs = torch.load(str(path) + '.exact.pt')
-            plain = _points_steps(card, None, case)[:2]
-            f64 = _points_steps(card, None, case, f64=True)[:2]
-            entry['plain_f32'] = {'losses': losses, 'reference_losses': plain[0],
-                                  'gaps': _step_gaps((losses, grad), plain),
-                                  'gaps_to_f64': _step_gaps((losses, grad), f64),
-                                  'one_process_gaps_to_f64': _step_gaps(plain, f64)}
-            losses, grad = exact_runs['moments64']
-            f64_gaps = _step_gaps(exact_runs['f64'], f64, steps=1)
-            f64_floors = _step_gaps(_points_steps(card, None, case, flip=True, f64=True)[:2],
-                                    f64, steps=1)
-            f64_bars = [max(POINTS_F64_BAR, ORDER_FLOOR_FACTOR * f) for f in f64_floors]
-            entry['f64'] = {'losses': exact_runs['f64'][0], 'reference_losses': f64[0],
-                            'gaps': f64_gaps, 'floors': f64_floors, 'bars': f64_bars}
-            for name, gap, bar in zip(('loss', 'gradient'), f64_gaps, f64_bars):
-                if gap > bar:
-                    failed.append(f'{case}: f64 first step {name} {gap} off one process '
-                                  f'(bar {bar})')
-        ref = _points_steps(card, None, case, replay=records, moments64=moments64)[:2]
-        floors = {'flip': _points_steps(card, None, case, flip=True, moments64=moments64)[:2],
-                  **{f'noise_{scale:g}': _points_steps(card, None, case, perturb=scale,
-                                                       replay=records, moments64=moments64)[:2]
-                     for scale in POINTS_NOISE.get(case, (1e-7,))}}
-        entry.update(losses=losses, reference_losses=ref[0],
-                     floors={k: _step_gaps(v, ref) for k, v in floors.items()})
-        loss_gap, grad_gap = _step_gaps((losses, grad), ref)
-        loss_floor, grad_floor = (max(v) for v in zip(*entry['floors'].values()))
-        loss_bar = max(2e-5, ORDER_FLOOR_FACTOR * loss_floor)
-        grad_bar = max(1e-5, ORDER_FLOOR_FACTOR * grad_floor)
-        expected = {k: v * POINTS_STEPS for k, v in POINTS_STEP_LAUNCHES[case].items()}
-        cases[case] = dict(entry, loss_gap=loss_gap, grad_gap=grad_gap, loss_bar=loss_bar,
-                           grad_bar=grad_bar, launches_per_rank=launches,
-                           expected_launches_per_rank=expected, choices=choice_lines,
-                           replayed=sum(map(len, records)))
-        if loss_gap > loss_bar:
-            failed.append(f'{case}: step losses {loss_gap} off one process (bar {loss_bar})')
-        if grad_gap > grad_bar:
-            failed.append(f'{case}: first-step gradient {grad_gap} of its norm off one process '
-                          f'(bar {grad_bar})')
-        if any(rank != expected for rank in launches):
-            failed.append(f'{case}: the ranks launched {launches}, expected {expected} each')
+    memo = {}
+
+    def one_process(case, replay=None, **options):
+        """`_points_steps` of `case` in this process on the card; a run that
+        takes no recorded choice is the same for every mesh."""
+        if replay is not None and any(map(len, replay)):
+            return _points_steps(card, None, case, replay=replay, **options)[:2]
+        key = (case, tuple(sorted(options.items())))
+        if key not in memo:
+            memo[key] = _points_steps(card, None, case, **options)[:2]
+        return memo[key]
+
+    failed = []
+    for mesh in meshes:
+        ranks = mesh['data'] * mesh['points']
+        entry = {'mesh': mesh, 'backend': backend, 'cards': ranks if backend == 'nccl' else 1}
+        line['meshes'].append(entry)
+        mesh_dir = out_dir / f'points_{mesh["data"]}x{mesh["points"]}'
+        mesh_dir.mkdir()
+        probe_path = mesh_dir / 'probe.json'
+        try:
+            spawn(_ring_shift_probe, ranks, backend, str(probe_path), backend=backend)
+        except Exception as err:
+            entry['probe_error'] = f'{type(err).__name__}: {err}'[:2000]
+            emit(line)
+            raise
+        device_type, received = json.loads(probe_path.read_text())
+        check(device_type == 'cuda' and received == [float(ranks - 1)] * 4,
+              f'points_sharded {mesh}: ring_shift of a card tensor gave {device_type} '
+              f'{received}')
+        ranks_start = time.perf_counter()
+        spawn(_points_rank, ranks, backend, str(mesh_dir), mesh, backend=backend)
+        entry['ranks_s'] = time.perf_counter() - ranks_start
+        entry['cases'] = {}
+        for case in POINTS_CASES:
+            failed += _points_case(case, mesh, mesh_dir / f'points_{case}', one_process,
+                                   entry['cases'])
     share, rows, worst = _ring_against_knn_gather(torch.Generator().manual_seed(17))
-    line.update(ran=True, cases=cases, seconds=time.perf_counter() - start,
+    line.update(seconds=time.perf_counter() - start,
                 conv1_ring_vs_knn_gather={'id_share': share, 'rows_differ': rows,
                                           'worst_tie_ratio': worst})
     emit(line)
     check(not failed, f'points_sharded: {failed}')
+
+
+def _points_case(case, mesh, path, one_process, cases):
+    """`case`'s run over `mesh` (`_points_rank`'s files at `path`) against
+    one process (`one_process(case, replay, **_points_steps options)`), its
+    entry put in `cases`. Returns the checks that failed."""
+    import torch
+
+    card = torch.device('cuda', 0)
+    failed = []
+    result = json.loads(path.with_suffix('.json').read_text())
+    losses, launches = result['losses'], result['launches']
+    grad = torch.load(str(path) + '.grad.pt')
+    records = _merged_choices(path, mesh['data'])
+    choices = StepChoices(_points_model(case, card).module)
+    choices.records = [r for step in records for r in step]
+    choice_lines = choices.check(f'points_sharded {mesh} {case}',
+                                 _points_model(case, 'cpu').module)
+    moments64 = mesh in POINTS_MOMENTS64.get(case, ())
+    entry = {'moments64': moments64}
+    if case in POINTS_EXACT:
+        # the f64 first step (its loss and gradient: the second loss follows
+        # Adam's update of gradients that are 0 in exact arithmetic, a bias
+        # before a BatchNorm, lr-sized with the rounding's sign, in f64 too)
+        # within POINTS_F64_BAR or twice its order floor (the clouds
+        # reversed)
+        f64_run = torch.load(str(path) + '.f64.pt')
+        f64 = one_process(case, f64=True)
+        f64_gaps = _step_gaps(f64_run, f64, steps=1)
+        f64_floors = _step_gaps(one_process(case, flip=True, f64=True), f64, steps=1)
+        f64_bars = [max(POINTS_F64_BAR, ORDER_FLOOR_FACTOR * f) for f in f64_floors]
+        entry['f64'] = {'losses': f64_run[0], 'reference_losses': f64[0],
+                        'gaps': f64_gaps, 'floors': f64_floors, 'bars': f64_bars}
+        for name, gap, bar in zip(('loss', 'gradient'), f64_gaps, f64_bars):
+            if gap > bar:
+                failed.append(f'{mesh} {case}: f64 first step {name} {gap} off one process '
+                              f'(bar {bar})')
+    ref = one_process(case, replay=records, moments64=moments64)
+    floors = {'flip': one_process(case, flip=True, moments64=moments64),
+              **{f'noise_{scale:g}': one_process(case, replay=records, perturb=scale,
+                                                 moments64=moments64)
+                 for scale in POINTS_NOISE.get(case, (1e-7,))}}
+    entry.update(losses=losses, reference_losses=ref[0],
+                 floors={k: _step_gaps(v, ref) for k, v in floors.items()})
+    loss_gap, grad_gap = _step_gaps((losses, grad), ref)
+    loss_floor, grad_floor = (max(v) for v in zip(*entry['floors'].values()))
+    loss_bar = max(2e-5, ORDER_FLOOR_FACTOR * loss_floor)
+    grad_bar = max(1e-5, ORDER_FLOOR_FACTOR * grad_floor)
+    expected = {k: v * POINTS_STEPS for k, v in POINTS_STEP_LAUNCHES[case].items()}
+    cases[case] = dict(entry, loss_gap=loss_gap, grad_gap=grad_gap, loss_bar=loss_bar,
+                       grad_bar=grad_bar, launches_per_rank=launches,
+                       expected_launches_per_rank=expected, choices=choice_lines,
+                       replayed=sum(map(len, records)))
+    if loss_gap > loss_bar:
+        failed.append(f'{mesh} {case}: step losses {loss_gap} off one process (bar {loss_bar})')
+    if grad_gap > grad_bar:
+        failed.append(f'{mesh} {case}: first-step gradient {grad_gap} of its norm off one '
+                      f'process (bar {grad_bar})')
+    if any(rank != expected for rank in launches):
+        failed.append(f'{mesh} {case}: the ranks launched {launches}, expected {expected} each')
+    return failed
 
 
 def fit_checkpoint(out_dir, fit_run_id):
@@ -4607,7 +5063,32 @@ def timed(seconds, name, fn, *args):
     return out
 
 
+def parse_args(argv):
+    parser = argparse.ArgumentParser(description='Chip smoke test of the PyTorch + CUDA port.')
+    parser.add_argument('--parallel_only', action='store_true',
+                        help='the build, the att f32 fit and the parallel phases alone '
+                             '(parallel_fit, parallel_ring, points_sharded), on the cards '
+                             'visible: a multi-card host\'s run')
+    parser.add_argument('--stitch_pairs_seed', type=int, default=None,
+                        help='stitch_pipeline\'s pair draw (the pairs_seed its line printed) '
+                             'in place of fresh entropy')
+    return parser.parse_args(argv)
+
+
+def parallel_phases(seconds, out_dir, fit_run_id):
+    """The parallel phases, each on the cards visible: parallel_fit (against
+    the att f32 fit run `fit_run_id`) and parallel_ring in the world-1
+    group, then points_sharded. Returns parallel_fit's launches."""
+    with World1Group():
+        launches = timed(seconds, 'parallel_fit', parallel_fit_phase, out_dir / 'experiments',
+                         fit_run_id)
+        timed(seconds, 'parallel_ring', parallel_ring_phase, out_dir)
+    timed(seconds, 'points_sharded', points_sharded_phase, out_dir)
+    return launches
+
+
 def main():
+    args = parse_args(sys.argv[1:])
     import torch
     if not torch.cuda.is_available():
         fail('no CUDA device')
@@ -4653,6 +5134,18 @@ def main():
     spilled = [f'{lib}:{n}' for lib, usage in ptxas.items() for n, (_, stores, loads)
                in usage.items() if template_args(n)[:1] == [5] and (stores or loads)]
     check(not spilled, f'build: k = 5 instantiations spill registers: {spilled}')
+    if args.parallel_only:
+        # fit (parallel_fit's reference) and the parallel phases alone
+        with tempfile.TemporaryDirectory(
+                dir=ROOT / 'garment_pattern_estimation_torch' / '_build') as out_dir:
+            out_dir = Path(out_dir)
+            _, fit_run_id = timed(seconds, 'fit', fit_phase, out_dir / 'experiments', '')
+            parallel_phases(seconds, out_dir, fit_run_id)
+        emit({'phase_seconds': seconds})
+        print(card_name_and_power(), flush=True)
+        emit({'ok': True, 'device': {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+                                     'count': torch.cuda.device_count()}})
+        return
 
     def att_kernels(bf16):
         gen = torch.Generator().manual_seed(0)
@@ -4834,13 +5327,8 @@ def main():
             for line in gathers:
                 line[key] = fit_launches['knn_gather_' + launch_key(line['name'])]
         # data parallelism: the att fit cell over a data mesh of the cards,
-        # then the ring; each on its own counts
-        with World1Group():
-            parallel_launches = timed(seconds, 'parallel_fit', parallel_fit_phase, runs_dir,
-                                      run_ids[''])
-            timed(seconds, 'parallel_ring', parallel_ring_phase)
-        # points sharding: {data: 1, points: 2} against one process
-        timed(seconds, 'points_sharded', points_sharded_phase, out_dir)
+        # the ring, points sharding; each on its own counts
+        parallel_launches = parallel_phases(seconds, out_dir, run_ids[''])
         small_line['launches_parallel_fit'] = parallel_launches['fused_small_c']
         wide_line['launches_parallel_fit'] = parallel_launches['fused_wide_c']
         for line in gather_lines:
@@ -4854,7 +5342,8 @@ def main():
         for line in gather_lines:
             line['launches_fit_on_device'] = ods_launches['knn_gather_' + launch_key(line['name'])]
         stitch_launches, stitch_run_id = timed(seconds, 'stitch_pipeline',
-                                               stitch_pipeline_phase, runs_dir, run_ids[''])
+                                               stitch_pipeline_phase, runs_dir, run_ids[''],
+                                               args.stitch_pairs_seed)
         small_line['launches_stitch_pipeline'] = stitch_launches['fused_small_c']
         wide_line['launches_stitch_pipeline'] = stitch_launches['fused_wide_c']
         for line in gather_lines:

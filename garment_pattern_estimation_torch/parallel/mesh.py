@@ -254,18 +254,23 @@ class DataShard:
         2-D mesh): the rows this rank's value is the mean of. Where the
         ranks' counts differ (PointNet++'s centroids split unevenly over
         the points ranks) each value is weighed by its rows; where they are
-        equal, or `rows` is None, by 1 / the group's size, so ranks that
-        hold the same rows (the stages after a gather) give their value
-        exactly, as a power-of-two count of halves sums exactly."""
+        equal, or `rows` is None, by 1 / the group's size, so ranks that hold
+        the same rows (the stages after a gather) give their value. The
+        shares are summed in float64 and the mean rounded once to `value`'s
+        dtype: an f32 sum rounds E[x^2] once more than one process's mean
+        does, and a BatchNorm variance E[x^2] - E[x]^2 that cancels to a
+        small share of E[x^2] carries that rounding into the whole
+        gradient."""
+        dtype, value = value.dtype, value.double()
         equal = value / self.stats_size
         if self.points is None or rows is None:
-            return all_reduce_sum(equal, self.stats_group)
+            return all_reduce_sum(equal, self.stats_group).to(dtype)
         counts = torch.tensor([rows, rows * rows], dtype=torch.float64, device=value.device)
         dist.all_reduce(counts, group=self.stats_group)
         total, squares = counts[0], counts[1]
         uneven = squares * self.stats_size != total * total
-        weighted = value * (rows / total).to(value.dtype)
-        return all_reduce_sum(torch.where(uneven, weighted, equal), self.stats_group)
+        weighted = value * (rows / total)
+        return all_reduce_sum(torch.where(uneven, weighted, equal), self.stats_group).to(dtype)
 
     def rows(self, tensor):
         """This rank's rows of a tensor of the global batch."""

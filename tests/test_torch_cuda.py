@@ -1270,7 +1270,7 @@ def test_nccl_ranks_step_equals_one_process(cuda, tmp_path):
     dryrun_multichip(world)
 
 
-@pytest.mark.parametrize('nproc', [1, 2])
+@pytest.mark.parametrize('nproc', [1, 2, 4])
 def test_train_cli_under_torchrun(cuda, tmp_path, nproc):
     """`torchrun --standalone --nproc_per_node=G -m ...cli.train` on G cards
     (`init_from_env`: NCCL, each rank on its LOCAL_RANK's card) against the

@@ -19,6 +19,12 @@ one process's autograd, each used as the trainer uses it: only points rank
     unweighted means of the ranks' moments are off by a share of the
     difference).
 
+  * `DataShard.mean` of one value a rank over equal counts: the f32
+    rounding of the ranks' mean taken in f64, bitwise (an f32 sum of the
+    shares rounds once more, and through a BatchNorm variance that
+    cancels that moved the graph-pooled model's gradient at {data: 1,
+    points: 4} beyond its bar: fault C11).
+
 Values within 1e-6 of their scale, gradients within 1e-5 (f32 sums in
 another order); the gathered values and the max's exactly.
 """
@@ -64,6 +70,12 @@ def test_points_gather_backward_hands_each_rank_its_slice(collectives_run):
     inputs, out = collectives_run
     assert np.array_equal(out['gather.value'], inputs['gather.x'])
     assert np.array_equal(out['gather.grad'], inputs['gather.w'])
+
+
+def test_data_shard_mean_rounds_once(collectives_run):
+    inputs, out = collectives_run
+    v = inputs['mean.v'].astype(np.float64)
+    assert np.array_equal(out['mean.value'], (v / len(v)).sum(axis=0).astype(np.float32))
 
 
 def test_uneven_rows_batchnorm_moments(collectives_run):

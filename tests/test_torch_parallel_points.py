@@ -5,8 +5,11 @@ shards against the selection of the whole cloud.
 
 The ranks run tests/torch_parallel_ranks.py's `points_rank` (no JAX) on
 tests/test_multichip.py's remainder batch (B = 5 clouds of 32 points) at
-{data: 1, points: 2} (2 ranks) and {data: 2, points: 2} (4 ranks, the batch
-padded to 6). The reference is the port's one-process step on the batch
+{data: 1, points: 2} (2 ranks), {data: 2, points: 2} (4 ranks, the batch
+padded to 6) and {data: 1, points: 4} (4 ranks, 8 points each). A cloud
+that does not split over the points ranks (30 points over 4) is refused by
+both packages: the JAX mesh's `device_put` and the port's `PointsShard`,
+on every rank before any collective. The reference is the port's one-process step on the batch
 padded to d, its predictions cut to the 5 real clouds before the loss.
 Three cases: zero LSTM states, drawn states with dropout (draws of the
 global batch), and a second EdgeConv layer at C = 24 (past the exact
@@ -64,11 +67,12 @@ def _jax_model(case):
     return model, variables
 
 
-def _jax_steps(model, variables, arrays, data):
+def _jax_steps(model, variables, arrays, data, points):
     """JaxTrainer's two train steps and then an eval step over
-    `make_mesh_2d(data, 2)`: (the two losses, the eval loss)."""
+    `make_mesh_2d(data, points)`: (the two losses, the eval loss)."""
     jt = JaxTrainer.__new__(JaxTrainer)
-    jt.mesh, jt._step_cache, jt._monitor_needs_quality = jax_make_mesh_2d(data, 2), {}, False
+    jt.mesh, jt._step_cache, jt._monitor_needs_quality = jax_make_mesh_2d(data, points), {}, \
+        False
     jt.setup = dict(ranks.SETUP)
     tx = jt._make_optimizer(ranks.STEPS_PER_EPOCH)
     gt = {k[3:]: v for k, v in arrays.items() if k.startswith('gt.')}
@@ -88,12 +92,12 @@ def _jax_steps(model, variables, arrays, data):
     return losses, float(eval_loss)
 
 
-@pytest.fixture(scope='module', params=[1, 2], ids=['1x2', '2x2'])
+@pytest.fixture(scope='module', params=[(1, 2), (2, 2), (1, 4)], ids=['1x2', '2x2', '1x4'])
 def points_run(request, tmp_path_factory):
     """(the ranks' results, the one-process references, the JAX 2-D mesh's
-    (losses, eval loss) by case) at {data: d, points: 2}."""
-    data = request.param
-    tmp = tmp_path_factory.mktemp(f'points{data}')
+    (losses, eval loss) by case) at {data: d, points: p}."""
+    data, points = request.param
+    tmp = tmp_path_factory.mktemp(f'points{data}x{points}')
     jax_models = {case: _jax_model(case) for case in JAX_CASES}
     states = {case: {k: v.numpy() for k, v in state_dict_from_flax(variables).items()}
               for case, (_, variables) in jax_models.items()}
@@ -101,11 +105,11 @@ def points_run(request, tmp_path_factory):
     arrays = ranks.write_inputs(tmp / 'inputs.npz', states)
     with np.load(tmp / 'inputs.npz') as loaded:
         np.savez(tmp / 'inputs.npz', **dict(loaded), **{'mesh.data': np.asarray(data)})
-    spawn(ranks.points_rank, 2 * data, str(tmp / 'inputs.npz'), str(tmp / 'out.npz'))
+    spawn(ranks.points_rank, data * points, str(tmp / 'inputs.npz'), str(tmp / 'out.npz'))
     batch = ranks.batch_of(arrays)
     oracles = {case: ranks.padded_oracle(case, states[case], batch, data)
                for case in ranks.POINTS_CASES}
-    jax_runs = {case: _jax_steps(model, variables, arrays, data)
+    jax_runs = {case: _jax_steps(model, variables, arrays, data, points)
                 for case, (model, variables) in jax_models.items()}
     noise = torch.randn(batch['features'].shape, generator=torch.Generator().manual_seed(5))
     perturbed = dict(batch, features=batch['features'] * (1 + 1e-7 * noise))
@@ -137,6 +141,24 @@ def test_points_sharded_steps_match_jax_mesh(points_run, case):
     losses, eval_loss = jax_runs[case]
     np.testing.assert_allclose([out[f'{case}.loss0'], out[f'{case}.loss1']], losses, rtol=2e-5)
     np.testing.assert_allclose(out[f'{case}.eval'], eval_loss, rtol=2e-5)
+
+
+def test_points_mesh_refuses_a_cloud_that_does_not_split(tmp_path):
+    """30 points over {data: 1, points: 4}: the port's train step raises
+    ValueError on every rank before any collective (`PointsShard.local`),
+    as the JAX trainer's placement over `make_mesh_2d(1, 4)` raises."""
+    jax_model, variables = _jax_model('zero_states')
+    state = {k: v.numpy() for k, v in state_dict_from_flax(variables).items()}
+    arrays = ranks.write_inputs(tmp_path / 'inputs.npz', {'zero_states': state})
+    spawn(ranks.points_refusal_rank, 4, str(tmp_path / 'inputs.npz'), str(tmp_path / 'out.npz'),
+          30)
+    errors = list(np.load(tmp_path / 'out.npz')['errors'])
+    assert errors == ['PointsShard: 30 points do not divide over 4 ranks'] * 4, errors
+    jt = JaxTrainer.__new__(JaxTrainer)
+    jt.mesh = jax_make_mesh_2d(1, 4)
+    gt = {k[3:]: v for k, v in arrays.items() if k.startswith('gt.')}
+    with pytest.raises(ValueError, match='divisible by 4'):
+        jt._place_batch({'features': arrays['features'][:, :30], 'ground_truth': gt})
 
 
 @pytest.mark.parametrize('shards', [2, 4])

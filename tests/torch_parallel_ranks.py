@@ -373,6 +373,30 @@ def points_rank(inputs_path, out_path, cases=POINTS_CASES):
         np.savez(out_path, **out)
 
 
+def points_refusal_rank(inputs_path, out_path, points):
+    """A train step of the zero-state case over {data: 1, points: world}
+    on the batch's clouds cut to `points` points: every rank's ValueError
+    ('' if none), gathered after the step, so a rank that entered a
+    collective would hang the test instead of passing it."""
+    inputs = dict(np.load(inputs_path))
+    batch = batch_of(inputs)
+    batch['features'] = batch['features'][:, :points]
+    model = build('zero_states', _split(inputs, 'zero_states.'))
+    trainer = Trainer(dict(SETUP, mesh={'data': 1, 'points': dist.get_world_size()}),
+                      device='cpu')
+    trainer.make_optimizer(model, STEPS_PER_EPOCH)
+    trainer.use_mesh(model, trainer.mesh_from_setup())
+    try:
+        trainer.train_step(model, batch, 0, torch.Generator().manual_seed(STEP_SEEDS[0]))
+        error = ''
+    except ValueError as err:
+        error = str(err)
+    errors = [None] * dist.get_world_size()
+    dist.all_gather_object(errors, error)
+    if dist.get_rank() == 0:
+        np.savez(out_path, errors=np.asarray(errors))
+
+
 def _gather_rows(t, dim):
     every = [torch.empty_like(t) for _ in range(dist.get_world_size())]
     dist.all_gather(every, t.contiguous())
@@ -519,8 +543,9 @@ def collective_inputs(world, seed=0):
     channel 0: two equal maxima in rank 0's points; channel 1: equal maxima
     in rank 0's and rank 1's; cloud 1, channel 2: one value everywhere),
     its cotangent, a (2, n, 5) tensor for the points gather over uneven
-    shares (n = 2 world + 1) and its cotangent, and (2 world + 3, 6) MLP
-    rows split unevenly with the MLP's weights and the rows' cotangent."""
+    shares (n = 2 world + 1) and its cotangent, (2 world + 3, 6) MLP
+    rows split unevenly with the MLP's weights and the rows' cotangent, and
+    (world, 1000) values for `DataShard.mean`, a row a rank."""
     rng = np.random.default_rng(seed)
     S = 4
     x = rng.normal(size=(2, S * world, 3)).astype(np.float32)
@@ -536,6 +561,7 @@ def collective_inputs(world, seed=0):
             'gather.w': rng.normal(size=(2, 2 * world + 1, 5)).astype(np.float32),
             'mlp.rows': rng.normal(size=(2 * world + 3, 6)).astype(np.float32),
             'mlp.w': rng.normal(size=(2 * world + 3, 4)).astype(np.float32),
+            'mean.v': rng.normal(size=(world, 1000)).astype(np.float32),
             **{f'mlp.state.{k}': v.numpy() for k, v in mlp.state_dict().items()}}
 
 
@@ -543,7 +569,8 @@ def collectives_rank(inputs_path, out_path):
     """On a {data: 1, points: world} mesh, each as the trainer uses it (only
     points rank 0 backpropagates, the others backpropagate zeros): the
     all-reduce max of this rank's points and its gradient, the points
-    gather over uneven shares (`PointsShard.sizes`) and its gradient, and an
+    gather over uneven shares (`PointsShard.sizes`) and its gradient,
+    `DataShard.mean` of this rank's row of values over equal counts, and an
     MLP's train forward on uneven shares of rows (its BatchNorm moments
     weighed by this rank's rows, `DataShard.mean`), its running
     statistics and its parameters'
@@ -577,6 +604,9 @@ def collectives_rank(inputs_path, out_path):
     every = [None] * world
     dist.all_gather_object(every, part.grad.numpy())
     out['gather.grad'] = np.concatenate(every, axis=1)
+
+    means = torch.from_numpy(inputs['mean.v'])
+    out['mean.value'] = shard.mean(means[points.rank], rows=3).numpy()
 
     mlp = MLP([6, 8, 4])
     mlp.load_state_dict({k[len('mlp.state.'):]: torch.from_numpy(v) for k, v in inputs.items()

@@ -2,7 +2,7 @@
 of tests/torch_parallel_ranks.py's VARIANTS (max pools, the segmentation
 term, graph pooling, EdgeConvPoolingFeatures, PointNet++ with even and
 uneven centroid shares) trained on gloo CPU ranks over `trainer.mesh:
-{data: d, points: 2}`, against the port's one-process step on the padded
+{data: d, points: p}` (p = 2; 4 for the first file's cases), against the port's one-process step on the padded
 batch and, at {data: 1, points: 2}, against `JaxTrainer` over the JAX
 package's `make_mesh_2d(1, 2)` (`use_pallas=False`, as the JAX trainer runs
 a points mesh), from the JAX model's weights (`state_dict_from_flax`).
@@ -101,19 +101,20 @@ def _jax_steps(model, variables, batches):
     return runs
 
 
-def run(cases, data, tmp):
+def run(cases, data, tmp, points=2):
     """(the ranks' results, the one-process references (also of
     '<case>+f64' for the F64_CASES), the 1e-7-noise gradient floors, and
-    at data 1 the JAX 2-D mesh's (losses, eval loss, the eval's floor)) by
-    case, at {data: `data`, points: 2}."""
+    at {1, 2} the JAX 2-D mesh's (losses, eval loss, the eval's floor)) by
+    case, at {data: `data`, points: `points`}."""
     jax_models = {case: _jax_model(case) for case in cases}
     states = {case: {k: v.numpy() for k, v in state_dict_from_flax(variables).items()}
               for case, (_, variables) in jax_models.items()}
     arrays = ranks.write_variant_inputs(tmp / 'inputs.npz', states, cases)
     np.savez(tmp / 'inputs.npz', **arrays, **{'mesh.data': np.asarray(data)})
-    held = [case + ranks.XLA for case in cases if case in ranks.POOL_CASES and data == 1]
+    with_jax = (data, points) == (1, 2)
+    held = [case + ranks.XLA for case in cases if case in ranks.POOL_CASES and with_jax]
     held += [case + ranks.F64 for case in cases if case in ranks.F64_CASES]
-    spawn(ranks.points_rank, 2 * data, str(tmp / 'inputs.npz'), str(tmp / 'out.npz'),
+    spawn(ranks.points_rank, points * data, str(tmp / 'inputs.npz'), str(tmp / 'out.npz'),
           tuple(cases) + tuple(held))
     oracles, floors, jax_runs = {}, {}, {}
     for case in cases:
@@ -132,7 +133,7 @@ def run(cases, data, tmp):
                 {f'{case}.grad.{n}': g.numpy() for n, g in moved.items()}, case,
                 oracles[case][1])[0])
         floors[case] = max(gaps)
-        if data == 1:
+        if with_jax:
             flipped = {'features': batch['features'].flip(0),
                        'ground_truth': {k: v.flip(0) for k, v in batch['ground_truth'].items()}}
             (losses, eval_loss), *others = _jax_steps(*jax_models[case],
