@@ -944,13 +944,13 @@ def knn_phase(points):
     """The standalone kNN entry on the stress batch; returns its line of
     the kernels list."""
     import torch
-    from garment_pattern_estimation_torch.ops import knn
+    from garment_pattern_estimation_torch.ops import knn, launches_by_variant
 
     B, N, D = points.shape
-    knn.reset_launches()
+    knn.launches_by_shape.clear()
     ids = knn.knn(points, K)                      # the entry, as a user calls it
     torch.cuda.synchronize()
-    launches = knn.launches['knn']
+    launches = launches_by_variant(knn)['knn']
     check(launches == 1, f'knn: the entry launched {launches} kernels, expected 1')
     check(tuple(ids.shape) == (B, N, K), f'knn: ids of shape {tuple(ids.shape)}')
     ref = knn.knn_reference(points[:CHUNK], K)
@@ -988,13 +988,13 @@ def knn_wide_phase(points):
     """The wide-D kNN entry on the stress conv1 input; returns its line of
     the kernels list (launches filled in by the stress training phase)."""
     import torch
-    from garment_pattern_estimation_torch.ops import knn
+    from garment_pattern_estimation_torch.ops import knn, launches_by_variant
 
     B, N, D = points.shape
-    knn.reset_launches()
+    knn.launches_by_shape.clear()
     ids = knn.knn(points, K)                      # the entry, as a user calls it
     torch.cuda.synchronize()
-    per_call = dict(knn.launches)
+    per_call = launches_by_variant(knn)
     check(per_call == {'knn': 0, 'knn_wide': 1},
           f'knn_wide: the entry launched {per_call}, expected one wide-D kernel')
     check(tuple(ids.shape) == (B, N, K), f'knn_wide: ids of shape {tuple(ids.shape)}')
@@ -1219,15 +1219,15 @@ def read_records(experiment):
 
 def phase_launches():
     """The fused layer's and knn_gather's launch counts, one dict."""
-    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
-    return {**{f'fused_{k}': v for k, v in edgeconv.launches.items()},
-            **{f'knn_gather_{k}': v for k, v in knn_gather.launches.items()}}
+    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather, launches_by_variant
+    return {**{f'fused_{k}': v for k, v in launches_by_variant(edgeconv).items()},
+            **{f'knn_gather_{k}': v for k, v in launches_by_variant(knn_gather).items()}}
 
 
 def reset_launches():
     from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
-    edgeconv.reset_launches()
-    knn_gather.reset_launches()
+    edgeconv.launches_by_shape.clear()
+    knn_gather.launches_by_shape.clear()
 
 
 def fit_phase(out_dir, variant=''):
@@ -1964,7 +1964,7 @@ def mesh_to_prediction_phase(bf16=False):
     launches."""
     import torch
     from garment_pattern_estimation_torch.models import build_model
-    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
+    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather, launches_by_variant
     from garment_pattern_estimation_torch.preprocess import device_sampling as ds
     from garment_pattern_estimation_torch.train import make_predict_fn
 
@@ -1982,13 +1982,13 @@ def mesh_to_prediction_phase(bf16=False):
     reset_launches()
     with SnapCounter() as snaps:
         preds, times = timed_calls(lambda: predict(mesh), SERVE_CALLS)
-    launches = dict(edgeconv.launches)
+    launches = launches_by_variant(edgeconv)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = {'small_c': SERVE_CALLS, 'wide_c': SERVE_CALLS,
                 'small_c_tiled': 0, 'wide_c_tiled': 0}
     check(launches == expected, f'{phase}: launches {launches}, expected {expected}')
-    check(not any(knn_gather.launches.values()),
-          f'{phase}: knn_gather launched {knn_gather.launches}')
+    check(not any(launches_by_variant(knn_gather).values()),
+          f'{phase}: knn_gather launched {launches_by_variant(knn_gather)}')
     check(snaps.calls == 0, f'{phase}: the snap ran {snaps.calls} times')
     check_outputs(phase, {k: torch.from_numpy(v) for k, v in preds.items()}, BATCH, POINTS)
 
@@ -2943,7 +2943,7 @@ def serve_phase(variant='', calls=SERVE_CALLS):
     import torch
     from garment_pattern_estimation_torch.experiment import build_serving_fn
     from garment_pattern_estimation_torch.models import build_model
-    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
+    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather, launches_by_variant
 
     phase = 'serving' + variant
     model_name, nn_section, _ = VARIANTS[variant]
@@ -2952,11 +2952,11 @@ def serve_phase(variant='', calls=SERVE_CALLS):
     points = physical_points(1, BATCH, POINTS)
 
     torch.cuda.reset_peak_memory_stats()
-    edgeconv.reset_launches()
-    knn_gather.reset_launches()
+    edgeconv.launches_by_shape.clear()
+    knn_gather.launches_by_shape.clear()
     preds, times = timed_calls(lambda: serve(points), calls)
-    launches = dict(edgeconv.launches)
-    gather_launches = dict(knn_gather.launches)
+    launches = launches_by_variant(edgeconv)
+    gather_launches = launches_by_variant(knn_gather)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected, expected_gather = eval_launches(nn_section, calls)
     check(launches == expected,
@@ -2991,14 +2991,14 @@ def stress_serving_phase(model, serve, bf16=False, phase=None):
     """The same served model on the stress batch: every EdgeConv layer
     through the column-tiled kernels. Returns the launches and the batch."""
     import torch
-    from garment_pattern_estimation_torch.ops import edgeconv
+    from garment_pattern_estimation_torch.ops import edgeconv, launches_by_variant
 
     phase = phase or ('stress_serving_bf16' if bf16 else 'stress_serving')
     points = physical_points(6, STRESS_BATCH, STRESS_POINTS)
     torch.cuda.reset_peak_memory_stats()
-    edgeconv.reset_launches()
+    edgeconv.launches_by_shape.clear()
     preds, times = timed_calls(lambda: serve(points), STRESS_CALLS)
-    launches = dict(edgeconv.launches)
+    launches = launches_by_variant(edgeconv)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = {'small_c': 0, 'wide_c': 0,
                 'small_c_tiled': STRESS_CALLS, 'wide_c_tiled': STRESS_CALLS}
@@ -3402,7 +3402,7 @@ def train_phase(bf16=False, variant=None, phase=None, batch_size=TRAIN_BATCH,
     takes one more step."""
     import torch
     from garment_pattern_estimation_torch.models import build_model
-    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
+    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather, launches_by_variant
     from garment_pattern_estimation_torch.train import Trainer
 
     phase = phase or ('training_bf16' if bf16 else 'training')
@@ -3417,36 +3417,37 @@ def train_phase(bf16=False, variant=None, phase=None, batch_size=TRAIN_BATCH,
     states = torch.Generator(device='cuda').manual_seed(ATT_TRAINER['random_seed'])
 
     torch.cuda.reset_peak_memory_stats()
-    edgeconv.reset_launches()
-    knn_gather.reset_launches()
+    edgeconv.launches_by_shape.clear()
+    knn_gather.launches_by_shape.clear()
     losses, times = [], []
     for step in range(steps):
-        before = dict(knn_gather.launches)
+        before = launches_by_variant(knn_gather)
         torch.cuda.synchronize()
         start = time.perf_counter()
         loss, terms = trainer.train_step(model, batch, epoch=0, generator=states)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - start) * 1e3)
         losses.append(loss.item())
-        per_step = {key: knn_gather.launches[key] - before[key] for key in before}
+        per_step = {key: launches_by_variant(knn_gather)[key] - before[key] for key in before}
         check(per_step == per_step_expected,
               f'{phase}: step {step} launched {per_step}, expected {per_step_expected}')
-    launches = dict(knn_gather.launches)
+    launches = launches_by_variant(knn_gather)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(not any(edgeconv.launches.values()),
-          f'{phase}: the fused eval kernel launched {edgeconv.launches} in train mode')
+    check(not any(launches_by_variant(edgeconv).values()),
+          f'{phase}: the fused eval kernel launched {launches_by_variant(edgeconv)} in train mode')
     check(all(math.isfinite(v) for v in losses), f'{phase}: losses {losses}')
     check(losses[-1] < losses[0], f'{phase}: the loss did not fall: {losses}')
     check(all(p.dtype == torch.float32 for p in model.module.parameters()),
           f'{phase}: a parameter is not f32')
 
-    edgeconv.reset_launches()
-    knn_gather.reset_launches()
+    edgeconv.launches_by_shape.clear()
+    knn_gather.launches_by_shape.clear()
     eval_loss, _ = trainer.eval_step(model, batch, epoch=0)
     torch.cuda.synchronize()
     expected, expected_gather = eval_launches(nn_section, 1)
-    check(edgeconv.launches == expected and knn_gather.launches == expected_gather,
-          f'{phase}: eval_step launched {edgeconv.launches} and {knn_gather.launches}, '
+    fused, gathered = launches_by_variant(edgeconv), launches_by_variant(knn_gather)
+    check(fused == expected and gathered == expected_gather,
+          f'{phase}: eval_step launched {fused} and {gathered}, '
           f'expected {expected} and {expected_gather}')
     check(math.isfinite(eval_loss.item()), f'{phase}: eval loss {eval_loss.item()}')
 
@@ -3463,7 +3464,7 @@ def train_phase(bf16=False, variant=None, phase=None, batch_size=TRAIN_BATCH,
                               for k, v in terms.items()},
           'step_times_ms': times, 'step_ms': step_ms, 'step_ms_quartiles': [q1, q3],
           'clouds_per_s': batch_size / step_ms * 1e3,
-          'eval_loss': eval_loss.item(), 'eval_launches': dict(edgeconv.launches),
+          'eval_loss': eval_loss.item(), 'eval_launches': launches_by_variant(edgeconv),
           'vs_cpu_plain': gaps, 'peak_memory_gb': peak_gb})
     return launches, lambda: trainer.train_step(model, batch, epoch=0, generator=states)
 
@@ -3480,7 +3481,7 @@ def train_lstm_phase():
     Returns the launches and a function that takes one more epoch-40 step."""
     import torch
     from garment_pattern_estimation_torch.models import build_model
-    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather
+    from garment_pattern_estimation_torch.ops import edgeconv, knn_gather, launches_by_variant
     from garment_pattern_estimation_torch.train import Trainer
 
     phase = 'training_lstm'
@@ -3492,20 +3493,20 @@ def train_lstm_phase():
     states = torch.Generator(device='cuda').manual_seed(ATT_TRAINER['random_seed'])
 
     torch.cuda.reset_peak_memory_stats()
-    edgeconv.reset_launches()
-    knn_gather.reset_launches()
+    edgeconv.launches_by_shape.clear()
+    knn_gather.launches_by_shape.clear()
     runs = {}
     for epoch in (0, LSTM_STITCH_EPOCH):
         losses, times = [], []
         for step in range(LSTM_TRAIN_STEPS):
-            before = dict(knn_gather.launches)
+            before = launches_by_variant(knn_gather)
             torch.cuda.synchronize()
             start = time.perf_counter()
             loss, terms = trainer.train_step(model, batch, epoch=epoch, generator=states)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - start) * 1e3)
             losses.append(loss.item())
-            per_step = {key: knn_gather.launches[key] - before[key] for key in before}
+            per_step = {key: launches_by_variant(knn_gather)[key] - before[key] for key in before}
             check(per_step == per_step_expected,
                   f'{phase}: epoch {epoch} step {step} launched {per_step}, '
                   f'expected {per_step_expected}')
@@ -3513,10 +3514,10 @@ def train_lstm_phase():
                        'step_ms': statistics.median(times[1:]),
                        'terms_last_step': {k: v.item() if math.isfinite(v.item()) else None
                                            for k, v in terms.items()}}
-    launches = dict(knn_gather.launches)
+    launches = launches_by_variant(knn_gather)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(not any(edgeconv.launches.values()),
-          f'{phase}: the fused eval kernel launched {edgeconv.launches} in train mode')
+    check(not any(launches_by_variant(edgeconv).values()),
+          f'{phase}: the fused eval kernel launched {launches_by_variant(edgeconv)} in train mode')
     check(all(math.isfinite(v) for r in runs.values() for v in r['losses']),
           f'{phase}: losses {[r["losses"] for r in runs.values()]}')
     check(runs[0]['losses'][-1] < runs[0]['losses'][0],
@@ -3539,13 +3540,13 @@ def train_lstm_phase():
         _, times = timed_calls(lambda: model.loss(preds, batch['ground_truth'], epoch=epoch), 4)
         loss_ms[epoch] = statistics.median(times[1:])
 
-    edgeconv.reset_launches()
-    knn_gather.reset_launches()
+    edgeconv.launches_by_shape.clear()
+    knn_gather.launches_by_shape.clear()
     eval_loss, _ = trainer.eval_step(model, batch, epoch=LSTM_STITCH_EPOCH)
     torch.cuda.synchronize()
-    check(edgeconv.launches == {'small_c': 1, 'wide_c': 1, 'small_c_tiled': 0,
+    check(launches_by_variant(edgeconv) == {'small_c': 1, 'wide_c': 1, 'small_c_tiled': 0,
                                 'wide_c_tiled': 0},
-          f'{phase}: eval_step launched {edgeconv.launches}, expected 1 + 1 fused')
+          f'{phase}: eval_step launched {launches_by_variant(edgeconv)}, expected 1 + 1 fused')
     check(math.isfinite(eval_loss.item()), f'{phase}: eval loss {eval_loss.item()}')
 
     # a 2-cloud step against the plain path of the same weights on the CPU,
@@ -3568,9 +3569,10 @@ def train_lstm_phase():
 def all_launches():
     """Every kernel wrapper's launch counts, one dict: fused_*, knn,
     knn_wide, knn_gather_*."""
-    from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather
-    return {**{f'fused_{k}': v for k, v in edgeconv.launches.items()}, **knn.launches,
-            **{f'knn_gather_{k}': v for k, v in knn_gather.launches.items()}}
+    from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather, launches_by_variant
+    return {**{f'fused_{k}': v for k, v in launches_by_variant(edgeconv).items()},
+            **launches_by_variant(knn),
+            **{f'knn_gather_{k}': v for k, v in launches_by_variant(knn_gather).items()}}
 
 
 def shape_launches():
@@ -3587,7 +3589,7 @@ def shape_launches():
 def reset_all_launches():
     from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather
     for module in (edgeconv, knn, knn_gather):
-        module.reset_launches()
+        module.launches_by_shape.clear()
 
 
 def nonzero(counts):
@@ -4644,7 +4646,7 @@ def parity_train_phase(out_dir, fit_run_id):
         calls = []
         output = out_dir / f'parity_{name}.json'
         reset_launches()
-        knn.reset_launches()
+        knn.launches_by_shape.clear()
         start = time.perf_counter()
         with parity_arms(calls, captured):
             rc = parity_check.main(args + ['--output', str(output)])
@@ -4706,7 +4708,7 @@ def parity_train_phase(out_dir, fit_run_id):
     shutil.copy(out_dir / 'parity_train.json', resumed)
     calls = []
     reset_launches()
-    knn.reset_launches()
+    knn.launches_by_shape.clear()
     start = time.perf_counter()
     with parity_arms(calls, captured):
         rc = parity_check.main(passes['train'] + ['--resume', '--output', str(resumed)])
@@ -4774,7 +4776,7 @@ def stress_train_phase(bf16=False, variant=None, steps=STRESS_TRAIN_STEPS, cpu_c
     and a function that takes one more ('fused_final') step."""
     import torch
     from garment_pattern_estimation_torch.models import build_model
-    from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather
+    from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather, launches_by_variant
     from garment_pattern_estimation_torch.ops.edgeconv_train import _default_chunk
     from garment_pattern_estimation_torch.train import Trainer
 
@@ -4793,26 +4795,26 @@ def stress_train_phase(bf16=False, variant=None, steps=STRESS_TRAIN_STEPS, cpu_c
           f'{phase}: the auto rule does not chunk the stress batch')
 
     def step_once():
-        before = dict(knn.launches)
+        before = launches_by_variant(knn)
         torch.cuda.synchronize()
         start = time.perf_counter()
         loss, terms = trainer.train_step(model, batch, epoch=0, generator=states)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - start) * 1e3
-        per_step = {key: knn.launches[key] - before[key] for key in before}
+        per_step = {key: launches_by_variant(knn)[key] - before[key] for key in before}
         check(per_step == {'knn': 1, 'knn_wide': 1},
               f'{phase}: a step launched {per_step}, expected 1 + 1')
         return loss.item(), terms, ms
 
     torch.cuda.reset_peak_memory_stats()
     for counter in (edgeconv, knn, knn_gather):
-        counter.reset_launches()
+        counter.launches_by_shape.clear()
     losses, times = [], []
     for _ in range(steps):
         loss, terms, ms = step_once()
         losses.append(loss)
         times.append(ms)
-    launches = dict(knn.launches)
+    launches = launches_by_variant(knn)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     streamed = {}
     if bf16:
@@ -4826,10 +4828,10 @@ def stress_train_phase(bf16=False, variant=None, steps=STRESS_TRAIN_STEPS, cpu_c
         losses.append(loss)
         for conv in convs:
             conv.train_mode = 'fused_final'
-    check(not any(knn_gather.launches.values()),
-          f'{phase}: knn_gather launched {knn_gather.launches}')
-    check(not any(edgeconv.launches.values()),
-          f'{phase}: the fused eval kernel launched {edgeconv.launches}')
+    check(not any(launches_by_variant(knn_gather).values()),
+          f'{phase}: knn_gather launched {launches_by_variant(knn_gather)}')
+    check(not any(launches_by_variant(edgeconv).values()),
+          f'{phase}: the fused eval kernel launched {launches_by_variant(edgeconv)}')
     check(all(math.isfinite(v) for v in losses), f'{phase}: losses {losses}')
     check(losses[-1] < losses[0], f'{phase}: the loss did not fall: {losses}')
 
@@ -4883,11 +4885,12 @@ def profile_phase(name, fn):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
         prof.step()
-    # the schedule's ProfilerStep* range is an annotation on the card, not
-    # a kernel: its time spans the kernels it holds
+    # the schedule's ProfilerStep* range and the port's spans (gpe.*) are
+    # annotations on the card, not kernels: their time spans the kernels
+    # they hold
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and not e.key.startswith('ProfilerStep')]
+            and not e.key.startswith(('ProfilerStep', 'gpe.'))]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     by_class = {}

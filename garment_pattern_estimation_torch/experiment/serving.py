@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import tracing
 from .tracker import _to_jsonable
 
 SERVING_FORMAT_VERSION = 1
@@ -68,13 +69,15 @@ class ServingPipeline(nn.Module):
 
 
 def build_serving_fn(model, data_config):
-    """`serve(points (B, N, 3)) -> {key: tensor}` on the model's device."""
+    """`serve(points (B, N, 3)) -> {key: tensor}` on the model's device; a
+    call is one `gpe.serve` span (`utils/tracing.py`)."""
     pipeline = ServingPipeline(model, data_config)
     device = model.device
 
     @torch.inference_mode()
     def serve(points):
-        return pipeline(torch.as_tensor(points, device=device))
+        with tracing.span('gpe.serve'):
+            return pipeline(torch.as_tensor(points, device=device))
 
     return serve
 

@@ -40,19 +40,14 @@ MAX_FUSED_N = 1 << 14       # the JAX package's fused bound (_MAX_FUSED_N)
 MODEL_C_MAX = 256           # C at or below: the models fuse (the JAX package's bound)
 MAX_FUSED_WIDTH = 2048      # widest edge-MLP layer (and edge input 2C) the kernels take
 
-# Launches of the CUDA kernels, by variant: single tile (N <= 2048) or
-# column-tiled, one per layer; `launches_by_shape` by (variant, N, C, k)
+# Launches of the CUDA kernels, one variant per layer: single tile
+# (N <= 2048) or column-tiled; `launches_by_shape` by (variant, N, C, k)
 # for the one-launch layers and by (variant + '_select' | '_mlp', N, C, k)
-# for each launch of a two-launch layer. Only `fused_edgeconv` adds to
-# them; calls that take the plain version do not.
-launches = {'small_c': 0, 'wide_c': 0, 'small_c_tiled': 0, 'wide_c_tiled': 0}
+# for each launch of a two-launch layer (`ops.launches_by_variant` sums
+# them by variant, a layer once). Only `fused_edgeconv` adds to them;
+# calls that take the plain version do not.
+VARIANTS = ('small_c', 'wide_c', 'small_c_tiled', 'wide_c_tiled')
 launches_by_shape = collections.Counter()
-
-
-def reset_launches():
-    for key in launches:
-        launches[key] = 0
-    launches_by_shape.clear()
 
 
 def fused_edgeconv_supported(n_points, n_channels, widths=()):
@@ -312,7 +307,6 @@ def _launch(x, folded, k, mlp_dtype, return_idx, tile_n):
         raise RuntimeError(f'fused_edgeconv: kernel launch failed with CUDA error {err}')
     variant = ('small_c' if C <= SMALL_C_MAX else 'wide_c') \
         + ('_tiled' if N > MAX_N or tile_n is not None else '')
-    launches[variant] += 1
     if n_launches == 1:
         launches_by_shape[variant, N, C, k] += 1
     else:

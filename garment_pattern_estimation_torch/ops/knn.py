@@ -51,17 +51,11 @@ _CROSS_PAIRS = ((0, 0), (0, 1), (1, 0), (1, 1), (0, 2), (2, 0))
 # sign + exponent + top 7 fraction bits: exactly the bits of a bf16
 _TRUNC_MASK = ~0xFFFF
 
-# Launches of the CUDA kernels: 'knn' (D <= 16), 'knn_wide' (D > 16);
-# `launches_by_shape` by (kernel, N, D, k). Only `knn` adds to them, once
-# per kernel launch; calls that take the plain version do not.
-launches = {'knn': 0, 'knn_wide': 0}
+# Launches of the CUDA kernels, by (kernel, N, D, k): 'knn' (D <= 16),
+# 'knn_wide' (D > 16). Only `knn` adds to them, once per kernel launch;
+# calls that take the plain version do not.
+VARIANTS = ('knn', 'knn_wide')
 launches_by_shape = collections.Counter()
-
-
-def reset_launches():
-    for key in launches:
-        launches[key] = 0
-    launches_by_shape.clear()
 
 
 def round_up(x: int, m: int) -> int:
@@ -233,7 +227,6 @@ def _launch(points, k, tile_n):
                  torch.cuda.current_stream(points.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'knn: kernel launch failed with CUDA error {err}')
-    launches['knn'] += 1
     launches_by_shape['knn', N, D, k] += 1
     return idx.long()
 
@@ -257,6 +250,5 @@ def _launch_wide(points, k):
                  B, N, D, k, torch.cuda.current_stream(points.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'knn: wide-D kernel launch failed with CUDA error {err}')
-    launches['knn_wide'] += 1
     launches_by_shape['knn_wide', N, D, k] += 1
     return idx.long()

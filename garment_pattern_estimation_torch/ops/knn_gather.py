@@ -32,19 +32,14 @@ import torch
 from .edgeconv import SMALL_C_MAX, edgeconv_select
 from .knn import MAX_K, MAX_N, scratch_bytes, truncate_bf16
 
-# Launches of the CUDA kernels, by variant ('bwd_hi': the backward at
-# value_chunks=1), one per call; `launches_by_shape` by (variant, N, C, k),
-# and for a forward at k > 128, which is two launches (the selection of
-# all N keys, then the rows), by (variant + '_select' | '_rows', N, C, k).
-# Only the wrappers add to them; calls that take the plain versions do not.
-launches = {'fwd_small_c': 0, 'fwd_wide_c': 0, 'bwd': 0, 'bwd_hi': 0}
+# Launches of the CUDA kernels, one variant per call ('bwd_hi': the
+# backward at value_chunks=1), by (variant, N, C, k), and for a forward at
+# k > 128, which is two launches (the selection of all N keys, then the
+# rows), by (variant + '_select' | '_rows', N, C, k); a call counts once
+# in `ops.launches_by_variant`. Only the wrappers add to them; calls that
+# take the plain versions do not.
+VARIANTS = ('fwd_small_c', 'fwd_wide_c', 'bwd', 'bwd_hi')
 launches_by_shape = collections.Counter()
-
-
-def reset_launches():
-    for key in launches:
-        launches[key] = 0
-    launches_by_shape.clear()
 
 
 def knn_gather_supported(n_points):
@@ -177,7 +172,6 @@ def knn_gather_fwd(x, k, value_chunks=2):
     if err != 0:
         raise RuntimeError(f'knn_gather: forward launch failed with CUDA error {err}')
     variant = 'fwd_small_c' if C <= SMALL_C_MAX else 'fwd_wide_c'
-    launches[variant] += 1
     if k <= MAX_K:
         launches_by_shape[variant, N, C, k] += 1
     else:
@@ -219,7 +213,6 @@ def knn_gather_bwd(idx, g, value_chunks=2):
     if err != 0:
         raise RuntimeError(f'knn_gather: backward launch failed with CUDA error {err}')
     variant = 'bwd' if value_chunks == 2 else 'bwd_hi'
-    launches[variant] += 1
     launches_by_shape[variant, N, C, k] += 1
     return dx
 

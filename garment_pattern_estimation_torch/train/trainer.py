@@ -26,7 +26,9 @@ loss reads them. With `with_visualization`, `fit` renders one prediction
 per data folder after each epoch into the run's `intermediate_preds/`
 (`_log_an_image`). `trainer.profile` (true, or {start_step, num_steps},
 defaults 10 and 5) traces a window of `fit`'s steps with `torch.profiler`
-into the run's `profile/`.
+into the run's `profile/`; the port's spans (`utils/tracing.py`: a step's
+`gpe.train_step` and its `gpe.forward`, `gpe.loss`, `gpe.backward`,
+`gpe.optimizer`) record while it is open and show in it.
 
 Data parallelism (`trainer.mesh`, garment_pattern_estimation_tpu/train/
 trainer.py:290-313): when a process group is initialised (`torchrun
@@ -83,6 +85,7 @@ from ..parallel import (
     pad_batch_to_multiple, replicate, sum_gradients)
 from ..parallel.collectives import initialized
 from ..preprocess.device_sampling import SAMPLING_STREAM, maybe_batch_sampler, reads_segmentation
+from ..utils import tracing
 
 
 def cosine_onecycle_schedule(transition_steps, peak_value, pct_start=0.3,
@@ -363,26 +366,32 @@ class Trainer:
         ranks."""
         if self.optimizer is None:
             raise RuntimeError('Trainer: call make_optimizer before train_step')
-        batch, real = self._pad(batch)
-        features, gt = self._sample(*self._place(batch), sampling_generator,
-                                    reads_segmentation(model.loss))
-        epoch_c = canonical_epoch(model.loss.config, *phase_of(model.loss.config, epoch))
-        for group in self.optimizer.param_groups:
-            group['lr'] = self.schedule(self.step_count)
-        model.module.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        preds, gt = self._forward(model, features, gt, real, generator)
-        loss, loss_dict, _ = model.loss(preds, gt, epoch=epoch_c, generator=generator)
-        shard = self.data_shard
-        if shard is not None and shard.points is not None and shard.points.rank > 0:
-            # the loss's backward on the first points rank of each data slice
-            # alone: the others get their cotangents through the pools' sums
-            (loss * 0.0).backward()
-        else:
-            loss.backward()
-        if shard is not None:
-            sum_gradients(model.module.parameters(), shard.stats_group)
-        self.optimizer.step()
+        with tracing.span('gpe.train_step'):
+            with tracing.span('gpe.forward'):
+                batch, real = self._pad(batch)
+                features, gt = self._sample(*self._place(batch), sampling_generator,
+                                            reads_segmentation(model.loss))
+                epoch_c = canonical_epoch(model.loss.config, *phase_of(model.loss.config, epoch))
+                for group in self.optimizer.param_groups:
+                    group['lr'] = self.schedule(self.step_count)
+                model.module.train()
+                self.optimizer.zero_grad(set_to_none=True)
+                preds, gt = self._forward(model, features, gt, real, generator)
+            with tracing.span('gpe.loss'):
+                loss, loss_dict, _ = model.loss(preds, gt, epoch=epoch_c, generator=generator)
+            with tracing.span('gpe.backward'):
+                shard = self.data_shard
+                if shard is not None and shard.points is not None and shard.points.rank > 0:
+                    # the loss's backward on the first points rank of each data
+                    # slice alone: the others get their cotangents through the
+                    # pools' sums
+                    (loss * 0.0).backward()
+                else:
+                    loss.backward()
+                if shard is not None:
+                    sum_gradients(model.module.parameters(), shard.stats_group)
+            with tracing.span('gpe.optimizer'):
+                self.optimizer.step()
         self.step_count += 1
         return loss.detach(), {k: v.detach() for k, v in loss_dict.items()}
 

@@ -1,1 +1,2 @@
-"""Utilities: the synthetic garment dataset generator."""
+"""Utilities: the synthetic garment dataset generator; the port's spans
+(`tracing`)."""

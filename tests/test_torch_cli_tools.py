@@ -22,6 +22,7 @@ from garment_pattern_estimation_torch.cli import att_weights_viz as pt_viz
 from garment_pattern_estimation_torch.cli import utility_scripts as pt_utils
 from garment_pattern_estimation_torch.models import build_model
 from garment_pattern_estimation_torch.train import Trainer
+from garment_pattern_estimation_torch.utils import tracing
 from garment_pattern_estimation_tpu import experiment as jx_experiment
 from garment_pattern_estimation_tpu.cli import att_weights_viz as jx_viz
 from garment_pattern_estimation_tpu.cli import utility_scripts as jx_utils
@@ -39,6 +40,7 @@ LOSS = {'loss_components': ['shape', 'loop'], 'quality_components': ['shape'],
 SETUP = {'batch_size': 4, 'epochs': 2, 'random_seed': 3, 'learning_rate': 2e-3,
          'optimizer': 'Adam', 'lr_scheduling': {'mode': '1cyclic'},
          'early_stopping': {'window': 1e-8, 'patience': 50}}
+STEP_SPANS = ('gpe.train_step', 'gpe.forward', 'gpe.loss', 'gpe.backward', 'gpe.optimizer')
 
 
 @pytest.mark.parametrize('window,trace', [
@@ -49,7 +51,9 @@ SETUP = {'batch_size': 4, 'epochs': 2, 'random_seed': 3, 'learning_rate': 2e-3,
 def test_profiler_window_writes_a_trace(synthetic_dataset_root, tmp_path, window, trace):
     """A 2-epoch fit (2 steps each) with `trainer.profile` writes one Chrome
     trace under <run>/profile/ that parses as JSON and holds the window's
-    steps; the JAX trainer makes its profile directory under the same
+    steps, with the port's spans of each step; the spans recorded in fit
+    are those of the window's one step, the profiler's alone switching
+    them on; the JAX trainer makes its profile directory under the same
     config and step count."""
     root = synthetic_dataset_root
     dataset = pt_data.Garment3DPatternFullDataset(
@@ -67,6 +71,8 @@ def test_profiler_window_writes_a_trace(synthetic_dataset_root, tmp_path, window
     assert files == [trace]
     events = json.loads((exp.run_dir() / 'profile' / trace).read_text())['traceEvents']
     assert any(e.get('name', '').startswith('aten::') for e in events)
+    assert set(STEP_SPANS) <= {e.get('name') for e in events}
+    assert [s.name for s in tracing.take()] == list(STEP_SPANS)
 
     jx_exp = jx_experiment.ExperimentWrappper(
         {'experiment': {'project_name': 'profile', 'run_name': 'jax'}}, output_root=tmp_path)

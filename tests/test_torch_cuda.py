@@ -83,7 +83,7 @@ import pytest
 import torch
 
 from garment_pattern_estimation_torch.models.blocks import EdgeConv
-from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather
+from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather, launches_by_variant
 
 pytestmark = pytest.mark.cuda
 
@@ -130,14 +130,14 @@ def _folded(rng, c, widths, device):
 def test_kernel_matches_plain(cuda, rng, n_points, C, k, mlp_dtype):
     folded = _folded(rng, C, [200, 200, 150], cuda)
     x = torch.from_numpy(rng.normal(size=(2, n_points, C)).astype(np.float32)).to(cuda)
-    before = dict(edgeconv.launches)
+    before = launches_by_variant(edgeconv)
     out, idx = edgeconv.fused_edgeconv(x, folded, k=k, mlp_dtype=mlp_dtype,
                                        return_idx=True)
     torch.cuda.synchronize()
     variant = ('small_c' if C <= edgeconv.SMALL_C_MAX else 'wide_c') \
         + ('_tiled' if n_points > knn.MAX_N else '')
-    assert edgeconv.launches[variant] == before[variant] + 1
-    assert sum(edgeconv.launches.values()) == sum(before.values()) + 1
+    assert launches_by_variant(edgeconv)[variant] == before[variant] + 1
+    assert sum(launches_by_variant(edgeconv).values()) == sum(before.values()) + 1
     ref_idx, x_lp = edgeconv.edgeconv_select(x, k, mlp_dtype)
     if C <= edgeconv.SMALL_C_MAX:
         assert torch.equal(idx, ref_idx)
@@ -155,14 +155,14 @@ def test_tiled_variants_equal_single_tile_at_2000(cuda, rng, C, tile_n):
     at the attention model's 2000 points."""
     folded = _folded(rng, C, [200, 200, 150], cuda)
     x = torch.from_numpy(rng.normal(size=(2, 2000, C)).astype(np.float32)).to(cuda)
-    before = dict(edgeconv.launches)
+    before = launches_by_variant(edgeconv)
     out, idx = edgeconv.fused_edgeconv(x, folded, k=5, return_idx=True)
     tiled_out, tiled_idx = edgeconv.fused_edgeconv(x, folded, k=5, return_idx=True,
                                                    tile_n=tile_n)
     torch.cuda.synchronize()
     variant = 'small_c' if C <= edgeconv.SMALL_C_MAX else 'wide_c'
-    assert edgeconv.launches[variant] == before[variant] + 1
-    assert edgeconv.launches[variant + '_tiled'] == before[variant + '_tiled'] + 1
+    assert launches_by_variant(edgeconv)[variant] == before[variant] + 1
+    assert launches_by_variant(edgeconv)[variant + '_tiled'] == before[variant + '_tiled'] + 1
     assert torch.equal(tiled_idx, idx)
     assert torch.equal(tiled_out, out)
 
@@ -185,10 +185,10 @@ def test_large_n_raises(cuda, rng):
 ])
 def test_knn_matches_plain(cuda, rng, shape, k, tile_n):
     x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
-    before = knn.launches['knn']
+    before = launches_by_variant(knn)['knn']
     ids = knn.knn(x, k, tile_n=tile_n)
     torch.cuda.synchronize()
-    assert knn.launches['knn'] == before + 1
+    assert launches_by_variant(knn)['knn'] == before + 1
     assert torch.equal(ids, knn.knn_reference(x, k))
 
 
@@ -214,11 +214,11 @@ def test_knn_wide_matches_plain(cuda, rng, D, n_points, k):
     2^-18 of the squared norms (the kernel and cuBLAS sum in other
     orders)."""
     x = torch.from_numpy(rng.normal(size=(2, n_points, D)).astype(np.float32)).to(cuda)
-    before = dict(knn.launches)
+    before = launches_by_variant(knn)
     ids = knn.knn(x, k)
     torch.cuda.synchronize()
-    assert knn.launches['knn_wide'] == before['knn_wide'] + 1
-    assert knn.launches['knn'] == before['knn']
+    assert launches_by_variant(knn)['knn_wide'] == before['knn_wide'] + 1
+    assert launches_by_variant(knn)['knn'] == before['knn']
     ref = knn.knn_reference(x, k)
     assert ids.dtype == torch.int64 and ids.shape == ref.shape
     assert torch.equal(ids[..., 0], ref[..., 0])
@@ -278,10 +278,10 @@ def test_tiled_wide_c_at_stress_shape(cuda, rng):
     test_kernel_matches_plain."""
     folded = _folded(rng, 150, [200, 200, 150], cuda)
     x = torch.from_numpy(rng.normal(size=(3, 10000, 150)).astype(np.float32)).to(cuda)
-    before = dict(edgeconv.launches)
+    before = launches_by_variant(edgeconv)
     out, idx = edgeconv.fused_edgeconv(x, folded, k=5, return_idx=True)
     torch.cuda.synchronize()
-    assert edgeconv.launches['wide_c_tiled'] == before['wide_c_tiled'] + 1
+    assert launches_by_variant(edgeconv)['wide_c_tiled'] == before['wide_c_tiled'] + 1
     ref_idx, x_lp = edgeconv.edgeconv_select(x, 5)
     assert (idx == ref_idx).float().mean().item() >= 0.99
     tail = edgeconv.edgeconv_mlp_max(x, idx, x_lp, folded)
@@ -323,15 +323,15 @@ def test_wrong_dtype_raises(cuda, rng):
 def test_knn_gather_matches_plain(cuda, rng, n_points, C, k, value_chunks):
     x = torch.from_numpy(rng.normal(size=(2, n_points, C)).astype(np.float32)).to(cuda)
     x.requires_grad_(True)
-    before = dict(knn_gather.launches)
+    before = launches_by_variant(knn_gather)
     nbr, idx = knn_gather.knn_gather(x, k, value_chunks)
     g = torch.from_numpy(rng.normal(size=tuple(nbr.shape)).astype(np.float32)).to(cuda)
     (dx,) = torch.autograd.grad(nbr, x, g)
     torch.cuda.synchronize()
     variant = 'fwd_small_c' if C <= edgeconv.SMALL_C_MAX else 'fwd_wide_c'
     bwd = 'bwd' if value_chunks == 2 else 'bwd_hi'
-    assert knn_gather.launches[variant] == before[variant] + 1
-    assert knn_gather.launches[bwd] == before[bwd] + 1
+    assert launches_by_variant(knn_gather)[variant] == before[variant] + 1
+    assert launches_by_variant(knn_gather)[bwd] == before[bwd] + 1
 
     ref_nbr, ref_idx = knn_gather.knn_gather_reference(x.detach(), k, value_chunks)
     if C <= edgeconv.SMALL_C_MAX:
@@ -360,12 +360,12 @@ def test_knn_gather_single_chunk_backward(cuda, rng, n_points, k):
     idx[:, :, 0] = torch.arange(n_points)
     idx = idx.to(cuda)
     g = torch.from_numpy(rng.normal(size=(B, k, n_points, C)).astype(np.float32)).to(cuda)
-    before = dict(knn_gather.launches)
+    before = launches_by_variant(knn_gather)
     dx = knn_gather.knn_gather_bwd(idx, g, value_chunks=1)
     dx_again = knn_gather.knn_gather_bwd(idx, g, value_chunks=1)
     torch.cuda.synchronize()
-    assert knn_gather.launches['bwd_hi'] == before['bwd_hi'] + 2
-    assert knn_gather.launches['bwd'] == before['bwd']
+    assert launches_by_variant(knn_gather)['bwd_hi'] == before['bwd_hi'] + 2
+    assert launches_by_variant(knn_gather)['bwd'] == before['bwd']
     ref_dx = knn_gather.knn_gather_backward_reference(idx, g, value_chunks=1, dtype=torch.float64)
     scale = ref_dx.abs().max().item()
     assert (dx.double() - ref_dx).abs().max().item() <= 1e-5 * scale
@@ -572,12 +572,12 @@ def test_chunked_edgeconv_layer_matches_cpu(cuda, rng, C):
         stats = {n: b.cpu() for n, b in conv.named_buffers() if 'running' in n}
         return out.detach().cpu(), stats, grads
 
-    before = dict(knn.launches)
+    before = launches_by_variant(knn)
     out, stats, grads = run(cuda)
     torch.cuda.synchronize()
     variant = 'knn' if C <= 16 else 'knn_wide'
-    assert knn.launches[variant] == before[variant] + 1
-    assert sum(knn.launches.values()) == sum(before.values()) + 1
+    assert launches_by_variant(knn)[variant] == before[variant] + 1
+    assert sum(launches_by_variant(knn).values()) == sum(before.values()) + 1
     ref_out, ref_stats, ref_grads = run('cpu')
     assert _rel_l2(out, ref_out) <= 1e-2
     for name, value in ref_stats.items():
@@ -615,11 +615,11 @@ def test_unfused_edgeconv_matches_cpu(cuda, rng, C, train, n_points):
 
     assert train or not edgeconv.fused_edgeconv_supported(n_points, C)
     assert not layer.chunked(1, n_points, C)
-    before = dict(knn.launches)
+    before = launches_by_variant(knn)
     out, grads = run(cuda)
     torch.cuda.synchronize()
     variant = 'knn' if C <= 16 else 'knn_wide'
-    assert knn.launches[variant] == before[variant] + 1
+    assert launches_by_variant(knn)[variant] == before[variant] + 1
     ref_out, ref_grads = run('cpu')
     assert _rel_l2(out, ref_out) <= 1e-2
     if train:
@@ -717,11 +717,11 @@ def test_full_model_eval_matches_cpu(cuda):
     cpu_model = copy.copy(model)
     cpu_model.module = copy.deepcopy(model.module).cpu()
     x = torch.randn(2, 2000, 3, generator=torch.Generator().manual_seed(9))
-    before = dict(edgeconv.launches)
+    before = launches_by_variant(edgeconv)
     on_card = build_serving_fn(model, data)(x.to(cuda))
     on_cpu = build_serving_fn(cpu_model, data)(x)
-    assert edgeconv.launches['small_c'] == before['small_c'] + 1
-    assert edgeconv.launches['wide_c'] == before['wide_c'] + 1
+    assert launches_by_variant(edgeconv)['small_c'] == before['small_c'] + 1
+    assert launches_by_variant(edgeconv)['wide_c'] == before['wide_c'] + 1
     for key, ref in on_cpu.items():
         scale = ref.abs().max().item()
         assert (on_card[key].cpu() - ref).abs().max().item() <= 1e-2 * scale, key
@@ -812,12 +812,12 @@ def test_operator_equals_direct_launch(cuda, rng, C, mlp_dtype):
     folded = _folded(rng, C, [200, 200, 150], cuda)
     x = torch.from_numpy(rng.normal(size=(64, 2000, C)).astype(np.float32)).to(cuda)
     variant = 'small_c' if C <= edgeconv.SMALL_C_MAX else 'wide_c'
-    before = edgeconv.launches[variant]
+    before = launches_by_variant(edgeconv)[variant]
     out, idx = edgeconv.fused_edgeconv(x, folded, k=5, mlp_dtype=mlp_dtype, return_idx=True)
     direct, direct_idx = edgeconv._launch(x, folded, 5, mlp_dtype, True, None)
     plain_out = edgeconv.fused_edgeconv(x, folded, k=5, mlp_dtype=mlp_dtype)
     torch.cuda.synchronize()
-    assert edgeconv.launches[variant] == before + 3
+    assert launches_by_variant(edgeconv)[variant] == before + 3
     assert torch.equal(out, direct) and torch.equal(idx, direct_idx)
     assert torch.equal(plain_out, direct)
     assert idx.dtype == torch.int64 and out.dtype == torch.float32
@@ -851,11 +851,11 @@ def test_exported_artifact_on_the_card(cuda, tmp_path, compute_dtype):
     assert manifest['platforms'] == ['cuda']
     served = load_serving_artifact(tmp_path)
     x = torch.randn(4, 2000, 3, generator=torch.Generator().manual_seed(5)) * 10.0
-    before = dict(edgeconv.launches)
+    before = launches_by_variant(edgeconv)
     out = served(x.to(cuda))
     torch.cuda.synchronize()
-    assert edgeconv.launches['small_c'] == before['small_c'] + 1
-    assert edgeconv.launches['wide_c'] == before['wide_c'] + 1
+    assert launches_by_variant(edgeconv)['small_c'] == before['small_c'] + 1
+    assert launches_by_variant(edgeconv)['wide_c'] == before['wide_c'] + 1
     ref = build_serving_fn(model, data)(x.to(cuda))
     assert sorted(out) == sorted(ref)
     for key in ref:
@@ -980,11 +980,11 @@ def test_kernel_above_k16_matches_plain(cuda, rng, k, n_points, C, widths):
     folded = _folded(rng, C, widths, cuda)
     x = torch.from_numpy(rng.normal(size=(2, n_points, C)).astype(np.float32)).to(cuda)
     for mlp_dtype in (torch.float32, torch.bfloat16):
-        before = sum(edgeconv.launches.values())
+        before = sum(launches_by_variant(edgeconv).values())
         out, idx = edgeconv.fused_edgeconv(x, folded, k=k, mlp_dtype=mlp_dtype,
                                            return_idx=True)
         torch.cuda.synchronize()
-        assert sum(edgeconv.launches.values()) == before + 1
+        assert sum(launches_by_variant(edgeconv).values()) == before + 1
         assert idx.shape == (2, n_points, min(k, n_points))
         ref_idx, x_lp = edgeconv.edgeconv_select(x, k, mlp_dtype)
         assert torch.equal(idx[..., 0], ref_idx[..., 0])
@@ -1003,10 +1003,10 @@ def test_kernel_above_k16_matches_plain(cuda, rng, k, n_points, C, widths):
 def test_knn_above_k16_matches_plain(cuda, rng, k, shape):
     """Row 1 at k = 17..128: ids exactly the plain version's."""
     x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda)
-    before = knn.launches['knn']
+    before = launches_by_variant(knn)['knn']
     ids = knn.knn(x, k)
     torch.cuda.synchronize()
-    assert knn.launches['knn'] == before + 1
+    assert launches_by_variant(knn)['knn'] == before + 1
     assert torch.equal(ids, knn.knn_reference(x, k))
 
 
@@ -1392,14 +1392,14 @@ def test_edgeconv_routes_past_2048_to_knn_gather(cuda, rng):
     edge MLP and the max, as the CPU path does."""
     layer = EdgeConv(3, [2056, 16], k=5).eval()
     x = torch.from_numpy(rng.normal(size=(2, 300, 3)).astype(np.float32))
-    before_fused = sum(edgeconv.launches.values())
-    before = knn_gather.launches['fwd_small_c']
+    before_fused = sum(launches_by_variant(edgeconv).values())
+    before = launches_by_variant(knn_gather)['fwd_small_c']
     with torch.no_grad():
         out = copy.deepcopy(layer).to(cuda)(x.to(cuda))
         ref = layer(x)
     torch.cuda.synchronize()
-    assert sum(edgeconv.launches.values()) == before_fused
-    assert knn_gather.launches['fwd_small_c'] == before + 1
+    assert sum(launches_by_variant(edgeconv).values()) == before_fused
+    assert launches_by_variant(knn_gather)['fwd_small_c'] == before + 1
     assert _rel_l2(out, ref) <= 1e-5
 
 

@@ -20,7 +20,7 @@ from garment_pattern_estimation_tpu.experiment.serving import (
     build_serving_fn as jax_build_serving_fn)
 from garment_pattern_estimation_tpu.ops import edgeconv as jax_edgeconv
 from garment_pattern_estimation_torch.experiment import build_serving_fn
-from garment_pattern_estimation_torch.ops import edgeconv
+from garment_pattern_estimation_torch.ops import edgeconv, launches_by_variant
 from test_torch_edgeconv import (_assert_close_to_scale, _jax_fold, _synthetic_mlp,
                                  _torch_fold)
 from test_torch_model import KEYS, assert_close_to_scale, shared_model
@@ -35,10 +35,10 @@ def _compare(rng, n_points, C, mlp_dtype, batch, **jax_kwargs):
     kernel = jax_edgeconv.fused_edgeconv(jnp.asarray(x), _jax_fold(layers), k=5,
                                          mlp_dtype=getattr(jnp, mlp_dtype),
                                          interpret=True, **jax_kwargs)
-    before = dict(edgeconv.launches)
+    before = launches_by_variant(edgeconv)
     out = edgeconv.fused_edgeconv(torch.from_numpy(x), _torch_fold(layers), k=5,
                                   mlp_dtype=getattr(torch, mlp_dtype))
-    assert edgeconv.launches == before        # the CPU takes the plain version
+    assert launches_by_variant(edgeconv) == before  # the CPU takes the plain version
     _assert_close_to_scale(out.numpy(), np.asarray(kernel))
 
 

@@ -36,7 +36,7 @@ from garment_pattern_estimation_tpu.ops.edgeconv_train import (
 from garment_pattern_estimation_tpu.train.trainer import Trainer as JaxTrainer
 from garment_pattern_estimation_torch.models import blocks, build_model, state_dict_from_flax
 from garment_pattern_estimation_torch.models.flax_import import _mlp
-from garment_pattern_estimation_torch.ops import edgeconv_train, knn
+from garment_pattern_estimation_torch.ops import edgeconv_train, knn, launches_by_variant
 from garment_pattern_estimation_torch.train import Trainer
 from test_torch_train import DATA, LOSS, NN, SETUP, _batches, _torch
 
@@ -182,11 +182,11 @@ def test_chunked_layer_matches_jax(rng, C, mode):
     ref = _jax_layer_run(jax_blocks.EdgeConv(widths, k=K, use_pallas=True, train_chunked=True,
                                              train_chunk_size=16, train_mode=mode),
                          params, stats, x)
-    before = dict(knn.launches)
+    before = launches_by_variant(knn)
     layer = _port_layer(C, widths, K, params, stats, train_chunked=True, train_chunk_size=16,
                         train_mode=mode)
     _assert_layer_matches(layer, x, ref)
-    assert knn.launches == before            # the CPU takes the plain kNN
+    assert launches_by_variant(knn) == before  # the CPU takes the plain kNN
 
 
 def test_unfused_train_past_2048_points_matches_jax(rng):

@@ -36,7 +36,8 @@ import torch
 from garment_pattern_estimation_tpu.ops import edgeconv as jax_edgeconv
 from garment_pattern_estimation_tpu.ops.knn import knn_pallas
 from garment_pattern_estimation_tpu.ops.knn_gather import knn_gather as jax_knn_gather
-from garment_pattern_estimation_torch.ops import _build, edgeconv, knn, knn_gather
+from garment_pattern_estimation_torch.ops import (
+    _build, edgeconv, knn, knn_gather, launches_by_variant)
 from test_torch_edgeconv import _assert_close_to_scale, _jax_fold, _synthetic_mlp, _torch_fold
 from test_torch_knn_wide import _assert_equal_but_near_ties
 
@@ -88,10 +89,10 @@ def test_fused_edgeconv_matches_jax_interpret_kernel_at_k20(rng, C, mlp_dtype):
     x = rng.normal(size=(2, 100, C)).astype(np.float32)
     kernel = jax_edgeconv.fused_edgeconv(jnp.asarray(x), _jax_fold(layers), k=20,
                                          mlp_dtype=getattr(jnp, mlp_dtype), interpret=True)
-    launches = dict(edgeconv.launches)
+    launches = launches_by_variant(edgeconv)
     out = edgeconv.fused_edgeconv(torch.from_numpy(x), _torch_fold(layers), k=20,
                                   mlp_dtype=getattr(torch, mlp_dtype))
-    assert edgeconv.launches == launches      # the CPU takes the plain version
+    assert launches_by_variant(edgeconv) == launches  # the CPU takes the plain version
     _assert_close_to_scale(out.numpy(), np.asarray(kernel))
 
 
@@ -116,10 +117,10 @@ def test_knn_gather_forward_and_backward_match_jax_at_k20(rng, C):
     (ref_dx,) = vjp(jnp.asarray(g))
 
     xt = torch.from_numpy(x).requires_grad_(True)
-    before = dict(knn_gather.launches)
+    before = launches_by_variant(knn_gather)
     nbr, idx = knn_gather.knn_gather(xt, 20)
     nbr.backward(torch.from_numpy(g))
-    assert knn_gather.launches == before      # the CPU takes the plain versions
+    assert launches_by_variant(knn_gather) == before  # the CPU takes the plain versions
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
     np.testing.assert_allclose(nbr.detach().numpy(), np.asarray(ref_nbr), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_dx), rtol=1e-4, atol=3e-4)
@@ -212,18 +213,18 @@ ROUTED_K = (17, 20, 32, 33, 64, 65, 100, 128)
 @pytest.mark.parametrize('D,entry', [(3, 'knn_forward'), (16, 'knn_forward'),
                                      (150, 'knn_wide_forward')])
 def test_knn_routes_every_k_to_the_kernel(fake_card, k, D, entry):
-    knn.reset_launches()
+    knn.launches_by_shape.clear()
     ids = knn.knn(_CudaStandIn(2, 2000, D), k)
     assert tuple(ids.shape) == (2, 2000, k)
     assert [name for name, _ in fake_card.calls if name.endswith('_forward')] == [entry]
     assert k in fake_card.calls[-1][1]
-    assert sum(knn.launches.values()) == 1
+    assert sum(launches_by_variant(knn).values()) == 1
 
 
 @pytest.mark.parametrize('k', ROUTED_K)
 @pytest.mark.parametrize('C', [3, 150])
 def test_knn_gather_routes_every_k_to_the_kernels(fake_card, k, C):
-    knn_gather.reset_launches()
+    knn_gather.launches_by_shape.clear()
     nbr, idx = knn_gather.knn_gather_fwd(_CudaStandIn(2, 2000, C), k)
     assert tuple(nbr.shape) == (2, k, 2000, C) and tuple(idx.shape) == (2, 2000, k)
     stand_in_idx = _CudaStandIn(2, 2000, k)
@@ -232,8 +233,8 @@ def test_knn_gather_routes_every_k_to_the_kernels(fake_card, k, C):
     launched = [(name, args) for name, args in fake_card.calls if 'ward' in name]
     assert [name for name, _ in launched] == ['knn_gather_forward', 'knn_gather_backward']
     assert all(k in args for _, args in launched)
-    assert knn_gather.launches['bwd'] == 1
-    assert knn_gather.launches['fwd_small_c' if C <= 16 else 'fwd_wide_c'] == 1
+    assert launches_by_variant(knn_gather)['bwd'] == 1
+    assert launches_by_variant(knn_gather)['fwd_small_c' if C <= 16 else 'fwd_wide_c'] == 1
 
 
 @pytest.mark.parametrize('k', ROUTED_K)

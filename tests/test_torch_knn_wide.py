@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from garment_pattern_estimation_tpu.ops.knn import knn_pallas
-from garment_pattern_estimation_torch.ops import knn
+from garment_pattern_estimation_torch.ops import knn, launches_by_variant
 
 torch.set_num_threads(1)
 
@@ -54,9 +54,9 @@ def _assert_equal_but_near_ties(x, ids, ref):
 ])
 def test_knn_wide_matches_jax_pallas(rng, shape, k):
     x = rng.normal(size=shape).astype(np.float32)
-    before = dict(knn.launches)
+    before = launches_by_variant(knn)
     ids = knn.knn(torch.from_numpy(x), k)
-    assert knn.launches == before            # the CPU takes the plain version
+    assert launches_by_variant(knn) == before  # the CPU takes the plain version
     assert ids.dtype == torch.int64 and tuple(ids.shape) == (*shape[:2], k)
     ref = _jax_ids(x, k)
     assert (ids.numpy() == ref).mean() >= 0.99

@@ -38,7 +38,7 @@ from garment_pattern_estimation_tpu.ops.knn import knn_pallas
 from garment_pattern_estimation_tpu.ops.knn_gather import (
     knn_gather as jax_knn_gather, knn_gather_reference as jax_knn_gather_reference)
 from garment_pattern_estimation_torch.models import blocks
-from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather
+from garment_pattern_estimation_torch.ops import edgeconv, knn, knn_gather, launches_by_variant
 from test_torch_edgeconv import (_assert_close_to_scale, _jax_fold, _lattice, _synthetic_mlp,
                                  _torch_fold)
 from test_torch_k_range import _CudaStandIn, fake_card  # noqa: F401 (a fixture)
@@ -171,19 +171,19 @@ def _plain_raises(monkeypatch):
 
 @pytest.mark.parametrize('D', [257, 300, 512])
 def test_knn_past_256_reaches_the_wide_kernel(fake_card, D):
-    knn.reset_launches()
+    knn.launches_by_shape.clear()
     ids = knn.knn(_CudaStandIn(2, 2000, D), 5)
     assert tuple(ids.shape) == (2, 2000, 5)
     assert [name for name, _ in fake_card.calls if name.endswith('_forward')] == \
         ['knn_wide_forward']
     assert D in fake_card.calls[-1][1]
-    assert knn.launches['knn_wide'] == 1
+    assert launches_by_variant(knn)['knn_wide'] == 1
 
 
 @pytest.mark.parametrize('k,C', [(5, 300), (20, 512), (129, 3), (200, 150), (200, 300),
                                  (2000, 3)])
 def test_knn_gather_reaches_the_kernels(fake_card, k, C):
-    knn_gather.reset_launches()
+    knn_gather.launches_by_shape.clear()
     nbr, idx = knn_gather.knn_gather_fwd(_CudaStandIn(2, 2000, C), k)
     assert tuple(nbr.shape) == (2, k, 2000, C) and tuple(idx.shape) == (2, 2000, k)
     dx = knn_gather.knn_gather_bwd(_CudaStandIn(2, 2000, k), _CudaStandIn(2, k, 2000, C))
@@ -192,7 +192,8 @@ def test_knn_gather_reaches_the_kernels(fake_card, k, C):
     assert [name for name, _ in launched] == ['knn_gather_forward', 'knn_gather_backward']
     assert all(k in args and C in args for _, args in launched)
     variant = 'fwd_small_c' if C <= 16 else 'fwd_wide_c'
-    assert knn_gather.launches[variant] == 1 and knn_gather.launches['bwd'] == 1
+    counts = launches_by_variant(knn_gather)
+    assert counts[variant] == 1 and counts['bwd'] == 1
     suffixes = ('_select', '_rows') if k > knn.MAX_K else ('',)
     assert sorted(knn_gather.launches_by_shape) == sorted(
         [(variant + s, 2000, C, k) for s in suffixes] + [('bwd', 2000, C, k)])
@@ -235,7 +236,7 @@ def test_fused_edgeconv_reaches_the_kernels(monkeypatch, fake_card, C, widths, k
     monkeypatch.setattr(edgeconv, '_pad_vector', lambda v: v)
     monkeypatch.setattr(edgeconv, '_layer_table', lambda *args: _Tensor(1))
     fake_card.fused_edgeconv_launches = lambda *args: launches
-    edgeconv.reset_launches()
+    edgeconv.launches_by_shape.clear()
     dims = [2 * C, *widths]
     layers = [(_Tensor(i, o), _Tensor(o)) for i, o in zip(dims[:-1], dims[1:])]
     out, idx = edgeconv._launch(_Tensor(2, 2000, C), (layers, (_Tensor(dims[-1]),) * 2), k,
@@ -245,7 +246,7 @@ def test_fused_edgeconv_reaches_the_kernels(monkeypatch, fake_card, C, widths, k
     assert args[2] is not None if launches == 2 else args[2] is None
     assert args[5:12] == (2, 2000, C, k, 2, len(widths), 0)
     variant = 'small_c' if C <= 16 else 'wide_c'
-    assert edgeconv.launches[variant] == 1
+    assert launches_by_variant(edgeconv)[variant] == 1
     keys = [(variant, 2000, C, k)] if launches == 1 else \
         [(variant + '_select', 2000, C, k), (variant + '_mlp', 2000, C, k)]
     assert sorted(edgeconv.launches_by_shape) == sorted(keys)
