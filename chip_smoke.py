@@ -74,9 +74,15 @@ Phases, one JSON line each:
            on its first 4 clouds
   split    each tiled layer's ms split into selection and edge MLP: row
            6's selection is the knn phase's kernel (the same select_small_c
-           instantiation), row 7's the tiled wide-C selection alone
-           (`fused_edgeconv_select`, the fused template with the MLP compiled
-           out), whose ids must equal the fused kernel's
+           instantiation), row 7's its own first launch (`fused_edgeconv_select`,
+           select_stream on Hopper's TMA and wgmma), whose ids must equal the
+           layer's
+  integer_clouds  the streaming wide selection (select_stream) on clouds of
+           integer coordinates in [-8, 8], where every product and partial
+           sum is exact: the tiled fused layer's ids (C = 150) and the
+           wide-D kNN's (D = 150) at k = 5 and 16 on (4, 10000, 150) and
+           (3, 4099, 150) (a ragged query block and key tile) equal the
+           plain version's bit for bit
   stress_serving  build_serving_fn at the att widths on a (128, 10000, 3)
            batch: shapes and finiteness, exactly 1 + 1 tiled launches and no
            single-tile launch per forward, batch time, clouds/s and peak
@@ -416,9 +422,10 @@ check exits non-zero. The build line gives each kernel instantiation's registers
 and spill bytes from `nvcc -Xptxas -v` (`k16`: the k = 9..16 instances';
 `k_capacity`: the K = 32, 64, 128 instances'; `k_capacity_csr`: row 9's
 large-k CSR build) and, where the toolkit has
-cuobjdump, its count of tensor-core HMMA instructions in the SASS: the
-wide selections and every fused_edgeconv_kernel instantiation with k > 1
-(the edge MLP) must have some, and no k = 5 instantiation may spill. In the kernels line a kNN kernel's
+cuobjdump, its count of tensor-core instructions in the SASS (HMMA, and
+HGMMA for wgmma): the wide selections (the streaming ones on wgmma) and
+every fused_edgeconv_kernel instantiation with k > 1 (the edge MLP) must
+have some, and no k = 5 instantiation may spill. In the kernels line a kNN kernel's
 max_abs_err is the largest gap between the exact distances of its
 neighbours and of the plain version's (0 where every id agrees); bound_ms
 counts each distance once per unordered pair (`pairs`); bound_share is
@@ -4907,8 +4914,9 @@ def kernel_class(key):
     """The class of a device kernel by its name: each of the port's own
     kernels by name, else matrix products, reductions, index gathers and
     scatters, elementwise passes, copies and fills, other."""
-    for own in ('split_rows_kernel', 'knn_wide_kernel', 'knn_kernel', 'fused_edgeconv_kernel',
-                'knn_gather'):
+    for own in ('split_rows_kernel', 'knn_wide_stream_kernel', 'knn_wide_kernel', 'knn_kernel',
+                'fused_edgeconv_stream_kernel', 'fused_edgeconv_mlp_kernel',
+                'fused_edgeconv_kernel', 'knn_gather'):
         if own in key:
             return own
     lowered = key.lower()
@@ -4950,10 +4958,10 @@ def stress_kernels(widths):
 def split_phase(x1, folded, knn_line, small_line, wide_line):
     """Each tiled layer's time split into its selection and its edge MLP.
     Row 6's selection is the standalone kNN's kernel at the same shape (the
-    same select_small_c instantiation); row 7's is the tiled wide-C
-    selection alone (`fused_edgeconv_select`, the same template with the
-    MLP compiled out, split pass included), whose ids must equal the fused
-    kernel's. The edge MLP is the rest of the layer's time."""
+    same select_small_c instantiation); row 7's is the layer's own first
+    launch (`fused_edgeconv_select`: the split pass and select_stream),
+    whose ids must equal the layer's. The edge MLP is the rest of the
+    layer's time."""
     import ctypes
     import torch
     from garment_pattern_estimation_torch.ops import _build, edgeconv, knn
@@ -4990,6 +4998,36 @@ def split_phase(x1, folded, knn_line, small_line, wide_line):
                 'ms': wide_line['ms'], 'selection_ms': wide_select_ms,
                 'mlp_ms': wide_line['ms'] - wide_select_ms,
                 'selection_from': 'fused_edgeconv_select (split pass included)'}}
+    emit(line)
+    return line
+
+
+def integer_cloud_phase():
+    """The streaming wide selection's ids against the plain version's on
+    integer clouds (every product and sum exact, so no near tie exists):
+    the tiled fused layer and the wide-D kNN, k = 5 and 16, at (4, 10000,
+    150) and (3, 4099, 150); all must be equal."""
+    import torch
+    from garment_pattern_estimation_torch.ops import edgeconv, knn
+
+    gen = torch.Generator().manual_seed(11)
+    line = {'phase': 'integer_clouds', 'coordinates': [-8, 8], 'checks': []}
+    for B, N in ((4, STRESS_POINTS), (3, 4099)):
+        x = torch.randint(-8, 9, (B, N, 150), generator=gen).float().cuda()
+        folded = random_folded(gen, 150, [200, 200, 150], 'cuda')
+        for k in (5, 16):
+            _, idx = edgeconv.fused_edgeconv(x, folded, k, return_idx=True)
+            ref = edgeconv.edgeconv_select(x, k)[0]
+            fused_equal = torch.equal(idx, ref)
+            ids = knn.knn(x, k)
+            knn_equal = torch.equal(ids, knn.knn_reference(x, k))
+            line['checks'].append({'shape': [B, N, 150], 'k': k, 'fused_ids_equal': fused_equal,
+                                   'knn_wide_ids_equal': knn_equal})
+            check(fused_equal, f'integer_clouds: fused ids differ from the plain version\'s at '
+                               f'{(B, N, 150)}, k = {k}')
+            check(knn_equal, f'integer_clouds: knn_wide ids differ from the plain version\'s at '
+                             f'{(B, N, 150)}, k = {k}')
+        del x
     emit(line)
     return line
 
@@ -5033,9 +5071,9 @@ def ptxas_usage(log):
 
 
 def sass_hmma(path):
-    """{kernel: HMMA instructions} in the SASS of the library at `path`
-    (kernels with none left out), or None where the toolkit has no
-    cuobjdump."""
+    """{kernel: tensor-core instructions (HMMA, and HGMMA: wgmma)} in the
+    SASS of the library at `path` (kernels with none left out), or None
+    where the toolkit has no cuobjdump."""
     tool = Path('/usr/local/cuda/bin/cuobjdump')
     if not tool.exists():
         return None
@@ -5046,7 +5084,7 @@ def sass_hmma(path):
         function = re.search(r'Function : (\S+)', line)
         if function:
             name = kernel_name(function.group(1))
-        elif name is not None and 'HMMA' in line:
+        elif name is not None and ('HMMA' in line or 'HGMMA' in line):
             counts[name] = counts.get(name, 0) + 1
     return counts
 
@@ -5113,7 +5151,9 @@ def main():
           'k_capacity_csr': {n: u for n, u in ptxas['knn_gather'].items()
                              if n.startswith('knn_gather_csr_large_kernel')}})
     for lib, kernel in (('knn_wide', 'knn_wide_kernel<5>'),
-                        ('knn_gather', 'knn_gather_fwd_kernel<5,0,0>')):
+                        ('knn_gather', 'knn_gather_fwd_kernel<5,0,0>'),
+                        ('knn_wide', 'knn_wide_stream_kernel<5>'),
+                        ('fused_edgeconv', 'fused_edgeconv_stream_kernel<5>')):
         check(hmma[lib] is None or hmma[lib].get(kernel, 0) > 0,
               f'build: no HMMA instruction in {kernel}')
     fused = [n for n in ptxas['fused_edgeconv'] if n.startswith('fused_edgeconv_kernel<')]
@@ -5186,6 +5226,7 @@ def main():
     knn_line, small_tiled_line, wide_tiled_line, knn_wide_line, small_tiled_bf16, \
         wide_tiled_bf16 = timed(seconds, 'knn+kernel_tiled(+bf16)+knn_wide', stress_kernels,
                                 widths)
+    timed(seconds, 'integer_clouds', integer_cloud_phase)
 
     # each end-to-end phase sets the counts to 0 just before its runs and
     # reads them just after: the launches of each kernels-line entry come

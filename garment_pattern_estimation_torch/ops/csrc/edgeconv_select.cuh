@@ -36,6 +36,9 @@
 //                   select_wide_general the same for any C, staged
 //                   WIDE_C_MAX features at a time (kernels of their own, so
 //                   the C <= 256 instances are as they were);
+//   select_stream   select_wide's arithmetic for the streaming kernels at
+//                   K <= MAX_K on Hopper: 128 query rows a block, keys in a
+//                   TMA ring, products on wgmma (see below);
 //   select_all_kernel  k > LARGE_K_MAX (the fused layer and knn_gather):
 //                   every key of a few query rows, see below.
 //
@@ -94,15 +97,14 @@
 // branches once for its 8 pairs: only when one of them passes does it
 // check them again one by one, in column order.
 //
-// What bounds select_wide on an H100 SXM: at the stress shapes (10^4
-// points, D = 150) the products are 2 x 3 (or 6) x 160 operations per
-// ordered pair on the tensor cores, which mma.sync issues at roughly two
-// thirds of the wgmma rate; ldmatrix traffic (384 bytes of shared memory
-// per MMA at QB = 64), the f32 add of every step's four sums per thread
-// and each block's pass over its cloud's chunks in L2 are of the same
-// order. Left: each unordered pair is computed twice (once
-// per direction), wgmma and TMA are not used, and the epilogue's packing
-// and compare run for every pair on the CUDA cores.
+// What bounds select_wide on an H100 SXM: the same products and f32 adds
+// as select_stream's (below), run on mma.sync from ldmatrix fragments
+// (384 bytes of shared memory per MMA at QB = 64), with two barriers a
+// key unit and each block's pass over its cloud's chunks in L2 (129 GB a
+// batch at the served stress layer). The kernels that stream a whole
+// cloud per block take select_stream at K <= MAX_K where its shared
+// memory fits; select_wide's QB = WIDE_QB instances serve the rest
+// (C > 224 for 2 chunks, D > 160 for 3, K > MAX_K).
 //
 // k above MAX_K. A list of K - 1 keys a thread would not fit in
 // registers, so each query row's list belongs to one warp: sorted across
@@ -132,6 +134,7 @@
 // cuBLAS's order, so ids may differ from them at near ties only.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -207,9 +210,22 @@ template <> struct Rank<false> {
 
 template <> struct Rank<true> {
     using T = long long;
+    using H = int;                // a key's top 32 bits, which order keys as T does
     static constexpr T MAX = 0x7fffffffffffffffLL;
+    __device__ static __forceinline__ H rank_bits(float dist) {
+        return __float_as_int(dist) & ~IDX_MASK;
+    }
+    __device__ static __forceinline__ H high(T v) { return static_cast<H>(v >> 32); }
+    // rank_bits(dist) <= h as one compare of dist's bits (h has its low 11
+    // bits clear, or is high(MAX))
+    __device__ static __forceinline__ H bits_bound(H h) {
+        return h == 0x7fffffff ? h : h | IDX_MASK;
+    }
+    __device__ static __forceinline__ bool at_or_below(float dist, H bound) {
+        return __float_as_int(dist) <= bound;
+    }
     __device__ static __forceinline__ T pack(float dist, int col) {
-        return (static_cast<long long>(__float_as_int(dist) & ~IDX_MASK) << 32) | col;
+        return (static_cast<long long>(rank_bits(dist)) << 32) | col;
     }
     __device__ static __forceinline__ int column(T v) {
         return static_cast<int>(v & 0xffffffffLL);
@@ -224,13 +240,21 @@ template <> struct Rank<true> {
 // so the two tie as the float compare ties them) above the 32-bit column.
 struct RankExact {
     using T = unsigned long long;
+    using H = unsigned;
     static constexpr T MAX = ~0ULL;
-    __device__ static __forceinline__ T pack(float dist, int col) {
+    __device__ static __forceinline__ H rank_bits(float dist) {
         unsigned bits = __float_as_uint(dist);
         if (bits == 0x80000000u) bits = 0u;                       // -0 ranks as +0
         // negative: flip every bit; non-negative: set the sign bit
-        bits ^= (bits & 0x80000000u) ? 0xffffffffu : 0x80000000u;
-        return (static_cast<T>(bits) << 32) | static_cast<unsigned>(col);
+        return bits ^ ((bits & 0x80000000u) ? 0xffffffffu : 0x80000000u);
+    }
+    __device__ static __forceinline__ H high(T v) { return static_cast<H>(v >> 32); }
+    __device__ static __forceinline__ H bits_bound(H h) { return h; }
+    __device__ static __forceinline__ bool at_or_below(float dist, H bound) {
+        return rank_bits(dist) <= bound;
+    }
+    __device__ static __forceinline__ T pack(float dist, int col) {
+        return (static_cast<T>(rank_bits(dist)) << 32) | static_cast<unsigned>(col);
     }
     __device__ static __forceinline__ int column(T v) {
         return static_cast<int>(v & 0xffffffffULL);
@@ -369,11 +393,11 @@ __device__ __forceinline__ void merge_lists(typename R::T (&best)[K - 1],
 // ascending) per query row, into sidx[q * K + 1 ..]; slot 0 is the query
 // row n0 + q, clamped to N - 1 (a row past N repeats row N - 1). 16 lanes
 // per query row: each inserts its share of the lists, then merge_lists.
+// THREADS threads take part, t = 0 .. THREADS - 1 (threadIdx.x by default).
 template <int K, typename R>
 __device__ void merge_candidates(const typename R::T* cand, int lists, int QB, int N,
-                                 int n0, int* sidx, int k) {
+                                 int n0, int* sidx, int k, int t = threadIdx.x) {
     using T = typename R::T;
-    const int t = threadIdx.x;
     const int hq = t / LANES_PER_QUERY, hl = t % LANES_PER_QUERY;
 #pragma unroll 1
     for (int q0 = 0; q0 < QB; q0 += THREADS / LANES_PER_QUERY) {
@@ -1204,6 +1228,491 @@ __device__ void select_wide_general(int N, const SplitRows rows, int n0, unsigne
         __syncthreads();
         merge_candidates<K, R>(cand, NLISTS, QB, N, n0, sidx, k);
     }
+}
+
+// ---- the streaming wide selection on Hopper: a TMA-fed key ring, wgmma ----
+//
+// select_stream is select_wide's arithmetic for the kernels that stream a
+// whole cloud per block (the tiled fused layer's wide C, the wide-D kNN) at
+// K <= MAX_K: the same split products, each 16-deep step summed from zero
+// (wgmma m64n64k16 with scale-d = 0, bitwise mma.sync m16n8k16's sum, as
+// a card check of 6.3e7 sums showed, millions of them inexact) and added
+// to the pair's running sum with __fadd_rn in select_wide's order (key
+// chunk descending, query chunk SPLITS-1-kc down to 0, depth ascending),
+// the same epilogue and the same merge, so its ids are select_wide's.
+// A block of STREAM_THREADS takes STREAM_QB = 128 query rows of one cloud:
+//   warpgroup 0, the producer (its registers given up with setmaxnreg):
+//            one thread loads the block's query chunks once and then, unit
+//            by unit (one key chunk of a STREAM_KT-key tile), keeps a ring
+//            of STREAM_STAGES units in flight with TMA (cp.async.bulk.tensor)
+//            over split_rows_kernel's rows, each unit behind a full and an
+//            empty mbarrier; its warp copies the norms beside them (the
+//            tile's last unit brings the tile's: a norm's address has no
+//            16-byte alignment, which a TMA box's start needs);
+//   warpgroups 1-2, the consumers, 64 query rows each: per unit and query
+//            chunk, wgmma m64n64k16 on the queries' chunk (A) and the key
+//            chunk (B), both in shared memory as 32-column panels with the
+//            64-byte swizzle TMA writes, in rounds of 4 steps (2 at K = 16,
+//            whose lists take the registers) started at once, each into its
+//            own accumulator and added as it lands (stream_round); a tile's
+//            first step goes straight into the running sum (0 + s and s give
+//            the same distance). Each thread holds 2 query rows x 16 keys of
+//            the tile and, per row, its sorted list of the k-1 best keys; a
+//            tile's 32 distances are checked against the lists' last keys by
+//            their ranking bits with one branch for all (exact: keys order by
+//            those bits first), and only a pair at or below is ranked in
+//            full. At the end the 4 lists of a row merge (merge_candidates).
+// Depths that are odd multiples of 16 run one more 16-deep step on the
+// zeros TMA fills past the row (adding +0 changes no sum).
+//
+// What bounds select_stream on an H100 SXM, at the served stress layer (B =
+// 128 clouds of N = 10^4 points, C = 150, 2 chunks, Dp = 160): per ordered
+// pair 3 products x 10 steps, so B N^2 = 1.28e10 pairs take 1.25e13
+// operations on the tensor cores (12.6 ms at 989 TFLOP/s) and 3.8e11 f32
+// adds on the CUDA cores (11.5 ms at one warp instruction per clock per
+// sub-partition, 1.98 GHz), besides about 4 instructions of epilogue per
+// pair. A block streams its cloud's two chunks once for 128 query rows:
+// 6.4 MB from L2 per block, 65 GB a batch (select_wide's 64-row blocks:
+// 129 GB). Measured there (k = 5): 48.2 ms; a build without the adds 18.3
+// ms, one without the products 27.3 ms: the wgmma and the adds of the
+// other warpgroup did not overlap on the card, and neither 4 steps in
+// flight nor the warpgroups taking turns changed that. Left: the adds,
+// which the arithmetic fixes at one per 16-deep step of every pair; each
+// unordered pair computed in both directions.
+
+constexpr int STREAM_QB = 128;            // query rows per block
+constexpr int STREAM_KT = 64;             // keys per tile: the wgmma's N
+constexpr int STREAM_THREADS = 384;       // the producer warpgroup, then two consumer warpgroups
+constexpr int STREAM_STAGES = 4;          // key units in flight
+constexpr int STREAM_PANEL = 32;          // bf16 columns per panel: one swizzled 64-byte row
+constexpr int STREAM_BOX = 64 * STREAM_PANEL * 2;   // bytes of a TMA box: 64 rows of a panel
+constexpr int STREAM_LISTS = 4;           // candidate lists per query row (lanes l % 4)
+
+__host__ __device__ inline int stream_panels(int C) {
+    return (padded_depth(C) + STREAM_PANEL - 1) / STREAM_PANEL;
+}
+
+// select_stream's shared memory, in bytes from a 1024-aligned base: the
+// queries' panels [SPLITS][panels][2 boxes], then the key ring
+// [STAGES][panels][1 box] (both reused by the merge's candidate lists and
+// slots), the ring's norms, the queries' norms, the barriers; `bytes` adds
+// the 1024 that aligning the base may take.
+struct StreamLayout {
+    int ring, k_norm, q_norm, bars, bytes;
+};
+
+__host__ __device__ inline StreamLayout stream_layout(int C, int splits, int K) {
+    const int panels = stream_panels(C);
+    const int tiles = (2 * splits + STREAM_STAGES) * panels * STREAM_BOX;
+    const int merge = STREAM_QB * STREAM_LISTS * (slot_capacity(K) - 1) * 8
+                      + header_bytes(STREAM_QB, K);
+    StreamLayout L;
+    L.ring = 2 * splits * panels * STREAM_BOX;
+    L.k_norm = round_up(tiles > merge ? tiles : merge, 1024);
+    L.q_norm = L.k_norm + STREAM_STAGES * STREAM_KT * 4;
+    L.bars = L.q_norm + STREAM_QB * 4;
+    L.bytes = L.bars + (2 * STREAM_STAGES + 1) * 8 + 1024;
+    return L;
+}
+
+// The kernels' arguments besides the TMA map of the split rows: ids
+// (B, N, k) i32 out.
+struct StreamArgs {
+    int* ids;
+    const float* norm;            // the split rows' norms (B N)
+    int N, C, k;
+    size_t P;                     // B N: rows of one chunk of the split rows
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// spins until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+    unsigned done;
+    do {
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+    asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+                 " [%0], [%1, {%2, %3}], [%4];\n"
+                 :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+                    "r"(smem_u32(bar)) : "memory");
+}
+
+// wgmma's descriptor of a K-major operand in 64-byte-swizzled panels: rows
+// of 64 bytes, 8-row groups 512 bytes apart
+__device__ __forceinline__ uint64_t desc_sw64(const void* p) {
+    const uint64_t addr = smem_u32(p);
+    return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(512 >> 4) << 32)
+           | (2ull << 62);
+}
+
+#define STREAM_ACC8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+    "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d = A (64 x 16) . B (16 x 64), summed from zero (scale-d = 0), started and
+// committed as one group; d belongs to it until a wgmma_wait releases it
+__device__ __forceinline__ void wgmma_from_zero(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+                 "%32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : STREAM_ACC8(0), STREAM_ACC8(8), STREAM_ACC8(16), STREAM_ACC8(24)
+                 : "l"(a), "l"(b), "r"(0));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+#undef STREAM_ACC8
+
+// waits until at most PENDING wgmma groups are in flight; d (the group
+// before them) may then be read
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait(float (&d)[32]) {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(PENDING) : "memory");
+#pragma unroll
+    for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ void add_step(float (&run)[32], const float (&step)[32]) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) run[i] = __fadd_rn(run[i], step[i]);
+}
+
+// One round of a consumer warpgroup: M (2 or 4) consecutive 16-deep steps
+// from descriptors qd, kd (step i: panel i / 2, 32 bytes in for odd i),
+// all started, then each added to run in order as it lands, so the adds of
+// one run while the next are on the tensor cores; no group stays in flight
+// past the round (ptxas then keeps the steps asynchronous). FIRST: the
+// first step lands in run itself (the tile's first: 0 + s and s give the
+// same distance).
+template <int M, bool FIRST, int A>
+__device__ __forceinline__ void stream_round(float (&run)[32], float (&acc)[A][32], uint64_t qd,
+                                             uint64_t kd) {
+    static_assert((M == 2 || M == 4) && A >= M, "a round is 2 or 4 steps, each in its accumulator");
+    constexpr uint64_t BOX16 = STREAM_BOX >> 4;
+    // step i lands in acc[i - FIRST], or in run (i = 0, FIRST)
+    if constexpr (FIRST) wgmma_from_zero(run, qd, kd);
+    else wgmma_from_zero(acc[0], qd, kd);
+    wgmma_from_zero(acc[1 - FIRST], qd + 2, kd + 2);
+    if constexpr (M == 4) {
+        wgmma_from_zero(acc[2 - FIRST], qd + 2 * BOX16, kd + BOX16);
+        wgmma_from_zero(acc[3 - FIRST], qd + 2 * BOX16 + 2, kd + BOX16 + 2);
+    }
+    if constexpr (FIRST) {
+        wgmma_wait<M - 1>(run);
+    } else {
+        wgmma_wait<M - 1>(acc[0]);
+        add_step(run, acc[0]);
+    }
+    wgmma_wait<M - 2>(acc[1 - FIRST]);
+    add_step(run, acc[1 - FIRST]);
+    if constexpr (M == 4) {
+        wgmma_wait<1>(acc[2 - FIRST]);
+        add_step(run, acc[2 - FIRST]);
+        wgmma_wait<0>(acc[3 - FIRST]);
+        add_step(run, acc[3 - FIRST]);
+    }
+}
+
+// the consumers' barrier (named barrier 1; the producer warpgroup has left)
+__device__ __forceinline__ void consumers_sync() {
+    asm volatile("bar.sync 1, %0;\n" :: "n"(STREAM_THREADS - 128) : "memory");
+}
+
+// Block (b, n0 = blockIdx.x STREAM_QB) of cloud b: the ids of query rows
+// n0 .. n0 + STREAM_QB - 1 (those below N) into a.ids; `rows` is
+// stream_map's TMA map over split_rows_kernel's output (SPLITS chunks);
+// `smem` holds stream_layout(C, SPLITS, K).bytes. R ranks the distance
+// q_norm + k_norm - 2 cross (clamped at 0 if CLAMP). Returns, on the first
+// consumer thread, the clock64() cycles the block took.
+template <int K, typename R, int SPLITS, bool CLAMP>
+__device__ long long select_stream(const CUtensorMap* rows, const StreamArgs& a, int b, int n0,
+                                   unsigned char* smem) {
+    using T = typename R::T;
+    using H = typename R::H;
+    static_assert(sizeof(T) == 8, "select_stream's merge takes 64-bit keys");
+    const long long start = clock64();
+    const int N = a.N, panels = stream_panels(a.C);
+    const StreamLayout L = stream_layout(a.C, SPLITS, K);
+    unsigned char* base = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+    unsigned char* ring = base + L.ring;
+    float* k_norm = reinterpret_cast<float*>(base + L.k_norm);          // [STAGES][KT]
+    float* q_norm = reinterpret_cast<float*>(base + L.q_norm);          // [QB]
+    uint64_t* full = reinterpret_cast<uint64_t*>(base + L.bars);         // [STAGES]
+    uint64_t* empty = full + STREAM_STAGES;                               // [STAGES]
+    uint64_t* q_bar = empty + STREAM_STAGES;
+    const int t = threadIdx.x, lane = t % 32;
+    const int unit_bytes = panels * STREAM_BOX;
+    const int tiles = (N + STREAM_KT - 1) / STREAM_KT, units = tiles * SPLITS;
+    const int first = b * N;      // the cloud's first row in a chunk
+
+    if (t == 0) {
+        for (int s = 0; s < STREAM_STAGES; ++s) {
+            mbar_init(full + s, 32);                            // the producer warp's lanes
+            mbar_init(empty + s, (STREAM_THREADS - 128) / 32);   // a consumer warp each
+        }
+        mbar_init(q_bar, 32);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (t < 128) {                // the producer
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+        if (t >= 32) return 0;
+        // every lane arrives after its own norm stores; lane 0 also starts
+        // the TMA loads and sets the bytes they bring
+        const float* norm = a.norm + first;
+        for (int q = lane; q < STREAM_QB; q += 32) q_norm[q] = norm[min(n0 + q, N - 1)];
+        if (lane == 0) {
+            mbar_expect_tx(q_bar, SPLITS * panels * 2 * STREAM_BOX);
+            for (int s = 0; s < SPLITS; ++s)
+                for (int p = 0; p < panels; ++p)
+                    for (int h = 0; h < 2; ++h)
+                        tma_load_2d(base + ((s * panels + p) * 2 + h) * STREAM_BOX, rows,
+                                    p * STREAM_PANEL,
+                                    static_cast<int>(s * a.P) + first + n0 + 64 * h, q_bar);
+        } else {
+            mbar_arrive(q_bar);
+        }
+        // unit u: key chunk SPLITS - 1 - u % SPLITS of tile u / SPLITS
+        for (int u = 0; u < units; ++u) {
+            const int s = u % STREAM_STAGES;
+            if (u >= STREAM_STAGES) mbar_wait(empty + s, (u / STREAM_STAGES - 1) & 1);
+            const int tile = u / SPLITS, kc = SPLITS - 1 - (u - tile * SPLITS);
+            if (kc == 0)
+                for (int j = lane; j < STREAM_KT; j += 32)
+                    k_norm[s * STREAM_KT + j] = norm[min(tile * STREAM_KT + j, N - 1)];
+            if (lane == 0) {
+                const int row = static_cast<int>(kc * a.P) + first + tile * STREAM_KT;
+                mbar_expect_tx(full + s, unit_bytes);
+                for (int p = 0; p < panels; ++p)
+                    tma_load_2d(ring + (s * panels + p) * STREAM_BOX, rows, p * STREAM_PANEL,
+                                row, full + s);
+            } else {
+                mbar_arrive(full + s);
+            }
+        }
+        return 0;
+    }
+
+    // the consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    // the warpgroup as a warp-uniform value (a shuffle from lane 0), so the
+    // descriptors live in uniform registers
+    const int ct = t - 128, cw = __shfl_sync(0xffffffffu, ct / 128, 0);
+    const int row0 = cw * 64 + ((ct / 32) % 4) * 16 + lane / 4;      // and row0 + 8
+    constexpr uint64_t BOX16 = STREAM_BOX >> 4;                       // a box, in descriptor units
+    // descriptors of step 0 of query chunk qc and of the key unit in stage
+    // s; step j adds j / 2 panels and (j % 2) 32 bytes (2 descriptor units)
+    const uint64_t q_desc = desc_sw64(base + cw * STREAM_BOX);
+    const uint64_t k_desc = desc_sw64(ring);
+    auto q_chunk = [&](int qc) { return q_desc + static_cast<uint64_t>(qc * panels * 2) * BOX16; };
+    auto k_unit = [&](int s) { return k_desc + static_cast<uint64_t>(s * panels) * BOX16; };
+
+    T best[2][K - 1];             // rows row0, row0 + 8: ascending
+    H lim[2];                     // R::at_or_below's bound: each list's last key
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int i = 0; i < K - 1; ++i) best[h][i] = R::MAX;
+        lim[h] = R::bits_bound(R::high(R::MAX));
+    }
+    // ROUND steps in flight a round: 4 where the lists leave the registers
+    // for 4 accumulators beside the running sum, else 2
+    constexpr int ROUND = K <= EXACT_K ? 4 : 2;
+    float acc[ROUND][32], run[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+        run[i] = 0.f;
+#pragma unroll
+        for (int r = 0; r < ROUND; ++r) acc[r][i] = 0.f;
+    }
+
+    mbar_wait(q_bar, 0);
+    const float qn[2] = {q_norm[row0], q_norm[row0 + 8]};
+    const int steps = 2 * panels;
+    int u = 0;                    // the unit in hand
+    for (int tile = 0; tile < tiles; ++tile) {
+#pragma unroll
+        for (int ui = 0; ui < SPLITS; ++ui, ++u) {
+            const int s = u % STREAM_STAGES;
+            mbar_wait(full + s, (u / STREAM_STAGES) & 1);
+            for (int qc = ui; qc >= 0; --qc) {
+                uint64_t qd = q_chunk(qc), kd = k_unit(s);
+                int j = 0;
+                if (ui == 0) {    // the tile's first steps, the first into the running sum
+                    if (steps >= ROUND) {
+                        stream_round<ROUND, true>(run, acc, qd, kd);
+                        j = ROUND, qd += ROUND * BOX16, kd += ROUND / 2 * BOX16;
+                    } else {
+                        stream_round<2, true>(run, acc, qd, kd);
+                        j = 2, qd += 2 * BOX16, kd += BOX16;
+                    }
+                }
+#pragma unroll 1
+                for (; j + ROUND <= steps; j += ROUND, qd += ROUND * BOX16, kd += ROUND / 2 * BOX16)
+                    stream_round<ROUND, false>(run, acc, qd, kd);
+                if (ROUND > 2 && j < steps)       // the segment's last two steps
+                    stream_round<2, false>(run, acc, qd, kd);
+            }
+            if (ui + 1 < SPLITS) {                    // the unit is consumed
+                __syncwarp();
+                if (lane == 0) mbar_arrive(empty + s);
+            }
+        }
+        // the tile's cross terms are complete: its distances (into run),
+        // each checked against its row's list by its ranking bits; the few
+        // that pass are ranked again in full and inserted
+        const int s = (u - 1) % STREAM_STAGES;
+        const float2* kn = reinterpret_cast<const float2*>(k_norm + s * STREAM_KT);
+        bool pass = false;
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+            const int h = (i / 2) % 2;
+            const float2 kk = kn[(i / 4) * 4 + lane % 4];       // columns col, col + 1
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                // 2 * cross is exact, so a contraction into one FMA rounds alike
+                float dd = (qn[h] + (e ? kk.y : kk.x)) - 2.f * run[i + e];
+                if (CLAMP) dd = fmaxf(dd, 0.f);
+                run[i + e] = dd;
+                pass |= R::at_or_below(dd, lim[h]);
+            }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);
+        if (pass) {                                   // rare once the lists fill
+            const int jt = tile * STREAM_KT;
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+                const int h = (i / 2) % 2;
+                const int gj = jt + (i / 4) * 8 + 2 * (lane % 4) + i % 2;
+                if (R::at_or_below(run[i], lim[h]) && gj < N && gj != n0 + row0 + 8 * h) {
+                    const T v = R::pack(run[i], gj);
+                    if (v < best[h][K - 2]) {
+                        insert(best[h], v);
+                        lim[h] = R::bits_bound(R::high(best[h][K - 2]));
+                    }
+                }
+            }
+        }
+    }
+
+    // every thread's two lists through shared memory (over the tiles), then
+    // 16 lanes per query row; the slots to device memory
+    consumers_sync();
+    T* cand = reinterpret_cast<T*>(base);             // [QB][LISTS][K - 1]
+    int* sidx = reinterpret_cast<int*>(cand + STREAM_QB * STREAM_LISTS * (slot_capacity(K) - 1));
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < K - 1; ++i)
+            cand[((row0 + 8 * h) * STREAM_LISTS + lane % 4) * (K - 1) + i] = best[h][i];
+    consumers_sync();
+    merge_candidates<K, R>(cand, STREAM_LISTS, STREAM_QB, N, n0, sidx, a.k, ct);
+    consumers_sync();
+    const int k = filled_slots<K>(a.k);
+    for (int e = ct; e < STREAM_QB * k; e += STREAM_THREADS - 128) {
+        const int q = e / k, sl = e - q * k, n = n0 + q;
+        if (n < N) a.ids[(static_cast<size_t>(b) * N + n) * k + sl] = sidx[q * K + sl];
+    }
+    return clock64() - start;
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no link against
+// libcuda); null where it is missing
+typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                         const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                         const cuuint32_t*, CUtensorMapInterleave,
+                                         CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                         CUtensorMapFloatOOBfill);
+
+inline TensorMapEncodeTiled tensor_map_encoder() {
+    static TensorMapEncodeTiled encode = nullptr;
+    if (encode == nullptr) {
+        void* fn = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                                        cudaEnableDefault, &found);
+#endif
+        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+            encode = reinterpret_cast<TensorMapEncodeTiled>(fn);
+    }
+    return encode;
+}
+
+// Whether select_stream takes a layer of P = B N points of C dimensions
+// split into `splits` chunks at k: 1 < k <= MAX_K, C <= WIDE_C_MAX, its
+// shared memory fits a block, every chunk row's coordinate fits TMA's int32
+// (P = 0: not checked) and cuTensorMapEncodeTiled is there.
+inline bool stream_fits(size_t P, int C, int splits, int k) {
+    return k > 1 && k <= MAX_K && C > SMALL_C_MAX && C <= WIDE_C_MAX
+           && static_cast<size_t>(stream_layout(C, splits, instance_k(k)).bytes) <= MAX_BLOCK_SMEM
+           && static_cast<size_t>(splits) * P + STREAM_QB <= 0x7fffffffu
+           && tensor_map_encoder() != nullptr;
+}
+
+// select_stream's TMA map over the rows of split_rows_kernel's output in
+// `scratch` for P points of C dimensions in `splits` chunks: bf16 [splits
+// P][Dp], boxes of 64 rows x one 32-column panel, 64-byte swizzle; columns
+// past Dp read as zeros.
+inline cudaError_t stream_map(const void* scratch, size_t P, int C, int splits,
+                              CUtensorMap* rows) {
+    const TensorMapEncodeTiled encode = tensor_map_encoder();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const int Dp = padded_depth(C);
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(Dp), static_cast<cuuint64_t>(splits) * P};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(Dp) * 2};
+    const cuuint32_t box[2] = {STREAM_PANEL, 64}, unit[2] = {1, 1};
+    if (encode(rows, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(scratch), dims,
+               strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
+            != CUDA_SUCCESS)
+        return cudaErrorInvalidValue;
+    return cudaSuccess;
+}
+
+// Launches `kernel` (a select_stream wrapper) over (ceil(N / STREAM_QB), B)
+// blocks on `scratch`'s split rows; a.norm is set here.
+template <typename Kernel>
+inline cudaError_t launch_stream(Kernel kernel, const void* scratch, StreamArgs a, int B,
+                                 int splits, int K, cudaStream_t stream) {
+    CUtensorMap rows;
+    cudaError_t err = stream_map(scratch, a.P, a.C, splits, &rows);
+    if (err != cudaSuccess) return err;
+    a.norm = reinterpret_cast<const float*>(static_cast<const unsigned char*>(scratch)
+                                            + static_cast<size_t>(splits) * a.P
+                                              * padded_depth(a.C) * 2);
+    const int smem = stream_layout(a.C, splits, K).bytes;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.N + STREAM_QB - 1) / STREAM_QB, B);
+    kernel<<<grid, STREAM_THREADS, smem, stream>>>(rows, a);
+    return cudaGetLastError();
 }
 
 // The fused layer's and knn_gather's wide selection: 2 chunks, the

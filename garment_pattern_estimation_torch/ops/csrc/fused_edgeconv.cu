@@ -52,8 +52,17 @@
 //            select_wide_c, the
 //            split products on bf16 tensor cores (mma.sync) from rows split
 //            once per point by split_rows_kernel (launched first, into the
-//            caller's scratch); 16 query rows per block up to 2048 points,
-//            64 in the tiled variant, which streams a whole cloud per block;
+//            caller's scratch); 16 query rows per block up to 2048 points.
+//            The tiled variant streams a whole cloud per block: at k <= 16
+//            it is a launch of its own, fused_edgeconv_stream_kernel
+//            (select_stream: 128 query rows a block, the keys in a TMA ring,
+//            the products on wgmma, the same arithmetic), whose ids
+//            (B, N, k) fused_edgeconv_mlp_kernel's edge MLP then takes, in
+//            the K <= 8 instance's group of k slots, so both launches'
+//            outputs equal the one-launch kernel's bit for bit; where
+//            select_stream's shared memory does not fit (C > 224), or above
+//            k = 16, 64 query rows per block of select_wide in the fused
+//            kernel;
 //   phase 2  the edge MLP on bf16 tensor cores, SLICE = 16 query rows at a
 //            time. The slice's 16 k edge rows sit slot-major in shared
 //            memory (row = slot * 16 + query, bf16, rows padded by 16 bytes
@@ -94,10 +103,15 @@
 // 2-tile items keep the MLP's accumulators within that. Building with
 // -DPHASE_CLOCKS adds per-phase cycle counters (phase_clocks.py).
 // Left on the table: each block reads the weights once per 16-query slice
-// (from L2 where L1 misses), wgmma and TMA are not used (mma.sync issues
-// at a fraction of the wgmma rate), warps idle in a layer's last round of
-// items (26 n-tiles: 13 items over 8 warps), and the selection computes
-// each unordered pair in both directions.
+// (from L2 where L1 misses), the edge MLP runs on mma.sync (a fraction of
+// the wgmma rate), warps idle in a layer's last round of items (26
+// n-tiles: 13 items over 8 warps), and the selection computes each
+// unordered pair in both directions. At the served stress layer (128,
+// 10^4, 150) -> 150, k = 5, on an H100 SXM at 700 W the tiled layer's two
+// launches take about 48 ms (select_stream, bound by its f32 adds and
+// wgmma, which did not overlap: edgeconv_select.cuh) and 18 ms (the edge
+// MLP); the one-launch kernel took 93 ms, 81% of its block cycles in the
+// selection.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -458,6 +472,40 @@ cudaError_t launch_select(const Params& p, size_t smem, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
+// The tiled wide-C selection on Hopper (select_stream, edgeconv_select.cuh):
+// the first launch of a column-tiled wide-C layer at k <= MAX_K, ids into
+// a.ids; fused_edgeconv_mlp_kernel runs the edge MLP over them.
+template <int K>
+__global__ void __launch_bounds__(STREAM_THREADS, 1)
+fused_edgeconv_stream_kernel(const __grid_constant__ CUtensorMap rows, const StreamArgs a) {
+    extern __shared__ unsigned char smem[];
+    const long long cycles = select_stream<K, Rank<true>, 2, true>(
+        &rows, a, blockIdx.y, blockIdx.x * STREAM_QB, smem);
+#ifdef PHASE_CLOCKS
+    if (threadIdx.x == 128) atomicAdd(&g_phase[0], static_cast<unsigned long long>(cycles));
+#else
+    (void)cycles;
+#endif
+}
+
+// fused_edgeconv_stream_kernel at k (stream_fits(P, C, 2, k)), on the split
+// rows in p.split
+cudaError_t launch_stream_k(int k, const Params& p, cudaStream_t stream) {
+    const StreamArgs a{p.idx_out, nullptr, p.N, p.C, p.k, p.P};
+    switch (k) {
+        case 2: return launch_stream(fused_edgeconv_stream_kernel<2>, p.split, a, p.B, 2, 2, stream);
+        case 3: return launch_stream(fused_edgeconv_stream_kernel<3>, p.split, a, p.B, 2, 3, stream);
+        case 4: return launch_stream(fused_edgeconv_stream_kernel<4>, p.split, a, p.B, 2, 4, stream);
+        case 5: return launch_stream(fused_edgeconv_stream_kernel<5>, p.split, a, p.B, 2, 5, stream);
+        case 6: return launch_stream(fused_edgeconv_stream_kernel<6>, p.split, a, p.B, 2, 6, stream);
+        case 7: return launch_stream(fused_edgeconv_stream_kernel<7>, p.split, a, p.B, 2, 7, stream);
+        case 8: return launch_stream(fused_edgeconv_stream_kernel<8>, p.split, a, p.B, 2, 8, stream);
+        default:
+            return launch_stream(fused_edgeconv_stream_kernel<MAX_K>, p.split, a, p.B, 2, MAX_K,
+                                 stream);
+    }
+}
+
 // CD: select_small_c's dimensions (small C), 0 for wide C. Above MAX_K one
 // instance per capacity serves both tilings: its keys are 64-bit and its
 // query rows do not depend on N.
@@ -537,6 +585,15 @@ cudaError_t launch_mlp(const Params& p, size_t smem, cudaStream_t stream) {
 
 template <bool SMALL_C>
 cudaError_t launch_mlp_g(int group, const Params& p, size_t smem, cudaStream_t stream) {
+    if constexpr (!SMALL_C) {     // after select_stream: the group of the fused K <= 8 instance
+        switch (group) {
+            case 7: return launch_mlp<7, SMALL_C>(p, smem, stream);
+            case 6: return launch_mlp<6, SMALL_C>(p, smem, stream);
+            case 5: return launch_mlp<5, SMALL_C>(p, smem, stream);
+            case 3: return launch_mlp<3, SMALL_C>(p, smem, stream);
+            default: break;
+        }
+    }
     switch (group) {
         case 8: return launch_mlp<8, SMALL_C>(p, smem, stream);
         case 4: return launch_mlp<4, SMALL_C>(p, smem, stream);
@@ -556,6 +613,7 @@ struct Plan {
     int launches = 0;
     int group = 0;                // the MLP's slots per group
     bool tiled = false;
+    bool stream = false;          // the selection launch is select_stream's
     int window = 0;               // small-C key window
     int in_stride = 0, hid_stride = 0;
     size_t smem = 0;              // the fused launch's, or the selection launch's
@@ -579,10 +637,15 @@ Plan make_plan(int N, int C, int k, int n_layers, const int* dim, int tile_n) {
     const bool small_c = C <= SMALL_C_MAX;
     plan.tiled = N > MAX_N || tile_n > 0;
     plan.window = small_c ? small_c_window(N, C, tile_n) : 0;
-    if (k <= LARGE_K_MAX && C <= WIDE_C_MAX) {
-        const int group = k <= EXACT_K ? k : EXACT_K;    // edge_mlp's slots per group
+    // the tiled wide-C layer at k <= MAX_K where select_stream fits: its
+    // launch, then the edge MLP over its ids in the fused K <= 8 instance's
+    // group (G = k) where that fits
+    plan.stream = !small_c && plan.tiled && stream_fits(0, C, 2, k);
+    const int exact = k <= EXACT_K ? k : EXACT_K;     // edge_mlp's slots per group
+    if (plan.stream && mlp_bytes(exact) <= MAX_BLOCK_SMEM) plan.group = exact;
+    if (!plan.stream && k <= LARGE_K_MAX && C <= WIDE_C_MAX) {
         const size_t sel = select_bytes(C, plan.tiled, plan.window, k);
-        const size_t mlp = mlp_bytes(group);
+        const size_t mlp = mlp_bytes(exact);
         plan.smem = header_bytes(select_rows(small_c, plan.tiled, instance_k(k)), instance_k(k))
                     + (sel > mlp ? sel : mlp);
         if (plan.smem <= MAX_BLOCK_SMEM) {
@@ -590,15 +653,14 @@ Plan make_plan(int N, int C, int k, int n_layers, const int* dim, int tile_n) {
             return plan;
         }
     }
-    for (int group = EXACT_K; group >= 1; group /= 2) {
-        if (mlp_bytes(group) <= MAX_BLOCK_SMEM) {
-            plan.group = group;
-            break;
-        }
+    for (int group = EXACT_K; plan.group == 0 && group >= 1; group /= 2) {
+        if (mlp_bytes(group) <= MAX_BLOCK_SMEM) plan.group = group;
     }
     if (plan.group == 0) return plan;
     plan.mlp_smem = mlp_bytes(plan.group);
-    if (k > LARGE_K_MAX) {
+    if (plan.stream) {
+        plan.smem = stream_layout(C, 2, instance_k(k)).bytes;
+    } else if (k > LARGE_K_MAX) {
         if (all_rows(N, C, small_c) < 1) return plan;
     } else {
         const int K = k == 1 ? 1 : instance_k(k < MAX_K ? MAX_K : k);
@@ -698,7 +760,10 @@ extern "C" int fused_edgeconv_forward(
         }
         return static_cast<int>(err);
     }
-    if (k > LARGE_K_MAX) {
+    if (plan.stream) {
+        if (!stream_fits(p.P, C, 2, k)) return static_cast<int>(cudaErrorInvalidValue);
+        err = launch_stream_k(k, p, s);
+    } else if (k > LARGE_K_MAX) {
         err = launch_select_all(p.x, scratch, p.idx_out, B, N, C, k, s);
     } else if (!small_c) {
         err = tiled ? launch_select_k<false, true, 0>(k, p, plan.smem, s)
@@ -738,6 +803,7 @@ extern "C" int fused_edgeconv_select(const void* x, void* idx_out, void* scratch
         const cudaError_t err = launch_split<2>(p.x, p.P, C, scratch, s);
         if (err != cudaSuccess) return static_cast<int>(err);
     }
+    if (stream_fits(p.P, C, 2, k)) return static_cast<int>(launch_stream_k(k, p, s));
     return static_cast<int>(launch_k<false, true, 0, false>(k, p, smem, s));
 }
 

@@ -26,19 +26,30 @@
 // (B=128, N=10000, D=150, k=5) the six split products are
 // 6 x 2 D = 1800 operations per distance, 2.3e13 over every ordered pair
 // (1.15e13 over unordered pairs, 11.6 ms at 989 TFLOP/s), against 0.8 GB
-// of compulsory traffic (0.23 ms at 3.35 TB/s): bound by operations.
+// of compulsory traffic (0.23 ms at 3.35 TB/s): bound by operations, and
+// by the f32 add of each 16-deep step to the pair's sum: 6 x 10 = 60 adds
+// per ordered pair, 7.7e11 (23 ms at one warp instruction per clock per
+// sub-partition).
 //
 // Design: split_rows_kernel writes each point once as three bf16 chunks
-// (zero-padded to Dp = 160) and its norm; then one block of 256 threads per
-// (batch element, 64 query rows) runs select_wide: the queries' chunks in
-// shared memory, keys streamed in 64-key units of one chunk, double-
-// buffered with cp.async, cross terms by mma.sync m16n8k16 bf16 from
-// ldmatrix fragments, each (query, key) pair packed and rejected against
-// the thread's current (k-1)-th key before any insert. Shared memory at
-// D = 150 is 108 KB, so two blocks share an SM. Left on the table: each
-// unordered pair is computed in both directions (a symmetric schedule
-// would merge candidates across blocks), mma.sync instead of wgmma with
-// TMA, and the split chunks cost 1.6 times the f32 cloud's L2 traffic.
+// (zero-padded to Dp = 160) and its norm; then, for k <= 16 and D <= 160,
+// knn_wide_stream_kernel runs select_stream (edgeconv_select.cuh) over
+// (batch element, 128 query rows) blocks: a producer warp keeps four
+// 64-key units of one chunk in flight with TMA, two consumer warpgroups
+// run the cross terms on wgmma m64n64k16 from shared memory and add each
+// 16-deep step in f32 in select_wide's order, then each (query, key) pair's
+// distance is checked against its thread's current (k-1)-th key. A block
+// streams its cloud's three chunks from L2 once for 128 rows: 9.6 MB, 97 GB
+// at (128, 10^4, 150) (193 GB at 64 rows). Measured there on an H100 SXM at
+// 700 W (k = 5): 80 ms, against 138 ms for select_wide. Elsewhere (D > 160,
+// where its 3 x 128 query rows do not fit shared memory with the ring, or
+// k > 16) one block of 256 threads per (batch element, 64 query rows) runs
+// select_wide: keys in 64-key units double-buffered with cp.async,
+// mma.sync m16n8k16 from ldmatrix fragments; 108 KB of shared memory at
+// D = 150. Left on the table: each unordered pair is computed in both
+// directions (a symmetric schedule would merge candidates across blocks),
+// the f32 adds (fixed by the arithmetic), and the split chunks cost 1.6
+// times the f32 cloud's L2 traffic.
 // k = 17..128 run the capacity instances K = 32 (64 query rows a block),
 // 64 and 128 (32 rows: their warp lists take QB K 8 bytes); a block's
 // shared memory is at most 206 KB (D = 256, K = 32). D > 256 stages the
@@ -108,6 +119,32 @@ knn_wide_general_kernel(const Params p) {
     }
 }
 
+// The wide-D kNN on Hopper (select_stream, edgeconv_select.cuh): ids into
+// a.ids, for D <= WIDE_C_MAX where its shared memory fits (stream_fits).
+template <int K>
+__global__ void __launch_bounds__(STREAM_THREADS, 1)
+knn_wide_stream_kernel(const __grid_constant__ CUtensorMap rows, const StreamArgs a) {
+    extern __shared__ unsigned char smem[];
+    select_stream<K, RankExact, SPLITS, false>(&rows, a, blockIdx.y, blockIdx.x * STREAM_QB,
+                                               smem);
+}
+
+cudaError_t launch_stream_k(int k, const Params& p, int B, cudaStream_t stream) {
+    const StreamArgs a{p.idx, nullptr, p.N, p.D, p.k, p.P};
+    switch (k) {
+        case 2: return launch_stream(knn_wide_stream_kernel<2>, p.split, a, B, SPLITS, 2, stream);
+        case 3: return launch_stream(knn_wide_stream_kernel<3>, p.split, a, B, SPLITS, 3, stream);
+        case 4: return launch_stream(knn_wide_stream_kernel<4>, p.split, a, B, SPLITS, 4, stream);
+        case 5: return launch_stream(knn_wide_stream_kernel<5>, p.split, a, B, SPLITS, 5, stream);
+        case 6: return launch_stream(knn_wide_stream_kernel<6>, p.split, a, B, SPLITS, 6, stream);
+        case 7: return launch_stream(knn_wide_stream_kernel<7>, p.split, a, B, SPLITS, 7, stream);
+        case 8: return launch_stream(knn_wide_stream_kernel<8>, p.split, a, B, SPLITS, 8, stream);
+        default:
+            return launch_stream(knn_wide_stream_kernel<MAX_K>, p.split, a, B, SPLITS, MAX_K,
+                                 stream);
+    }
+}
+
 template <int K, bool GENERAL = false>
 cudaError_t launch(const Params& p, int B, size_t smem, cudaStream_t stream) {
     void (*kernel)(const Params);
@@ -149,6 +186,7 @@ extern "C" int knn_wide_forward(const void* x, void* idx, void* scratch, size_t 
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = launch_split<SPLITS>(static_cast<const float*>(x), p.P, D, scratch, s);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (stream_fits(p.P, D, SPLITS, k)) return static_cast<int>(launch_stream_k(k, p, B, s));
     if (D > WIDE_C_MAX) {             // the K = 16 instance serves every k <= 16
         const int K = k == 1 ? 1 : instance_k(k < MAX_K ? MAX_K : k);
         const size_t smem = header_bytes(select_rows(false, true, K), K)

@@ -6,7 +6,9 @@ MAX_FUSED_WIDTH (2048). On a CUDA tensor it launches the hand-written
 kernels of `csrc/fused_edgeconv.cu` or raises: one launch up to k = 128, C =
 256 and the widths whose edge rows fit shared memory, else a selection
 launch and an edge-MLP launch over its ids (the (B, N, k, C) gathered
-tensor never reaches device memory either way). On a CPU tensor it runs
+tensor never reaches device memory either way); the column-tiled wide-C
+layer at k <= 16 takes the two launches wherever the Hopper selection's
+shared memory fits (C <= 224). On a CPU tensor it runs
 `fused_edgeconv_reference`, the plain PyTorch version with the same
 numerics at any N:
 

@@ -8,11 +8,14 @@ to device counters) into the gitignored build directory, points the
 `fused_edgeconv` wrapper at it, and runs the fused layer once at each of
 chip_smoke.py's kernel shapes (rows 4-7: (64, 2000, 3) and (64, 2000, 150),
 (128, 10000, 3) and (128, 10000, 150), k = 5, the att widths, the same
-seeds). Prints one JSON line per row: the launch's ms (CUDA events, one
-run) and, per block, the cycles of the selection, of building the edge
-rows and of each MLP layer (summed over the block's 16-query slices), then
-the card's name and power limit. The counters add a barrier per phase, so
-the instrumented launch runs somewhat slower than chip_smoke.py's.
+seeds). Prints one JSON line per row: the layer's ms (CUDA events, one
+run, both launches where it takes two), and the cycles of the selection,
+of building the edge rows and of each MLP layer (summed over the 16-query
+slices), in all and per block of the launch that runs the phase, with each
+phase's share of the sum, then the card's name and power limit. Row 7
+takes two launches: select_stream's blocks of 128 query rows, then the
+edge MLP's of 16. The counters add a barrier per phase, so the
+instrumented launch runs somewhat slower than chip_smoke.py's.
 """
 import ctypes
 import json
@@ -56,9 +59,11 @@ def main():
     s_conv1 = cs.random_folded(gen, widths[-1], widths, 'cuda')
     a1 = edgeconv.fused_edgeconv(a0, a_conv0, cs.K)
     s1 = edgeconv.fused_edgeconv(s0, s_conv0, cs.K)
-    rows = (('fused_edgeconv_small_c', a0, a_conv0, 128), ('fused_edgeconv_wide_c', a1, a_conv1, 16),
-            ('fused_edgeconv_small_c_tiled', s0, s_conv0, 128),
-            ('fused_edgeconv_wide_c_tiled', s1, s_conv1, 64))
+    # query rows per block of the selection and of the edge MLP
+    rows = (('fused_edgeconv_small_c', a0, a_conv0, (128, 128)),
+            ('fused_edgeconv_wide_c', a1, a_conv1, (16, 16)),
+            ('fused_edgeconv_small_c_tiled', s0, s_conv0, (128, 128)),
+            ('fused_edgeconv_wide_c_tiled', s1, s_conv1, (128, 16)))
     for name, x, folded, query_rows in rows:
         edgeconv.fused_edgeconv(x, folded, cs.K)            # warm up
         torch.cuda.synchronize()
@@ -68,11 +73,17 @@ def main():
         check |= lib.fused_edgeconv_phase_clocks(counters)
         if check:
             sys.exit(f'phase_clocks: reading the counters failed with CUDA error {check}')
-        blocks = -(-x.shape[1] // query_rows) * x.shape[0]
+        blocks = [-(-x.shape[1] // rows_) * x.shape[0] for rows_ in query_rows]
+        total = sum(counters[i] for i in range(len(PHASES)))
         print(json.dumps({'name': name, 'shape': list(x.shape), 'k': cs.K, 'ms': ms,
-                          'blocks': blocks, 'query_rows_per_block': query_rows,
-                          'cycles_per_block': {p: counters[i] / blocks
-                                               for i, p in enumerate(PHASES)}}), flush=True)
+                          'blocks': {'selection': blocks[0], 'mlp': blocks[1]},
+                          'query_rows_per_block': {'selection': query_rows[0],
+                                                   'mlp': query_rows[1]},
+                          'cycles': {p: counters[i] for i, p in enumerate(PHASES)},
+                          'cycles_per_block': {p: counters[i] / blocks[i > 0]
+                                               for i, p in enumerate(PHASES)},
+                          'share': {p: counters[i] / total for i, p in enumerate(PHASES)}}),
+              flush=True)
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
 

@@ -18,6 +18,11 @@ Past 2048 points the column-tiled variants rank (quantized distance,
 column) in one int64 instead of one int32; forced onto 2000 points
 (`tile_n`), they give ids and outputs bitwise equal to the single-tile
 variants'. The standalone kNN's ids equal the plain version's exactly.
+The column-tiled wide-C layer at k <= 16 selects with select_stream (TMA
+and wgmma) in a launch of its own where its shared memory fits (C <= 224),
+then runs the edge MLP over the ids; on integer clouds, where every
+product and partial sum is exact, its ids and the wide-D kNN's (the same
+selection) equal the plain version's bit for bit.
 
 knn_gather: ids as above; gathered rows bitwise equal to the plain
 version's where the ids agree (both copy or split the same f32 value);
@@ -165,6 +170,18 @@ def test_tiled_variants_equal_single_tile_at_2000(cuda, rng, C, tile_n):
     assert launches_by_variant(edgeconv)[variant + '_tiled'] == before[variant + '_tiled'] + 1
     assert torch.equal(tiled_idx, idx)
     assert torch.equal(tiled_out, out)
+
+
+@pytest.mark.parametrize('n_points,k', [(4099, 5), (4099, 16), (2049, 3), (130, 2)])
+def test_stream_selection_integer_clouds(cuda, rng, n_points, k):
+    """select_stream on integer coordinates in [-8, 8]: the tiled fused
+    layer's ids (forced tiles at N = 130) and the wide-D kNN's equal the
+    plain version's, ties to the lower column included."""
+    x = torch.from_numpy(rng.integers(-8, 9, size=(2, n_points, 150)).astype(np.float32)).to(cuda)
+    folded = _folded(rng, 150, [200, 200, 150], cuda)
+    _, idx = edgeconv.fused_edgeconv(x, folded, k=k, return_idx=True, tile_n=512)
+    assert torch.equal(idx, edgeconv.edgeconv_select(x, k)[0])
+    assert torch.equal(knn.knn(x, k), knn.knn_reference(x, k))
 
 
 def test_large_n_raises(cuda, rng):
@@ -1353,6 +1370,9 @@ def _check_fused(cuda, rng, n_points, C, widths, k, mlp_dtype=torch.float32, clo
     (300, 3, [2048, 64], 5, 2),              # 1 slot a group, the widest layer
     (3000, 3, [512, 512, 150], 8, 2),        # column-tiled small C
     (2500, 150, [1024, 64], 5, 2),           # column-tiled wide C
+    (2100, 150, [200, 200, 150], 5, 2),      # column-tiled wide C, k <= 16: select_stream + MLP
+    (2100, 224, [200, 200, 150], 16, 2),     # the widest C its shared memory takes
+    (2100, 256, [200, 200, 150], 5, 1),      # past it: the one fused launch
     (2000, 300, [200, 200, 150], 5, 2),      # att conv1 at EConv_feature 300
     (3000, 300, [200, 200, 150], 5, 2),      # past 2048 points
     (500, 512, [64, 32], 20, 2),
